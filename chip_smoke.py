@@ -6,11 +6,19 @@
 Phases, one line each, any failure raises:
 
 1. device  - the card's name and power limit (nvidia-smi);
-2. build   - kernel K1 (nvcc, sm_90a) and the native JPEG decoder (g++,
-             where libjpeg's headers exist) from the checkout's sources;
-3. kernel  - K1 against its plain PyTorch version at the serving shape
-             x (4, 577, 1024) bf16, H=16: max abs error (<= 3e-2, the
-             repo's bf16 attention bound) and median CUDA-event times;
+2. build   - kernels K1, K2 and K10 (one nvcc for each, all started
+             together, sm_90a) and the native JPEG decoder (g++, where
+             libjpeg's headers exist) from the checkout's sources, with
+             nvcc's register and spill lines;
+3. kernel  - each kernel against its plain PyTorch version on the same
+             inputs, with median CUDA-event times of both:
+             K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
+             error <= 3e-2 (the repo's bf16 attention bound);
+             K2 at the training shape x (32, 577, 1024) bf16, H=16, each
+             of dx/dq/dk/dv's max abs error over its max magnitude
+             <= 2e-2;
+             K10 at labels (256, 2) x cells (2203, 2), tau 75 km, max abs
+             error <= 2e-5 (the repo's bound for the smoothing kernel);
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -19,7 +27,19 @@ Phases, one line each, any failure raises:
              coordinates in range, launch K1 exactly 24 times, and land
              on a bank or prototype location; the embedding of the kernel
              forward must match the plain-attention forward (cosine >=
-             0.999).
+             0.999);
+5. train   - the ``finetune`` command's own functions on the same preset
+             and width (panorama, multi-task, heading; 2203 seeded cells;
+             32 train and 8 val panoramas from the PNG fixtures, seeded
+             labels), batch 8 panoramas, remat ``attn_kernel``: one epoch
+             of 4 steps and an eval pass must launch K1 24 x 5, K2 24 x 4
+             and K10 5 times, keep finite losses and write the best
+             checkpoint; on the first batch every trainable gradient of
+             the kernel route (K1 + K2 + K10) must match the plain route
+             (plain attention under autograd, plain smoothing) with cosine
+             >= 0.999 and the loss parts within 1e-2 relative; then step
+             times, the peak memory under ``attn_kernel`` and ``none``,
+             and ``--resume`` continuing from the checkpoint's step.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -40,11 +60,29 @@ import time
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-K1_SOURCE = "pigeon_tpu_torch/csrc/fused_qkv_attention.cu"
-K1_REPLACES = "pigeon_tpu/kernels/flash_attention.py:311"
+#: Each kernel: its CUDA source and the TPU kernel body it replaces.
+KERNELS = {
+    "fused_qkv_attention": (
+        "pigeon_tpu_torch/csrc/fused_qkv_attention.cu",
+        "pigeon_tpu/kernels/flash_attention.py:311"),
+    "fused_qkv_attention_bwd": (
+        "pigeon_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+        "pigeon_tpu/kernels/flash_attention.py:375"),
+    "smooth_labels": (
+        "pigeon_tpu_torch/csrc/smooth_labels.cu",
+        "pigeon_tpu/kernels/geodesy.py:53"),
+}
 K1_TOL = 3e-2
+#: K2 against its plain version, each output's max abs error over its
+#: max magnitude: the two round u and dl to bf16 from f32 values summed
+#: in another order, so one operand of each product may sit one bf16 ulp
+#: (2^-8 relative) apart, and the sums over 577 keys and 3072 projection
+#: columns carry that through.
+K2_TOL = 2e-2
+K10_TOL = 2e-5
 NUM_CELLS = 2203
 BANK_ROWS = 16384
+TRAIN_ROWS, VAL_ROWS, TRAIN_BATCH = 32, 8, 8
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -89,7 +127,7 @@ def check_kernel(seed: int) -> dict:
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     finite = bool(torch.isfinite(got.float()).all())
-    if not finite or err > K1_TOL:
+    if not finite or not err <= K1_TOL:
         raise RuntimeError(f"K1 disagrees with its plain version: max abs "
                            f"error {err} (limit {K1_TOL}), finite={finite}")
     ms = median_ms(lambda: k1.fused_qkv_attention(x, *ws, *bs, h))
@@ -101,6 +139,85 @@ def check_kernel(seed: int) -> dict:
           heads=h, max_abs_err=err, tol=K1_TOL, ms=ms, plain_ms=plain_ms,
           tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_backward_kernel(seed: int) -> dict:
+    """K2 against its plain version at the training shape (8 panoramas
+    = 32 views)."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+
+    b, s, d, h = 32, 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.nn.functional.layer_norm(
+        torch.randn(b, s, d, generator=gen, device="cuda"), (d,)).bfloat16()
+    ws = [(torch.randn(d, d, generator=gen, device="cuda") * 0.02).bfloat16()
+          for _ in range(3)]
+    bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
+          for _ in range(3)]
+    g = (torch.randn(b, s, d, generator=gen, device="cuda") * 0.01) \
+        .bfloat16()
+    got = k.fused_qkv_attention_backward(x, *ws, *bs, g, h)
+    want = k.fused_qkv_attention_backward_reference(x, *ws, *bs, g, h)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, w in zip(("dx", "dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(a.float()).all()):
+            raise RuntimeError(f"K2's {name} is not finite")
+        errs[name] = ((a.float() - w.float()).abs().max()
+                      / w.float().abs().max()).item()
+    err = max(errs.values())
+    if not err <= K2_TOL:
+        raise RuntimeError(f"K2 disagrees with its plain version: {errs} "
+                           f"(max abs error over max magnitude, limit "
+                           f"{K2_TOL})")
+    ms = median_ms(lambda: k.fused_qkv_attention_backward(
+        x, *ws, *bs, g, h))
+    plain_ms = median_ms(lambda: k.fused_qkv_attention_backward_reference(
+        x, *ws, *bs, g, h), runs=10)
+    # Projection and dx GEMMs 2 x 2*B*S*D*3P; the attention part computes
+    # the scores 4 times, dp 3 times, dv, dk and dq once: 10 x 2*B*H*S*S*dh.
+    gflop = (2 * 2 * b * s * d * 3 * d + 10 * 2 * b * h * s * s * 64) / 1e9
+    phase("kernel", name="fused_qkv_attention_bwd", shape=f"({b},{s},{d})",
+          heads=h, **{f"{n}_err": round(e, 6) for n, e in errs.items()},
+          tol=K2_TOL, ms=ms, plain_ms=plain_ms,
+          tflops=round(gflop / ms, 1),
+          plain_tflops=round(gflop / plain_ms, 1))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_smoothing_kernel(seed: int) -> dict:
+    """K10 against its plain version at 256 labels x the 2203 cells."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import geodesy
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def points(n):
+        return torch.stack([
+            torch.rand(n, generator=gen, device="cuda") * 360 - 180,
+            torch.rand(n, generator=gen, device="cuda") * 135 - 60], -1)
+
+    labels, cells = points(256), points(NUM_CELLS)
+    got = geodesy.smooth_labels_from_points(labels, cells, 75.0)
+    want = geodesy.smooth_labels_reference(labels, cells, 75.0)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    row_max = got.max(-1).values
+    if not err <= K10_TOL or not bool((row_max == 1.0).all()):
+        raise RuntimeError(f"K10 disagrees with its plain version: max abs "
+                           f"error {err} (limit {K10_TOL}), row maxima "
+                           f"{row_max.min().item()}..{row_max.max().item()}")
+    ms = median_ms(lambda: geodesy.smooth_labels_from_points(
+        labels, cells, 75.0))
+    plain_ms = median_ms(lambda: geodesy.smooth_labels_reference(
+        labels, cells, 75.0))
+    phase("kernel", name="smooth_labels", shape=f"(256,{NUM_CELLS})",
+          tau_km=75.0, max_abs_err=err, tol=K10_TOL, ms=ms,
+          plain_ms=plain_ms)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -266,6 +383,258 @@ def time_layers(service, payloads) -> dict:
     return {f"{key}_ms": sorted(v)[len(v) // 2] for key, v in out.items()}
 
 
+def write_train_assets(root: str, seed: int):
+    """Geocells and a panorama metadata CSV with every label column the
+    multi-task loss reads, over the repo's PNG fixtures. Returns the
+    metadata path, the geocell path and the image directory."""
+    import numpy as np
+
+    from pigeon_tpu_torch.core.geodesy import haversine_matrix_np
+
+    images = os.path.join(HERE, "data", "benchmarks", "sample20", "images")
+    fixtures = sorted(os.path.basename(p)
+                      for p in glob.glob(os.path.join(images, "*.png")))
+    if len(fixtures) < 4:
+        raise RuntimeError(f"need PNG fixtures under {images}")
+    rng = np.random.default_rng(seed + 1)
+    cells = np.stack([rng.uniform(-180, 180, NUM_CELLS),
+                      rng.uniform(-60, 75, NUM_CELLS)], -1)
+    cells_csv = os.path.join(root, "train_cells.csv")
+    with open(cells_csv, "w") as f:
+        f.write("name,lng,lat\n")
+        f.writelines(f"c{i},{lng},{lat}\n"
+                     for i, (lng, lat) in enumerate(cells.tolist()))
+    n = TRAIN_ROWS + VAL_ROWS
+    lla = np.stack([rng.uniform(-180, 180, n), rng.uniform(-60, 75, n)], -1)
+    nearest = haversine_matrix_np(lla, cells.astype(np.float32)).argmin(1)
+    columns = ("image", "image_2", "image_3", "image_4", "lng", "lat",
+               "selection", "elevation", "population", "temp_avg",
+               "temp_diff", "prec_avg", "prec_diff", "climate_zone_idx",
+               "month", "heading", "geocell_idx")
+    meta = os.path.join(root, "train_meta.csv")
+    with open(meta, "w") as f:
+        f.write(",".join(columns) + "\n")
+        for i in range(n):
+            row = [*rng.choice(fixtures, 4), *lla[i],
+                   "train" if i < TRAIN_ROWS else "val",
+                   *rng.normal(size=6), rng.integers(0, 28),
+                   rng.integers(0, 12), rng.uniform(0, 360), nearest[i]]
+            f.write(",".join(str(v) for v in row) + "\n")
+    return meta, cells_csv, images
+
+
+def check_training(seed: int) -> dict:
+    """The full-width panorama model finetuned through the ``finetune``
+    command's own functions; returns each kernel's launches in the first
+    epoch."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli.run import (
+        build_finetune,
+        build_parser,
+        train_finetune,
+    )
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+    from pigeon_tpu_torch.models.geocell_head import smoothed_targets
+    from pigeon_tpu_torch.train.checkpoints import latest_step
+    from pigeon_tpu_torch.train.train_loop import (
+        batch_loss,
+        batch_to_device,
+        make_train_step,
+    )
+
+    counters = {"fused_qkv_attention": k.fused_qkv_attention,
+                "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
+                "smooth_labels": geodesy.smooth_labels_from_points}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)      # the run's scalars go to ./runs/NAME
+        try:
+            meta, cells_csv, images = write_train_assets(root, seed)
+            argv = ["finetune", "smoke", "--panorama", "-m", "--heading",
+                    "--metadata", meta, "--images", images,
+                    "--geocells", cells_csv,
+                    "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+                    "--checkpoint-dir", os.path.join(root, "ckpt"),
+                    "--device", "cuda"]
+            t0 = time.perf_counter()
+            run = build_finetune(build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+
+            # --- one epoch: 4 steps and the eval pass ---
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            history = train_finetune(run, 1, "smoke")
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            peak_attn_kernel = torch.cuda.max_memory_allocated() / 2**30
+            layers = len(run.state.model.vision.encoder.layers)
+            steps = TRAIN_ROWS // TRAIN_BATCH
+            evals = math.ceil(VAL_ROWS / TRAIN_BATCH)
+            want = {"fused_qkv_attention": layers * (steps + evals),
+                    "fused_qkv_attention_bwd": layers * steps,
+                    "smooth_labels": steps + evals}
+            if launches != want:
+                raise RuntimeError(f"first epoch launched {launches}, "
+                                   f"expected {want}")
+            with open(os.path.join("runs", "smoke", "metrics.jsonl")) as f:
+                losses = [r["value"] for r in map(json.loads, f)
+                          if r["tag"] == "train/loss"]
+            if len(losses) != steps or not np.isfinite(
+                    losses + [history[-1]["Eval_loss"]]).all():
+                raise RuntimeError(f"train losses {losses}, eval loss "
+                                   f"{history[-1]['Eval_loss']}")
+            if (run.state.step, latest_step(run.checkpoint_dir)) \
+                    != (steps, steps):
+                raise RuntimeError(
+                    f"after the epoch: step {run.state.step}, checkpoint "
+                    f"{latest_step(run.checkpoint_dir)}; expected {steps}")
+
+            # --- gradients of the first batch: kernels vs plain route ---
+            batches = iter_batches(run.train, TRAIN_BATCH, shuffle=True,
+                                   seed=0, drop_last=True)
+            batch = batch_to_device(next(batches), run.device)
+            batches.close()
+            model, head = run.state.model, run.cfg.head
+            attns = [m for m in model.modules()
+                     if isinstance(m, MultiHeadAttention)]
+
+            def grads(impl, smooth_fn):
+                for m in attns:
+                    m.attn_impl = impl
+                model.zero_grad(set_to_none=True)
+                _, total, parts = batch_loss(model, batch, run.geocells,
+                                             head, smooth_fn)
+                total.backward()
+                # post_ln feeds the pooled CLS output, which the head
+                # does not read: it gets no gradient on either route.
+                return ({n: p.grad.float().flatten().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None},
+                        {n: v.item() for n, v in parts.items()})
+
+            try:
+                kernel_g, kernel_parts = grads("fused", smoothed_targets)
+                plain_g, plain_parts = grads(
+                    "plain", geodesy.smooth_labels_reference)
+            finally:
+                for m in attns:
+                    m.attn_impl = "fused"
+            model.zero_grad(set_to_none=True)
+            if kernel_g.keys() != plain_g.keys():
+                raise RuntimeError("the routes give gradients to other "
+                                   f"tensors: {kernel_g.keys() ^ plain_g.keys()}")
+            cosines = {}
+            for name, g in kernel_g.items():
+                if name.endswith("k_proj.bias"):
+                    # Zero in exact arithmetic (the softmax ignores a shift
+                    # shared by all keys): both must be rounding noise.
+                    ref = plain_g[name.replace("k_proj", "q_proj")].norm()
+                    if not max(g.norm(), plain_g[name].norm()) <= 1e-2 * ref:
+                        raise RuntimeError(f"{name} gradient is not ~0")
+                    continue
+                cosines[name] = torch.nn.functional.cosine_similarity(
+                    g, plain_g[name], dim=0).item()
+            worst = min(cosines, key=cosines.get)
+            if not cosines[worst] >= 0.999:
+                raise RuntimeError(f"gradient cosine {cosines[worst]} < "
+                                   f"0.999 for {worst}")
+            rel = {n: abs(kernel_parts[n] - plain_parts[n])
+                   / max(abs(plain_parts[n]), 1e-12) for n in plain_parts}
+            if not max(rel.values()) <= 1e-2:
+                raise RuntimeError(f"loss parts differ: {kernel_parts} vs "
+                                   f"{plain_parts}")
+
+            # --- step time and peak memory under both remat policies ---
+            train_step = make_train_step(head, run.geocells)
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(run.state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            step_ms = sorted(times[1:])[len(times[1:]) // 2]
+            model.vision.encoder.remat = "none"
+            torch.cuda.reset_peak_memory_stats()
+            train_step(run.state, batch)
+            torch.cuda.synchronize()
+            peak_none = torch.cuda.max_memory_allocated() / 2**30
+            del run, model, batch, attns, kernel_g, plain_g
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # --- --resume continues from the checkpoint ---
+            resumed = build_finetune(build_parser().parse_args(
+                argv + ["--resume"]))
+            start = resumed.state.step
+            train_finetune(resumed, 1, "smoke")
+            if (start, resumed.state.step,
+                    latest_step(resumed.checkpoint_dir)) != (
+                        steps, 2 * steps, 2 * steps):
+                raise RuntimeError(
+                    f"resume: from step {start} to {resumed.state.step}, "
+                    f"checkpoint {latest_step(resumed.checkpoint_dir)}")
+            del resumed
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    views = TRAIN_BATCH * 4
+    phase("train", layers=layers, batch_panoramas=TRAIN_BATCH,
+          steps=steps, eval_batches=evals,
+          **{f"{name}_launches": n for name, n in launches.items()},
+          losses=[round(v, 4) for v in losses],
+          eval_loss=round(history[-1]["Eval_loss"], 4),
+          grad_cosine_min=round(cosines[worst], 6), grad_cosine_at=worst,
+          loss_rel_diff_max=max(rel.values()),
+          step_ms=round(step_ms, 3), step_ms_all=[round(t, 3) for t in times],
+          images_per_s=round(views / step_ms * 1e3, 2),
+          peak_gib_attn_kernel=round(peak_attn_kernel, 3),
+          peak_gib_none=round(peak_none, 3), setup_s=round(setup_s, 3),
+          epoch_s=round(epoch_s, 3), resumed_from=start)
+    return launches
+
+
+def build_kernels() -> None:
+    """Build every kernel at once (one nvcc for each) and load them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pigeon_tpu_torch import native
+    from pigeon_tpu_torch.data import native_decode
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import geodesy
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(native.build_cuda, KERNELS)))
+    wall = time.perf_counter() - t0
+    for name, b in built.items():
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                phase("ptxas", kernel=name, line=line.strip())
+        phase("build", kernel=name, seconds=round(b.seconds, 3))
+    k.load()
+    k.load_backward()
+    geodesy.load()
+    phase("build", kernels=len(built), wall_seconds=round(wall, 3),
+          native_decode="built" if native_decode.available()
+          else "unavailable (PIL decodes)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -277,9 +646,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, HERE)
-    from pigeon_tpu_torch import native
-    from pigeon_tpu_torch.data import native_decode
-    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -290,22 +656,17 @@ def main() -> int:
     phase("device", name=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    built = native.build_cuda("fused_qkv_attention")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            phase("ptxas", line=line.strip())
-    k1.load()
-    phase("build", kernel="fused_qkv_attention",
-          seconds=round(built.seconds, 3),
-          native_decode="built" if native_decode.available()
-          else "unavailable (PIL decodes)")
-
-    record = check_kernel(args.seed)
-    launches = check_serving(args.seed, args.requests)
+    build_kernels()
+    records = {"fused_qkv_attention": check_kernel(args.seed),
+               "fused_qkv_attention_bwd": check_backward_kernel(args.seed),
+               "smooth_labels": check_smoothing_kernel(args.seed)}
+    serve_launches = check_serving(args.seed, args.requests)
+    launches = check_training(args.seed)
+    launches["fused_qkv_attention"] += serve_launches
     print(json.dumps({"kernels": [{
-        "name": "fused_qkv_attention", "route": "cuda",
-        "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches, **record}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name], **records[name]}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,14 +12,21 @@ dataclass presets of `pigeon_tpu.config`, whose import chain is free of
 JAX.
 
 Layout:
-    core/     geodesy (haversine) in torch
-    kernels/  hand-written CUDA kernels with their plain PyTorch versions
+    core/     geodesy (haversine, torch and float64 numpy) and scoring
+              (label smoothing, the GeoGuessr score)
+    kernels/  hand-written CUDA kernels with their plain PyTorch versions:
+              fused QKV attention forward (K1) and backward (K2) as one
+              autograd Function, haversine label smoothing (K10)
     csrc/     the kernels' CUDA C++ sources (nvcc, sm_90a, ctypes-bound)
-    models/   CLIP vision tower, geocell head, SuperGuessr, proto refiner,
-              and the weight bridge from JAX parameter trees
-    data/     uint8 image decode/resize and device-side normalisation
+    models/   CLIP vision tower (with the training remat policy), geocell
+              head and its loss, SuperGuessr, proto refiner, and the
+              weight bridge from JAX parameter trees
+    data/     uint8 image decode/resize, device-side normalisation, and
+              the CSV image pipeline for training
+    train/    refiner presets, the finetune model builder, train and eval
+              steps, the epoch loop, metrics and checkpoints
     serve/    the HTTP server speaking the Chrome-extension bot protocol
-    cli/      ``python -m pigeon_tpu_torch.cli.run serve ...``
+    cli/      ``python -m pigeon_tpu_torch.cli.run {serve,finetune} ...``
 """
 
 __version__ = "0.1.0"

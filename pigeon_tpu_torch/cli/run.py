@@ -1,15 +1,22 @@
-"""CLI of the port: the ``serve`` subcommand.
+"""CLI of the port: the ``serve`` and ``finetune`` subcommands.
 
-Counterpart of `pigeon_tpu/cli/run.py::cmd_serve`, with its flags for this
-path. The model is built in bf16 with f32 parameters and attention through
-kernel K1; its weights are a seeded initialisation (restoring a trained
-checkpoint is not ported yet). Geocell, prototype and metadata CSVs are
-read with the stdlib ``csv`` module, embeddings with numpy.
+Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` and `cmd_finetune` (on
+pixels), with their flags for these paths. Models are built in bf16 with
+f32 parameters and attention through kernel K1 (and K2 in the backward).
+``serve`` answers with a seeded initialisation (restoring a trained
+checkpoint into it is not ported yet). ``finetune`` trains from a seeded
+initialisation, evaluates each epoch, keeps the best checkpoint under
+``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
+Geocell, prototype and serving metadata CSVs are read with the stdlib
+``csv`` module, training metadata with pandas, embeddings with numpy.
 
 Usage:
     python -m pigeon_tpu_torch.cli.run serve pigeon --panorama -m \
         --heading --geocells data/geocells.csv [--prototypes P.csv \
         --embeddings DIR --metadata META.csv [--hedge]]
+    python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
+        --images DIR --geocells C.csv --panorama -m --heading \
+        [--batch-size N] [--epochs N] [--resume]
 """
 
 from __future__ import annotations
@@ -18,9 +25,11 @@ import argparse
 import csv
 import dataclasses
 import logging
+import functools
 import os
 import sys
 from http.server import ThreadingHTTPServer
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pigeon_tpu_torch",
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
-    p.add_argument("function", choices=["serve"], help="operation to run")
+    p.add_argument("function", choices=["serve", "finetune"],
+                   help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
     p.add_argument("--geocells", default=None, help="geocell CSV path")
     p.add_argument("--prototypes", default=None, help="prototype CSV path")
@@ -49,6 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embedding directory (train.npy, "
                         "train_indices.npy)")
     p.add_argument("--metadata", default=None, help="metadata CSV path")
+    p.add_argument("--images", default="", help="image directory")
+    p.add_argument("--checkpoint-dir", default="saved_models")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="finetune: batch (default: the preset's)")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="finetune: epochs (default: the preset's)")
+    p.add_argument("-r", "--resume", action="store_true",
+                   help="finetune: continue from the latest checkpoint")
     p.add_argument("--hedge", action="store_true",
                    help="hedge refined guesses for competitive play")
     p.add_argument("--host", default="127.0.0.1")
@@ -140,10 +158,7 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
     from pigeon_tpu_torch.serve.server import make_serving_fn
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available "
-                         "(pass --device cpu to serve on the CPU)")
+    device = _device(args)
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
@@ -201,10 +216,134 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device is "
+                         "available (pass --device cpu to run on the CPU)")
+    return device
+
+
+class Finetune(NamedTuple):
+    """What `build_finetune` sets up for a finetuning run."""
+
+    cfg: object            # PigeonConfig, head sized to the geocells
+    device: torch.device
+    geocells: torch.Tensor  # (C, 2) on the device
+    state: object          # TrainState, restored with --resume
+    train: object          # TabularImageDataset of the train split
+    val: object            # ... and of the val split
+    batch_size: int
+    checkpoint_dir: str
+
+
+def _split_frames(args, multitask: bool):
+    """Train and val frames of ``--metadata`` (by its ``selection``
+    column; without one both are the whole frame)."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.pipeline import MT_COLUMNS
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required for this command")
+    df = pd.read_csv(args.metadata)
+    if multitask:
+        missing = [c for c in (*MT_COLUMNS, "climate_zone_idx")
+                   if c not in df.columns]
+        if missing:
+            # -m without the label columns would crash inside the loss.
+            raise SystemExit(
+                f"--multitask needs columns {missing} that "
+                f"{args.metadata} lacks and augmentation could not supply "
+                "(the port has no GeoAugmentor yet: add them with "
+                "`python -m pigeon_tpu.cli.run augment`), or drop -m")
+    if "selection" not in df.columns:
+        return df, df
+    return (df[df["selection"] == "train"].reset_index(drop=True),
+            df[df["selection"] == "val"].reset_index(drop=True))
+
+
+def build_finetune(args) -> Finetune:
+    """The model, optimizer, datasets and checkpoint directory of a
+    ``finetune`` run on pixels: the preset at full width (``--tiny``:
+    the smoke-test config), a seeded initialisation, every encoder layer
+    but the last frozen, the tower remat'd under ``attn_kernel``."""
+    from pigeon_tpu_torch.data.pipeline import TabularImageDataset
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.checkpoints import (
+        latest_step,
+        restore_checkpoint,
+    )
+    from pigeon_tpu_torch.train.modes import build_finetune_model
+    from pigeon_tpu_torch.train.train_loop import TrainState, adamw
+
+    if args.embeddings:
+        raise SystemExit("finetune --embeddings (training the head on "
+                         "precomputed embeddings) is not ported yet")
+    device = _device(args)
+    cells = load_geocells(args)
+    cfg = make_config(args)
+    cfg = cfg.replace(head=dataclasses.replace(cfg.head,
+                                               num_cells=len(cells)))
+    train_df, val_df = _split_frames(args, cfg.head.multi_task)
+    tcfg = cfg.train
+    model = init_weights(build_finetune_model(cfg), tcfg.seed).to(device)
+    state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
+    ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
+    if args.resume and latest_step(ckpt_dir) is not None:
+        restore_checkpoint(ckpt_dir, state)
+        logger.warning("resumed from step %d", state.step)
+    kw = dict(image_dir=args.images, image_size=cfg.vision.image_size,
+              panorama=cfg.head.panorama)
+    return Finetune(cfg=cfg, device=device,
+                    geocells=torch.as_tensor(cells, device=device),
+                    state=state, train=TabularImageDataset(train_df, **kw),
+                    val=TabularImageDataset(val_df, **kw),
+                    batch_size=args.batch_size or tcfg.batch_size_per_device,
+                    checkpoint_dir=ckpt_dir)
+
+
+def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
+    """Train ``run`` for ``num_epochs`` epochs, each with an eval pass;
+    checkpoints go to ``run.checkpoint_dir`` and scalars to
+    ``runs/NAME/metrics.jsonl``. Returns the per-epoch eval metrics."""
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.train.loop import train_model
+    from pigeon_tpu_torch.train.train_loop import (
+        batch_to_device,
+        make_eval_step,
+        make_train_step,
+    )
+
+    head = run.cfg.head
+    _, history = train_model(
+        run.state, make_train_step(head, run.geocells),
+        make_eval_step(head, run.geocells),
+        lambda epoch: iter_batches(run.train, run.batch_size, shuffle=True,
+                                   seed=epoch, drop_last=True),
+        lambda: iter_batches(run.val, run.batch_size),
+        num_epochs=num_epochs,
+        batch_to_device=functools.partial(batch_to_device,
+                                          device=run.device),
+        checkpoint_dir=run.checkpoint_dir,
+        log_dir=os.path.join("runs", name),
+        early_stopping_patience=run.cfg.train.early_stopping_patience)
+    return history
+
+
+def cmd_finetune(args) -> int:
+    run = build_finetune(args)
+    history = train_finetune(run, args.epochs or run.cfg.train.num_epochs,
+                             args.name)
+    logger.warning("final metrics: %s", history[-1] if history else {})
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    return {"serve": cmd_serve}[args.function](args)
+    return {"serve": cmd_serve,
+            "finetune": cmd_finetune}[args.function](args)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
-"""Image preprocessing for serving: host resize + crop, device normalise.
+"""Image preprocessing: host resize + crop, device normalise.
 
-Counterpart of `pigeon_tpu/data/image_ops.py::resize_crop_pil` and
-`normalize_images`. Views cross to the device as uint8 (a quarter of the
-bytes of f32) and are CLIP-normalised there.
+Counterpart of `pigeon_tpu/data/image_ops.py::resize_crop_pil`,
+`normalize_images` and `heading_to_sincos`. Views cross to the device as
+uint8 (a quarter of the bytes of f32) and are CLIP-normalised there.
 """
 
 from __future__ import annotations
@@ -38,3 +38,14 @@ def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
     return (x - mean) / std
+
+
+def heading_to_sincos(heading_deg) -> np.ndarray:
+    """Compass heading (degrees) -> ``(..., 4, 2)`` per-view (sin, cos):
+    view i looks at ``heading + i * 90`` degrees
+    (`pigeon_tpu.data.image_ops.heading_to_sincos`)."""
+    heading = np.deg2rad(np.asarray(heading_deg, dtype=np.float64))
+    offsets = np.arange(4) * (np.pi / 2.0)
+    angles = (heading[..., None] + offsets) % (2.0 * np.pi)
+    return np.stack([np.sin(angles), np.cos(angles)], axis=-1) \
+        .astype(np.float32)

@@ -1,19 +1,29 @@
-"""Fused QKV projection + attention forward (kernel K1), for the H100.
+"""Fused QKV projection + attention (kernel K1) and its backward (K2),
+for the H100.
 
-Replaces `pigeon_tpu/kernels/flash_attention.py::_fused_qkv_kernel`
-(reached through `fused_qkv_mha`, once per encoder layer on the
-`flash_fused` serving route). The kernel is CUDA C++ for ``sm_90a`` in
-`csrc/fused_qkv_attention.cu`, built by ``nvcc`` at first use and bound
-with ``ctypes``; its source note says what bounds it on the card and how
-the design answers that.
+K1 replaces `pigeon_tpu/kernels/flash_attention.py::_fused_qkv_kernel`
+and K2 replaces `_fused_qkv_bwd_kernel`, reached through `fused_qkv_mha`
+and its VJP once per encoder layer on the `flash_fused` routes. Both are
+CUDA C++ for ``sm_90a`` (`csrc/fused_qkv_attention.cu`,
+`csrc/fused_qkv_attention_bwd.cu`), built by ``nvcc`` at first use and
+bound with ``ctypes``; their source notes say what bounds them on the
+card and how the designs answer that.
 
 Weights are in ``torch.nn.Linear`` layout, ``(P, D)`` with ``P = H * 64``,
-so each head's rows are one contiguous block the kernel streams.
+so each head's rows are one contiguous block the kernels stream.
 
-Dispatch is by the tensor's device: a CPU tensor runs
-:func:`fused_qkv_attention_reference` (the plain PyTorch version the CPU
-tests hold against the JAX package); a CUDA tensor launches the kernel or
-raises. Nothing falls back from the kernel to the plain version.
+Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
+version (:func:`fused_qkv_attention_reference`,
+:func:`fused_qkv_attention_backward_reference`, which the CPU tests hold
+against the JAX package); a CUDA tensor launches the kernel or raises.
+Nothing falls back from a kernel to a plain version.
+
+:class:`FusedQKVAttention` makes the pair one differentiable operation:
+K1 forward, K2 backward, the weight and bias gradients as plain matrix
+products (the JAX package leaves those to XLA). Its forward goes through
+the registered operator ``pigeon::fused_qkv_attention``, which is what the
+``attn_kernel`` remat policy (`models/clip.py`) names to save K1's output
+instead of launching K1 again.
 """
 
 from __future__ import annotations
@@ -135,3 +145,176 @@ def fused_qkv_attention(x, wq, wk, wv, bq, bk, bv, num_heads: int):
 
 
 fused_qkv_attention.launches = 0
+
+
+def fused_qkv_attention_backward_reference(x, wq, wk, wv, bq, bk, bv, g,
+                                           num_heads: int):
+    """Plain PyTorch K2: ``(dx (B, S, D), dq, dk, dv (B, S, P))`` for the
+    output cotangent ``g`` (B, S, P).
+
+    The arithmetic of `flash_attention.py::_fused_qkv_bwd_kernel`: q/k/v
+    recomputed as in the forward (f32 bias add, rounded to ``x.dtype``);
+    ``u = exp(s - max s)`` in f32 with the denominator deferred;
+    ``dv = bf16(u)^T bf16(g / den)``; ``dp = g v^T`` in f32 and
+    ``r = sum(dp u) / den`` from the f32 ``u``;
+    ``dl = bf16(u (dp - r) scale / den)``; ``dq = dl k``, ``dk = dl^T q``
+    and ``dx = dq Wq + dk Wk + dv Wv`` accumulated in f32. Every product
+    takes its operands at their rounded values and sums in f32.
+    """
+    b, s, _ = x.shape
+    p = wq.shape[0]
+    dh = p // num_heads
+    scale = dh ** -0.5
+    dt = x.dtype
+    xf = x.float()
+
+    def heads(t):                                   # (B,S,P)->(B,H,S,dh)
+        return t.reshape(b, s, num_heads, dh).transpose(1, 2).float()
+
+    def proj(w, bias):
+        return heads((xf @ w.float().t() + bias.float()).to(dt))
+
+    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    gh = heads(g.to(dt))
+    logits = (q @ k.transpose(-1, -2)) * scale
+    u = torch.exp(logits - logits.amax(-1, keepdim=True))
+    den = u.sum(-1, keepdim=True)
+    g_n = (gh / den).to(dt).float()
+    dv = (u.to(dt).float().transpose(-1, -2) @ g_n).to(dt)
+    dp = gh @ v.transpose(-1, -2)
+    r = (dp * u).sum(-1, keepdim=True) / den
+    dl = (u * (dp - r) * (scale / den)).to(dt).float()
+    dq = (dl @ k).to(dt)
+    dk = (dl.transpose(-1, -2) @ q).to(dt)
+
+    def merge(t):                                   # (B,H,S,dh)->(B,S,P)
+        return t.transpose(1, 2).reshape(b, s, p)
+
+    dq, dk, dv = merge(dq), merge(dk), merge(dv)
+    dx = (dq.float() @ wq.float() + dk.float() @ wk.float()
+          + dv.float() @ wv.float())
+    return dx.to(dt), dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def load_backward() -> ctypes.CDLL:
+    """Build (at first use) and load K2's library."""
+    lib = ctypes.CDLL(native.build_cuda("fused_qkv_attention_bwd").path)
+    ptr = ctypes.c_void_p
+    lib.pigeon_fused_qkv_attention_backward.argtypes = [ptr] * 16 + [
+        ctypes.c_int] * 4 + [ptr]
+    lib.pigeon_fused_qkv_attention_backward.restype = ctypes.c_int
+    lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+#: K2's GEMM passes take D and P in 128-wide tiles.
+BWD_TILE = 128
+
+
+def _check_backward_operands(x, weights, biases, g, num_heads: int):
+    _check_operands(x, weights, biases, num_heads, max_seq=x.shape[1])
+    b, s, d = x.shape
+    p = num_heads * HEAD_DIM
+    if d % BWD_TILE or p % BWD_TILE:
+        raise ValueError(f"D={d} and P={p} must be multiples of {BWD_TILE} "
+                         "(an even head count)")
+    if tuple(g.shape) != (b, s, p):
+        raise ValueError(f"g: shape {tuple(g.shape)} != {(b, s, p)}")
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"g: dtype {g.dtype}, kernel takes bf16")
+    if g.device != x.device:
+        raise ValueError(f"g on {g.device}, x on {x.device}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError("g is not contiguous and 16-byte aligned")
+
+
+def fused_qkv_attention_backward(x, wq, wk, wv, bq, bk, bv, g,
+                                 num_heads: int):
+    """K2: ``(dx, dq, dk, dv)`` of K1 for the output cotangent ``g``.
+
+    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64,
+    D and P multiples of 128) launch the kernel on PyTorch's current
+    stream and count the launch in
+    ``fused_qkv_attention_backward.launches``; any other device raises.
+    The kernel's q/k/v and row-statistics workspace is allocated here.
+    """
+    if x.device.type == "cpu":
+        return fused_qkv_attention_backward_reference(
+            x, wq, wk, wv, bq, bk, bv, g, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"fused_qkv_attention_backward: no kernel for {x.device}")
+    lib = load_backward()
+    _check_backward_operands(x, (wq, wk, wv), (bq, bk, bv), g, num_heads)
+    b, s, d = x.shape
+    p = num_heads * HEAD_DIM
+    dx = torch.empty_like(x)
+    dq, dk, dv, q_ws, k_ws, v_ws = (
+        torch.empty((b, s, p), dtype=x.dtype, device=x.device)
+        for _ in range(6))
+    stats = torch.empty((3, b, num_heads, s), dtype=torch.float32,
+                        device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pigeon_fused_qkv_attention_backward(
+            *(t.data_ptr() for t in (x, wq, wk, wv, bq, bk, bv, g, dx, dq,
+                                     dk, dv, q_ws, k_ws, v_ws, stats)),
+            b, s, d, num_heads, stream)
+    if rc != 0:
+        raise RuntimeError(
+            "fused_qkv_attention_backward launch failed: "
+            f"{lib.pigeon_cuda_error_string(rc).decode()} (CUDA error {rc})")
+    fused_qkv_attention_backward.launches += 1
+    return dx, dq, dk, dv
+
+
+fused_qkv_attention_backward.launches = 0
+
+
+#: K1 as a registered operator, ``torch.ops.pigeon.fused_qkv_attention``.
+#: The ``attn_kernel`` remat policy recognises it and keeps its output,
+#: so the recompute pass of a checkpointed layer never launches K1 again.
+#: (Registered with `torch.library.Library`: `torch.library.custom_op`
+#: imports the compiler stack at its first call, seconds of start-up.)
+_LIBRARY = torch.library.Library("pigeon", "DEF")
+_LIBRARY.define("fused_qkv_attention(Tensor x, Tensor wq, Tensor wk, "
+                "Tensor wv, Tensor bq, Tensor bk, Tensor bv, int num_heads) "
+                "-> Tensor")
+_LIBRARY.impl("fused_qkv_attention", fused_qkv_attention,
+              "CompositeExplicitAutograd")
+FUSED_QKV_ATTENTION_OP = torch.ops.pigeon.fused_qkv_attention.default
+
+
+class FusedQKVAttention(torch.autograd.Function):
+    """K1 forward and K2 backward as one differentiable operation:
+    ``(x (B, S, D), W* (P, D), b* (P,)) -> (B, S, P)``.
+
+    The backward is the VJP of `flash_attention.py::fused_qkv_mha`: K2
+    gives ``dx`` and the projection cotangents; ``dW* = d*^T x`` (f32
+    accumulation, rounded to the weight dtype) and ``db* = sum d*`` are
+    formed here, each only when its input needs a gradient (a frozen
+    layer needs ``dx`` alone).
+    """
+
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, bq, bk, bv, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, wq, wk, wv, bq, bk, bv)
+        return FUSED_QKV_ATTENTION_OP(x, wq, wk, wv, bq, bk, bv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, wk, wv, bq, bk, bv = ctx.saved_tensors
+        dx, *dqkv = fused_qkv_attention_backward(
+            x, wq, wk, wv, bq, bk, bv, g.to(x.dtype).contiguous(),
+            ctx.num_heads)
+        need = ctx.needs_input_grad
+        x_flat = x.reshape(-1, x.shape[-1])
+        dws = [d.reshape(-1, d.shape[-1]).t() @ x_flat if need[1 + i]
+               else None for i, d in enumerate(dqkv)]
+        dbs = [d.sum((0, 1), dtype=torch.float32).to(bias.dtype)
+               if need[4 + i] else None
+               for i, (d, bias) in enumerate(zip(dqkv, (bq, bk, bv)))]
+        return (dx if need[0] else None), *dws, *dbs, None

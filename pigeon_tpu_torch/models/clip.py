@@ -12,22 +12,67 @@ Attention has two routes, with one parameter layout (``q_proj``,
 ``k_proj``, ``v_proj``, ``out_proj`` Linears):
 
 * ``"fused"`` — the q/k/v projections and the attention run in kernel K1
-  (`kernels/fused_qkv_attention.py`), the `flash_fused` route of the JAX
-  package;
+  and its gradient in kernel K2 (`kernels/fused_qkv_attention.py`,
+  `FusedQKVAttention`), the `flash_fused` route of the JAX package;
 * ``"plain"`` — separate projections and plain PyTorch attention, the
   JAX package's `xla` route.
+
+Training remats the tower layer by layer (``remat``, the JAX package's
+`_remat_policy_names`):
+
+* ``"none"`` — every activation is kept for the backward;
+* ``"attn_kernel"`` — each layer is a non-reentrant
+  `torch.utils.checkpoint` region that keeps its input, K1's output and
+  the attention output (after ``out_proj``) and recomputes the rest in
+  the backward: LN1 (K2 needs its output), the residual add and the MLP.
+  K1 is never launched again.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from pigeon_tpu_torch.config import VisionConfig
-from pigeon_tpu_torch.kernels.fused_qkv_attention import fused_qkv_attention
+from pigeon_tpu_torch.kernels.fused_qkv_attention import (
+    FUSED_QKV_ATTENTION_OP,
+    FusedQKVAttention,
+)
 
 ATTN_IMPLS = ("fused", "plain")
+REMATS = ("none", "attn_kernel")
+
+#: Set while a layer computes a tensor that the ``attn_kernel`` policy
+#: saves by name (the JAX package's ``checkpoint_name``).
+_SAVING = contextvars.ContextVar("pigeon_remat_saving", default=False)
+
+
+@contextlib.contextmanager
+def saved_by_remat():
+    """Mark the operations run inside as saved by the remat policy."""
+    token = _SAVING.set(True)
+    try:
+        yield
+    finally:
+        _SAVING.reset(token)
+
+
+def _attn_kernel_policy(ctx, func, *args, **kwargs):
+    """The ``attn_kernel`` save set: K1's output and what runs under
+    `saved_by_remat`; everything else is recomputed."""
+    if func is FUSED_QKV_ATTENTION_OP or _SAVING.get():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def quick_gelu(x):
@@ -97,7 +142,7 @@ class MultiHeadAttention(nn.Module):
         b, s, d = x.shape
         if self.attn_impl == "fused":
             projs = (self.q_proj, self.k_proj, self.v_proj)
-            out = fused_qkv_attention(
+            out = FusedQKVAttention.apply(
                 x.contiguous(), *(p.weight.to(x.dtype) for p in projs),
                 *(p.bias.to(x.dtype) for p in projs), self.num_heads)
         else:
@@ -106,7 +151,8 @@ class MultiHeadAttention(nn.Module):
                 dense(self.q_proj, x).view(heads),
                 dense(self.k_proj, x).view(heads),
                 dense(self.v_proj, x).view(heads)).reshape(b, s, d)
-        return dense(self.out_proj, out)
+        with saved_by_remat():
+            return dense(self.out_proj, out)
 
 
 class TransformerLayer(nn.Module):
@@ -131,15 +177,26 @@ class TransformerLayer(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    def __init__(self, config: VisionConfig, attn_impl: str = "fused"):
+    def __init__(self, config: VisionConfig, attn_impl: str = "fused",
+                 remat: str = "none"):
         super().__init__()
+        if remat not in REMATS:
+            raise ValueError(f"remat={remat!r}, not in {REMATS}")
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerLayer(config, attn_impl)
             for _ in range(config.num_layers))
 
     def forward(self, x):
+        remat = self.remat == "attn_kernel" and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x)
+            if remat:
+                x = checkpoint(layer, x, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   create_selective_checkpoint_contexts,
+                                   _attn_kernel_policy))
+            else:
+                x = layer(x)
         return x
 
 
@@ -148,7 +205,7 @@ class CLIPVisionTower(nn.Module):
     ``(last_hidden (B, S, D), pooled (B, D))`` in the compute dtype."""
 
     def __init__(self, config: VisionConfig, dtype=torch.float32,
-                 attn_impl: str = "fused"):
+                 attn_impl: str = "fused", remat: str = "none"):
         super().__init__()
         d = config.hidden_size
         self.dtype = dtype
@@ -156,7 +213,7 @@ class CLIPVisionTower(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(d))
         self.pos_embed = nn.Parameter(torch.empty(config.seq_len, d))
         self.pre_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
-        self.encoder = TransformerStack(config, attn_impl)
+        self.encoder = TransformerStack(config, attn_impl, remat)
         self.post_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
 
     def forward(self, pixel_values):

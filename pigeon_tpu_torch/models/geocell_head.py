@@ -1,10 +1,11 @@
 """Geocell classification head and the logits -> coordinates lookup.
 
-Counterpart of `pigeon_tpu/models/geocell_head.py` (forward and
-predictions; the training loss comes with the training port). Panorama
-views are aggregated by their mean; heading features survive only in
-single-image mode (`HeadConfig.input_dim`). Hierarchical view attention is
-not ported yet and is refused.
+Counterpart of `pigeon_tpu/models/geocell_head.py`: the forward, the
+predictions and the training loss (haversine-smoothed geocell targets
+through kernel K10, the multi-task terms). Panorama views are aggregated
+by their mean; heading features survive only in single-image mode
+(`HeadConfig.input_dim`). Hierarchical view attention is not ported yet
+and is refused.
 
 The geocell centroid table is data, passed per call, not a parameter.
 """
@@ -18,6 +19,8 @@ import torch
 from torch import nn
 
 from pigeon_tpu_torch.config import HeadConfig
+from pigeon_tpu_torch.core.scoring import smooth_month_labels
+from pigeon_tpu_torch.kernels.geodesy import smooth_labels_from_points
 from pigeon_tpu_torch.models.clip import dense
 
 #: Default compass heading (sin, cos) for single images: north.
@@ -112,6 +115,82 @@ class GeocellHead(nn.Module):
             return h.expand(emb.shape[0], 2)
         h = heading.to(self.dtype)
         return h[:, 0] if h.dim() == 3 else h   # (B, 4, 2): first view
+
+
+def smoothed_targets(labels_lla: torch.Tensor, geocells: torch.Tensor,
+                     tau_km: float) -> torch.Tensor:
+    """Haversine-smoothed soft targets ``(B, C)``: kernel K10 on a CUDA
+    tensor, its plain version on a CPU tensor."""
+    return smooth_labels_from_points(labels_lla.float().contiguous(),
+                                     geocells, tau_km)
+
+
+def soft_cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                       ) -> torch.Tensor:
+    """``mean_B [-sum_c targets_c log_softmax(logits)_c]`` for (possibly
+    unnormalised) targets: torch's `CrossEntropyLoss` on probability
+    targets, the reference's loss with smoothed labels."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(targets * logp).sum(-1).mean()
+
+
+def int_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                      ) -> torch.Tensor:
+    """Cross entropy with integer class labels."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def geocell_loss(output: GeocellOutput, geocells: torch.Tensor,
+                 cfg: HeadConfig, labels_lla=None, labels_clf=None,
+                 labels_multi_task=None, labels_climate=None,
+                 labels_month=None, smooth_fn=smoothed_targets):
+    """The training objective: ``(total, parts)``
+    (`pigeon_tpu.models.geocell_head.geocell_loss`).
+
+    The geocell term is the soft cross entropy against smoothed targets
+    (``smooth_fn``, kernel K10 by default) or, without smoothing, the
+    integer cross entropy on ``labels_clf``. Multi-task adds the squared
+    regression error times 8, the climate term (integer or soft targets)
+    times 2 and, with month labels, the month term times 1, hard or with
+    cyclic month smoothing.
+    """
+    if cfg.smooth_labels:
+        targets = smooth_fn(labels_lla, geocells, cfg.label_smoothing_km)
+        loss_clf = soft_cross_entropy(output.logits, targets)
+    else:
+        loss_clf = int_cross_entropy(output.logits, labels_clf)
+    parts = {"loss_clf": loss_clf}
+    total = loss_clf
+
+    if cfg.multi_task:
+        loss_reg = ((output.preds_mt - labels_multi_task) ** 2).mean() \
+            * cfg.regression_loss_scale
+        if labels_climate.dim() == 1:
+            loss_climate = int_cross_entropy(output.preds_climate,
+                                             labels_climate)
+        else:
+            loss_climate = soft_cross_entropy(output.preds_climate,
+                                              labels_climate)
+        loss_climate = loss_climate * cfg.climate_loss_scale
+        parts.update(loss_reg=loss_reg, loss_climate=loss_climate)
+        total = total + loss_reg + loss_climate
+
+        if cfg.predict_month and labels_month is not None:
+            if cfg.month_smoothing > 0:
+                loss_month = soft_cross_entropy(
+                    output.preds_month,
+                    smooth_month_labels(labels_month, cfg.num_months,
+                                        cfg.month_smoothing))
+            else:
+                loss_month = int_cross_entropy(output.preds_month,
+                                               labels_month)
+            loss_month = loss_month * cfg.month_loss_scale
+            parts["loss_month"] = loss_month
+            total = total + loss_month
+
+    parts["loss"] = total
+    return total, parts
 
 
 def geocell_predictions(logits: torch.Tensor, geocells: torch.Tensor,

@@ -26,17 +26,19 @@ _TRUNC_STD = 0.87962566103423978
 class SuperGuessr(nn.Module):
     """End-to-end model: NHWC CLIP-normalised pixels -> `GeocellOutput`.
 
-    Parameters are f32; the forward computes in ``dtype`` (bf16 when
-    serving). ``attn_impl`` selects the tower's attention route
-    (``"fused"``: kernel K1; ``"plain"``: separate projections).
+    Parameters are f32; the forward computes in ``dtype`` (bf16 on the
+    card). ``attn_impl`` selects the tower's attention route (``"fused"``:
+    kernels K1 and K2; ``"plain"``: separate projections); ``remat`` the
+    tower's training remat policy (``"none"`` or ``"attn_kernel"``).
     """
 
     def __init__(self, vision_config: VisionConfig, head_config: HeadConfig,
-                 dtype=torch.float32, attn_impl: str = "fused"):
+                 dtype=torch.float32, attn_impl: str = "fused",
+                 remat: str = "none"):
         super().__init__()
         self.head_config = head_config
         self.vision = CLIPVisionTower(vision_config, dtype=dtype,
-                                      attn_impl=attn_impl)
+                                      attn_impl=attn_impl, remat=remat)
         self.head = GeocellHead(head_config, dtype=dtype)
 
     def forward(self, pixel_values: torch.Tensor,
@@ -53,6 +55,16 @@ class SuperGuessr(nn.Module):
         if self.head_config.panorama:
             embedding = embedding.reshape(b, 4, -1)
         return self.head(embedding, heading=heading)
+
+
+def freeze_all_but_last_layer(model: SuperGuessr) -> SuperGuessr:
+    """Freeze every encoder layer but the last; the patch embedding, CLS
+    token, positions, LayerNorms outside the layers and the head stay
+    trainable (`pigeon_tpu.models.super_guessr.trainable_last_layer_mask`,
+    reference `super_guessr.py:155-160`)."""
+    for layer in model.vision.encoder.layers[:-1]:
+        layer.requires_grad_(False)
+    return model
 
 
 @torch.no_grad()

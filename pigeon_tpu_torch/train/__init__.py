@@ -1,1 +1,2 @@
-"""Serving-time pieces of training: the refiner presets and `build_refiner`."""
+"""Training and evaluation: the finetune model builder, train and eval
+steps, the epoch loop, metrics, checkpoints and the refiner presets."""

@@ -20,7 +20,12 @@ def port_modules():
 
 def test_every_module_imports_with_jax_blocked():
     modules = port_modules()
-    assert "pigeon_tpu_torch.serve.server" in modules
+    assert {f"pigeon_tpu_torch.{name}" for name in (
+        "serve.server", "cli.run", "kernels.fused_qkv_attention",
+        "kernels.geodesy", "core.geodesy", "core.scoring",
+        "models.geocell_head", "data.pipeline", "train.modes",
+        "train.train_loop", "train.metrics", "train.loop",
+        "train.checkpoints")} <= set(modules)
     code = (f"import sys\nfor name in {BLOCKED!r}:\n"
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n    __import__(name)\n"

@@ -1,7 +1,9 @@
-"""Kernel K1 of the PyTorch port (fused QKV projection + attention): on
-the CPU, its plain version against the JAX package's `fused_qkv_mha` and
-the wrapper's dispatch and operand checks; on a GPU (``-m gpu``), the CUDA
-kernel against the plain version at ragged and serving shapes.
+"""Kernels K1 (fused QKV projection + attention), K2 (its backward) and
+K10 (haversine label smoothing) of the PyTorch port: on the CPU, their
+plain versions against the JAX package (its Pallas kernels in interpret
+mode), the autograd Function that pairs K1 with K2, and the wrappers'
+dispatch and operand checks; on a GPU (``-m gpu``), the CUDA kernels
+against their plain versions at ragged and full-width shapes.
 """
 
 import numpy as np
@@ -10,6 +12,7 @@ import jax.numpy as jnp
 import torch
 
 from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+from pigeon_tpu_torch.kernels import geodesy as k10
 
 H = 4
 
@@ -126,6 +129,181 @@ def test_operand_checks_refuse_what_the_kernel_cannot_take(case, error,
 
 
 @pytest.fixture
+def backward_interpret_mode(monkeypatch):
+    """The JAX package's fused backward kernel as its tests run it on the
+    CPU: interpret mode, two head groups forward and backward."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.setenv("PIGEON_FUSED_GROUPS", "2")
+    monkeypatch.setenv("PIGEON_FUSED_BWD", "kernel")
+    monkeypatch.setenv("PIGEON_FUSED_BWD_GROUPS", "2")
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def leaves(x, ws, bs):
+    """Torch leaves (Linear layout) that collect gradients."""
+    return [t.requires_grad_() for t in torch_operands(x, ws, bs)]
+
+
+@pytest.mark.parametrize("s, h, dh", [(64, 4, 16), (100, 4, 16),
+                                      (80, 8, 16)])
+def test_backward_matches_jax_vjp(backward_interpret_mode, s, h, dh):
+    """K2's plain backward plus the Function's weight and bias gradients
+    against `jax.vjp` of `fused_qkv_mha` (the Pallas backward kernel)."""
+    import jax
+
+    from pigeon_tpu.kernels.flash_attention import fused_qkv_mha
+
+    rng = np.random.default_rng(s)
+    d = h * dh
+    x = (rng.normal(size=(2, s, d)) * 0.3).astype(np.float32)
+    ws = [(rng.normal(size=(d, d)) * 0.1).astype(np.float32)
+          for _ in range(3)]
+    bs = [(rng.normal(size=(d,)) * 0.1).astype(np.float32)
+          for _ in range(3)]
+    g = rng.normal(size=(2, s, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: fused_qkv_mha(*a, h),
+                     jnp.asarray(x), *map(jnp.asarray, ws),
+                     *map(jnp.asarray, bs))
+    want = vjp(jnp.asarray(g))
+
+    ops = leaves(x, ws, bs)
+    k1.FusedQKVAttention.apply(*ops, h).backward(torch.from_numpy(g))
+    # 5e-4: the JAX package's bound for these gradients in f32
+    # (tests/test_flash_attention.py); the sums run in another order.
+    for i, (t, w) in enumerate(zip(ops, want)):
+        got = t.grad.numpy()
+        np.testing.assert_allclose(got.T if i in (1, 2, 3) else got,
+                                   np.asarray(w), atol=5e-4, err_msg=str(i))
+
+
+def test_function_matches_autograd_through_plain_forward():
+    x, ws, bs = operands(33)
+    g = np.random.default_rng(1).normal(size=(2, 33, 64)) \
+        .astype(np.float32)
+    fused, plain = leaves(x, ws, bs), leaves(x, ws, bs)
+    out = k1.FusedQKVAttention.apply(*fused, H)
+    assert out.grad_fn.name() == "FusedQKVAttentionBackward"
+    out.backward(torch.from_numpy(g))
+    k1.fused_qkv_attention_reference(*plain, H).backward(torch.from_numpy(g))
+    for a, b in zip(fused, plain):
+        # 1e-5: the same products, with the softmax's gradient taken in
+        # the deferred-denominator form instead of autograd's.
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-5)
+
+
+def test_function_skips_gradients_nobody_needs():
+    """A frozen layer's weights need no gradient: only dx is formed."""
+    x, ws, bs = operands(17)
+    ops = torch_operands(x, ws, bs)
+    ops[0].requires_grad_()
+    k1.FusedQKVAttention.apply(*ops, H).sum().backward()
+    assert ops[0].grad is not None
+    assert all(t.grad is None for t in ops[1:])
+
+
+def test_fused_attention_route_is_differentiable():
+    """The module's ``fused`` route goes through the autograd Function
+    (K1 forward, K2 backward) and its gradients equal the plain route's;
+    under inference mode it runs the forward alone."""
+    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+
+    torch.manual_seed(0)
+    fused = MultiHeadAttention(64, H, attn_impl="fused")
+    plain = MultiHeadAttention(64, H, attn_impl="plain")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 17, 64)
+    out = fused(x)
+
+    def nodes(fn, seen):
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            for nxt, _ in fn.next_functions:
+                nodes(nxt, seen)
+        return seen
+
+    assert "FusedQKVAttentionBackward" in {
+        n.name() for n in nodes(out.grad_fn, set())}
+    out.square().sum().backward()
+    plain(x).square().sum().backward()
+    for (name, a), b in zip(fused.named_parameters(), plain.parameters()):
+        assert a.grad is not None and a.grad.abs().max() > 0, name
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-4)
+    with torch.inference_mode():
+        torch.testing.assert_close(fused(x), out.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case, error", [
+    ("ok", None), ("d_192", ValueError), ("odd_heads", ValueError),
+    ("g_f32", TypeError), ("g_short", ValueError)])
+def test_backward_operand_checks(case, error):
+    heads = 3 if case == "odd_heads" else 2
+    x, ws, bs = _bf16_ops(d=192 if case == "d_192" else 128, heads=heads)
+    g = torch.zeros(2, 17, heads * k1.HEAD_DIM, dtype=torch.bfloat16)
+    if case == "g_f32":
+        g = g.float()
+    elif case == "g_short":
+        g = g[:, :16]
+    if error is None:
+        k1._check_backward_operands(x, ws, bs, g, heads)
+    else:
+        with pytest.raises(error):
+            k1._check_backward_operands(x, ws, bs, g, heads)
+
+
+def points(rng, n):
+    return np.stack([rng.uniform(-180, 180, n), rng.uniform(-65, 70, n)],
+                    -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("tau", [65.0, 75.0])
+@pytest.mark.parametrize("b, c", [(4, 16), (37, 200), (128, 300)])
+def test_smoothing_plain_version_matches_jax(b, c, tau):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pigeon_tpu.kernels.geodesy import (
+        smooth_labels_from_points,
+        smooth_labels_reference,
+    )
+
+    rng = np.random.default_rng(b + c)
+    labels, cells = points(rng, b), points(rng, c)
+    with pltpu.force_tpu_interpret_mode():
+        kernel = np.asarray(smooth_labels_from_points(
+            jnp.asarray(labels), jnp.asarray(cells), tau_km=tau))
+    reference = np.asarray(smooth_labels_reference(
+        jnp.asarray(labels), jnp.asarray(cells), tau_km=tau))
+    got = k10.smooth_labels_from_points(torch.from_numpy(labels),
+                                        torch.from_numpy(cells), tau).numpy()
+    assert got.shape == (b, c)
+    # 2e-5: the repo's bound for the smoothing kernel against its
+    # reference (tests/test_kernels.py).
+    np.testing.assert_allclose(got, reference, atol=2e-5)
+    # The Pallas kernel computes arcsin by the A&S polynomial (Mosaic has
+    # no asin), which moves it up to ~2.6e-5 from its own reference at
+    # these points; the port stays within 2e-5 of the kernel beyond that.
+    assert (np.abs(got - kernel)
+            <= np.abs(kernel - reference) + 2e-5).all()
+    np.testing.assert_allclose(got.max(-1), 1.0, atol=1e-5)
+
+
+def test_smoothing_operand_checks():
+    labels = torch.zeros(3, 2)
+    k10._check_operands(labels, torch.zeros(5, 2), 75.0)
+    for args, error in [((labels.double(), torch.zeros(5, 2), 75.0),
+                         TypeError),
+                        ((labels, torch.zeros(5, 3), 75.0), ValueError),
+                        ((labels, torch.zeros(2, 5).t(), 75.0), ValueError),
+                        ((labels, torch.zeros(5, 2), 0.0), ValueError)]:
+        with pytest.raises(error):
+            k10._check_operands(*args)
+    with pytest.raises(ValueError, match="no kernel"):
+        k10.smooth_labels_from_points(labels.to("meta"),
+                                      torch.zeros(5, 2, device="meta"))
+
+
+@pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
@@ -154,3 +332,60 @@ def test_cuda_kernel_matches_plain_version(cuda, b, s, d, heads):
     # bf16 at the same places, only the summation order differs.
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, d, heads", [
+    (1, 1, 128, 2), (1, 17, 128, 2), (2, 65, 256, 4), (2, 577, 1024, 16)])
+def test_cuda_backward_kernel_matches_plain_version(cuda, b, s, d, heads):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    p = heads * k1.HEAD_DIM
+    x = torch.nn.functional.layer_norm(
+        torch.randn(b, s, d, generator=gen, device=cuda), (d,)).bfloat16()
+    ws = [(torch.randn(p, d, generator=gen, device=cuda) * 0.02).bfloat16()
+          for _ in range(3)]
+    bs = [(torch.randn(p, generator=gen, device=cuda) * 0.02).bfloat16()
+          for _ in range(3)]
+    g = (torch.randn(b, s, p, generator=gen, device=cuda) * 0.01).bfloat16()
+    before = k1.fused_qkv_attention_backward.launches
+    got = k1.fused_qkv_attention_backward(x, *ws, *bs, g, heads)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention_backward.launches == before + 1
+    want = k1.fused_qkv_attention_backward_reference(x, *ws, *bs, g, heads)
+    for a, w in zip(got, want):
+        # 2e-2 of each output's magnitude: u and dl are rounded to bf16 from
+        # f32 values summed in another order (chip_smoke.py's bound).
+        scale = w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_fused_route_gradient_reaches_attention_weights(cuda):
+    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+
+    torch.manual_seed(0)
+    m = MultiHeadAttention(128, 2, attn_impl="fused").to(cuda)
+    x = torch.randn(2, 33, 128, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = k1.fused_qkv_attention_backward.launches
+    m(x).float().square().sum().backward()
+    assert k1.fused_qkv_attention_backward.launches == before + 1
+    for proj in (m.q_proj, m.k_proj, m.v_proj):
+        assert proj.weight.grad.abs().max().item() > 0
+    assert x.grad.abs().max().item() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, c", [(1, 1), (8, 2203), (256, 2203)])
+def test_cuda_smoothing_kernel_matches_plain_version(cuda, b, c):
+    rng = np.random.default_rng(c)
+    labels = torch.from_numpy(points(rng, b)).to(cuda)
+    cells = torch.from_numpy(points(rng, c)).to(cuda)
+    before = k10.smooth_labels_from_points.launches
+    got = k10.smooth_labels_from_points(labels, cells, 75.0)
+    torch.cuda.synchronize()
+    assert k10.smooth_labels_from_points.launches == before + 1
+    want = k10.smooth_labels_reference(labels, cells, 75.0)
+    # 2e-5: the repo's bound for the smoothing kernel.
+    assert (got - want).abs().max().item() <= 2e-5
+    assert bool((got.max(-1).values == 1.0).all())
