@@ -6,10 +6,10 @@
 Phases, one line each, any failure raises:
 
 1. device  - the card's name and power limit (nvidia-smi);
-2. build   - kernels K1, K2 and K10 (one nvcc for each, all started
-             together, sm_90a) and the native JPEG decoder (g++, where
-             libjpeg's headers exist) from the checkout's sources, with
-             nvcc's register and spill lines;
+2. build   - kernels K1, K2, K3, K8 and K10 (one nvcc for each, all
+             started together, sm_90a) and the native JPEG decoder (g++,
+             where libjpeg's headers exist) from the checkout's sources,
+             with nvcc's register and spill lines;
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
@@ -19,6 +19,11 @@ Phases, one line each, any failure raises:
              <= 2e-2;
              K10 at labels (256, 2) x cells (2203, 2), tau 75 km, max abs
              error <= 2e-5 (the repo's bound for the smoothing kernel);
+             K3 at the calibration shape q/k/v (80, 577, 16, 64) bf16, max
+             abs error <= 3e-2;
+             K8 at the int8 serving shape x (4, 577, 1024) bf16, H=16,
+             int8 weights quantized from seeded f32 ones, max abs error
+             <= 3e-2;
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -28,7 +33,15 @@ Phases, one line each, any failure raises:
              on a bank or prototype location; the embedding of the kernel
              forward must match the plain-attention forward (cosine >=
              0.999);
-5. train   - the ``finetune`` command's own functions on the same preset
+5. serve_int8 - the same model, assets and command with ``--quant
+             --calib-images`` on the repo's 20 PNG fixtures (80 views):
+             the calibration forward must launch K3 exactly once per layer
+             (24) and K1 never; each request K8 24 times and K1 and K3
+             never; answers as in ``serve``; the int8 embedding within
+             cosine >= 0.99 of the bf16 route's on the same weights and
+             panorama; its request median, forward time, set-up time
+             (quantize and calibration included) and peak memory;
+6. train   - the ``finetune`` command's own functions on the same preset
              and width (panorama, multi-task, heading; 2203 seeded cells;
              32 train and 8 val panoramas from the PNG fixtures, seeded
              labels), batch 8 panoramas, remat ``attn_kernel``: one epoch
@@ -71,6 +84,12 @@ KERNELS = {
     "smooth_labels": (
         "pigeon_tpu_torch/csrc/smooth_labels.cu",
         "pigeon_tpu/kernels/geodesy.py:53"),
+    "flash_attention": (
+        "pigeon_tpu_torch/csrc/flash_attention.cu",
+        "pigeon_tpu/kernels/flash_attention.py:56"),
+    "fused_qkv_attention_int8": (
+        "pigeon_tpu_torch/csrc/fused_qkv_attention_int8.cu",
+        "pigeon_tpu/kernels/flash_attention.py:950"),
 }
 K1_TOL = 3e-2
 #: K2 against its plain version, each output's max abs error over its
@@ -80,6 +99,10 @@ K1_TOL = 3e-2
 #: columns carry that through.
 K2_TOL = 2e-2
 K10_TOL = 2e-5
+K3_TOL = 3e-2
+K8_TOL = 3e-2
+#: The int8 route's embedding against the bf16 route's, same weights.
+INT8_COSINE = 0.99
 NUM_CELLS = 2203
 BANK_ROWS = 16384
 TRAIN_ROWS, VAL_ROWS, TRAIN_BATCH = 32, 8, 8
@@ -221,6 +244,77 @@ def check_smoothing_kernel(seed: int) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_attention_kernel(seed: int) -> dict:
+    """K3 against its plain version at the calibration shape of ``serve
+    --quant --calib-images`` over the 20 fixtures (80 views)."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+
+    b, s, h, dh = 80, 577, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    got = k3.flash_attention(q, k, v)
+    want = k3.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    del want
+    if not finite or not err <= K3_TOL:
+        raise RuntimeError(f"K3 disagrees with its plain version: max abs "
+                           f"error {err} (limit {K3_TOL}), finite={finite}")
+    ms = median_ms(lambda: k3.flash_attention(q, k, v))
+    plain_ms = median_ms(lambda: k3.flash_attention_reference(q, k, v),
+                         runs=10)
+    # 2*B*H*S*S*dh for QK^T and for PV.
+    gflop = 2 * 2 * b * h * s * s * dh / 1e9
+    phase("kernel", name="flash_attention", shape=f"({b},{s},{h},{dh})",
+          max_abs_err=err, tol=K3_TOL, ms=ms, plain_ms=plain_ms,
+          tflops=round(gflop / ms, 1),
+          plain_tflops=round(gflop / plain_ms, 1))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_int8_kernel(seed: int) -> dict:
+    """K8 against its plain version at the int8 serving shape."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.models.quant import quantize_channelwise
+
+    b, s, d, h = 4, 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.nn.functional.layer_norm(
+        torch.randn(b, s, d, generator=gen, device="cuda"), (d,)).bfloat16()
+    act_scale = x.float().abs().max() * 1.1 / 127
+    ops = []
+    for _ in range(3):
+        w_q, scale = quantize_channelwise(
+            torch.randn(d, d, generator=gen, device="cuda") * 0.02)
+        ops += [w_q, scale,
+                torch.randn(d, generator=gen, device="cuda") * 0.02]
+    got = k8.fused_qkv_attention_int8(x, act_scale, *ops, h)
+    want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, h)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    if not finite or not err <= K8_TOL:
+        raise RuntimeError(f"K8 disagrees with its plain version: max abs "
+                           f"error {err} (limit {K8_TOL}), finite={finite}")
+    ms = median_ms(lambda: k8.fused_qkv_attention_int8(x, act_scale, *ops,
+                                                        h))
+    plain_ms = median_ms(lambda: k8.fused_qkv_attention_int8_reference(
+        x, act_scale, *ops, h))
+    # 2*B*S*D*P int8 operations for each projection, 2*B*H*S*S*dh bf16
+    # for QK^T and for PV.
+    gop = (3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64) / 1e9
+    phase("kernel", name="fused_qkv_attention_int8", shape=f"({b},{s},{d})",
+          heads=h, max_abs_err=err, tol=K8_TOL, ms=ms, plain_ms=plain_ms,
+          tops=round(gop / ms, 1), plain_tops=round(gop / plain_ms, 1))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def write_assets(root: str, seed: int) -> list:
     """Geocells, a training bank and its prototypes, as the ``serve``
     command reads them. Every cell gets 1-3 clusters of 2-256 members; the
@@ -266,90 +360,114 @@ def post(url: str, payload: dict):
         return resp.status, json.loads(resp.read())
 
 
-def check_serving(seed: int, n_requests: int) -> int:
-    """The full-width panorama model served over HTTP; returns K1's
-    launches during the requests."""
-    import numpy as np
-    import torch
-
-    from pigeon_tpu_torch.cli.run import build_parser, start_server
-    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
-    from pigeon_tpu_torch.models.clip import MultiHeadAttention
-
+def serve_payloads(n_requests: int) -> list:
+    """Panorama requests built from the repo's PNG fixtures, 4 each."""
     fixtures = sorted(glob.glob(os.path.join(
         HERE, "data", "benchmarks", "sample20", "images", "*.png")))
     if len(fixtures) < 4 * n_requests:
         raise RuntimeError(f"need {4 * n_requests} PNG fixtures, found "
                            f"{len(fixtures)}")
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        pool = np.array(write_assets(root, seed), np.float32)
-        args = build_parser().parse_args([
-            "serve", "pigeon", "--panorama", "-m", "--heading", "--hedge",
-            "--geocells", os.path.join(root, "cells.csv"),
-            "--metadata", os.path.join(root, "meta.csv"),
-            "--prototypes", os.path.join(root, "protos.csv"),
-            "--embeddings", os.path.join(root, "emb"),
-            "--port", "0", "--device", "cuda"])
-        httpd = start_server(args, block=False)
-        try:
-            startup_s = time.perf_counter() - t0
-            service = httpd.RequestHandlerClass.service
-            url = f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict"
-            payloads = []
-            for r in range(n_requests):
-                views = fixtures[4 * r:4 * r + 4]
-                payloads.append({"gameID": "smoke", "roundID": r, **{
-                    key: "data:image/png;base64," + base64.b64encode(
-                        open(path, "rb").read()).decode()
-                    for key, path in zip(
-                        ("image", "image_2", "image_3", "image_4"), views)}})
-            # A CORS preflight first: urllib's first call builds its
-            # opener, which would otherwise be timed as the server's.
-            with urllib.request.urlopen(urllib.request.Request(
-                    url, method="OPTIONS"), timeout=60) as resp:
-                if resp.status != 204:
-                    raise RuntimeError(f"preflight answered {resp.status}")
+    payloads = []
+    for r in range(n_requests):
+        views = fixtures[4 * r:4 * r + 4]
+        payloads.append({"gameID": "smoke", "roundID": r, **{
+            key: "data:image/png;base64," + base64.b64encode(
+                open(path, "rb").read()).decode()
+            for key, path in zip(
+                ("image", "image_2", "image_3", "image_4"), views)}})
+    return payloads
 
-            k1.fused_qkv_attention.launches = 0
-            latencies = []
-            for payload in payloads:
-                t = time.perf_counter()
-                status, body = post(url, payload)
-                latencies.append((time.perf_counter() - t) * 1e3)
-                lat, lng = body["results"]["lat"], body["results"]["lng"]
-                if status != 200 or not (-90 <= lat <= 90
-                                         and -180 <= lng <= 180):
-                    raise RuntimeError(f"bad answer {status} {body}")
-                if not np.isclose(pool, [lng, lat], atol=1e-3).all(-1).any():
-                    raise RuntimeError(f"({lng}, {lat}) is no bank or "
-                                       "prototype location")
-            launches = k1.fused_qkv_attention.launches
-            model = service.serve_fn.model
-            layers = len(model.vision.encoder.layers)
-            if launches != layers * n_requests:
-                raise RuntimeError(f"K1 launched {launches} times for "
-                                   f"{n_requests} requests, not once per "
-                                   f"layer ({layers})")
 
-            # The same panorama through the plain attention route.
-            pixels = service.decode(payloads[0])
-            fused = service.serve_fn(pixels)["embedding"].flatten()
-            attns = [m for m in model.modules()
-                     if isinstance(m, MultiHeadAttention)]
-            for m in attns:
-                m.attn_impl = "plain"
-            plain = service.serve_fn(pixels)["embedding"].flatten()
-            for m in attns:
-                m.attn_impl = "fused"
-            cos = torch.nn.functional.cosine_similarity(
-                fused, plain, dim=0).item()
-            if not cos >= 0.999:
-                raise RuntimeError(f"embedding cosine {cos} < 0.999")
-            layer_ms = time_layers(service, payloads)
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
+def start_serving(root: str, *extra):
+    """The ``serve`` command's `start_server` on the assets under
+    ``root``, on a loopback port; returns the server and its seconds."""
+    from pigeon_tpu_torch.cli.run import build_parser, start_server
+
+    args = build_parser().parse_args([
+        "serve", "pigeon", "--panorama", "-m", "--heading", "--hedge",
+        "--geocells", os.path.join(root, "cells.csv"),
+        "--metadata", os.path.join(root, "meta.csv"),
+        "--prototypes", os.path.join(root, "protos.csv"),
+        "--embeddings", os.path.join(root, "emb"),
+        "--port", "0", "--device", "cuda", *extra])
+    t0 = time.perf_counter()
+    httpd = start_server(args, block=False)
+    return httpd, time.perf_counter() - t0
+
+
+def request_all(httpd, payloads, pool, counters: dict) -> tuple:
+    """A CORS preflight, then each payload over HTTP; every answer must be
+    200 on a bank or prototype location. ``counters`` are set to 0 after
+    the preflight. Returns the latencies (ms) and each counter's
+    launches during the requests."""
+    import numpy as np
+
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict"
+    # A CORS preflight first: urllib's first call builds its opener, which
+    # would otherwise be timed as the server's.
+    with urllib.request.urlopen(urllib.request.Request(
+            url, method="OPTIONS"), timeout=60) as resp:
+        if resp.status != 204:
+            raise RuntimeError(f"preflight answered {resp.status}")
+    for fn in counters.values():
+        fn.launches = 0
+    latencies = []
+    for payload in payloads:
+        t = time.perf_counter()
+        status, body = post(url, payload)
+        latencies.append((time.perf_counter() - t) * 1e3)
+        lat, lng = body["results"]["lat"], body["results"]["lng"]
+        if status != 200 or not (-90 <= lat <= 90 and -180 <= lng <= 180):
+            raise RuntimeError(f"bad answer {status} {body}")
+        if not np.isclose(pool, [lng, lat], atol=1e-3).all(-1).any():
+            raise RuntimeError(f"({lng}, {lat}) is no bank or prototype "
+                               "location")
+    return latencies, {name: fn.launches for name, fn in counters.items()}
+
+
+def check_serving(root: str, pool, n_requests: int) -> tuple:
+    """The full-width panorama model served over HTTP in bf16; returns
+    K1's launches during the requests and the embedding of the first
+    panorama."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+
+    payloads = serve_payloads(n_requests)
+    torch.cuda.reset_peak_memory_stats()
+    httpd, startup_s = start_serving(root)
+    try:
+        service = httpd.RequestHandlerClass.service
+        latencies, launches = request_all(
+            httpd, payloads, pool,
+            {"fused_qkv_attention": k1.fused_qkv_attention})
+        launches = launches["fused_qkv_attention"]
+        model = service.serve_fn.model
+        layers = len(model.vision.encoder.layers)
+        if launches != layers * n_requests:
+            raise RuntimeError(f"K1 launched {launches} times for "
+                               f"{n_requests} requests, not once per "
+                               f"layer ({layers})")
+
+        # The same panorama through the plain attention route.
+        pixels = service.decode(payloads[0])
+        fused = service.serve_fn(pixels)["embedding"].flatten().float()
+        attns = [m for m in model.modules()
+                 if isinstance(m, MultiHeadAttention)]
+        for m in attns:
+            m.attn_impl = "plain"
+        plain = service.serve_fn(pixels)["embedding"].flatten().float()
+        for m in attns:
+            m.attn_impl = "fused"
+        cos = torch.nn.functional.cosine_similarity(
+            fused, plain, dim=0).item()
+        if not cos >= 0.999:
+            raise RuntimeError(f"embedding cosine {cos} < 0.999")
+        layer_ms = time_layers(service, payloads)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
     phase("serve", requests=n_requests, status=200, layers=layers,
           k1_launches=launches,
           median_ms=sorted(latencies)[len(latencies) // 2],
@@ -357,7 +475,74 @@ def check_serving(seed: int, n_requests: int) -> int:
           startup_s=round(startup_s, 3), embedding_cosine=cos,
           peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     phase("layers", **layer_ms)
-    return launches
+    return launches, fused
+
+
+def check_serving_int8(root: str, pool, n_requests: int,
+                       bf16_embedding) -> dict:
+    """The same model, assets and command with ``--quant --calib-images``
+    over the 20 fixtures; returns K3's launches in the calibration and
+    K8's in the requests."""
+    import gc
+
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+
+    counters = {"fused_qkv_attention": k1.fused_qkv_attention,
+                "flash_attention": k3.flash_attention,
+                "fused_qkv_attention_int8": k8.fused_qkv_attention_int8}
+    payloads = serve_payloads(n_requests)
+    calib_dir = os.path.join(HERE, "data", "benchmarks", "sample20",
+                             "images")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    httpd, startup_s = start_serving(root, "--quant", "--calib-images",
+                                     calib_dir)
+    try:
+        service = httpd.RequestHandlerClass.service
+        layers = len(service.serve_fn.model.vision.encoder.layers)
+        # Start-up: one dynamic calibration forward (K3 in every layer),
+        # then the static warm-up request (K8 in every layer).
+        setup = {name: fn.launches for name, fn in counters.items()}
+        if setup != {"fused_qkv_attention": 0, "flash_attention": layers,
+                     "fused_qkv_attention_int8": layers}:
+            raise RuntimeError(f"int8 start-up launched {setup}; expected "
+                               f"K3 {layers} (calibration), K8 {layers} "
+                               "(warm-up), K1 0")
+        latencies, launches = request_all(httpd, payloads, pool, counters)
+        want = {"fused_qkv_attention": 0, "flash_attention": 0,
+                "fused_qkv_attention_int8": layers * n_requests}
+        if launches != want:
+            raise RuntimeError(f"int8 requests launched {launches}, "
+                               f"expected {want}")
+        pixels = service.decode(payloads[0])
+        int8 = service.serve_fn(pixels)["embedding"].flatten().float()
+        cos = torch.nn.functional.cosine_similarity(
+            int8, bf16_embedding, dim=0).item()
+        if not cos >= INT8_COSINE:
+            raise RuntimeError(f"int8 embedding cosine {cos} < "
+                               f"{INT8_COSINE} against the bf16 route")
+        layer_ms = time_layers(service, payloads)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    phase("serve_int8", requests=n_requests, status=200, layers=layers,
+          calib_views=4 * 20, k3_calib_launches=setup["flash_attention"],
+          k8_launches=launches["fused_qkv_attention_int8"],
+          median_ms=sorted(latencies)[len(latencies) // 2],
+          latencies_ms=[round(t, 3) for t in latencies],
+          startup_s=round(startup_s, 3),
+          embedding_cosine_vs_bf16=cos, peak_gib=round(peak_gib, 3))
+    phase("layers_int8", **layer_ms)
+    return {"flash_attention": setup["flash_attention"],
+            "fused_qkv_attention_int8": launches["fused_qkv_attention_int8"]}
 
 
 def time_layers(service, payloads) -> dict:
@@ -615,7 +800,9 @@ def build_kernels() -> None:
 
     from pigeon_tpu_torch import native
     from pigeon_tpu_torch.data import native_decode
+    from pigeon_tpu_torch.kernels import attention as k3
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
     from pigeon_tpu_torch.kernels import geodesy
 
     t0 = time.perf_counter()
@@ -630,6 +817,8 @@ def build_kernels() -> None:
     k.load()
     k.load_backward()
     geodesy.load()
+    k3.load()
+    k8.load()
     phase("build", kernels=len(built), wall_seconds=round(wall, 3),
           native_decode="built" if native_decode.available()
           else "unavailable (PIL decodes)")
@@ -641,6 +830,7 @@ def main() -> int:
     parser.add_argument("--requests", type=int, default=5)
     args = parser.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -659,10 +849,19 @@ def main() -> int:
     build_kernels()
     records = {"fused_qkv_attention": check_kernel(args.seed),
                "fused_qkv_attention_bwd": check_backward_kernel(args.seed),
-               "smooth_labels": check_smoothing_kernel(args.seed)}
-    serve_launches = check_serving(args.seed, args.requests)
+               "smooth_labels": check_smoothing_kernel(args.seed),
+               "flash_attention": check_attention_kernel(args.seed),
+               "fused_qkv_attention_int8": check_int8_kernel(args.seed)}
+    with tempfile.TemporaryDirectory() as root:
+        pool = np.array(write_assets(root, args.seed), np.float32)
+        serve_launches, bf16_embedding = check_serving(root, pool,
+                                                       args.requests)
+        int8_launches = check_serving_int8(root, pool, args.requests,
+                                           bf16_embedding)
+    del bf16_embedding
     launches = check_training(args.seed)
     launches["fused_qkv_attention"] += serve_launches
+    launches.update(int8_launches)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name], **records[name]}

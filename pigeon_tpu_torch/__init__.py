@@ -16,11 +16,13 @@ Layout:
               (label smoothing, the GeoGuessr score)
     kernels/  hand-written CUDA kernels with their plain PyTorch versions:
               fused QKV attention forward (K1) and backward (K2) as one
-              autograd Function, haversine label smoothing (K10)
+              autograd Function, attention on separate q/k/v (K3), int8
+              fused QKV attention (K8), haversine label smoothing (K10)
     csrc/     the kernels' CUDA C++ sources (nvcc, sm_90a, ctypes-bound)
-    models/   CLIP vision tower (with the training remat policy), geocell
-              head and its loss, SuperGuessr, proto refiner, and the
-              weight bridge from JAX parameter trees
+    models/   CLIP vision tower (with the training remat policy and the
+              int8 layers of models/quant.py), geocell head and its
+              loss, SuperGuessr, proto refiner, and the weight bridge
+              from JAX parameter trees
     data/     uint8 image decode/resize, device-side normalisation, and
               the CSV image pipeline for training
     train/    refiner presets, the finetune model builder, train and eval

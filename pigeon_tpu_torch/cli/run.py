@@ -4,7 +4,11 @@ Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` and `cmd_finetune` (on
 pixels), with their flags for these paths. Models are built in bf16 with
 f32 parameters and attention through kernel K1 (and K2 in the backward).
 ``serve`` answers with a seeded initialisation (restoring a trained
-checkpoint into it is not ported yet). ``finetune`` trains from a seeded
+checkpoint into it is not ported yet); ``serve --quant`` first makes its
+tower int8: the weights quantized per output channel, the activation
+scales calibrated by one dynamic forward (attention through kernel K3)
+over ``--calib-images`` or a seeded synthetic batch; requests then run
+every layer's attention through kernel K8. ``finetune`` trains from a seeded
 initialisation, evaluates each epoch, keeps the best checkpoint under
 ``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
@@ -13,7 +17,8 @@ Geocell, prototype and serving metadata CSVs are read with the stdlib
 Usage:
     python -m pigeon_tpu_torch.cli.run serve pigeon --panorama -m \
         --heading --geocells data/geocells.csv [--prototypes P.csv \
-        --embeddings DIR --metadata META.csv [--hedge]]
+        --embeddings DIR --metadata META.csv [--hedge]] \
+        [--quant [--calib-images DIR]]
     python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
         --images DIR --geocells C.csv --panorama -m --heading \
         [--batch-size N] [--epochs N] [--resume]
@@ -24,8 +29,9 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
-import logging
 import functools
+import glob
+import logging
 import os
 import sys
 from http.server import ThreadingHTTPServer
@@ -44,6 +50,11 @@ logger = logging.getLogger("pigeon_tpu_torch.cli")
 
 #: Seed of the initial weights (the JAX CLI initialises from PRNGKey(0)).
 INIT_SEED = 0
+#: Seed of the synthetic calibration batch of ``serve --quant`` without
+#: ``--calib-images`` (the JAX CLI draws it from PRNGKey(3)).
+CALIB_SEED = 3
+#: At most this many ``--calib-images`` are read (`run.py:1408-1442`).
+MAX_CALIB_IMAGES = 32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,6 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="finetune: continue from the latest checkpoint")
     p.add_argument("--hedge", action="store_true",
                    help="hedge refined guesses for competitive play")
+    p.add_argument("--quant", action="store_true",
+                   help="serve: int8 W8A8 vision tower (activation "
+                        "scales calibrated at startup)")
+    p.add_argument("--calib-images", default=None,
+                   help="serve --quant: calibrate on up to 32 images of "
+                        "this directory (default: a synthetic batch)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--panorama", action="store_true",
@@ -150,9 +167,62 @@ def load_refine_assets(args):
     return rows, emb, lla
 
 
+def serve_calibration_batch(args, cfg):
+    """``(N, [4,] S, S, 3)`` CLIP-normalised f32 calibration pixels from
+    up to 32 images of ``--calib-images``, each tiled over the 4 views of
+    a panorama model; None without the flag
+    (`pigeon_tpu/cli/run.py::_serve_calibration_batch`)."""
+    if not args.calib_images:
+        return None
+    from PIL import Image
+
+    from pigeon_tpu_torch.data.image_ops import clip_preprocess_pil
+
+    files = sorted(
+        f for f in glob.glob(os.path.join(args.calib_images, "*"))
+        if f.lower().endswith((".jpg", ".jpeg", ".png", ".webp"))
+    )[:MAX_CALIB_IMAGES]
+    if not files:
+        raise SystemExit(f"--calib-images {args.calib_images}: no images "
+                         "found")
+    pixels = []
+    for f in files:
+        with Image.open(f) as im:
+            pixels.append(clip_preprocess_pil(im, cfg.vision.image_size))
+    batch = np.stack(pixels)
+    if cfg.head.panorama:
+        batch = np.repeat(batch[:, None], 4, axis=1)
+    return torch.from_numpy(batch)
+
+
+def quantize_for_inference(args, cfg, model, device):
+    """``model`` with an int8 tower calibrated on ``--calib-images``
+    (margin 1.1) or on a seeded N(0, 1) batch of 2 inputs (margin 1.25:
+    synthetic activations lack real tails), on ``device``
+    (`pigeon_tpu/cli/run.py::cmd_serve`, `_quantize_for_inference`)."""
+    from pigeon_tpu_torch.models.quant import quantize_and_calibrate
+
+    calib = serve_calibration_batch(args, cfg)
+    if calib is None:
+        views = (4,) if cfg.head.panorama else ()
+        size = cfg.vision.image_size
+        calib = torch.randn((2, *views, size, size, 3),
+                            generator=torch.Generator().manual_seed(
+                                CALIB_SEED))
+        margin, source = 1.25, "a synthetic batch (pass --calib-images " \
+            "DIR for real-data calibration)"
+    else:
+        margin, source = 1.1, f"{calib.shape[0]} real images"
+    model = quantize_and_calibrate(model.to(device), calib.to(device),
+                                   tower_key="vision", margin=margin)
+    logger.warning("int8 W8A8 tower enabled (activation scales calibrated "
+                   "on %s, margin %s)", source, margin)
+    return model
+
+
 def start_server(args, block: bool = True) -> ThreadingHTTPServer:
-    """Build the model, serving forward and refiner on ``--device``, warm
-    them up, and start the HTTP server."""
+    """Build the model (int8 with ``--quant``), serving forward and
+    refiner on ``--device``, warm them up, and start the HTTP server."""
     from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
     from pigeon_tpu_torch.serve import PredictionService, serve
     from pigeon_tpu_torch.serve.server import make_serving_fn
@@ -168,6 +238,8 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
                     attn_impl="fused"), INIT_SEED)
     logger.warning("weights: seeded initialisation (seed %d); checkpoint "
                    "restore is not ported yet", INIT_SEED)
+    if args.quant:
+        model = quantize_for_inference(args, cfg, model, device)
     serve_fn = make_serving_fn(model, cfg.head, cells, device)
 
     refine_fn = None

@@ -1,7 +1,7 @@
 """Image preprocessing: host resize + crop, device normalise.
 
 Counterpart of `pigeon_tpu/data/image_ops.py::resize_crop_pil`,
-`normalize_images` and `heading_to_sincos`. Views cross to the device as
+`normalize_images`, `clip_preprocess_pil` and `heading_to_sincos`. Views cross to the device as
 uint8 (a quarter of the bytes of f32) and are CLIP-normalised there.
 """
 
@@ -38,6 +38,13 @@ def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
     return (x - mean) / std
+
+
+def clip_preprocess_pil(image, image_size: int = 336) -> np.ndarray:
+    """PIL image -> CLIP-normalised ``(S, S, 3)`` f32 numpy array: the
+    resize and crop of `resize_crop_pil`, then `normalize_images`."""
+    return normalize_images(
+        torch.tensor(resize_crop_pil(image, image_size))).numpy()
 
 
 def heading_to_sincos(heading_deg) -> np.ndarray:

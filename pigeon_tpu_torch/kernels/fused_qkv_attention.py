@@ -34,6 +34,7 @@ import functools
 import torch
 
 from pigeon_tpu_torch import native
+from pigeon_tpu_torch.kernels.attention import flash_attention_reference
 
 #: The head width the kernel is written for (ViT-B and ViT-L both use 64).
 HEAD_DIM = 64
@@ -46,26 +47,23 @@ def fused_qkv_attention_reference(x, wq, wk, wv, bq, bk, bv,
     """Plain PyTorch K1: ``(B, S, D) -> (B, S, P)``, heads concatenated.
 
     The projections accumulate in f32, add the bias in f32 and round to
-    ``x.dtype``; the softmax runs in f32 with the row max subtracted;
-    ``p`` is rounded to ``x.dtype`` for the product with ``v`` and the f32
-    denominator divides the ``(S, dh)`` output — the arithmetic of
+    ``x.dtype``; the attention is K3's plain version
+    (:func:`~pigeon_tpu_torch.kernels.attention.flash_attention_reference`:
+    f32 softmax with the row max subtracted, ``p`` rounded to ``x.dtype``
+    for the product with ``v``, the f32 denominator dividing the
+    ``(S, dh)`` output) — the arithmetic of
     `flash_attention.py::_fused_qkv_kernel` and `_heads_attention`.
     """
     b, s, _ = x.shape
     p = wq.shape[0]
-    dh = p // num_heads
     xf = x.float()
 
     def proj(w, bias):
         y = xf @ w.float().t() + bias.float()
-        return y.to(x.dtype).view(b, s, num_heads, dh).transpose(1, 2)
+        return y.to(x.dtype).view(b, s, num_heads, p // num_heads)
 
-    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)    # (B, H, S, dh)
-    logits = (q.float() @ k.float().transpose(-1, -2)) * dh ** -0.5
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
-    denom = probs.sum(-1, keepdim=True)
-    out = (probs.to(x.dtype).float() @ v.float()) / denom
-    return out.to(x.dtype).transpose(1, 2).reshape(b, s, p)
+    return flash_attention_reference(
+        proj(wq, bq), proj(wk, bk), proj(wv, bv)).reshape(b, s, p)
 
 
 @functools.lru_cache(maxsize=None)

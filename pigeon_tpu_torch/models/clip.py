@@ -8,14 +8,28 @@ Numerics follow the JAX package: parameters are f32 and are cast to the
 compute dtype (bf16 when serving) at each use; LayerNorm statistics run
 in f32 and round to the compute dtype; the attention softmax is f32.
 
-Attention has two routes, with one parameter layout (``q_proj``,
-``k_proj``, ``v_proj``, ``out_proj`` Linears):
+Attention has three routes, with one parameter layout (``q_proj``,
+``k_proj``, ``v_proj``, ``out_proj``):
 
 * ``"fused"`` — the q/k/v projections and the attention run in kernel K1
   and its gradient in kernel K2 (`kernels/fused_qkv_attention.py`,
   `FusedQKVAttention`), the `flash_fused` route of the JAX package;
+* ``"flash"`` — separate projections, then kernel K3
+  (`kernels/attention.py`), the JAX package's `flash` route; forward
+  only (its backward, K4, is not ported);
 * ``"plain"`` — separate projections and plain PyTorch attention, the
   JAX package's `xla` route.
+
+``quant`` makes the tower int8 (`models/quant.py`): every q/k/v/out/fc1/
+fc2 Linear and the patch embed become `QuantLinear` layers. With
+``"static"`` activation scales the ``"fused"`` route runs kernel K8
+(`kernels/fused_qkv_attention_int8.py`) and then a static int8
+``out_proj``; with ``"dynamic"`` scales (the calibration forward) every
+route projects separately and ``"fused"`` attends through K3, as the JAX
+package's precedence (`pigeon_tpu/models/clip.py:188-311`). Where a
+LayerNorm feeds a quantize (LN1 and LN2 of an int8 layer) it takes Flax's
+variance, ``E[x^2] - E[x]^2`` in f32, so the requantize boundaries fall
+where the JAX package's do.
 
 Training remats the tower layer by layer (``remat``, the JAX package's
 `_remat_policy_names`):
@@ -44,13 +58,23 @@ from torch.utils.checkpoint import (
 )
 
 from pigeon_tpu_torch.config import VisionConfig
+from pigeon_tpu_torch.kernels.attention import FlashAttention
 from pigeon_tpu_torch.kernels.fused_qkv_attention import (
     FUSED_QKV_ATTENTION_OP,
     FusedQKVAttention,
 )
+from pigeon_tpu_torch.kernels.fused_qkv_attention_int8 import (
+    fused_qkv_attention_int8,
+)
+from pigeon_tpu_torch.models.quant import (
+    QuantLinear,
+    QuantPatchEmbed,
+    quant_mode,
+)
 
-ATTN_IMPLS = ("fused", "plain")
+ATTN_IMPLS = ("fused", "flash", "plain")
 REMATS = ("none", "attn_kernel")
+QUANTS = (False, "dynamic", "static")
 
 #: Set while a layer computes a tensor that the ``attn_kernel`` policy
 #: saves by name (the JAX package's ``checkpoint_name``).
@@ -91,6 +115,32 @@ def layer_norm(layer: nn.LayerNorm, x):
                         layer.bias, layer.eps).to(x.dtype)
 
 
+def flax_layer_norm(layer: nn.LayerNorm, x):
+    """LayerNorm in Flax's form (`flax.linen.LayerNorm`): f32 mean and
+    ``var = max(E[x^2] - E[x]^2, 0)``, then ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``, rounded back to ``x.dtype``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + layer.eps) * layer.weight
+    return ((xf - mean) * mul + layer.bias).to(x.dtype)
+
+
+def make_linear(in_features: int, out_features: int, quant=False):
+    """An ``nn.Linear``, or a `QuantLinear` in mode ``quant``."""
+    if quant not in QUANTS:
+        raise ValueError(f"quant={quant!r}, not in {QUANTS}")
+    if quant:
+        return QuantLinear(in_features, out_features, mode=quant)
+    return nn.Linear(in_features, out_features)
+
+
+def linear(layer: nn.Module, x):
+    """``layer`` applied in ``x.dtype``: `dense` for an ``nn.Linear``, the
+    layer itself for a `QuantLinear`."""
+    return layer(x) if isinstance(layer, QuantLinear) else dense(layer, x)
+
+
 def plain_attention(q, k, v):
     """``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``: products in the
     input dtype, softmax in f32 (`pigeon_tpu.models.clip.xla_attention`
@@ -127,64 +177,78 @@ class PatchEmbed(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
-                 attn_impl: str = "fused"):
+                 attn_impl: str = "fused", quant=False):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}, not in {ATTN_IMPLS}")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.q_proj = nn.Linear(hidden_size, hidden_size)
-        self.k_proj = nn.Linear(hidden_size, hidden_size)
-        self.v_proj = nn.Linear(hidden_size, hidden_size)
-        self.out_proj = nn.Linear(hidden_size, hidden_size)
+        self.q_proj = make_linear(hidden_size, hidden_size, quant)
+        self.k_proj = make_linear(hidden_size, hidden_size, quant)
+        self.v_proj = make_linear(hidden_size, hidden_size, quant)
+        self.out_proj = make_linear(hidden_size, hidden_size, quant)
 
     def forward(self, x):
         b, s, d = x.shape
-        if self.attn_impl == "fused":
-            projs = (self.q_proj, self.k_proj, self.v_proj)
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        quant = quant_mode(self.q_proj)
+        if self.attn_impl == "fused" and quant == "static":
+            # q/k/v see the same input, so calibration freezes the same
+            # scale for each; the kernel quantizes x once at their max.
+            act_scale = torch.maximum(
+                torch.maximum(self.q_proj.act_scale, self.k_proj.act_scale),
+                self.v_proj.act_scale)
+            out = fused_qkv_attention_int8(
+                x.contiguous(), act_scale,
+                *(t for p in projs for t in (p.weight, p.scale, p.bias)),
+                self.num_heads)
+        elif self.attn_impl == "fused" and not quant:
             out = FusedQKVAttention.apply(
                 x.contiguous(), *(p.weight.to(x.dtype) for p in projs),
                 *(p.bias.to(x.dtype) for p in projs), self.num_heads)
         else:
             heads = (b, s, self.num_heads, d // self.num_heads)
-            out = plain_attention(
-                dense(self.q_proj, x).view(heads),
-                dense(self.k_proj, x).view(heads),
-                dense(self.v_proj, x).view(heads)).reshape(b, s, d)
+            attend = (plain_attention if self.attn_impl == "plain"
+                      else FlashAttention.apply)
+            out = attend(*(linear(p, x).view(heads) for p in projs)) \
+                .reshape(b, s, d)
         with saved_by_remat():
-            return dense(self.out_proj, out)
+            return linear(self.out_proj, out)
 
 
 class TransformerLayer(nn.Module):
     """Pre-LN block: ``x += attn(LN1(x)); x += fc2(gelu(fc1(LN2(x))))``."""
 
-    def __init__(self, config: VisionConfig, attn_impl: str = "fused"):
+    def __init__(self, config: VisionConfig, attn_impl: str = "fused",
+                 quant=False):
         super().__init__()
         if config.hidden_act != "quick_gelu":
             raise ValueError(f"hidden_act={config.hidden_act!r}: the port "
                              "implements CLIP's quick_gelu only")
         d = config.hidden_size
         self.ln1 = nn.LayerNorm(d, eps=config.layer_norm_eps)
-        self.attn = MultiHeadAttention(d, config.num_heads, attn_impl)
+        self.attn = MultiHeadAttention(d, config.num_heads, attn_impl, quant)
         self.ln2 = nn.LayerNorm(d, eps=config.layer_norm_eps)
-        self.fc1 = nn.Linear(d, config.intermediate_size)
-        self.fc2 = nn.Linear(config.intermediate_size, d)
+        self.fc1 = make_linear(d, config.intermediate_size, quant)
+        self.fc2 = make_linear(config.intermediate_size, d, quant)
 
     def forward(self, x):
-        x = x + self.attn(layer_norm(self.ln1, x))
-        h = quick_gelu(dense(self.fc1, layer_norm(self.ln2, x)))
-        return x + dense(self.fc2, h)
+        # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
+        norm = flax_layer_norm if quant_mode(self.fc1) else layer_norm
+        x = x + self.attn(norm(self.ln1, x))
+        h = quick_gelu(linear(self.fc1, norm(self.ln2, x)))
+        return x + linear(self.fc2, h)
 
 
 class TransformerStack(nn.Module):
     def __init__(self, config: VisionConfig, attn_impl: str = "fused",
-                 remat: str = "none"):
+                 remat: str = "none", quant=False):
         super().__init__()
         if remat not in REMATS:
             raise ValueError(f"remat={remat!r}, not in {REMATS}")
         self.remat = remat
         self.layers = nn.ModuleList(
-            TransformerLayer(config, attn_impl)
+            TransformerLayer(config, attn_impl, quant)
             for _ in range(config.num_layers))
 
     def forward(self, x):
@@ -202,18 +266,23 @@ class TransformerStack(nn.Module):
 
 class CLIPVisionTower(nn.Module):
     """CLIP ViT encoder: NHWC CLIP-normalised pixels ->
-    ``(last_hidden (B, S, D), pooled (B, D))`` in the compute dtype."""
+    ``(last_hidden (B, S, D), pooled (B, D))`` in the compute dtype.
+    ``quant`` (False, ``"dynamic"`` or ``"static"``) builds the int8 tower
+    that `models.quant.quantize_tower` fills."""
 
     def __init__(self, config: VisionConfig, dtype=torch.float32,
-                 attn_impl: str = "fused", remat: str = "none"):
+                 attn_impl: str = "fused", remat: str = "none", quant=False):
         super().__init__()
         d = config.hidden_size
+        self.config = config
         self.dtype = dtype
-        self.patch_embed = PatchEmbed(d, config.patch_size)
+        self.attn_impl = attn_impl
+        self.patch_embed = (QuantPatchEmbed(d, config.patch_size, mode=quant)
+                            if quant else PatchEmbed(d, config.patch_size))
         self.cls_token = nn.Parameter(torch.empty(d))
         self.pos_embed = nn.Parameter(torch.empty(config.seq_len, d))
         self.pre_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
-        self.encoder = TransformerStack(config, attn_impl, remat)
+        self.encoder = TransformerStack(config, attn_impl, remat, quant)
         self.post_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
 
     def forward(self, pixel_values):

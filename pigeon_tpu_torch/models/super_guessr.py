@@ -28,17 +28,22 @@ class SuperGuessr(nn.Module):
 
     Parameters are f32; the forward computes in ``dtype`` (bf16 on the
     card). ``attn_impl`` selects the tower's attention route (``"fused"``:
-    kernels K1 and K2; ``"plain"``: separate projections); ``remat`` the
-    tower's training remat policy (``"none"`` or ``"attn_kernel"``).
+    kernels K1 and K2, or K8 when int8; ``"flash"``: separate projections
+    and kernel K3; ``"plain"``: separate projections); ``remat`` the
+    tower's training remat policy (``"none"`` or ``"attn_kernel"``);
+    ``quant`` (False, ``"dynamic"`` or ``"static"``) an int8 tower
+    (`models/quant.py`), which `models.quant.quantize_and_calibrate` also
+    makes from a float model.
     """
 
     def __init__(self, vision_config: VisionConfig, head_config: HeadConfig,
                  dtype=torch.float32, attn_impl: str = "fused",
-                 remat: str = "none"):
+                 remat: str = "none", quant=False):
         super().__init__()
         self.head_config = head_config
         self.vision = CLIPVisionTower(vision_config, dtype=dtype,
-                                      attn_impl=attn_impl, remat=remat)
+                                      attn_impl=attn_impl, remat=remat,
+                                      quant=quant)
         self.head = GeocellHead(head_config, dtype=dtype)
 
     def forward(self, pixel_values: torch.Tensor,

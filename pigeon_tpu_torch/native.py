@@ -4,8 +4,9 @@ The port's CUDA kernels (`csrc/*.cu`, compiled by ``nvcc`` for
 ``sm_90a``) and the repo's host decoder (`native/decode.cpp`, by ``g++``)
 are compiled on the machine that runs them, into ``build/`` at the root
 of the checkout (listed in ``.gitignore``). A library's file name carries
-a hash of its source and command, so an edited source is rebuilt and a
-stale library is never loaded. The output is written to a temporary name
+a hash of its source, the local headers it includes (``#include "..."``,
+followed recursively) and its command, so an edited source or header is
+rebuilt and a stale library is never loaded. The output is written to a temporary name
 and renamed into place, so concurrent builds never expose a partial
 file.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,6 +49,47 @@ def nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_closure(src_path: str) -> list:
+    """``src_path`` and every local header it includes, recursively
+    (quoted includes, resolved beside the including file), in a fixed
+    order."""
+    seen, order = set(), []
+
+    def visit(path: str) -> None:
+        path = os.path.abspath(path)
+        if path in seen:
+            return
+        seen.add(path)
+        order.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _LOCAL_INCLUDE.findall(text):
+            header = os.path.join(os.path.dirname(path), name.decode())
+            if os.path.exists(header):
+                visit(header)
+
+    visit(src_path)
+    return order
+
+
+def library_path(src_path: str, compiler: Sequence[str],
+                 flags: Sequence[str] = (), libs: Sequence[str] = ()) -> str:
+    """Where ``build_shared`` puts the library: ``build/lib<stem>-<hash>.so``
+    with the hash over the source, its local headers and the command."""
+    digest = hashlib.sha256()
+    for path in source_closure(src_path):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read() + b"\0")
+    digest.update("\0".join([os.path.basename(compiler[0]), *compiler[1:],
+                             *flags, *libs]).encode())
+    stem = os.path.splitext(os.path.basename(src_path))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
 def build_shared(src_path: str, compiler: Sequence[str],
                  flags: Sequence[str] = (), libs: Sequence[str] = ()
                  ) -> Built:
@@ -55,13 +98,7 @@ def build_shared(src_path: str, compiler: Sequence[str],
     Raises ``RuntimeError`` with the compiler's output when the build
     fails, and ``FileNotFoundError`` when the source or compiler is
     missing."""
-    with open(src_path, "rb") as f:
-        source = f.read()
-    cmd_key = "\0".join([os.path.basename(compiler[0]), *compiler[1:],
-                         *flags, *libs]).encode()
-    digest = hashlib.sha256(source + b"\0" + cmd_key).hexdigest()[:16]
-    stem = os.path.splitext(os.path.basename(src_path))[0]
-    lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    lib_path = library_path(src_path, compiler, flags, libs)
     if os.path.exists(lib_path):
         return Built(lib_path, "", 0.0)
     os.makedirs(BUILD_DIR, exist_ok=True)

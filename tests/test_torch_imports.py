@@ -22,7 +22,8 @@ def test_every_module_imports_with_jax_blocked():
     modules = port_modules()
     assert {f"pigeon_tpu_torch.{name}" for name in (
         "serve.server", "cli.run", "kernels.fused_qkv_attention",
-        "kernels.geodesy", "core.geodesy", "core.scoring",
+        "kernels.attention", "kernels.fused_qkv_attention_int8",
+        "models.quant", "kernels.geodesy", "core.geodesy", "core.scoring",
         "models.geocell_head", "data.pipeline", "train.modes",
         "train.train_loop", "train.metrics", "train.loop",
         "train.checkpoints")} <= set(modules)

@@ -389,3 +389,31 @@ def test_cuda_smoothing_kernel_matches_plain_version(cuda, b, c):
     # 2e-5: the repo's bound for the smoothing kernel.
     assert (got - want).abs().max().item() <= 2e-5
     assert bool((got.max(-1).values == 1.0).all())
+
+
+def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
+    """K1, K3 and K8 share `csrc/attention_tile.cuh`: editing a header
+    must give every library that includes it a new name, so a stale
+    build is never loaded."""
+    import os
+
+    from pigeon_tpu_torch import native
+
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "tile.cuh").write_text('#include "inner.cuh"\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "tile.cuh"\n')
+
+    def name():
+        return native.library_path(str(src), ["nvcc"], native.NVCC_FLAGS)
+
+    first = name()
+    assert first == name()
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    assert name() != first
+    for kernel in ("fused_qkv_attention", "flash_attention",
+                   "fused_qkv_attention_int8"):
+        closure = native.source_closure(
+            os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
+        assert [os.path.basename(p) for p in closure] == [
+            f"{kernel}.cu", "attention_tile.cuh"]

@@ -1,7 +1,8 @@
 """The PyTorch port's server over real HTTP on loopback: the ``serve``
 command's startup path (`cli.run.start_server`) with the tiny config on
-``--device cpu``, the bot protocol's replies, and the wiring of geocells
-and refinement assets."""
+``--device cpu``, bf16 and int8 (``--quant``), the bot protocol's
+replies, and the wiring of geocells, calibration images and refinement
+assets."""
 
 import base64
 import glob
@@ -12,6 +13,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from pigeon_tpu_torch.cli.run import build_parser, main, start_server
 
@@ -115,6 +117,50 @@ def test_invalid_json_game_log_and_unknown_path(panorama_server):
     assert status == 404
 
 
+@pytest.mark.parametrize("calib", ["synthetic", "images"])
+def test_quant_server_answers_a_panorama(tmp_path, calib):
+    """``serve --quant`` quantizes and calibrates the tower at start-up
+    (on the fixtures or a seeded synthetic batch), then answers."""
+    from pigeon_tpu_torch.models.quant import QuantLinear
+
+    cells = write_cells(tmp_path)
+    extra = (["--calib-images", os.path.dirname(FIXTURES[0])]
+             if calib == "images" else [])
+    httpd = start_server(serve_args(tmp_path, "--panorama", "-m",
+                                    "--heading", "--quant", *extra),
+                         block=False)
+    try:
+        model = httpd.RequestHandlerClass.service.serve_fn.model
+        layers = [m for m in model.modules() if isinstance(m, QuantLinear)]
+        # 6 per encoder layer and the patch embed, all calibrated.
+        assert len(layers) == 6 * 2 + 1
+        assert all(m.mode == "static" and float(m.act_scale) != 1.0
+                   for m in layers)
+        status, body = post(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict",
+            panorama(12))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert status == 200
+    lat, lng = body["results"]["lat"], body["results"]["lng"]
+    assert np.isclose(cells, [lng, lat], atol=1e-4).all(-1).any()
+
+
+def test_calibration_batch_tiles_images_over_the_views(tmp_path):
+    from pigeon_tpu_torch.cli.run import make_config, serve_calibration_batch
+
+    args = serve_args(tmp_path, "--panorama", "--quant", "--calib-images",
+                      os.path.dirname(FIXTURES[0]))
+    batch = serve_calibration_batch(args, make_config(args))
+    assert batch.shape == (len(FIXTURES), 4, 64, 64, 3)
+    assert batch.dtype == torch.float32
+    assert torch.equal(batch[:, 0], batch[:, 3])
+    args.calib_images = str(tmp_path)              # no image there
+    with pytest.raises(SystemExit, match="no images"):
+        serve_calibration_batch(args, make_config(args))
+
+
 def test_serve_wires_refinement_assets_with_hedge(tmp_path):
     """--prototypes/--embeddings/--metadata --hedge put the refiner in the
     HTTP path: the answer is an exact bank or prototype location, never a
@@ -167,6 +213,7 @@ def test_serve_wires_refinement_assets_with_hedge(tmp_path):
 @pytest.mark.parametrize("flags, message", [
     (["--device", "cpu", "--hedge"], "--hedge requires"),
     (["--device", "cuda"], "no CUDA device"),
+    (["--device", "cuda", "--quant"], "no CUDA device"),
 ])
 def test_serve_refuses_what_it_cannot_do(tmp_path, flags, message):
     """Hedging without a bank, and a CUDA device that is absent, stop the
@@ -186,6 +233,9 @@ def test_parser_takes_the_jax_clis_serve_flags():
         "serve", "run1", "--panorama", "-m", "--heading", "--yfcc",
         "--geocells", "c.csv", "--prototypes", "p.csv", "--embeddings",
         "e", "--metadata", "m.csv", "--hedge", "--host", "0.0.0.0",
-        "--port", "8080"])
+        "--port", "8080", "--quant", "--calib-images", "imgs"])
     assert args.panorama and args.multitask and args.heading and args.yfcc
     assert (args.device, args.port, args.host) == ("cuda", 8080, "0.0.0.0")
+    assert args.quant and args.calib_images == "imgs"
+    defaults = build_parser().parse_args(["serve"])
+    assert not defaults.quant and defaults.calib_images is None
