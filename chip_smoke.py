@@ -6,10 +6,10 @@
 Phases, one line each, any failure raises:
 
 1. device  - the card's name and power limit (nvidia-smi);
-2. build   - kernels K1, K2, K3, K8 and K10 (one nvcc for each, all
-             started together, sm_90a) and the native JPEG decoder (g++,
-             where libjpeg's headers exist) from the checkout's sources,
-             with nvcc's register and spill lines;
+2. build   - kernels K1, K2, K3, K4, K5, K8, K9 and K10 (one nvcc for
+             each, all started together, sm_90a) and the native JPEG
+             decoder (g++, where libjpeg's headers exist) from the
+             checkout's sources, with nvcc's register and spill lines;
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
@@ -24,6 +24,19 @@ Phases, one line each, any failure raises:
              K8 at the int8 serving shape x (4, 577, 1024) bf16, H=16,
              int8 weights quantized from seeded f32 ones, max abs error
              <= 3e-2;
+             K4 at the ``flash`` training shape q/k/v/g (32, 577, 16, 64)
+             bf16, each of dq/dk/dv's max abs error over its max
+             magnitude <= 2e-2 (K2's bound);
+             K5 at the serving shape, raw x (4, 577, 1024) bf16 with f32
+             LN parameters, max abs error over max magnitude <= 2e-2;
+             K9 at the training shape x (32, 577, 1024), I=4096, max abs
+             error over max magnitude <= 2e-2; for K5 and K9 the plain
+             version with the LN parameters dropped must miss by more
+             than twice the limit, so the check can fail a kernel that
+             drops them;
+             PyTorch's scaled_dot_product_attention forward at K3's shape
+             and its backward at K4's are timed as yardsticks, never on a
+             path;
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -39,9 +52,20 @@ Phases, one line each, any failure raises:
              (24) and K1 never; each request K8 24 times and K1 and K3
              never; answers as in ``serve``; the int8 embedding within
              cosine >= 0.99 of the bf16 route's on the same weights and
-             panorama; its request median, forward time, set-up time
-             (quantize and calibration included) and peak memory;
-6. train   - the ``finetune`` command's own functions on the same preset
+             panorama; then one int8 forward on the ``flash`` route
+             (``serve --quant`` under ``PIGEON_ATTN_IMPL=flash``: static
+             int8 projections, K3 24 times, K8 and K1 never), its
+             embedding within cosine >= 0.99 of the bf16 route's; the
+             request median, forward times, set-up time (quantize and
+             calibration included) and peak memory;
+6. serve_routes - the same assets and command under
+             ``PIGEON_ATTN_IMPL=flash_fused_mlp``: each request 200 on a
+             bank or prototype location, launching K5 and K9 24 times
+             each and K1 and K3 never; then one panorama's serving forward
+             under ``flash`` (K3 24 times a forward) and
+             ``flash_fused_ln`` (K5 24 times); each route's embedding
+             within cosine >= 0.999 of the ``flash_fused`` route's;
+7. train   - the ``finetune`` command's own functions on the same preset
              and width (panorama, multi-task, heading; 2203 seeded cells;
              32 train and 8 val panoramas from the PNG fixtures, seeded
              labels), batch 8 panoramas, remat ``attn_kernel``: one epoch
@@ -52,7 +76,15 @@ Phases, one line each, any failure raises:
              (plain attention under autograd, plain smoothing) with cosine
              >= 0.999 and the loss parts within 1e-2 relative; then step
              times, the peak memory under ``attn_kernel`` and ``none``,
-             and ``--resume`` continuing from the checkpoint's step.
+             and ``--resume`` continuing from the checkpoint's step;
+8. train_routes - the ``[train]`` preset, width and batch under remat
+             ``attn_kernel`` on ``flash``, ``flash_fused_ln``,
+             ``flash_fused_mlp`` and ``flash_fused`` with
+             ``PIGEON_FUSED_BWD=xla``: first-batch gradients within cosine
+             >= 0.999 of the plain route's, then 2 steps and an eval batch
+             with finite losses and the exact launch counts that
+             `check_train_routes` states; step time, images/s and peak
+             memory per route.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -63,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import glob
 import json
 import os
@@ -90,7 +123,23 @@ KERNELS = {
     "fused_qkv_attention_int8": (
         "pigeon_tpu_torch/csrc/fused_qkv_attention_int8.cu",
         "pigeon_tpu/kernels/flash_attention.py:950"),
+    "flash_attention_bwd": (
+        "pigeon_tpu_torch/csrc/flash_attention_bwd.cu",
+        "pigeon_tpu/kernels/flash_attention.py:166"),
+    "fused_ln_qkv_attention": (
+        "pigeon_tpu_torch/csrc/fused_ln_qkv_attention.cu",
+        "pigeon_tpu/kernels/flash_attention.py:594"),
+    "fused_mlp": (
+        "pigeon_tpu_torch/csrc/fused_mlp.cu",
+        "pigeon_tpu/kernels/fused_mlp.py:67"),
 }
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
+#: 700 W): operations per second by operand type, and device-memory
+#: bytes per second. A kernel's bound is the largest of its bytes over the
+#: memory rate and its operations of each type over that type's rate (the
+#: tensor cores and the f32 CUDA cores run at the same time).
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 K1_TOL = 3e-2
 #: K2 against its plain version, each output's max abs error over its
 #: max magnitude: the two round u and dl to bf16 from f32 values summed
@@ -101,16 +150,65 @@ K2_TOL = 2e-2
 K10_TOL = 2e-5
 K3_TOL = 3e-2
 K8_TOL = 3e-2
+#: K4 against its plain version, each output's max abs error over its max
+#: magnitude: the passes K2 runs after its projection, so K2's bound.
+K4_TOL = 2e-2
+#: K5 against its plain version, max abs error over the output's max
+#: magnitude: a bf16 output one ulp apart is up to 2^-7 of it, and q/k/v
+#: and p are rounded to bf16 from f32 sums taken in another order.
+K5_TOL = 2e-2
+#: K9 against its plain version, max abs error over the output's max
+#: magnitude: h is rounded to bf16 from f32 sums taken in another order,
+#: and fc2 sums 4096 of them.
+K9_TOL = 2e-2
 #: The int8 route's embedding against the bf16 route's, same weights.
 INT8_COSINE = 0.99
+#: Every other bf16 route's embedding against the ``flash_fused`` one's,
+#: and every route's trainable gradients against the plain route's.
+ROUTE_COSINE = 0.999
 NUM_CELLS = 2203
 BANK_ROWS = 16384
 TRAIN_ROWS, VAL_ROWS, TRAIN_BATCH = 32, 8, 8
+#: [train_routes]: each route takes this many steps and one eval batch.
+ROUTE_STEPS = 2
 
 
 def phase(tag: str, /, **fields) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def bound(ops: dict, nbytes: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel that does ``ops`` (count
+    by operand type) and must move ``nbytes`` (each input read once, each
+    output written once)."""
+    ops_ms = max(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rel_errors(got, want, names) -> dict:
+    """Each output's max abs error over its max magnitude; raises on a
+    value that is not finite."""
+    import torch
+
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        if not bool(torch.isfinite(a.float()).all()):
+            raise RuntimeError(f"{name} is not finite")
+        errs[name] = ((a.float() - w.float()).abs().max()
+                      / w.float().abs().max()).item()
+    return errs
+
+
+def max_abs(got, want) -> float:
+    return max((a.float() - w.float()).abs().max().item()
+               for a, w in zip(got, want))
 
 
 def median_ms(fn, runs: int = 30, warmup: int = 3) -> float:
@@ -157,12 +255,16 @@ def check_kernel(seed: int) -> dict:
     plain_ms = median_ms(lambda: k1.fused_qkv_attention_reference(
         x, *ws, *bs, h))
     # 2*B*S*D*P for each projection, 2*B*H*S*S*dh for QK^T and for PV.
-    gflop = (3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64) / 1e9
+    flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
+    gflop = flop / 1e9
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop}, nbytes(x, *ws, *bs, got)),
+           "library_ms": None}
     phase("kernel", name="fused_qkv_attention", shape=f"({b},{s},{d})",
           heads=h, max_abs_err=err, tol=K1_TOL, ms=ms, plain_ms=plain_ms,
-          tflops=round(gflop / ms, 1),
+          bound_ms=rec["bound_ms"], tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rec
 
 
 def check_backward_kernel(seed: int) -> dict:
@@ -185,17 +287,12 @@ def check_backward_kernel(seed: int) -> dict:
     got = k.fused_qkv_attention_backward(x, *ws, *bs, g, h)
     want = k.fused_qkv_attention_backward_reference(x, *ws, *bs, g, h)
     torch.cuda.synchronize()
-    errs = {}
-    for name, a, w in zip(("dx", "dq", "dk", "dv"), got, want):
-        if not bool(torch.isfinite(a.float()).all()):
-            raise RuntimeError(f"K2's {name} is not finite")
-        errs[name] = ((a.float() - w.float()).abs().max()
-                      / w.float().abs().max()).item()
-    err = max(errs.values())
-    if not err <= K2_TOL:
+    errs = rel_errors(got, want, ("dx", "dq", "dk", "dv"))
+    if not max(errs.values()) <= K2_TOL:
         raise RuntimeError(f"K2 disagrees with its plain version: {errs} "
                            f"(max abs error over max magnitude, limit "
                            f"{K2_TOL})")
+    err = max_abs(got, want)
     ms = median_ms(lambda: k.fused_qkv_attention_backward(
         x, *ws, *bs, g, h))
     plain_ms = median_ms(lambda: k.fused_qkv_attention_backward_reference(
@@ -203,12 +300,18 @@ def check_backward_kernel(seed: int) -> dict:
     # Projection and dx GEMMs 2 x 2*B*S*D*3P; the attention part computes
     # the scores 4 times, dp 3 times, dv, dk and dq once: 10 x 2*B*H*S*S*dh.
     gflop = (2 * 2 * b * s * d * 3 * d + 10 * 2 * b * h * s * s * 64) / 1e9
+    # The bound counts the TPU kernel's work: the projections, five
+    # S x S x dh products a head (scores, dv, dp, dq, dk) and dx.
+    flop = 2 * 2 * b * s * d * 3 * d + 5 * 2 * b * h * s * s * 64
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop}, nbytes(x, *ws, *bs, g, *got)),
+           "library_ms": None}
     phase("kernel", name="fused_qkv_attention_bwd", shape=f"({b},{s},{d})",
           heads=h, **{f"{n}_err": round(e, 6) for n, e in errs.items()},
-          tol=K2_TOL, ms=ms, plain_ms=plain_ms,
-          tflops=round(gflop / ms, 1),
+          tol=K2_TOL, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"], tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rec
 
 
 def check_smoothing_kernel(seed: int) -> dict:
@@ -238,10 +341,15 @@ def check_smoothing_kernel(seed: int) -> dict:
         labels, cells, 75.0))
     plain_ms = median_ms(lambda: geodesy.smooth_labels_reference(
         labels, cells, 75.0))
+    # ~25 f32 operations a (label, cell) pair, a transcendental counted
+    # as one: the haversine, the row minimum and exp((dmin - d) / tau).
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"f32": 25 * got.numel()}, nbytes(labels, cells, got)),
+           "library_ms": None}
     phase("kernel", name="smooth_labels", shape=f"(256,{NUM_CELLS})",
           tau_km=75.0, max_abs_err=err, tol=K10_TOL, ms=ms,
-          plain_ms=plain_ms)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"])
+    return rec
 
 
 def check_attention_kernel(seed: int) -> dict:
@@ -267,13 +375,23 @@ def check_attention_kernel(seed: int) -> dict:
     ms = median_ms(lambda: k3.flash_attention(q, k, v))
     plain_ms = median_ms(lambda: k3.flash_attention_reference(q, k, v),
                          runs=10)
+    # The yardstick, never on a path: PyTorch's fused attention on the
+    # same values in its (B, H, S, dh) layout.
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
     # 2*B*H*S*S*dh for QK^T and for PV.
-    gflop = 2 * 2 * b * h * s * s * dh / 1e9
+    flop = 2 * 2 * b * h * s * s * dh
+    gflop = flop / 1e9
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop}, nbytes(q, k, v, got)),
+           "library_ms": library_ms}
     phase("kernel", name="flash_attention", shape=f"({b},{s},{h},{dh})",
           max_abs_err=err, tol=K3_TOL, ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"], sdpa_ms=library_ms,
           tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return rec
 
 
 def check_int8_kernel(seed: int) -> dict:
@@ -308,11 +426,200 @@ def check_int8_kernel(seed: int) -> dict:
         x, act_scale, *ops, h))
     # 2*B*S*D*P int8 operations for each projection, 2*B*H*S*S*dh bf16
     # for QK^T and for PV.
-    gop = (3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64) / 1e9
+    int8_ops, bf16_ops = 3 * 2 * b * s * d * d, 2 * 2 * b * h * s * s * 64
+    gop = (int8_ops + bf16_ops) / 1e9
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"int8": int8_ops, "bf16": bf16_ops},
+                   nbytes(x, *ops, got)),
+           "library_ms": None}
     phase("kernel", name="fused_qkv_attention_int8", shape=f"({b},{s},{d})",
           heads=h, max_abs_err=err, tol=K8_TOL, ms=ms, plain_ms=plain_ms,
-          tops=round(gop / ms, 1), plain_tops=round(gop / plain_ms, 1))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          bound_ms=rec["bound_ms"], tops=round(gop / ms, 1),
+          plain_tops=round(gop / plain_ms, 1))
+    return rec
+
+
+def check_attention_backward_kernel(seed: int) -> dict:
+    """K4 against its plain version at the ``flash`` route's training
+    shape (8 panoramas = 32 views), with PyTorch's fused attention
+    backward timed beside it."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k4
+
+    b, s, h, dh = 32, 577, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    g = (torch.randn(b, s, h, dh, generator=gen, device="cuda") * 0.01) \
+        .bfloat16()
+    got = k4.flash_attention_backward(q, k, v, g)
+    want = k4.flash_attention_backward_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    errs = rel_errors(got, want, ("dq", "dk", "dv"))
+    if not max(errs.values()) <= K4_TOL:
+        raise RuntimeError(f"K4 disagrees with its plain version: {errs} "
+                           f"(max abs error over max magnitude, limit "
+                           f"{K4_TOL})")
+    err = max_abs(got, want)
+    del want
+    ms = median_ms(lambda: k4.flash_attention_backward(q, k, v, g))
+    plain_ms = median_ms(lambda: k4.flash_attention_backward_reference(
+        q, k, v, g), runs=10)
+    # The yardstick, never on a path: the backward of PyTorch's fused
+    # attention on the same values in its (B, H, S, dh) layout.
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    gt = g.transpose(1, 2).contiguous()
+    library_ms = median_ms(lambda: torch.autograd.grad(
+        out, leaves, gt, retain_graph=True))
+    del out, leaves
+    # The TPU kernel's five S x S x dh products a head: the scores, dv,
+    # dp, dq and dk.
+    flop = 5 * 2 * b * h * s * s * dh
+    # This kernel computes the scores four times and dp three times.
+    gflop = 10 * 2 * b * h * s * s * dh / 1e9
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop}, nbytes(q, k, v, g, *got)),
+           "library_ms": library_ms}
+    phase("kernel", name="flash_attention_bwd", shape=f"({b},{s},{h},{dh})",
+          **{f"{n}_err": round(e, 6) for n, e in errs.items()},
+          tol=K4_TOL, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"], sdpa_bwd_ms=library_ms,
+          tflops=round(gflop / ms, 1),
+          plain_tflops=round(gflop / plain_ms, 1))
+    return rec
+
+
+def ln_params(d: int, gen):
+    """A LayerNorm's f32 scale and bias, seeded, spread as widely as a
+    trained CLIP's (scale 1 +- 0.5, bias +- 0.5), so that a kernel that
+    drops either one is far off."""
+    import torch
+
+    return (1 + 0.5 * torch.randn(d, generator=gen, device="cuda"),
+            0.5 * torch.randn(d, generator=gen, device="cuda"))
+
+
+def check_ln_fault_shows(name: str, reference, args, want, tol: float):
+    """The plain version ``reference`` with the LayerNorm's scale and bias
+    (``args[1:3]``) dropped must miss ``want`` by more than twice ``tol``:
+    the check can fail a kernel that drops them."""
+    import torch
+
+    x, ls, lb = args[:3]
+    for label, params in (("scale", (torch.ones_like(ls), lb)),
+                          ("bias", (ls, torch.zeros_like(lb)))):
+        wrong = reference(x, *params, *args[3:])
+        miss = rel_errors([wrong], [want], (label,))[label]
+        if not miss > 2 * tol:
+            raise RuntimeError(f"{name}'s check cannot see a dropped LN "
+                               f"{label}: it moves the output by {miss} of "
+                               f"its magnitude, limit {tol}")
+
+
+def check_ln_kernel(seed: int) -> dict:
+    """K5 against its plain version at the serving shape, on a raw
+    (un-normalised) layer input."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+
+    b, s, d, h = 4, 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(b, s, d, generator=gen, device="cuda") * 3 + 1) \
+        .bfloat16()
+    ls, lb = ln_params(d, gen)
+    ws = [(torch.randn(d, d, generator=gen, device="cuda") * 0.02).bfloat16()
+          for _ in range(3)]
+    bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
+          for _ in range(3)]
+    args = (x, ls, lb, *ws, *bs, h, 1e-5)
+    got = k5.fused_ln_qkv_attention(*args)
+    want = k5.fused_ln_qkv_attention_reference(*args)
+    torch.cuda.synchronize()
+    rel = rel_errors([got], [want], ("out",))["out"]
+    if not rel <= K5_TOL:
+        raise RuntimeError(f"K5 disagrees with its plain version: max abs "
+                           f"error over max magnitude {rel} (limit "
+                           f"{K5_TOL})")
+    check_ln_fault_shows("K5", k5.fused_ln_qkv_attention_reference, args,
+                         want, K5_TOL)
+    err = max_abs([got], [want])
+    ms = median_ms(lambda: k5.fused_ln_qkv_attention(*args))
+    plain_ms = median_ms(lambda: k5.fused_ln_qkv_attention_reference(*args))
+    # K1's products, and ~7 f32 operations an element of x for the
+    # LayerNorm (two sums, centre, scale, shift).
+    flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop, "f32": 7 * x.numel()},
+                   nbytes(x, ls, lb, *ws, *bs, got)),
+           "library_ms": None}
+    phase("kernel", name="fused_ln_qkv_attention", shape=f"({b},{s},{d})",
+          heads=h, out_err=round(rel, 6), tol=K5_TOL, max_abs_err=err,
+          ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"], tflops=round(flop / 1e9 / ms, 1),
+          plain_tflops=round(flop / 1e9 / plain_ms, 1))
+    return rec
+
+
+def check_mlp_kernel(seed: int) -> dict:
+    """K9 against its plain version at the training shape (32 views),
+    ViT-L/14's MLP (D=1024, I=4096)."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
+
+    b, s, d, inter = 32, 577, 1024, 4096
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, s, d, generator=gen, device="cuda").bfloat16()
+    ls, lb = ln_params(d, gen)
+    w1 = (torch.randn(inter, d, generator=gen, device="cuda") * d ** -0.5) \
+        .bfloat16()
+    w2 = (torch.randn(d, inter, generator=gen, device="cuda")
+          * inter ** -0.5).bfloat16()
+    b1, b2 = ((0.1 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
+              for n in (inter, d))
+    args = (x, ls, lb, w1, b1, w2, b2, 1e-5)
+    got = k9.fused_ln_mlp(*args)
+    want = k9.fused_ln_mlp_reference(*args)
+    torch.cuda.synchronize()
+    rel = rel_errors([got], [want], ("out",))["out"]
+    if not rel <= K9_TOL:
+        raise RuntimeError(f"K9 disagrees with its plain version: max abs "
+                           f"error over max magnitude {rel} (limit "
+                           f"{K9_TOL})")
+    check_ln_fault_shows("K9", k9.fused_ln_mlp_reference, args, want,
+                         K9_TOL)
+    err = max_abs([got], [want])
+    del want
+    # What one call adds to device memory: its output, the (M, I) bf16
+    # hidden workspace and the row statistics.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k9.fused_ln_mlp(*args)
+    call_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ms = median_ms(lambda: k9.fused_ln_mlp(*args))
+    plain_ms = median_ms(lambda: k9.fused_ln_mlp_reference(*args), runs=10)
+    # Two products of 2*M*D*I; in f32 ~7 operations an element of x for
+    # the LayerNorm, ~6 an element of h for the bias and quick-GELU, and 2
+    # an output element for b2 and the residual.
+    m = b * s
+    flop = 2 * 2 * m * d * inter
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop, "f32": 9 * m * d + 6 * m * inter},
+                   nbytes(x, ls, lb, w1, b1, w2, b2, got)),
+           "library_ms": None}
+    phase("kernel", name="fused_mlp", shape=f"({b},{s},{d})", inter=inter,
+          out_err=round(rel, 6), tol=K9_TOL, max_abs_err=err, ms=ms,
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          tflops=round(flop / 1e9 / ms, 1),
+          plain_tflops=round(flop / 1e9 / plain_ms, 1),
+          hidden_workspace_mib=round(m * inter * 2 / 2**20, 1),
+          call_peak_mib=round(call_peak_mib, 1))
+    return rec
 
 
 def write_assets(root: str, seed: int) -> list:
@@ -432,7 +739,7 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
     import torch
 
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
-    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+    from pigeon_tpu_torch.models.clip import set_route
 
     payloads = serve_payloads(n_requests)
     torch.cuda.reset_peak_memory_stats()
@@ -453,13 +760,9 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
         # The same panorama through the plain attention route.
         pixels = service.decode(payloads[0])
         fused = service.serve_fn(pixels)["embedding"].flatten().float()
-        attns = [m for m in model.modules()
-                 if isinstance(m, MultiHeadAttention)]
-        for m in attns:
-            m.attn_impl = "plain"
+        set_route(model, "plain")
         plain = service.serve_fn(pixels)["embedding"].flatten().float()
-        for m in attns:
-            m.attn_impl = "fused"
+        set_route(model, "fused")
         cos = torch.nn.functional.cosine_similarity(
             fused, plain, dim=0).item()
         if not cos >= 0.999:
@@ -490,6 +793,7 @@ def check_serving_int8(root: str, pool, n_requests: int,
     from pigeon_tpu_torch.kernels import attention as k3
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
     from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.models.clip import set_route
 
     counters = {"fused_qkv_attention": k1.fused_qkv_attention,
                 "flash_attention": k3.flash_attention,
@@ -529,6 +833,39 @@ def check_serving_int8(root: str, pool, n_requests: int,
             raise RuntimeError(f"int8 embedding cosine {cos} < "
                                f"{INT8_COSINE} against the bf16 route")
         layer_ms = time_layers(service, payloads)
+
+        # The same int8 model on the flash route (`serve --quant` under
+        # PIGEON_ATTN_IMPL=flash): static int8 projections, then K3.
+        model = service.serve_fn.model
+        set_route(model, "flash")
+        try:
+            service.serve_fn(pixels)
+            torch.cuda.synchronize()
+            forwards, times = 3, []
+            for fn in counters.values():
+                fn.launches = 0
+            for _ in range(forwards):
+                t0 = time.perf_counter()
+                flash = service.serve_fn(pixels)["embedding"].flatten() \
+                    .float()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            flash_launches = {name: fn.launches
+                              for name, fn in counters.items()}
+        finally:
+            set_route(model, "fused")
+        want = {"fused_qkv_attention": 0,
+                "flash_attention": layers * forwards,
+                "fused_qkv_attention_int8": 0}
+        if flash_launches != want:
+            raise RuntimeError(f"{forwards} int8 forwards on the flash route "
+                               f"launched {flash_launches}, expected {want}")
+        flash_cos = torch.nn.functional.cosine_similarity(
+            flash, bf16_embedding, dim=0).item()
+        if not flash_cos >= INT8_COSINE:
+            raise RuntimeError(f"int8 flash-route embedding cosine "
+                               f"{flash_cos} < {INT8_COSINE} against the "
+                               "bf16 route")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
         httpd.shutdown()
@@ -539,10 +876,143 @@ def check_serving_int8(root: str, pool, n_requests: int,
           median_ms=sorted(latencies)[len(latencies) // 2],
           latencies_ms=[round(t, 3) for t in latencies],
           startup_s=round(startup_s, 3),
-          embedding_cosine_vs_bf16=cos, peak_gib=round(peak_gib, 3))
+          embedding_cosine_vs_bf16=cos,
+          flash_route_k3_launches=flash_launches["flash_attention"],
+          flash_route_forward_ms=round(sorted(times)[forwards // 2], 3),
+          flash_route_cosine_vs_bf16=flash_cos,
+          peak_gib=round(peak_gib, 3))
     phase("layers_int8", **layer_ms)
-    return {"flash_attention": setup["flash_attention"],
+    return {"flash_attention": setup["flash_attention"]
+            + flash_launches["flash_attention"],
             "fused_qkv_attention_int8": launches["fused_qkv_attention_int8"]}
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Environment variables set for the ``with`` block only."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def route_counters() -> dict:
+    """The launch counters of every kernel a bf16 route may run."""
+    from pigeon_tpu_torch.kernels import attention as k34
+    from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k12
+    from pigeon_tpu_torch.kernels import geodesy
+
+    return {"fused_qkv_attention": k12.fused_qkv_attention,
+            "fused_qkv_attention_bwd": k12.fused_qkv_attention_backward,
+            "flash_attention": k34.flash_attention,
+            "flash_attention_bwd": k34.flash_attention_backward,
+            "fused_ln_qkv_attention": k5.fused_ln_qkv_attention,
+            "fused_mlp": k9.fused_ln_mlp,
+            "smooth_labels": geodesy.smooth_labels_from_points}
+
+
+def check_serve_routes(root: str, pool, n_requests: int,
+                       bf16_embedding) -> dict:
+    """``serve`` under ``PIGEON_ATTN_IMPL=flash_fused_mlp`` over HTTP
+    (each request K5 and K9 once a layer, K1 and K3 never), then the
+    serving forward of one panorama under ``flash`` (K3 once a layer) and
+    ``flash_fused_ln`` (K5 once a layer) on the same weights; every
+    route's embedding within ``ROUTE_COSINE`` of the ``flash_fused``
+    route's. Returns each kernel's launches."""
+    import gc
+
+    import torch
+
+    from pigeon_tpu_torch.models.clip import routes_of, set_route
+
+    counters = route_counters()
+    payloads = serve_payloads(n_requests)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with environ(PIGEON_ATTN_IMPL="flash_fused_mlp"):
+        httpd, startup_s = start_serving(root)
+    total = dict.fromkeys(counters, 0)
+    try:
+        service = httpd.RequestHandlerClass.service
+        model = service.serve_fn.model
+        if routes_of(model) != {"fused_mlp"}:
+            raise RuntimeError(f"serve built routes {routes_of(model)} under "
+                               "PIGEON_ATTN_IMPL=flash_fused_mlp")
+        layers = len(model.vision.encoder.layers)
+        latencies, launches = request_all(httpd, payloads, pool, counters)
+        want = dict.fromkeys(counters, 0)
+        want.update(fused_ln_qkv_attention=layers * n_requests,
+                    fused_mlp=layers * n_requests)
+        if launches != want:
+            raise RuntimeError(f"flash_fused_mlp requests launched "
+                               f"{launches}, expected {want}")
+        for name, n in launches.items():
+            total[name] += n
+        per_request = {name: n // n_requests for name, n in launches.items()
+                       if n}
+        layer_ms = time_layers(service, payloads)
+
+        # One panorama's serving forward on each route, 3 times.
+        pixels = service.decode(payloads[0])
+        forwards = 3
+        kernels = {"fused_mlp": ("fused_ln_qkv_attention", "fused_mlp"),
+                   "flash": ("flash_attention",),
+                   "fused_ln": ("fused_ln_qkv_attention",)}
+        forward_ms, cosines = {}, {}
+        for route, names in kernels.items():
+            set_route(model, route)
+            service.serve_fn(pixels)
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            times = []
+            for _ in range(forwards):
+                t0 = time.perf_counter()
+                emb = service.serve_fn(pixels)["embedding"].flatten().float()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            want = dict.fromkeys(counters, 0)
+            want.update(dict.fromkeys(names, layers * forwards))
+            if launches != want:
+                raise RuntimeError(f"{forwards} forwards on route {route} "
+                                   f"launched {launches}, expected {want}")
+            for name, n in launches.items():
+                total[name] += n
+            forward_ms[route] = sorted(times)[forwards // 2]
+            cosines[route] = torch.nn.functional.cosine_similarity(
+                emb, bf16_embedding, dim=0).item()
+            if not cosines[route] >= ROUTE_COSINE:
+                raise RuntimeError(
+                    f"route {route}: embedding cosine {cosines[route]} < "
+                    f"{ROUTE_COSINE} against the flash_fused route")
+        set_route(model, "fused_mlp")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    phase("serve_routes", route="flash_fused_mlp", requests=n_requests,
+          status=200, layers=layers,
+          launches_per_request=json.dumps(per_request, separators=(",", ":")),
+          k5_launches=total["fused_ln_qkv_attention"],
+          k9_launches=total["fused_mlp"],
+          k3_launches=total["flash_attention"],
+          median_ms=sorted(latencies)[len(latencies) // 2],
+          latencies_ms=[round(t, 3) for t in latencies],
+          startup_s=round(startup_s, 3), peak_gib=round(peak_gib, 3),
+          **{f"forward_ms_{r}": round(t, 3) for r, t in forward_ms.items()},
+          **{f"cosine_vs_flash_fused_{r}": c for r, c in cosines.items()})
+    phase("layers_fused_mlp", **layer_ms)
+    return total
 
 
 def time_layers(service, payloads) -> dict:
@@ -626,7 +1096,7 @@ def check_training(seed: int) -> dict:
     from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
     from pigeon_tpu_torch.kernels import geodesy
-    from pigeon_tpu_torch.models.clip import MultiHeadAttention
+    from pigeon_tpu_torch.models.clip import set_route
     from pigeon_tpu_torch.models.geocell_head import smoothed_targets
     from pigeon_tpu_torch.train.checkpoints import latest_step
     from pigeon_tpu_torch.train.train_loop import (
@@ -694,12 +1164,9 @@ def check_training(seed: int) -> dict:
             batch = batch_to_device(next(batches), run.device)
             batches.close()
             model, head = run.state.model, run.cfg.head
-            attns = [m for m in model.modules()
-                     if isinstance(m, MultiHeadAttention)]
 
             def grads(impl, smooth_fn):
-                for m in attns:
-                    m.attn_impl = impl
+                set_route(model, impl)
                 model.zero_grad(set_to_none=True)
                 _, total, parts = batch_loss(model, batch, run.geocells,
                                              head, smooth_fn)
@@ -716,8 +1183,7 @@ def check_training(seed: int) -> dict:
                 plain_g, plain_parts = grads(
                     "plain", geodesy.smooth_labels_reference)
             finally:
-                for m in attns:
-                    m.attn_impl = "fused"
+                set_route(model, "fused")
             model.zero_grad(set_to_none=True)
             if kernel_g.keys() != plain_g.keys():
                 raise RuntimeError("the routes give gradients to other "
@@ -758,7 +1224,7 @@ def check_training(seed: int) -> dict:
             train_step(run.state, batch)
             torch.cuda.synchronize()
             peak_none = torch.cuda.max_memory_allocated() / 2**30
-            del run, model, batch, attns, kernel_g, plain_g
+            del run, model, batch, kernel_g, plain_g
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -794,6 +1260,192 @@ def check_training(seed: int) -> dict:
     return launches
 
 
+#: [train_routes]: (label, ``PIGEON_ATTN_IMPL`` name, the port's route,
+#: ``PIGEON_FUSED_BWD``) and the kernels each launches per layer in a
+#: forward and in a backward.
+TRAIN_ROUTES = (
+    ("flash", "flash", "flash", "kernel",
+     ("flash_attention",), ("flash_attention_bwd",)),
+    ("flash_fused_ln", "flash_fused_ln", "fused_ln", "kernel",
+     ("fused_ln_qkv_attention",), ("fused_qkv_attention_bwd",)),
+    ("flash_fused_mlp", "flash_fused_mlp", "fused_mlp", "kernel",
+     ("fused_ln_qkv_attention", "fused_mlp"), ("fused_qkv_attention_bwd",)),
+    ("flash_fused_xla_bwd", "flash_fused", "fused", "xla",
+     ("fused_qkv_attention",), ("flash_attention_bwd",)),
+)
+
+
+def check_train_routes(seed: int) -> dict:
+    """The ``[train]`` preset, width and batch under remat ``attn_kernel``
+    on each route of `TRAIN_ROUTES`, from the same parameters: the
+    ``finetune`` command's `build_finetune` under
+    ``PIGEON_ATTN_IMPL=flash``, then the route switched on the built
+    model. On the first batch every trainable gradient of each route must
+    be within ``ROUTE_COSINE`` of the plain route's. Then, from the same
+    parameters and a fresh optimizer, ``ROUTE_STEPS`` = 2 steps and one
+    eval batch with finite losses and these exact launch counts (L = 24
+    layers; the remat recompute replays the saved kernel outputs, so no
+    forward kernel runs twice):
+
+    * ``flash``: K3 3 L, K4 2 L;
+    * ``flash_fused_ln``: K5 3 L, K2 2 L;
+    * ``flash_fused_mlp``: K5 3 L, K9 3 L, K2 2 L;
+    * ``flash_fused`` with ``PIGEON_FUSED_BWD=xla``: K1 3 L, K4 2 L, K2 0;
+
+    every other kernel of `route_counters` none but K10, 3 times (2 steps
+    + 1 eval batch). Step time, images/s and peak memory per route.
+    Returns each kernel's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli.run import build_finetune, build_parser
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.models.clip import routes_of, set_route
+    from pigeon_tpu_torch.train.train_loop import (
+        TrainState,
+        adamw,
+        batch_loss,
+        batch_to_device,
+        make_eval_step,
+        make_train_step,
+    )
+
+    counters = route_counters()
+    total = dict.fromkeys(counters, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            meta, cells_csv, images = write_train_assets(root, seed)
+            argv = ["finetune", "routes", "--panorama", "-m", "--heading",
+                    "--metadata", meta, "--images", images,
+                    "--geocells", cells_csv,
+                    "--batch-size", str(TRAIN_BATCH),
+                    "--checkpoint-dir", os.path.join(root, "ckpt"),
+                    "--device", "cuda"]
+            with environ(PIGEON_ATTN_IMPL="flash"):
+                run = build_finetune(build_parser().parse_args(argv))
+            model, head = run.state.model, run.cfg.head
+            if routes_of(model) != {"flash"}:
+                raise RuntimeError(f"finetune built routes {routes_of(model)}"
+                                   " under PIGEON_ATTN_IMPL=flash")
+            layers = len(model.vision.encoder.layers)
+
+            def first(dataset, shuffle):
+                batches = iter_batches(dataset, TRAIN_BATCH, shuffle=shuffle,
+                                       seed=0, drop_last=shuffle)
+                batch = batch_to_device(next(batches), run.device)
+                batches.close()
+                return batch
+
+            batch, val_batch = first(run.train, True), first(run.val, False)
+            start = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+
+            def grads(route, fused_bwd):
+                set_route(model, route)
+                model.train()
+                model.zero_grad(set_to_none=True)
+                with environ(PIGEON_FUSED_BWD=fused_bwd):
+                    _, total_loss, _ = batch_loss(model, batch, run.geocells,
+                                                  head)
+                    total_loss.backward()
+                out = {n: p.grad.float().flatten().clone()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None}
+                model.zero_grad(set_to_none=True)
+                return out
+
+            plain = grads("plain", "kernel")
+            for label, _, route, fused_bwd, fwd, bwd in TRAIN_ROUTES:
+                # --- gradients of the first batch against the plain route
+                model.load_state_dict(start)
+                got = grads(route, fused_bwd)
+                if got.keys() != plain.keys():
+                    raise RuntimeError(f"{label} gives gradients to other "
+                                       f"tensors: {got.keys() ^ plain.keys()}")
+                cosines = {}
+                for name, g in got.items():
+                    if name.endswith("k_proj.bias"):
+                        # Zero in exact arithmetic (a shift shared by all
+                        # keys): both must be rounding noise.
+                        ref = plain[name.replace("k_proj", "q_proj")].norm()
+                        if not max(g.norm(), plain[name].norm()) <= 1e-2 * ref:
+                            raise RuntimeError(f"{label}: {name} gradient "
+                                               "is not ~0")
+                        continue
+                    cosines[name] = torch.nn.functional.cosine_similarity(
+                        g, plain[name], dim=0).item()
+                del got
+                worst = min(cosines, key=cosines.get)
+                if not cosines[worst] >= ROUTE_COSINE:
+                    raise RuntimeError(f"{label}: gradient cosine "
+                                       f"{cosines[worst]} < {ROUTE_COSINE} "
+                                       f"for {worst}")
+
+                # --- 2 steps and an eval batch from the same parameters
+                state = TrainState(model, adamw(model.parameters(),
+                                                run.cfg.train.learning_rate))
+                train_step = make_train_step(head, run.geocells)
+                eval_step = make_eval_step(head, run.geocells)
+                with environ(PIGEON_FUSED_BWD=fused_bwd):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    for fn in counters.values():
+                        fn.launches = 0
+                    losses, times = [], []
+                    for _ in range(ROUTE_STEPS):
+                        t0 = time.perf_counter()
+                        losses.append(float(train_step(state, batch)["loss"]))
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    eval_loss = float(eval_step(model, val_batch)[0]["loss"])
+                    torch.cuda.synchronize()
+                    launches = {n: fn.launches for n, fn in counters.items()}
+                    # Step time: 3 more synchronised steps.
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        train_step(state, batch)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+                want = dict.fromkeys(counters, 0)
+                want["smooth_labels"] = ROUTE_STEPS + 1
+                want.update(dict.fromkeys(fwd, layers * (ROUTE_STEPS + 1)))
+                want.update(dict.fromkeys(bwd, layers * ROUTE_STEPS))
+                if launches != want:
+                    raise RuntimeError(f"{label}: {ROUTE_STEPS} steps and an "
+                                       f"eval batch launched {launches}, "
+                                       f"expected {want}")
+                if not np.isfinite(losses + [eval_loss]).all():
+                    raise RuntimeError(f"{label}: losses {losses}, eval "
+                                       f"loss {eval_loss}")
+                for name, n in launches.items():
+                    total[name] += n
+                del state
+                step_ms = sorted(times[1:])[len(times[1:]) // 2]
+                phase("train_routes", route=label, layers=layers,
+                      batch_panoramas=TRAIN_BATCH, steps=ROUTE_STEPS,
+                      eval_batches=1,
+                      **{f"{n}_launches": launches[n] for n in (*fwd, *bwd)},
+                      losses=[round(v, 4) for v in losses],
+                      eval_loss=round(eval_loss, 4),
+                      grad_cosine_min=round(cosines[worst], 6),
+                      grad_cosine_at=worst, step_ms=round(step_ms, 3),
+                      step_ms_all=[round(t, 3) for t in times],
+                      images_per_s=round(4 * TRAIN_BATCH / step_ms * 1e3, 2),
+                      peak_gib=round(peak_gib, 3))
+            del run, model, batch, val_batch, start, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    return total
+
+
 def build_kernels() -> None:
     """Build every kernel at once (one nvcc for each) and load them."""
     from concurrent.futures import ThreadPoolExecutor
@@ -801,6 +1453,8 @@ def build_kernels() -> None:
     from pigeon_tpu_torch import native
     from pigeon_tpu_torch.data import native_decode
     from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
     from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
     from pigeon_tpu_torch.kernels import geodesy
@@ -818,7 +1472,10 @@ def build_kernels() -> None:
     k.load_backward()
     geodesy.load()
     k3.load()
+    k3.load_backward()
+    k5.load()
     k8.load()
+    k9.load()
     phase("build", kernels=len(built), wall_seconds=round(wall, 3),
           native_decode="built" if native_decode.available()
           else "unavailable (PIL decodes)")
@@ -851,17 +1508,31 @@ def main() -> int:
                "fused_qkv_attention_bwd": check_backward_kernel(args.seed),
                "smooth_labels": check_smoothing_kernel(args.seed),
                "flash_attention": check_attention_kernel(args.seed),
-               "fused_qkv_attention_int8": check_int8_kernel(args.seed)}
+               "fused_qkv_attention_int8": check_int8_kernel(args.seed),
+               "flash_attention_bwd":
+                   check_attention_backward_kernel(args.seed),
+               "fused_ln_qkv_attention": check_ln_kernel(args.seed),
+               "fused_mlp": check_mlp_kernel(args.seed)}
+    # Each path's launches, counted from 0 just before it runs.
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] += n
+
     with tempfile.TemporaryDirectory() as root:
         pool = np.array(write_assets(root, args.seed), np.float32)
         serve_launches, bf16_embedding = check_serving(root, pool,
                                                        args.requests)
-        int8_launches = check_serving_int8(root, pool, args.requests,
-                                           bf16_embedding)
+        add({"fused_qkv_attention": serve_launches})
+        add(check_serving_int8(root, pool, args.requests, bf16_embedding))
+        add(check_serve_routes(root, pool, args.requests, bf16_embedding))
     del bf16_embedding
-    launches = check_training(args.seed)
-    launches["fused_qkv_attention"] += serve_launches
-    launches.update(int8_launches)
+    add(check_training(args.seed))
+    add(check_train_routes(args.seed))
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on a path: {idle}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name], **records[name]}

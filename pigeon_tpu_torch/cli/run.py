@@ -2,7 +2,10 @@
 
 Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` and `cmd_finetune` (on
 pixels), with their flags for these paths. Models are built in bf16 with
-f32 parameters and attention through kernel K1 (and K2 in the backward).
+f32 parameters, on the attention route that ``PIGEON_ATTN_IMPL`` names in
+the JAX package's words (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL``
+for ``serve --quant``, :func:`quant_attn_impl`): by default
+``flash_fused``, kernel K1 (and K2 in the backward).
 ``serve`` answers with a seeded initialisation (restoring a trained
 checkpoint into it is not ported yet); ``serve --quant`` first makes its
 tower int8: the weights quantized per output channel, the activation
@@ -55,6 +58,64 @@ INIT_SEED = 0
 CALIB_SEED = 3
 #: At most this many ``--calib-images`` are read (`run.py:1408-1442`).
 MAX_CALIB_IMAGES = 32
+
+#: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
+#: port's route for each (`models/clip.py`).
+ATTN_ROUTES = {"flash_fused": "fused", "flash": "flash", "xla": "plain",
+               "flash_fused_ln": "fused_ln", "flash_fused_mlp": "fused_mlp"}
+#: JAX routes whose kernel the port has not ported yet: refused by name.
+UNPORTED_ROUTES = {
+    "flash_fused_block": "kernel K6 (pigeon_tpu/kernels/flash_attention.py"
+                         "::_block_attn_kernel)"}
+UNPORTED_QUANT_ROUTES = {
+    "flash_fused_block": "kernel K7 (pigeon_tpu/kernels/flash_attention.py"
+                         "::_block_attn_int8_kernel)"}
+
+
+def _route(name: str, variable: str, unported: dict) -> str:
+    """The port's route for the JAX route ``name`` read from ``variable``;
+    a name with no ported kernel or no meaning stops the command."""
+    if name in unported:
+        raise SystemExit(f"{variable}={name}: its kernel, {unported[name]}, "
+                         "is not ported to pigeon_tpu_torch yet")
+    if name not in ATTN_ROUTES:
+        raise SystemExit(f"{variable}={name!r}: not one of "
+                         f"{sorted(ATTN_ROUTES) + sorted(unported)}")
+    return ATTN_ROUTES[name]
+
+
+def _attn_name() -> str:
+    return os.environ.get("PIGEON_ATTN_IMPL") or "flash_fused"
+
+
+def attn_impl() -> str:
+    """The bf16 route of ``serve`` and ``finetune``: ``PIGEON_ATTN_IMPL``
+    (a JAX route name, default ``flash_fused``) mapped to the port's
+    (`pigeon_tpu/cli/run.py::_attn_impl`). Unlike the JAX CLI, which
+    takes ``xla`` off the TPU, the port honours the variable on the CPU
+    too, where the kernels' plain versions run."""
+    return _route(_attn_name(), "PIGEON_ATTN_IMPL", UNPORTED_ROUTES)
+
+
+def quant_attn_impl() -> str:
+    """The route of ``serve --quant``
+    (`pigeon_tpu/cli/run.py::_quant_attn_impl`): ``PIGEON_QUANT_ATTN_IMPL``
+    if set, else the bf16 route with every ``flash_fused*`` name taken as
+    ``flash_fused`` (kernel K8; the LN and MLP fusions have no int8
+    kernel). ``flash`` stays ``flash``: static int8 projections, then
+    kernel K3 per request. An unknown name is refused before the
+    downgrade."""
+    override = os.environ.get("PIGEON_QUANT_ATTN_IMPL")
+    if override:
+        name, variable = override, "PIGEON_QUANT_ATTN_IMPL"
+    else:
+        name, variable = _attn_name(), "PIGEON_ATTN_IMPL"
+        if name not in ATTN_ROUTES and name not in UNPORTED_ROUTES:
+            _route(name, variable, UNPORTED_ROUTES)
+        if name.startswith("flash_fused"):
+            name = "flash_fused"
+    route = _route(name, variable, UNPORTED_QUANT_ROUTES)
+    return "fused" if route in ("fused_ln", "fused_mlp") else route
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -229,13 +290,15 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
     device = _device(args)
+    route = quant_attn_impl() if args.quant else attn_impl()
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
                                                num_cells=len(cells)))
     model = init_weights(
         SuperGuessr(cfg.vision, cfg.head, dtype=torch.bfloat16,
-                    attn_impl="fused"), INIT_SEED)
+                    attn_impl=route), INIT_SEED)
+    logger.warning("attention route: %s", route)
     logger.warning("weights: seeded initialisation (seed %d); checkpoint "
                    "restore is not ported yet", INIT_SEED)
     if args.quant:
@@ -339,7 +402,8 @@ def build_finetune(args) -> Finetune:
     """The model, optimizer, datasets and checkpoint directory of a
     ``finetune`` run on pixels: the preset at full width (``--tiny``:
     the smoke-test config), a seeded initialisation, every encoder layer
-    but the last frozen, the tower remat'd under ``attn_kernel``."""
+    but the last frozen, the tower on the route of :func:`attn_impl` and
+    remat'd under ``attn_kernel``."""
     from pigeon_tpu_torch.data.pipeline import TabularImageDataset
     from pigeon_tpu_torch.models.super_guessr import init_weights
     from pigeon_tpu_torch.train.checkpoints import (
@@ -353,13 +417,16 @@ def build_finetune(args) -> Finetune:
         raise SystemExit("finetune --embeddings (training the head on "
                          "precomputed embeddings) is not ported yet")
     device = _device(args)
+    route = attn_impl()
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
                                                num_cells=len(cells)))
     train_df, val_df = _split_frames(args, cfg.head.multi_task)
     tcfg = cfg.train
-    model = init_weights(build_finetune_model(cfg), tcfg.seed).to(device)
+    model = init_weights(build_finetune_model(cfg, attn_impl=route),
+                         tcfg.seed).to(device)
+    logger.warning("attention route: %s", route)
     state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
     ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
     if args.resume and latest_step(ckpt_dir) is not None:

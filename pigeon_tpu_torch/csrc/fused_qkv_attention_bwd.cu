@@ -28,7 +28,8 @@
 //
 // The TPU kernel keeps two (S, S) f32 buffers per head in VMEM; a Hopper
 // block has 227 KB. So the work is four launches, none with atomics, each
-// giving the same sums in every run:
+// giving the same sums in every run (passes 2 and 3 are the attention
+// backward of attention_bwd_tile.cuh, which K4 launches alone):
 //
 //   1. proj:  q/k/v = bf16(x W*^T + b*) into a bf16 workspace (B, S, P)
 //             each (113 MB at B=32): a tiled GEMM, 128 x 128 block tiles,
@@ -54,27 +55,9 @@
 // Constraints (checked by the Python wrapper): head_dim 64, D and P
 // multiples of 128, all operands bf16, contiguous, 16-byte aligned.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "attention_bwd_tile.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int DH = 64;        // head dim
-constexpr int TILE = 64;      // rows of a query / key tile
-constexpr int LDB = 72;       // bf16 row stride of a tile (+8 pad)
-constexpr int LDF = 68;       // f32 row stride of a tile (+4 pad)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int TILE_B = TILE * LDB * 2;  // one 64-row bf16 tile: 9216 B
-constexpr int TILE_F = TILE * LDF * 4;  // one 64-row f32 tile: 17408 B
-constexpr int DQ_SMEM = 5 * TILE_B + 2 * TILE_F;    // 80,896 B
-constexpr int DKDV_SMEM = 7 * TILE_B + 2 * TILE_F;  // 99,328 B
 
 // GEMM tiling: 128 x 128 block tile, 32-deep K steps, 8 warps as 4 (M)
 // x 2 (N), each warp 32 x 64 (2 x 4 fragments).
@@ -85,16 +68,6 @@ constexpr int LDK = BK + 8;   // a tile stored (row, k): 40
 constexpr int LDN = BN + 8;   // a tile stored (k, col): 136
 constexpr int STAGE = BM * LDK * 2;  // 10240 B, >= BK * LDN * 2 = 8704 B
 constexpr int EPI_LD = 20;    // per-warp 16 x 16 f32 epilogue, row stride
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-    FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBCol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragBRow;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // ---------------------------------------------------------------------
 // Passes 1 and 4: tiled GEMMs.
@@ -258,298 +231,6 @@ gemm_kernel(GemmArgs args) {
   }
 }
 
-// ---------------------------------------------------------------------
-// Passes 2 and 3: attention backward over 64-row tiles.
-// ---------------------------------------------------------------------
-
-// Copy one head's 64 x 64 bf16 block (global row stride `ld`) into
-// shared memory, zero-filling rows at or past `rows`.
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int ld, int rows) {
-  constexpr int VEC = DH / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < TILE * VEC; i += THREADS) {
-    const int r = i / VEC;
-    const int c = (i % VEC) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      v = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDB + c) = v;
-  }
-}
-
-// out (64 x 64 f32, row stride LDF) = A @ B^T for two 64 x 64 bf16 tiles
-// stored row-major; each warp computes two 16 x 16 fragments.
-__device__ __forceinline__ void abt_tile(float* out, const bf16* a,
-                                         const bf16* b, int rf, int cf) {
-  FragC acc[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + (cf + j) * 16 * LDB + kk, LDB);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(out + rf * 16 * LDF + (cf + j) * 16, acc[j], LDF,
-                            wmma::mem_row_major);
-  }
-}
-
-// Write a 64 x 64 f32 tile's first `rows` rows as bf16 into one head's
-// columns of a (B, S, P) tensor: each thread one row, 16 columns.
-__device__ __forceinline__ void write_rows(bf16* dst, const float* f,
-                                           int ld, int rows) {
-  const int row = threadIdx.x / 4;
-  const int c0 = (threadIdx.x % 4) * 16;
-  if (row < rows) {
-#pragma unroll
-    for (int c = 0; c < 16; c += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * ld + c0 + c) =
-          __floats2bfloat162_rn(f[row * LDF + c0 + c],
-                                f[row * LDF + c0 + c + 1]);
-    }
-  }
-}
-
-struct AttnArgs {
-  const bf16 *q, *k, *v, *g;  // (B, S, P)
-  bf16 *dq, *dk, *dv;         // (B, S, P)
-  float *m, *den, *r;         // (B, H, S) row statistics
-  int S, H;
-  float scale;
-};
-
-// Pass 2: one block per (query tile, head, batch).
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_kernel(AttnArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int S = args.S, H = args.H, P = H * DH;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + TILE - 1) / TILE;
-  const int q0 = qt * TILE;
-  const int rows = min(TILE, S - q0);
-  const float scale = args.scale;
-
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = qs + TILE * LDB;
-  bf16* ks = gs + TILE * LDB;
-  bf16* vs = ks + TILE * LDB;
-  bf16* dls = vs + TILE * LDB;
-  float* sf = reinterpret_cast<float*>(smem + 5 * TILE_B);
-  float* dpf = sf + TILE * LDF;
-
-  const int warp = threadIdx.x / 32;
-  const int rf = warp / 2;          // 16-row strip
-  const int cf = (warp % 2) * 2;    // first of two 16-column fragments
-  const int row = threadIdx.x / 4;  // element-wise: 4 lanes per row ...
-  const int c0 = (threadIdx.x % 4) * 16;  // ... 16 columns each
-
-  const size_t head = (size_t)b * S * P + h * DH;
-  stage_tile(qs, args.q + head + (size_t)q0 * P, P, rows);
-  stage_tile(gs, args.g + head + (size_t)q0 * P, P, rows);
-
-  // Sweep 1: the exact row maximum of the scaled scores.
-  float m = -INFINITY;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kv = min(TILE, S - kt * TILE);
-    stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-    __syncthreads();
-    abt_tile(sf, qs, ks, rf, cf);
-    __syncthreads();
-#pragma unroll
-    for (int c = c0; c < c0 + 16; ++c) {
-      if (c < kv) m = fmaxf(m, sf[row * LDF + c] * scale);
-    }
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-
-  // Sweep 2: den = sum(u) and sum(dp * u), u = exp(s - m) in f32.
-  float den = 0.0f, num = 0.0f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kv = min(TILE, S - kt * TILE);
-    stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-    stage_tile(vs, args.v + head + (size_t)kt * TILE * P, P, kv);
-    __syncthreads();
-    abt_tile(sf, qs, ks, rf, cf);
-    abt_tile(dpf, gs, vs, rf, cf);
-    __syncthreads();
-#pragma unroll
-    for (int c = c0; c < c0 + 16; ++c) {
-      if (c < kv) {
-        const float u = expf(sf[row * LDF + c] * scale - m);
-        den += u;
-        num += dpf[row * LDF + c] * u;
-      }
-    }
-  }
-  den += __shfl_xor_sync(0xffffffffu, den, 1);
-  den += __shfl_xor_sync(0xffffffffu, den, 2);
-  num += __shfl_xor_sync(0xffffffffu, num, 1);
-  num += __shfl_xor_sync(0xffffffffu, num, 2);
-  const float r = num / den;
-  const float dl_scale = scale / den;
-  if (row < rows && threadIdx.x % 4 == 0) {
-    const size_t i = ((size_t)b * H + h) * S + q0 + row;
-    args.m[i] = m;
-    args.den[i] = den;
-    args.r[i] = r;
-  }
-
-  // Sweep 3: dl = bf16(u (dp - r) scale / den) and dq += dl k.
-  FragC acc[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kv = min(TILE, S - kt * TILE);
-    stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-    stage_tile(vs, args.v + head + (size_t)kt * TILE * P, P, kv);
-    __syncthreads();
-    abt_tile(sf, qs, ks, rf, cf);
-    abt_tile(dpf, gs, vs, rf, cf);
-    __syncthreads();
-#pragma unroll
-    for (int c = c0; c < c0 + 16; ++c) {
-      float dl = 0.0f;
-      if (c < kv) {
-        const float u = expf(sf[row * LDF + c] * scale - m);
-        dl = (u * (dpf[row * LDF + c] - r)) * dl_scale;
-      }
-      dls[row * LDB + c] = __float2bfloat16(dl);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TILE; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, dls + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBRow fb;
-        wmma::load_matrix_sync(fb, ks + kk * LDB + (cf + j) * 16, LDB);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();  // ks and dls are rewritten next iteration
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(sf + rf * 16 * LDF + (cf + j) * 16, acc[j], LDF,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  write_rows(args.dq + head + (size_t)q0 * P, sf, P, rows);
-}
-
-// Pass 3: one block per (key tile, head, batch).
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkdv_kernel(AttnArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float m_s[TILE], den_s[TILE], r_s[TILE];
-  const int S = args.S, H = args.H, P = H * DH;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + TILE - 1) / TILE;
-  const int k0 = kt * TILE;
-  const int kv = min(TILE, S - k0);
-  const float scale = args.scale;
-
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + TILE * LDB;
-  bf16* qs = vs + TILE * LDB;
-  bf16* gs = qs + TILE * LDB;
-  bf16* us = gs + TILE * LDB;   // bf16(u)
-  bf16* gns = us + TILE * LDB;  // g_n = bf16(g / den)
-  bf16* dls = gns + TILE * LDB;
-  float* sf = reinterpret_cast<float*>(smem + 7 * TILE_B);
-  float* dpf = sf + TILE * LDF;
-
-  const int warp = threadIdx.x / 32;
-  const int rf = warp / 2;
-  const int cf = (warp % 2) * 2;
-  const int row = threadIdx.x / 4;        // a query row of the tile ...
-  const int c0 = (threadIdx.x % 4) * 16;  // ... and 16 of its columns
-
-  const size_t head = (size_t)b * S * P + h * DH;
-  const size_t stats = ((size_t)b * H + h) * S;
-  stage_tile(ks, args.k + head + (size_t)k0 * P, P, kv);
-  stage_tile(vs, args.v + head + (size_t)k0 * P, P, kv);
-
-  FragC acc_dk[2], acc_dv[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.0f);
-    wmma::fill_fragment(acc_dv[j], 0.0f);
-  }
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * TILE;
-    const int rows = min(TILE, S - q0);
-    stage_tile(qs, args.q + head + (size_t)q0 * P, P, rows);
-    stage_tile(gs, args.g + head + (size_t)q0 * P, P, rows);
-    if (threadIdx.x < TILE) {
-      const bool ok = threadIdx.x < rows;
-      m_s[threadIdx.x] = ok ? args.m[stats + q0 + threadIdx.x] : 0.0f;
-      den_s[threadIdx.x] = ok ? args.den[stats + q0 + threadIdx.x] : 1.0f;
-      r_s[threadIdx.x] = ok ? args.r[stats + q0 + threadIdx.x] : 0.0f;
-    }
-    __syncthreads();
-    abt_tile(sf, qs, ks, rf, cf);
-    abt_tile(dpf, gs, vs, rf, cf);
-    __syncthreads();
-    {
-      const bool ok = row < rows;
-      const float m = m_s[row], den = den_s[row], r = r_s[row];
-      const float dl_scale = scale / den;
-#pragma unroll
-      for (int c = c0; c < c0 + 16; ++c) {
-        float u = 0.0f, dl = 0.0f;
-        if (ok) {
-          u = expf(sf[row * LDF + c] * scale - m);
-          dl = (u * (dpf[row * LDF + c] - r)) * dl_scale;
-        }
-        us[row * LDB + c] = __float2bfloat16(u);
-        dls[row * LDB + c] = __float2bfloat16(dl);
-        gns[row * LDB + c] =
-            __float2bfloat16(__bfloat162float(gs[row * LDB + c]) / den);
-      }
-    }
-    __syncthreads();
-    // dv[j] += sum_i u[i][j] g_n[i]; dk[j] += sum_i dl[i][j] q[i]: the
-    // (query, key) tiles read transposed as col-major A fragments.
-#pragma unroll
-    for (int kk = 0; kk < TILE; kk += 16) {
-      FragAT fu, fd;
-      wmma::load_matrix_sync(fu, us + kk * LDB + rf * 16, LDB);
-      wmma::load_matrix_sync(fd, dls + kk * LDB + rf * 16, LDB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragBRow fg, fq;
-        wmma::load_matrix_sync(fg, gns + kk * LDB + (cf + j) * 16, LDB);
-        wmma::load_matrix_sync(fq, qs + kk * LDB + (cf + j) * 16, LDB);
-        wmma::mma_sync(acc_dv[j], fu, fg, acc_dv[j]);
-        wmma::mma_sync(acc_dk[j], fd, fq, acc_dk[j]);
-      }
-    }
-    __syncthreads();  // qs, gs and the u/dl tiles are rewritten next
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(sf + rf * 16 * LDF + (cf + j) * 16, acc_dv[j],
-                            LDF, wmma::mem_row_major);
-    wmma::store_matrix_sync(dpf + rf * 16 * LDF + (cf + j) * 16, acc_dk[j],
-                            LDF, wmma::mem_row_major);
-  }
-  __syncthreads();
-  write_rows(args.dv + head + (size_t)k0 * P, sf, P, kv);
-  write_rows(args.dk + head + (size_t)k0 * P, dpf, P, kv);
-}
-
 }  // namespace
 
 extern "C" {
@@ -610,21 +291,9 @@ int pigeon_fused_qkv_attention_backward(
   attn.S = seq;
   attn.H = heads;
   attn.scale = 1.0f / sqrtf(static_cast<float>(DH));
-  const dim3 tiles((seq + TILE - 1) / TILE, heads, batch);
-
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DQ_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<<<tiles, THREADS, DQ_SMEM, st>>>(attn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             DKDV_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<<<tiles, THREADS, DKDV_SMEM, st>>>(attn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = attention_backward_passes(attn, batch, st)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
 
   GemmArgs back = {};
   back.a[0] = static_cast<const bf16*>(dq);

@@ -1,8 +1,10 @@
-"""ctypes loader for the repo's native JPEG decoder (`native/decode.cpp`).
+"""ctypes loader for the port's native JPEG decoder (`csrc/decode.cpp`).
 
 Counterpart of `pigeon_tpu/data/native_decode.py`, with the same
 contract: libjpeg decode + bicubic shortest-edge resize + centre crop in
-C++, OpenMP across the images of a batch. The library is built with
+C++, OpenMP across the images of a batch. The source is the port's own
+copy of the JAX package's decoder (`native/decode.cpp`), built with the
+same flags. The library is built with
 ``g++`` at first use into the checkout's ignored ``build/`` directory.
 Where it cannot be built (no compiler or no libjpeg headers), or for an
 image it cannot decode (a PNG, a CMYK JPEG), the caller decodes with PIL
@@ -24,8 +26,8 @@ from pigeon_tpu_torch import native
 
 logger = logging.getLogger("pigeon_tpu_torch.native_decode")
 
-SRC_PATH = os.path.join(native.REPO_ROOT, "native", "decode.cpp")
-#: The JAX package's flags for this source (`native/build.sh`).
+SRC_PATH = os.path.join(native.CSRC_DIR, "decode.cpp")
+#: The flags the JAX package builds its copy with (`native/build.sh`).
 GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=fast", "-funroll-loops",
              "-fPIC", "-shared", "-fopenmp")
 

@@ -1,24 +1,32 @@
-"""Softmax attention forward on separate q/k/v (kernel K3), for the H100.
+"""Softmax attention on separate q/k/v: forward (kernel K3) and backward
+(kernel K4), for the H100.
 
 K3 replaces `pigeon_tpu/kernels/flash_attention.py::_flash_forward` with
 its default body `_attn_kernel`, reached through `mha`: the ``flash``
 attention route and the dynamic-quant calibration forward of
 ``serve --quant``, where the q/k/v projections run outside the kernel.
-It is CUDA C++ for ``sm_90a`` (`csrc/flash_attention.cu`, sharing its
-attention body with K1 and K8 through `csrc/attention_tile.cuh`), built by
-``nvcc`` at first use and bound with ``ctypes``; the source note says what
-bounds it on the card and how the design answers that.
+K4 replaces `_flash_backward` with its body `_attn_bwd_kernel`, the VJP
+of `mha` (and of `fused_qkv_mha` under ``PIGEON_FUSED_BWD=xla``). Both
+are CUDA C++ for ``sm_90a`` (`csrc/flash_attention.cu`, sharing its
+attention body with K1, K5 and K8 through `csrc/attention_tile.cuh`;
+`csrc/flash_attention_bwd.cu`, sharing its two passes with K2 through
+`csrc/attention_bwd_tile.cuh`), built by ``nvcc`` at first use and bound
+with ``ctypes``; the source notes say what bounds them on the card and
+how the designs answer that.
 
 q/k/v keep the model's ``(B, S, H, dh)`` layout, the contract of `mha`;
 the kernel reads that layout directly.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
-version (:func:`flash_attention_reference`, which the CPU tests hold
+version (:func:`flash_attention_reference`,
+:func:`flash_attention_backward_reference`, which the CPU tests hold
 against the JAX package); a CUDA tensor launches the kernel or raises.
 
-Forward only: :class:`FlashAttention` is the differentiable face of the
-route, and its backward raises until K4 (`_flash_backward`) is ported. It
-never differentiates the plain version instead.
+:class:`FlashAttention` pairs them as one differentiable operation, K3
+forward and K4 backward. Its forward goes through the registered operator
+``pigeon::flash_attention``, which the ``attn_kernel`` remat policy
+(`models/clip.py`) names to save K3's output instead of launching K3
+again.
 """
 
 from __future__ import annotations
@@ -121,19 +129,103 @@ def flash_attention(q, k, v):
 flash_attention.launches = 0
 
 
+def flash_attention_backward_reference(q, k, v, g):
+    """Plain PyTorch K4: ``(dq, dk, dv)``, each ``(B, S, H, dh)`` in
+    ``q.dtype``, for the output cotangent ``g`` of K3.
+
+    The arithmetic of `flash_attention.py::_attn_bwd_kernel`:
+    ``u = exp(s - max s)`` in f32 with the denominator deferred;
+    ``dv = bf16(u)^T bf16(g / den)``; ``dp = g v^T`` in f32 and
+    ``r = sum(dp u) / den`` from the f32 ``u``;
+    ``dl = bf16(u (dp - r) scale / den)``; ``dq = dl k`` and
+    ``dk = dl^T q``. Every product takes its operands at their rounded
+    values and sums in f32.
+    """
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, gh = (t.to(dt).transpose(1, 2).float() for t in (q, k, v, g))
+    logits = (qh @ kh.transpose(-1, -2)) * scale
+    u = torch.exp(logits - logits.amax(-1, keepdim=True))
+    den = u.sum(-1, keepdim=True)
+    g_n = (gh / den).to(dt).float()
+    dv = (u.to(dt).float().transpose(-1, -2) @ g_n).to(dt)
+    dp = gh @ vh.transpose(-1, -2)
+    r = (dp * u).sum(-1, keepdim=True) / den
+    dl = (u * (dp - r) * (scale / den)).to(dt).float()
+    dq = (dl @ kh).to(dt)
+    dk = (dl.transpose(-1, -2) @ qh).to(dt)
+    return tuple(t.transpose(1, 2).contiguous() for t in (dq, dk, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def load_backward() -> ctypes.CDLL:
+    """Build (at first use) and load K4's library."""
+    lib = ctypes.CDLL(native.build_cuda("flash_attention_bwd").path)
+    ptr = ctypes.c_void_p
+    lib.pigeon_flash_attention_backward.argtypes = [ptr] * 8 + [
+        ctypes.c_int] * 3 + [ptr]
+    lib.pigeon_flash_attention_backward.restype = ctypes.c_int
+    lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_backward(q, k, v, g):
+    """K4: ``(dq, dk, dv)`` of K3 for the output cotangent ``g``, all
+    ``(B, S, H, dh)``.
+
+    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64)
+    launch the kernel on PyTorch's current stream and count the launch in
+    ``flash_attention_backward.launches``; any other device raises. The
+    kernel's row-statistics workspace is allocated here.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, g)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_backward: no kernel for {q.device}")
+    lib = load_backward()
+    _check_operands(q, k, v, max_seq=q.shape[1])
+    _check_operands(q, g, g, max_seq=q.shape[1])
+    b, s, h, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.pigeon_flash_attention_backward(
+            *(t.data_ptr() for t in (q, k, v, g, dq, dk, dv, stats)), b, s, h,
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            "flash_attention_backward launch failed: "
+            f"{lib.pigeon_cuda_error_string(rc).decode()} (CUDA error {rc})")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+#: K3 as a registered operator, ``torch.ops.pigeon.flash_attention``: the
+#: ``attn_kernel`` remat policy keeps its output, so the recompute pass of
+#: a checkpointed layer never launches K3 again.
+_LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
+_LIBRARY.define("flash_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
+_LIBRARY.impl("flash_attention", flash_attention, "CompositeExplicitAutograd")
+FLASH_ATTENTION_OP = torch.ops.pigeon.flash_attention.default
+
+
 class FlashAttention(torch.autograd.Function):
-    """K3 as an autograd node: the forward is :func:`flash_attention`; the
-    backward raises, because its kernel K4
-    (`flash_attention.py::_flash_backward`) is not ported yet."""
+    """K3 forward and K4 backward as one differentiable operation on
+    ``(B, S, H, dh)`` q/k/v: the VJP of `flash_attention.py::mha`."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        return flash_attention(q, k, v)
+        ctx.save_for_backward(q, k, v)
+        return FLASH_ATTENTION_OP(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the backward of attention kernel K3 is kernel K4 "
-            "(pigeon_tpu/kernels/flash_attention.py::_flash_backward), "
-            "which pigeon_tpu_torch has not ported yet: train on "
-            "attn_impl='fused' (K1 + K2)")
+        q, k, v = ctx.saved_tensors
+        return flash_attention_backward(q, k, v,
+                                        g.to(q.dtype).contiguous())

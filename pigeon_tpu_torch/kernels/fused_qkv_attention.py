@@ -19,7 +19,8 @@ against the JAX package); a CUDA tensor launches the kernel or raises.
 Nothing falls back from a kernel to a plain version.
 
 :class:`FusedQKVAttention` makes the pair one differentiable operation:
-K1 forward, K2 backward, the weight and bias gradients as plain matrix
+K1 forward, K2 backward (or, under ``PIGEON_FUSED_BWD=xla``, plain
+projections around K4), the weight and bias gradients as plain matrix
 products (the JAX package leaves those to XLA). Its forward goes through
 the registered operator ``pigeon::fused_qkv_attention``, which is what the
 ``attn_kernel`` remat policy (`models/clip.py`) names to save K1's output
@@ -30,11 +31,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
 from pigeon_tpu_torch import native
-from pigeon_tpu_torch.kernels.attention import flash_attention_reference
+from pigeon_tpu_torch.kernels.attention import (
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+)
 
 #: The head width the kernel is written for (ViT-B and ViT-L both use 64).
 HEAD_DIM = 64
@@ -152,43 +158,25 @@ def fused_qkv_attention_backward_reference(x, wq, wk, wv, bq, bk, bv, g,
 
     The arithmetic of `flash_attention.py::_fused_qkv_bwd_kernel`: q/k/v
     recomputed as in the forward (f32 bias add, rounded to ``x.dtype``);
-    ``u = exp(s - max s)`` in f32 with the denominator deferred;
-    ``dv = bf16(u)^T bf16(g / den)``; ``dp = g v^T`` in f32 and
-    ``r = sum(dp u) / den`` from the f32 ``u``;
-    ``dl = bf16(u (dp - r) scale / den)``; ``dq = dl k``, ``dk = dl^T q``
-    and ``dx = dq Wq + dk Wk + dv Wv`` accumulated in f32. Every product
-    takes its operands at their rounded values and sums in f32.
+    the attention backward of K4's plain version
+    (:func:`~pigeon_tpu_torch.kernels.attention.flash_attention_backward_reference`:
+    ``u = exp(s - max s)`` in f32 with the denominator deferred,
+    ``dl = bf16(u (dp - r) scale / den)``, ``dq = dl k``, ``dk = dl^T q``,
+    ``dv = bf16(u)^T bf16(g / den)``); and ``dx = dq Wq + dk Wk + dv Wv``
+    accumulated in f32. Every product takes its operands at their rounded
+    values and sums in f32.
     """
     b, s, _ = x.shape
     p = wq.shape[0]
-    dh = p // num_heads
-    scale = dh ** -0.5
+    heads = (b, s, num_heads, p // num_heads)
     dt = x.dtype
     xf = x.float()
 
-    def heads(t):                                   # (B,S,P)->(B,H,S,dh)
-        return t.reshape(b, s, num_heads, dh).transpose(1, 2).float()
-
     def proj(w, bias):
-        return heads((xf @ w.float().t() + bias.float()).to(dt))
+        return (xf @ w.float().t() + bias.float()).to(dt).view(heads)
 
-    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
-    gh = heads(g.to(dt))
-    logits = (q @ k.transpose(-1, -2)) * scale
-    u = torch.exp(logits - logits.amax(-1, keepdim=True))
-    den = u.sum(-1, keepdim=True)
-    g_n = (gh / den).to(dt).float()
-    dv = (u.to(dt).float().transpose(-1, -2) @ g_n).to(dt)
-    dp = gh @ v.transpose(-1, -2)
-    r = (dp * u).sum(-1, keepdim=True) / den
-    dl = (u * (dp - r) * (scale / den)).to(dt).float()
-    dq = (dl @ k).to(dt)
-    dk = (dl.transpose(-1, -2) @ q).to(dt)
-
-    def merge(t):                                   # (B,H,S,dh)->(B,S,P)
-        return t.transpose(1, 2).reshape(b, s, p)
-
-    dq, dk, dv = merge(dq), merge(dk), merge(dv)
+    dq, dk, dv = (t.reshape(b, s, p) for t in flash_attention_backward_reference(
+        proj(wq, bq), proj(wk, bk), proj(wv, bv), g.reshape(heads)))
     dx = (dq.float() @ wq.float() + dk.float() @ wk.float()
           + dv.float() @ wv.float())
     return dx.to(dt), dq, dk, dv
@@ -276,7 +264,7 @@ fused_qkv_attention_backward.launches = 0
 #: so the recompute pass of a checkpointed layer never launches K1 again.
 #: (Registered with `torch.library.Library`: `torch.library.custom_op`
 #: imports the compiler stack at its first call, seconds of start-up.)
-_LIBRARY = torch.library.Library("pigeon", "DEF")
+_LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
 _LIBRARY.define("fused_qkv_attention(Tensor x, Tensor wq, Tensor wk, "
                 "Tensor wv, Tensor bq, Tensor bk, Tensor bv, int num_heads) "
                 "-> Tensor")
@@ -285,15 +273,63 @@ _LIBRARY.impl("fused_qkv_attention", fused_qkv_attention,
 FUSED_QKV_ATTENTION_OP = torch.ops.pigeon.fused_qkv_attention.default
 
 
+#: ``PIGEON_FUSED_BWD``: the backward of the fused projection + attention,
+#: read at call time as the JAX package reads it (`_fused_qkv_bwd`).
+FUSED_BWDS = ("kernel", "xla")
+
+
+def fused_bwd() -> str:
+    """The ``PIGEON_FUSED_BWD`` choice: ``kernel`` (default, K2) or
+    ``xla`` (plain projections around K4); anything else raises."""
+    value = os.environ.get("PIGEON_FUSED_BWD", "kernel")
+    if value not in FUSED_BWDS:
+        raise ValueError(f"PIGEON_FUSED_BWD={value!r}, not in {FUSED_BWDS}")
+    return value
+
+
+def fused_qkv_attention_grads(x, wq, wk, wv, bq, bk, bv, g, num_heads: int,
+                              need):
+    """The VJP of `flash_attention.py::fused_qkv_mha` (`_fused_qkv_bwd`)
+    at ``x`` for the cotangent ``g``: ``(dx, dWq, dWk, dWv, dbq, dbk,
+    dbv)``, each None where ``need`` (seven flags) says nobody wants it.
+
+    ``PIGEON_FUSED_BWD=kernel``: K2 gives ``dx`` and the projection
+    cotangents. ``xla``: q/k/v recomputed by plain products (f32
+    accumulation, the bias added before one rounding), K4 on them, and
+    ``dx = [dq|dk|dv] [Wq;Wk;Wv]`` as one plain product. ``dW* = d*^T x``
+    (f32 accumulation, rounded to the weight dtype) and ``db* = sum d*``
+    either way.
+    """
+    g = g.to(x.dtype).contiguous()
+    if fused_bwd() == "kernel":
+        dx, *dqkv = fused_qkv_attention_backward(x, wq, wk, wv, bq, bk, bv,
+                                                 g, num_heads)
+    else:
+        b, s, _ = x.shape
+        heads = (b, s, num_heads, wq.shape[0] // num_heads)
+        q, k, v = (torch.nn.functional.linear(x, w, bias).view(heads)
+                   for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+        dqkv = [t.reshape(b, s, -1) for t in flash_attention_backward(
+            q, k, v, g.view(heads))]
+        dx = (torch.cat(dqkv, -1) @ torch.cat((wq, wk, wv), 0)
+              if need[0] else None)
+    x_flat = x.reshape(-1, x.shape[-1])
+    dws = [d.reshape(-1, d.shape[-1]).t() @ x_flat if need[1 + i]
+           else None for i, d in enumerate(dqkv)]
+    dbs = [d.sum((0, 1), dtype=torch.float32).to(bias.dtype)
+           if need[4 + i] else None
+           for i, (d, bias) in enumerate(zip(dqkv, (bq, bk, bv)))]
+    return (dx if need[0] else None), *dws, *dbs
+
+
 class FusedQKVAttention(torch.autograd.Function):
     """K1 forward and K2 backward as one differentiable operation:
     ``(x (B, S, D), W* (P, D), b* (P,)) -> (B, S, P)``.
 
-    The backward is the VJP of `flash_attention.py::fused_qkv_mha`: K2
-    gives ``dx`` and the projection cotangents; ``dW* = d*^T x`` (f32
-    accumulation, rounded to the weight dtype) and ``db* = sum d*`` are
-    formed here, each only when its input needs a gradient (a frozen
-    layer needs ``dx`` alone).
+    The backward is the VJP of `flash_attention.py::fused_qkv_mha`
+    (:func:`fused_qkv_attention_grads`: K2, or K4 under
+    ``PIGEON_FUSED_BWD=xla``); each weight and bias gradient is formed
+    only when its input needs one (a frozen layer needs ``dx`` alone).
     """
 
     @staticmethod
@@ -304,15 +340,6 @@ class FusedQKVAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, wq, wk, wv, bq, bk, bv = ctx.saved_tensors
-        dx, *dqkv = fused_qkv_attention_backward(
-            x, wq, wk, wv, bq, bk, bv, g.to(x.dtype).contiguous(),
-            ctx.num_heads)
-        need = ctx.needs_input_grad
-        x_flat = x.reshape(-1, x.shape[-1])
-        dws = [d.reshape(-1, d.shape[-1]).t() @ x_flat if need[1 + i]
-               else None for i, d in enumerate(dqkv)]
-        dbs = [d.sum((0, 1), dtype=torch.float32).to(bias.dtype)
-               if need[4 + i] else None
-               for i, (d, bias) in enumerate(zip(dqkv, (bq, bk, bv)))]
-        return (dx if need[0] else None), *dws, *dbs, None
+        return (*fused_qkv_attention_grads(*ctx.saved_tensors, g,
+                                           ctx.num_heads,
+                                           ctx.needs_input_grad[:7]), None)

@@ -8,17 +8,29 @@ Numerics follow the JAX package: parameters are f32 and are cast to the
 compute dtype (bf16 when serving) at each use; LayerNorm statistics run
 in f32 and round to the compute dtype; the attention softmax is f32.
 
-Attention has three routes, with one parameter layout (``q_proj``,
-``k_proj``, ``v_proj``, ``out_proj``):
+Each layer has five routes, with one parameter layout (``ln1``,
+``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``, ``ln2``, ``fc1``,
+``fc2``), so a tree bridged from the JAX package loads under any of them:
 
 * ``"fused"`` — the q/k/v projections and the attention run in kernel K1
   and its gradient in kernel K2 (`kernels/fused_qkv_attention.py`,
   `FusedQKVAttention`), the `flash_fused` route of the JAX package;
-* ``"flash"`` — separate projections, then kernel K3
-  (`kernels/attention.py`), the JAX package's `flash` route; forward
-  only (its backward, K4, is not ported);
+* ``"flash"`` — separate projections, then kernel K3 forward and kernel
+  K4 backward (`kernels/attention.py`, `FlashAttention`), the JAX
+  package's `flash` route;
 * ``"plain"`` — separate projections and plain PyTorch attention, the
-  JAX package's `xla` route.
+  JAX package's `xla` route;
+* ``"fused_ln"`` — LN1 folded into the fused attention: kernel K5
+  (`kernels/fused_ln_qkv_attention.py`) takes the layer's raw input, its
+  gradient reuses K2; the JAX package's `flash_fused_ln`;
+* ``"fused_mlp"`` — ``"fused_ln"`` plus the MLP half (LN2, fc1,
+  quick-GELU, fc2, residual) as kernel K9 (`kernels/fused_mlp.py`); the
+  JAX package's `flash_fused_mlp`.
+
+The route is `MultiHeadAttention.attn_impl`, which `TransformerLayer`
+reads; `set_route` switches a built model and `routes_of` reads it back.
+The precedence follows `pigeon_tpu/models/clip.py:354-414`: in an int8
+layer ``"fused_ln"`` and ``"fused_mlp"`` are ``"fused"``.
 
 ``quant`` makes the tower int8 (`models/quant.py`): every q/k/v/out/fc1/
 fc2 Linear and the patch embed become `QuantLinear` layers. With
@@ -36,10 +48,14 @@ Training remats the tower layer by layer (``remat``, the JAX package's
 
 * ``"none"`` — every activation is kept for the backward;
 * ``"attn_kernel"`` — each layer is a non-reentrant
-  `torch.utils.checkpoint` region that keeps its input, K1's output and
-  the attention output (after ``out_proj``) and recomputes the rest in
-  the backward: LN1 (K2 needs its output), the residual add and the MLP.
-  K1 is never launched again.
+  `torch.utils.checkpoint` region that keeps its input, the attention
+  kernel's output (K1, K3 or K5) and the attention output (after
+  ``out_proj``) and recomputes the rest in the backward: LN1 (K2 needs
+  its output), the separate projections of ``"flash"`` (K4 needs them),
+  the residual add and the MLP. On ``"fused_mlp"`` it also keeps K9's
+  output, the next layer's input, which XLA's dead-code elimination
+  spares the JAX package from recomputing. No kernel forward is launched
+  again.
 """
 
 from __future__ import annotations
@@ -58,7 +74,20 @@ from torch.utils.checkpoint import (
 )
 
 from pigeon_tpu_torch.config import VisionConfig
-from pigeon_tpu_torch.kernels.attention import FlashAttention
+from pigeon_tpu_torch.kernels.attention import (
+    FLASH_ATTENTION_OP,
+    FlashAttention,
+)
+from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
+    FUSED_LN_QKV_ATTENTION_OP,
+    FusedLNQKVAttention,
+    flax_layer_norm_f32,
+)
+from pigeon_tpu_torch.kernels.fused_mlp import (
+    FUSED_LN_MLP_OP,
+    FusedLNMLP,
+    quick_gelu,
+)
 from pigeon_tpu_torch.kernels.fused_qkv_attention import (
     FUSED_QKV_ATTENTION_OP,
     FusedQKVAttention,
@@ -72,7 +101,9 @@ from pigeon_tpu_torch.models.quant import (
     quant_mode,
 )
 
-ATTN_IMPLS = ("fused", "flash", "plain")
+ATTN_IMPLS = ("fused", "flash", "plain", "fused_ln", "fused_mlp")
+#: The routes whose attention is the fused projection + attention.
+FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
 REMATS = ("none", "attn_kernel")
 QUANTS = (False, "dynamic", "static")
 
@@ -91,17 +122,18 @@ def saved_by_remat():
         _SAVING.reset(token)
 
 
+#: The kernel forwards whose outputs ``attn_kernel`` keeps.
+_SAVED_OPS = (FUSED_QKV_ATTENTION_OP, FLASH_ATTENTION_OP,
+              FUSED_LN_QKV_ATTENTION_OP, FUSED_LN_MLP_OP)
+
+
 def _attn_kernel_policy(ctx, func, *args, **kwargs):
-    """The ``attn_kernel`` save set: K1's output and what runs under
-    `saved_by_remat`; everything else is recomputed."""
-    if func is FUSED_QKV_ATTENTION_OP or _SAVING.get():
+    """The ``attn_kernel`` save set: the kernel outputs of `_SAVED_OPS`
+    and what runs under `saved_by_remat`; everything else is
+    recomputed."""
+    if func in _SAVED_OPS or _SAVING.get():
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def quick_gelu(x):
-    """CLIP's activation: ``x * sigmoid(1.702 x)``."""
-    return x * torch.sigmoid(1.702 * x)
 
 
 def dense(layer: nn.Linear, x):
@@ -116,14 +148,12 @@ def layer_norm(layer: nn.LayerNorm, x):
 
 
 def flax_layer_norm(layer: nn.LayerNorm, x):
-    """LayerNorm in Flax's form (`flax.linen.LayerNorm`): f32 mean and
-    ``var = max(E[x^2] - E[x]^2, 0)``, then ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias``, rounded back to ``x.dtype``."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    mul = torch.rsqrt(var + layer.eps) * layer.weight
-    return ((xf - mean) * mul + layer.bias).to(x.dtype)
+    """LayerNorm in Flax's form (`flax.linen.LayerNorm`, the arithmetic K5
+    and K9 fold in): f32 mean and ``var = max(E[x^2] - E[x]^2, 0)``, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, rounded back to
+    ``x.dtype``."""
+    return flax_layer_norm_f32(x, layer.weight, layer.bias,
+                               layer.eps).to(x.dtype)
 
 
 def make_linear(in_features: int, out_features: int, quant=False):
@@ -188,11 +218,19 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = make_linear(hidden_size, hidden_size, quant)
         self.out_proj = make_linear(hidden_size, hidden_size, quant)
 
-    def forward(self, x):
+    def forward(self, x, ln: nn.LayerNorm = None):
+        """``x`` (B, S, D) -> (B, S, D) after ``out_proj``. With ``ln``
+        (the JAX package's ``ln=``, only on a fused route in float), ``x``
+        is the layer's raw input and LN runs inside kernel K5."""
         b, s, d = x.shape
         projs = (self.q_proj, self.k_proj, self.v_proj)
         quant = quant_mode(self.q_proj)
-        if self.attn_impl == "fused" and quant == "static":
+        fused = self.attn_impl in FUSED_IMPLS
+        if ln is not None and (quant or not fused):
+            raise ValueError(f"LN folds into the attention only on a fused "
+                             f"float route, not {self.attn_impl!r} "
+                             f"(quant={quant!r})")
+        if fused and quant == "static":
             # q/k/v see the same input, so calibration freezes the same
             # scale for each; the kernel quantizes x once at their max.
             act_scale = torch.maximum(
@@ -202,10 +240,16 @@ class MultiHeadAttention(nn.Module):
                 x.contiguous(), act_scale,
                 *(t for p in projs for t in (p.weight, p.scale, p.bias)),
                 self.num_heads)
-        elif self.attn_impl == "fused" and not quant:
-            out = FusedQKVAttention.apply(
-                x.contiguous(), *(p.weight.to(x.dtype) for p in projs),
-                *(p.bias.to(x.dtype) for p in projs), self.num_heads)
+        elif fused and not quant:
+            weights = [p.weight.to(x.dtype) for p in projs]
+            biases = [p.bias.to(x.dtype) for p in projs]
+            if ln is None:
+                out = FusedQKVAttention.apply(x.contiguous(), *weights,
+                                              *biases, self.num_heads)
+            else:
+                out = FusedLNQKVAttention.apply(
+                    x.contiguous(), ln.weight, ln.bias, *weights, *biases,
+                    self.num_heads, ln.eps)
         else:
             heads = (b, s, self.num_heads, d // self.num_heads)
             attend = (plain_attention if self.attn_impl == "plain"
@@ -217,7 +261,8 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN block: ``x += attn(LN1(x)); x += fc2(gelu(fc1(LN2(x))))``."""
+    """Pre-LN block: ``x += attn(LN1(x)); x += fc2(gelu(fc1(LN2(x))))``,
+    on the route of ``self.attn.attn_impl`` (the module docstring)."""
 
     def __init__(self, config: VisionConfig, attn_impl: str = "fused",
                  quant=False):
@@ -233,9 +278,19 @@ class TransformerLayer(nn.Module):
         self.fc2 = make_linear(config.intermediate_size, d, quant)
 
     def forward(self, x):
+        quant = quant_mode(self.fc1)
         # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
-        norm = flax_layer_norm if quant_mode(self.fc1) else layer_norm
-        x = x + self.attn(norm(self.ln1, x))
+        norm = flax_layer_norm if quant else layer_norm
+        route = self.attn.attn_impl
+        if route in ("fused_ln", "fused_mlp") and not quant:
+            x = x + self.attn(x, ln=self.ln1)
+        else:
+            x = x + self.attn(norm(self.ln1, x))
+        if route == "fused_mlp" and not quant:
+            return FusedLNMLP.apply(
+                x.contiguous(), self.ln2.weight, self.ln2.bias,
+                *(t.to(x.dtype) for fc in (self.fc1, self.fc2)
+                  for t in (fc.weight, fc.bias)), self.ln2.eps)
         h = quick_gelu(linear(self.fc1, norm(self.ln2, x)))
         return x + linear(self.fc2, h)
 
@@ -293,3 +348,19 @@ class CLIPVisionTower(nn.Module):
         x = torch.cat([cls, patches], dim=1) + self.pos_embed.to(self.dtype)
         x = self.encoder(layer_norm(self.pre_ln, x))
         return x, layer_norm(self.post_ln, x[:, 0])
+
+
+def set_route(model: nn.Module, route: str) -> None:
+    """Switch every layer of a built ``model`` (a tower, or a module that
+    holds one) to ``route``; the parameters stay as they are."""
+    if route not in ATTN_IMPLS:
+        raise ValueError(f"route={route!r}, not in {ATTN_IMPLS}")
+    for m in model.modules():
+        if isinstance(m, (MultiHeadAttention, CLIPVisionTower)):
+            m.attn_impl = route
+
+
+def routes_of(model: nn.Module) -> set:
+    """The routes the layers of ``model`` run on."""
+    return {m.attn_impl for m in model.modules()
+            if isinstance(m, MultiHeadAttention)}

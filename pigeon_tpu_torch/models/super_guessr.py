@@ -27,9 +27,11 @@ class SuperGuessr(nn.Module):
     """End-to-end model: NHWC CLIP-normalised pixels -> `GeocellOutput`.
 
     Parameters are f32; the forward computes in ``dtype`` (bf16 on the
-    card). ``attn_impl`` selects the tower's attention route (``"fused"``:
-    kernels K1 and K2, or K8 when int8; ``"flash"``: separate projections
-    and kernel K3; ``"plain"``: separate projections); ``remat`` the
+    card). ``attn_impl`` selects the tower's route (``"fused"``: kernels
+    K1 and K2, or K8 when int8; ``"flash"``: separate projections and
+    kernels K3 and K4; ``"plain"``: separate projections; ``"fused_ln"``:
+    K5 with LN1 folded in; ``"fused_mlp"``: K5 and the MLP half as K9;
+    `models/clip.py` states the precedence); ``remat`` the
     tower's training remat policy (``"none"`` or ``"attn_kernel"``);
     ``quant`` (False, ``"dynamic"`` or ``"static"``) an int8 tower
     (`models/quant.py`), which `models.quant.quantize_and_calibrate` also

@@ -1,7 +1,7 @@
 """Build native sources into shared libraries at first use.
 
 The port's CUDA kernels (`csrc/*.cu`, compiled by ``nvcc`` for
-``sm_90a``) and the repo's host decoder (`native/decode.cpp`, by ``g++``)
+``sm_90a``) and the host JPEG decoder (`csrc/decode.cpp`, by ``g++``)
 are compiled on the machine that runs them, into ``build/`` at the root
 of the checkout (listed in ``.gitignore``). A library's file name carries
 a hash of its source, the local headers it includes (``#include "..."``,

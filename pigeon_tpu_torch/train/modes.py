@@ -18,11 +18,12 @@ def build_finetune_model(cfg: PigeonConfig, dtype=torch.bfloat16,
                          attn_impl: str = "fused",
                          remat: str = "attn_kernel") -> SuperGuessr:
     """SuperGuessr for finetuning on pixels: f32 parameters, ``dtype``
-    compute, attention through K1/K2, the tower remat'd under
-    ``attn_kernel`` (K1's and the attention outputs kept, the rest
-    recomputed), every encoder layer but the last frozen (reference
-    `train_modes.py:67-107`). The weights are uninitialised: see
-    `models.super_guessr.init_weights`."""
+    compute, the tower on route ``attn_impl`` (default ``"fused"``: K1
+    forward, K2 backward; `cli.run.attn_impl` reads ``PIGEON_ATTN_IMPL``)
+    and remat'd under ``attn_kernel`` (the attention kernel's and the
+    attention outputs kept, the rest recomputed), every encoder layer but
+    the last frozen (reference `train_modes.py:67-107`). The weights are
+    uninitialised: see `models.super_guessr.init_weights`."""
     model = SuperGuessr(cfg.vision, cfg.head, dtype=dtype,
                         attn_impl=attn_impl, remat=remat)
     return freeze_all_but_last_layer(model)

@@ -1,5 +1,7 @@
-"""The PyTorch port imports no JAX: every module of `pigeon_tpu_torch`
-imports in a process where ``jax``, ``flax`` and ``optax`` are blocked."""
+"""The PyTorch port imports no JAX and nothing of the JAX package: every
+module of `pigeon_tpu_torch` imports in a process where ``jax``,
+``flax``, ``optax`` and ``pigeon_tpu`` are blocked, and no source line of
+the port or of `chip_smoke.py` imports them."""
 
 import os
 import pkgutil
@@ -10,7 +12,9 @@ import sys
 import pigeon_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "pigeon_tpu")
+IMPORT_LINE = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pigeon_tpu)(\.|\s|$)")
 
 
 def port_modules():
@@ -26,7 +30,8 @@ def test_every_module_imports_with_jax_blocked():
         "models.quant", "kernels.geodesy", "core.geodesy", "core.scoring",
         "models.geocell_head", "data.pipeline", "train.modes",
         "train.train_loop", "train.metrics", "train.loop",
-        "train.checkpoints")} <= set(modules)
+        "train.checkpoints", "config", "kernels.fused_ln_qkv_attention",
+        "kernels.fused_mlp", "data.native_decode")} <= set(modules)
     code = (f"import sys\nfor name in {BLOCKED!r}:\n"
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n    __import__(name)\n"
@@ -37,11 +42,29 @@ def test_every_module_imports_with_jax_blocked():
     assert "imported" in proc.stdout
 
 
-def test_no_source_line_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b")
+def source_files():
     for dirpath, _, files in os.walk(pigeon_tpu_torch.__path__[0]):
         for name in files:
             if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    for i, line in enumerate(f, 1):
-                        assert not pattern.match(line), f"{name}:{i}"
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_line_imports_jax():
+    files = list(source_files())
+    assert any(f.endswith("config.py") for f in files)
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                assert not IMPORT_LINE.match(line), f"{path}:{i}: {line}"
+
+
+def test_import_pattern_tells_the_port_from_the_jax_package():
+    for line in ("import jax", "from jax.numpy import x", "import pigeon_tpu",
+                 "from pigeon_tpu.config import VisionConfig",
+                 "    from pigeon_tpu import config", "import flax.linen"):
+        assert IMPORT_LINE.match(line), line
+    for line in ("import pigeon_tpu_torch", "from pigeon_tpu_torch import x",
+                 "from pigeon_tpu_torch.config import VisionConfig",
+                 "import jaxtyping", "# from pigeon_tpu.config import x"):
+        assert not IMPORT_LINE.match(line), line

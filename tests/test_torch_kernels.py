@@ -1,9 +1,11 @@
-"""Kernels K1 (fused QKV projection + attention), K2 (its backward) and
+"""Kernels K1 (fused QKV projection + attention), K2 (its backward), K4
+(attention backward), K5 (LN + fused QKV + attention), K9 (LN + MLP) and
 K10 (haversine label smoothing) of the PyTorch port: on the CPU, their
 plain versions against the JAX package (its Pallas kernels in interpret
-mode), the autograd Function that pairs K1 with K2, and the wrappers'
-dispatch and operand checks; on a GPU (``-m gpu``), the CUDA kernels
-against their plain versions at ragged and full-width shapes.
+mode), the autograd Functions around them (including the
+``PIGEON_FUSED_BWD=xla`` backward), and the wrappers' dispatch and
+operand checks; on a GPU (``-m gpu``), the CUDA kernels against their
+plain versions at ragged and full-width shapes.
 """
 
 import numpy as np
@@ -11,6 +13,9 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from pigeon_tpu_torch.kernels import attention as k4
+from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+from pigeon_tpu_torch.kernels import fused_mlp as k9
 from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
 from pigeon_tpu_torch.kernels import geodesy as k10
 
@@ -417,3 +422,327 @@ def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
         assert [os.path.basename(p) for p in closure] == [
             f"{kernel}.cu", "attention_tile.cuh"]
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K9 and the PIGEON_FUSED_BWD=xla backward against the JAX package
+# ---------------------------------------------------------------------------
+
+def tensor(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+@pytest.fixture
+def routes_interpret_mode(monkeypatch):
+    """The JAX package's kernels as its own tests run them on the CPU:
+    interpret mode, two head groups forward and backward, 128-wide MLP
+    chunks."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.setenv("PIGEON_FUSED_GROUPS", "2")
+    monkeypatch.setenv("PIGEON_FUSED_BWD", "kernel")
+    monkeypatch.setenv("PIGEON_FUSED_BWD_GROUPS", "2")
+    monkeypatch.setenv("PIGEON_MLP_CHUNK", "128")
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+@pytest.mark.parametrize("b, s, h", [(2, 17, 2), (1, 64, 2), (2, 100, 1)])
+def test_k4_plain_version_matches_jax_flash_backward(routes_interpret_mode,
+                                                     b, s, h):
+    from pigeon_tpu.kernels.flash_attention import _flash_backward
+
+    rng = np.random.default_rng(s)
+    q, k, v, g = (rng.normal(size=(b, s, h, 64)).astype(np.float32)
+                  for _ in range(4))
+
+    def fold(a):                                   # (B,S,H,dh)->(BH,S,dh)
+        return a.transpose(0, 2, 1, 3).reshape(b * h, s, 64)
+
+    want = _flash_backward(*(jnp.asarray(fold(a)) for a in (q, k, v, g)))
+    got = k4.flash_attention_backward(*map(tensor, (q, k, v, g)))
+    for a, w in zip(got, want):
+        # 3e-4: the JAX package's bound for this backward in f32
+        # (tests/test_flash_attention.py); the sums run in another order.
+        np.testing.assert_allclose(fold(a.numpy()), np.asarray(w),
+                                   atol=3e-4)
+
+
+def test_flash_attention_gradients_match_jax_vjp_of_mha(
+        routes_interpret_mode):
+    """`FlashAttention` (K3 forward, K4 backward; their plain versions on
+    the CPU) against `jax.vjp` of `mha` (the Pallas kernels)."""
+    import jax
+
+    from pigeon_tpu.kernels.flash_attention import mha
+
+    rng = np.random.default_rng(3)
+    q, k, v, g = (rng.normal(size=(2, 33, 2, 64)).astype(np.float32)
+                  for _ in range(4))
+    out, vjp = jax.vjp(mha, *map(jnp.asarray, (q, k, v)))
+    leaves = [tensor(a, grad=True) for a in (q, k, v)]
+    got = k4.FlashAttention.apply(*leaves)
+    assert got.grad_fn.name() == "FlashAttentionBackward"
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=5e-5)
+    got.backward(tensor(g))
+    for t, w in zip(leaves, vjp(jnp.asarray(g))):
+        # 3e-4: tests/test_flash_attention.py's bound for mha's gradients.
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=3e-4)
+
+
+def ln_operands(s, d=128, seed=0):
+    """Raw x, LN scale and bias, and q/k/v weights (JAX layout) and
+    biases for the LN-fused attention."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, s, d)).astype(np.float32)
+    ls = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    lb = (0.1 * rng.normal(size=(d,))).astype(np.float32)
+    ws = [(rng.normal(size=(d, d)) * d ** -0.5).astype(np.float32)
+          for _ in range(3)]
+    bs = [(0.1 * rng.normal(size=(d,))).astype(np.float32) for _ in range(3)]
+    g = rng.normal(size=(2, s, d)).astype(np.float32)
+    return x, ls, lb, ws, bs, g
+
+
+@pytest.mark.parametrize("s", [10, 33])
+def test_k5_plain_version_and_gradients_match_jax(routes_interpret_mode, s):
+    import jax
+
+    from pigeon_tpu.kernels.flash_attention import fused_ln_qkv_mha
+
+    x, ls, lb, ws, bs, g = ln_operands(s)
+    out, vjp = jax.vjp(lambda *a: fused_ln_qkv_mha(*a, 2, 1e-5),
+                       *map(jnp.asarray, (x, ls, lb, *ws, *bs)))
+    leaves = [tensor(a, grad=True)
+              for a in (x, ls, lb, *(w.T for w in ws), *bs)]
+    got = k5.FusedLNQKVAttention.apply(*leaves, 2, 1e-5)
+    # 5e-5 forward and 5e-4 gradients: tests/test_flash_attention.py's
+    # bounds for the LN-fused kernel in f32.
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=5e-5)
+    torch.testing.assert_close(
+        k5.fused_ln_qkv_attention(*(t.detach() for t in leaves), 2, 1e-5),
+        got.detach(), rtol=0, atol=0)
+    got.backward(tensor(g))
+    for i, (t, w) in enumerate(zip(leaves, vjp(jnp.asarray(g)))):
+        grad = t.grad.numpy()
+        np.testing.assert_allclose(grad.T if 3 <= i <= 5 else grad,
+                                   np.asarray(w), atol=5e-4, err_msg=str(i))
+
+
+@pytest.mark.parametrize("s", [10, 64])
+def test_k9_plain_version_and_gradients_match_jax(routes_interpret_mode, s):
+    import jax
+
+    from pigeon_tpu.kernels.fused_mlp import fused_ln_mlp
+
+    rng = np.random.default_rng(s)
+    d, inter = 128, 512
+    x = rng.normal(size=(2, s, d)).astype(np.float32)
+    ls = (1.0 + 0.1 * rng.normal(size=(d,))).astype(np.float32)
+    lb, b2 = ((0.1 * rng.normal(size=(d,))).astype(np.float32)
+              for _ in range(2))
+    w1 = (0.1 * rng.normal(size=(d, inter))).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=(inter,))).astype(np.float32)
+    w2 = (0.1 * rng.normal(size=(inter, d))).astype(np.float32)
+    g = rng.normal(size=(2, s, d)).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: fused_ln_mlp(*a, 1e-5),
+                       *map(jnp.asarray, (x, ls, lb, w1, b1, w2, b2)))
+    leaves = [tensor(a, grad=True) for a in (x, ls, lb, w1.T, b1, w2.T, b2)]
+    got = k9.FusedLNMLP.apply(*leaves, 1e-5)
+    # 2e-4 forward, atol 1e-3 / rtol 1e-4 gradients: the bounds of
+    # tests/test_fused_mlp.py for this kernel in f32.
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=2e-4)
+    got.backward(tensor(g))
+    for i, (t, w) in enumerate(zip(leaves, vjp(jnp.asarray(g)))):
+        grad = t.grad.numpy()
+        np.testing.assert_allclose(grad.T if i in (3, 5) else grad,
+                                   np.asarray(w), atol=1e-3, rtol=1e-4,
+                                   err_msg=str(i))
+
+
+@pytest.mark.parametrize("ln", [False, True])
+def test_xla_backward_matches_jax_xla_branch(routes_interpret_mode,
+                                             monkeypatch, ln):
+    """``PIGEON_FUSED_BWD=xla``: plain projections around K4 (never K2),
+    against the JAX package's `xla` branch of `_fused_qkv_bwd`, for the
+    fused attention with and without LN folded in."""
+    import jax
+
+    from pigeon_tpu.kernels import flash_attention as jfa
+
+    monkeypatch.setenv("PIGEON_FUSED_BWD", "xla")
+    calls = []
+    backward = k1.flash_attention_backward
+    monkeypatch.setattr(k1, "flash_attention_backward",
+                        lambda *a: calls.append(1) or backward(*a))
+
+    def no_k2(*a):
+        raise AssertionError("K2 ran under PIGEON_FUSED_BWD=xla")
+
+    monkeypatch.setattr(k1, "fused_qkv_attention_backward", no_k2)
+    x, ls, lb, ws, bs, g = ln_operands(24, seed=5)
+    x = x * 0.5
+    head = (x, ls, lb) if ln else (x,)
+    fn = ((lambda *a: jfa.fused_ln_qkv_mha(*a, 2, 1e-5)) if ln
+          else (lambda *a: jfa.fused_qkv_mha(*a, 2)))
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (*head, *ws, *bs)))
+    leaves = [tensor(a, grad=True)
+              for a in (*head, *(w.T for w in ws), *bs)]
+    fwd = k5.FusedLNQKVAttention if ln else k1.FusedQKVAttention
+    fwd.apply(*leaves, 2, *((1e-5,) if ln else ())).backward(tensor(g))
+    assert calls == [1]
+    n = len(head)
+    for i, (t, w) in enumerate(zip(leaves, vjp(jnp.asarray(g)))):
+        grad = t.grad.numpy()
+        # 5e-4: the repo's bound for these gradients in f32.
+        np.testing.assert_allclose(grad.T if n <= i < n + 3 else grad,
+                                   np.asarray(w), atol=5e-4, err_msg=str(i))
+
+
+def test_fused_bwd_refuses_an_unknown_choice(monkeypatch):
+    x, ws, bs = operands(9)
+    ops = [t.requires_grad_() for t in torch_operands(x, ws, bs)]
+    out = k1.FusedQKVAttention.apply(*ops, H)
+    monkeypatch.setenv("PIGEON_FUSED_BWD", "kernal")
+    with pytest.raises(ValueError, match="PIGEON_FUSED_BWD"):
+        out.sum().backward()
+
+
+def test_k2_plain_version_runs_k4s_attention_backward():
+    """K2's plain version is K4's with the projections around it: the
+    projection cotangents equal K4's on the projected q/k/v."""
+    x, ws, bs = operands(20, d=128)
+    g = np.random.default_rng(2).normal(size=(2, 20, 128)).astype(np.float32)
+    ops = torch_operands(x, ws, bs)
+    _, *dqkv = k1.fused_qkv_attention_backward_reference(*ops, tensor(g), 2)
+    heads = (2, 20, 2, 64)
+    q, k, v = (torch.nn.functional.linear(ops[0], w, b).view(heads)
+               for w, b in zip(ops[1:4], ops[4:]))
+    for a, w in zip(dqkv, k4.flash_attention_backward_reference(
+            q, k, v, tensor(g).view(heads))):
+        torch.testing.assert_close(a, w.reshape(2, 20, 128), rtol=0,
+                                   atol=1e-6)
+
+
+def test_new_wrappers_dispatch_by_device():
+    """On the CPU the wrappers run their plain versions without counting
+    a launch; on another device they raise."""
+    x, ls, lb, ws, bs, _ = ln_operands(9)
+    ops = [tensor(a) for a in (x, ls, lb, *(w.T for w in ws), *bs)]
+    mlp = [tensor(a) for a in (x, ls, lb)] + [
+        torch.zeros(256, 128), torch.zeros(256), torch.zeros(128, 256),
+        torch.zeros(128)]
+    q = torch.randn(1, 9, 2, 64)
+    before = (k4.flash_attention_backward.launches,
+              k5.fused_ln_qkv_attention.launches, k9.fused_ln_mlp.launches)
+    k4.flash_attention_backward(q, q, q, q)
+    k5.fused_ln_qkv_attention(*ops, 2, 1e-5)
+    k9.fused_ln_mlp(*mlp, 1e-5)
+    assert before == (k4.flash_attention_backward.launches,
+                      k5.fused_ln_qkv_attention.launches,
+                      k9.fused_ln_mlp.launches)
+    meta = torch.empty(1, 9, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        k4.flash_attention_backward(meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        k5.fused_ln_qkv_attention(*(t.to("meta") for t in ops), 2, 1e-5)
+    with pytest.raises(ValueError, match="no kernel"):
+        k9.fused_ln_mlp(*(t.to("meta") for t in mlp), 1e-5)
+
+
+@pytest.mark.parametrize("case, error", [
+    ("ok", None), ("ln_bf16", TypeError), ("ln_short", ValueError),
+    ("d_192", ValueError), ("w1_f32", TypeError)])
+def test_k5_and_k9_operand_checks(case, error):
+    d = 192 if case == "d_192" else 128
+    x = torch.zeros(2, 17, d, dtype=torch.bfloat16)
+    ls, lb = torch.ones(d), torch.zeros(d)
+    if case == "ln_bf16":
+        ls = ls.bfloat16()
+    elif case == "ln_short":
+        lb = lb[:64]
+    w1, w2 = (torch.zeros(s, dtype=torch.bfloat16)
+              for s in ((4 * d, d), (d, 4 * d)))
+    if case == "w1_f32":
+        w1 = w1.float()
+    b1, b2 = (torch.zeros(n, dtype=torch.bfloat16) for n in (4 * d, d))
+    if error is None:
+        k5.check_ln_params(x, ls, lb)
+        k9._check_operands(x, ls, lb, w1, b1, w2, b2)
+    else:
+        with pytest.raises(error):
+            k9._check_operands(x, ls, lb, w1, b1, w2, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(1, 1, 1), (2, 65, 2), (1, 640, 2),
+                                         (32, 577, 16)])
+def test_cuda_k4_matches_plain_version(cuda, b, s, heads):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn(b, s, heads, 64, generator=gen, device=cuda)
+               .bfloat16() for _ in range(3))
+    g = (torch.randn(b, s, heads, 64, generator=gen, device=cuda) * 0.01) \
+        .bfloat16()
+    before = k4.flash_attention_backward.launches
+    got = k4.flash_attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    assert k4.flash_attention_backward.launches == before + 1
+    for a, w in zip(got, k4.flash_attention_backward_reference(q, k, v, g)):
+        # 2e-2 of each output's magnitude: K2's bound for the same passes.
+        scale = w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, d, heads", [(1, 1, 64, 1), (2, 65, 256, 4),
+                                            (1, 640, 128, 2),
+                                            (4, 577, 1024, 16)])
+def test_cuda_k5_matches_plain_version(cuda, b, s, d, heads):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    p = heads * 64
+    x = (torch.randn(b, s, d, generator=gen, device=cuda) * 3 + 1).bfloat16()
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device=cuda)
+    lb = 0.5 * torch.randn(d, generator=gen, device=cuda)
+    ws = [(torch.randn(p, d, generator=gen, device=cuda) * 0.02).bfloat16()
+          for _ in range(3)]
+    bs = [(torch.randn(p, generator=gen, device=cuda) * 0.02).bfloat16()
+          for _ in range(3)]
+    before = k5.fused_ln_qkv_attention.launches
+    got = k5.fused_ln_qkv_attention(x, ls, lb, *ws, *bs, heads, 1e-5)
+    torch.cuda.synchronize()
+    assert k5.fused_ln_qkv_attention.launches == before + 1
+    want = k5.fused_ln_qkv_attention_reference(x, ls, lb, *ws, *bs, heads,
+                                               1e-5)
+    # 2e-2 of the output's magnitude: a bf16 output one ulp apart is up to
+    # 2^-7 of it, and q/k/v and p are rounded from sums in another order.
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, d, inter", [(1, 1, 128, 128), (2, 65, 128,
+                                                               512),
+                                            (32, 577, 1024, 4096)])
+def test_cuda_k9_matches_plain_version(cuda, b, s, d, inter):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn(b, s, d, generator=gen, device=cuda).bfloat16()
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device=cuda)
+    lb = 0.5 * torch.randn(d, generator=gen, device=cuda)
+    w1 = (torch.randn(inter, d, generator=gen, device=cuda) * d ** -0.5) \
+        .bfloat16()
+    w2 = (torch.randn(d, inter, generator=gen, device=cuda)
+          * inter ** -0.5).bfloat16()
+    b1, b2 = ((0.1 * torch.randn(n, generator=gen, device=cuda)).bfloat16()
+              for n in (inter, d))
+    before = k9.fused_ln_mlp.launches
+    got = k9.fused_ln_mlp(x, ls, lb, w1, b1, w2, b2, 1e-5)
+    torch.cuda.synchronize()
+    assert k9.fused_ln_mlp.launches == before + 1
+    want = k9.fused_ln_mlp_reference(x, ls, lb, w1, b1, w2, b2, 1e-5)
+    # 2e-2 of the output's magnitude: h is rounded to bf16 from f32 sums
+    # taken in another order, and fc2 sums I of them.
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale

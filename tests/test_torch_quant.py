@@ -296,17 +296,26 @@ def test_int8_operand_checks(case, error, match):
 
 
 def test_backward_through_k3_raises_naming_k4():
-    """K3 is forward only until K4 is ported: a backward raises and never
-    differentiates the plain version instead."""
+    """K3's backward is kernel K4: on the CPU its plain version, which
+    equals autograd through K3's plain version, and never raises; the
+    ``flash`` route of `MultiHeadAttention` trains through the pair. (The
+    name is the one this test had when K3's backward still raised, naming
+    K4 as missing; it is kept so that the test stays the same one.)"""
     from pigeon_tpu_torch.models.clip import MultiHeadAttention
 
     q = torch.randn(2, 9, H, 16, requires_grad=True)
+    plain = q.detach().clone().requires_grad_()
     out = k3.FlashAttention.apply(q, q, q)
-    with pytest.raises(NotImplementedError, match="K4"):
-        out.sum().backward()
+    assert out.grad_fn.name() == "FlashAttentionBackward"
+    out.square().sum().backward()
+    k3.flash_attention_reference(plain, plain, plain).square().sum() \
+        .backward()
+    # 1e-5 relative: the same products, the softmax's gradient taken in
+    # the deferred-denominator form instead of autograd's.
+    torch.testing.assert_close(q.grad, plain.grad, rtol=1e-5, atol=1e-5)
     mha = MultiHeadAttention(64, H, attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="K4"):
-        mha(torch.randn(2, 9, 64)).sum().backward()
+    mha(torch.randn(2, 9, 64)).sum().backward()
+    assert all(p.grad is not None for p in mha.parameters())
     with torch.inference_mode():
         assert mha(torch.randn(2, 9, 64)).shape == (2, 9, 64)
 
@@ -430,6 +439,44 @@ def test_int8_serving_slice_matches_jax(jax_slice, interpret_mode):
     """JAX `SuperGuessr(quant='static', attn_impl='flash_fused')` +
     `geocell_predictions` against the port's int8 `make_serving_fn` on
     the same normalised panoramas, in f32."""
+    assert_serving_slice_matches_jax(jax_slice, "flash_fused", "fused")
+
+
+@pytest.mark.parametrize("name", ["flash", "xla"])
+def test_int8_serving_route_of_the_cli_matches_jax(jax_slice, interpret_mode,
+                                                   monkeypatch, name):
+    """``serve --quant`` under ``PIGEON_ATTN_IMPL=flash`` (static int8
+    projections, then K3 on every request) and ``xla`` (plain attention):
+    the route each package's CLI resolves, as the int8 serving slice,
+    against the JAX package's; K3 (its plain version here) runs once a
+    layer a forward on ``flash`` and never on ``xla``, K8 never."""
+    from pigeon_tpu.cli import run as jax_cli
+    from pigeon_tpu_torch.cli import run as cli
+
+    monkeypatch.delenv("PIGEON_QUANT_ATTN_IMPL", raising=False)
+    monkeypatch.setenv("PIGEON_ATTN_IMPL", name)
+    with monkeypatch.context() as mp:
+        # The JAX CLI resolves the variable on a TPU only.
+        mp.setattr(jax, "default_backend", lambda: "tpu")
+        jax_impl = jax_cli._quant_attn_impl()
+    torch_impl = cli.quant_attn_impl()
+    assert (jax_impl, torch_impl) == (name, cli.ATTN_ROUTES[name])
+    calls = []
+    for module, fn_name in ((k3, "flash_attention_reference"),
+                            (k8, "fused_qkv_attention_int8_reference")):
+        fn = getattr(module, fn_name)
+        monkeypatch.setattr(
+            module, fn_name,
+            lambda *a, _fn=fn, _n=fn_name: calls.append(_n) or _fn(*a))
+    assert_serving_slice_matches_jax(jax_slice, jax_impl, torch_impl)
+    # Two forwards: the serving function's and the logits'.
+    assert calls == (["flash_attention_reference"] * 2 * SLICE.num_layers
+                     if name == "flash" else [])
+
+
+def assert_serving_slice_matches_jax(jax_slice, jax_impl, torch_impl):
+    """The JAX int8 `SuperGuessr` on ``jax_impl`` and the port's on
+    ``torch_impl``, from the same calibrated tree and pixels."""
     from pigeon_tpu.data.image_ops import normalize_images
     from pigeon_tpu.models.geocell_head import geocell_predictions
     from pigeon_tpu.models.super_guessr import SuperGuessr
@@ -444,12 +491,12 @@ def test_int8_serving_slice_matches_jax(jax_slice, interpret_mode):
     # normalisation would move a quantize boundary of the patch embed.
     pixels = np.asarray(normalize_images(rng.integers(
         0, 256, (2, 4, 42, 42, 3), dtype=np.uint8)), np.float32)
-    out = SuperGuessr(SLICE, HEAD, attn_impl="flash_fused",
+    out = SuperGuessr(SLICE, HEAD, attn_impl=jax_impl,
                       quant="static").apply({"params": jax_slice},
                                             jnp.asarray(pixels))
     want = geocell_predictions(out.logits, jnp.asarray(cells),
                                HEAD.num_candidates)
-    model = TModel(SLICE, HEAD, attn_impl="fused", quant="static")
+    model = TModel(SLICE, HEAD, attn_impl=torch_impl, quant="static")
     model.load_state_dict(state_dict_from_jax(jax_slice), strict=True)
     got = make_serving_fn(model, HEAD, cells, "cpu")(pixels)
     # The int8 max error, and not the share of elements: a requantize
