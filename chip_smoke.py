@@ -6,10 +6,11 @@
 Phases, one line each, any failure raises:
 
 1. device  - the card's name and power limit (nvidia-smi);
-2. build   - kernels K1, K2, K3, K4, K5, K8, K9 and K10 (one nvcc for
-             each, all started together, sm_90a) and the native JPEG
-             decoder (g++, where libjpeg's headers exist) from the
-             checkout's sources, with nvcc's register and spill lines;
+2. build   - kernels K1, K2, K3, K3′, K4, K5, K6, K7, K8, K9 and K10
+             (one nvcc for each, all started together, sm_90a) and the
+             native JPEG decoder (g++, where libjpeg's headers exist)
+             from the checkout's sources, with nvcc's register and spill
+             lines;
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
@@ -34,9 +35,18 @@ Phases, one line each, any failure raises:
              version with the LN parameters dropped must miss by more
              than twice the limit, so the check can fail a kernel that
              drops them;
+             K6 at the serving shape, raw x (4, 577, 1024), max abs error
+             over max magnitude <= 2e-2 (K5's bound), with the same
+             dropped-LN guard, and timed at the training shape (32, 577,
+             1024) too;
+             K7 at the int8 serving shape, raw x (4, 577, 1024), max abs
+             error <= 1.5 out-projection LSBs (ao * max(so) * 127) + 3e-2
+             and under 0.5% of elements off by more than 3e-2, with the
+             dropped-LN guard on that bound;
+             K3′ at K3's shape, max abs error <= 3e-2;
              PyTorch's scaled_dot_product_attention forward at K3's shape
-             and its backward at K4's are timed as yardsticks, never on a
-             path;
+             (K3's and K3′'s yardstick) and its backward at K4's are timed
+             as yardsticks, never on a path;
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -52,19 +62,26 @@ Phases, one line each, any failure raises:
              (24) and K1 never; each request K8 24 times and K1 and K3
              never; answers as in ``serve``; the int8 embedding within
              cosine >= 0.99 of the bf16 route's on the same weights and
-             panorama; then one int8 forward on the ``flash`` route
+             panorama; then 3 int8 forwards on the ``flash`` route
              (``serve --quant`` under ``PIGEON_ATTN_IMPL=flash``: static
              int8 projections, K3 24 times, K8 and K1 never), its
              embedding within cosine >= 0.99 of the bf16 route's; the
              request median, forward times, set-up time (quantize and
-             calibration included) and peak memory;
+             calibration included) and peak memory; then the same command
+             under ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block``: the
+             calibration K3 24 times, each request K7 24 times and K8, K1
+             and K3 never, the embedding within cosine >= 0.99 of bf16's;
 6. serve_routes - the same assets and command under
              ``PIGEON_ATTN_IMPL=flash_fused_mlp``: each request 200 on a
              bank or prototype location, launching K5 and K9 24 times
              each and K1 and K3 never; then one panorama's serving forward
              under ``flash`` (K3 24 times a forward) and
-             ``flash_fused_ln`` (K5 24 times); each route's embedding
-             within cosine >= 0.999 of the ``flash_fused`` route's;
+             ``flash_fused_ln`` (K5 24 times) and ``flash`` under
+             ``PIGEON_FLASH_FWD=online`` (K3′ 24 times, K3 never); then
+             requests under ``PIGEON_ATTN_IMPL=flash_fused_block``, each
+             launching K6 and K9 24 times and K1, K3 and K5 never; each
+             route's embedding within cosine >= 0.999 of the
+             ``flash_fused`` route's;
 7. train   - the ``finetune`` command's own functions on the same preset
              and width (panorama, multi-task, heading; 2203 seeded cells;
              32 train and 8 val panoramas from the PNG fixtures, seeded
@@ -79,9 +96,11 @@ Phases, one line each, any failure raises:
              and ``--resume`` continuing from the checkpoint's step;
 8. train_routes - the ``[train]`` preset, width and batch under remat
              ``attn_kernel`` on ``flash``, ``flash_fused_ln``,
-             ``flash_fused_mlp`` and ``flash_fused`` with
-             ``PIGEON_FUSED_BWD=xla``: first-batch gradients within cosine
-             >= 0.999 of the plain route's, then 2 steps and an eval batch
+             ``flash_fused_mlp``, ``flash_fused`` with
+             ``PIGEON_FUSED_BWD=xla``, ``flash_fused_block`` and ``flash``
+             with ``PIGEON_FLASH_FWD=online``: first-batch gradients
+             within cosine >= 0.999 of the plain route's, then 2 steps and
+             an eval batch
              with finite losses and the exact launch counts that
              `check_train_routes` states; step time, images/s and peak
              memory per route.
@@ -132,6 +151,15 @@ KERNELS = {
     "fused_mlp": (
         "pigeon_tpu_torch/csrc/fused_mlp.cu",
         "pigeon_tpu/kernels/fused_mlp.py:67"),
+    "fused_block_attention": (
+        "pigeon_tpu_torch/csrc/fused_block_attention.cu",
+        "pigeon_tpu/kernels/flash_attention.py:694"),
+    "fused_block_attention_int8": (
+        "pigeon_tpu_torch/csrc/fused_block_attention_int8.cu",
+        "pigeon_tpu/kernels/flash_attention.py:844"),
+    "flash_attention_online": (
+        "pigeon_tpu_torch/csrc/flash_attention_online.cu",
+        "pigeon_tpu/kernels/flash_attention.py:94"),
 }
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
@@ -161,6 +189,17 @@ K5_TOL = 2e-2
 #: magnitude: h is rounded to bf16 from f32 sums taken in another order,
 #: and fc2 sums 4096 of them.
 K9_TOL = 2e-2
+#: K6 against its plain version, max abs error over the output's max
+#: magnitude: K5's bound (the attention output is K5's, rounded to bf16
+#: from sums taken in another order, before the f32 out-projection).
+K6_TOL = 2e-2
+#: K7 against its plain version, absolute: a requantize flip (one ulp of
+#: LN or of the attention at a round() boundary) moves an output by up to
+#: one out-projection LSB, ``ao * max(so) * 127``; past that, bf16
+#: rounding. At most this share of elements may be off by more than the
+#: additive term.
+K7_ABS, K7_SHARE = 3e-2, 5e-3
+K3_ONLINE_TOL = 3e-2
 #: The int8 route's embedding against the bf16 route's, same weights.
 INT8_COSINE = 0.99
 #: Every other bf16 route's embedding against the ``flash_fused`` one's,
@@ -622,6 +661,173 @@ def check_mlp_kernel(seed: int) -> dict:
     return rec
 
 
+def check_block_kernel(seed: int) -> dict:
+    """K6 against its plain version at the serving shape, on a raw layer
+    input, and its time at the training shape (32 views)."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+
+    s, d, h = 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ls, lb = ln_params(d, gen)
+    # Weights that give the attention half a share of the output near the
+    # residual's, so that a dropped LN parameter shows.
+    ws = [(torch.randn(d, d, generator=gen, device="cuda") * std).bfloat16()
+          for std in (0.05, 0.05, 0.05, 0.1)]
+    bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
+          for _ in range(4)]
+
+    def operands(b):
+        x = (torch.randn(b, s, d, generator=gen, device="cuda") * 3 + 1) \
+            .bfloat16()
+        return (x, ls, lb, *ws[:3], *bs[:3], ws[3], bs[3], h, 1e-5)
+
+    args = operands(4)
+    got = k6.fused_block_attention(*args)
+    want = k6.fused_block_attention_reference(*args)
+    torch.cuda.synchronize()
+    rel = rel_errors([got], [want], ("out",))["out"]
+    if not rel <= K6_TOL:
+        raise RuntimeError(f"K6 disagrees with its plain version: max abs "
+                           f"error over max magnitude {rel} (limit "
+                           f"{K6_TOL})")
+    check_ln_fault_shows("K6", k6.fused_block_attention_reference, args,
+                         want, K6_TOL)
+    err = max_abs([got], [want])
+    ms = median_ms(lambda: k6.fused_block_attention(*args))
+    plain_ms = median_ms(lambda: k6.fused_block_attention_reference(*args))
+    train = operands(32)
+    train_ms = median_ms(lambda: k6.fused_block_attention(*train), runs=10)
+    train_plain_ms = median_ms(
+        lambda: k6.fused_block_attention_reference(*train), runs=5)
+    del train
+    # K5's products and the out-projection's 2*B*S*D*D; ~7 f32 operations
+    # an element of x for the LayerNorm and 2 an output for bo and x.
+    flop = 4 * 2 * 4 * s * d * d + 2 * 2 * 4 * h * s * s * 64
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop, "f32": 9 * args[0].numel()},
+                   nbytes(args[0], ls, lb, *ws, *bs, got)),
+           "library_ms": None}
+    phase("kernel", name="fused_block_attention", shape=f"(4,{s},{d})",
+          heads=h, out_err=round(rel, 6), tol=K6_TOL, max_abs_err=err,
+          ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          tflops=round(flop / 1e9 / ms, 1),
+          plain_tflops=round(flop / 1e9 / plain_ms, 1),
+          train_shape=f"(32,{s},{d})", train_ms=train_ms,
+          train_plain_ms=train_plain_ms,
+          train_tflops=round(8 * flop / 1e9 / train_ms, 1))
+    return rec
+
+
+def check_block_int8_kernel(seed: int) -> dict:
+    """K7 against its plain version at the int8 serving shape, on a raw
+    layer input, int8 weights quantized from seeded f32 ones."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
+    from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
+        flax_layer_norm_f32,
+    )
+    from pigeon_tpu_torch.models.quant import quantize_channelwise
+
+    b, s, d, h = 4, 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # Outputs stay under ~4, where a bf16 ulp (<= 1/64) is under K7_ABS.
+    x = (torch.randn(b, s, d, generator=gen, device="cuda") * 0.5 + 0.5) \
+        .bfloat16()
+    ls, lb = ln_params(d, gen)
+    # Scales that give the attention half a share of the output as large
+    # as the residual's, so that a dropped LN parameter shows.
+    packs = []
+    for std in (0.05, 0.05, 0.03, 0.02):
+        w_q, scale = quantize_channelwise(
+            torch.randn(d, d, generator=gen, device="cuda") * std)
+        packs.append([w_q, scale,
+                      torch.randn(d, generator=gen, device="cuda") * 0.02])
+    a_qkv = flax_layer_norm_f32(x, ls, lb, 1e-5).abs().max() * 1.1 / 127
+    ao = torch.tensor(5.5 / 127, device="cuda")   # ~max |o| / 127
+    args = (x, ls, lb, a_qkv, *packs[0], *packs[1], *packs[2], ao, *packs[3],
+            h, 1e-5)
+    got = k7.fused_block_attention_int8(*args)
+    want = k7.fused_block_attention_int8_reference(*args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise RuntimeError("K7's output is not finite")
+    lsb = (ao * packs[3][1].max() * 127).item()
+    limit = 1.5 * lsb + K7_ABS
+    diff = (got.float() - want.float()).abs()
+    err, share = diff.max().item(), (diff > K7_ABS).float().mean().item()
+    if not (err <= limit and share < K7_SHARE):
+        raise RuntimeError(f"K7 disagrees with its plain version: max abs "
+                           f"error {err} (limit {limit}), {share} of "
+                           f"elements off by more than {K7_ABS} (limit "
+                           f"{K7_SHARE})")
+    for label, params in (("scale", (torch.ones_like(ls), lb)),
+                          ("bias", (ls, torch.zeros_like(lb)))):
+        miss = max_abs([k7.fused_block_attention_int8_reference(
+            x, *params, *args[3:])], [want])
+        if not miss > 2 * limit:
+            raise RuntimeError(f"K7's check cannot see a dropped LN {label}: "
+                               f"it moves the output by {miss}, limit "
+                               f"{limit}")
+    ms = median_ms(lambda: k7.fused_block_attention_int8(*args))
+    plain_ms = median_ms(lambda: k7.fused_block_attention_int8_reference(
+        *args))
+    # 2*B*S*D*D int8 operations for each of the four projections,
+    # 2*B*H*S*S*dh bf16 for QK^T and for PV.
+    int8_ops, bf16_ops = 4 * 2 * b * s * d * d, 2 * 2 * b * h * s * s * 64
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"int8": int8_ops, "bf16": bf16_ops},
+                   nbytes(x, ls, lb, *(t for p in packs for t in p), got)),
+           "library_ms": None}
+    phase("kernel", name="fused_block_attention_int8", shape=f"({b},{s},{d})",
+          heads=h, max_abs_err=err, tol=limit, lsb=lsb,
+          share_over_abs=share, share_tol=K7_SHARE, ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"],
+          tops=round((int8_ops + bf16_ops) / 1e9 / ms, 1))
+    return rec
+
+
+def check_online_kernel(seed: int) -> dict:
+    """K3′ against its plain version at K3's shape (80 views), with
+    PyTorch's fused attention timed beside it."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+
+    b, s, h, dh = 80, 577, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    got = k3.flash_attention_online(q, k, v)
+    want = k3.flash_attention_online_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    del want
+    if not finite or not err <= K3_ONLINE_TOL:
+        raise RuntimeError(f"K3′ disagrees with its plain version: max abs "
+                           f"error {err} (limit {K3_ONLINE_TOL}), "
+                           f"finite={finite}")
+    ms = median_ms(lambda: k3.flash_attention_online(q, k, v))
+    plain_ms = median_ms(lambda: k3.flash_attention_online_reference(q, k, v),
+                         runs=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = median_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    flop = 2 * 2 * b * h * s * s * dh
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound({"bf16": flop}, nbytes(q, k, v, got)),
+           "library_ms": library_ms}
+    phase("kernel", name="flash_attention_online",
+          shape=f"({b},{s},{h},{dh})", max_abs_err=err, tol=K3_ONLINE_TOL,
+          ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          sdpa_ms=library_ms, tflops=round(flop / 1e9 / ms, 1),
+          plain_tflops=round(flop / 1e9 / plain_ms, 1))
+    return rec
+
+
 def write_assets(root: str, seed: int) -> list:
     """Geocells, a training bank and its prototypes, as the ``serve``
     command reads them. Every cell gets 1-3 clusters of 2-256 members; the
@@ -887,6 +1093,85 @@ def check_serving_int8(root: str, pool, n_requests: int,
             "fused_qkv_attention_int8": launches["fused_qkv_attention_int8"]}
 
 
+def check_serving_int8_block(root: str, pool, n_requests: int,
+                             bf16_embedding) -> dict:
+    """``serve --quant --calib-images`` under
+    ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block``: the calibration forward
+    launches K3 once a layer, each request K7 once a layer and K1, K3 and
+    K8 never; the embedding within cosine >= 0.99 of bf16's. Returns K3's
+    launches in the calibration and K7's in the requests."""
+    import gc
+
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.models.clip import routes_of
+
+    counters = {"fused_qkv_attention": k1.fused_qkv_attention,
+                "flash_attention": k3.flash_attention,
+                "fused_qkv_attention_int8": k8.fused_qkv_attention_int8,
+                "fused_block_attention_int8": k7.fused_block_attention_int8}
+    payloads = serve_payloads(n_requests)
+    calib_dir = os.path.join(HERE, "data", "benchmarks", "sample20",
+                             "images")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with environ(PIGEON_QUANT_ATTN_IMPL="flash_fused_block"):
+        httpd, startup_s = start_serving(root, "--quant", "--calib-images",
+                                         calib_dir)
+    try:
+        service = httpd.RequestHandlerClass.service
+        model = service.serve_fn.model
+        if routes_of(model) != {"block"}:
+            raise RuntimeError(f"serve --quant built routes "
+                               f"{routes_of(model)} under "
+                               "PIGEON_QUANT_ATTN_IMPL=flash_fused_block")
+        layers = len(model.vision.encoder.layers)
+        # Start-up: one dynamic calibration forward (K3 in every layer),
+        # then the static warm-up request (K7 in every layer).
+        setup = {name: fn.launches for name, fn in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_attention=layers, fused_block_attention_int8=layers)
+        if setup != want:
+            raise RuntimeError(f"int8 block start-up launched {setup}; "
+                               f"expected {want}")
+        latencies, launches = request_all(httpd, payloads, pool, counters)
+        want = dict.fromkeys(counters, 0)
+        want["fused_block_attention_int8"] = layers * n_requests
+        if launches != want:
+            raise RuntimeError(f"int8 block requests launched {launches}, "
+                               f"expected {want}")
+        emb = service.serve_fn(service.decode(payloads[0]))["embedding"]
+        cos = torch.nn.functional.cosine_similarity(
+            emb.flatten().float(), bf16_embedding, dim=0).item()
+        if not cos >= INT8_COSINE:
+            raise RuntimeError(f"int8 block embedding cosine {cos} < "
+                               f"{INT8_COSINE} against the bf16 route")
+        layer_ms = time_layers(service, payloads)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    phase("serve_int8", route="flash_fused_block", requests=n_requests,
+          status=200, layers=layers, calib_views=4 * 20,
+          k3_calib_launches=setup["flash_attention"],
+          k7_launches=launches["fused_block_attention_int8"],
+          median_ms=sorted(latencies)[len(latencies) // 2],
+          latencies_ms=[round(t, 3) for t in latencies],
+          startup_s=round(startup_s, 3), embedding_cosine_vs_bf16=cos,
+          peak_gib=round(peak_gib, 3))
+    phase("layers_int8_block", **layer_ms)
+    return {"flash_attention": setup["flash_attention"],
+            "fused_block_attention_int8":
+                launches["fused_block_attention_int8"]}
+
+
 @contextlib.contextmanager
 def environ(**values):
     """Environment variables set for the ``with`` block only."""
@@ -905,6 +1190,7 @@ def environ(**values):
 def route_counters() -> dict:
     """The launch counters of every kernel a bf16 route may run."""
     from pigeon_tpu_torch.kernels import attention as k34
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
     from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
     from pigeon_tpu_torch.kernels import fused_mlp as k9
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k12
@@ -913,20 +1199,40 @@ def route_counters() -> dict:
     return {"fused_qkv_attention": k12.fused_qkv_attention,
             "fused_qkv_attention_bwd": k12.fused_qkv_attention_backward,
             "flash_attention": k34.flash_attention,
+            "flash_attention_online": k34.flash_attention_online,
             "flash_attention_bwd": k34.flash_attention_backward,
             "fused_ln_qkv_attention": k5.fused_ln_qkv_attention,
+            "fused_block_attention": k6.fused_block_attention,
             "fused_mlp": k9.fused_ln_mlp,
             "smooth_labels": geodesy.smooth_labels_from_points}
 
 
+#: [serve_routes]: each server's ``PIGEON_ATTN_IMPL``, the port's route
+#: and the kernels a request launches once a layer; then single serving
+#: forwards on the first server's model: (label, route, environment,
+#: kernels launched once a layer).
+SERVE_ROUTES = (
+    ("flash_fused_mlp", "fused_mlp", ("fused_ln_qkv_attention", "fused_mlp")),
+    ("flash_fused_block", "block", ("fused_block_attention", "fused_mlp")),
+)
+FORWARD_ROUTES = (
+    ("flash", "flash", {}, ("flash_attention",)),
+    ("fused_ln", "fused_ln", {}, ("fused_ln_qkv_attention",)),
+    ("flash_online", "flash", {"PIGEON_FLASH_FWD": "online"},
+     ("flash_attention_online",)),
+)
+
+
 def check_serve_routes(root: str, pool, n_requests: int,
                        bf16_embedding) -> dict:
-    """``serve`` under ``PIGEON_ATTN_IMPL=flash_fused_mlp`` over HTTP
-    (each request K5 and K9 once a layer, K1 and K3 never), then the
-    serving forward of one panorama under ``flash`` (K3 once a layer) and
-    ``flash_fused_ln`` (K5 once a layer) on the same weights; every
-    route's embedding within ``ROUTE_COSINE`` of the ``flash_fused``
-    route's. Returns each kernel's launches."""
+    """``serve`` under each ``PIGEON_ATTN_IMPL`` of `SERVE_ROUTES` over
+    HTTP (``flash_fused_mlp``: K5 and K9 once a layer a request;
+    ``flash_fused_block``: K6 and K9; every other kernel never); on the
+    first server's model, the serving forward of one panorama on each of
+    `FORWARD_ROUTES` (``flash``: K3 once a layer; ``flash_fused_ln``: K5;
+    ``flash`` under ``PIGEON_FLASH_FWD=online``: K3′, K3 never); every
+    embedding within ``ROUTE_COSINE`` of the ``flash_fused`` route's.
+    Returns each kernel's launches."""
     import gc
 
     import torch
@@ -935,83 +1241,89 @@ def check_serve_routes(root: str, pool, n_requests: int,
 
     counters = route_counters()
     payloads = serve_payloads(n_requests)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with environ(PIGEON_ATTN_IMPL="flash_fused_mlp"):
-        httpd, startup_s = start_serving(root)
     total = dict.fromkeys(counters, 0)
-    try:
-        service = httpd.RequestHandlerClass.service
-        model = service.serve_fn.model
-        if routes_of(model) != {"fused_mlp"}:
-            raise RuntimeError(f"serve built routes {routes_of(model)} under "
-                               "PIGEON_ATTN_IMPL=flash_fused_mlp")
-        layers = len(model.vision.encoder.layers)
-        latencies, launches = request_all(httpd, payloads, pool, counters)
-        want = dict.fromkeys(counters, 0)
-        want.update(fused_ln_qkv_attention=layers * n_requests,
-                    fused_mlp=layers * n_requests)
-        if launches != want:
-            raise RuntimeError(f"flash_fused_mlp requests launched "
-                               f"{launches}, expected {want}")
-        for name, n in launches.items():
-            total[name] += n
-        per_request = {name: n // n_requests for name, n in launches.items()
-                       if n}
-        layer_ms = time_layers(service, payloads)
 
-        # One panorama's serving forward on each route, 3 times.
-        pixels = service.decode(payloads[0])
-        forwards = 3
-        kernels = {"fused_mlp": ("fused_ln_qkv_attention", "fused_mlp"),
-                   "flash": ("flash_attention",),
-                   "fused_ln": ("fused_ln_qkv_attention",)}
+    def cosine(emb) -> float:
+        cos = torch.nn.functional.cosine_similarity(
+            emb.flatten().float(), bf16_embedding, dim=0).item()
+        if not cos >= ROUTE_COSINE:
+            raise RuntimeError(f"embedding cosine {cos} < {ROUTE_COSINE} "
+                               "against the flash_fused route")
+        return cos
+
+    for name, route, kernels in SERVE_ROUTES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with environ(PIGEON_ATTN_IMPL=name):
+            httpd, startup_s = start_serving(root)
         forward_ms, cosines = {}, {}
-        for route, names in kernels.items():
-            set_route(model, route)
-            service.serve_fn(pixels)
-            torch.cuda.synchronize()
-            for fn in counters.values():
-                fn.launches = 0
-            times = []
-            for _ in range(forwards):
-                t0 = time.perf_counter()
-                emb = service.serve_fn(pixels)["embedding"].flatten().float()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            launches = {name: fn.launches for name, fn in counters.items()}
+        try:
+            service = httpd.RequestHandlerClass.service
+            model = service.serve_fn.model
+            if routes_of(model) != {route}:
+                raise RuntimeError(f"serve built routes {routes_of(model)} "
+                                   f"under PIGEON_ATTN_IMPL={name}")
+            layers = len(model.vision.encoder.layers)
+            latencies, launches = request_all(httpd, payloads, pool,
+                                              counters)
             want = dict.fromkeys(counters, 0)
-            want.update(dict.fromkeys(names, layers * forwards))
+            want.update(dict.fromkeys(kernels, layers * n_requests))
             if launches != want:
-                raise RuntimeError(f"{forwards} forwards on route {route} "
-                                   f"launched {launches}, expected {want}")
-            for name, n in launches.items():
-                total[name] += n
-            forward_ms[route] = sorted(times)[forwards // 2]
-            cosines[route] = torch.nn.functional.cosine_similarity(
-                emb, bf16_embedding, dim=0).item()
-            if not cosines[route] >= ROUTE_COSINE:
-                raise RuntimeError(
-                    f"route {route}: embedding cosine {cosines[route]} < "
-                    f"{ROUTE_COSINE} against the flash_fused route")
-        set_route(model, "fused_mlp")
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-    phase("serve_routes", route="flash_fused_mlp", requests=n_requests,
-          status=200, layers=layers,
-          launches_per_request=json.dumps(per_request, separators=(",", ":")),
-          k5_launches=total["fused_ln_qkv_attention"],
-          k9_launches=total["fused_mlp"],
-          k3_launches=total["flash_attention"],
-          median_ms=sorted(latencies)[len(latencies) // 2],
-          latencies_ms=[round(t, 3) for t in latencies],
-          startup_s=round(startup_s, 3), peak_gib=round(peak_gib, 3),
-          **{f"forward_ms_{r}": round(t, 3) for r, t in forward_ms.items()},
-          **{f"cosine_vs_flash_fused_{r}": c for r, c in cosines.items()})
-    phase("layers_fused_mlp", **layer_ms)
+                raise RuntimeError(f"{name} requests launched {launches}, "
+                                   f"expected {want}")
+            for kernel, n in launches.items():
+                total[kernel] += n
+            per_request = {kernel: n // n_requests
+                           for kernel, n in launches.items() if n}
+            pixels = service.decode(payloads[0])
+            cosines[route] = cosine(service.serve_fn(pixels)["embedding"])
+            layer_ms = time_layers(service, payloads)
+
+            # On the first server: one panorama's serving forward on each
+            # of FORWARD_ROUTES, 3 times.
+            forwards = 3
+            for label, other, env, names in (
+                    FORWARD_ROUTES if name == SERVE_ROUTES[0][0] else ()):
+                set_route(model, other)
+                with environ(**env):
+                    service.serve_fn(pixels)
+                    torch.cuda.synchronize()
+                    for fn in counters.values():
+                        fn.launches = 0
+                    times = []
+                    for _ in range(forwards):
+                        t0 = time.perf_counter()
+                        emb = service.serve_fn(pixels)["embedding"]
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    launches = {n: fn.launches for n, fn in counters.items()}
+                want = dict.fromkeys(counters, 0)
+                want.update(dict.fromkeys(names, layers * forwards))
+                if launches != want:
+                    raise RuntimeError(f"{forwards} forwards on {label} "
+                                       f"launched {launches}, expected "
+                                       f"{want}")
+                for kernel, n in launches.items():
+                    total[kernel] += n
+                forward_ms[label] = sorted(times)[forwards // 2]
+                cosines[label] = cosine(emb)
+            set_route(model, route)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        phase("serve_routes", route=name, requests=n_requests, status=200,
+              layers=layers,
+              launches_per_request=json.dumps(per_request,
+                                              separators=(",", ":")),
+              median_ms=sorted(latencies)[len(latencies) // 2],
+              latencies_ms=[round(t, 3) for t in latencies],
+              startup_s=round(startup_s, 3), peak_gib=round(peak_gib, 3),
+              **{f"forward_ms_{r}": round(t, 3)
+                 for r, t in forward_ms.items()},
+              **{f"cosine_vs_flash_fused_{r}": c for r, c in cosines.items()})
+        phase(f"layers_{route}", **layer_ms)
     return total
 
 
@@ -1260,18 +1572,23 @@ def check_training(seed: int) -> dict:
     return launches
 
 
-#: [train_routes]: (label, ``PIGEON_ATTN_IMPL`` name, the port's route,
-#: ``PIGEON_FUSED_BWD``) and the kernels each launches per layer in a
-#: forward and in a backward.
+#: [train_routes]: (label, the port's route, the environment it runs
+#: under) and the kernels each launches per layer in a forward and in a
+#: backward.
 TRAIN_ROUTES = (
-    ("flash", "flash", "flash", "kernel",
-     ("flash_attention",), ("flash_attention_bwd",)),
-    ("flash_fused_ln", "flash_fused_ln", "fused_ln", "kernel",
+    ("flash", "flash", {}, ("flash_attention",), ("flash_attention_bwd",)),
+    ("flash_fused_ln", "fused_ln", {},
      ("fused_ln_qkv_attention",), ("fused_qkv_attention_bwd",)),
-    ("flash_fused_mlp", "flash_fused_mlp", "fused_mlp", "kernel",
+    ("flash_fused_mlp", "fused_mlp", {},
      ("fused_ln_qkv_attention", "fused_mlp"), ("fused_qkv_attention_bwd",)),
-    ("flash_fused_xla_bwd", "flash_fused", "fused", "xla",
+    ("flash_fused_xla_bwd", "fused", {"PIGEON_FUSED_BWD": "xla"},
      ("fused_qkv_attention",), ("flash_attention_bwd",)),
+    # K6's backward launches K1 again for the out-projection's input.
+    ("flash_fused_block", "block", {},
+     ("fused_block_attention", "fused_mlp"),
+     ("fused_qkv_attention", "fused_qkv_attention_bwd")),
+    ("flash_online", "flash", {"PIGEON_FLASH_FWD": "online"},
+     ("flash_attention_online",), ("flash_attention_bwd",)),
 )
 
 
@@ -1291,6 +1608,9 @@ def check_train_routes(seed: int) -> dict:
     * ``flash_fused_ln``: K5 3 L, K2 2 L;
     * ``flash_fused_mlp``: K5 3 L, K9 3 L, K2 2 L;
     * ``flash_fused`` with ``PIGEON_FUSED_BWD=xla``: K1 3 L, K4 2 L, K2 0;
+    * ``flash_fused_block``: K6 3 L, K9 3 L, K1 2 L (K6's backward), K2
+      2 L;
+    * ``flash`` with ``PIGEON_FLASH_FWD=online``: K3′ 3 L, K4 2 L, K3 0;
 
     every other kernel of `route_counters` none but K10, 3 times (2 steps
     + 1 eval batch). Step time, images/s and peak memory per route.
@@ -1346,11 +1666,11 @@ def check_train_routes(seed: int) -> dict:
             start = {k: v.detach().clone()
                      for k, v in model.state_dict().items()}
 
-            def grads(route, fused_bwd):
+            def grads(route, env):
                 set_route(model, route)
                 model.train()
                 model.zero_grad(set_to_none=True)
-                with environ(PIGEON_FUSED_BWD=fused_bwd):
+                with environ(**env):
                     _, total_loss, _ = batch_loss(model, batch, run.geocells,
                                                   head)
                     total_loss.backward()
@@ -1360,11 +1680,11 @@ def check_train_routes(seed: int) -> dict:
                 model.zero_grad(set_to_none=True)
                 return out
 
-            plain = grads("plain", "kernel")
-            for label, _, route, fused_bwd, fwd, bwd in TRAIN_ROUTES:
+            plain = grads("plain", {})
+            for label, route, env, fwd, bwd in TRAIN_ROUTES:
                 # --- gradients of the first batch against the plain route
                 model.load_state_dict(start)
-                got = grads(route, fused_bwd)
+                got = grads(route, env)
                 if got.keys() != plain.keys():
                     raise RuntimeError(f"{label} gives gradients to other "
                                        f"tensors: {got.keys() ^ plain.keys()}")
@@ -1392,7 +1712,7 @@ def check_train_routes(seed: int) -> dict:
                                                 run.cfg.train.learning_rate))
                 train_step = make_train_step(head, run.geocells)
                 eval_step = make_eval_step(head, run.geocells)
-                with environ(PIGEON_FUSED_BWD=fused_bwd):
+                with environ(**env):
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                     for fn in counters.values():
@@ -1453,6 +1773,8 @@ def build_kernels() -> None:
     from pigeon_tpu_torch import native
     from pigeon_tpu_torch.data import native_decode
     from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
     from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
     from pigeon_tpu_torch.kernels import fused_mlp as k9
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
@@ -1476,6 +1798,9 @@ def build_kernels() -> None:
     k5.load()
     k8.load()
     k9.load()
+    k6.load()
+    k7.load()
+    k3.load_online()
     phase("build", kernels=len(built), wall_seconds=round(wall, 3),
           native_decode="built" if native_decode.available()
           else "unavailable (PIL decodes)")
@@ -1512,7 +1837,11 @@ def main() -> int:
                "flash_attention_bwd":
                    check_attention_backward_kernel(args.seed),
                "fused_ln_qkv_attention": check_ln_kernel(args.seed),
-               "fused_mlp": check_mlp_kernel(args.seed)}
+               "fused_mlp": check_mlp_kernel(args.seed),
+               "fused_block_attention": check_block_kernel(args.seed),
+               "fused_block_attention_int8":
+                   check_block_int8_kernel(args.seed),
+               "flash_attention_online": check_online_kernel(args.seed)}
     # Each path's launches, counted from 0 just before it runs.
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -1526,6 +1855,8 @@ def main() -> int:
                                                        args.requests)
         add({"fused_qkv_attention": serve_launches})
         add(check_serving_int8(root, pool, args.requests, bf16_embedding))
+        add(check_serving_int8_block(root, pool, args.requests,
+                                     bf16_embedding))
         add(check_serve_routes(root, pool, args.requests, bf16_embedding))
     del bf16_embedding
     add(check_training(args.seed))

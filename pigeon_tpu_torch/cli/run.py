@@ -5,7 +5,8 @@ pixels), with their flags for these paths. Models are built in bf16 with
 f32 parameters, on the attention route that ``PIGEON_ATTN_IMPL`` names in
 the JAX package's words (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL``
 for ``serve --quant``, :func:`quant_attn_impl`): by default
-``flash_fused``, kernel K1 (and K2 in the backward).
+``flash_fused``, kernel K1 (and K2 in the backward); ``PIGEON_FLASH_FWD``
+picks the body of K3 where it runs (:func:`flash_fwd`).
 ``serve`` answers with a seeded initialisation (restoring a trained
 checkpoint into it is not ported yet); ``serve --quant`` first makes its
 tower int8: the weights quantized per output channel, the activation
@@ -62,25 +63,16 @@ MAX_CALIB_IMAGES = 32
 #: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
 #: port's route for each (`models/clip.py`).
 ATTN_ROUTES = {"flash_fused": "fused", "flash": "flash", "xla": "plain",
-               "flash_fused_ln": "fused_ln", "flash_fused_mlp": "fused_mlp"}
-#: JAX routes whose kernel the port has not ported yet: refused by name.
-UNPORTED_ROUTES = {
-    "flash_fused_block": "kernel K6 (pigeon_tpu/kernels/flash_attention.py"
-                         "::_block_attn_kernel)"}
-UNPORTED_QUANT_ROUTES = {
-    "flash_fused_block": "kernel K7 (pigeon_tpu/kernels/flash_attention.py"
-                         "::_block_attn_int8_kernel)"}
+               "flash_fused_ln": "fused_ln", "flash_fused_mlp": "fused_mlp",
+               "flash_fused_block": "block"}
 
 
-def _route(name: str, variable: str, unported: dict) -> str:
+def _route(name: str, variable: str) -> str:
     """The port's route for the JAX route ``name`` read from ``variable``;
-    a name with no ported kernel or no meaning stops the command."""
-    if name in unported:
-        raise SystemExit(f"{variable}={name}: its kernel, {unported[name]}, "
-                         "is not ported to pigeon_tpu_torch yet")
+    a name with no meaning stops the command."""
     if name not in ATTN_ROUTES:
         raise SystemExit(f"{variable}={name!r}: not one of "
-                         f"{sorted(ATTN_ROUTES) + sorted(unported)}")
+                         f"{sorted(ATTN_ROUTES)}")
     return ATTN_ROUTES[name]
 
 
@@ -94,7 +86,7 @@ def attn_impl() -> str:
     (`pigeon_tpu/cli/run.py::_attn_impl`). Unlike the JAX CLI, which
     takes ``xla`` off the TPU, the port honours the variable on the CPU
     too, where the kernels' plain versions run."""
-    return _route(_attn_name(), "PIGEON_ATTN_IMPL", UNPORTED_ROUTES)
+    return _route(_attn_name(), "PIGEON_ATTN_IMPL")
 
 
 def quant_attn_impl() -> str:
@@ -102,20 +94,33 @@ def quant_attn_impl() -> str:
     (`pigeon_tpu/cli/run.py::_quant_attn_impl`): ``PIGEON_QUANT_ATTN_IMPL``
     if set, else the bf16 route with every ``flash_fused*`` name taken as
     ``flash_fused`` (kernel K8; the LN and MLP fusions have no int8
-    kernel). ``flash`` stays ``flash``: static int8 projections, then
-    kernel K3 per request. An unknown name is refused before the
-    downgrade."""
+    kernel, and the JAX CLI keeps its int8 block kernel opt-in).
+    ``flash`` stays ``flash``: static int8 projections, then kernel K3 per
+    request. ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block`` is the ``block``
+    route, kernel K7. An unknown name is refused before the downgrade."""
     override = os.environ.get("PIGEON_QUANT_ATTN_IMPL")
     if override:
         name, variable = override, "PIGEON_QUANT_ATTN_IMPL"
     else:
         name, variable = _attn_name(), "PIGEON_ATTN_IMPL"
-        if name not in ATTN_ROUTES and name not in UNPORTED_ROUTES:
-            _route(name, variable, UNPORTED_ROUTES)
+        _route(name, variable)
         if name.startswith("flash_fused"):
             name = "flash_fused"
-    route = _route(name, variable, UNPORTED_QUANT_ROUTES)
+    route = _route(name, variable)
     return "fused" if route in ("fused_ln", "fused_mlp") else route
+
+
+def flash_fwd() -> str:
+    """The ``PIGEON_FLASH_FWD`` body of kernel K3 (``monolithic``, the
+    default, or ``online``: K3′), checked when ``serve`` and ``finetune``
+    start; an unknown value stops the command (the JAX package takes it
+    as ``monolithic``). The kernels read the variable at each call."""
+    from pigeon_tpu_torch.kernels.attention import flash_fwd as resolve
+
+    try:
+        return resolve()
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -291,6 +296,7 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
 
     device = _device(args)
     route = quant_attn_impl() if args.quant else attn_impl()
+    forward_body = flash_fwd()
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
@@ -298,7 +304,8 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
     model = init_weights(
         SuperGuessr(cfg.vision, cfg.head, dtype=torch.bfloat16,
                     attn_impl=route), INIT_SEED)
-    logger.warning("attention route: %s", route)
+    logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s)", route,
+                   forward_body)
     logger.warning("weights: seeded initialisation (seed %d); checkpoint "
                    "restore is not ported yet", INIT_SEED)
     if args.quant:
@@ -418,6 +425,7 @@ def build_finetune(args) -> Finetune:
                          "precomputed embeddings) is not ported yet")
     device = _device(args)
     route = attn_impl()
+    forward_body = flash_fwd()
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
@@ -426,7 +434,8 @@ def build_finetune(args) -> Finetune:
     tcfg = cfg.train
     model = init_weights(build_finetune_model(cfg, attn_impl=route),
                          tcfg.seed).to(device)
-    logger.warning("attention route: %s", route)
+    logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s)", route,
+                   forward_body)
     state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
     ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
     if args.resume and latest_step(ckpt_dir) is not None:

@@ -20,7 +20,9 @@
 // with stride LDB, the score tile f32 with stride LDF.
 //
 // Below it, `fused_qkv_attention_block`: the whole (head, batch) block of
-// K1 and K5, q/k/v projected from x in-kernel (K1's source note says how).
+// K1, K5 and K6, q/k/v projected from x in-kernel (K1's source note says
+// how), and `fused_qkv_attention_int8_block`, its int8 twin for K8 and
+// K7.
 
 #pragma once
 
@@ -199,7 +201,8 @@ __device__ __forceinline__ void attend_tile(const bf16* qs, const bf16* ks,
 
 // ---------------------------------------------------------------------
 // The q/k/v projection + attention of one (head, batch) block, shared by
-// K1 (fused_qkv_attention.cu) and K5 (fused_ln_qkv_attention.cu).
+// K1 (fused_qkv_attention.cu), K5 (fused_ln_qkv_attention.cu) and K6
+// (fused_block_attention.cu).
 // ---------------------------------------------------------------------
 
 constexpr int QKV_KC = 64;  // D columns staged per step
@@ -345,6 +348,198 @@ __device__ __forceinline__ void fused_qkv_attention_block(
           const int c = i % DH;
           qs[r * LDB + c] = __float2bfloat16(sf[r * LDF + c] +
                                              __bfloat162float(bq_h[c]));
+        }
+        __syncthreads();
+      }
+
+      attend_tile(qs, ks, vs, sf, ps, S, scale,
+                  out + ((size_t)b * S + q0) * P + h * DH, P, rows);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The int8 q/k/v projection + attention of one (head, batch) block,
+// shared by K8 (fused_qkv_attention_int8.cu) and K7
+// (fused_block_attention_int8.cu); K8's source note says how it works.
+// ---------------------------------------------------------------------
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                       wmma::row_major>
+    FragA8;
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::col_major>
+    FragB8;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> FragC8;
+
+constexpr int KC8 = 64;    // D columns (bytes) staged per step
+constexpr int SUB8 = 16;   // bytes per row of one sub-tile (one k step)
+constexpr int TILE_I8 = TILE * KC8;  // one staged 64 x 64 int8 tile: 4 KB
+// Work area after the resident K/V: Q (bf16) + S (f32) + P (bf16) for the
+// attention. Phase 1 stages three int8 tiles, then holds two int32
+// accumulator tiles; phase 2 stages two int8 tiles in the S/P area and
+// its int32 accumulator tile overlays S.
+constexpr int INT8_WORK_BYTES = ATTN_WORK_BYTES;
+static_assert(3 * TILE_I8 <= INT8_WORK_BYTES, "phase-1 staging overflows");
+static_assert(2 * TILE_F <= INT8_WORK_BYTES, "phase-1 epilogue overflows");
+static_assert(2 * TILE_I8 <= TILE_F + TILE_B, "phase-2 staging overflows");
+static_assert(THREADS == TILE * (KC8 / SUB8), "one 16-byte vector a thread");
+
+// Copy a 64 x 64 int8 block (global row stride `ld` bytes) into shared
+// memory as four [64][16] sub-tiles, zero-filling rows at or past `rows`.
+__device__ __forceinline__ void stage_tile_i8(int8_t* dst, const int8_t* src,
+                                              int ld, int rows) {
+  const int r = threadIdx.x / (KC8 / SUB8);
+  const int v = threadIdx.x % (KC8 / SUB8);
+  uint4 val = make_uint4(0u, 0u, 0u, 0u);
+  if (r < rows) {
+    val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + v * SUB8);
+  }
+  *reinterpret_cast<uint4*>(dst + v * TILE * SUB8 + r * SUB8) = val;
+}
+
+// f32(acc) * fs + b with two roundings, in the JAX kernel's order.
+__device__ __forceinline__ bf16 dequant(int acc, float fs, float b) {
+  return __float2bfloat16(__fadd_rn(__fmul_rn(__int2float_rn(acc), fs), b));
+}
+
+// Block (h = blockIdx.x, b = blockIdx.y) of the int8 twin of
+// `fused_qkv_attention_block`: xb is batch b's int8 x (S, D); W* int8 (P,
+// D); fs* the f32 dequant scales with the activation scale folded in; b*
+// f32. Writes out[b, :, h*64:(h+1)*64] (bf16, row stride P).
+__device__ __forceinline__ void fused_qkv_attention_int8_block(
+    unsigned char* smem, const int8_t* __restrict__ xb,
+    const int8_t* __restrict__ wq, const int8_t* __restrict__ wk,
+    const int8_t* __restrict__ wv, const float* __restrict__ fsq,
+    const float* __restrict__ fsk, const float* __restrict__ fsv,
+    const float* __restrict__ bq, const float* __restrict__ bk,
+    const float* __restrict__ bv, bf16* __restrict__ out, int S, int D,
+    int H, float scale) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int P = H * DH;
+  const int n_tiles = (S + TILE - 1) / TILE;
+  const int s_pad = n_tiles * TILE;
+  const int warp = threadIdx.x / 32;
+
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + s_pad * LDB;
+  unsigned char* work = smem + 2 * s_pad * LDB * 2;
+
+  // Linear layout (P, D): head h owns the contiguous rows h*64 .. h*64+63.
+  const int8_t* wq_h = wq + (size_t)h * DH * D;
+  const int8_t* wk_h = wk + (size_t)h * DH * D;
+  const int8_t* wv_h = wv + (size_t)h * DH * D;
+  const int c_h = h * DH;  // this head's first channel
+
+  // ---- Phase 1: K and V of this head for all S rows, kept resident. ----
+  {
+    int8_t* xs = reinterpret_cast<int8_t*>(work);
+    int8_t* wks = xs + TILE_I8;
+    int8_t* wvs = wks + TILE_I8;
+    int* ik = reinterpret_cast<int*>(work);
+    int* iv = ik + TILE * LDF;
+    const int mat = warp / 4;  // warps 0-3 project K, 4-7 project V
+    const int rf = warp % 4;   // this warp's 16-row strip
+    const int8_t* ws = mat ? wvs : wks;
+    int* acc_tile = mat ? iv : ik;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int r0 = t * TILE;
+      const int rows = min(TILE, S - r0);
+      FragC8 acc[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0);
+      for (int d0 = 0; d0 < D; d0 += KC8) {
+        stage_tile_i8(xs, xb + (size_t)r0 * D + d0, D, rows);
+        stage_tile_i8(wks, wk_h + d0, D, TILE);
+        stage_tile_i8(wvs, wv_h + d0, D, TILE);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < KC8 / SUB8; ++kk) {
+          FragA8 a;
+          wmma::load_matrix_sync(a, xs + kk * TILE * SUB8 + rf * 16 * SUB8,
+                                 SUB8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            FragB8 bm;
+            wmma::load_matrix_sync(bm, ws + kk * TILE * SUB8 + j * 16 * SUB8,
+                                   SUB8);
+            wmma::mma_sync(acc[j], a, bm, acc[j]);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::store_matrix_sync(acc_tile + rf * 16 * LDF + j * 16, acc[j],
+                                LDF, wmma::mem_row_major);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < 2 * TILE * DH; i += THREADS) {
+        const int m = i / (TILE * DH);
+        const int r = (i % (TILE * DH)) / DH;
+        const int c = i % DH;
+        (m ? vs : ks)[(r0 + r) * LDB + c] =
+            dequant((m ? iv : ik)[r * LDF + c], (m ? fsv : fsk)[c_h + c],
+                    (m ? bv : bk)[c_h + c]);
+      }
+      __syncthreads();
+    }
+  }
+
+  // ---- Phase 2: query tiles against the resident K/V. ----
+  {
+    bf16* qs = reinterpret_cast<bf16*>(work);
+    float* sf = reinterpret_cast<float*>(work + TILE_B);
+    bf16* ps = reinterpret_cast<bf16*>(work + TILE_B + TILE_F);
+    // Q-projection staging and its accumulator reuse the S/P area (free
+    // until scoring).
+    int8_t* xs = reinterpret_cast<int8_t*>(work + TILE_B);
+    int8_t* wqs = xs + TILE_I8;
+    int* iq = reinterpret_cast<int*>(work + TILE_B);
+    const int rf = warp / 2;        // 16-row strip
+    const int cf = (warp % 2) * 2;  // first of two 16-column fragments
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int q0 = t * TILE;
+      const int rows = min(TILE, S - q0);
+
+      // Q tile = bf16(f32(x_q[q0:q0+64] @ Wq_h^T) * fsq_h + bq_h).
+      {
+        FragC8 acc[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0);
+        for (int d0 = 0; d0 < D; d0 += KC8) {
+          stage_tile_i8(xs, xb + (size_t)q0 * D + d0, D, rows);
+          stage_tile_i8(wqs, wq_h + d0, D, TILE);
+          __syncthreads();
+#pragma unroll
+          for (int kk = 0; kk < KC8 / SUB8; ++kk) {
+            FragA8 a;
+            wmma::load_matrix_sync(a, xs + kk * TILE * SUB8 + rf * 16 * SUB8,
+                                   SUB8);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              FragB8 bm;
+              wmma::load_matrix_sync(
+                  bm, wqs + kk * TILE * SUB8 + (cf + j) * 16 * SUB8, SUB8);
+              wmma::mma_sync(acc[j], a, bm, acc[j]);
+            }
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::store_matrix_sync(iq + rf * 16 * LDF + (cf + j) * 16, acc[j],
+                                  LDF, wmma::mem_row_major);
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < TILE * DH; i += THREADS) {
+          const int r = i / DH;
+          const int c = i % DH;
+          qs[r * LDB + c] = dequant(iq[r * LDF + c], fsq[c_h + c],
+                                    bq[c_h + c]);
         }
         __syncthreads();
       }

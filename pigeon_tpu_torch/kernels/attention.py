@@ -17,8 +17,15 @@ how the designs answer that.
 q/k/v keep the model's ``(B, S, H, dh)`` layout, the contract of `mha`;
 the kernel reads that layout directly.
 
+``PIGEON_FLASH_FWD`` picks the forward's body at each call, as the JAX
+package reads it when it traces `_flash_forward`: ``monolithic`` (the
+default, K3) or ``online`` (kernel K3′, `_attn_kernel_online`:
+online softmax over 128-key chunks, `csrc/flash_attention_online.cu`,
+counted in ``flash_attention_online.launches``); any other value raises.
+
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (:func:`flash_attention_reference`,
+:func:`flash_attention_online_reference`,
 :func:`flash_attention_backward_reference`, which the CPU tests hold
 against the JAX package); a CUDA tensor launches the kernel or raises.
 
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -40,6 +48,20 @@ from pigeon_tpu_torch import native
 
 #: The head width the kernel is written for (ViT-B and ViT-L both use 64).
 HEAD_DIM = 64
+#: K3′'s keys per online-softmax step (`flash_attention.py::ONLINE_CHUNK`).
+ONLINE_CHUNK = 128
+#: ``PIGEON_FLASH_FWD``: the forward's body (`_flash_forward`).
+FLASH_FWDS = ("monolithic", "online")
+
+
+def flash_fwd() -> str:
+    """The ``PIGEON_FLASH_FWD`` choice: ``monolithic`` (default, K3) or
+    ``online`` (K3′); anything else raises, where the JAX package takes
+    ``monolithic``."""
+    value = os.environ.get("PIGEON_FLASH_FWD", "monolithic")
+    if value not in FLASH_FWDS:
+        raise ValueError(f"PIGEON_FLASH_FWD={value!r}, not in {FLASH_FWDS}")
+    return value
 
 
 def flash_attention_reference(q, k, v):
@@ -99,12 +121,15 @@ def _check_operands(q, k, v, max_seq: int):
 
 
 def flash_attention(q, k, v):
-    """K3: softmax attention, ``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``.
+    """K3: softmax attention, ``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``;
+    under ``PIGEON_FLASH_FWD=online`` :func:`flash_attention_online` (K3′).
 
     CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64)
     launch the kernel on PyTorch's current stream and count the launch in
     ``flash_attention.launches``; any other device raises.
     """
+    if flash_fwd() == "online":
+        return flash_attention_online(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":
@@ -127,6 +152,80 @@ def flash_attention(q, k, v):
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_online_reference(q, k, v, chunk: int = ONLINE_CHUNK):
+    """Plain PyTorch K3′: ``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)`` in
+    ``q.dtype``.
+
+    The arithmetic of `flash_attention.py::_attn_kernel_online`: over
+    ``chunk``-key steps, f32 logits times ``dh ** -0.5``, the running max
+    ``m``, ``p = exp(s - m_new)`` and ``corr = exp(m - m_new)``, the f32
+    denominator ``l * corr + sum(p)`` and ``acc * corr + bf16(p) @ v``;
+    then ``acc / l``. ``p`` is rounded relative to the running max, so in
+    bf16 this differs from K3's plain version.
+    """
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    m = torch.full((*qh.shape[:-1], 1), -torch.inf, device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for c0 in range(0, q.shape[1], chunk):
+        logits = (qh @ kh[:, :, c0:c0 + chunk].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(dt).float() @ vh[:, :, c0:c0 + chunk]
+        m = m_new
+    return (acc / den).to(dt).transpose(1, 2).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def load_online() -> ctypes.CDLL:
+    """Build (at first use) and load K3′'s library."""
+    lib = ctypes.CDLL(native.build_cuda("flash_attention_online").path)
+    ptr = ctypes.c_void_p
+    lib.pigeon_flash_attention_online.argtypes = [ptr] * 4 + [
+        ctypes.c_int] * 3 + [ptr]
+    lib.pigeon_flash_attention_online.restype = ctypes.c_int
+    lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_online(q, k, v):
+    """K3′: online-softmax attention, ``(B, S, H, dh)`` q/k/v ->
+    ``(B, S, H, dh)``.
+
+    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64,
+    any S) launch the kernel on PyTorch's current stream and count the
+    launch in ``flash_attention_online.launches``; any other device
+    raises.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_online_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_online: no kernel for {q.device}")
+    lib = load_online()
+    _check_operands(q, k, v, max_seq=q.shape[1])
+    b, s, h, _ = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.pigeon_flash_attention_online(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            h, stream)
+    if rc != 0:
+        raise RuntimeError(
+            "flash_attention_online launch failed: "
+            f"{lib.pigeon_cuda_error_string(rc).decode()} (CUDA error {rc})")
+    flash_attention_online.launches += 1
+    return out
+
+
+flash_attention_online.launches = 0
 
 
 def flash_attention_backward_reference(q, k, v, g):
@@ -216,8 +315,9 @@ FLASH_ATTENTION_OP = torch.ops.pigeon.flash_attention.default
 
 
 class FlashAttention(torch.autograd.Function):
-    """K3 forward and K4 backward as one differentiable operation on
-    ``(B, S, H, dh)`` q/k/v: the VJP of `flash_attention.py::mha`."""
+    """K3 (or K3′) forward and K4 backward as one differentiable operation
+    on ``(B, S, H, dh)`` q/k/v: the VJP of `flash_attention.py::mha`,
+    whose backward is K4 under either forward body."""
 
     @staticmethod
     def forward(ctx, q, k, v):

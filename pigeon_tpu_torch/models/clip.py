@@ -8,7 +8,7 @@ Numerics follow the JAX package: parameters are f32 and are cast to the
 compute dtype (bf16 when serving) at each use; LayerNorm statistics run
 in f32 and round to the compute dtype; the attention softmax is f32.
 
-Each layer has five routes, with one parameter layout (``ln1``,
+Each layer has six routes, with one parameter layout (``ln1``,
 ``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``, ``ln2``, ``fc1``,
 ``fc2``), so a tree bridged from the JAX package loads under any of them:
 
@@ -25,20 +25,32 @@ Each layer has five routes, with one parameter layout (``ln1``,
   gradient reuses K2; the JAX package's `flash_fused_ln`;
 * ``"fused_mlp"`` — ``"fused_ln"`` plus the MLP half (LN2, fc1,
   quick-GELU, fc2, residual) as kernel K9 (`kernels/fused_mlp.py`); the
-  JAX package's `flash_fused_mlp`.
+  JAX package's `flash_fused_mlp`;
+* ``"block"`` — the whole attention half (LN1, q/k/v, attention,
+  out_proj and the residual) as kernel K6
+  (`kernels/fused_block_attention.py`, `FusedBlockAttention`), then K9:
+  the layer adds no residual of its own; the JAX package's
+  `flash_fused_block`.
+
+``PIGEON_FLASH_FWD=online`` swaps K3 for K3′ wherever K3 runs
+(`kernels/attention.py`).
 
 The route is `MultiHeadAttention.attn_impl`, which `TransformerLayer`
 reads; `set_route` switches a built model and `routes_of` reads it back.
 The precedence follows `pigeon_tpu/models/clip.py:354-414`: in an int8
-layer ``"fused_ln"`` and ``"fused_mlp"`` are ``"fused"``.
+layer ``"fused_ln"`` and ``"fused_mlp"`` are ``"fused"``; ``"block"`` is
+K7 in a static one and the ``"flash"`` projections in a dynamic one.
 
 ``quant`` makes the tower int8 (`models/quant.py`): every q/k/v/out/fc1/
 fc2 Linear and the patch embed become `QuantLinear` layers. With
 ``"static"`` activation scales the ``"fused"`` route runs kernel K8
 (`kernels/fused_qkv_attention_int8.py`) and then a static int8
-``out_proj``; with ``"dynamic"`` scales (the calibration forward) every
-route projects separately and ``"fused"`` attends through K3, as the JAX
-package's precedence (`pigeon_tpu/models/clip.py:188-311`). Where a
+``out_proj``, and ``"block"`` kernel K7
+(`kernels/fused_block_attention_int8.py`: LN1 to residual in int8, the
+MLP as int8 products); with ``"dynamic"`` scales (the calibration
+forward) every route projects separately and ``"fused"`` and ``"block"``
+attend through K3, as the JAX package's precedence
+(`pigeon_tpu/models/clip.py:188-311`). Where a
 LayerNorm feeds a quantize (LN1 and LN2 of an int8 layer) it takes Flax's
 variance, ``E[x^2] - E[x]^2`` in f32, so the requantize boundaries fall
 where the JAX package's do.
@@ -52,10 +64,12 @@ Training remats the tower layer by layer (``remat``, the JAX package's
   kernel's output (K1, K3 or K5) and the attention output (after
   ``out_proj``) and recomputes the rest in the backward: LN1 (K2 needs
   its output), the separate projections of ``"flash"`` (K4 needs them),
-  the residual add and the MLP. On ``"fused_mlp"`` it also keeps K9's
-  output, the next layer's input, which XLA's dead-code elimination
-  spares the JAX package from recomputing. No kernel forward is launched
-  again.
+  the residual add and the MLP. On ``"fused_mlp"`` and ``"block"`` it
+  also keeps K9's output, the next layer's input, which XLA's dead-code
+  elimination spares the JAX package from recomputing; on ``"block"``
+  K6's output is the attention output (the JAX ``attn_out``). No kernel
+  forward is launched again (K6's backward launches K1 on purpose, as the
+  JAX VJP does).
 """
 
 from __future__ import annotations
@@ -77,6 +91,13 @@ from pigeon_tpu_torch.config import VisionConfig
 from pigeon_tpu_torch.kernels.attention import (
     FLASH_ATTENTION_OP,
     FlashAttention,
+)
+from pigeon_tpu_torch.kernels.fused_block_attention import (
+    FUSED_BLOCK_ATTENTION_OP,
+    FusedBlockAttention,
+)
+from pigeon_tpu_torch.kernels.fused_block_attention_int8 import (
+    fused_block_attention_int8,
 )
 from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
     FUSED_LN_QKV_ATTENTION_OP,
@@ -101,7 +122,7 @@ from pigeon_tpu_torch.models.quant import (
     quant_mode,
 )
 
-ATTN_IMPLS = ("fused", "flash", "plain", "fused_ln", "fused_mlp")
+ATTN_IMPLS = ("fused", "flash", "plain", "fused_ln", "fused_mlp", "block")
 #: The routes whose attention is the fused projection + attention.
 FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
 REMATS = ("none", "attn_kernel")
@@ -124,7 +145,8 @@ def saved_by_remat():
 
 #: The kernel forwards whose outputs ``attn_kernel`` keeps.
 _SAVED_OPS = (FUSED_QKV_ATTENTION_OP, FLASH_ATTENTION_OP,
-              FUSED_LN_QKV_ATTENTION_OP, FUSED_LN_MLP_OP)
+              FUSED_LN_QKV_ATTENTION_OP, FUSED_LN_MLP_OP,
+              FUSED_BLOCK_ATTENTION_OP)
 
 
 def _attn_kernel_policy(ctx, func, *args, **kwargs):
@@ -221,7 +243,9 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, ln: nn.LayerNorm = None):
         """``x`` (B, S, D) -> (B, S, D) after ``out_proj``. With ``ln``
         (the JAX package's ``ln=``, only on a fused route in float), ``x``
-        is the layer's raw input and LN runs inside kernel K5."""
+        is the layer's raw input and LN runs inside kernel K5. A
+        ``"block"`` layer comes here only in a dynamic int8 tower, and
+        projects separately (`block` is its route otherwise)."""
         b, s, d = x.shape
         projs = (self.q_proj, self.k_proj, self.v_proj)
         quant = quant_mode(self.q_proj)
@@ -259,6 +283,28 @@ class MultiHeadAttention(nn.Module):
         with saved_by_remat():
             return linear(self.out_proj, out)
 
+    def block(self, x, ln: nn.LayerNorm):
+        """The ``"block"`` route: ``x + out_proj(attention(ln(x)))`` on the
+        layer's raw input ``x`` (B, S, D), the residual included: kernel
+        K6 in float, K7 in a static int8 tower."""
+        projs = (self.q_proj, self.k_proj, self.v_proj, self.out_proj)
+        if quant_mode(self.q_proj) == "static":
+            # One shared q/k/v input scale, as K8's branch takes it.
+            a_qkv = torch.maximum(
+                torch.maximum(self.q_proj.act_scale, self.k_proj.act_scale),
+                self.v_proj.act_scale)
+            return fused_block_attention_int8(
+                x.contiguous(), ln.weight, ln.bias, a_qkv,
+                *(t for p in projs[:3] for t in (p.weight, p.scale, p.bias)),
+                self.out_proj.act_scale, self.out_proj.weight,
+                self.out_proj.scale, self.out_proj.bias, self.num_heads,
+                ln.eps)
+        weights = [p.weight.to(x.dtype) for p in projs]
+        biases = [p.bias.to(x.dtype) for p in projs]
+        return FusedBlockAttention.apply(
+            x.contiguous(), ln.weight, ln.bias, *weights[:3], *biases[:3],
+            weights[3], biases[3], self.num_heads, ln.eps)
+
 
 class TransformerLayer(nn.Module):
     """Pre-LN block: ``x += attn(LN1(x)); x += fc2(gelu(fc1(LN2(x))))``,
@@ -282,11 +328,13 @@ class TransformerLayer(nn.Module):
         # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
         norm = flax_layer_norm if quant else layer_norm
         route = self.attn.attn_impl
-        if route in ("fused_ln", "fused_mlp") and not quant:
+        if route == "block" and quant != "dynamic":
+            x = self.attn.block(x, self.ln1)    # K6 / K7: residual included
+        elif route in ("fused_ln", "fused_mlp") and not quant:
             x = x + self.attn(x, ln=self.ln1)
         else:
             x = x + self.attn(norm(self.ln1, x))
-        if route == "fused_mlp" and not quant:
+        if route in ("fused_mlp", "block") and not quant:
             return FusedLNMLP.apply(
                 x.contiguous(), self.ln2.weight, self.ln2.bias,
                 *(t.to(x.dtype) for fc in (self.fc1, self.fc2)

@@ -19,7 +19,8 @@ def build_finetune_model(cfg: PigeonConfig, dtype=torch.bfloat16,
                          remat: str = "attn_kernel") -> SuperGuessr:
     """SuperGuessr for finetuning on pixels: f32 parameters, ``dtype``
     compute, the tower on route ``attn_impl`` (default ``"fused"``: K1
-    forward, K2 backward; `cli.run.attn_impl` reads ``PIGEON_ATTN_IMPL``)
+    forward, K2 backward; ``"block"``: K6 and K9 forward;
+    `cli.run.attn_impl` reads ``PIGEON_ATTN_IMPL``)
     and remat'd under ``attn_kernel`` (the attention kernel's and the
     attention outputs kept, the rest recomputed), every encoder layer but
     the last frozen (reference `train_modes.py:67-107`). The weights are

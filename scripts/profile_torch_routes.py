@@ -9,10 +9,12 @@ encoder layer but the last frozen, remat ``attn_kernel``), on synthetic
 pixels and labels made on the device, and profiles with `torch.profiler`:
 
 * the train step at 8 panoramas (32 views) on the routes ``fused``
-  (``flash_fused``), ``flash``, ``fused_ln``, ``fused_mlp`` and ``fused``
-  with ``PIGEON_FUSED_BWD=xla``;
+  (``flash_fused``), ``flash``, ``fused_ln``, ``fused_mlp``, ``block``
+  (``flash_fused_block``), ``fused`` with ``PIGEON_FUSED_BWD=xla`` and
+  ``flash`` with ``PIGEON_FLASH_FWD=online``;
 * the serving forward of one panorama (4 views) on ``fused``, ``flash``,
-  ``fused_ln`` and ``fused_mlp``.
+  ``fused_ln``, ``fused_mlp``, ``block`` and ``flash`` with
+  ``PIGEON_FLASH_FWD=online``.
 
 For each it prints one line: the host-clock milliseconds of a
 synchronised step or forward (median), the summed self device time of
@@ -34,11 +36,17 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: The port's kernels by a substring of their CUDA function names. The
 #: attention backward passes are K2's on the fused routes and K4's on
-#: ``flash`` and under ``PIGEON_FUSED_BWD=xla``.
+#: ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K6 launches K5's block,
+#: then its out-projection: on ``block`` the K5 group is K6's first part.
 KERNEL_GROUPS = (
     ("K5", "fused_ln_qkv_attention_kernel"),
     ("K1", "fused_qkv_attention_kernel"),
     ("K3", "flash_attention_kernel"),
+    ("K3′", "flash_attention_online_kernel"),
+    ("K6 out-projection", "::out_proj_kernel"),
+    ("K7", "ln_quantize_kernel"),
+    ("K7", "::attention_int8_kernel"),
+    ("K7", "out_proj_int8_kernel"),
     ("K2/K4 attention passes", "attn_bwd_d"),
     ("K2 projection GEMMs", "gemm_kernel"),
     ("K9", "mlp_gemm_kernel"),
@@ -47,10 +55,16 @@ KERNEL_GROUPS = (
 )
 #: Library GEMMs (cuBLAS, CUTLASS) by name.
 GEMM_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_")
-TRAIN_ROUTES = (("fused", "kernel"), ("flash", "kernel"),
-                ("fused_ln", "kernel"), ("fused_mlp", "kernel"),
-                ("fused", "xla"))
-SERVE_ROUTES = ("fused", "flash", "fused_ln", "fused_mlp")
+#: (label, route, environment) of each profiled configuration.
+TRAIN_ROUTES = (("fused", "fused", {}), ("flash", "flash", {}),
+                ("fused_ln", "fused_ln", {}), ("fused_mlp", "fused_mlp", {}),
+                ("block", "block", {}),
+                ("fused+xla_bwd", "fused", {"PIGEON_FUSED_BWD": "xla"}),
+                ("flash+online", "flash", {"PIGEON_FLASH_FWD": "online"}))
+SERVE_ROUTES = (("fused", "fused", {}), ("flash", "flash", {}),
+                ("fused_ln", "fused_ln", {}), ("fused_mlp", "fused_mlp", {}),
+                ("block", "block", {}),
+                ("flash+online", "flash", {"PIGEON_FLASH_FWD": "online"}))
 NUM_CELLS = 2203
 
 
@@ -170,29 +184,32 @@ def main() -> int:
         return host, prof, window_ms
 
     train_step = make_train_step(cfg.head, cells)
-    for route, fused_bwd in TRAIN_ROUTES:
+    for label, route, env in TRAIN_ROUTES:
         model.load_state_dict(start)
         set_route(model, route)
-        os.environ["PIGEON_FUSED_BWD"] = fused_bwd
+        os.environ.update(env)
         state = TrainState(model, adamw(model.parameters(),
                                         cfg.train.learning_rate))
         torch.cuda.reset_peak_memory_stats()
         host, prof, window_ms = window(lambda: train_step(state, batch),
                                        args.steps)
-        label = route if fused_bwd == "kernel" else f"{route}+xla_bwd"
         report("train", label, host, prof, args.steps, window_ms)
         print(f"  peak_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}",
               flush=True)
         del state
-    os.environ.pop("PIGEON_FUSED_BWD")
+        for key in env:
+            os.environ.pop(key)
     model.zero_grad(set_to_none=True)
 
     serve_fn = make_serving_fn(model, cfg.head, cells.cpu().numpy(), device)
     pixels = batch["inputs"][:1]
-    for route in SERVE_ROUTES:
+    for label, route, env in SERVE_ROUTES:
         set_route(model, route)
+        os.environ.update(env)
         host, prof, window_ms = window(lambda: serve_fn(pixels), args.steps)
-        report("serve", route, host, prof, args.steps, window_ms)
+        report("serve", label, host, prof, args.steps, window_ms)
+        for key in env:
+            os.environ.pop(key)
     return 0
 
 

@@ -1,9 +1,9 @@
 """The attention route of the port's CLI: `cli.run.attn_impl` and
 `quant_attn_impl` read ``PIGEON_ATTN_IMPL`` and ``PIGEON_QUANT_ATTN_IMPL``
 in the JAX package's names and agree with its resolvers (as they resolve
-on a TPU); names whose kernel is not ported, and unknown names, stop the
-command; ``serve`` and ``finetune`` on the CPU build and run on the route
-the variable names."""
+on a TPU); unknown names, and unknown ``PIGEON_FLASH_FWD`` values, stop
+the command; ``serve`` and ``finetune`` on the CPU build and run on the
+route the variable names."""
 
 import math
 
@@ -20,7 +20,7 @@ from tests.test_torch_serve import (
 from tests.test_torch_train import finetune_argv, write_world
 
 JAX_NAMES = ("flash_fused", "flash", "xla", "flash_fused_ln",
-             "flash_fused_mlp")
+             "flash_fused_mlp", "flash_fused_block")
 #: The JAX model's int8 precedence (`pigeon_tpu/models/clip.py`): the LN
 #: and MLP fusions have no int8 kernel and run as the fused route.
 INT8_ROUTE = {"fused_ln": "fused", "fused_mlp": "fused"}
@@ -28,7 +28,8 @@ INT8_ROUTE = {"fused_ln": "fused", "fused_mlp": "fused"}
 
 @pytest.fixture
 def env(monkeypatch):
-    for name in ("PIGEON_ATTN_IMPL", "PIGEON_QUANT_ATTN_IMPL"):
+    for name in ("PIGEON_ATTN_IMPL", "PIGEON_QUANT_ATTN_IMPL",
+                 "PIGEON_FLASH_FWD"):
         monkeypatch.delenv(name, raising=False)
 
     def setenv(**values):
@@ -58,20 +59,25 @@ def test_attn_impl_maps_each_jax_name(env, jax_cli, name):
     assert cli.attn_impl() == cli.ATTN_ROUTES[want]
 
 
-@pytest.mark.parametrize("attn", [None, *JAX_NAMES, "flash_fused_block"])
+@pytest.mark.parametrize("attn", [None, *JAX_NAMES])
 @pytest.mark.parametrize("quant", [None, "flash_fused", "flash",
-                                   "flash_fused_ln", "flash_fused_mlp"])
+                                   "flash_fused_ln", "flash_fused_mlp",
+                                   "flash_fused_block"])
 def test_quant_attn_impl_downgrades_as_the_jax_cli(env, jax_cli, attn,
                                                    quant):
-    """Under ``--quant`` every ``flash_fused*`` name runs K8's fused route
-    and ``flash`` stays ``flash``; ``PIGEON_QUANT_ATTN_IMPL`` overrides."""
+    """Under ``--quant`` every ``flash_fused*`` name of
+    ``PIGEON_ATTN_IMPL`` runs K8's fused route and ``flash`` stays
+    ``flash``; ``PIGEON_QUANT_ATTN_IMPL`` overrides, and its
+    ``flash_fused_block`` is K7's ``block`` route."""
     if attn is not None:
         env(PIGEON_ATTN_IMPL=attn)
     if quant is not None:
         env(PIGEON_QUANT_ATTN_IMPL=quant)
     route = cli.ATTN_ROUTES[jax_cli._quant_attn_impl()]
     assert cli.quant_attn_impl() == INT8_ROUTE.get(route, route)
-    assert cli.quant_attn_impl() in ("fused", "flash", "plain")
+    assert cli.quant_attn_impl() in ("fused", "flash", "plain", "block")
+    assert (cli.quant_attn_impl() == "block") == (
+        quant == "flash_fused_block")
 
 
 @pytest.mark.parametrize("variable, name, resolver, match", [
@@ -86,20 +92,129 @@ def test_quant_attn_impl_downgrades_as_the_jax_cli(env, jax_cli, attn,
 ])
 def test_unported_and_unknown_routes_are_refused(env, variable, name,
                                                  resolver, match):
-    """No silent fallback: a route whose kernel is not ported names the
-    kernel, and a name the JAX package does not know (the port's own
-    route names included) stops the command."""
+    """No silent fallback: a name the JAX package does not know (the
+    port's own route names included) stops the command. Every JAX route
+    is ported now, so ``flash_fused_block`` resolves: to K6's ``block``
+    route, and under ``--quant`` to K7's (the cases tagged K6 and K7,
+    which named the missing kernel while it was)."""
     env(**{variable: name})
+    if name == "flash_fused_block":
+        assert getattr(cli, resolver)() == "block", match
+        return
     with pytest.raises(SystemExit, match=match) as info:
         getattr(cli, resolver)()
     assert variable in str(info.value)
 
 
-def test_serve_refuses_an_unported_route(env, tmp_path):
-    write_cells(tmp_path)
+def count_calls(monkeypatch, targets) -> list:
+    """Record the name of each call of the (module, function name) pairs
+    ``targets`` in the returned list."""
+    calls = []
+    for module, name in targets:
+        fn = getattr(module, name)
+        monkeypatch.setattr(
+            module, name,
+            lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+    return calls
+
+
+def test_serve_refuses_an_unported_route(env, tmp_path, monkeypatch):
+    """``serve --tiny --device cpu`` under
+    ``PIGEON_ATTN_IMPL=flash_fused_block``, refused while K6 was not
+    ported, builds every layer on the ``block`` route and answers over
+    HTTP, each request running K6 and K9 once a layer (their plain
+    versions here) and K1 never; what ``serve`` still refuses is a name it
+    does not know."""
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.models.clip import routes_of
+
+    calls = count_calls(monkeypatch, (
+        (k6, "fused_block_attention_reference"),
+        (k9, "fused_ln_mlp_reference"),
+        (k1, "fused_qkv_attention")))
+    cells = write_cells(tmp_path)
     env(PIGEON_ATTN_IMPL="flash_fused_block")
-    with pytest.raises(SystemExit, match="K6"):
+    httpd = cli.start_server(serve_args(tmp_path, "--panorama", "-m",
+                                        "--heading"), block=False)
+    try:
+        model = httpd.RequestHandlerClass.service.serve_fn.model
+        assert routes_of(model) == {"block"}
+        calls.clear()
+        status, body = post(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict",
+            panorama(4))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert status == 200
+    assert sorted(calls) == sorted(
+        ["fused_block_attention_reference", "fused_ln_mlp_reference"]
+        * len(model.vision.encoder.layers))
+    lat, lng = body["results"]["lat"], body["results"]["lng"]
+    assert np.isclose(cells, [lng, lat], atol=1e-4).all(-1).any()
+    env(PIGEON_ATTN_IMPL="flash_fused_blocks")
+    with pytest.raises(SystemExit, match="not one of"):
         cli.start_server(serve_args(tmp_path), block=False)
+
+
+def test_serve_quant_answers_on_the_block_route(env, tmp_path, monkeypatch):
+    """``serve --quant --tiny --device cpu`` under
+    ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block``: the calibration forward
+    projects separately through K3 and fills out_proj's activation scale,
+    then every forward runs K7 once a layer (plain versions here), K3 and
+    K8 never."""
+    from pigeon_tpu_torch.kernels import attention
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.models.clip import routes_of
+    from pigeon_tpu_torch.models.quant import QuantLinear
+
+    calls = count_calls(monkeypatch, (
+        (attention, "flash_attention_reference"),
+        (k8, "fused_qkv_attention_int8_reference"),
+        (k7, "fused_block_attention_int8_reference")))
+    cells = write_cells(tmp_path)
+    env(PIGEON_QUANT_ATTN_IMPL="flash_fused_block")
+    httpd = cli.start_server(serve_args(tmp_path, "--panorama", "-m",
+                                        "--heading", "--quant"), block=False)
+    try:
+        model = httpd.RequestHandlerClass.service.serve_fn.model
+        layers = len(model.vision.encoder.layers)
+        # Start-up: the calibration forward, then the warm-up request.
+        assert calls == (["flash_attention_reference"] * layers
+                         + ["fused_block_attention_int8_reference"] * layers)
+        assert routes_of(model) == {"block"}
+        assert {m.mode for m in model.modules()
+                if isinstance(m, QuantLinear)} == {"static"}
+        assert all(float(layer.attn.out_proj.act_scale) != 1.0
+                   for layer in model.vision.encoder.layers)
+        calls.clear()
+        status, body = post(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict",
+            panorama(4))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert status == 200
+    assert calls == ["fused_block_attention_int8_reference"] * layers
+    lat, lng = body["results"]["lat"], body["results"]["lng"]
+    assert np.isclose(cells, [lng, lat], atol=1e-4).all(-1).any()
+
+
+@pytest.mark.parametrize("command", ["serve", "finetune"])
+def test_an_unknown_flash_fwd_stops_the_command(env, tmp_path, command):
+    """``PIGEON_FLASH_FWD`` takes ``monolithic`` or ``online``; another
+    value stops ``serve`` and ``finetune`` before a model is built (the
+    JAX package would take it as ``monolithic``)."""
+    write_world(tmp_path)
+    env(PIGEON_FLASH_FWD="onlin")
+    with pytest.raises(SystemExit, match="PIGEON_FLASH_FWD"):
+        if command == "serve":
+            cli.start_server(serve_args(tmp_path), block=False)
+        else:
+            cli.main(finetune_argv(tmp_path, "--epochs", "1"))
 
 
 def test_serve_answers_on_the_fused_mlp_route(env, tmp_path):

@@ -31,7 +31,9 @@ def test_every_module_imports_with_jax_blocked():
         "models.geocell_head", "data.pipeline", "train.modes",
         "train.train_loop", "train.metrics", "train.loop",
         "train.checkpoints", "config", "kernels.fused_ln_qkv_attention",
-        "kernels.fused_mlp", "data.native_decode")} <= set(modules)
+        "kernels.fused_mlp", "data.native_decode",
+        "kernels.fused_block_attention",
+        "kernels.fused_block_attention_int8")} <= set(modules)
     code = (f"import sys\nfor name in {BLOCKED!r}:\n"
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n    __import__(name)\n"

@@ -371,12 +371,14 @@ def test_port_quantize_and_calibrate_matches_jax(jax_tower):
 
 @pytest.mark.parametrize("quant, jax_impl, torch_impl", [
     ("static", "flash_fused", "fused"), ("static", "flash", "flash"),
-    ("static", "xla", "plain"), ("dynamic", "flash_fused", "fused")])
+    ("static", "xla", "plain"), ("dynamic", "flash_fused", "fused"),
+    ("static", "flash_fused_block", "block"),
+    ("dynamic", "flash_fused_block", "block")])
 def test_int8_tower_matches_jax(jax_tower, interpret_mode, quant, jax_impl,
                                 torch_impl):
     """The JAX package's calibrated tree bridged into the port: the static
-    towers (K8, K3 and plain attention) and the dynamic one (K3) against
-    JAX `CLIPVisionTower` on the same pixels, in f32."""
+    towers (K8, K3, plain attention and K7) and the dynamic ones (K3)
+    against JAX `CLIPVisionTower` on the same pixels, in f32."""
     from pigeon_tpu.models.clip import CLIPVisionTower
     from pigeon_tpu_torch.models.clip import CLIPVisionTower as TTower
 
@@ -442,19 +444,24 @@ def test_int8_serving_slice_matches_jax(jax_slice, interpret_mode):
     assert_serving_slice_matches_jax(jax_slice, "flash_fused", "fused")
 
 
-@pytest.mark.parametrize("name", ["flash", "xla"])
+@pytest.mark.parametrize("name", ["flash", "xla", "flash_fused_block"])
 def test_int8_serving_route_of_the_cli_matches_jax(jax_slice, interpret_mode,
                                                    monkeypatch, name):
     """``serve --quant`` under ``PIGEON_ATTN_IMPL=flash`` (static int8
-    projections, then K3 on every request) and ``xla`` (plain attention):
-    the route each package's CLI resolves, as the int8 serving slice,
-    against the JAX package's; K3 (its plain version here) runs once a
-    layer a forward on ``flash`` and never on ``xla``, K8 never."""
+    projections, then K3 on every request), ``xla`` (plain attention) and
+    ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block`` (K7): the route each
+    package's CLI resolves, as the int8 serving slice, against the JAX
+    package's; K3 (its plain version here) runs once a layer a forward on
+    ``flash``, K7 once a layer on ``flash_fused_block``, K8 never."""
     from pigeon_tpu.cli import run as jax_cli
     from pigeon_tpu_torch.cli import run as cli
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
 
-    monkeypatch.delenv("PIGEON_QUANT_ATTN_IMPL", raising=False)
-    monkeypatch.setenv("PIGEON_ATTN_IMPL", name)
+    variable = ("PIGEON_QUANT_ATTN_IMPL" if name == "flash_fused_block"
+                else "PIGEON_ATTN_IMPL")
+    for unset in ("PIGEON_ATTN_IMPL", "PIGEON_QUANT_ATTN_IMPL"):
+        monkeypatch.delenv(unset, raising=False)
+    monkeypatch.setenv(variable, name)
     with monkeypatch.context() as mp:
         # The JAX CLI resolves the variable on a TPU only.
         mp.setattr(jax, "default_backend", lambda: "tpu")
@@ -463,15 +470,17 @@ def test_int8_serving_route_of_the_cli_matches_jax(jax_slice, interpret_mode,
     assert (jax_impl, torch_impl) == (name, cli.ATTN_ROUTES[name])
     calls = []
     for module, fn_name in ((k3, "flash_attention_reference"),
-                            (k8, "fused_qkv_attention_int8_reference")):
+                            (k8, "fused_qkv_attention_int8_reference"),
+                            (k7, "fused_block_attention_int8_reference")):
         fn = getattr(module, fn_name)
         monkeypatch.setattr(
             module, fn_name,
             lambda *a, _fn=fn, _n=fn_name: calls.append(_n) or _fn(*a))
     assert_serving_slice_matches_jax(jax_slice, jax_impl, torch_impl)
     # Two forwards: the serving function's and the logits'.
-    assert calls == (["flash_attention_reference"] * 2 * SLICE.num_layers
-                     if name == "flash" else [])
+    per_layer = {"flash": ["flash_attention_reference"],
+                 "flash_fused_block": ["fused_block_attention_int8_reference"]}
+    assert calls == per_layer.get(name, []) * 2 * SLICE.num_layers
 
 
 def assert_serving_slice_matches_jax(jax_slice, jax_impl, torch_impl):

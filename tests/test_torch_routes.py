@@ -1,10 +1,11 @@
-"""The attention routes ``flash``, ``flash_fused_ln`` and
-``flash_fused_mlp`` (and the ``PIGEON_FUSED_BWD=xla`` backward) of the
-PyTorch port against the JAX package, on the CPU in f32, at 2 layers,
-D=128, 2 heads of 64: the bridged vision tower, two finetune steps of
-the whole model (the JAX side through its Pallas kernels in interpret
-mode, ``remat='none'``), and the port's ``attn_kernel`` remat on every
-route (equal gradients, each kernel forward run once a layer)."""
+"""The attention routes ``flash``, ``flash_fused_ln``, ``flash_fused_mlp``
+and ``flash_fused_block`` (and the ``PIGEON_FUSED_BWD=xla`` backward and
+``PIGEON_FLASH_FWD=online``) of the PyTorch port against the JAX package,
+on the CPU in f32, at 2 layers, D=128, 2 heads of 64: the bridged vision
+tower, two finetune steps of the whole model (the JAX side through its
+Pallas kernels in interpret mode, ``remat='none'``), and the port's
+``attn_kernel`` remat on every route (equal gradients, each kernel forward
+run once a layer)."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from pigeon_tpu.config import HeadConfig, PigeonConfig, VisionConfig
 from pigeon_tpu_torch.kernels import attention as k34
+from pigeon_tpu_torch.kernels import fused_block_attention as k6
 from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
 from pigeon_tpu_torch.kernels import fused_mlp as k9
 from pigeon_tpu_torch.kernels import fused_qkv_attention as k12
@@ -31,14 +33,16 @@ CELLS = np.stack([RNG.uniform(-180, 180, HEAD.num_cells),
 LR = 1e-3
 #: The JAX package's route names and the port's.
 ROUTES = {"flash": "flash", "flash_fused_ln": "fused_ln",
-          "flash_fused_mlp": "fused_mlp"}
+          "flash_fused_mlp": "fused_mlp", "flash_fused_block": "block"}
 #: Each port route's kernel forwards (their plain versions on the CPU).
 KERNEL_FORWARDS = {
     "fused": [(k12, "fused_qkv_attention_reference")],
     "flash": [(k34, "flash_attention_reference")],
     "fused_ln": [(k5, "fused_ln_qkv_attention_reference")],
     "fused_mlp": [(k5, "fused_ln_qkv_attention_reference"),
-                  (k9, "fused_ln_mlp_reference")]}
+                  (k9, "fused_ln_mlp_reference")],
+    "block": [(k6, "fused_block_attention_reference"),
+              (k9, "fused_ln_mlp_reference")]}
 
 
 @pytest.fixture
@@ -123,7 +127,8 @@ def test_tower_matches_jax_on_each_route(jax_params, interpret_mode,
 
 @pytest.mark.parametrize("jax_impl, fused_bwd", [
     ("flash", "kernel"), ("flash_fused_ln", "kernel"),
-    ("flash_fused_mlp", "kernel"), ("flash_fused", "xla")])
+    ("flash_fused_mlp", "kernel"), ("flash_fused", "xla"),
+    ("flash_fused_block", "kernel"), ("flash", "online")])
 def test_two_train_steps_match_jax(jax_params, interpret_mode, monkeypatch,
                                    jax_impl, fused_bwd):
     from pigeon_tpu.data.image_ops import normalize_images
@@ -140,7 +145,11 @@ def test_two_train_steps_match_jax(jax_params, interpret_mode, monkeypatch,
         make_train_step as tstep,
     )
 
-    monkeypatch.setenv("PIGEON_FUSED_BWD", fused_bwd)
+    # "online": PIGEON_FLASH_FWD=online (K3′ forward, K4 backward).
+    if fused_bwd == "online":
+        monkeypatch.setenv("PIGEON_FLASH_FWD", "online")
+    else:
+        monkeypatch.setenv("PIGEON_FUSED_BWD", fused_bwd)
     # Interpret-mode Pallas cannot run under jax.checkpoint, so the JAX
     # side runs remat='none'; the port runs its default, attn_kernel.
     model, _ = build_finetune_model(CFG, dtype=jnp.float32,
@@ -198,12 +207,14 @@ def test_two_train_steps_match_jax(jax_params, interpret_mode, monkeypatch,
         assert diff.max().item() <= 2 * 2 * LR, name
 
 
-@pytest.mark.parametrize("route", ["flash", "fused_ln", "fused_mlp"])
+@pytest.mark.parametrize("route", ["flash", "fused_ln", "fused_mlp",
+                                   "block"])
 def test_remat_attn_kernel_gives_the_gradients_of_none(jax_params,
                                                        monkeypatch, route):
     """Bit for bit on the CPU, with every kernel forward of the route
     (here its plain version) run once per layer: the recompute pass
-    replays the saved outputs."""
+    replays the saved outputs. (On ``block`` K6's backward runs K1 again
+    on purpose, as the JAX VJP does; that is not a replay.)"""
     from pigeon_tpu_torch.train.train_loop import batch_loss, batch_to_device
 
     calls = []
