@@ -7,7 +7,8 @@ Phases, one line each, any failure raises:
 
 1. device  - the card's name and power limit (nvidia-smi);
 2. build   - kernels K1, K2, K3, K3′, K4, K5, K6, K7, K8, K9 and K10
-             (one nvcc for each, all started together, sm_90a) and the
+             and the tuning kernels V1-V5 and V6-V10 (two sources), one
+             nvcc for each source, all started together, sm_90a, and the
              native JPEG decoder (g++, where libjpeg's headers exist)
              from the checkout's sources, with nvcc's register and spill
              lines;
@@ -103,7 +104,16 @@ Phases, one line each, any failure raises:
              an eval batch
              with finite losses and the exact launch counts that
              `check_train_routes` states; step time, images/s and peak
-             memory per route.
+             memory per route;
+9. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
+             `bench_torch_attn_fwd_diag.py` and
+             `bench_torch_attn_qkv_fused.py` through their own ``run`` at
+             the TPU scripts' flagship shape (32 views, S = 577, H = 16;
+             x (32, 577, 1024)), 3 windows of 3 calls: every variant
+             checked against its plain version (`check_variants` states
+             the bounds) and timed beside it and the SDPA yardstick; the
+             tuning kernels V1-V10 launched there. The kernels line's
+             launches of K1-K10 and K3′ stay those of phases 4-8.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -160,7 +170,66 @@ KERNELS = {
     "flash_attention_online": (
         "pigeon_tpu_torch/csrc/flash_attention_online.cu",
         "pigeon_tpu/kernels/flash_attention.py:94"),
+    "bwd_r_from_o": (
+        "pigeon_tpu_torch/csrc/attention_bwd_variants.cu",
+        "scripts/bench_attn_bwd.py:58"),
+    "attention_dq": (
+        "pigeon_tpu_torch/csrc/attention_bwd_variants.cu",
+        "scripts/bench_attn_bwd.py:109"),
+    "attention_dkv": (
+        "pigeon_tpu_torch/csrc/attention_bwd_variants.cu",
+        "scripts/bench_attn_bwd.py:128"),
+    "bwd_dots_only": (
+        "pigeon_tpu_torch/csrc/attention_bwd_variants.cu",
+        "scripts/bench_attn_bwd.py:171"),
+    "bwd_vpu_only": (
+        "pigeon_tpu_torch/csrc/attention_bwd_variants.cu",
+        "scripts/bench_attn_bwd.py:194"),
+    "fwd_dots_only": (
+        "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
+        "scripts/bench_attn_fwd_diag.py:47"),
+    "fwd_softmax_only": (
+        "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
+        "scripts/bench_attn_fwd_diag.py:58"),
+    "fwd_qk_only": (
+        "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
+        "scripts/bench_attn_fwd_diag.py:69"),
+    "fwd_qk_chunked": (
+        "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
+        "scripts/bench_attn_fwd_diag.py:92"),
+    "flash_attention_online_c256": (
+        "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
+        "scripts/bench_attn_fwd_diag.py:107"),
 }
+#: The tuning drivers run by [variants], in order: the ports of
+#: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
+#: `bench_attn_qkv_fused.py`.
+DRIVERS = ("bench_torch_attn_bwd", "bench_torch_attn_fwd_diag",
+           "bench_torch_attn_qkv_fused")
+#: Each tuning kernel's work at (B, S, H, 64), counted from its TPU body:
+#: S x S x 64 bf16 products, f32 operations on each S x S score element
+#: (where the diagnostic is about them), (B, S, H, 64) bf16 tensors read
+#: or written, (B, H, S) f32 side outputs.
+VARIANT_WORK = {
+    "bwd_r_from_o": (6, 0, 7, 0),
+    "attention_dq": (3, 0, 5, 0),
+    "attention_dkv": (4, 0, 6, 0),
+    "bwd_dots_only": (5, 0, 7, 0),
+    "bwd_vpu_only": (1, 10, 6, 1),
+    "fwd_dots_only": (2, 0, 4, 0),
+    "fwd_softmax_only": (1, 5, 4, 0),
+    "fwd_qk_only": (1, 0, 4, 1),
+    "fwd_qk_chunked": (1, 1, 4, 0),
+    "flash_attention_online_c256": (2, 0, 4, 0),
+}
+#: The yardstick each tuning kernel's ``library_ms`` takes: the one
+#: PyTorch call that computes the same function, where there is one.
+VARIANT_LIBRARY = {"bwd_r_from_o": "sdpa_backward",
+                   "attention_dq": "sdpa_backward",
+                   "attention_dkv": "sdpa_backward",
+                   "flash_attention_online_c256": "sdpa_forward"}
+#: [variants]: each driver's windows and calls a window.
+VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -1766,13 +1835,109 @@ def check_train_routes(seed: int) -> dict:
     return total
 
 
+def variant_counters() -> dict:
+    """The launch counters of every kernel the tuning drivers run."""
+    from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
+    from pigeon_tpu_torch.kernels import attention_fwd_variants as fv
+
+    return {**route_counters(),
+            "bwd_r_from_o": bv.bwd_r_from_o,
+            "attention_dq": bv.attention_dq,
+            "attention_dkv": bv.attention_dkv,
+            "bwd_dots_only": bv.bwd_dots_only,
+            "bwd_vpu_only": bv.bwd_vpu_only,
+            "fwd_dots_only": fv.fwd_dots_only,
+            "fwd_softmax_only": fv.fwd_softmax_only,
+            "fwd_qk_only": fv.fwd_qk_only,
+            "fwd_qk_chunked": fv.fwd_qk_chunked,
+            "flash_attention_online_c256": fv.flash_attention_online_c256}
+
+
+def load_driver(name: str):
+    """The tuning driver ``scripts/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_variants() -> tuple:
+    """[variants]: the path of the tuning drivers (`DRIVERS`), each
+    driver's ``run`` at the TPU scripts' flagship shape (32 views, S = 577,
+    16 heads of 64; x (32, 577, 1024) for the QKV driver). ``run`` checks
+    every variant against its plain version before timing it and raises
+    on a disagreement: exact forwards within 3e-2 absolute, exact
+    backwards within 2e-2 of each output's max magnitude, diagnostics
+    within 2e-2 of each output's max magnitude. Returns the launches of
+    the tuning kernels V1-V10 on this path (counted from 0 just before
+    it) and their records for the kernels line: times, errors and plain
+    times from the drivers' runs, bounds from `VARIANT_WORK` at the
+    drivers' shape, ``library_ms`` the yardstick of `VARIANT_LIBRARY`."""
+    import gc
+
+    import torch
+
+    from pigeon_tpu_torch import tuning
+
+    counters = variant_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    records = []
+    for name in DRIVERS:
+        t0 = time.perf_counter()
+        driver = load_driver(name)
+        for rec in driver.run(tuning.BATCH, VARIANT_ITERS, VARIANT_WINDOWS):
+            records.append(rec)
+            if "yardstick" in rec:
+                phase("variants", driver=name, yardstick=rec["yardstick"],
+                      ms=rec["ms_per_call"])
+                continue
+            phase("variants", driver=name, variant=rec["variant"],
+                  ms=rec["ms_per_call"], plain_ms=rec["plain_ms"],
+                  err=rec["max_err_vs_plain"], tol=rec["tol"],
+                  relative=rec["relative"],
+                  **{key: rec[key] for key in ("max_err_vs_xla",
+                                               "max_err_vs_base")
+                     if key in rec})
+        phase("variants", driver=name,
+              seconds=round(time.perf_counter() - t0, 3))
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    phase("variants", launches=json.dumps(launches, separators=(",", ":")))
+    yardsticks = {r["yardstick"]: r["ms_per_call"] for r in records
+                  if "yardstick" in r}
+    out, counts = {}, {}
+    b, s, h, dh = tuning.BATCH, tuning.SEQ, tuning.HEADS, tuning.HEAD_DIM
+    for name, (products, f32_ops, tensors, rows) in VARIANT_WORK.items():
+        part = next(k for r in records for k in r.get("kernels", ())
+                    if k["kernel"] == name)
+        elems = b * h * s * s
+        ops = {"bf16": products * 2 * elems * dh}
+        if f32_ops:
+            ops["f32"] = f32_ops * elems
+        out[name] = {"max_abs_err": part["max_abs_err"], "ms": part["ms"],
+                     "plain_ms": part["plain_ms"],
+                     **bound(ops, tensors * b * s * h * dh * 2
+                             + rows * b * h * s * 4),
+                     "library_ms": yardsticks.get(VARIANT_LIBRARY.get(name))}
+        counts[name] = launches[name]
+    return counts, out
+
+
 def build_kernels() -> None:
-    """Build every kernel at once (one nvcc for each) and load them."""
+    """Build every kernel's source at once (one nvcc for each) and load
+    them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pigeon_tpu_torch import native
     from pigeon_tpu_torch.data import native_decode
     from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
+    from pigeon_tpu_torch.kernels import attention_fwd_variants as fv
     from pigeon_tpu_torch.kernels import fused_block_attention as k6
     from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
     from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
@@ -1781,9 +1946,11 @@ def build_kernels() -> None:
     from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
     from pigeon_tpu_torch.kernels import geodesy
 
+    sources = sorted({os.path.splitext(os.path.basename(src))[0]
+                      for src, _ in KERNELS.values()})
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(native.build_cuda, KERNELS)))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(native.build_cuda, sources)))
     wall = time.perf_counter() - t0
     for name, b in built.items():
         for line in b.log.splitlines():
@@ -1801,7 +1968,9 @@ def build_kernels() -> None:
     k6.load()
     k7.load()
     k3.load_online()
-    phase("build", kernels=len(built), wall_seconds=round(wall, 3),
+    bv.load()
+    fv.load()
+    phase("build", sources=len(built), wall_seconds=round(wall, 3),
           native_decode="built" if native_decode.available()
           else "unavailable (PIL decodes)")
 
@@ -1861,6 +2030,9 @@ def main() -> int:
     del bf16_embedding
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
+    variant_launches, variant_records = check_variants()
+    add(variant_launches)
+    records.update(variant_records)
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         raise RuntimeError(f"kernels never launched on a path: {idle}")

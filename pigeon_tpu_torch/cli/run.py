@@ -7,14 +7,16 @@ the JAX package's words (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL``
 for ``serve --quant``, :func:`quant_attn_impl`): by default
 ``flash_fused``, kernel K1 (and K2 in the backward); ``PIGEON_FLASH_FWD``
 picks the body of K3 where it runs (:func:`flash_fwd`).
-``serve`` answers with a seeded initialisation (restoring a trained
-checkpoint into it is not ported yet); ``serve --quant`` first makes its
+``serve`` answers with the newest checkpoint under
+``--checkpoint-dir/NAME`` (the model that ``finetune`` wrote), else with
+a seeded initialisation; ``serve --quant`` first makes its
 tower int8: the weights quantized per output channel, the activation
 scales calibrated by one dynamic forward (attention through kernel K3)
 over ``--calib-images`` or a seeded synthetic batch; requests then run
 every layer's attention through kernel K8. ``finetune`` trains from a seeded
-initialisation, evaluates each epoch, keeps the best checkpoint under
-``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
+initialisation under the remat policy ``PIGEON_REMAT`` names
+(:func:`remat_policy`), evaluates each epoch, keeps the best checkpoint
+under ``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
 ``csv`` module, training metadata with pandas, embeddings with numpy.
 
@@ -121,6 +123,21 @@ def flash_fwd() -> str:
         return resolve()
     except ValueError as err:
         raise SystemExit(str(err)) from None
+
+
+def remat_policy() -> str:
+    """The training remat policy of ``finetune``: ``PIGEON_REMAT``
+    (`pigeon_tpu/cli/run.py::_remat_override`), default ``attn_kernel``.
+    The port has the policies of `models.clip.REMATS`; any other value
+    stops the command, where the JAX package would fall back to full
+    remat without a word."""
+    from pigeon_tpu_torch.models.clip import REMATS
+
+    value = os.environ.get("PIGEON_REMAT") or "attn_kernel"
+    if value not in REMATS:
+        raise SystemExit(f"PIGEON_REMAT={value!r}: the port has the remat "
+                         f"policies {REMATS}")
+    return value
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -292,6 +309,7 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
     from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
     from pigeon_tpu_torch.serve import PredictionService, serve
     from pigeon_tpu_torch.serve.server import make_serving_fn
+    from pigeon_tpu_torch.train.checkpoints import restore_model
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
     device = _device(args)
@@ -306,8 +324,13 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
                     attn_impl=route), INIT_SEED)
     logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s)", route,
                    forward_body)
-    logger.warning("weights: seeded initialisation (seed %d); checkpoint "
-                   "restore is not ported yet", INIT_SEED)
+    ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
+    step = restore_model(ckpt_dir, model)
+    if step is None:
+        logger.warning("weights: seeded initialisation (seed %d); no "
+                       "checkpoint under %s", INIT_SEED, ckpt_dir)
+    else:
+        logger.warning("restored checkpoint step %d from %s", step, ckpt_dir)
     if args.quant:
         model = quantize_for_inference(args, cfg, model, device)
     serve_fn = make_serving_fn(model, cfg.head, cells, device)
@@ -410,7 +433,7 @@ def build_finetune(args) -> Finetune:
     ``finetune`` run on pixels: the preset at full width (``--tiny``:
     the smoke-test config), a seeded initialisation, every encoder layer
     but the last frozen, the tower on the route of :func:`attn_impl` and
-    remat'd under ``attn_kernel``."""
+    remat'd under :func:`remat_policy`."""
     from pigeon_tpu_torch.data.pipeline import TabularImageDataset
     from pigeon_tpu_torch.models.super_guessr import init_weights
     from pigeon_tpu_torch.train.checkpoints import (
@@ -426,16 +449,18 @@ def build_finetune(args) -> Finetune:
     device = _device(args)
     route = attn_impl()
     forward_body = flash_fwd()
+    remat = remat_policy()
     cells = load_geocells(args)
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
                                                num_cells=len(cells)))
     train_df, val_df = _split_frames(args, cfg.head.multi_task)
     tcfg = cfg.train
-    model = init_weights(build_finetune_model(cfg, attn_impl=route),
+    model = init_weights(build_finetune_model(cfg, attn_impl=route,
+                                              remat=remat),
                          tcfg.seed).to(device)
-    logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s)", route,
-                   forward_body)
+    logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s), remat %s",
+                   route, forward_body, remat)
     state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
     ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
     if args.resume and latest_step(ckpt_dir) is not None:

@@ -1,0 +1,263 @@
+// The attention-forward tuning variants of scripts/bench_attn_fwd_diag.py
+// on (B, S, H, 64) q/k/v, for Hopper (sm_90a). Each replaces one Pallas
+// body of that script (named at its entry point below); on the card they
+// answer what bounds K3 (flash_attention.cu) and K3′
+// (flash_attention_online.cu):
+//
+//   V10 online_c256  exact attention, online softmax over 256-key chunks:
+//                    K3′'s body (online_attention_tile.cuh) at CHUNK = 256,
+//                    a 64 x 256 f32 score tile, 163 KB of shared memory,
+//                    one block an SM (K3′: 128 keys, 95 KB, two).
+//   V6 dots_only     diagnostic: bf16(q k^T) v, no scale, no softmax.
+//   V7 softmax_only  diagnostic: the scaled scores' softmax with the PV
+//                    product removed: out = p[:, :64] / den + v.
+//   V8 qk_only       diagnostic: out = bf16(q k^T)[:, :64] + v.
+//   V9 qk_chunked    diagnostic: out = sum over keys of q k^T, plus v.
+//
+// V6-V9 take a block per (64-row query tile, head, batch) and walk the
+// key tiles through shared memory (K and V staged 64 rows at a time, WMMA
+// 16x16x16 bf16 fragments, f32 accumulation), as K4's dq pass does. V7
+// walks them twice, as K3's body does (the exact row max, then exp and
+// the denominator); V6, V8 and V9 once.
+//
+// What bounds them on the H100, at the tuning shape (B = 32 views,
+// S = 577, H = 16): q/k/v and the output are ~75 MB (~0.023 ms); one
+// S x S x 64 product is ~22 GFLOP (~0.022 ms). V10 and V6 do two
+// products, V7 (formed twice), V8 and V9 one; V10's and V7's softmax adds
+// ~5 f32 operations and an exp an S x S element (~1 G, ~0.015 ms).
+// The bytes and the products are within a factor two of each other:
+// neither leaves room, and the diagnostics' times against K3's say which
+// part of K3's 3 ms is which.
+//
+// Keeping the measured work alive: nvcc deletes what never reaches
+// memory. V8 stores only 64 score columns; every other score goes into a
+// per-row f32 side output, the row's sum of q k^T over all S keys, which
+// the plain version computes too. V7 stores only p's first 64 columns,
+// but every p enters den, which every output reads. V6 and V9 read every
+// product into their outputs. Checked in the SASS (cuobjdump -sass of the
+// sm_90a build): V8 and V9 keep 16 HMMA (the score tile of every key
+// tile), V7 32 HMMA and 32 MUFU.EX2 (two walks; the exp of every key),
+// V6 32 HMMA.
+//
+// Constraints (checked by the Python wrapper before launch): head_dim 64,
+// bf16, (B, S, H, 64) contiguous and 16-byte aligned; V7 and V8 need
+// S >= 64. Rows of K/V past S are zero-filled and masked; query rows past
+// S are never written.
+
+#include "online_attention_tile.cuh"
+
+namespace {
+
+constexpr int DIAG_SMEM = 4 * TILE_B + TILE_F;  // 54,272 B
+
+enum Diag { DOTS_ONLY = 0, SOFTMAX_ONLY = 1, QK_ONLY = 2, QK_CHUNKED = 3 };
+
+struct FwdArgs {
+  const bf16 *q, *k, *v;  // (B, S, P)
+  bf16* out;              // (B, S, P)
+  float* rowsum;          // (B, H, S), V8's side output
+  int S, H;
+  float scale;
+};
+
+template <int KIND>
+__global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int S = args.S, H = args.H, P = H * DH;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + TILE - 1) / TILE;
+  const int q0 = qt * TILE;
+  const int rows = min(TILE, S - q0);
+  const float scale = args.scale;
+
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + TILE * LDB;
+  bf16* vs = ks + TILE * LDB;
+  bf16* ps = vs + TILE * LDB;
+  float* sf = reinterpret_cast<float*>(smem + 4 * TILE_B);
+
+  const int warp = threadIdx.x / 32;
+  const int rf = warp / 2;
+  const int cf = (warp % 2) * 2;
+  const int row = threadIdx.x / 4;
+  const int c0 = (threadIdx.x % 4) * 16;
+
+  const size_t head = (size_t)b * S * P + h * DH;
+  stage_tile(qs, args.q + head + (size_t)q0 * P, P, rows);
+
+  // V7's first walk: the exact row max of the scaled scores.
+  float m = -INFINITY;
+  if (KIND == SOFTMAX_ONLY) {
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int kv = min(TILE, S - kt * TILE);
+      stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
+      __syncthreads();
+      score_tile(sf, qs, ks, rf, cf);
+      __syncthreads();
+#pragma unroll
+      for (int c = c0; c < c0 + 16; ++c) {
+        if (c < kv) m = fmaxf(m, sf[row * LDF + c] * scale);
+      }
+    }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  }
+
+  float sum = 0.0f;  // V7: den; V8, V9: the row's sum of the scores
+  float first[16];   // V7: p, V8: the scores, of the first 64 keys
+  FragC acc[2];      // V6: bf16(s) @ V
+#pragma unroll
+  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int kv = min(TILE, S - kt * TILE);
+    stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
+    if (KIND == DOTS_ONLY) {
+      stage_tile(vs, args.v + head + (size_t)kt * TILE * P, P, kv);
+    }
+    __syncthreads();
+    score_tile(sf, qs, ks, rf, cf);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + j;
+      const float s = c < kv ? sf[row * LDF + c] : 0.0f;
+      if (KIND == DOTS_ONLY) {
+        ps[row * LDB + c] = __float2bfloat16(s);
+      } else if (KIND == SOFTMAX_ONLY) {
+        const float p = c < kv ? expf(s * scale - m) : 0.0f;
+        sum += p;
+        if (kt == 0) first[j] = p;
+      } else {
+        sum += s;
+        if (kt == 0) first[j] = s;
+      }
+    }
+    if (KIND == DOTS_ONLY) {
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < TILE; kk += 16) {
+        FragA fa;
+        wmma::load_matrix_sync(fa, ps + rf * 16 * LDB + kk, LDB);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          FragBRow fb;
+          wmma::load_matrix_sync(fb, vs + kk * LDB + (cf + j) * 16, LDB);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+      __syncthreads();  // vs and ps are rewritten next iteration
+    }
+  }
+
+  if (KIND == DOTS_ONLY) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(sf + rf * 16 * LDF + (cf + j) * 16, acc[j],
+                              LDF, wmma::mem_row_major);
+    }
+    __syncthreads();
+    write_rows(args.out + head + (size_t)q0 * P, sf, P, rows);
+    return;
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (row >= rows) return;
+  const size_t at = head + (size_t)(q0 + row) * P + c0;
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    float o[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float v = __bfloat162float(args.v[at + j + i]);
+      if (KIND == SOFTMAX_ONLY) {
+        o[i] = first[j + i] / sum + v;
+      } else if (KIND == QK_ONLY) {
+        o[i] = __bfloat162float(__float2bfloat16(first[j + i])) + v;
+      } else {
+        o[i] = sum + v;
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(args.out + at + j) =
+        __floats2bfloat162_rn(o[0], o[1]);
+  }
+  if (KIND == QK_ONLY && threadIdx.x % 4 == 0) {
+    args.rowsum[((size_t)b * H + h) * S + q0 + row] = sum;
+  }
+}
+
+template <int KIND>
+int launch_diag(const void* q, const void* k, const void* v, void* out,
+                void* rowsum, int batch, int seq, int heads, void* stream) {
+  const bool needs_64 = KIND == SOFTMAX_ONLY || KIND == QK_ONLY;
+  if (batch < 1 || seq < 1 || heads < 1 || (needs_64 && seq < DH)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FwdArgs args = {};
+  args.q = static_cast<const bf16*>(q);
+  args.k = static_cast<const bf16*>(k);
+  args.v = static_cast<const bf16*>(v);
+  args.out = static_cast<bf16*>(out);
+  args.rowsum = static_cast<float*>(rowsum);
+  args.S = seq;
+  args.H = heads;
+  args.scale = 1.0f / sqrtf(static_cast<float>(DH));
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_diag_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DIAG_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 tiles((seq + TILE - 1) / TILE, heads, batch);
+  fwd_diag_kernel<KIND><<<tiles, THREADS, DIAG_SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pigeon_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// V10, scripts/bench_attn_fwd_diag.py::online_softmax at chunk=256.
+int pigeon_attention_online_c256(const void* q, const void* k, const void* v,
+                                 void* out, int batch, int seq, int heads,
+                                 void* stream) {
+  return static_cast<int>(launch_online_attention<256, 1>(
+      q, k, v, out, batch, seq, heads, static_cast<cudaStream_t>(stream)));
+}
+
+// V6, scripts/bench_attn_fwd_diag.py::dots_only.
+int pigeon_attention_fwd_dots_only(const void* q, const void* k,
+                                   const void* v, void* out, int batch,
+                                   int seq, int heads, void* stream) {
+  return launch_diag<DOTS_ONLY>(q, k, v, out, nullptr, batch, seq, heads,
+                                stream);
+}
+
+// V7, scripts/bench_attn_fwd_diag.py::softmax_only.
+int pigeon_attention_fwd_softmax_only(const void* q, const void* k,
+                                      const void* v, void* out, int batch,
+                                      int seq, int heads, void* stream) {
+  return launch_diag<SOFTMAX_ONLY>(q, k, v, out, nullptr, batch, seq, heads,
+                                   stream);
+}
+
+// V8, scripts/bench_attn_fwd_diag.py::qk_only; rowsum (B, H, S) f32 takes
+// each row's sum of q k^T over all S keys.
+int pigeon_attention_fwd_qk_only(const void* q, const void* k, const void* v,
+                                 void* out, void* rowsum, int batch, int seq,
+                                 int heads, void* stream) {
+  return launch_diag<QK_ONLY>(q, k, v, out, rowsum, batch, seq, heads,
+                              stream);
+}
+
+// V9, scripts/bench_attn_fwd_diag.py::qk_chunked.
+int pigeon_attention_fwd_qk_chunked(const void* q, const void* k,
+                                    const void* v, void* out, int batch,
+                                    int seq, int heads, void* stream) {
+  return launch_diag<QK_CHUNKED>(q, k, v, out, nullptr, batch, seq, heads,
+                                 stream);
+}
+
+}  // extern "C"

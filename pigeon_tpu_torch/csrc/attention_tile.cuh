@@ -89,6 +89,22 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
   }
 }
 
+// Write a 64 x 64 f32 tile's first `rows` rows as bf16 into one head's
+// columns of a (B, S, P) tensor: each thread one row, 16 columns.
+__device__ __forceinline__ void write_rows(bf16* dst, const float* f,
+                                           int ld, int rows) {
+  const int row = threadIdx.x / 4;
+  const int c0 = (threadIdx.x % 4) * 16;
+  if (row < rows) {
+#pragma unroll
+    for (int c = 0; c < 16; c += 2) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * ld + c0 + c) =
+          __floats2bfloat162_rn(f[row * LDF + c0 + c],
+                                f[row * LDF + c0 + c + 1]);
+    }
+  }
+}
+
 // scores (64 x 64, f32, row stride LDF) = Q tile @ K[k0:k0+64]^T; each warp
 // computes two 16 x 16 fragments of the 4 x 4 grid.
 __device__ __forceinline__ void score_tile(float* sf, const bf16* qs,

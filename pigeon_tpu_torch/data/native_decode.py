@@ -35,7 +35,12 @@ GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=fast", "-funroll-loops",
 @functools.lru_cache(maxsize=None)
 def load() -> Optional[ctypes.CDLL]:
     """Build (at first use) and load the decoder; None where it cannot be
-    built on this machine."""
+    built on this machine, or where ``PIGEON_NATIVE_DECODE=0`` asks for PIL
+    (`pigeon_tpu/data/native_decode.py::load`)."""
+    if os.environ.get("PIGEON_NATIVE_DECODE", "1") == "0":
+        logger.warning("native decode off (PIGEON_NATIVE_DECODE=0), "
+                       "decoding with PIL")
+        return None
     try:
         built = native.build_shared(SRC_PATH, ["g++"], GXX_FLAGS,
                                     libs=("-ljpeg",))

@@ -52,6 +52,22 @@ def save_checkpoint(directory: str, state) -> int:
     return state.step
 
 
+def restore_model(directory: str, model) -> Optional[int]:
+    """Load the newest checkpoint's model weights into ``model``
+    (``strict``: a model built with other head flags fails loudly); returns
+    its step, or None when ``directory`` holds no checkpoint. The
+    optimizer state is not read (`pigeon_tpu/cli/run.py::_init_and_restore`
+    for ``serve``)."""
+    step = latest_step(directory)
+    if step is None:
+        return None
+    device = next(model.parameters()).device
+    saved = torch.load(_path(directory, step), map_location=device,
+                       weights_only=True)
+    model.load_state_dict(saved["model"], strict=True)
+    return int(saved["step"])
+
+
 def restore_checkpoint(directory: str, state):
     """Load the newest checkpoint into ``state``'s model and optimizer, on
     the model's device; returns ``state``."""

@@ -365,7 +365,8 @@ def test_k7_operand_checks(case, error, match):
 
 def test_new_sources_name_the_headers_they_include():
     """K6 and K7 build from shared headers (K5's block, K8's block, the
-    GEMM); editing one renames the libraries that include it
+    GEMM), K3′ and the tuning kernels from K3′'s online body and K4's
+    passes; editing one renames the libraries that include it
     (`native.library_path`)."""
     from pigeon_tpu_torch import native
 
@@ -378,7 +379,14 @@ def test_new_sources_name_the_headers_they_include():
             ("fused_block_attention_int8", ["attention_tile.cuh",
                                             "gemm_tile.cuh"]),
             ("fused_mlp", ["gemm_tile.cuh"]),
-            ("flash_attention_online", ["attention_tile.cuh"])):
+            ("flash_attention_online", ["online_attention_tile.cuh",
+                                        "attention_tile.cuh"]),
+            ("attention_fwd_variants", ["online_attention_tile.cuh",
+                                        "attention_tile.cuh"]),
+            ("attention_bwd_variants", ["attention_bwd_tile.cuh",
+                                        "attention_tile.cuh"]),
+            ("flash_attention_bwd", ["attention_bwd_tile.cuh",
+                                     "attention_tile.cuh"])):
         closure = native.source_closure(
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
         assert [os.path.basename(p) for p in closure] == [f"{kernel}.cu",

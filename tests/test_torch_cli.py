@@ -5,6 +5,7 @@ on a TPU); unknown names, and unknown ``PIGEON_FLASH_FWD`` values, stop
 the command; ``serve`` and ``finetune`` on the CPU build and run on the
 route the variable names."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -29,7 +30,7 @@ INT8_ROUTE = {"fused_ln": "fused", "fused_mlp": "fused"}
 @pytest.fixture
 def env(monkeypatch):
     for name in ("PIGEON_ATTN_IMPL", "PIGEON_QUANT_ATTN_IMPL",
-                 "PIGEON_FLASH_FWD"):
+                 "PIGEON_FLASH_FWD", "PIGEON_REMAT"):
         monkeypatch.delenv(name, raising=False)
 
     def setenv(**values):
@@ -305,3 +306,150 @@ def test_finetune_trains_on_the_flash_route(env, tmp_path, monkeypatch):
                open(tmp_path / "runs" / "tinyrun" / "metrics.jsonl")]
     assert [r["step"] for r in records if r["tag"] == "train/loss"] == [1, 2]
     assert all(math.isfinite(r["value"]) for r in records)
+
+
+def test_serve_answers_with_the_checkpoint_finetune_wrote(env, tmp_path,
+                                                          monkeypatch):
+    """``finetune --tiny --device cpu`` writes ``step_N.pt``; ``serve`` on
+    the same run name and ``--checkpoint-dir`` restores it
+    (`pigeon_tpu/cli/run.py::_init_and_restore`) and answers with that
+    model's embedding: the one of a model with the file loaded by hand,
+    not the seeded initialisation's. ``--quant`` restores before it
+    quantizes."""
+    import torch
+
+    from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
+    from pigeon_tpu_torch.serve.server import make_serving_fn
+    from pigeon_tpu_torch.train.checkpoints import latest_step
+
+    write_world(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(finetune_argv(tmp_path, "--epochs", "1")) == 0
+    ckpt_dir = tmp_path / "saved_models" / "tinyrun"
+    step = latest_step(str(ckpt_dir))
+    assert step == 2
+    saved = torch.load(ckpt_dir / f"step_{step}.pt", weights_only=True)
+
+    argv = ["serve", "tinyrun", "--tiny", "--device", "cpu", "--port", "0",
+            "--geocells", str(tmp_path / "cells.csv"), "--checkpoint-dir",
+            str(tmp_path / "saved_models"), "--panorama", "-m", "--heading"]
+    httpd = cli.start_server(cli.build_parser().parse_args(argv),
+                             block=False)
+    try:
+        serve_fn = httpd.RequestHandlerClass.service.serve_fn
+        status, body = post(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict",
+            panorama(4))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert status == 200
+
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.make_config(args)
+    cfg = cfg.replace(head=dataclasses.replace(cfg.head, num_cells=5))
+
+    def served_by(model):
+        return make_serving_fn(model, cfg.head, np.zeros((5, 2), np.float32),
+                               "cpu")
+
+    def seeded():
+        return init_weights(SuperGuessr(cfg.vision, cfg.head,
+                                        dtype=torch.bfloat16),
+                            cli.INIT_SEED)
+
+    by_hand = seeded()
+    by_hand.load_state_dict(saved["model"])
+    pixels = np.random.default_rng(0).integers(
+        0, 256, (1, 4, 64, 64, 3), dtype=np.uint8)
+    got = serve_fn(pixels)["embedding"]
+    torch.testing.assert_close(got, served_by(by_hand)(pixels)["embedding"],
+                               rtol=0, atol=0)
+    seeded_emb = served_by(seeded())(pixels)["embedding"]
+    assert (got.float() - seeded_emb.float()).abs().max() > 1e-3
+
+    calls = []
+    from pigeon_tpu_torch.models import quant
+
+    real = quant.quantize_and_calibrate
+    monkeypatch.setattr(quant, "quantize_and_calibrate",
+                        lambda model, *a, **kw: calls.append(
+                            model.head.cell_layer.bias.detach().clone())
+                        or real(model, *a, **kw))
+    httpd = cli.start_server(cli.build_parser().parse_args(argv + ["--quant"]),
+                             block=False)
+    httpd.shutdown()
+    httpd.server_close()
+    torch.testing.assert_close(calls[0],
+                               saved["model"]["head.cell_layer.bias"])
+
+
+def test_serve_refuses_a_checkpoint_of_other_head_flags(env, tmp_path,
+                                                        monkeypatch):
+    """The restore is strict: serving a panorama/multi-task checkpoint
+    without those flags fails loudly, as the JAX restore does."""
+    write_world(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(finetune_argv(tmp_path, "--epochs", "1")) == 0
+    args = cli.build_parser().parse_args([
+        "serve", "tinyrun", "--tiny", "--device", "cpu", "--port", "0",
+        "--geocells", str(tmp_path / "cells.csv")])
+    with pytest.raises(RuntimeError, match="state_dict"):
+        cli.start_server(args, block=False)
+
+
+@pytest.mark.parametrize("value, want", [(None, "attn_kernel"),
+                                         ("attn_kernel", "attn_kernel"),
+                                         ("none", "none")])
+def test_finetune_builds_under_the_remat_policy_named(env, tmp_path,
+                                                      monkeypatch, value,
+                                                      want):
+    """``PIGEON_REMAT`` (`pigeon_tpu/cli/run.py::_remat_override`) reaches
+    `build_finetune_model`'s ``remat`` and the tower it builds."""
+    from pigeon_tpu_torch.train import modes
+
+    seen = []
+    real = modes.build_finetune_model
+    monkeypatch.setattr(modes, "build_finetune_model",
+                        lambda cfg, **kw: seen.append(kw["remat"])
+                        or real(cfg, **kw))
+    write_world(tmp_path)
+    if value is not None:
+        env(PIGEON_REMAT=value)
+    run = cli.build_finetune(cli.build_parser().parse_args(
+        finetune_argv(tmp_path)))
+    assert seen == [want]
+    assert run.state.model.vision.encoder.remat == want
+
+
+def test_finetune_trains_without_remat(env, tmp_path, monkeypatch):
+    """``PIGEON_REMAT=none`` trains an epoch with finite losses, no layer
+    under the checkpointed path."""
+    import json
+
+    from pigeon_tpu_torch.models import clip
+
+    def no_checkpoint(*a, **kw):
+        raise AssertionError("a layer was checkpointed under remat none")
+
+    monkeypatch.setattr(clip, "checkpoint", no_checkpoint)
+    write_world(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    env(PIGEON_REMAT="none")
+    assert cli.main(finetune_argv(tmp_path, "--epochs", "1")) == 0
+    records = [json.loads(line) for line in
+               open(tmp_path / "runs" / "tinyrun" / "metrics.jsonl")]
+    assert [r["step"] for r in records if r["tag"] == "train/loss"] == [1, 2]
+    assert all(math.isfinite(r["value"]) for r in records)
+
+
+@pytest.mark.parametrize("value", ["full", "attn_out", "attn_slim"])
+def test_finetune_stops_on_a_remat_policy_the_port_lacks(env, tmp_path,
+                                                         value):
+    """The JAX CLI's other policies, and anything else, stop ``finetune``
+    with the policies the port has, where the JAX package would fall back
+    to full remat silently."""
+    write_world(tmp_path)
+    env(PIGEON_REMAT=value)
+    with pytest.raises(SystemExit, match="PIGEON_REMAT.*attn_kernel"):
+        cli.main(finetune_argv(tmp_path, "--epochs", "1"))

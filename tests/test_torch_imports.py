@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX and nothing of the JAX package: every
-module of `pigeon_tpu_torch` imports in a process where ``jax``,
+module of `pigeon_tpu_torch` and every tuning driver
+(`scripts/bench_torch_attn_*.py`) imports in a process where ``jax``,
 ``flax``, ``optax`` and ``pigeon_tpu`` are blocked, and no source line of
-the port or of `chip_smoke.py` imports them."""
+the port, of the drivers or of `chip_smoke.py` imports them."""
 
 import os
 import pkgutil
@@ -13,6 +14,8 @@ import pigeon_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "pigeon_tpu")
+DRIVERS = ("bench_torch_attn_bwd", "bench_torch_attn_fwd_diag",
+           "bench_torch_attn_qkv_fused")
 IMPORT_LINE = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pigeon_tpu)(\.|\s|$)")
 
@@ -33,10 +36,14 @@ def test_every_module_imports_with_jax_blocked():
         "train.checkpoints", "config", "kernels.fused_ln_qkv_attention",
         "kernels.fused_mlp", "data.native_decode",
         "kernels.fused_block_attention",
-        "kernels.fused_block_attention_int8")} <= set(modules)
-    code = (f"import sys\nfor name in {BLOCKED!r}:\n"
+        "kernels.fused_block_attention_int8",
+        "kernels.attention_bwd_variants", "kernels.attention_fwd_variants",
+        "tuning")} <= set(modules)
+    code = (f"import runpy, sys\nfor name in {BLOCKED!r}:\n"
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n    __import__(name)\n"
+            f"for name in {DRIVERS!r}:\n"
+            "    runpy.run_path(f'scripts/{name}.py')\n"
             "print('imported', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -50,6 +57,8 @@ def source_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for name in DRIVERS:
+        yield os.path.join(ROOT, "scripts", f"{name}.py")
 
 
 def test_no_source_line_imports_jax():

@@ -1,8 +1,8 @@
 """The finetuning slice of the PyTorch port against the JAX package, on
 the CPU in f32: the loss in every branch, two train steps of the whole
 model (the JAX side through its Pallas kernels in interpret mode), the
-remat policy, the input pipeline, the metric suite, checkpoints and the
-``finetune`` command."""
+remat policy, the input pipeline and its native decoder's switch, the
+metric suite, checkpoints and the ``finetune`` command."""
 
 import dataclasses
 import math
@@ -370,6 +370,26 @@ def test_producer_exception_reraises_in_consumer(tmp_path):
         for batch in pipeline.iter_batches(ds, 4):
             seen.append(batch)
     assert len(seen) == 2
+
+
+def test_native_decode_zero_forces_pil(monkeypatch):
+    """``PIGEON_NATIVE_DECODE=0`` makes the loader return no library, as
+    the JAX package's does (`pigeon_tpu/data/native_decode.py::load`):
+    nothing is built and the caller decodes with PIL."""
+    from pigeon_tpu_torch import native
+    from pigeon_tpu_torch.data import native_decode
+
+    def no_build(*a, **kw):
+        raise AssertionError("built under PIGEON_NATIVE_DECODE=0")
+
+    monkeypatch.setattr(native, "build_shared", no_build)
+    monkeypatch.setenv("PIGEON_NATIVE_DECODE", "0")
+    native_decode.load.cache_clear()
+    try:
+        assert native_decode.available() is False
+        assert native_decode.decode_resize_crop_batch([b"\xff\xd8"], 8) is None
+    finally:
+        native_decode.load.cache_clear()
 
 
 def test_metrics_match_jax():

@@ -1,0 +1,445 @@
+"""The tuning kernels V1-V10 of the PyTorch port (the Pallas bodies of
+`scripts/bench_attn_bwd.py` and `scripts/bench_attn_fwd_diag.py`) and the
+drivers that run them (`scripts/bench_torch_attn_*.py`).
+
+On the CPU, each plain version against the script's own body: the bodies
+are closures inside the script's ``main()``, so their ``FunctionDef``s are
+read from the unedited source with `ast`, run with the closure's names
+bound (``jax``, ``jnp``, ``np``, ``scale``, ``S``, ``DH``) and launched
+through ``pl.pallas_call`` in interpret mode, as the script launches them.
+The exact variants are also held against the script's own reference
+(``jax.vjp`` of `_xla_attention_bshd`) or `_flash_forward`. Then the
+wrappers' dispatch and operand checks, K3′'s chunk, and the drivers'
+variant names and checks. On a GPU (``-m gpu``), each CUDA variant
+against its plain version."""
+
+import ast
+import functools
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from pigeon_tpu_torch import tuning
+from pigeon_tpu_torch.kernels import attention as k34
+from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
+from pigeon_tpu_torch.kernels import attention_fwd_variants as fv
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DH = 64
+B, H = 2, 2  # BH = 4 sequences
+PACK = 2
+#: (exact, diagnostic) bounds by dtype. Forward: exact max abs error,
+#: diagnostics max abs error over the output's max magnitude. Backward:
+#: every output's max abs error over its max magnitude in bf16 (u and dl
+#: round to bf16 from f32 sums taken in another order), absolute for the
+#: exact ones in f32.
+FWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+BWD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def script_bodies(script: str, names, seq: int) -> dict:
+    """The nested functions ``names`` of ``scripts/<script>``'s ``main()``,
+    exec'd from the unedited source with the closure's names bound at
+    S = ``seq``."""
+    path = os.path.join(ROOT, "scripts", script)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    main = next(node for node in tree.body
+                if isinstance(node, ast.FunctionDef) and node.name == "main")
+    defs = [node for node in main.body
+            if isinstance(node, ast.FunctionDef) and node.name in names]
+    assert sorted(d.name for d in defs) == sorted(names)
+    scope = {"jax": jax, "jnp": jnp, "np": np, "scale": DH ** -0.5,
+             "S": seq, "DH": DH}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"),
+         scope)
+    return {name: scope[name] for name in names}
+
+
+def pallas(body, args, n_out: int, dtype):
+    """``body`` over (BH, S, 64) ``args`` as the script's ``make`` /
+    ``make_bwd`` launch it: one ``(PACK, S, 64)`` block of every operand a
+    grid step, in interpret mode (the caller's fixture)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    bh, s, _ = args[0].shape
+    spec = pl.BlockSpec((PACK, s, DH), lambda b: (b, 0, 0),
+                        memory_space=pltpu.VMEM)
+    shape = jax.ShapeDtypeStruct((bh, s, DH), dtype)
+    out = pl.pallas_call(
+        functools.partial(body, pack=PACK),
+        out_shape=(shape,) * n_out if n_out > 1 else shape,
+        grid=(bh // PACK,),
+        in_specs=[spec] * len(args),
+        out_specs=(spec,) * n_out if n_out > 1 else spec)(*args)
+    return out if n_out > 1 else (out,)
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    """The scripts' bodies and the JAX package's kernels as the package's
+    own tests run them on the CPU: interpret mode."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.delenv("PIGEON_FLASH_FWD", raising=False)
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def operands(n: int, s: int, dtype: str, seed: int = 0):
+    """``n`` seeded (BH, S, 64) operands: as JAX arrays in the script's
+    layout, and as the port's (B, S, H, 64) tensors of the same values."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(seed + s)
+    arrays = [rng.normal(size=(B * H, s, DH)).astype(np.float32)
+              for _ in range(n)]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a.reshape(B, H, s, DH).transpose(0, 2, 1, 3)
+                              .copy()).to(tdt) for a in arrays])
+
+
+def fold(t) -> np.ndarray:
+    """A port's (B, S, H, 64) output as the script's (BH, S, 64), f32."""
+    b, s, h, dh = t.shape
+    return t.float().transpose(1, 2).reshape(b * h, s, dh).numpy()
+
+
+def assert_close(got, want, tol: float, relative: bool):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    if relative:
+        err /= np.abs(want).max()
+    assert err <= tol, (err, tol)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the scripts' own bodies
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # (script body, outputs, port plain version, diagnostic)
+    ("bwd_r_from_o", 3, bv.bwd_r_from_o_reference, False),
+    ("dq_body", 1, bv.attention_dq_reference, False),
+    ("dkv_body", 2, bv.attention_dkv_reference, False),
+    ("dots_only", 3, bv.bwd_dots_only_reference, True),
+    ("vpu_only", 3, bv.bwd_vpu_only_reference, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97])
+@pytest.mark.parametrize("body, n_out, plain, diagnostic", BWD_CASES,
+                         ids=[c[0] for c in BWD_CASES])
+def test_bwd_plain_version_matches_script_body(interpret_mode, body, n_out,
+                                               plain, diagnostic, s, dtype):
+    fn = script_bodies("bench_attn_bwd.py", [body], s)[body]
+    jargs, targs = operands(4, s, dtype)
+    want = pallas(fn, jargs, n_out, DTYPES[dtype][0])
+    got = tuning.outputs(plain(*targs))
+    relative = diagnostic or dtype == "bfloat16"
+    for g, w in zip(got[:n_out], want, strict=True):
+        assert g.dtype == targs[0].dtype
+        assert_close(fold(g), w, BWD_TOL[dtype], relative)
+
+
+FWD_CASES = [  # (script body, chunk, port plain version, diagnostic)
+    ("dots_only", None, fv.fwd_dots_only_reference, True),
+    ("softmax_only", None, fv.fwd_softmax_only_reference, True),
+    ("qk_only", None, fv.fwd_qk_only_reference, True),
+    ("qk_chunked", None, fv.fwd_qk_chunked_reference, True),
+    ("online_softmax", 256, fv.flash_attention_online_c256_reference, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+@pytest.mark.parametrize("body, chunk, plain, diagnostic", FWD_CASES,
+                         ids=[c[0] for c in FWD_CASES])
+def test_fwd_plain_version_matches_script_body(interpret_mode, body, chunk,
+                                               plain, diagnostic, s, dtype):
+    fn = script_bodies("bench_attn_fwd_diag.py", [body], s)[body]
+    if chunk:
+        fn = functools.partial(fn, chunk=chunk)
+    jargs, targs = operands(3, s, dtype)
+    (want,) = pallas(fn, jargs, 1, DTYPES[dtype][0])
+    got = tuning.outputs(plain(*targs))[0]
+    assert got.dtype == targs[0].dtype
+    assert_close(fold(got), want, FWD_TOL[dtype], diagnostic)
+
+
+# ---------------------------------------------------------------------------
+# The exact variants against the scripts' references; the side outputs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [80, 97])
+def test_exact_bwd_variants_match_jax_vjp_of_xla_attention(interpret_mode,
+                                                           s):
+    """V1, V2 + V3 against the script's reference, ``jax.vjp`` of
+    `_xla_attention_bshd` (`bench_attn_bwd.py:232-233`), in f32."""
+    from pigeon_tpu.kernels import flash_attention as fa
+
+    jargs, targs = operands(4, s, "float32")
+    q, k, v, g = jargs
+    want = jax.vjp(fa._xla_attention_bshd, q, k, v)[1](g)
+    v1 = bv.bwd_r_from_o_reference(*targs)
+    split = (bv.attention_dq_reference(*targs),
+             *bv.attention_dkv_reference(*targs))
+    for got in (v1, split):
+        for a, w in zip(got, want, strict=True):
+            assert_close(fold(a), w, BWD_TOL["float32"], False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 300])
+def test_v10_matches_jax_flash_forward(interpret_mode, s, dtype):
+    """V10's plain version against the JAX package's K3
+    (`_flash_forward`, interpret mode), the script's ``base``."""
+    from pigeon_tpu.kernels import flash_attention as fa
+
+    jargs, targs = operands(3, s, dtype)
+    want = fa._flash_forward(*jargs)
+    got = fv.flash_attention_online_c256_reference(*targs)
+    assert_close(fold(got), want, FWD_TOL[dtype], False)
+
+
+def test_side_outputs_keep_the_whole_row():
+    """V5's ``dl_abs`` and V8's ``rowsum`` sum over every key, in f64."""
+    s = 97
+    _, (q, k, v, g) = operands(4, s, "float32")
+    qh, kh = (t.double().transpose(1, 2).numpy() for t in (q, k))
+    scores = qh @ kh.swapaxes(-1, -2)
+    _, rowsum = fv.fwd_qk_only_reference(q, k, v)
+    np.testing.assert_allclose(rowsum.numpy(), scores.sum(-1), rtol=1e-4,
+                               atol=1e-3)
+    logits = scores * DH ** -0.5
+    u = np.exp(logits - logits.max(-1, keepdims=True))
+    den = u.sum(-1, keepdims=True)
+    r = (logits * u).sum(-1, keepdims=True) / den
+    dl = u * (logits - r) * (DH ** -0.5 / den)
+    *_, dl_abs = bv.bwd_vpu_only_reference(q, k, v, g)
+    assert dl_abs.shape == (B, H, s)
+    np.testing.assert_allclose(dl_abs.numpy(), np.abs(dl).sum(-1),
+                               rtol=1e-5)
+    # The first 64 columns are what dq keeps; the rest reach only dl_abs.
+    assert np.abs(dl[..., DH:]).sum() > 0.1 * np.abs(dl).sum()
+
+
+# ---------------------------------------------------------------------------
+# Dispatch, operand checks, K3′'s chunk
+# ---------------------------------------------------------------------------
+
+WRAPPERS = [
+    (bv.bwd_r_from_o, bv.bwd_r_from_o_reference, 4),
+    (bv.attention_dq, bv.attention_dq_reference, 4),
+    (bv.attention_dkv, bv.attention_dkv_reference, 4),
+    (bv.bwd_dots_only, bv.bwd_dots_only_reference, 4),
+    (bv.bwd_vpu_only, bv.bwd_vpu_only_reference, 4),
+    (fv.fwd_dots_only, fv.fwd_dots_only_reference, 3),
+    (fv.fwd_softmax_only, fv.fwd_softmax_only_reference, 3),
+    (fv.fwd_qk_only, fv.fwd_qk_only_reference, 3),
+    (fv.fwd_qk_chunked, fv.fwd_qk_chunked_reference, 3),
+    (fv.flash_attention_online_c256,
+     fv.flash_attention_online_c256_reference, 3),
+]
+
+
+@pytest.mark.parametrize("wrapper, plain, n_in", WRAPPERS,
+                         ids=[w[0].__name__ for w in WRAPPERS])
+def test_wrappers_dispatch_by_device(wrapper, plain, n_in):
+    """A CPU tensor runs the plain version and counts no launch; a device
+    with no kernel raises."""
+    _, args = operands(n_in, 80, "bfloat16")
+    before = wrapper.launches
+    for a, w in zip(tuning.outputs(wrapper(*args)),
+                    tuning.outputs(plain(*args)), strict=True):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert wrapper.launches == before
+    with pytest.raises(ValueError, match="no kernel"):
+        wrapper(*(a.to("meta") for a in args))
+
+
+def test_bwd_operand_checks():
+    _, (q, k, v, g) = operands(4, 80, "bfloat16")
+    bv.check_operands(q, k, v, g, min_seq=64)
+    with pytest.raises(ValueError, match="below 64"):
+        bv.check_operands(*(t[:, :63].contiguous() for t in (q, k, v, g)),
+                          min_seq=64)
+    with pytest.raises(TypeError, match="bf16"):
+        bv.check_operands(q, k, v, g.float())
+    with pytest.raises(ValueError, match="shape"):
+        bv.check_operands(q, k, v, g[:, :40].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        bv.check_operands(*(torch.zeros(1, 8, 1, 32, dtype=torch.bfloat16)
+                            for _ in range(4)))
+    with pytest.raises(ValueError, match="contiguous"):
+        bv.check_operands(q, k, v, g.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
+
+
+def test_fwd_operand_checks():
+    _, (q, k, v) = operands(3, 80, "bfloat16")
+    fv.check_operands(q, k, v, min_seq=64)
+    with pytest.raises(ValueError, match="below 64"):
+        fv.check_operands(*(t[:, :40].contiguous() for t in (q, k, v)),
+                          min_seq=64)
+    with pytest.raises(TypeError, match="bf16"):
+        fv.check_operands(q, k.float(), v)
+    with pytest.raises(ValueError, match="shape"):
+        fv.check_operands(q, k[:, :40].contiguous(), v)
+
+
+def test_k3_online_keeps_chunk_128_and_v10_runs_256():
+    """K3′'s entry point stays at 128-key chunks (its plain version and
+    its CUDA instance); V10 is the same body at 256, and in bf16 the two
+    differ where S spans several chunks."""
+    assert k34.ONLINE_CHUNK == 128 and fv.CHUNK_256 == 256
+    with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
+                           "flash_attention_online.cu")) as f:
+        assert re.findall(r"launch_online_attention<(\d+), (\d+)>",
+                          f.read()) == [("128", "2")]
+    with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
+                           "attention_fwd_variants.cu")) as f:
+        assert re.findall(r"launch_online_attention<(\d+), (\d+)>",
+                          f.read()) == [("256", "1")]
+    _, (q, k, v) = operands(3, 300, "bfloat16")
+    k3p = k34.flash_attention_online(q, k, v)
+    torch.testing.assert_close(
+        k3p, k34.flash_attention_online_reference(q, k, v, chunk=128),
+        rtol=0, atol=0)
+    assert not torch.equal(k3p, fv.flash_attention_online_c256(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The drivers
+# ---------------------------------------------------------------------------
+
+def load_driver(name: str):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_variant_names(script: str) -> list:
+    """The keys of the ``variants = {...}`` literal in a TPU script's
+    ``main()``."""
+    with open(os.path.join(ROOT, "scripts", script)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and getattr(node.targets[0], "id", None) == "variants"):
+            return [ast.literal_eval(key) for key in node.value.keys]
+    raise AssertionError(f"no variants literal in {script}")
+
+
+def test_bwd_driver_runs_the_script_variants_on_the_cpu():
+    driver = load_driver("bench_torch_attn_bwd")
+    _, args = operands(4, 80, "bfloat16")
+    variants = driver.variants(*args)
+    assert [v.name for v in variants] == jax_variant_names(
+        "bench_attn_bwd.py")
+    kernels = {v.name: [p.kernel for p in v.parts] for v in variants}
+    assert kernels["split4"] == ["attention_dq", "attention_dkv"]
+    assert kernels["r_from_o_pack1"] == ["bwd_r_from_o"]
+    for variant in variants:
+        errs = tuning.check(variant)
+        assert all(e == (0.0, 0.0) for e in errs.values())
+    # The exact variants stay close to the script's reference, the
+    # autograd VJP of the einsum attention.
+    xla = driver.xla_grads(*(a.float() for a in args))
+    for a, w in zip(variants[2](), xla, strict=True):
+        assert ((a.float() - w).abs().max() / w.abs().max()).item() < 2e-2
+
+
+def test_fwd_and_qkv_drivers_run_the_script_variants_on_the_cpu():
+    fwd = load_driver("bench_torch_attn_fwd_diag")
+    _, args = operands(3, 80, "bfloat16")
+    variants = fwd.variants(*args)
+    assert [v.name for v in variants] == jax_variant_names(
+        "bench_attn_fwd_diag.py")
+    for variant in variants:
+        tuning.check(variant)
+    qkv = load_driver("bench_torch_attn_qkv_fused")
+    rng = torch.Generator().manual_seed(0)
+    d, heads = 128, 2
+    x = torch.randn(2, 40, d, generator=rng).bfloat16()
+    ws = [(torch.randn(d, d, generator=rng) * 0.02).bfloat16()
+          for _ in range(3)]
+    bs = [(torch.randn(d, generator=rng) * 0.02).bfloat16()
+          for _ in range(3)]
+    ls, lb = torch.ones(d), torch.zeros(d)
+    variants = qkv.variants(x, ls, lb, ws, bs, heads)
+    assert [v.name for v in variants] == [
+        "baseline_xla_proj_flash", "fused", "ln_xla_then_fused",
+        "ln_fused_in_kernel"]
+    outs = {}
+    for variant in variants:
+        tuning.check(variant)
+        outs[variant.name] = variant()[0].float()
+    assert (outs["fused"] - outs["baseline_xla_proj_flash"]).abs().max() \
+        < qkv.FAMILY_TOL
+    assert (outs["ln_fused_in_kernel"] - outs["ln_xla_then_fused"]).abs() \
+        .max() < qkv.FAMILY_TOL
+
+
+def test_drivers_need_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("bench_torch_attn_bwd", "bench_torch_attn_fwd_diag",
+                 "bench_torch_attn_qkv_fused"):
+        with pytest.raises(SystemExit):
+            load_driver(name).run(1, 1, 1)
+
+
+def test_check_refuses_a_variant_off_its_plain_version():
+    _, (q, k, v) = operands(3, 80, "bfloat16")
+    wrong = tuning.Variant("wrong", [tuning.Part(
+        "fwd_dots_only", lambda: fv.fwd_dots_only_reference(q, k, v) * 1.1,
+        lambda: fv.fwd_dots_only_reference(q, k, v))], tuning.DIAG_TOL,
+        True)
+    with pytest.raises(RuntimeError, match="disagrees"):
+        tuning.check(wrong)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(1, 64, 1), (2, 65, 2), (2, 97, 2),
+                                         (1, 640, 2), (32, 577, 16)])
+@pytest.mark.parametrize("wrapper, plain, n_in", WRAPPERS,
+                         ids=[w[0].__name__ for w in WRAPPERS])
+def test_cuda_variant_matches_plain_version(cuda, wrapper, plain, n_in, b, s,
+                                            heads):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, n_in, (b, s, heads, DH))
+    before = wrapper.launches
+    got = tuning.outputs(wrapper(*args))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = tuning.outputs(plain(*args))
+    abs_err, rel_err = tuning.errors(got, want)
+    if wrapper is fv.flash_attention_online_c256:
+        assert abs_err <= tuning.FWD_TOL
+    elif n_in == 4 and wrapper not in (bv.bwd_dots_only, bv.bwd_vpu_only):
+        assert rel_err <= tuning.BWD_TOL
+    else:
+        assert rel_err <= tuning.DIAG_TOL
