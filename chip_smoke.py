@@ -11,7 +11,8 @@ Phases, one line each, any failure raises:
              nvcc for each source, all started together, sm_90a, and the
              native JPEG decoder (g++, where libjpeg's headers exist)
              from the checkout's sources, with nvcc's register and spill
-             lines;
+             lines and the HGMMA count of K3's and K4's SASS (cuobjdump;
+             a source without HGMMA fails the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
@@ -21,14 +22,20 @@ Phases, one line each, any failure raises:
              <= 2e-2;
              K10 at labels (256, 2) x cells (2203, 2), tau 75 km, max abs
              error <= 2e-5 (the repo's bound for the smoothing kernel);
-             K3 at the calibration shape q/k/v (80, 577, 16, 64) bf16, max
-             abs error <= 3e-2;
+             K3 at the calibration shape q/k/v (80, 577, 16, 64) bf16, at
+             the ``flash`` training shape (32 views) and at the serving
+             shape (4 views), max abs error <= 3e-2 at each (its kernels
+             record is the calibration shape's); TFLOP/s on its two walks;
              K8 at the int8 serving shape x (4, 577, 1024) bf16, H=16,
              int8 weights quantized from seeded f32 ones, max abs error
              <= 3e-2;
              K4 at the ``flash`` training shape q/k/v/g (32, 577, 16, 64)
              bf16, each of dq/dk/dv's max abs error over its max
-             magnitude <= 2e-2 (K2's bound);
+             magnitude <= 2e-2 (K2's bound), and its statistics workspace
+             (m, den, r) against the plain statistics pass
+             (`flash_attention_backward_stats_reference`), each within
+             1e-4 of its magnitude; TFLOP/s counted on the TPU kernel's
+             five walks (``walks=5``; the kernel runs seven);
              K5 at the serving shape, raw x (4, 577, 1024) bf16 with f32
              LN parameters, max abs error over max magnitude <= 2e-2;
              K9 at the training shape x (32, 577, 1024), I=4096, max abs
@@ -201,6 +208,9 @@ KERNELS = {
         "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
         "scripts/bench_attn_fwd_diag.py:107"),
 }
+#: The sources whose products run on wgmma (the build phase counts their
+#: HGMMA instructions).
+WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd")
 #: The tuning drivers run by [variants], in order: the ports of
 #: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
 #: `bench_attn_qkv_fused.py`.
@@ -248,8 +258,13 @@ K10_TOL = 2e-5
 K3_TOL = 3e-2
 K8_TOL = 3e-2
 #: K4 against its plain version, each output's max abs error over its max
-#: magnitude: the passes K2 runs after its projection, so K2's bound.
+#: magnitude: the backward K2 runs after its projection, so K2's bound.
 K4_TOL = 2e-2
+#: K4's statistics workspace (m, den, r) against the plain statistics
+#: pass, each row's max abs error over its max magnitude: the same f32
+#: sums over 128-key chunks in another order, exp2 with log2(e) folded
+#: into the scale.
+K4_STATS_TOL = 1e-4
 #: K5 against its plain version, max abs error over the output's max
 #: magnitude: a bf16 output one ulp apart is up to 2^-7 of it, and q/k/v
 #: and p are rounded to bf16 from f32 sums taken in another order.
@@ -462,12 +477,20 @@ def check_smoothing_kernel(seed: int) -> dict:
 
 def check_attention_kernel(seed: int) -> dict:
     """K3 against its plain version at the calibration shape of ``serve
-    --quant --calib-images`` over the 20 fixtures (80 views)."""
-    import torch
-
+    --quant --calib-images`` over the 20 fixtures (80 views), at the
+    ``flash`` training shape (32 views) and at the serving shape (4
+    views); the record is the calibration shape's."""
     from pigeon_tpu_torch.kernels import attention as k3
 
-    b, s, h, dh = 80, 577, 16, 64
+    records = {b: check_attention_kernel_at(k3, seed, b) for b in (80, 32, 4)}
+    return records[80]
+
+
+def check_attention_kernel_at(k3, seed: int, b: int) -> dict:
+    """K3 at ``b`` views of (577, 16, 64)."""
+    import torch
+
+    s, h, dh = 577, 16, 64
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
                .bfloat16() for _ in range(3))
@@ -478,8 +501,9 @@ def check_attention_kernel(seed: int) -> dict:
     finite = bool(torch.isfinite(got.float()).all())
     del want
     if not finite or not err <= K3_TOL:
-        raise RuntimeError(f"K3 disagrees with its plain version: max abs "
-                           f"error {err} (limit {K3_TOL}), finite={finite}")
+        raise RuntimeError(f"K3 disagrees with its plain version at {b} "
+                           f"views: max abs error {err} (limit {K3_TOL}), "
+                           f"finite={finite}")
     ms = median_ms(lambda: k3.flash_attention(q, k, v))
     plain_ms = median_ms(lambda: k3.flash_attention_reference(q, k, v),
                          runs=10)
@@ -488,7 +512,7 @@ def check_attention_kernel(seed: int) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-    # 2*B*H*S*S*dh for QK^T and for PV.
+    # 2*B*H*S*S*dh for QK^T and for PV: the two walks the kernel runs.
     flop = 2 * 2 * b * h * s * s * dh
     gflop = flop / 1e9
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -496,7 +520,7 @@ def check_attention_kernel(seed: int) -> dict:
            "library_ms": library_ms}
     phase("kernel", name="flash_attention", shape=f"({b},{s},{h},{dh})",
           max_abs_err=err, tol=K3_TOL, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], sdpa_ms=library_ms,
+          bound_ms=rec["bound_ms"], sdpa_ms=library_ms, walks=2,
           tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
     return rec
@@ -571,6 +595,17 @@ def check_attention_backward_kernel(seed: int) -> dict:
                            f"{K4_TOL})")
     err = max_abs(got, want)
     del want
+    # The statistics pass's workspace against the plain pass.
+    ws = k4.backward_workspaces(q)
+    k4.flash_attention_backward_into(q, k, v, g, ws)
+    want_stats = k4.flash_attention_backward_stats_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    stats_errs = rel_errors(ws.stats, want_stats, ("m", "den", "r"))
+    if not max(stats_errs.values()) <= K4_STATS_TOL:
+        raise RuntimeError(f"K4's statistics disagree with the plain pass: "
+                           f"{stats_errs} (max abs error over max "
+                           f"magnitude, limit {K4_STATS_TOL})")
+    del ws, want_stats
     ms = median_ms(lambda: k4.flash_attention_backward(q, k, v, g))
     plain_ms = median_ms(lambda: k4.flash_attention_backward_reference(
         q, k, v, g), runs=10)
@@ -584,18 +619,20 @@ def check_attention_backward_kernel(seed: int) -> dict:
         out, leaves, gt, retain_graph=True))
     del out, leaves
     # The TPU kernel's five S x S x dh products a head: the scores, dv,
-    # dp, dq and dk.
+    # dp, dq and dk. The rate is counted on those; the kernel itself walks
+    # seven (its statistics pass takes the scores and dp once more).
     flop = 5 * 2 * b * h * s * s * dh
-    # This kernel computes the scores four times and dp three times.
-    gflop = 10 * 2 * b * h * s * s * dh / 1e9
+    gflop = flop / 1e9
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound({"bf16": flop}, nbytes(q, k, v, g, *got)),
            "library_ms": library_ms}
     phase("kernel", name="flash_attention_bwd", shape=f"({b},{s},{h},{dh})",
           **{f"{n}_err": round(e, 6) for n, e in errs.items()},
-          tol=K4_TOL, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], sdpa_bwd_ms=library_ms,
-          tflops=round(gflop / ms, 1),
+          tol=K4_TOL,
+          **{f"stats_{n}_err": f"{e:.3g}" for n, e in stats_errs.items()},
+          stats_tol=K4_STATS_TOL, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+          bound_ms=rec["bound_ms"], sdpa_bwd_ms=library_ms, walks=5,
+          kernel_walks=7, tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
     return rec
 
@@ -1957,6 +1994,15 @@ def build_kernels() -> None:
             if "registers" in line or "spill" in line:
                 phase("ptxas", kernel=name, line=line.strip())
         phase("build", kernel=name, seconds=round(b.seconds, 3))
+    # The wgmma kernels' products in their SASS: HGMMA instructions.
+    cuobjdump = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
+    for name in WGMMA_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", built[name].path],
+                              capture_output=True, text=True, check=True)
+        hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
+        if not hgmma:
+            raise RuntimeError(f"{name}: no HGMMA in its SASS")
+        phase("sass", kernel=name, hgmma=hgmma)
     k.load()
     k.load_backward()
     geodesy.load()

@@ -1,0 +1,553 @@
+// The attention backward of kernel K4 (flash_attention_bwd.cu) on Hopper's
+// wgmma, for (B, S, H, 64) bf16 q/k/v and output cotangent g, with the
+// arithmetic of pigeon_tpu/kernels/flash_attention.py::_attn_bwd_kernel:
+//
+//   s = (q k^T) * scale,  m = rowmax(s),  u = exp(s - m),  den = sum(u)
+//   g_n = bf16(g / den),  dv = bf16(u)^T g_n
+//   dp = g v^T (f32),     r = sum(dp * u) / den
+//   dl = bf16(u * (dp - r) * scale / den)
+//   dq = dl k,  dk = dl^T q                              (f32 accumulate)
+//
+// Three launches, seven S x S x 64 product walks in all:
+//
+//   statistics pass (flash_attention_bwd_stats_kernel): one block per
+//     (128-row query tile, head, image) holds its Q and G tiles and
+//     streams 128-key chunks of K and V through a two-stage TMA ring. Two
+//     consumer warpgroups of 64 rows take s = Q K^T and dp = G V^T on
+//     wgmma (m64n128k16, both from shared memory) and keep, per row, the
+//     running max m, den and num = sum(dp * u), both rescaled by
+//     corr = exp(m - m_new) as the max moves. They write m, den and
+//     r = num / den to the (3, B, H, S) workspace and g_n = bf16(g / den)
+//     to a (B, S, H, 64) bf16 workspace. Two walks.
+//   gradient pass (flash_attention_bwd_grad_kernel): one block per
+//     (128-key tile, head, image) holds its K and V tiles; each consumer
+//     warpgroup owns 64 keys and keeps their dk and dv in registers. The
+//     64-row query chunks stream in (Q, G and g_n by TMA, the chunk's
+//     statistics by the producer warp) and per chunk the warpgroup takes
+//       s^T = K Q^T and dp^T = V G^T    (m64n64k16 from shared memory),
+//       u = exp(s - m), dl = bf16(u (dp - r) scale / den)  (registers),
+//       dv += bf16(u)^T g_n, dk += dl^T q  (A = u^T, dl^T from registers,
+//                                           B MN-major from the tiles),
+//       dq_part = dl k  (dl^T written to a swizzled shared tile, read as a
+//                        transposed A operand; K read MN-major),
+//     and adds dq_part to an f32 workspace with one bulk reduce-add of
+//     16 KB (cp.reduce.async.bulk ... add.f32). Five walks.
+//   dq pass (flash_attention_bwd_dq_kernel): the f32 workspace to bf16 dq
+//     in (B, S, H, 64).
+//
+// Because the statistics are final before any gradient is formed, each
+// rounding of the plain version is reproduced at the same place: u
+// relative to the final max, bf16(u) for dv, bf16(g / den), bf16(dl).
+// dq's f32 sums over the key tiles arrive in the order the bulk reduces
+// land, which changes from run to run.
+//
+// Ragged S: TMA reads zeros past row S. Keys past S get s = -inf in the
+// statistics pass and u = 0 in the gradient pass; query rows past S take
+// m = +inf, scale / den = 0 and r = 0 in the gradient pass, so they add
+// nothing (their den would be 0), and are never written.
+
+#pragma once
+
+#include "hopper_sm90.cuh"
+
+namespace {
+
+constexpr int BWD_THREADS = 384;  // producer + two consumer warpgroups
+constexpr int BWD_TILE = 128 * ROW_BYTES;   // 128-row tile, 16 KB
+constexpr int BWD_CHUNK = 64 * ROW_BYTES;   // 64-row tile, 8 KB
+constexpr int BWD_STAGES = 2;
+
+// Statistics pass: Q and G tiles, then the K/V ring, then the barriers
+// (qg_full, k_full[2], v_full[2], empty[2]).
+constexpr int ST_KV_OFF = 2 * BWD_TILE;
+constexpr int ST_BAR_OFF = ST_KV_OFF + BWD_STAGES * 2 * BWD_TILE;
+constexpr int ST_SMEM = ST_BAR_OFF + (1 + 3 * BWD_STAGES) * 8 + 1024;
+
+// Gradient pass: K and V tiles; the ring of query chunks (Q, G, g_n and
+// the chunk's m, scale / den and r); each consumer's dl^T tile and dq
+// staging; the barriers (kv_full, full[2], empty[2]).
+constexpr int GR_STAGE_BYTES = 3 * BWD_CHUNK + 1024;
+constexpr int GR_RING_OFF = 2 * BWD_TILE;
+constexpr int GR_DL_OFF = GR_RING_OFF + BWD_STAGES * GR_STAGE_BYTES;
+constexpr int GR_DQ_OFF = GR_DL_OFF + 2 * BWD_CHUNK;
+constexpr int GR_BAR_OFF = GR_DQ_OFF + 2 * 64 * HD * 4;
+constexpr int GR_SMEM = GR_BAR_OFF + (1 + 2 * BWD_STAGES) * 8 + 1024;
+
+struct BwdArgs {
+  float *m, *den, *r;  // (B, H, S) row statistics
+  bf16* g_n;           // (B, S, H, 64) bf16(g / den)
+  float* dq_acc;       // (B, H, ceil(S / 64), 64 x 64) f32, zeroed
+  bf16 *dq, *dk, *dv;  // (B, S, H, 64)
+  int S, H;
+  float scale, scale_log2;
+};
+
+// ------------------------------------------------------------ statistics
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap g_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int S = args.S, H = args.H;
+  const int q0 = blockIdx.x * 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (S + 127) / 128;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ST_BAR_OFF);
+  uint64_t* qg_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + BWD_STAGES;
+  uint64_t* empty = bars + 1 + 2 * BWD_STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(empty + st, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qg_full, 2 * BWD_TILE);
+      tma_load(smem, &q_map, qg_full, h, q0, b);
+      tma_load(smem + BWD_TILE, &g_map, qg_full, h, q0, b);
+      for (int j = 0; j < n_chunks; ++j) {
+        const int st = j % BWD_STAGES;
+        if (j >= BWD_STAGES) mbar_wait(empty + st, (j / BWD_STAGES - 1) & 1);
+        unsigned char* kv = smem + ST_KV_OFF + st * 2 * BWD_TILE;
+        mbar_expect_tx(k_full + st, BWD_TILE);
+        tma_load(kv, &k_map, k_full + st, h, j * 128, b);
+        mbar_expect_tx(v_full + st, BWD_TILE);
+        tma_load(kv + BWD_TILE, &v_map, v_full + st, h, j * 128, b);
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = (tid / 32) * 16 + lane / 4;  // and row + 8
+  const int quad = lane % 4;
+  const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  const uint32_t g_addr = q_addr + BWD_TILE;
+  const float c2 = args.scale_log2;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float den[2] = {0.0f, 0.0f}, num[2] = {0.0f, 0.0f};
+  mbar_wait(qg_full, 0);
+  for (int j = 0; j < n_chunks; ++j) {
+    const int st = j % BWD_STAGES;
+    const int parity = (j / BWD_STAGES) & 1;
+    const uint32_t k_addr = smem_u32(smem + ST_KV_OFF + st * 2 * BWD_TILE);
+    const uint32_t v_addr = k_addr + BWD_TILE;
+
+    float s[64], dp[64];
+    mbar_wait(k_full + st, parity);
+    mbar_wait(v_full + st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                          desc_sw128(k_addr + kk * 32), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(dp, desc_sw128(g_addr + kk * 32),
+                          desc_sw128(v_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+    mbar_arrive(empty + st);
+
+    const int kv = S - j * 128;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      s[i] = col < kv ? s[i] * c2 : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float corr[2], m_use[2], usum[2] = {0.0f, 0.0f}, dsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_use[r] = mx[r] == -INFINITY ? 0.0f : mx[r];
+      corr[r] = fast_exp2(m[r] - m_use[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const float u = fast_exp2(s[i] - m_use[(i >> 1) & 1]);
+      usum[(i >> 1) & 1] += u;
+      dsum[(i >> 1) & 1] += dp[i] * u;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      den[r] = den[r] * corr[r] + usum[r];
+      num[r] = num[r] * corr[r] + dsum[r];
+    }
+  }
+
+  // m (in units of s), den and r of the rows below S; g_n = bf16(g / den).
+  const size_t ld = static_cast<size_t>(H) * HD;
+  const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+  const unsigned char* g_tile = smem + BWD_TILE + cw * 64 * ROW_BYTES;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 1);
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 2);
+    const int tr = row + 8 * r;  // row in the warpgroup's 64
+    const int q = q0 + cw * 64 + tr;
+    if (q >= S) continue;
+    if (quad == 0) {
+      args.m[stat_row + q] = m[r] / LOG2E;
+      args.den[stat_row + q] = den[r];
+      args.r[stat_row + q] = num[r] / den[r];
+    }
+    bf16* dst = args.g_n + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = 2 * quad + half;  // 16-byte chunk of the row
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          g_tile + tr * ROW_BYTES + ((c ^ (tr & 7)) * 16));
+      const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 outv;
+      uint32_t* o32 = reinterpret_cast<uint32_t*>(&outv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(in[e]);
+        o32[e] = pack_bf16(f.x / den[r], f.y / den[r]);
+      }
+      *reinterpret_cast<uint4*>(dst + 8 * c) = outv;
+    }
+  }
+}
+
+// -------------------------------------------------------------- gradients
+
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap g_map,
+                                const __grid_constant__ CUtensorMap gn_map,
+                                BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int S = args.S, H = args.H;
+  const int k0 = blockIdx.x * 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_q = (S + 63) / 64;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + GR_BAR_OFF);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + BWD_STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      // The TMA arrival and one from each lane of the producer warp, which
+      // stages the chunk's statistics.
+      mbar_init(full + st, 1 + 32);
+      mbar_init(empty + st, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * BWD_TILE);
+        tma_load(smem, &k_map, kv_full, h, k0, b);
+        tma_load(smem + BWD_TILE, &v_map, kv_full, h, k0, b);
+      }
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % BWD_STAGES;
+        if (i >= BWD_STAGES) mbar_wait(empty + st, (i / BWD_STAGES - 1) & 1);
+        unsigned char* stage = smem + GR_RING_OFF + st * GR_STAGE_BYTES;
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 3 * BWD_CHUNK);
+          tma_load(stage, &q_map, full + st, h, i * 64, b);
+          tma_load(stage + BWD_CHUNK, &g_map, full + st, h, i * 64, b);
+          tma_load(stage + 2 * BWD_CHUNK, &gn_map, full + st, h, i * 64, b);
+        }
+        float* stats = reinterpret_cast<float*>(stage + 3 * BWD_CHUNK);
+#pragma unroll
+        for (int e = lane; e < 64; e += 32) {
+          const int q = i * 64 + e;
+          const bool in = q < S;
+          stats[e] = in ? args.m[stat_row + q] * LOG2E : INFINITY;
+          stats[64 + e] = in ? args.scale / args.den[stat_row + q] : 0.0f;
+          stats[128 + e] = in ? args.r[stat_row + q] : 0.0f;
+        }
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = (tid / 32) * 16 + lane / 4;  // key row (and row + 8)
+  const int quad = lane % 4;
+  const uint32_t k_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  const uint32_t v_addr = k_addr + BWD_TILE;
+  unsigned char* dl_tile = smem + GR_DL_OFF + cw * BWD_CHUNK;
+  const uint32_t dl_addr = smem_u32(dl_tile);
+  float* dq_stage = reinterpret_cast<float*>(smem + GR_DQ_OFF) + cw * 64 * HD;
+  const float c2 = args.scale_log2;
+  bool key_in[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) key_in[r] = k0 + cw * 64 + row + 8 * r < S;
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % BWD_STAGES;
+    unsigned char* stage = smem + GR_RING_OFF + st * GR_STAGE_BYTES;
+    const uint32_t q_addr = smem_u32(stage);
+    const uint32_t g_addr = q_addr + BWD_CHUNK;
+    const uint32_t gn_addr = q_addr + 2 * BWD_CHUNK;
+    const float* stats = reinterpret_cast<const float*>(stage + 3 * BWD_CHUNK);
+
+    // s^T = K Q^T and dp^T = V G^T: rows are this warpgroup's keys,
+    // columns the chunk's queries.
+    float s[32], dp[32];
+    mbar_wait(full + st, (i / BWD_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n64<0, 0>(s, desc_sw128(k_addr + kk * 32),
+                         desc_sw128(q_addr + kk * 32), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n64<0, 0>(dp, desc_sw128(v_addr + kk * 32),
+                         desc_sw128(g_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // u = exp(s - m) and dl = u (dp - r) scale / den, in place.
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = 8 * (e >> 2) + 2 * quad + (e & 1);
+      const float u = key_in[(e >> 1) & 1]
+                          ? fast_exp2(fmaf(s[e], c2, -stats[c])) : 0.0f;
+      s[e] = u;
+      dp[e] = u * (dp[e] - stats[128 + c]) * stats[64 + c];
+    }
+    uint32_t ua[4][4], dla[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc_to_a(s, k, ua[k]);
+      acc_to_a(dp, k, dla[k]);
+      fence_regs(ua[k]);
+      fence_regs(dla[k]);
+    }
+    fence_regs(dv);
+    fence_regs(dk);
+
+    // dv += bf16(u)^T g_n and dk += dl^T q: B is the chunk's rows read
+    // MN-major, 16 queries (2048 bytes) a step.
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_rs_n64<1>(dv, ua[k], desc_sw128(gn_addr + k * 16 * ROW_BYTES), 1);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_rs_n64<1>(dk, dla[k], desc_sw128(q_addr + k * 16 * ROW_BYTES), 1);
+    }
+    wgmma_commit();
+
+    // dl^T as a swizzled [key][query] tile: the transposed A of dq.
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int tr = row + 8 * rr;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int chunk = 2 * k + half;  // 8-query group
+          *reinterpret_cast<uint32_t*>(dl_tile + tr * ROW_BYTES +
+                                       ((chunk ^ (tr & 7)) * 16) + quad * 4) =
+              dla[k][2 * half + rr];
+        }
+      }
+    }
+    fence_proxy_async();
+    // The previous chunk's reduce has read the dq staging once this
+    // barrier passes.
+    if (tid == 0) bulk_wait_read();
+    named_barrier(1 + cw, 128);
+
+    // dq_part = dl K: A = dl^T tile and B = K, both MN-major.
+    float dq[32];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_ss_n64<1, 1>(dq, desc_sw128(dl_addr + k * 16 * ROW_BYTES),
+                         desc_sw128(k_addr + k * 16 * ROW_BYTES), k > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fence_regs(ua[k]);
+      fence_regs(dla[k]);
+    }
+    mbar_arrive(empty + st);
+
+    // Stage dq_part as a row-major 64 x 64 f32 tile, 32-byte chunk c of
+    // row r at chunk c ^ (r % 8) (no bank conflicts), and add it to the
+    // workspace in one bulk reduce.
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = row + 8 * ((e >> 1) & 1);
+      *reinterpret_cast<float2*>(dq_stage + r * HD +
+                                 (((e >> 2) ^ (r & 7)) * 8) + 2 * quad) =
+          make_float2(dq[e], dq[e + 1]);
+    }
+    fence_proxy_async();
+    named_barrier(1 + cw, 128);
+    if (tid == 0) {
+      bulk_reduce_add_f32(
+          args.dq_acc + ((static_cast<size_t>(b) * H + h) * n_q + i) * 64 * HD,
+          dq_stage, 64 * HD * 4);
+    }
+  }
+  if (tid == 0) bulk_wait();
+
+  // dk and dv of the keys below S.
+  const size_t ld = static_cast<size_t>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!key_in[r]) continue;
+    const size_t off =
+        (static_cast<size_t>(b) * S + k0 + cw * 64 + row + 8 * r) * ld +
+        h * HD;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int e = 4 * j8 + 2 * r;
+      *reinterpret_cast<uint32_t*>(args.dk + off + 8 * j8 + 2 * quad) =
+          pack_bf16(dk[e], dk[e + 1]);
+      *reinterpret_cast<uint32_t*>(args.dv + off + 8 * j8 + 2 * quad) =
+          pack_bf16(dv[e], dv[e + 1]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------- dq
+
+// dq = bf16(dq_acc): each thread 8 neighbouring columns of one row. The
+// workspace holds each (head, 64-query chunk) as the gradient pass staged
+// it: a row-major 64 x 64 f32 tile, 32-byte chunk c of row r at chunk
+// c ^ (r % 8).
+__global__ void flash_attention_bwd_dq_kernel(BwdArgs args, int batch) {
+  const int S = args.S, H = args.H;
+  const int n_q = (S + 63) / 64;
+  const size_t items = static_cast<size_t>(batch) * H * n_q * 512;
+  for (size_t p = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       p < items; p += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t tile = p / 512;
+    const int c = static_cast<int>(p % 8);
+    const int row = static_cast<int>(p / 8 % 64);
+    const int q = static_cast<int>(tile % n_q) * 64 + row;
+    if (q >= S) continue;
+    const float* src =
+        args.dq_acc + tile * 64 * HD + row * HD + ((c ^ (row & 7)) * 8);
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    const float4 d = *reinterpret_cast<const float4*>(src + 4);
+    uint4 outv;
+    outv.x = pack_bf16(a.x, a.y);
+    outv.y = pack_bf16(a.z, a.w);
+    outv.z = pack_bf16(d.x, d.y);
+    outv.w = pack_bf16(d.z, d.w);
+    const size_t bh = tile / n_q;
+    const size_t b = bh / H, h = bh % H;
+    *reinterpret_cast<uint4*>(args.dq + ((b * S + q) * H + h) * HD + 8 * c) =
+        outv;
+  }
+}
+
+// Launch K4's three passes on `stream`; returns the first failing call's
+// error.
+inline cudaError_t launch_flash_backward(const void* q, const void* k,
+                                         const void* v, const void* g,
+                                         BwdArgs args, int batch,
+                                         cudaStream_t stream) {
+  const int S = args.S, H = args.H;
+  if (batch < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
+  CUtensorMap q128, g128, k128, v128, q64, g64, gn64;
+  cudaError_t err = cudaSuccess;
+  const struct {
+    CUtensorMap* map;
+    const void* base;
+    int rows;
+  } maps[] = {{&q128, q, 128}, {&g128, g, 128}, {&k128, k, 128},
+              {&v128, v, 128}, {&q64, q, 64},   {&g64, g, 64},
+              {&gn64, args.g_n, 64}};
+  for (const auto& mp : maps) {
+    err = bshd_map(mp.map, mp.base, batch, S, H, mp.rows);
+    if (err != cudaSuccess) return err;
+  }
+  static bool smem_set = false;  // once a process
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(flash_attention_bwd_stats_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ST_SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_attention_bwd_grad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               GR_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid((S + 127) / 128, H, batch);
+  flash_attention_bwd_stats_kernel<<<grid, BWD_THREADS, ST_SMEM, stream>>>(
+      q128, g128, k128, v128, args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_grad_kernel<<<grid, BWD_THREADS, GR_SMEM, stream>>>(
+      k128, v128, q64, g64, gn64, args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t items = static_cast<size_t>(batch) * H * ((S + 63) / 64) * 512;
+  const int blocks = static_cast<int>(
+      (items + 255) / 256 < 65535 ? (items + 255) / 256 : 65535);
+  flash_attention_bwd_dq_kernel<<<blocks, 256, 0, stream>>>(args, batch);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -7,27 +7,34 @@ attention route and the dynamic-quant calibration forward of
 ``serve --quant``, where the q/k/v projections run outside the kernel.
 K4 replaces `_flash_backward` with its body `_attn_bwd_kernel`, the VJP
 of `mha` (and of `fused_qkv_mha` under ``PIGEON_FUSED_BWD=xla``). Both
-are CUDA C++ for ``sm_90a`` (`csrc/flash_attention.cu`, sharing its
-attention body with K1, K5 and K8 through `csrc/attention_tile.cuh`;
-`csrc/flash_attention_bwd.cu`, sharing its two passes with K2 through
-`csrc/attention_bwd_tile.cuh`), built by ``nvcc`` at first use and bound
-with ``ctypes``; the source notes say what bounds them on the card and
-how the designs answer that.
+are CUDA C++ for ``sm_90a`` on Hopper's ``wgmma`` with TMA-fed operands
+(`csrc/flash_attention.cu` with `csrc/flash_fwd_sm90.cuh`: a streaming
+forward with the softmax online over 128-key chunks;
+`csrc/flash_attention_bwd.cu` with `csrc/flash_bwd_sm90.cuh`: a
+statistics pass, a key-major gradient pass and a dq cast), built by
+``nvcc`` at first use and bound with ``ctypes``; the source notes say
+what bounds them on the card and how the designs answer that.
 
 q/k/v keep the model's ``(B, S, H, dh)`` layout, the contract of `mha`;
-the kernel reads that layout directly.
+the kernels read that layout directly, at any S.
 
 ``PIGEON_FLASH_FWD`` picks the forward's body at each call, as the JAX
 package reads it when it traces `_flash_forward`: ``monolithic`` (the
 default, K3) or ``online`` (kernel K3′, `_attn_kernel_online`:
 online softmax over 128-key chunks, `csrc/flash_attention_online.cu`,
 counted in ``flash_attention_online.launches``); any other value raises.
+K3's kernel is online too, but its plain version keeps `_attn_kernel`'s
+exact row max: K3 rounds p relative to the running max, within K3's
+bound of that plain version.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (:func:`flash_attention_reference`,
 :func:`flash_attention_online_reference`,
 :func:`flash_attention_backward_reference`, which the CPU tests hold
 against the JAX package); a CUDA tensor launches the kernel or raises.
+:func:`flash_attention_backward_stats_reference` is the plain version of
+K4's statistics pass, which the card's checks hold the kernel's
+statistics workspace against.
 
 :class:`FlashAttention` pairs them as one differentiable operation, K3
 forward and K4 backward. Its forward goes through the registered operator
@@ -41,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -91,8 +99,6 @@ def load() -> ctypes.CDLL:
     lib.pigeon_flash_attention.argtypes = [ptr] * 4 + [ctypes.c_int] * 3 + [
         ptr]
     lib.pigeon_flash_attention.restype = ctypes.c_int
-    lib.pigeon_flash_attention_max_seq.argtypes = []
-    lib.pigeon_flash_attention_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -124,9 +130,9 @@ def flash_attention(q, k, v):
     """K3: softmax attention, ``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``;
     under ``PIGEON_FLASH_FWD=online`` :func:`flash_attention_online` (K3′).
 
-    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64)
-    launch the kernel on PyTorch's current stream and count the launch in
-    ``flash_attention.launches``; any other device raises.
+    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64,
+    any S) launch the kernel on PyTorch's current stream and count the
+    launch in ``flash_attention.launches``; any other device raises.
     """
     if flash_fwd() == "online":
         return flash_attention_online(q, k, v)
@@ -135,7 +141,7 @@ def flash_attention(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     lib = load()
-    _check_operands(q, k, v, lib.pigeon_flash_attention_max_seq())
+    _check_operands(q, k, v, max_seq=q.shape[1])
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -256,12 +262,63 @@ def flash_attention_backward_reference(q, k, v, g):
     return tuple(t.transpose(1, 2).contiguous() for t in (dq, dk, dv))
 
 
+def flash_attention_backward_stats_reference(q, k, v, g,
+                                             chunk: int = ONLINE_CHUNK):
+    """Plain PyTorch K4 statistics pass: ``(3, B, H, S)`` f32, the rows'
+    ``m``, ``den`` and ``r`` of :func:`flash_attention_backward_reference`
+    (``m`` the max of ``s = q k^T * dh ** -0.5``, ``den = sum(exp(s -
+    m))``, ``r = sum(dp exp(s - m)) / den`` with ``dp = g v^T``).
+
+    The kernel's order: over ``chunk``-key steps, the running max ``m``,
+    ``corr = exp(m - m_new)``, ``den = den * corr + sum(u)`` and ``num =
+    num * corr + sum(dp u)`` with ``u = exp(s - m_new)``; then ``r = num /
+    den``.
+    """
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, gh = (t.transpose(1, 2).float() for t in (q, k, v, g))
+    m = torch.full(qh.shape[:-1], -torch.inf, device=q.device)
+    den = torch.zeros_like(m)
+    num = torch.zeros_like(m)
+    for c0 in range(0, q.shape[1], chunk):
+        s = (qh @ kh[:, :, c0:c0 + chunk].transpose(-1, -2)) * scale
+        dp = gh @ vh[:, :, c0:c0 + chunk].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1))
+        u = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + u.sum(-1)
+        num = num * corr + (dp * u).sum(-1)
+        m = m_new
+    return torch.stack([m, den, num / den])
+
+
+class BackwardWorkspaces(NamedTuple):
+    """K4's scratch: the row statistics ``(3, B, H, S)`` f32 (``m``,
+    ``den``, ``r``), ``g_n = bf16(g / den)`` ``(B, S, H, dh)`` bf16, and
+    dq's f32 sums ``(B, H, ceil(S / 64), 64 * dh)``, zeroed, each 64-query
+    chunk a row-major tile whose 32-byte chunks the kernel permutes within
+    a row."""
+
+    stats: torch.Tensor
+    g_n: torch.Tensor
+    dq_acc: torch.Tensor
+
+
+def backward_workspaces(q) -> BackwardWorkspaces:
+    """K4's workspaces for ``(B, S, H, dh)`` operands like ``q``."""
+    b, s, h, dh = q.shape
+    return BackwardWorkspaces(
+        torch.empty((3, b, h, s), dtype=torch.float32, device=q.device),
+        torch.empty_like(q),
+        torch.zeros((b, h, -(-s // 64), 64 * dh), dtype=torch.float32,
+                    device=q.device))
+
+
 @functools.lru_cache(maxsize=None)
 def load_backward() -> ctypes.CDLL:
     """Build (at first use) and load K4's library."""
     lib = ctypes.CDLL(native.build_cuda("flash_attention_bwd").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_flash_attention_backward.argtypes = [ptr] * 8 + [
+    lib.pigeon_flash_attention_backward.argtypes = [ptr] * 10 + [
         ctypes.c_int] * 3 + [ptr]
     lib.pigeon_flash_attention_backward.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
@@ -274,25 +331,50 @@ def flash_attention_backward(q, k, v, g):
     ``(B, S, H, dh)``.
 
     CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64)
-    launch the kernel on PyTorch's current stream and count the launch in
-    ``flash_attention_backward.launches``; any other device raises. The
-    kernel's row-statistics workspace is allocated here.
+    launch the kernel (its three passes) on PyTorch's current stream and
+    count the launch in ``flash_attention_backward.launches``; any other
+    device raises. The kernel's workspaces (:func:`backward_workspaces`)
+    are allocated here.
     """
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, g)
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_attention_backward: no kernel for {q.device}")
-    lib = load_backward()
     _check_operands(q, k, v, max_seq=q.shape[1])
     _check_operands(q, g, g, max_seq=q.shape[1])
+    return _launch_backward(q, k, v, g, backward_workspaces(q))
+
+
+def flash_attention_backward_into(q, k, v, g, ws: BackwardWorkspaces):
+    """K4 on CUDA tensors with the caller's workspaces ``ws`` (from
+    :func:`backward_workspaces`, ``dq_acc`` zeroed), which keep the
+    statistics pass's output; counts the launch like
+    :func:`flash_attention_backward`."""
+    _check_operands(q, k, v, max_seq=q.shape[1])
+    _check_operands(q, g, g, max_seq=q.shape[1])
+    b, s, h, dh = q.shape
+    want = {"stats": ((3, b, h, s), torch.float32),
+            "g_n": (q.shape, q.dtype),
+            "dq_acc": ((b, h, -(-s // 64), 64 * dh), torch.float32)}
+    for name, t in zip(ws._fields, ws):
+        shape, dtype = want[name]
+        if t.shape != shape or t.dtype != dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"workspace {name}: {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, kernel takes {tuple(shape)} "
+                             f"{dtype} on {q.device}, contiguous")
+    return _launch_backward(q, k, v, g, ws)
+
+
+def _launch_backward(q, k, v, g, ws: BackwardWorkspaces):
+    lib = load_backward()
     b, s, h, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.pigeon_flash_attention_backward(
-            *(t.data_ptr() for t in (q, k, v, g, dq, dk, dv, stats)), b, s, h,
+            *(t.data_ptr() for t in (q, k, v, g, dq, dk, dv, *ws)), b, s, h,
             stream)
     if rc != 0:
         raise RuntimeError(

@@ -34,20 +34,25 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: The port's kernels by a substring of their CUDA function names. The
-#: attention backward passes are K2's on the fused routes and K4's on
-#: ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K6 launches K5's block,
-#: then its out-projection: on ``block`` the K5 group is K6's first part.
+#: The port's kernels by a substring of their CUDA function names. K2's
+#: attention passes run on the fused routes; K4's three passes (statistics,
+#: gradients, dq cast), each a group, on ``flash`` and under
+#: ``PIGEON_FUSED_BWD=xla``. K6 launches K5's block, then its
+#: out-projection: on ``block`` the K5 group is K6's first part.
 KERNEL_GROUPS = (
     ("K5", "fused_ln_qkv_attention_kernel"),
     ("K1", "fused_qkv_attention_kernel"),
     ("K3", "flash_attention_kernel"),
     ("K3′", "flash_attention_online_kernel"),
+    ("K3′", "online_attention_kernel<128"),
     ("K6 out-projection", "::out_proj_kernel"),
     ("K7", "ln_quantize_kernel"),
     ("K7", "::attention_int8_kernel"),
     ("K7", "out_proj_int8_kernel"),
-    ("K2/K4 attention passes", "attn_bwd_d"),
+    ("K2 attention passes", "attn_bwd_d"),
+    ("K4 statistics", "flash_attention_bwd_stats"),
+    ("K4 gradients", "flash_attention_bwd_grad"),
+    ("K4 dq cast", "flash_attention_bwd_dq"),
     ("K2 projection GEMMs", "gemm_kernel"),
     ("K9", "mlp_gemm_kernel"),
     ("K9", "ln_stats_kernel"),

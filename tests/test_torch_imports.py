@@ -2,7 +2,8 @@
 module of `pigeon_tpu_torch` and every tuning driver
 (`scripts/bench_torch_attn_*.py`) imports in a process where ``jax``,
 ``flax``, ``optax`` and ``pigeon_tpu`` are blocked, and no source line of
-the port, of the drivers or of `chip_smoke.py` imports them."""
+the port, of the drivers, of the port's other scripts or of
+`chip_smoke.py` imports them."""
 
 import os
 import pkgutil
@@ -57,7 +58,7 @@ def source_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
-    for name in DRIVERS:
+    for name in (*DRIVERS, "bench_torch_flash_sm90", "profile_torch_routes"):
         yield os.path.join(ROOT, "scripts", f"{name}.py")
 
 

@@ -397,7 +397,7 @@ def test_cuda_smoothing_kernel_matches_plain_version(cuda, b, c):
 
 
 def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
-    """K1, K3 and K8 share `csrc/attention_tile.cuh`: editing a header
+    """K1 and K8 share `csrc/attention_tile.cuh`: editing a header
     must give every library that includes it a new name, so a stale
     build is never loaded."""
     import os
@@ -416,8 +416,7 @@ def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
     assert first == name()
     (tmp_path / "inner.cuh").write_text("// v2\n")
     assert name() != first
-    for kernel in ("fused_qkv_attention", "flash_attention",
-                   "fused_qkv_attention_int8"):
+    for kernel in ("fused_qkv_attention", "fused_qkv_attention_int8"):
         closure = native.source_closure(
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
         assert [os.path.basename(p) for p in closure] == [
