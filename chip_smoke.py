@@ -11,15 +11,20 @@ Phases, one line each, any failure raises:
              nvcc for each source, all started together, sm_90a, and the
              native JPEG decoder (g++, where libjpeg's headers exist)
              from the checkout's sources, with nvcc's register and spill
-             lines and the HGMMA count of K3's and K4's SASS (cuobjdump;
-             a source without HGMMA fails the phase);
+             lines and the HGMMA count of the SASS of the wgmma kernels
+             K2, K3, K3′ and K4 (cuobjdump; a source without HGMMA fails
+             the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
              error <= 3e-2 (the repo's bf16 attention bound);
              K2 at the training shape x (32, 577, 1024) bf16, H=16, each
              of dx/dq/dk/dv's max abs error over its max magnitude
-             <= 2e-2;
+             <= 2e-2; TFLOP/s on the TPU kernel's 341 GFLOP, the device
+             ms of its three stages (projection GEMM, K4's attention
+             passes, dx GEMM; torch.profiler) and, as a yardstick timed
+             only, the composition of three F.linear, PyTorch's fused
+             attention backward and one matmul for dx;
              K10 at labels (256, 2) x cells (2203, 2), tau 75 km, max abs
              error <= 2e-5 (the repo's bound for the smoothing kernel);
              K3 at the calibration shape q/k/v (80, 577, 16, 64) bf16, at
@@ -51,7 +56,8 @@ Phases, one line each, any failure raises:
              error <= 1.5 out-projection LSBs (ao * max(so) * 127) + 3e-2
              and under 0.5% of elements off by more than 3e-2, with the
              dropped-LN guard on that bound;
-             K3′ at K3's shape, max abs error <= 3e-2;
+             K3′ at K3's shape, max abs error <= 3e-2, K3 timed on the
+             same inputs beside it; TFLOP/s on its two walks;
              PyTorch's scaled_dot_product_attention forward at K3's shape
              (K3's and K3′'s yardstick) and its backward at K4's are timed
              as yardsticks, never on a path;
@@ -210,7 +216,15 @@ KERNELS = {
 }
 #: The sources whose products run on wgmma (the build phase counts their
 #: HGMMA instructions).
-WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd")
+WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd",
+                 "fused_qkv_attention_bwd", "flash_attention_online")
+#: K2's stages by the tag in their kernels' names (`csrc/
+#: fused_qkv_attention_bwd.cu`), for [kernel]'s device-time split.
+K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
+             ("dx", "K2Dx"))
+#: K2's time in its WMMA design (four launches), H100 80GB HBM3 at 700 W
+#: (PERF.md), printed beside the wgmma design's.
+K2_WMMA_MS = "5.31-5.39"
 #: The tuning drivers run by [variants], in order: the ports of
 #: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
 #: `bench_attn_qkv_fused.py`.
@@ -390,9 +404,33 @@ def check_kernel(seed: int) -> dict:
     return rec
 
 
+def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
+    """Self device milliseconds a call of ``fn`` spends in the kernels
+    whose names hold each ``(label, mark)``'s mark, and in the rest
+    (``other``), from `torch.profiler` over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([label for label, _ in marks] + ["other"], 0.0)
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        label = next((lb for lb, mark in marks if mark in evt.key), "other")
+        out[label] += us / 1e3 / calls
+    return out
+
+
 def check_backward_kernel(seed: int) -> dict:
     """K2 against its plain version at the training shape (8 panoramas
-    = 32 views)."""
+    = 32 views), its stages' device time, and the composition of library
+    calls for the same three stages timed beside it."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
@@ -416,23 +454,49 @@ def check_backward_kernel(seed: int) -> dict:
                            f"(max abs error over max magnitude, limit "
                            f"{K2_TOL})")
     err = max_abs(got, want)
+    del want
     ms = median_ms(lambda: k.fused_qkv_attention_backward(
         x, *ws, *bs, g, h))
+    stages = device_ms_by_mark(
+        lambda: k.fused_qkv_attention_backward(x, *ws, *bs, g, h),
+        K2_STAGES)
     plain_ms = median_ms(lambda: k.fused_qkv_attention_backward_reference(
         x, *ws, *bs, g, h), runs=10)
-    # Projection and dx GEMMs 2 x 2*B*S*D*3P; the attention part computes
-    # the scores 4 times, dp 3 times, dv, dk and dq once: 10 x 2*B*H*S*S*dh.
-    gflop = (2 * 2 * b * s * d * 3 * d + 10 * 2 * b * h * s * s * 64) / 1e9
-    # The bound counts the TPU kernel's work: the projections, five
-    # S x S x dh products a head (scores, dv, dp, dq, dk) and dx.
+    # The yardstick, timed only and never on a path: the same three stages
+    # as library calls. The attention backward runs on a graph built once
+    # from q/k/v projected beforehand (its forward is not K2's work).
+    heads = (b, s, h, 64)
+    leaves = [torch.nn.functional.linear(x, w, bb).view(heads)
+              .transpose(1, 2).detach().requires_grad_()
+              for w, bb in zip(ws, bs)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    gt = g.view(heads).transpose(1, 2)
+    w_all = torch.cat(ws, 0)
+
+    def composition():
+        for w, bb in zip(ws, bs):
+            torch.nn.functional.linear(x, w, bb)
+        grads = torch.autograd.grad(out, leaves, gt, retain_graph=True)
+        return torch.cat([t.transpose(1, 2).reshape(b, s, d)
+                          for t in grads], -1) @ w_all
+
+    composition_ms = median_ms(composition)
+    del out, leaves
+    # The TPU kernel's work: the projections and dx (2 x 2*B*S*D*3P) and
+    # five S x S x dh products a head (scores, dv, dp, dq, dk). The kernel
+    # walks seven (K4's statistics pass takes the scores and dp again).
     flop = 2 * 2 * b * s * d * 3 * d + 5 * 2 * b * h * s * s * 64
+    gflop = flop / 1e9
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound({"bf16": flop}, nbytes(x, *ws, *bs, g, *got)),
            "library_ms": None}
     phase("kernel", name="fused_qkv_attention_bwd", shape=f"({b},{s},{d})",
           heads=h, **{f"{n}_err": round(e, 6) for n, e in errs.items()},
-          tol=K2_TOL, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], tflops=round(gflop / ms, 1),
+          tol=K2_TOL, max_abs_err=err, ms=ms, wmma_design_ms=K2_WMMA_MS,
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms, gflop=round(gflop, 1),
+          tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
     return rec
 
@@ -917,19 +981,23 @@ def check_online_kernel(seed: int) -> dict:
                            f"error {err} (limit {K3_ONLINE_TOL}), "
                            f"finite={finite}")
     ms = median_ms(lambda: k3.flash_attention_online(q, k, v))
+    # K3 runs the same streaming kernel: its time on the same inputs.
+    k3_ms = median_ms(lambda: k3.flash_attention(q, k, v))
     plain_ms = median_ms(lambda: k3.flash_attention_online_reference(q, k, v),
                          runs=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = median_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    # 2*B*H*S*S*dh for QK^T and for PV: the two walks the kernel runs.
     flop = 2 * 2 * b * h * s * s * dh
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound({"bf16": flop}, nbytes(q, k, v, got)),
            "library_ms": library_ms}
     phase("kernel", name="flash_attention_online",
           shape=f"({b},{s},{h},{dh})", max_abs_err=err, tol=K3_ONLINE_TOL,
-          ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
-          sdpa_ms=library_ms, tflops=round(flop / 1e9 / ms, 1),
+          ms=ms, k3_ms=k3_ms, over_k3=round(ms / k3_ms, 3),
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"], sdpa_ms=library_ms,
+          walks=2, tflops=round(flop / 1e9 / ms, 1),
           plain_tflops=round(flop / 1e9 / plain_ms, 1))
     return rec
 

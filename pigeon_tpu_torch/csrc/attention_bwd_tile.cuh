@@ -1,9 +1,8 @@
-// The softmax-attention backward shared by kernels K2
-// (fused_qkv_attention_bwd.cu, its passes 2 and 3) and K4
-// (flash_attention_bwd.cu): dq, dk and dv of one head's attention on
-// (B, S, H*64) q/k/v and output cotangent g, with the arithmetic of
-// pigeon_tpu/kernels/flash_attention.py::_attn_bwd_kernel (and of the
-// attention part of _fused_qkv_bwd_kernel):
+// The WMMA softmax-attention backward of the tuning variants V1-V3
+// (attention_bwd_variants.cu), kept in the design K2 and K4 had before
+// they moved to wgmma (flash_bwd_sm90.cuh): dq, dk and dv of one head's
+// attention on (B, S, H*64) q/k/v and output cotangent g, with the
+// arithmetic of pigeon_tpu/kernels/flash_attention.py::_attn_bwd_kernel:
 //
 //   s = (q k^T) * scale,  m = rowmax(s),  u = exp(s - m),  den = sum(u)
 //   g_n = bf16(g / den),  dv = bf16(u)^T g_n
@@ -25,7 +24,7 @@
 //              sum(g * (bf16(u) v) / den) (one product with V in the
 //              second sweep instead of dp), and WRITE_DQ = false stops
 //              after the statistics (the statistics pass of a dk/dv-only
-//              call). K2 and K4 run <false, true>.
+//              call).
 //   dk/dv pass: one block per (key tile, head, batch) holds its K and V
 //              tiles and walks the query tiles: dv += bf16(u)^T g_n and
 //              dk += dl^T q, with the row statistics of the dq pass.
@@ -346,15 +345,6 @@ inline cudaError_t attention_dkdv_pass(const AttnArgs& args, int batch,
   if (err != cudaSuccess) return err;
   attn_bwd_dkdv_kernel<<<tiles, THREADS, DKDV_SMEM, stream>>>(args);
   return cudaGetLastError();
-}
-
-// Launch the dq pass, then the dk/dv pass, on `stream` over `batch`
-// sequences; returns the first failing call's error.
-inline cudaError_t attention_backward_passes(const AttnArgs& args, int batch,
-                                             cudaStream_t stream) {
-  const cudaError_t err = attention_dq_pass<false, true>(args, batch, stream);
-  if (err != cudaSuccess) return err;
-  return attention_dkdv_pass(args, batch, stream);
 }
 
 }  // namespace

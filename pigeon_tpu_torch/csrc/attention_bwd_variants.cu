@@ -37,9 +37,10 @@
 // TPU body does one product and ~12 f32 operations an S x S element
 // (~2 G at 67 TFLOP/s, ~0.03 ms): its own bound is small, and its time
 // is what K4's softmax chain costs as K4's dq pass runs it (three sweeps,
-// the scores formed in each). The design is K4's (WMMA from shared
-// memory, no copy/compute overlap), so the variants differ from K4 only
-// in what they compute, and their times against K4's measure that.
+// the scores formed in each). The design is the one K2 and K4 had before
+// they moved to wgmma (attention_bwd_tile.cuh: WMMA from shared memory,
+// no copy/compute overlap), so the variants differ from that design only
+// in what they compute, and their times against it measure that.
 //
 // Keeping the measured work alive: nvcc deletes what never reaches
 // memory. V5 stores only dl's first 64 columns; every other column of dl

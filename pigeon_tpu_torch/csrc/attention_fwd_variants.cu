@@ -5,9 +5,10 @@
 // (flash_attention_online.cu):
 //
 //   V10 online_c256  exact attention, online softmax over 256-key chunks:
-//                    K3′'s body (online_attention_tile.cuh) at CHUNK = 256,
+//                    the WMMA body K3′ had before it moved to K3's wgmma
+//                    forward (online_attention_tile.cuh) at CHUNK = 256,
 //                    a 64 x 256 f32 score tile, 163 KB of shared memory,
-//                    one block an SM (K3′: 128 keys, 95 KB, two).
+//                    one block an SM (at 128 keys: 95 KB, two).
 //   V6 dots_only     diagnostic: bf16(q k^T) v, no scale, no softmax.
 //   V7 softmax_only  diagnostic: the scaled scores' softmax with the PV
 //                    product removed: out = p[:, :64] / den + v.

@@ -25,6 +25,10 @@
 
 #include "flash_fwd_sm90.cuh"
 
+namespace {
+struct K3Forward {};  // this kernel's instance of the forward
+}  // namespace
+
 extern "C" {
 
 const char* pigeon_cuda_error_string(int code) {
@@ -36,7 +40,7 @@ const char* pigeon_cuda_error_string(int code) {
 int pigeon_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int batch, int seq, int heads,
                            void* stream) {
-  return static_cast<int>(launch_flash_forward(
+  return static_cast<int>(launch_flash_forward<K3Forward>(
       q, k, v, out, batch, seq, heads, static_cast<cudaStream_t>(stream)));
 }
 

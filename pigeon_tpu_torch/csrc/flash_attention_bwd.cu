@@ -27,6 +27,10 @@
 
 #include "flash_bwd_sm90.cuh"
 
+namespace {
+struct K4Attention {};  // this kernel's instance of the passes
+}  // namespace
+
 extern "C" {
 
 const char* pigeon_cuda_error_string(int code) {
@@ -59,7 +63,7 @@ int pigeon_flash_attention_backward(const void* q, const void* k,
   args.H = heads;
   args.scale = 1.0f / sqrtf(static_cast<float>(HD));
   args.scale_log2 = args.scale * LOG2E;
-  return static_cast<int>(launch_flash_backward(
+  return static_cast<int>(launch_flash_backward<K4Attention>(
       q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
 }
 

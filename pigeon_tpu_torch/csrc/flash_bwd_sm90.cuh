@@ -1,6 +1,8 @@
-// The attention backward of kernel K4 (flash_attention_bwd.cu) on Hopper's
-// wgmma, for (B, S, H, 64) bf16 q/k/v and output cotangent g, with the
-// arithmetic of pigeon_tpu/kernels/flash_attention.py::_attn_bwd_kernel:
+// The attention backward of kernel K4 (flash_attention_bwd.cu), and of K2
+// (fused_qkv_attention_bwd.cu) on its projected q/k/v, on Hopper's wgmma,
+// for (B, S, H, 64) bf16 q/k/v and output cotangent g, with the
+// arithmetic of pigeon_tpu/kernels/flash_attention.py::_attn_bwd_kernel
+// (and of the attention part of _fused_qkv_bwd_kernel):
 //
 //   s = (q k^T) * scale,  m = rowmax(s),  u = exp(s - m),  den = sum(u)
 //   g_n = bf16(g / den),  dv = bf16(u)^T g_n
@@ -8,7 +10,9 @@
 //   dl = bf16(u * (dp - r) * scale / den)
 //   dq = dl k,  dk = dl^T q                              (f32 accumulate)
 //
-// Three launches, seven S x S x 64 product walks in all:
+// Three launches, seven S x S x 64 product walks in all. Each kernel's
+// `Tag` names the user's instance, so K2's passes and K4's are told apart
+// in a profile:
 //
 //   statistics pass (flash_attention_bwd_stats_kernel): one block per
 //     (128-row query tile, head, image) holds its Q and G tiles and
@@ -84,6 +88,7 @@ struct BwdArgs {
 
 // ------------------------------------------------------------ statistics
 
+template <class Tag>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap g_map,
@@ -241,6 +246,7 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // -------------------------------------------------------------- gradients
 
+template <class Tag>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -474,6 +480,7 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
 // workspace holds each (head, 64-query chunk) as the gradient pass staged
 // it: a row-major 64 x 64 f32 tile, 32-byte chunk c of row r at chunk
 // c ^ (r % 8).
+template <class Tag>
 __global__ void flash_attention_bwd_dq_kernel(BwdArgs args, int batch) {
   const int S = args.S, H = args.H;
   const int n_q = (S + 63) / 64;
@@ -501,8 +508,9 @@ __global__ void flash_attention_bwd_dq_kernel(BwdArgs args, int batch) {
   }
 }
 
-// Launch K4's three passes on `stream`; returns the first failing call's
+// Launch the three passes on `stream`; returns the first failing call's
 // error.
+template <class Tag>
 inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                          const void* v, const void* g,
                                          BwdArgs args, int batch,
@@ -524,29 +532,30 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
   }
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_bwd_stats_kernel,
+    err = cudaFuncSetAttribute(flash_attention_bwd_stats_kernel<Tag>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                ST_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_attention_bwd_grad_kernel,
+    err = cudaFuncSetAttribute(flash_attention_bwd_grad_kernel<Tag>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                GR_SMEM);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid((S + 127) / 128, H, batch);
-  flash_attention_bwd_stats_kernel<<<grid, BWD_THREADS, ST_SMEM, stream>>>(
-      q128, g128, k128, v128, args);
+  flash_attention_bwd_stats_kernel<Tag>
+      <<<grid, BWD_THREADS, ST_SMEM, stream>>>(q128, g128, k128, v128, args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_grad_kernel<<<grid, BWD_THREADS, GR_SMEM, stream>>>(
-      k128, v128, q64, g64, gn64, args);
+  flash_attention_bwd_grad_kernel<Tag>
+      <<<grid, BWD_THREADS, GR_SMEM, stream>>>(k128, v128, q64, g64, gn64,
+                                                args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t items = static_cast<size_t>(batch) * H * ((S + 63) / 64) * 512;
   const int blocks = static_cast<int>(
       (items + 255) / 256 < 65535 ? (items + 255) / 256 : 65535);
-  flash_attention_bwd_dq_kernel<<<blocks, 256, 0, stream>>>(args, batch);
+  flash_attention_bwd_dq_kernel<Tag><<<blocks, 256, 0, stream>>>(args, batch);
   return cudaGetLastError();
 }
 

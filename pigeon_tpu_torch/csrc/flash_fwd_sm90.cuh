@@ -6,6 +6,11 @@
 //     l     = l * corr + sum(p);  o = o * corr + bf16(p) v_c     (f32)
 //     out   = bf16(o / l),  c2 = 64^-0.5 * log2(e)
 //
+// K3′ (flash_attention_online.cu) launches the same kernel: its function,
+// _attn_kernel_online, is this one (128-key chunks, p rounded to bf16
+// against the running max, den from f32 p). The kernel's `Tag` names each
+// user's instance, so K3 and K3′ are told apart in a profile.
+//
 // A persistent grid (one block an SM) walks the (128-row query tile,
 // head, image) tiles, query tiles of a head next to each other so their
 // K and V are read from L2. A block has 384 threads in three warpgroups:
@@ -83,6 +88,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 }
 
+template <class Tag>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -259,8 +265,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Launch K3 over (B, S, H, 64) q/k/v on `stream`; returns the first failing
-// call's error.
+// Launch the forward over (B, S, H, 64) q/k/v on `stream`; returns the
+// first failing call's error.
+template <class Tag>
 inline cudaError_t launch_flash_forward(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int seq, int heads,
@@ -277,7 +284,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma,
+    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                FWD_SMEM);
     if (err != cudaSuccess) return err;
@@ -286,7 +293,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   const long tiles =
       static_cast<long>((seq + FWD_ROWS - 1) / FWD_ROWS) * heads * batch;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  flash_attention_kernel_wgmma<<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
+  flash_attention_kernel_wgmma<Tag><<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), seq, heads, batch,
       LOG2E / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();

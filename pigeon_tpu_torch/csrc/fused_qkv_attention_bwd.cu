@@ -19,218 +19,51 @@
 // JAX package leaves them to XLA.
 //
 // What bounds it on the H100: at the training shape (B=32 views, S=577,
-// D=1024, H=16) the call is ~450 GFLOP of bf16 tensor-core work: the
-// q/k/v projection and the dx product are ~116 GFLOP each, and the
-// attention part recomputes the scores four times and dp three times
-// (~218 GFLOP), over ~300 MB of operands and workspace, far above the
-// card's ~295 FLOP per byte. The tensor cores bound it, and this first
-// form feeds them with WMMA (mma.sync) from shared memory.
+// D=1024, H=16) the TPU kernel's work is ~341 GFLOP of bf16 tensor-core
+// work: the q/k/v projection and the dx product ~116 GFLOP each, and five
+// S x S x 64 products a head (~109 GFLOP), over ~300 MB of operands: far
+// above the card's ~295 FLOP per byte, so the tensor cores bound it
+// (~0.345 ms).
 //
-// The TPU kernel keeps two (S, S) f32 buffers per head in VMEM; a Hopper
-// block has 227 KB. So the work is four launches, none with atomics, each
-// giving the same sums in every run (passes 2 and 3 are the attention
-// backward of attention_bwd_tile.cuh, which K4 launches alone):
+// The TPU kernel keeps q/k/v and two (S, S) f32 buffers per head in VMEM.
+// On Hopper every query tile needs every key tile's q/k/v, so keeping them
+// on chip would repeat the 116 GFLOP projection per tile; writing them
+// once (113 MB) and reading them back costs ~0.1 ms. Folding dx into the
+// gradient pass would need dq before it is final and atomics across heads.
+// So the call is three stages on the caller's stream:
 //
-//   1. proj:  q/k/v = bf16(x W*^T + b*) into a bf16 workspace (B, S, P)
-//             each (113 MB at B=32): a tiled GEMM, 128 x 128 block tiles,
-//             K in 32-wide steps double-buffered with cp.async. Keeping
-//             q/k/v on chip, as the TPU kernel does, is later work.
-//   2. dq:    one block per (query tile, head, batch) holds its Q and G
-//             tiles and walks the key tiles three times: the row max m;
-//             den and sum(dp * u) (so r comes from f32 u, not from the
-//             forward's bf16 output); then dl and dq += dl k. It writes
-//             m, den and r for pass 3.
-//   3. dk/dv: one block per (key tile, head, batch) holds its K and V
-//             tiles and walks the query tiles: dv += bf16(u)^T g_n and
-//             dk += dl^T q, with the row statistics from pass 2.
-//   4. dx:    [dq|dk|dv] (B*S, 3P) @ [Wq;Wk;Wv] (3P, D), the head
-//             reduction the TPU kernel did in a VMEM scratch across its
-//             in-order group sweep; here a tiled GEMM, K = 3P, f32
-//             accumulation.
+//   1. projection: q|k|v = bf16(x [Wq; Wk; Wv]^T + b) into (B, S, P)
+//      workspaces, a wgmma GEMM (gemm_sm90.cuh, "A B^T", N = 3P in three
+//      segments, each output tile inside one of q, k or v);
+//   2. attention backward: K4's passes (flash_bwd_sm90.cuh) on the q/k/v
+//      workspaces and g, whose (B, S, P) layout is K4's (B, S, H, 64): the
+//      statistics pass, the key-major gradient pass with dq's f32 sums
+//      bulk-reduced into a zeroed workspace, and the dq cast, writing dq,
+//      dk and dv straight into K2's outputs;
+//   3. dx = [dq|dk|dv] (M, 3P) @ [Wq; Wk; Wv] (3P, D), the same GEMM with
+//      K = 3P in three segments and B read MN-major: one f32 sum over all
+//      3P, rounded once, as the TPU kernel (bf16 dq/dk/dv read back from
+//      its output blocks) and the plain version round.
 //
-// At the training shape passes 2 and 3 run 32 x 16 x 10 = 5,120 blocks
-// each. Ragged S is masked as in K1: rows past S are staged as zeros,
-// get u = 0 and are never written.
+// Each stage's kernels carry a tag of their own (K2Projection,
+// K2Attention, K2Dx), so a profile tells them from K4's. dq's f32 sums
+// land in the order the bulk reduces do, which changes from run to run,
+// so dq, and dx through it, are not bitwise the same from run to run.
 //
 // Constraints (checked by the Python wrapper): head_dim 64, D and P
-// multiples of 128, all operands bf16, contiguous, 16-byte aligned.
+// multiples of 128, any S >= 1, all operands bf16, contiguous, 16-byte
+// aligned; the workspaces: q/k/v (B, S, P) bf16, statistics (3, B, H, S)
+// f32, g_n (B, S, H, 64) bf16 and dq_acc (B, H, ceil(S / 64), 4096) f32,
+// zeroed.
 
-#include "attention_bwd_tile.cuh"
+#include "flash_bwd_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
-
-// GEMM tiling: 128 x 128 block tile, 32-deep K steps, 8 warps as 4 (M)
-// x 2 (N), each warp 32 x 64 (2 x 4 fragments).
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int LDK = BK + 8;   // a tile stored (row, k): 40
-constexpr int LDN = BN + 8;   // a tile stored (k, col): 136
-constexpr int STAGE = BM * LDK * 2;  // 10240 B, >= BK * LDN * 2 = 8704 B
-constexpr int EPI_LD = 20;    // per-warp 16 x 16 f32 epilogue, row stride
-
-// ---------------------------------------------------------------------
-// Passes 1 and 4: tiled GEMMs.
-// ---------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-struct GemmArgs {
-  const bf16* a[3];     // proj: a[0] = x (M, D); dx: dq, dk, dv (M, P)
-  const bf16* w[3];     // Wq, Wk, Wv (P, D)
-  const bf16* bias[3];  // proj: bq, bk, bv
-  bf16* out[3];         // proj: q, k, v (M, P); dx: out[0] = dx (M, D)
-  int M, D, P;
-};
-
-// PROJ: out_t[m, n] = bf16(sum_k x[m, k] W_t[n, k] + b_t[n]) for the
-//       three matrices t laid side by side along N (N = 3P, K = D).
-// DX:   out[m, n] = bf16(sum_t sum_k d_t[m, k] W_t[k, n]) with the three
-//       products laid end to end along K (K = 3P, N = D).
-template <bool PROJ>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[4 * STAGE];
-  const int M = args.M, D = args.D, P = args.P;
-  const int K = PROJ ? D : 3 * P;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp / 2;  // 32-row strip of the block tile
-  const int wn = warp % 2;  // 64-column strip
-  // PROJ: the block's 128 columns lie inside one of the three matrices.
-  const int t_out = PROJ ? n0 / P : 0;
-
-  auto load_stage = [&](int buf, int k0) {
-    bf16* as = reinterpret_cast<bf16*>(smem + buf * 2 * STAGE);
-    bf16* bs = reinterpret_cast<bf16*>(smem + buf * 2 * STAGE + STAGE);
-    const int t = PROJ ? 0 : k0 / P;
-    const bf16* a = args.a[t];
-    const int lda = PROJ ? D : P;
-    const int ka = PROJ ? k0 : k0 - t * P;
-    for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      const int m = m0 + r;
-      const bool ok = m < M;
-      cp_async16(as + r * LDK + c,
-                 a + (size_t)(ok ? m : 0) * lda + ka + c, ok);
-    }
-    if constexpr (PROJ) {
-      // W_t rows n (the output columns), K contiguous: stored (n, k).
-      const bf16* w = args.w[t_out] + (size_t)(n0 - t_out * P) * D;
-      for (int i = threadIdx.x; i < BN * BK / 8; i += THREADS) {
-        const int r = i / (BK / 8);
-        const int c = (i % (BK / 8)) * 8;
-        cp_async16(bs + r * LDK + c, w + (size_t)r * D + k0 + c, true);
-      }
-    } else {
-      // W_t rows k, the output columns n contiguous: stored (k, n).
-      const bf16* w = args.w[t] + (size_t)(k0 - t * P) * D;
-      for (int i = threadIdx.x; i < BK * BN / 8; i += THREADS) {
-        const int r = i / (BN / 8);
-        const int c = (i % (BN / 8)) * 8;
-        cp_async16(bs + r * LDN + c, w + (size_t)r * D + n0 + c, true);
-      }
-    }
-  };
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int steps = K / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) load_stage((s + 1) & 1, (s + 1) * BK);
-    cp_async_commit();  // possibly empty: keeps the wait count uniform
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* as = reinterpret_cast<const bf16*>(smem + (s & 1) * 2 * STAGE);
-    const bf16* bs =
-        reinterpret_cast<const bf16*>(smem + (s & 1) * 2 * STAGE + STAGE);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDK + kk,
-                               LDK);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (PROJ) {
-          FragBCol fb;
-          wmma::load_matrix_sync(fb, bs + (wn * 64 + j * 16) * LDK + kk, LDK);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb,
-                                                     acc[i][j]);
-        } else {
-          FragBRow fb;
-          wmma::load_matrix_sync(fb, bs + kk * LDN + wn * 64 + j * 16, LDN);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb,
-                                                     acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through a per-warp 16 x 16 f32 patch (overlaying the now
-  // idle staging buffers): each lane converts 8 values of one row and
-  // writes them as one 16-byte vector.
-  float* patch = reinterpret_cast<float*>(smem) + warp * 16 * EPI_LD;
-  const int pr = lane / 2;
-  const int pc = (lane % 2) * 8;
-  bf16* out = args.out[t_out];
-  const int ldo = PROJ ? P : D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(patch, acc[i][j], EPI_LD, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 32 + i * 16 + pr;
-      const int n = n0 + wn * 64 + j * 16 + pc - t_out * P;
-      if (m < M) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = patch[pr * EPI_LD + pc + e];
-          if constexpr (PROJ) v[e] += __bfloat162float(args.bias[t_out][n + e]);
-        }
-        __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          packed[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-        }
-        *reinterpret_cast<uint4*>(out + (size_t)m * ldo + n) =
-            *reinterpret_cast<const uint4*>(packed);
-      }
-      __syncwarp();
-    }
-  }
-}
-
+// This kernel's instances of the GEMM and of the attention passes.
+struct K2Projection {};
+struct K2Attention {};
+struct K2Dx {};
 }  // namespace
 
 extern "C" {
@@ -240,74 +73,61 @@ const char* pigeon_cuda_error_string(int code) {
 }
 
 // x (B, S, D); wq/wk/wv (P, D) in torch Linear layout; bq/bk/bv (P,);
-// g (B, S, P) -> dx (B, S, D), dq/dk/dv (B, S, P). Workspace: q/k/v
-// (B, S, P) bf16 each and stats (3, B, H, S) f32. All bf16 operands
-// contiguous, P = heads * 64. Launches the four passes on `stream` and
-// returns the first failing launch's cudaError_t (0 on success).
+// g (B, S, P) -> dx (B, S, D), dq/dk/dv (B, S, P); the workspaces above.
+// P = heads * 64. Launches the three stages on `stream` and returns the
+// first failing call's cudaError_t (0 on success).
 int pigeon_fused_qkv_attention_backward(
     const void* x, const void* wq, const void* wk, const void* wv,
     const void* bq, const void* bk, const void* bv, const void* g, void* dx,
     void* dq, void* dk, void* dv, void* q_ws, void* k_ws, void* v_ws,
-    void* stats, int batch, int seq, int dim, int heads, void* stream) {
-  const int P = heads * DH;
-  if (batch < 1 || seq < 1 || heads < 1 || dim % BN != 0 || P % BN != 0) {
+    void* stats, void* g_n, void* dq_acc, int batch, int seq, int dim,
+    int heads, void* stream) {
+  const int P = heads * HD;
+  if (batch < 1 || seq < 1 || heads < 1 || dim % 128 != 0 || P % 128 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = batch * seq;
-  const int m_blocks = (M + BM - 1) / BM;
-  cudaError_t err;
+  const bf16* const w[3] = {static_cast<const bf16*>(wq),
+                            static_cast<const bf16*>(wk),
+                            static_cast<const bf16*>(wv)};
 
-  GemmArgs proj = {};
-  proj.a[0] = static_cast<const bf16*>(x);
-  proj.w[0] = static_cast<const bf16*>(wq);
-  proj.w[1] = static_cast<const bf16*>(wk);
-  proj.w[2] = static_cast<const bf16*>(wv);
-  proj.bias[0] = static_cast<const bf16*>(bq);
-  proj.bias[1] = static_cast<const bf16*>(bk);
-  proj.bias[2] = static_cast<const bf16*>(bv);
-  proj.out[0] = static_cast<bf16*>(q_ws);
-  proj.out[1] = static_cast<bf16*>(k_ws);
-  proj.out[2] = static_cast<bf16*>(v_ws);
-  proj.M = M;
-  proj.D = dim;
-  proj.P = P;
-  gemm_kernel<true><<<dim3(m_blocks, 3 * P / BN), THREADS, 0, st>>>(proj);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // 1. q|k|v = bf16(x [Wq; Wk; Wv]^T + b).
+  const bf16* const xs[1] = {static_cast<const bf16*>(x)};
+  const bf16* const bias[3] = {static_cast<const bf16*>(bq),
+                               static_cast<const bf16*>(bk),
+                               static_cast<const bf16*>(bv)};
+  bf16* const qkv[3] = {static_cast<bf16*>(q_ws), static_cast<bf16*>(k_ws),
+                        static_cast<bf16*>(v_ws)};
+  cudaError_t err = gemm_sm90<K2Projection, true>(xs, w, bias, qkv, M, 3 * P,
+                                                  dim, dim, P, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
+  // 2. K4's attention backward on the projected q/k/v.
   float* f = static_cast<float*>(stats);
-  const size_t n_rows = (size_t)batch * heads * seq;
-  AttnArgs attn = {};
-  attn.q = static_cast<const bf16*>(q_ws);
-  attn.k = static_cast<const bf16*>(k_ws);
-  attn.v = static_cast<const bf16*>(v_ws);
-  attn.g = static_cast<const bf16*>(g);
-  attn.dq = static_cast<bf16*>(dq);
-  attn.dk = static_cast<bf16*>(dk);
-  attn.dv = static_cast<bf16*>(dv);
-  attn.m = f;
-  attn.den = f + n_rows;
-  attn.r = f + 2 * n_rows;
-  attn.S = seq;
-  attn.H = heads;
-  attn.scale = 1.0f / sqrtf(static_cast<float>(DH));
-  if ((err = attention_backward_passes(attn, batch, st)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
+  const size_t n_rows = static_cast<size_t>(batch) * heads * seq;
+  BwdArgs args = {};
+  args.m = f;
+  args.den = f + n_rows;
+  args.r = f + 2 * n_rows;
+  args.g_n = static_cast<bf16*>(g_n);
+  args.dq_acc = static_cast<float*>(dq_acc);
+  args.dq = static_cast<bf16*>(dq);
+  args.dk = static_cast<bf16*>(dk);
+  args.dv = static_cast<bf16*>(dv);
+  args.S = seq;
+  args.H = heads;
+  args.scale = 1.0f / sqrtf(static_cast<float>(HD));
+  args.scale_log2 = args.scale * LOG2E;
+  err = launch_flash_backward<K2Attention>(q_ws, k_ws, v_ws, g, args, batch,
+                                           st);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmArgs back = {};
-  back.a[0] = static_cast<const bf16*>(dq);
-  back.a[1] = static_cast<const bf16*>(dk);
-  back.a[2] = static_cast<const bf16*>(dv);
-  back.w[0] = proj.w[0];
-  back.w[1] = proj.w[1];
-  back.w[2] = proj.w[2];
-  back.out[0] = static_cast<bf16*>(dx);
-  back.M = M;
-  back.D = dim;
-  back.P = P;
-  gemm_kernel<false><<<dim3(m_blocks, dim / BN), THREADS, 0, st>>>(back);
-  return static_cast<int>(cudaGetLastError());
+  // 3. dx = [dq|dk|dv] [Wq; Wk; Wv].
+  const bf16* const d[3] = {args.dq, args.dk, args.dv};
+  bf16* const out[1] = {static_cast<bf16*>(dx)};
+  return static_cast<int>(gemm_sm90<K2Dx, false>(d, w, nullptr, out, M, dim,
+                                                  3 * P, P, dim, st));
 }
 
 }  // extern "C"

@@ -1,21 +1,24 @@
-// Hopper (sm_90a) building blocks of the wgmma attention kernels K3
-// (flash_fwd_sm90.cuh) and K4 (flash_bwd_sm90.cuh): TMA loads of
-// (B, S, H, 64) bf16 tiles into 128-byte-swizzled shared memory, mbarrier
-// waits, wgmma on those tiles (operands from shared memory or, for A, from
-// registers), the bulk f32 reduce-add to device memory, and the host-side
-// tensor map.
+// Hopper (sm_90a) building blocks of the wgmma kernels: the attention
+// forward and backward (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh; K3, K3′,
+// K4 and K2's attention passes) and the GEMM (gemm_sm90.cuh; K2's
+// projection and dx). TMA loads of (B, S, H, 64) or row-major 2-D bf16
+// tiles into 128-byte-swizzled shared memory, mbarrier waits, wgmma on
+// those tiles (operands from shared memory or, for A, from registers),
+// the bulk f32 reduce-add to device memory, and the host-side tensor maps.
 //
-// Layouts. A tile of R rows of one head is R x 128 bytes in shared memory
-// (a head's 64 bf16 are one 128-byte row), swizzled by TMA in 1024-byte
-// groups of 8 rows: the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-// Tiles start on 1024-byte boundaries. wgmma reads such a tile through a
-// descriptor with the 128-byte swizzle and a stride of 1024 bytes between
-// 8-row groups:
+// Layouts. A tile of R rows of one head (or of 64 columns of a row-major
+// matrix) is R x 128 bytes in shared memory (64 bf16 are one 128-byte
+// row), swizzled by TMA in 1024-byte groups of 8 rows: the 16-byte chunk
+// c of row r sits at chunk c ^ (r % 8). Tiles start on 1024-byte
+// boundaries. wgmma reads such a tile through a descriptor with the
+// 128-byte swizzle and a stride of 1024 bytes between 8-row groups:
 //   - K-major (the reduced dimension along the row, e.g. Q and K in
 //     Q K^T): one k16 step is +32 bytes within the row;
 //   - MN-major (the output dimension along the row, e.g. V in P V, where
 //     the keys are the reduced dimension): one k16 step is 16 rows,
-//     +2048 bytes, and the transpose flag is set.
+//     +2048 bytes, and the transpose flag is set. An operand wider than
+//     64 outputs is several such tiles side by side, the descriptor's
+//     leading byte offset the distance from one to the next.
 //
 // Accumulators follow wgmma's m64nN f32 layout: thread t of warp w holds,
 // for each 8-column group j, (row 16w + t/4, cols 8j + 2(t%4) + {0,1}) in
@@ -106,6 +109,19 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Load the box at (col, row) of a row-major 2-D tensor map into `dst`;
+// completion counts the box's bytes on `bar`. Rows past the last arrive as
+// zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row)
+      : "memory");
+}
+
 // Make this thread's generic-proxy shared-memory writes visible to the
 // async proxy (wgmma operands, bulk copies).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -153,11 +169,14 @@ __device__ __forceinline__ void regs_inc() {
 // ---------------------------------------------------------------- wgmma
 
 // Descriptor of a 128-byte-swizzled operand starting at shared address
-// `addr` (8-row groups 1024 bytes apart).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+// `addr` (8-row groups 1024 bytes apart). `lbo`: for an MN-major operand
+// wider than 64, the bytes from one 64-wide tile to the next (unused
+// otherwise).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo = 16) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(16 >> 4) << 16;    // leading offset (unused)
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;  // leading offset
   d |= static_cast<uint64_t>(1024 >> 4) << 32;  // 8-row group stride
   d |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
   return d;
@@ -265,6 +284,68 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "n"(TRANS_B));
 }
 
+// d (+)= A B, A and B from shared memory (256 columns).
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),
+        "n"(TRANS_B));
+}
+
 // d (+)= A B, A and B from shared memory (64 columns).
 template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
@@ -366,6 +447,27 @@ inline cudaError_t bshd_map(CUtensorMap* map, const void* base, int batch,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major (rows, cols) bf16 matrix, boxes of 64 columns
+// (128 bytes) by `box_rows` rows (at most 256), 128-byte swizzle. A box
+// past the last row reads zeros.
+inline cudaError_t rowmajor_map(CUtensorMap* map, const void* base, int rows,
+                                int cols, int box_rows) {
+  EncodeTiled encode = nullptr;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {HD, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

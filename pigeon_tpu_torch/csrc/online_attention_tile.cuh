@@ -1,7 +1,8 @@
-// The online-softmax attention body of kernel K3′
-// (flash_attention_online.cu, 128-key chunks) and of its 256-key tuning
-// variant (attention_fwd_variants.cu): exact attention with a running max
-// over CHUNK-key steps, for one 64-row query tile of one head,
+// The online-softmax attention body of V10, the 256-key tuning variant
+// of K3′ (attention_fwd_variants.cu), kept in the TPU script's design to
+// measure it; K3′ itself runs K3's wgmma forward (flash_fwd_sm90.cuh).
+// Exact attention with a running max over CHUNK-key steps, for one 64-row
+// query tile of one head,
 //
 //     s     = (q k_c^T) * 64^-0.5                          (f32)
 //     m_new = max(m, max_c(s));  p = exp(s - m_new);  corr = exp(m - m_new)
@@ -12,7 +13,7 @@
 // of K and V, the f32 score tile (the bf16 P tile written over it) and the
 // f32 output accumulator in shared memory; four threads a row hold the
 // row's running max and denominator and CHUNK / 4 of its scores in
-// registers. flash_attention_online.cu states what bounds it and why.
+// registers, on WMMA (mma.sync) with no copy/compute overlap.
 // Keys past S are staged as zeros and masked; query rows past S are never
 // written.
 

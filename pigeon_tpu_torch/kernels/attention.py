@@ -25,7 +25,9 @@ online softmax over 128-key chunks, `csrc/flash_attention_online.cu`,
 counted in ``flash_attention_online.launches``); any other value raises.
 K3's kernel is online too, but its plain version keeps `_attn_kernel`'s
 exact row max: K3 rounds p relative to the running max, within K3's
-bound of that plain version.
+bound of that plain version. That is `_attn_kernel_online`'s function,
+so K3′ launches K3's streaming ``wgmma`` forward under a symbol of its
+own, held against its own plain version.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (:func:`flash_attention_reference`,

@@ -7,7 +7,10 @@ and its VJP once per encoder layer on the `flash_fused` routes. Both are
 CUDA C++ for ``sm_90a`` (`csrc/fused_qkv_attention.cu`,
 `csrc/fused_qkv_attention_bwd.cu`), built by ``nvcc`` at first use and
 bound with ``ctypes``; their source notes say what bounds them on the
-card and how the designs answer that.
+card and how the designs answer that. K2 is three stages on ``wgmma``:
+the q/k/v projection (`csrc/gemm_sm90.cuh`), K4's attention backward on
+the projected q/k/v (`csrc/flash_bwd_sm90.cuh`) and the dx product (the
+same GEMM); :func:`backward_workspaces` gives its scratch.
 
 Weights are in ``torch.nn.Linear`` layout, ``(P, D)`` with ``P = H * 64``,
 so each head's rows are one contiguous block the kernels stream.
@@ -32,10 +35,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
 from pigeon_tpu_torch import native
+from pigeon_tpu_torch.kernels import attention
 from pigeon_tpu_torch.kernels.attention import (
     flash_attention_backward,
     flash_attention_backward_reference,
@@ -187,7 +192,7 @@ def load_backward() -> ctypes.CDLL:
     """Build (at first use) and load K2's library."""
     lib = ctypes.CDLL(native.build_cuda("fused_qkv_attention_bwd").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_qkv_attention_backward.argtypes = [ptr] * 16 + [
+    lib.pigeon_fused_qkv_attention_backward.argtypes = [ptr] * 18 + [
         ctypes.c_int] * 4 + [ptr]
     lib.pigeon_fused_qkv_attention_backward.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
@@ -195,8 +200,33 @@ def load_backward() -> ctypes.CDLL:
     return lib
 
 
-#: K2's GEMM passes take D and P in 128-wide tiles.
+#: K2's GEMMs take D and P in multiples of 128 (their output tiles).
 BWD_TILE = 128
+
+
+class BackwardWorkspaces(NamedTuple):
+    """K2's scratch: the projected ``q``, ``k`` and ``v`` ``(B, S, P)``
+    bf16, and the workspaces of K4's passes that run on them (see
+    :class:`~pigeon_tpu_torch.kernels.attention.BackwardWorkspaces`): the
+    row statistics ``(3, B, H, S)`` f32, ``g_n`` ``(B, S, H, 64)`` bf16
+    and dq's f32 sums ``(B, H, ceil(S / 64), 4096)``, zeroed."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    stats: torch.Tensor
+    g_n: torch.Tensor
+    dq_acc: torch.Tensor
+
+
+def backward_workspaces(x, num_heads: int) -> BackwardWorkspaces:
+    """K2's workspaces for ``x`` (B, S, D) and ``num_heads`` heads of 64;
+    ``dq_acc`` comes zeroed, as every call needs it."""
+    b, s, _ = x.shape
+    q, k, v = (torch.empty((b, s, num_heads * HEAD_DIM), dtype=x.dtype,
+                           device=x.device) for _ in range(3))
+    return BackwardWorkspaces(q, k, v, *attention.backward_workspaces(
+        q.view(b, s, num_heads, HEAD_DIM)))
 
 
 def _check_backward_operands(x, weights, biases, g, num_heads: int):
@@ -221,10 +251,11 @@ def fused_qkv_attention_backward(x, wq, wk, wv, bq, bk, bv, g,
     """K2: ``(dx, dq, dk, dv)`` of K1 for the output cotangent ``g``.
 
     CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64,
-    D and P multiples of 128) launch the kernel on PyTorch's current
-    stream and count the launch in
+    D and P multiples of 128, any S) launch the kernel's three stages on
+    PyTorch's current stream and count one launch in
     ``fused_qkv_attention_backward.launches``; any other device raises.
-    The kernel's q/k/v and row-statistics workspace is allocated here.
+    The kernel's workspaces (:func:`backward_workspaces`) are allocated
+    here, ``dq_acc`` zeroed, on every call.
     """
     if x.device.type == "cpu":
         return fused_qkv_attention_backward_reference(
@@ -232,21 +263,49 @@ def fused_qkv_attention_backward(x, wq, wk, wv, bq, bk, bv, g,
     if x.device.type != "cuda":
         raise ValueError(
             f"fused_qkv_attention_backward: no kernel for {x.device}")
-    lib = load_backward()
     _check_backward_operands(x, (wq, wk, wv), (bq, bk, bv), g, num_heads)
-    b, s, d = x.shape
+    return _launch_backward(x, wq, wk, wv, bq, bk, bv, g, num_heads,
+                            backward_workspaces(x, num_heads))
+
+
+def fused_qkv_attention_backward_into(x, wq, wk, wv, bq, bk, bv, g,
+                                      num_heads: int,
+                                      ws: BackwardWorkspaces):
+    """K2 on CUDA tensors with the caller's workspaces ``ws`` (from
+    :func:`backward_workspaces`, ``dq_acc`` zeroed since its last use),
+    which keep the projection and the statistics; counts the launch like
+    :func:`fused_qkv_attention_backward`. A workspace of another shape,
+    type or device raises."""
+    _check_backward_operands(x, (wq, wk, wv), (bq, bk, bv), g, num_heads)
+    b, s, _ = x.shape
     p = num_heads * HEAD_DIM
+    want = {"q": ((b, s, p), x.dtype), "k": ((b, s, p), x.dtype),
+            "v": ((b, s, p), x.dtype),
+            "stats": ((3, b, num_heads, s), torch.float32),
+            "g_n": ((b, s, num_heads, HEAD_DIM), x.dtype),
+            "dq_acc": ((b, num_heads, -(-s // 64), 64 * HEAD_DIM),
+                       torch.float32)}
+    for name, t in zip(ws._fields, ws):
+        shape, dtype = want[name]
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"workspace {name}: {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}, kernel takes {shape} {dtype} "
+                             f"on {x.device}, contiguous")
+    return _launch_backward(x, wq, wk, wv, bq, bk, bv, g, num_heads, ws)
+
+
+def _launch_backward(x, wq, wk, wv, bq, bk, bv, g, num_heads: int,
+                     ws: BackwardWorkspaces):
+    lib = load_backward()
+    b, s, d = x.shape
     dx = torch.empty_like(x)
-    dq, dk, dv, q_ws, k_ws, v_ws = (
-        torch.empty((b, s, p), dtype=x.dtype, device=x.device)
-        for _ in range(6))
-    stats = torch.empty((3, b, num_heads, s), dtype=torch.float32,
-                        device=x.device)
+    dq, dk, dv = (torch.empty_like(ws.q) for _ in range(3))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_qkv_attention_backward(
             *(t.data_ptr() for t in (x, wq, wk, wv, bq, bk, bv, g, dx, dq,
-                                     dk, dv, q_ws, k_ws, v_ws, stats)),
+                                     dk, dv, *ws)),
             b, s, d, num_heads, stream)
     if rc != 0:
         raise RuntimeError(

@@ -34,26 +34,29 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: The port's kernels by a substring of their CUDA function names. K2's
-#: attention passes run on the fused routes; K4's three passes (statistics,
-#: gradients, dq cast), each a group, on ``flash`` and under
-#: ``PIGEON_FUSED_BWD=xla``. K6 launches K5's block, then its
-#: out-projection: on ``block`` the K5 group is K6's first part.
+#: The port's kernels by a substring of their CUDA function names, the
+#: first match in this order. K2's three stages (projection GEMM, K4's
+#: attention passes on its q/k/v, dx GEMM) run on the fused routes, each
+#: kernel tagged K2*; K4's three passes (statistics, gradients, dq cast),
+#: each a group, on ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K3 and
+#: K3′ launch one kernel under the tags K3Forward and K3OnlineForward. K6
+#: launches K5's block, then its out-projection: on ``block`` the K5 group
+#: is K6's first part.
 KERNEL_GROUPS = (
+    ("K2 projection GEMM", "K2Projection"),
+    ("K2 attention passes", "K2Attention"),
+    ("K2 dx GEMM", "K2Dx"),
+    ("K3′", "K3OnlineForward"),
+    ("K3", "K3Forward"),
     ("K5", "fused_ln_qkv_attention_kernel"),
     ("K1", "fused_qkv_attention_kernel"),
-    ("K3", "flash_attention_kernel"),
-    ("K3′", "flash_attention_online_kernel"),
-    ("K3′", "online_attention_kernel<128"),
     ("K6 out-projection", "::out_proj_kernel"),
     ("K7", "ln_quantize_kernel"),
     ("K7", "::attention_int8_kernel"),
     ("K7", "out_proj_int8_kernel"),
-    ("K2 attention passes", "attn_bwd_d"),
     ("K4 statistics", "flash_attention_bwd_stats"),
     ("K4 gradients", "flash_attention_bwd_grad"),
     ("K4 dq cast", "flash_attention_bwd_dq"),
-    ("K2 projection GEMMs", "gemm_kernel"),
     ("K9", "mlp_gemm_kernel"),
     ("K9", "ln_stats_kernel"),
     ("K10", "smooth_labels_kernel"),
@@ -74,8 +77,9 @@ NUM_CELLS = 2203
 
 
 def group_of(name: str) -> str:
-    # "mlp_gemm_kernel" contains "gemm_kernel": the K9 marks come first.
-    for label, mark in sorted(KERNEL_GROUPS, key=lambda g: -len(g[1])):
+    # The port's marks come before the library's generic "gemm": K9's
+    # "mlp_gemm_kernel" is the port's.
+    for label, mark in KERNEL_GROUPS:
         if mark in name:
             return label
     if any(m in name.lower() for m in GEMM_MARKS):

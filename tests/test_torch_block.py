@@ -365,10 +365,11 @@ def test_k7_operand_checks(case, error, match):
 
 def test_new_sources_name_the_headers_they_include():
     """K6 and K7 build from shared headers (K5's block, K8's block, the
-    GEMM), K3′ and the tuning kernels from K3′'s online body and K2's
-    passes, K3 and K4 from their wgmma headers over the Hopper building
-    blocks; editing one renames the libraries that include it
-    (`native.library_path`)."""
+    GEMM), the tuning kernels from the WMMA online body and attention
+    backward, K3 and K3′ from the wgmma forward, K4 from the wgmma
+    backward, K2 from that backward and the wgmma GEMM, all over the
+    Hopper building blocks; editing one renames the libraries that
+    include it (`native.library_path`)."""
     from pigeon_tpu_torch import native
 
     for kernel, headers in (
@@ -380,15 +381,18 @@ def test_new_sources_name_the_headers_they_include():
             ("fused_block_attention_int8", ["attention_tile.cuh",
                                             "gemm_tile.cuh"]),
             ("fused_mlp", ["gemm_tile.cuh"]),
-            ("flash_attention_online", ["online_attention_tile.cuh",
-                                        "attention_tile.cuh"]),
+            ("flash_attention_online", ["flash_fwd_sm90.cuh",
+                                        "hopper_sm90.cuh"]),
             ("attention_fwd_variants", ["online_attention_tile.cuh",
                                         "attention_tile.cuh"]),
             ("attention_bwd_variants", ["attention_bwd_tile.cuh",
                                         "attention_tile.cuh"]),
             ("flash_attention", ["flash_fwd_sm90.cuh", "hopper_sm90.cuh"]),
             ("flash_attention_bwd", ["flash_bwd_sm90.cuh",
-                                     "hopper_sm90.cuh"])):
+                                     "hopper_sm90.cuh"]),
+            ("fused_qkv_attention_bwd", ["flash_bwd_sm90.cuh",
+                                         "hopper_sm90.cuh",
+                                         "gemm_sm90.cuh"])):
         closure = native.source_closure(
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
         assert [os.path.basename(p) for p in closure] == [f"{kernel}.cu",

@@ -299,14 +299,19 @@ def test_fwd_operand_checks():
 
 
 def test_k3_online_keeps_chunk_128_and_v10_runs_256():
-    """K3′'s entry point stays at 128-key chunks (its plain version and
-    its CUDA instance); V10 is the same body at 256, and in bf16 the two
+    """K3′'s entry point stays at 128-key chunks (its plain version, and
+    its CUDA entry point, which launches K3's streaming forward with its
+    128-key chunks); V10 is the online body at 256, and in bf16 the two
     differ where S spans several chunks."""
     assert k34.ONLINE_CHUNK == 128 and fv.CHUNK_256 == 256
     with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
                            "flash_attention_online.cu")) as f:
-        assert re.findall(r"launch_online_attention<(\d+), (\d+)>",
-                          f.read()) == [("128", "2")]
+        assert re.findall(r"launch_flash_forward<(\w+)>",
+                          f.read()) == ["K3OnlineForward"]
+    with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
+                           "flash_fwd_sm90.cuh")) as f:
+        assert re.findall(r"constexpr int FWD_CHUNK = (\d+);",
+                          f.read()) == ["128"]
     with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
                            "attention_fwd_variants.cu")) as f:
         assert re.findall(r"launch_online_attention<(\d+), (\d+)>",
