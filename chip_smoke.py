@@ -12,12 +12,19 @@ Phases, one line each, any failure raises:
              native JPEG decoder (g++, where libjpeg's headers exist)
              from the checkout's sources, with nvcc's register and spill
              lines and the HGMMA count of the SASS of the wgmma kernels
-             K2, K3, K3′ and K4 (cuobjdump; a source without HGMMA fails
-             the phase);
+             K1, K2, K3, K3′, K4 and K5 (cuobjdump; a source without HGMMA
+             fails the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
-             K1 at the serving shape x (4, 577, 1024) bf16, H=16, max abs
-             error <= 3e-2 (the repo's bf16 attention bound);
+             K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
+             the training shape (32 views), max abs error over max
+             magnitude <= 2e-2 at each (its kernels record is the serving
+             shape's), and its plain version with the value bias dropped
+             or the softmax scale of 32-wide heads must miss by more than
+             twice that; TFLOP/s, the device ms of its two
+             stages (projection GEMM, K3's streaming forward;
+             torch.profiler) and, as a yardstick timed only, three
+             F.linear and PyTorch's fused attention on the same values;
              K2 at the training shape x (32, 577, 1024) bf16, H=16, each
              of dx/dq/dk/dv's max abs error over its max magnitude
              <= 2e-2; TFLOP/s on the TPU kernel's 341 GFLOP, the device
@@ -42,16 +49,21 @@ Phases, one line each, any failure raises:
              1e-4 of its magnitude; TFLOP/s counted on the TPU kernel's
              five walks (``walks=5``; the kernel runs seven);
              K5 at the serving shape, raw x (4, 577, 1024) bf16 with f32
-             LN parameters, max abs error over max magnitude <= 2e-2;
-             K9 at the training shape x (32, 577, 1024), I=4096, max abs
-             error over max magnitude <= 2e-2; for K5 and K9 the plain
+             LN parameters, and at the training shape, max abs error over
+             max magnitude <= 2e-2 at each; the device ms of its three
+             stages (LN1, projection GEMM, streaming forward) and K1's
+             yardstick after F.layer_norm;
+             K9 at the training shape x (32, 577, 1024), I=4096, and at
+             the serving shape (4 views), max abs error over max
+             magnitude <= 2e-2 at each, timed with its bound at both; for
+             K5 and K9 the plain
              version with the LN parameters dropped must miss by more
              than twice the limit, so the check can fail a kernel that
              drops them;
-             K6 at the serving shape, raw x (4, 577, 1024), max abs error
-             over max magnitude <= 2e-2 (K5's bound), with the same
-             dropped-LN guard, and timed at the training shape (32, 577,
-             1024) too;
+             K6 at the serving shape, raw x (4, 577, 1024), and at the
+             training shape (32, 577, 1024), max abs error over max
+             magnitude <= 2e-2 (K5's bound) at each, with the same
+             dropped-LN guard, and timed with its bound at both;
              K7 at the int8 serving shape, raw x (4, 577, 1024), max abs
              error <= 1.5 out-projection LSBs (ao * max(so) * 127) + 3e-2
              and under 0.5% of elements off by more than 3e-2, with the
@@ -217,7 +229,8 @@ KERNELS = {
 #: The sources whose products run on wgmma (the build phase counts their
 #: HGMMA instructions).
 WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd",
-                 "fused_qkv_attention_bwd", "flash_attention_online")
+                 "fused_qkv_attention_bwd", "flash_attention_online",
+                 "fused_qkv_attention", "fused_ln_qkv_attention")
 #: K2's stages by the tag in their kernels' names (`csrc/
 #: fused_qkv_attention_bwd.cu`), for [kernel]'s device-time split.
 K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
@@ -225,6 +238,16 @@ K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
 #: K2's time in its WMMA design (four launches), H100 80GB HBM3 at 700 W
 #: (PERF.md), printed beside the wgmma design's.
 K2_WMMA_MS = "5.31-5.39"
+#: K1's and K5's stages by the tags in their kernels' names (`csrc/
+#: fused_qkv_attention.cu`, `fused_ln_qkv_attention.cu`).
+K1_STAGES = (("projection", "K1Projection"), ("attention", "K1Attention"))
+K5_STAGES = (("layer_norm", "K5LayerNorm"), ("projection", "K5Projection"),
+             ("attention", "K5Attention"))
+#: K1's and K5's times by views in their resident-block WMMA design, H100
+#: 80GB HBM3 at 700 W (PERF.md; K5 at 32 views from the route profile's
+#: 93.8 ms over 24 launches), printed beside the wgmma design's.
+K1_WMMA_MS = {4: "0.905-0.934", 32: "3.725-3.768"}
+K5_WMMA_MS = {4: "1.014-1.058", 32: "3.91"}
 #: The tuning drivers run by [variants], in order: the ports of
 #: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
 #: `bench_attn_qkv_fused.py`.
@@ -261,7 +284,13 @@ VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: tensor cores and the f32 CUDA cores run at the same time).
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
-K1_TOL = 3e-2
+#: K1 against its plain version, max abs error over the output's max
+#: magnitude (K5's bound): a bf16 output one ulp apart is up to 2^-7 of it,
+#: q/k/v are rounded to bf16 from f32 sums taken in another order, and p
+#: against the running max over 128-key chunks, the plain version's against
+#: the exact row max. An absolute bound would not do: averaged over 577
+#: keys the outputs are ~0.03.
+K1_TOL = 2e-2
 #: K2 against its plain version, each output's max abs error over its
 #: max magnitude: the two round u and dl to bf16 from f32 values summed
 #: in another order, so one operand of each product may sit one bf16 ulp
@@ -367,30 +396,60 @@ def median_ms(fn, runs: int = 30, warmup: int = 3) -> float:
 
 
 def check_kernel(seed: int) -> dict:
-    """K1 against its plain version at the serving shape."""
+    """K1 against its plain version at the serving shape (4 views) and
+    the training shape (32 views); the record is the serving shape's."""
+    records = {b: check_kernel_at(seed, b) for b in (4, 32)}
+    return records[4]
+
+
+def check_qkv_fault_shows(reference, args, want, tol: float):
+    """K1's plain version ``reference`` with the value bias dropped, and
+    with the scores scaled as for heads of 32 (q times sqrt(2)), must miss
+    ``want`` by more than twice ``tol``: the check can fail a kernel that
+    drops a bias or mis-scales the softmax."""
+    import torch
+
+    x, wq, wk, wv, bq, bk, bv, h = args
+    sq2 = [(t.float() * 2 ** 0.5).bfloat16() for t in (wq, bq)]
+    for label, wrong in (
+            ("value bias", (x, wq, wk, wv, bq, bk, torch.zeros_like(bv), h)),
+            ("softmax scale", (x, sq2[0], wk, wv, sq2[1], bk, bv, h))):
+        miss = rel_errors([reference(*wrong)], [want], (label,))[label]
+        if not miss > 2 * tol:
+            raise RuntimeError(f"K1's check cannot see a wrong {label}: it "
+                               f"moves the output by {miss} of its "
+                               f"magnitude, limit {tol}")
+
+
+def check_kernel_at(seed: int, b: int) -> dict:
+    """K1 at ``b`` views of (577, 1024), H=16: error, the fault guard,
+    times, its stages' device time and the library composition's time."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.tuning import qkv_composition, qkv_operands
 
-    b, s, d, h = 4, 577, 1024, 16
+    s, d, h = 577, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.nn.functional.layer_norm(
-        torch.randn(b, s, d, generator=gen, device="cuda"), (d,)).bfloat16()
-    ws = [(torch.randn(d, d, generator=gen, device="cuda") * 0.02).bfloat16()
-          for _ in range(3)]
-    bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
-          for _ in range(3)]
+    x, ws, bs = qkv_operands(gen, b, s, d, raw=False)
     got = k1.fused_qkv_attention(x, *ws, *bs, h)
     want = k1.fused_qkv_attention_reference(x, *ws, *bs, h)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    finite = bool(torch.isfinite(got.float()).all())
-    if not finite or not err <= K1_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version: max abs "
-                           f"error {err} (limit {K1_TOL}), finite={finite}")
+    rel = rel_errors([got], [want], ("out",))["out"]
+    if not rel <= K1_TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at {b} "
+                           f"views: max abs error over max magnitude {rel} "
+                           f"(limit {K1_TOL})")
+    check_qkv_fault_shows(k1.fused_qkv_attention_reference,
+                          (x, *ws, *bs, h), want, K1_TOL)
+    err = max_abs([got], [want])
+    del want
     ms = median_ms(lambda: k1.fused_qkv_attention(x, *ws, *bs, h))
+    stages = device_ms_by_mark(
+        lambda: k1.fused_qkv_attention(x, *ws, *bs, h), K1_STAGES)
     plain_ms = median_ms(lambda: k1.fused_qkv_attention_reference(
-        x, *ws, *bs, h))
+        x, *ws, *bs, h), runs=10)
+    composition_ms = median_ms(lambda: qkv_composition(x, ws, bs, h))
     # 2*B*S*D*P for each projection, 2*B*H*S*S*dh for QK^T and for PV.
     flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
     gflop = flop / 1e9
@@ -398,8 +457,12 @@ def check_kernel(seed: int) -> dict:
            **bound({"bf16": flop}, nbytes(x, *ws, *bs, got)),
            "library_ms": None}
     phase("kernel", name="fused_qkv_attention", shape=f"({b},{s},{d})",
-          heads=h, max_abs_err=err, tol=K1_TOL, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], tflops=round(gflop / ms, 1),
+          heads=h, out_err=round(rel, 6), tol=K1_TOL, max_abs_err=err,
+          ms=ms, wmma_design_ms=K1_WMMA_MS[b],
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms, gflop=round(gflop, 1),
+          tflops=round(gflop / ms, 1),
           plain_tflops=round(gflop / plain_ms, 1))
     return rec
 
@@ -729,35 +792,47 @@ def check_ln_fault_shows(name: str, reference, args, want, tol: float):
 
 
 def check_ln_kernel(seed: int) -> dict:
-    """K5 against its plain version at the serving shape, on a raw
-    (un-normalised) layer input."""
+    """K5 against its plain version on a raw (un-normalised) layer input
+    at the serving shape (4 views) and the training shape (32 views); the
+    record is the serving shape's."""
+    records = {b: check_ln_kernel_at(seed, b) for b in (4, 32)}
+    return records[4]
+
+
+def check_ln_kernel_at(seed: int, b: int) -> dict:
+    """K5 at ``b`` views of raw x (577, 1024), H=16: error, the dropped-LN
+    guard, times, its stages' device time and the library composition's
+    time."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+    from pigeon_tpu_torch.tuning import qkv_composition, qkv_operands
 
-    b, s, d, h = 4, 577, 1024, 16
+    s, d, h = 577, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(b, s, d, generator=gen, device="cuda") * 3 + 1) \
-        .bfloat16()
     ls, lb = ln_params(d, gen)
-    ws = [(torch.randn(d, d, generator=gen, device="cuda") * 0.02).bfloat16()
-          for _ in range(3)]
-    bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
-          for _ in range(3)]
+    x, ws, bs = qkv_operands(gen, b, s, d, raw=True)
     args = (x, ls, lb, *ws, *bs, h, 1e-5)
     got = k5.fused_ln_qkv_attention(*args)
     want = k5.fused_ln_qkv_attention_reference(*args)
     torch.cuda.synchronize()
     rel = rel_errors([got], [want], ("out",))["out"]
     if not rel <= K5_TOL:
-        raise RuntimeError(f"K5 disagrees with its plain version: max abs "
-                           f"error over max magnitude {rel} (limit "
-                           f"{K5_TOL})")
+        raise RuntimeError(f"K5 disagrees with its plain version at {b} "
+                           f"views: max abs error over max magnitude {rel} "
+                           f"(limit {K5_TOL})")
     check_ln_fault_shows("K5", k5.fused_ln_qkv_attention_reference, args,
                          want, K5_TOL)
     err = max_abs([got], [want])
+    del want
     ms = median_ms(lambda: k5.fused_ln_qkv_attention(*args))
-    plain_ms = median_ms(lambda: k5.fused_ln_qkv_attention_reference(*args))
+    stages = device_ms_by_mark(lambda: k5.fused_ln_qkv_attention(*args),
+                               K5_STAGES)
+    plain_ms = median_ms(lambda: k5.fused_ln_qkv_attention_reference(*args),
+                         runs=10)
+    ln = (ls.bfloat16(), lb.bfloat16())
+    composition_ms = median_ms(lambda: qkv_composition(
+        torch.nn.functional.layer_norm(x, (d,), *ln), ws, bs, h))
     # K1's products, and ~7 f32 operations an element of x for the
     # LayerNorm (two sums, centre, scale, shift).
     flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
@@ -767,15 +842,18 @@ def check_ln_kernel(seed: int) -> dict:
            "library_ms": None}
     phase("kernel", name="fused_ln_qkv_attention", shape=f"({b},{s},{d})",
           heads=h, out_err=round(rel, 6), tol=K5_TOL, max_abs_err=err,
-          ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], tflops=round(flop / 1e9 / ms, 1),
+          ms=ms, wmma_design_ms=K5_WMMA_MS[b],
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms, tflops=round(flop / 1e9 / ms, 1),
           plain_tflops=round(flop / 1e9 / plain_ms, 1))
     return rec
 
 
 def check_mlp_kernel(seed: int) -> dict:
     """K9 against its plain version at the training shape (32 views),
-    ViT-L/14's MLP (D=1024, I=4096)."""
+    ViT-L/14's MLP (D=1024, I=4096), and its time and bound at the
+    serving shape (4 views)."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_mlp as k9
@@ -812,22 +890,39 @@ def check_mlp_kernel(seed: int) -> dict:
     call_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     ms = median_ms(lambda: k9.fused_ln_mlp(*args))
     plain_ms = median_ms(lambda: k9.fused_ln_mlp_reference(*args), runs=10)
-    # Two products of 2*M*D*I; in f32 ~7 operations an element of x for
-    # the LayerNorm, ~6 an element of h for the bias and quick-GELU, and 2
-    # an output element for b2 and the residual.
+    serve_args = (x[:4].contiguous(), *args[1:])
+    serve_rel = rel_errors([k9.fused_ln_mlp(*serve_args)],
+                           [k9.fused_ln_mlp_reference(*serve_args)],
+                           ("out",))["out"]
+    if not serve_rel <= K9_TOL:
+        raise RuntimeError(f"K9 disagrees with its plain version at 4 "
+                           f"views: max abs error over max magnitude "
+                           f"{serve_rel} (limit {K9_TOL})")
+    serve_ms = median_ms(lambda: k9.fused_ln_mlp(*serve_args))
+
+    def work(m):
+        """Two products of 2*M*D*I; in f32 ~7 operations an element of x
+        for the LayerNorm, ~6 an element of h for the bias and quick-GELU,
+        and 2 an output element for b2 and the residual."""
+        return {"bf16": 2 * 2 * m * d * inter,
+                "f32": 9 * m * d + 6 * m * inter}
+
     m = b * s
-    flop = 2 * 2 * m * d * inter
+    flop = work(m)["bf16"]
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound({"bf16": flop, "f32": 9 * m * d + 6 * m * inter},
-                   nbytes(x, ls, lb, w1, b1, w2, b2, got)),
+           **bound(work(m), nbytes(x, ls, lb, w1, b1, w2, b2, got)),
            "library_ms": None}
+    serve_bound = bound(work(4 * s), nbytes(serve_args[0], ls, lb, w1, b1,
+                                            w2, b2, serve_args[0]))
     phase("kernel", name="fused_mlp", shape=f"({b},{s},{d})", inter=inter,
           out_err=round(rel, 6), tol=K9_TOL, max_abs_err=err, ms=ms,
           plain_ms=plain_ms, bound_ms=rec["bound_ms"],
           tflops=round(flop / 1e9 / ms, 1),
           plain_tflops=round(flop / 1e9 / plain_ms, 1),
           hidden_workspace_mib=round(m * inter * 2 / 2**20, 1),
-          call_peak_mib=round(call_peak_mib, 1))
+          call_peak_mib=round(call_peak_mib, 1), serve_shape=f"(4,{s},{d})",
+          serve_err=round(serve_rel, 6), serve_ms=serve_ms,
+          serve_bound_ms=serve_bound["bound_ms"])
     return rec
 
 
@@ -868,24 +963,35 @@ def check_block_kernel(seed: int) -> dict:
     ms = median_ms(lambda: k6.fused_block_attention(*args))
     plain_ms = median_ms(lambda: k6.fused_block_attention_reference(*args))
     train = operands(32)
+    train_rel = rel_errors([k6.fused_block_attention(*train)],
+                           [k6.fused_block_attention_reference(*train)],
+                           ("out",))["out"]
+    if not train_rel <= K6_TOL:
+        raise RuntimeError(f"K6 disagrees with its plain version at 32 "
+                           f"views: max abs error over max magnitude "
+                           f"{train_rel} (limit {K6_TOL})")
     train_ms = median_ms(lambda: k6.fused_block_attention(*train), runs=10)
     train_plain_ms = median_ms(
         lambda: k6.fused_block_attention_reference(*train), runs=5)
-    del train
-    # K5's products and the out-projection's 2*B*S*D*D; ~7 f32 operations
+    # K1's products and the out-projection's 2*B*S*D*D; ~7 f32 operations
     # an element of x for the LayerNorm and 2 an output for bo and x.
     flop = 4 * 2 * 4 * s * d * d + 2 * 2 * 4 * h * s * s * 64
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound({"bf16": flop, "f32": 9 * args[0].numel()},
                    nbytes(args[0], ls, lb, *ws, *bs, got)),
            "library_ms": None}
+    train_bound = bound({"bf16": 8 * flop, "f32": 9 * train[0].numel()},
+                        nbytes(train[0], ls, lb, *ws, *bs, train[0]))
+    del train
     phase("kernel", name="fused_block_attention", shape=f"(4,{s},{d})",
           heads=h, out_err=round(rel, 6), tol=K6_TOL, max_abs_err=err,
           ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
           tflops=round(flop / 1e9 / ms, 1),
           plain_tflops=round(flop / 1e9 / plain_ms, 1),
-          train_shape=f"(32,{s},{d})", train_ms=train_ms,
+          train_shape=f"(32,{s},{d})", train_err=round(train_rel, 6),
+          train_ms=train_ms,
           train_plain_ms=train_plain_ms,
+          train_bound_ms=train_bound["bound_ms"],
           train_tflops=round(8 * flop / 1e9 / train_ms, 1))
     return rec
 

@@ -1,6 +1,6 @@
-// The attention body shared by kernels K1 (fused_qkv_attention.cu), K3
-// (flash_attention.cu), K5 (fused_ln_qkv_attention.cu) and K8
-// (fused_qkv_attention_int8.cu): one 64-row query tile of one head
+// The WMMA attention body shared by kernels K6 (fused_block_attention.cu),
+// K7 (fused_block_attention_int8.cu), K8 (fused_qkv_attention_int8.cu)
+// and the tuning kernels V1-V3 and V10: one 64-row query tile of one head
 // against that head's K and V, resident in shared memory, with the
 // arithmetic of
 // pigeon_tpu/kernels/flash_attention.py::_attn_kernel and
@@ -20,9 +20,8 @@
 // with stride LDB, the score tile f32 with stride LDF.
 //
 // Below it, `fused_qkv_attention_block`: the whole (head, batch) block of
-// K1, K5 and K6, q/k/v projected from x in-kernel (K1's source note says
-// how), and `fused_qkv_attention_int8_block`, its int8 twin for K8 and
-// K7.
+// K6, q/k/v projected from x in-kernel, and
+// `fused_qkv_attention_int8_block`, its int8 twin for K8 and K7.
 
 #pragma once
 
@@ -216,9 +215,8 @@ __device__ __forceinline__ void attend_tile(const bf16* qs, const bf16* ks,
 }
 
 // ---------------------------------------------------------------------
-// The q/k/v projection + attention of one (head, batch) block, shared by
-// K1 (fused_qkv_attention.cu), K5 (fused_ln_qkv_attention.cu) and K6
-// (fused_block_attention.cu).
+// The q/k/v projection + attention of one (head, batch) block, which K6
+// (fused_block_attention.cu) launches through ln_qkv_attention_tile.cuh.
 // ---------------------------------------------------------------------
 
 constexpr int QKV_KC = 64;  // D columns staged per step
@@ -234,7 +232,7 @@ static_assert(2 * TILE_F <= QKV_WORK_BYTES, "phase-1 epilogue overflows");
 // 1), then each 64-row query tile projected and attended (phase 2),
 // writing out[b, :, h*64:(h+1)*64]. stage_x(dst, r0, d0, rows) stages
 // the x block [r0, r0 + 64) x [d0, d0 + 64) of batch b into a bf16 tile
-// (row stride LDB), zero past `rows`: K1 copies it, K5 normalises it.
+// (row stride LDB), zero past `rows`: K6 normalises it.
 template <class StageX>
 __device__ __forceinline__ void fused_qkv_attention_block(
     unsigned char* smem, StageX stage_x, const bf16* __restrict__ wq,

@@ -20,12 +20,12 @@
 // order differs.
 //
 // What bounds it on the H100: at the serving shape (B=4 views, S=577,
-// D=1024, H=16) K5's ~20 GFLOP plus the out-projection's 4.8 GFLOP of
+// D=1024, H=16) K1's ~20 GFLOP plus the out-projection's 4.8 GFLOP of
 // bf16 tensor-core work over ~19 MB of x, weights and out: far above the
 // card's ridge, so the tensor cores bound it (~0.025 ms). The design is
 // two launches behind one entry point:
 //
-//   1. K5's block (ln_qkv_attention_tile.cuh: `ln_row_stats`, then
+//   1. the LN-folded block (ln_qkv_attention_tile.cuh: `ln_row_stats`, then
 //      `fused_qkv_attention_block` staging x through `stage_ln_tile`), one
 //      block per (head, batch), writing the bf16 attention output to an
 //      (M = B*S, D) workspace (4.7 MB at the serving shape);
@@ -83,7 +83,7 @@ out_proj_kernel(const bf16* __restrict__ ao, const bf16* __restrict__ wo,
 extern "C" {
 
 // Longest sequence whose resident K/V and row statistics fit one block's
-// shared memory (K5's).
+// shared memory (the LN-folded block's).
 int pigeon_fused_block_attention_max_seq() {
   return ln_qkv_attention_max_seq();
 }

@@ -38,6 +38,7 @@
 // never written.
 
 #include "gemm_tile.cuh"
+#include "ln_row.cuh"
 
 namespace {
 
@@ -58,35 +59,17 @@ struct MlpArgs {
 };
 
 // Pass 1: each row's mean and rsqrt(max(E[x^2] - E[x]^2, 0) + eps) over D
-// in f32 (Flax's fast variance), one warp a row, into stats (M, 2).
+// in f32 (Flax's fast variance, ln_row.cuh), one warp a row, into stats
+// (M, 2).
 __global__ void __launch_bounds__(gemm::THREADS)
 ln_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats,
                 int M, int D, float eps) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int m = blockIdx.x * (gemm::THREADS / 32) + warp;
+  const int m = blockIdx.x * (gemm::THREADS / 32) + threadIdx.x / 32;
   if (m >= M) return;
-  const bf16* row = x + (size_t)m * D;
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int c = lane * 8; c < D; c += 32 * 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float f = __bfloat162float(e[j]);
-      s1 += f;
-      s2 += f * f;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-  }
-  if (lane == 0) {
-    const float mean = s1 / D;
-    stats[2 * m] = mean;
-    stats[2 * m + 1] = rsqrtf(fmaxf(s2 / D - mean * mean, 0.0f) + eps);
+  const LnStats ln = ln_warp_stats(x + (size_t)m * D, D, eps);
+  if (threadIdx.x % 32 == 0) {
+    stats[2 * m] = ln.mean;
+    stats[2 * m + 1] = ln.rs;
   }
 }
 
@@ -112,20 +95,11 @@ mlp_gemm_kernel(MlpArgs args) {
         const int m = m0 + r;
         uint4 packed = make_uint4(0u, 0u, 0u, 0u);
         if (m < M) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              args.x + (size_t)m * K + k0 + c);
-          const bf16* e = reinterpret_cast<const bf16*>(&raw);
-          bf16* o = reinterpret_cast<bf16*>(&packed);
-          const float mean = args.stats[2 * m];
-          const float rs = args.stats[2 * m + 1];
-          const float* ls = args.ln_scale + k0 + c;
-          const float* lb = args.ln_bias + k0 + c;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            o[j] = __float2bfloat16((__bfloat162float(e[j]) - mean) *
-                                        (rs * ls[j]) +
-                                    lb[j]);
-          }
+          packed = ln_normalise8(
+              *reinterpret_cast<const uint4*>(args.x + (size_t)m * K + k0 +
+                                              c),
+              args.stats[2 * m], args.stats[2 * m + 1],
+              args.ln_scale + k0 + c, args.ln_bias + k0 + c);
         }
         *reinterpret_cast<uint4*>(as + r * gemm::LDK + c) = packed;
       }

@@ -1,19 +1,19 @@
-// The block of kernel K5 (fused_ln_qkv_attention.cu), which K6
-// (fused_block_attention.cu) launches first: LN1 folded into the fused
-// QKV projection + attention of one (head, batch) block. A prologue takes
-// each row's statistics into shared memory and each streamed x tile is
-// normalised as it is staged, in Flax's fast-variance LayerNorm and its
-// association order (flash_attention.py::_layer_norm_f32); K5's source
-// note says why.
+// The block that kernel K6 (fused_block_attention.cu) launches first: LN1
+// folded into the fused QKV projection + attention of one (head, batch)
+// block. A prologue takes each row's statistics into shared memory and
+// each streamed x tile is normalised as it is staged, in Flax's
+// fast-variance LayerNorm and its association order (ln_row.cuh, whose
+// arithmetic K5's LayerNorm kernel and K9 share).
 
 #pragma once
 
 #include "attention_tile.cuh"
+#include "ln_row.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------
-// LN1 folded into the block's staging (K5, K6): Flax's fast-variance
+// LN1 folded into the block's staging (K6): Flax's fast-variance
 // LayerNorm in its association order (flash_attention.py::_layer_norm_f32).
 // ---------------------------------------------------------------------
 
@@ -26,27 +26,10 @@ __device__ __forceinline__ void ln_row_stats(const bf16* __restrict__ xb,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < S; r += THREADS / 32) {
-    const bf16* row = xb + (size_t)r * D;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane * 8; c < D; c += 32 * 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float f = __bfloat162float(e[j]);
-        s1 += f;
-        s2 += f * f;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
+    const LnStats stats = ln_warp_stats(xb + (size_t)r * D, D, eps);
     if (lane == 0) {
-      const float mean = s1 / D;
-      mu[r] = mean;
-      rs[r] = rsqrtf(fmaxf(s2 / D - mean * mean, 0.0f) + eps);
+      mu[r] = stats.mean;
+      rs[r] = stats.rs;
     }
   }
   __syncthreads();
@@ -67,16 +50,9 @@ __device__ __forceinline__ void stage_ln_tile(bf16* dst, const bf16* src,
     const int c = (i % VEC) * 8;
     uint4 packed = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-      bf16* o = reinterpret_cast<bf16*>(&packed);
-      const float m = mu[r], s = rs[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[j] = __float2bfloat16(
-            (__bfloat162float(e[j]) - m) * (s * ls[c + j]) + lb[c + j]);
-      }
+      packed = ln_normalise8(
+          *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c), mu[r],
+          rs[r], ls + c, lb + c);
     }
     *reinterpret_cast<uint4*>(dst + r * LDB + c) = packed;
   }

@@ -5,10 +5,11 @@ K6 replaces `pigeon_tpu/kernels/flash_attention.py::_block_attn_kernel`
 (launcher `_fused_block_attn_forward`, entry `fused_block_attention`),
 reached once per encoder layer on the ``flash_fused_block`` route, where
 the layer is K6 and then K9 and adds no residual of its own. It is CUDA
-C++ for ``sm_90a`` (`csrc/fused_block_attention.cu`: K5's block body,
-then the GEMM K9's fc2 runs, both shared through headers), built by
-``nvcc`` at first use and bound with ``ctypes``; the source note says what
-bounds it on the card and how the design answers that.
+C++ for ``sm_90a`` (`csrc/fused_block_attention.cu`: the LN-folded
+block of `csrc/ln_qkv_attention_tile.cuh`, then the GEMM K9's fc2 runs,
+both shared through headers), built by ``nvcc`` at first use and bound
+with ``ctypes``; the source note says what bounds it on the card and how
+the design answers that.
 
 Weights are in ``torch.nn.Linear`` layout, ``(D, D)`` each with
 ``D = H * 64``.

@@ -3,12 +3,13 @@
 K5 replaces `pigeon_tpu/kernels/flash_attention.py::_fused_ln_qkv_kernel`
 (launcher `_fused_ln_qkv_forward`), reached through `fused_ln_qkv_mha`
 once per encoder layer on the ``flash_fused_ln`` and ``flash_fused_mlp``
-routes: K1 with LN1 folded in, so the layer's raw input goes in and the
-normalised tensor never reaches device memory. It is CUDA C++ for
-``sm_90a`` (`csrc/fused_ln_qkv_attention.cu`, sharing K1's block body
-through `csrc/attention_tile.cuh`), built by ``nvcc`` at first use and
-bound with ``ctypes``; the source note says what bounds it on the card
-and how the design answers that.
+routes: K1 with LN1 folded in, so the layer's raw input goes in. It is
+CUDA C++ for ``sm_90a`` (`csrc/fused_ln_qkv_attention.cu`), built by
+``nvcc`` at first use and bound with ``ctypes``: a LayerNorm kernel
+writes the normalised ``xn`` to a workspace, then K1's two stages (the
+``wgmma`` projection GEMM, K3's streaming forward) run on it. The source
+note says what bounds it on the card and how the design answers that;
+:func:`forward_workspaces` gives its scratch.
 
 The LayerNorm is Flax's fast-variance form in its association order
 (:func:`flax_layer_norm_f32`, the JAX package's `_layer_norm_f32`), which
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -61,11 +63,9 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(native.build_cuda("fused_ln_qkv_attention").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_ln_qkv_attention.argtypes = [ptr] * 10 + [
+    lib.pigeon_fused_ln_qkv_attention.argtypes = [ptr] * 14 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ptr]
     lib.pigeon_fused_ln_qkv_attention.restype = ctypes.c_int
-    lib.pigeon_fused_ln_qkv_attention_max_seq.argtypes = []
-    lib.pigeon_fused_ln_qkv_attention_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,33 +86,53 @@ def check_ln_params(x, ln_scale, ln_bias):
             raise ValueError(f"{name} is not contiguous and 16-byte aligned")
 
 
+class Workspaces(NamedTuple):
+    """K5's scratch: the normalised ``xn`` ``(B, S, D)`` bf16, then K1's
+    projected ``q``, ``k`` and ``v`` ``(B, S, P)`` bf16
+    (`fused_qkv_attention.ForwardWorkspaces`)."""
+
+    xn: torch.Tensor
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def forward_workspaces(x, num_heads: int) -> Workspaces:
+    """K5's workspaces for raw ``x`` (B, S, D) and ``num_heads`` heads of
+    64, from PyTorch's allocator (uninitialised: every stage writes all
+    of its rows)."""
+    return Workspaces(torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                      *k1.forward_workspaces(x, num_heads))
+
+
 def fused_ln_qkv_attention(x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv,
                            num_heads: int, eps: float):
     """K5: LN1 + q/k/v projection + softmax attention, raw ``(B, S, D) ->
     (B, S, P)`` before the output projection.
 
     CPU tensors run the plain version; CUDA tensors (bf16 x, weights and
-    biases, f32 LN parameters, head_dim 64) launch the kernel on PyTorch's
-    current stream and count the launch in
-    ``fused_ln_qkv_attention.launches``; any other device raises.
+    biases, f32 LN parameters, head_dim 64, D and P multiples of 128, any
+    S) launch the kernel's three stages (LN1 into ``xn``, the projection
+    GEMM, K3's streaming forward; :func:`forward_workspaces`, allocated
+    here on every call) on PyTorch's current stream and count one launch
+    in ``fused_ln_qkv_attention.launches``; any other device raises.
     """
     if x.device.type == "cpu":
         return fused_ln_qkv_attention_reference(
             x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv, num_heads, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_qkv_attention: no kernel for {x.device}")
-    lib = load()
-    k1._check_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads,
-                       lib.pigeon_fused_ln_qkv_attention_max_seq())
+    k1._check_gemm_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads)
     check_ln_params(x, ln_scale, ln_bias)
+    lib = load()
     b, s, d = x.shape
-    out = torch.empty((b, s, num_heads * k1.HEAD_DIM), dtype=x.dtype,
-                      device=x.device)
+    ws = forward_workspaces(x, num_heads)
+    out = torch.empty_like(ws.q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_ln_qkv_attention(
             *(t.data_ptr() for t in (x, ln_scale, ln_bias, wq, wk, wv, bq,
-                                     bk, bv, out)),
+                                     bk, bv, out, *ws)),
             b, s, d, num_heads, float(eps), stream)
     if rc != 0:
         raise RuntimeError(

@@ -7,10 +7,13 @@ and its VJP once per encoder layer on the `flash_fused` routes. Both are
 CUDA C++ for ``sm_90a`` (`csrc/fused_qkv_attention.cu`,
 `csrc/fused_qkv_attention_bwd.cu`), built by ``nvcc`` at first use and
 bound with ``ctypes``; their source notes say what bounds them on the
-card and how the designs answer that. K2 is three stages on ``wgmma``:
-the q/k/v projection (`csrc/gemm_sm90.cuh`), K4's attention backward on
-the projected q/k/v (`csrc/flash_bwd_sm90.cuh`) and the dx product (the
-same GEMM); :func:`backward_workspaces` gives its scratch.
+card and how the designs answer that. Both start with the same ``wgmma``
+GEMM (`csrc/gemm_sm90.cuh`), which projects q/k/v into (B, S, P)
+workspaces. K1 then runs K3's streaming forward on them
+(`csrc/flash_fwd_sm90.cuh`); :func:`forward_workspaces` gives its
+scratch. K2 runs K4's attention backward (`csrc/flash_bwd_sm90.cuh`) and
+the dx product (the same GEMM); :func:`backward_workspaces` gives its
+scratch.
 
 Weights are in ``torch.nn.Linear`` layout, ``(P, D)`` with ``P = H * 64``,
 so each head's rows are one contiguous block the kernels stream.
@@ -49,8 +52,12 @@ from pigeon_tpu_torch.kernels.attention import (
 
 #: The head width the kernel is written for (ViT-B and ViT-L both use 64).
 HEAD_DIM = 64
-#: The kernel stages D in chunks of this many columns.
+#: `_check_operands` takes D in multiples of this many columns (the block
+#: K6 launches stages D in such chunks).
 D_CHUNK = 64
+#: K1's, K2's and K5's GEMMs take D and P in multiples of 128 (their
+#: output tiles).
+GEMM_TILE = 128
 
 
 def fused_qkv_attention_reference(x, wq, wk, wv, bq, bk, bv,
@@ -82,12 +89,9 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(native.build_cuda("fused_qkv_attention").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_qkv_attention.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+    lib.pigeon_fused_qkv_attention.argtypes = [ptr] * 11 + [
+        ctypes.c_int] * 4 + [ptr]
     lib.pigeon_fused_qkv_attention.restype = ctypes.c_int
-    lib.pigeon_fused_qkv_attention_max_seq.argtypes = []
-    lib.pigeon_fused_qkv_attention_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -120,30 +124,61 @@ def _check_operands(x, weights, biases, num_heads: int, max_seq: int):
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def _check_gemm_operands(x, weights, biases, num_heads: int):
+    """The operands of K1, K2 and K5 (whose first stage is the projection
+    GEMM): `_check_operands`'s at any S, and D and P multiples of
+    `GEMM_TILE`."""
+    _check_operands(x, weights, biases, num_heads, max_seq=x.shape[1])
+    d, p = x.shape[2], num_heads * HEAD_DIM
+    if d % GEMM_TILE or p % GEMM_TILE:
+        raise ValueError(f"D={d} and P={p} must be multiples of {GEMM_TILE} "
+                         "(an even head count)")
+
+
+class ForwardWorkspaces(NamedTuple):
+    """K1's scratch: the projected ``q``, ``k`` and ``v`` ``(B, S, P)``
+    bf16, which K3's streaming forward reads as ``(B, S, H, 64)``."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def forward_workspaces(x, num_heads: int) -> ForwardWorkspaces:
+    """K1's workspaces for ``x`` (B, S, D) and ``num_heads`` heads of 64,
+    from PyTorch's allocator (uninitialised: the GEMM writes every row
+    below B * S)."""
+    b, s, _ = x.shape
+    return ForwardWorkspaces(*(
+        torch.empty((b, s, num_heads * HEAD_DIM), dtype=x.dtype,
+                    device=x.device) for _ in range(3)))
+
+
 def fused_qkv_attention(x, wq, wk, wv, bq, bk, bv, num_heads: int):
     """K1: fused q/k/v projection + softmax attention, ``(B, S, D) ->
     (B, S, P)`` before the output projection.
 
-    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64)
-    launch the kernel on PyTorch's current stream and count the launch in
-    ``fused_qkv_attention.launches``; any other device raises.
+    CPU tensors run the plain version; CUDA tensors (bf16, head_dim 64,
+    D and P multiples of 128, any S) launch the kernel's two stages (the
+    projection GEMM into :func:`forward_workspaces`, allocated here on
+    every call, then K3's streaming forward) on PyTorch's current stream
+    and count one launch in ``fused_qkv_attention.launches``; any other
+    device raises.
     """
     if x.device.type == "cpu":
         return fused_qkv_attention_reference(x, wq, wk, wv, bq, bk, bv,
                                              num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_qkv_attention: no kernel for {x.device}")
+    _check_gemm_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads)
     lib = load()
-    _check_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads,
-                    lib.pigeon_fused_qkv_attention_max_seq())
     b, s, d = x.shape
-    out = torch.empty((b, s, num_heads * HEAD_DIM), dtype=x.dtype,
-                      device=x.device)
+    ws = forward_workspaces(x, num_heads)
+    out = torch.empty_like(ws.q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_qkv_attention(
-            x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-            bq.data_ptr(), bk.data_ptr(), bv.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in (x, wq, wk, wv, bq, bk, bv, out, *ws)),
             b, s, d, num_heads, stream)
     if rc != 0:
         raise RuntimeError(
@@ -200,10 +235,6 @@ def load_backward() -> ctypes.CDLL:
     return lib
 
 
-#: K2's GEMMs take D and P in multiples of 128 (their output tiles).
-BWD_TILE = 128
-
-
 class BackwardWorkspaces(NamedTuple):
     """K2's scratch: the projected ``q``, ``k`` and ``v`` ``(B, S, P)``
     bf16, and the workspaces of K4's passes that run on them (see
@@ -223,19 +254,15 @@ def backward_workspaces(x, num_heads: int) -> BackwardWorkspaces:
     """K2's workspaces for ``x`` (B, S, D) and ``num_heads`` heads of 64;
     ``dq_acc`` comes zeroed, as every call needs it."""
     b, s, _ = x.shape
-    q, k, v = (torch.empty((b, s, num_heads * HEAD_DIM), dtype=x.dtype,
-                           device=x.device) for _ in range(3))
+    q, k, v = forward_workspaces(x, num_heads)
     return BackwardWorkspaces(q, k, v, *attention.backward_workspaces(
         q.view(b, s, num_heads, HEAD_DIM)))
 
 
 def _check_backward_operands(x, weights, biases, g, num_heads: int):
-    _check_operands(x, weights, biases, num_heads, max_seq=x.shape[1])
-    b, s, d = x.shape
+    _check_gemm_operands(x, weights, biases, num_heads)
+    b, s, _ = x.shape
     p = num_heads * HEAD_DIM
-    if d % BWD_TILE or p % BWD_TILE:
-        raise ValueError(f"D={d} and P={p} must be multiples of {BWD_TILE} "
-                         "(an even head count)")
     if tuple(g.shape) != (b, s, p):
         raise ValueError(f"g: shape {tuple(g.shape)} != {(b, s, p)}")
     if g.dtype != torch.bfloat16:

@@ -10,6 +10,10 @@ one or more of the port's kernels (its parts, each a wrapper with a
 variant's outputs against the plain versions' on the same inputs, then
 times the variant and its plain version. A variant of several parts
 (``split4``) times each part on its own as well.
+
+K1's and K5's seeded operands and their library yardstick
+(``qkv_operands``, ``qkv_composition``) live here too: `chip_smoke.py` and
+`scripts/bench_torch_flash_sm90.py` both time the kernels on them.
 """
 
 from __future__ import annotations
@@ -91,6 +95,29 @@ def normal(gen: torch.Generator, n: int, shape, scale: float = 1.0) -> list:
     from ``gen``."""
     return [(torch.randn(shape, generator=gen, device=gen.device) * scale)
             .bfloat16() for _ in range(n)]
+
+
+def qkv_operands(gen: torch.Generator, b: int, s: int, d: int,
+                 raw: bool) -> tuple:
+    """K1's and K5's operands, made on the card from ``gen``: bf16 x (B, S,
+    D), layer-normed or ``raw`` (scale 3 around 1), and three (D, D)
+    weights and three (D,) biases of magnitude 0.02."""
+    x = torch.randn(b, s, d, generator=gen, device=gen.device)
+    x = (x * 3 + 1 if raw else torch.nn.functional.layer_norm(x, (d,))) \
+        .bfloat16()
+    return x, normal(gen, 3, (d, d), 0.02), normal(gen, 3, (d,), 0.02)
+
+
+def qkv_composition(x: torch.Tensor, ws: Sequence, bs: Sequence,
+                    h: int) -> torch.Tensor:
+    """K1's yardstick, never on a path: the same function as library calls
+    (three ``F.linear``, PyTorch's fused attention in its (B, H, S, dh)
+    layout, the heads put back as (B, S, P))."""
+    b, s, _ = x.shape
+    qkv = [torch.nn.functional.linear(x, w, bb).view(b, s, h, -1)
+           .transpose(1, 2) for w, bb in zip(ws, bs)]
+    out = torch.nn.functional.scaled_dot_product_attention(*qkv)
+    return out.transpose(1, 2).reshape(b, s, -1)
 
 
 def window_ms(fn: Callable, iters: int, windows: int,

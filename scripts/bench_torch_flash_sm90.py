@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the wgmma kernels K2, K3, K3′ and K4 of `pigeon_tpu_torch` on one
-GPU.
+"""Times the wgmma kernels K1, K2, K3, K3′, K4 and K5 of `pigeon_tpu_torch`
+on one GPU.
 
     python3 scripts/bench_torch_flash_sm90.py [--runs N]
 
@@ -21,7 +21,16 @@ CUDA-event medians over ``--runs`` calls after a warm-up:
 * K2 (`fused_qkv_attention.fused_qkv_attention_backward`) at x (32, 577,
   1024), H = 16, through the wrapper, its TFLOP/s on the TPU kernel's
   work, and the device time of each of its launches;
-* the host microseconds a call of each wrapper takes at a toy shape.
+* K1 (`fused_qkv_attention.fused_qkv_attention`) and K5
+  (`fused_ln_qkv_attention.fused_ln_qkv_attention`) at x (B, 577, 1024),
+  H = 16, for B in 32 (a train step's 8 panoramas) and 4 (one served
+  panorama): through the wrapper, by a bare call of the C entry point on
+  workspaces allocated once, their TFLOP/s on the TPU kernels' work, the
+  device time of each launch, and the library composition of the same
+  function (three ``F.linear`` and SDPA, after ``F.layer_norm`` for K5)
+  on the same values;
+* the host microseconds a call of K1's and K5's wrappers takes at those
+  shapes, and of K3's and K4's at a toy shape.
 
 Without a CUDA device it exits non-zero.
 """
@@ -69,6 +78,75 @@ def launches(name: str, fn, calls: int = 5) -> None:
         us = evt.self_device_time_total / calls
         if us > 0:
             print(f"{name} launch us={us:.1f} {evt.key[:110]}", flush=True)
+
+
+def host_us(name: str, fn, calls: int = 200) -> None:
+    """The host microseconds of a call of ``fn``, synchronised once after
+    ``calls`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    print(f"{name} host_us_per_call="
+          f"{(time.perf_counter() - t0) / calls * 1e6:.1f}", flush=True)
+
+
+def fused_forwards(b: int, runs: int) -> None:
+    """K1 and K5 at x (b, 577, 1024), and their library compositions."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.tuning import qkv_composition, qkv_operands
+
+    d = HEADS * HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    x, ws, bs = qkv_operands(gen, b, SEQ, d, raw=True)
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    lb = 0.5 * torch.randn(d, generator=gen, device="cuda")
+
+    def layer_norm():
+        return torch.nn.functional.layer_norm(x, (d,), ls.bfloat16(),
+                                              lb.bfloat16())
+
+    xn = layer_norm()
+    # The TPU kernels' work: three projections, QK^T and PV.
+    flop = 3 * 2 * b * SEQ * d * d + 2 * 2 * b * HEADS * SEQ * SEQ * HEAD_DIM
+    out = torch.empty_like(x)
+    ws1, ws5 = k1.forward_workspaces(x, HEADS), k5.forward_workspaces(x,
+                                                                       HEADS)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare1():
+        if k1.load().pigeon_fused_qkv_attention(
+                *(t.data_ptr() for t in (xn, *ws, *bs, out, *ws1)), b, SEQ,
+                d, HEADS, stream):
+            raise RuntimeError("K1's launch failed")
+
+    def bare5():
+        if k5.load().pigeon_fused_ln_qkv_attention(
+                *(t.data_ptr() for t in (x, ls, lb, *ws, *bs, out, *ws5)), b,
+                SEQ, d, HEADS, 1e-5, stream):
+            raise RuntimeError("K5's launch failed")
+
+    for name, fn, bare, library in (
+            ("K1", lambda: k1.fused_qkv_attention(xn, *ws, *bs, HEADS),
+             bare1, lambda: qkv_composition(xn, ws, bs, HEADS)),
+            ("K5", lambda: k5.fused_ln_qkv_attention(x, ls, lb, *ws, *bs,
+                                                      HEADS, 1e-5),
+             bare5, lambda: qkv_composition(layer_norm(), ws, bs, HEADS))):
+        ms = median_ms(fn, runs)
+        bare_ms = median_ms(bare, runs)
+        library_ms = median_ms(library, runs)
+        print(f"{name} views={b} ms={ms:.4f} bare_ms={bare_ms:.4f} "
+              f"tflops={flop / ms / 1e9:.1f} composition_ms={library_ms:.4f}",
+              flush=True)
+        launches(f"{name} views={b}", fn)
+        host_us(f"{name} views={b}", fn)
 
 
 def main() -> int:
@@ -139,18 +217,12 @@ def main() -> int:
     print(f"K2 views={b} ms={ms:.4f} tflops={flop / ms / 1e9:.1f}",
           flush=True)
     launches("K2", k2)
+    for b in (32, 4):
+        fused_forwards(b, args.runs)
     tiny = q[:1, :64].contiguous()
-    for name, fn in (("K3", lambda: k34.flash_attention(tiny, tiny, tiny)),
-                     ("K4", lambda: k34.flash_attention_backward(
-                         tiny, tiny, tiny, tiny))):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        torch.cuda.synchronize()
-        print(f"{name} host_us_per_call="
-              f"{(time.perf_counter() - t0) / 200 * 1e6:.1f}", flush=True)
+    host_us("K3", lambda: k34.flash_attention(tiny, tiny, tiny))
+    host_us("K4", lambda: k34.flash_attention_backward(tiny, tiny, tiny,
+                                                       tiny))
     return 0
 
 

@@ -35,21 +35,28 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: The port's kernels by a substring of their CUDA function names, the
-#: first match in this order. K2's three stages (projection GEMM, K4's
-#: attention passes on its q/k/v, dx GEMM) run on the fused routes, each
-#: kernel tagged K2*; K4's three passes (statistics, gradients, dq cast),
-#: each a group, on ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K3 and
-#: K3′ launch one kernel under the tags K3Forward and K3OnlineForward. K6
-#: launches K5's block, then its out-projection: on ``block`` the K5 group
-#: is K6's first part.
+#: first match in this order (the tags before the library's generic
+#: "gemm": K1's, K2's and K5's GEMMs are the port's). K1's two stages
+#: (projection GEMM, K3's streaming forward on its q/k/v) and K5's three
+#: (LN1, the same two) run on the fused routes, each kernel tagged K1* or
+#: K5*; K2's three stages (projection GEMM, K4's attention passes on its
+#: q/k/v, dx GEMM), each kernel tagged K2*; K4's three passes
+#: (statistics, gradients, dq cast), each a group, on ``flash`` and under
+#: ``PIGEON_FUSED_BWD=xla``. K3 and K3′ launch one kernel under the tags
+#: K3Forward and K3OnlineForward. K6 launches its LN-folded block, then
+#: its out-projection.
 KERNEL_GROUPS = (
+    ("K1 projection GEMM", "K1Projection"),
+    ("K1 attention", "K1Attention"),
+    ("K5 LN1", "K5LayerNorm"),
+    ("K5 projection GEMM", "K5Projection"),
+    ("K5 attention", "K5Attention"),
     ("K2 projection GEMM", "K2Projection"),
     ("K2 attention passes", "K2Attention"),
     ("K2 dx GEMM", "K2Dx"),
     ("K3′", "K3OnlineForward"),
     ("K3", "K3Forward"),
-    ("K5", "fused_ln_qkv_attention_kernel"),
-    ("K1", "fused_qkv_attention_kernel"),
+    ("K6 block", "fused_ln_qkv_attention_kernel"),
     ("K6 out-projection", "::out_proj_kernel"),
     ("K7", "ln_quantize_kernel"),
     ("K7", "::attention_int8_kernel"),

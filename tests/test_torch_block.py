@@ -364,23 +364,26 @@ def test_k7_operand_checks(case, error, match):
 
 
 def test_new_sources_name_the_headers_they_include():
-    """K6 and K7 build from shared headers (K5's block, K8's block, the
-    GEMM), the tuning kernels from the WMMA online body and attention
-    backward, K3 and K3′ from the wgmma forward, K4 from the wgmma
-    backward, K2 from that backward and the wgmma GEMM, all over the
-    Hopper building blocks; editing one renames the libraries that
-    include it (`native.library_path`)."""
+    """K6 and K7 build from shared headers (K6's LN-folded block, K8's
+    block, the GEMM), the tuning kernels from the WMMA online body and
+    attention backward, K3 and K3′ from the wgmma forward, K4 from the
+    wgmma backward, K2 from that backward and the wgmma GEMM, K5 from K1's
+    two stages (that GEMM and the wgmma forward), all over the Hopper
+    building blocks; K5, K6 and K9 share the LayerNorm's arithmetic.
+    Editing one renames the libraries that include it
+    (`native.library_path`)."""
     from pigeon_tpu_torch import native
 
     for kernel, headers in (
             ("fused_block_attention", ["gemm_tile.cuh",
                                        "ln_qkv_attention_tile.cuh",
-                                       "attention_tile.cuh"]),
-            ("fused_ln_qkv_attention", ["ln_qkv_attention_tile.cuh",
-                                        "attention_tile.cuh"]),
+                                       "attention_tile.cuh", "ln_row.cuh"]),
+            ("fused_ln_qkv_attention", ["ln_row.cuh", "qkv_forward_sm90.cuh",
+                                        "gemm_sm90.cuh", "hopper_sm90.cuh",
+                                        "flash_fwd_sm90.cuh"]),
             ("fused_block_attention_int8", ["attention_tile.cuh",
                                             "gemm_tile.cuh"]),
-            ("fused_mlp", ["gemm_tile.cuh"]),
+            ("fused_mlp", ["gemm_tile.cuh", "ln_row.cuh"]),
             ("flash_attention_online", ["flash_fwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
             ("attention_fwd_variants", ["online_attention_tile.cuh",
