@@ -12,8 +12,8 @@ Phases, one line each, any failure raises:
              native JPEG decoder (g++, where libjpeg's headers exist)
              from the checkout's sources, with nvcc's register and spill
              lines and the HGMMA count of the SASS of the wgmma kernels
-             K1, K2, K3, K3′, K4 and K5 (cuobjdump; a source without HGMMA
-             fails the phase);
+             K1, K2, K3, K3′, K4, K5, K6 and K9 (cuobjdump; a source
+             without HGMMA fails the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -55,15 +55,21 @@ Phases, one line each, any failure raises:
              yardstick after F.layer_norm;
              K9 at the training shape x (32, 577, 1024), I=4096, and at
              the serving shape (4 views), max abs error over max
-             magnitude <= 2e-2 at each, timed with its bound at both; for
-             K5 and K9 the plain
+             magnitude <= 2e-2 at each, timed with its bound at both, the
+             device ms of its three stages (LN2, fc1, fc2) and, as a
+             yardstick timed only, the composition in library calls
+             (`fused_mlp.ln_mlp_composition`); for K5 and K9 the plain
              version with the LN parameters dropped must miss by more
              than twice the limit, so the check can fail a kernel that
              drops them;
              K6 at the serving shape, raw x (4, 577, 1024), and at the
              training shape (32, 577, 1024), max abs error over max
              magnitude <= 2e-2 (K5's bound) at each, with the same
-             dropped-LN guard, and timed with its bound at both;
+             dropped-LN guard, timed with its bound at both, the device
+             ms of its four stages (LN1, projection GEMM, streaming
+             forward, out-projection GEMM) and, as a yardstick timed
+             only, F.layer_norm, K1's composition, F.linear and the
+             residual;
              K7 at the int8 serving shape, raw x (4, 577, 1024), max abs
              error <= 1.5 out-projection LSBs (ao * max(so) * 127) + 3e-2
              and under 0.5% of elements off by more than 3e-2, with the
@@ -230,7 +236,8 @@ KERNELS = {
 #: HGMMA instructions).
 WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd",
                  "fused_qkv_attention_bwd", "flash_attention_online",
-                 "fused_qkv_attention", "fused_ln_qkv_attention")
+                 "fused_qkv_attention", "fused_ln_qkv_attention",
+                 "fused_block_attention", "fused_mlp")
 #: K2's stages by the tag in their kernels' names (`csrc/
 #: fused_qkv_attention_bwd.cu`), for [kernel]'s device-time split.
 K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
@@ -248,6 +255,18 @@ K5_STAGES = (("layer_norm", "K5LayerNorm"), ("projection", "K5Projection"),
 #: 93.8 ms over 24 launches), printed beside the wgmma design's.
 K1_WMMA_MS = {4: "0.905-0.934", 32: "3.725-3.768"}
 K5_WMMA_MS = {4: "1.014-1.058", 32: "3.91"}
+#: K6's and K9's stages by the tags in their kernels' names (`csrc/
+#: fused_block_attention.cu`, `fused_mlp.cu`).
+K6_STAGES = (("layer_norm", "K6LayerNorm"), ("projection", "K6Projection"),
+             ("attention", "K6Attention"),
+             ("out_projection", "K6OutProjection"))
+K9_STAGES = (("layer_norm", "K9LayerNorm"), ("fc1", "K9Fc1"),
+             ("fc2", "K9Fc2"))
+#: K6's and K9's times by views in their WMMA design (K6 the resident
+#: block and a tiled out-projection, K9 two tiled GEMMs), H100 80GB HBM3
+#: at 700 W (PERF.md), printed beside the wgmma design's.
+K6_WMMA_MS = {4: "1.067-1.204", 32: "4.146-4.495"}
+K9_WMMA_MS = {4: "0.461-0.511", 32: "2.279-2.479"}
 #: The tuning drivers run by [variants], in order: the ports of
 #: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
 #: `bench_attn_qkv_fused.py`.
@@ -851,87 +870,85 @@ def check_ln_kernel_at(seed: int, b: int) -> dict:
 
 
 def check_mlp_kernel(seed: int) -> dict:
-    """K9 against its plain version at the training shape (32 views),
-    ViT-L/14's MLP (D=1024, I=4096), and its time and bound at the
-    serving shape (4 views)."""
+    """K9 against its plain version at the training shape (32 views) and
+    the serving shape (4 views), ViT-L/14's MLP (D=1024, I=4096); the
+    record is the training shape's."""
+    records = {b: check_mlp_kernel_at(seed, b) for b in (32, 4)}
+    return records[32]
+
+
+def check_mlp_kernel_at(seed: int, b: int) -> dict:
+    """K9 at ``b`` views of x (577, 1024), I=4096: error, the dropped-LN
+    guard, times, its stages' device time and the library composition's
+    time."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_mlp as k9
+    from pigeon_tpu_torch.tuning import mlp_operands
 
-    b, s, d, inter = 32, 577, 1024, 4096
+    s, d, inter = 577, 1024, 4096
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(b, s, d, generator=gen, device="cuda").bfloat16()
-    ls, lb = ln_params(d, gen)
-    w1 = (torch.randn(inter, d, generator=gen, device="cuda") * d ** -0.5) \
-        .bfloat16()
-    w2 = (torch.randn(d, inter, generator=gen, device="cuda")
-          * inter ** -0.5).bfloat16()
-    b1, b2 = ((0.1 * torch.randn(n, generator=gen, device="cuda")).bfloat16()
-              for n in (inter, d))
-    args = (x, ls, lb, w1, b1, w2, b2, 1e-5)
+    args = (*mlp_operands(gen, b, s, d, inter), 1e-5)
     got = k9.fused_ln_mlp(*args)
     want = k9.fused_ln_mlp_reference(*args)
     torch.cuda.synchronize()
     rel = rel_errors([got], [want], ("out",))["out"]
     if not rel <= K9_TOL:
-        raise RuntimeError(f"K9 disagrees with its plain version: max abs "
-                           f"error over max magnitude {rel} (limit "
-                           f"{K9_TOL})")
+        raise RuntimeError(f"K9 disagrees with its plain version at {b} "
+                           f"views: max abs error over max magnitude {rel} "
+                           f"(limit {K9_TOL})")
     check_ln_fault_shows("K9", k9.fused_ln_mlp_reference, args, want,
                          K9_TOL)
     err = max_abs([got], [want])
     del want
-    # What one call adds to device memory: its output, the (M, I) bf16
-    # hidden workspace and the row statistics.
+    # What one call adds to device memory: its output and the xn (M, D)
+    # and h (M, I) bf16 workspaces.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     k9.fused_ln_mlp(*args)
     call_peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     ms = median_ms(lambda: k9.fused_ln_mlp(*args))
+    stages = device_ms_by_mark(lambda: k9.fused_ln_mlp(*args), K9_STAGES)
     plain_ms = median_ms(lambda: k9.fused_ln_mlp_reference(*args), runs=10)
-    serve_args = (x[:4].contiguous(), *args[1:])
-    serve_rel = rel_errors([k9.fused_ln_mlp(*serve_args)],
-                           [k9.fused_ln_mlp_reference(*serve_args)],
-                           ("out",))["out"]
-    if not serve_rel <= K9_TOL:
-        raise RuntimeError(f"K9 disagrees with its plain version at 4 "
-                           f"views: max abs error over max magnitude "
-                           f"{serve_rel} (limit {K9_TOL})")
-    serve_ms = median_ms(lambda: k9.fused_ln_mlp(*serve_args))
-
-    def work(m):
-        """Two products of 2*M*D*I; in f32 ~7 operations an element of x
-        for the LayerNorm, ~6 an element of h for the bias and quick-GELU,
-        and 2 an output element for b2 and the residual."""
-        return {"bf16": 2 * 2 * m * d * inter,
-                "f32": 9 * m * d + 6 * m * inter}
-
+    composition_ms = median_ms(lambda: k9.ln_mlp_composition(*args))
     m = b * s
-    flop = work(m)["bf16"]
+    # Two products of 2*M*D*I; in f32 ~7 operations an element of x for
+    # the LayerNorm, ~6 an element of h for the bias and quick-GELU, and 2
+    # an output element for b2 and the residual.
+    flop = 2 * 2 * m * d * inter
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(work(m), nbytes(x, ls, lb, w1, b1, w2, b2, got)),
+           **bound({"bf16": flop, "f32": 9 * m * d + 6 * m * inter},
+                   nbytes(*args[:7], got)),
            "library_ms": None}
-    serve_bound = bound(work(4 * s), nbytes(serve_args[0], ls, lb, w1, b1,
-                                            w2, b2, serve_args[0]))
     phase("kernel", name="fused_mlp", shape=f"({b},{s},{d})", inter=inter,
           out_err=round(rel, 6), tol=K9_TOL, max_abs_err=err, ms=ms,
+          wmma_design_ms=K9_WMMA_MS[b],
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
           plain_ms=plain_ms, bound_ms=rec["bound_ms"],
-          tflops=round(flop / 1e9 / ms, 1),
+          composition_ms=composition_ms, tflops=round(flop / 1e9 / ms, 1),
           plain_tflops=round(flop / 1e9 / plain_ms, 1),
-          hidden_workspace_mib=round(m * inter * 2 / 2**20, 1),
-          call_peak_mib=round(call_peak_mib, 1), serve_shape=f"(4,{s},{d})",
-          serve_err=round(serve_rel, 6), serve_ms=serve_ms,
-          serve_bound_ms=serve_bound["bound_ms"])
+          workspace_mib=round(m * (d + inter) * 2 / 2**20, 1),
+          call_peak_mib=round(call_peak_mib, 1))
     return rec
 
 
 def check_block_kernel(seed: int) -> dict:
-    """K6 against its plain version at the serving shape, on a raw layer
-    input, and its time at the training shape (32 views)."""
+    """K6 against its plain version on a raw layer input at the serving
+    shape (4 views) and the training shape (32 views); the record is the
+    serving shape's."""
+    records = {b: check_block_kernel_at(seed, b) for b in (4, 32)}
+    return records[4]
+
+
+def check_block_kernel_at(seed: int, b: int) -> dict:
+    """K6 at ``b`` views of raw x (577, 1024), H=16: error, the dropped-LN
+    guard, times, its stages' device time and the library composition's
+    time."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_block_attention as k6
+    from pigeon_tpu_torch.tuning import block_composition
 
     s, d, h = 577, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -942,57 +959,43 @@ def check_block_kernel(seed: int) -> dict:
           for std in (0.05, 0.05, 0.05, 0.1)]
     bs = [(torch.randn(d, generator=gen, device="cuda") * 0.02).bfloat16()
           for _ in range(4)]
-
-    def operands(b):
-        x = (torch.randn(b, s, d, generator=gen, device="cuda") * 3 + 1) \
-            .bfloat16()
-        return (x, ls, lb, *ws[:3], *bs[:3], ws[3], bs[3], h, 1e-5)
-
-    args = operands(4)
+    x = (torch.randn(b, s, d, generator=gen, device="cuda") * 3 + 1) \
+        .bfloat16()
+    args = (x, ls, lb, *ws[:3], *bs[:3], ws[3], bs[3], h, 1e-5)
     got = k6.fused_block_attention(*args)
     want = k6.fused_block_attention_reference(*args)
     torch.cuda.synchronize()
     rel = rel_errors([got], [want], ("out",))["out"]
     if not rel <= K6_TOL:
-        raise RuntimeError(f"K6 disagrees with its plain version: max abs "
-                           f"error over max magnitude {rel} (limit "
-                           f"{K6_TOL})")
+        raise RuntimeError(f"K6 disagrees with its plain version at {b} "
+                           f"views: max abs error over max magnitude {rel} "
+                           f"(limit {K6_TOL})")
     check_ln_fault_shows("K6", k6.fused_block_attention_reference, args,
                          want, K6_TOL)
     err = max_abs([got], [want])
+    del want
     ms = median_ms(lambda: k6.fused_block_attention(*args))
-    plain_ms = median_ms(lambda: k6.fused_block_attention_reference(*args))
-    train = operands(32)
-    train_rel = rel_errors([k6.fused_block_attention(*train)],
-                           [k6.fused_block_attention_reference(*train)],
-                           ("out",))["out"]
-    if not train_rel <= K6_TOL:
-        raise RuntimeError(f"K6 disagrees with its plain version at 32 "
-                           f"views: max abs error over max magnitude "
-                           f"{train_rel} (limit {K6_TOL})")
-    train_ms = median_ms(lambda: k6.fused_block_attention(*train), runs=10)
-    train_plain_ms = median_ms(
-        lambda: k6.fused_block_attention_reference(*train), runs=5)
+    stages = device_ms_by_mark(lambda: k6.fused_block_attention(*args),
+                               K6_STAGES)
+    plain_ms = median_ms(lambda: k6.fused_block_attention_reference(*args),
+                         runs=10)
+    ln = (ls.bfloat16(), lb.bfloat16())
+    composition_ms = median_ms(lambda: block_composition(
+        x, ln, ws[:3], bs[:3], ws[3], bs[3], h))
     # K1's products and the out-projection's 2*B*S*D*D; ~7 f32 operations
     # an element of x for the LayerNorm and 2 an output for bo and x.
-    flop = 4 * 2 * 4 * s * d * d + 2 * 2 * 4 * h * s * s * 64
+    flop = 4 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound({"bf16": flop, "f32": 9 * args[0].numel()},
-                   nbytes(args[0], ls, lb, *ws, *bs, got)),
+           **bound({"bf16": flop, "f32": 9 * x.numel()},
+                   nbytes(x, ls, lb, *ws, *bs, got)),
            "library_ms": None}
-    train_bound = bound({"bf16": 8 * flop, "f32": 9 * train[0].numel()},
-                        nbytes(train[0], ls, lb, *ws, *bs, train[0]))
-    del train
-    phase("kernel", name="fused_block_attention", shape=f"(4,{s},{d})",
+    phase("kernel", name="fused_block_attention", shape=f"({b},{s},{d})",
           heads=h, out_err=round(rel, 6), tol=K6_TOL, max_abs_err=err,
-          ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
-          tflops=round(flop / 1e9 / ms, 1),
-          plain_tflops=round(flop / 1e9 / plain_ms, 1),
-          train_shape=f"(32,{s},{d})", train_err=round(train_rel, 6),
-          train_ms=train_ms,
-          train_plain_ms=train_plain_ms,
-          train_bound_ms=train_bound["bound_ms"],
-          train_tflops=round(8 * flop / 1e9 / train_ms, 1))
+          ms=ms, wmma_design_ms=K6_WMMA_MS[b],
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms, tflops=round(flop / 1e9 / ms, 1),
+          plain_tflops=round(flop / 1e9 / plain_ms, 1))
     return rec
 
 
@@ -1853,22 +1856,25 @@ def check_training(seed: int) -> dict:
 
 
 #: [train_routes]: (label, the port's route, the environment it runs
-#: under) and the kernels each launches per layer in a forward and in a
-#: backward.
+#: under), the kernels each launches per layer in a forward and in a
+#: backward, and those a backward launches per layer whose out-projection
+#: trains.
 TRAIN_ROUTES = (
-    ("flash", "flash", {}, ("flash_attention",), ("flash_attention_bwd",)),
+    ("flash", "flash", {}, ("flash_attention",), ("flash_attention_bwd",),
+     ()),
     ("flash_fused_ln", "fused_ln", {},
-     ("fused_ln_qkv_attention",), ("fused_qkv_attention_bwd",)),
+     ("fused_ln_qkv_attention",), ("fused_qkv_attention_bwd",), ()),
     ("flash_fused_mlp", "fused_mlp", {},
-     ("fused_ln_qkv_attention", "fused_mlp"), ("fused_qkv_attention_bwd",)),
+     ("fused_ln_qkv_attention", "fused_mlp"), ("fused_qkv_attention_bwd",),
+     ()),
     ("flash_fused_xla_bwd", "fused", {"PIGEON_FUSED_BWD": "xla"},
-     ("fused_qkv_attention",), ("flash_attention_bwd",)),
-    # K6's backward launches K1 again for the out-projection's input.
+     ("fused_qkv_attention",), ("flash_attention_bwd",), ()),
+    # K6's backward launches K1 again for dWo's input, where Wo trains.
     ("flash_fused_block", "block", {},
-     ("fused_block_attention", "fused_mlp"),
-     ("fused_qkv_attention", "fused_qkv_attention_bwd")),
+     ("fused_block_attention", "fused_mlp"), ("fused_qkv_attention_bwd",),
+     ("fused_qkv_attention",)),
     ("flash_online", "flash", {"PIGEON_FLASH_FWD": "online"},
-     ("flash_attention_online",), ("flash_attention_bwd",)),
+     ("flash_attention_online",), ("flash_attention_bwd",), ()),
 )
 
 
@@ -1888,8 +1894,8 @@ def check_train_routes(seed: int) -> dict:
     * ``flash_fused_ln``: K5 3 L, K2 2 L;
     * ``flash_fused_mlp``: K5 3 L, K9 3 L, K2 2 L;
     * ``flash_fused`` with ``PIGEON_FUSED_BWD=xla``: K1 3 L, K4 2 L, K2 0;
-    * ``flash_fused_block``: K6 3 L, K9 3 L, K1 2 L (K6's backward), K2
-      2 L;
+    * ``flash_fused_block``: K6 3 L, K9 3 L, K2 2 L, and K1 2 (K6's
+      backward, in the one layer whose out-projection trains);
     * ``flash`` with ``PIGEON_FLASH_FWD=online``: K3′ 3 L, K4 2 L, K3 0;
 
     every other kernel of `route_counters` none but K10, 3 times (2 steps
@@ -1934,6 +1940,8 @@ def check_train_routes(seed: int) -> dict:
                 raise RuntimeError(f"finetune built routes {routes_of(model)}"
                                    " under PIGEON_ATTN_IMPL=flash")
             layers = len(model.vision.encoder.layers)
+            trained = sum(layer.attn.out_proj.weight.requires_grad
+                          for layer in model.vision.encoder.layers)
 
             def first(dataset, shuffle):
                 batches = iter_batches(dataset, TRAIN_BATCH, shuffle=shuffle,
@@ -1961,7 +1969,7 @@ def check_train_routes(seed: int) -> dict:
                 return out
 
             plain = grads("plain", {})
-            for label, route, env, fwd, bwd in TRAIN_ROUTES:
+            for label, route, env, fwd, bwd, bwd_trained in TRAIN_ROUTES:
                 # --- gradients of the first batch against the plain route
                 model.load_state_dict(start)
                 got = grads(route, env)
@@ -2016,6 +2024,7 @@ def check_train_routes(seed: int) -> dict:
                 want["smooth_labels"] = ROUTE_STEPS + 1
                 want.update(dict.fromkeys(fwd, layers * (ROUTE_STEPS + 1)))
                 want.update(dict.fromkeys(bwd, layers * ROUTE_STEPS))
+                want.update(dict.fromkeys(bwd_trained, trained * ROUTE_STEPS))
                 if launches != want:
                     raise RuntimeError(f"{label}: {ROUTE_STEPS} steps and an "
                                        f"eval batch launched {launches}, "
@@ -2030,7 +2039,8 @@ def check_train_routes(seed: int) -> dict:
                 phase("train_routes", route=label, layers=layers,
                       batch_panoramas=TRAIN_BATCH, steps=ROUTE_STEPS,
                       eval_batches=1,
-                      **{f"{n}_launches": launches[n] for n in (*fwd, *bwd)},
+                      **{f"{n}_launches": launches[n]
+                         for n in (*fwd, *bwd, *bwd_trained)},
                       losses=[round(v, 4) for v in losses],
                       eval_loss=round(eval_loss, 4),
                       grad_cosine_min=round(cosines[worst], 6),

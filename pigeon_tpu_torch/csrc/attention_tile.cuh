@@ -1,5 +1,5 @@
-// The WMMA attention body shared by kernels K6 (fused_block_attention.cu),
-// K7 (fused_block_attention_int8.cu), K8 (fused_qkv_attention_int8.cu)
+// The WMMA attention body shared by kernels K7
+// (fused_block_attention_int8.cu), K8 (fused_qkv_attention_int8.cu)
 // and the tuning kernels V1-V3 and V10: one 64-row query tile of one head
 // against that head's K and V, resident in shared memory, with the
 // arithmetic of
@@ -19,9 +19,8 @@
 // Shared-memory layout, all row strides in elements: q/k/v/p tiles bf16
 // with stride LDB, the score tile f32 with stride LDF.
 //
-// Below it, `fused_qkv_attention_block`: the whole (head, batch) block of
-// K6, q/k/v projected from x in-kernel, and
-// `fused_qkv_attention_int8_block`, its int8 twin for K8 and K7.
+// Below it, `fused_qkv_attention_int8_block`: the whole (head, batch)
+// block of K8 and K7, q/k/v projected from int8 x in-kernel.
 
 #pragma once
 
@@ -215,164 +214,6 @@ __device__ __forceinline__ void attend_tile(const bf16* qs, const bf16* ks,
 }
 
 // ---------------------------------------------------------------------
-// The q/k/v projection + attention of one (head, batch) block, which K6
-// (fused_block_attention.cu) launches through ln_qkv_attention_tile.cuh.
-// ---------------------------------------------------------------------
-
-constexpr int QKV_KC = 64;  // D columns staged per step
-// Work area after the resident K/V. Phase 1 uses it for three staged
-// bf16 tiles, then two f32 tiles; phase 2 for Q (bf16) + S (f32) + P
-// (bf16), with the Q-projection staging overlaid on S and P.
-constexpr int QKV_WORK_BYTES = ATTN_WORK_BYTES;
-static_assert(3 * TILE_B <= QKV_WORK_BYTES, "phase-1 staging overflows");
-static_assert(2 * TILE_F <= QKV_WORK_BYTES, "phase-1 epilogue overflows");
-
-// Block (h = blockIdx.x, b = blockIdx.y): this head's K and V for all S
-// rows projected into the resident area at the start of `smem` (phase
-// 1), then each 64-row query tile projected and attended (phase 2),
-// writing out[b, :, h*64:(h+1)*64]. stage_x(dst, r0, d0, rows) stages
-// the x block [r0, r0 + 64) x [d0, d0 + 64) of batch b into a bf16 tile
-// (row stride LDB), zero past `rows`: K6 normalises it.
-template <class StageX>
-__device__ __forceinline__ void fused_qkv_attention_block(
-    unsigned char* smem, StageX stage_x, const bf16* __restrict__ wq,
-    const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-    const bf16* __restrict__ bq, const bf16* __restrict__ bk,
-    const bf16* __restrict__ bv, bf16* __restrict__ out, int S, int D,
-    int H, float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int P = H * DH;
-  const int n_tiles = (S + TILE - 1) / TILE;
-  const int s_pad = n_tiles * TILE;
-  const int warp = threadIdx.x / 32;
-
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + s_pad * LDB;
-  unsigned char* work = smem + 2 * s_pad * LDB * 2;
-
-  // Linear layout (P, D): head h owns the contiguous rows h*64 .. h*64+63.
-  const bf16* wq_h = wq + (size_t)h * DH * D;
-  const bf16* wk_h = wk + (size_t)h * DH * D;
-  const bf16* wv_h = wv + (size_t)h * DH * D;
-  const bf16* bq_h = bq + h * DH;
-  const bf16* bk_h = bk + h * DH;
-  const bf16* bv_h = bv + h * DH;
-
-  // ---- Phase 1: K and V of this head for all S rows, kept resident. ----
-  {
-    bf16* xs = reinterpret_cast<bf16*>(work);
-    bf16* wks = xs + TILE * LDB;
-    bf16* wvs = wks + TILE * LDB;
-    float* fk = reinterpret_cast<float*>(work);
-    float* fv = fk + TILE * LDF;
-    const int mat = warp / 4;  // warps 0-3 project K, 4-7 project V
-    const int rf = warp % 4;   // this warp's 16-row strip
-    const bf16* ws = mat ? wvs : wks;
-    float* f = mat ? fv : fk;
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int r0 = t * TILE;
-      const int rows = min(TILE, S - r0);
-      FragC acc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-      for (int d0 = 0; d0 < D; d0 += QKV_KC) {
-        stage_x(xs, r0, d0, rows);
-        stage_tile(wks, wk_h + d0, D, TILE);
-        stage_tile(wvs, wv_h + d0, D, TILE);
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < QKV_KC; kk += 16) {
-          FragA a;
-          wmma::load_matrix_sync(a, xs + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            FragBCol bm;
-            wmma::load_matrix_sync(bm, ws + j * 16 * LDB + kk, LDB);
-            wmma::mma_sync(acc[j], a, bm, acc[j]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(f + rf * 16 * LDF + j * 16, acc[j], LDF,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-      // Bias in f32, then round to bf16 (flash_attention.py:319-323).
-      for (int i = threadIdx.x; i < 2 * TILE * DH; i += THREADS) {
-        const int m = i / (TILE * DH);
-        const int r = (i % (TILE * DH)) / DH;
-        const int c = i % DH;
-        const float y = (m ? fv : fk)[r * LDF + c] +
-                        __bfloat162float((m ? bv_h : bk_h)[c]);
-        (m ? vs : ks)[(r0 + r) * LDB + c] = __float2bfloat16(y);
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- Phase 2: query tiles against the resident K/V. ----
-  {
-    bf16* qs = reinterpret_cast<bf16*>(work);
-    float* sf = reinterpret_cast<float*>(work + TILE_B);
-    bf16* ps = reinterpret_cast<bf16*>(work + TILE_B + TILE_F);
-    // Q-projection staging reuses the S/P area (free until scoring).
-    bf16* xs = reinterpret_cast<bf16*>(work + TILE_B);
-    bf16* wqs = xs + TILE * LDB;
-    const int rf = warp / 2;        // 16-row strip
-    const int cf = (warp % 2) * 2;  // first of two 16-column fragments
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int q0 = t * TILE;
-      const int rows = min(TILE, S - q0);
-
-      // Q tile = bf16(x[q0:q0+64] @ Wq_h^T + bq_h).
-      {
-        FragC acc[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
-        for (int d0 = 0; d0 < D; d0 += QKV_KC) {
-          stage_x(xs, q0, d0, rows);
-          stage_tile(wqs, wq_h + d0, D, TILE);
-          __syncthreads();
-#pragma unroll
-          for (int kk = 0; kk < QKV_KC; kk += 16) {
-            FragA a;
-            wmma::load_matrix_sync(a, xs + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              FragBCol bm;
-              wmma::load_matrix_sync(bm, wqs + (cf + j) * 16 * LDB + kk, LDB);
-              wmma::mma_sync(acc[j], a, bm, acc[j]);
-            }
-          }
-          __syncthreads();
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::store_matrix_sync(sf + rf * 16 * LDF + (cf + j) * 16, acc[j],
-                                  LDF, wmma::mem_row_major);
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < TILE * DH; i += THREADS) {
-          const int r = i / DH;
-          const int c = i % DH;
-          qs[r * LDB + c] = __float2bfloat16(sf[r * LDF + c] +
-                                             __bfloat162float(bq_h[c]));
-        }
-        __syncthreads();
-      }
-
-      attend_tile(qs, ks, vs, sf, ps, S, scale,
-                  out + ((size_t)b * S + q0) * P + h * DH, P, rows);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
 // The int8 q/k/v projection + attention of one (head, batch) block,
 // shared by K8 (fused_qkv_attention_int8.cu) and K7
 // (fused_block_attention_int8.cu); K8's source note says how it works.
@@ -417,10 +258,12 @@ __device__ __forceinline__ bf16 dequant(int acc, float fs, float b) {
   return __float2bfloat16(__fadd_rn(__fmul_rn(__int2float_rn(acc), fs), b));
 }
 
-// Block (h = blockIdx.x, b = blockIdx.y) of the int8 twin of
-// `fused_qkv_attention_block`: xb is batch b's int8 x (S, D); W* int8 (P,
-// D); fs* the f32 dequant scales with the activation scale folded in; b*
-// f32. Writes out[b, :, h*64:(h+1)*64] (bf16, row stride P).
+// Block (h = blockIdx.x, b = blockIdx.y): this head's K and V for all S
+// rows projected into the resident area at the start of `smem` (phase 1),
+// then each 64-row query tile projected and attended (phase 2). xb is
+// batch b's int8 x (S, D); W* int8 (P, D); fs* the f32 dequant scales
+// with the activation scale folded in; b* f32. Writes out[b, :,
+// h*64:(h+1)*64] (bf16, row stride P).
 __device__ __forceinline__ void fused_qkv_attention_int8_block(
     unsigned char* smem, const int8_t* __restrict__ xb,
     const int8_t* __restrict__ wq, const int8_t* __restrict__ wk,

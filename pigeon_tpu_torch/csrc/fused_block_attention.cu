@@ -19,111 +19,96 @@
 // this kernel runs one f32 accumulator over all of D: only the summation
 // order differs.
 //
-// What bounds it on the H100: at the serving shape (B=4 views, S=577,
-// D=1024, H=16) K1's ~20 GFLOP plus the out-projection's 4.8 GFLOP of
-// bf16 tensor-core work over ~19 MB of x, weights and out: far above the
-// card's ridge, so the tensor cores bound it (~0.025 ms). The design is
-// two launches behind one entry point:
+// What bounds it on the H100: at the training shape (B=32 views, S=577,
+// D=1024, H=16) K1's ~160 GFLOP plus the out-projection's 38.7 GFLOP of
+// bf16 tensor-core work over ~82 MB of x, weights and out: far above the
+// card's ridge, so the tensor cores bound it (0.201 ms; 0.025 at the
+// serving shape, 4 views). The design is K5's stages and one more GEMM,
+// four launches on the caller's stream:
 //
-//   1. the LN-folded block (ln_qkv_attention_tile.cuh: `ln_row_stats`, then
-//      `fused_qkv_attention_block` staging x through `stage_ln_tile`), one
-//      block per (head, batch), writing the bf16 attention output to an
-//      (M = B*S, D) workspace (4.7 MB at the serving shape);
-//   2. the tiled GEMM of gemm_tile.cuh (K9's fc2: 128 x 128 tiles, A and
-//      Wo tiles double-buffered by cp.async) with an f32 epilogue adding bo
-//      and the residual x, rounded once to bf16.
+//   1. LN1: ln_row.cuh's `layer_norm_kernel` writes xn (B, S, D) bf16 to a
+//      workspace, one warp a row;
+//   2. projection: q|k|v = bf16(xn [Wq; Wk; Wv]^T + b), the wgmma GEMM of
+//      gemm_sm90.cuh, into three (B, S, D) workspaces, and
+//   3. attention: K3's streaming forward (flash_fwd_sm90.cuh) on them into
+//      the ao (B, S, D) workspace: K1's two stages (qkv_forward_sm90.cuh);
+//   4. out-projection: out = bf16(x + (ao Wo^T + bo)) by the same GEMM,
+//      the bias and the residual x in its f32 epilogue.
 //
 // The TPU kernel keeps x resident per batch element and streams the
-// weights; here the attention output makes one round trip through device
-// memory (L2 at these sizes) so that the out-projection, a reduction over
-// all heads, runs as its own grid. Keeping it on chip (a cluster of a
-// batch's head blocks, distributed shared memory) is later work.
+// weights; here xn, q/k/v and ao make one round trip each through device
+// memory (~190 MB at 32 views) so that each stage runs as its own grid
+// over all rows and the out-projection, a reduction over all heads, needs
+// no cross-block sum. The attention rounds p against K3's running max
+// over 128-key chunks, not the exact row max: K5's deviation. Each
+// stage's kernel carries a tag of this kernel's (K6LayerNorm,
+// K6Projection, K6Attention, K6OutProjection), so a profile tells them
+// from K1's and K5's.
 //
 // Constraints (checked by the Python wrapper before launch): head_dim 64,
-// H * 64 = D, D a multiple of 128, S <= pigeon_fused_block_attention_max_seq();
-// x, weights and biases bf16, ln_scale and ln_bias f32, all contiguous and
-// 16-byte aligned.
+// H * 64 = D, D a multiple of 128, any S >= 1; x, weights and biases
+// bf16, ln_scale and ln_bias f32, all contiguous and 16-byte aligned; the
+// workspaces xn, q/k/v and ao (B, S, D) bf16.
 
-#include "gemm_tile.cuh"
-#include "ln_qkv_attention_tile.cuh"
+#include "ln_row.cuh"
+#include "qkv_forward_sm90.cuh"
 
 namespace {
 
-// out[m, n] = bf16(x[m, n] + (sum_k ao[m, k] wo[n, k] + bo[n])), f32.
-__global__ void __launch_bounds__(gemm::THREADS)
-out_proj_kernel(const bf16* __restrict__ ao, const bf16* __restrict__ wo,
-                const bf16* __restrict__ bo, const bf16* __restrict__ x,
-                bf16* __restrict__ out, int M, int D) {
-  __shared__ __align__(128) unsigned char smem[gemm::SMEM_BYTES];
-  const int m0 = blockIdx.x * gemm::BM;
-  const int n0 = blockIdx.y * gemm::BN;
-  gemm::FragC acc[2][4];
-  gemm::mma_bf16(
-      smem,
-      [&](bf16* as, int k0) { gemm::copy_a_bf16(as, ao, M, D, m0, k0); },
-      wo, D, n0, acc);
-  gemm::epilogue<float>(smem, acc, [&](int r, int c, const float* p) {
-    const int m = m0 + r;
-    const int n = n0 + c;
-    if (m >= M) return;
-    const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)m * D + n);
-    const bf16* xe = reinterpret_cast<const bf16*>(&raw);
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      v[e] = __bfloat162float(xe[e]) +
-             (p[e] + __bfloat162float(bo[n + e]));
-    }
-    gemm::store8_bf16(out + (size_t)m * D + n, v);
-  });
-}
+// This kernel's instances of the LayerNorm, the GEMMs and the attention.
+struct K6LayerNorm {};
+struct K6Projection {};
+struct K6Attention {};
+struct K6OutProjection {};
 
 }  // namespace
 
 extern "C" {
-
-// Longest sequence whose resident K/V and row statistics fit one block's
-// shared memory (the LN-folded block's).
-int pigeon_fused_block_attention_max_seq() {
-  return ln_qkv_attention_max_seq();
-}
 
 const char* pigeon_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // x (B, S, D) bf16 raw; ln_scale/ln_bias (D,) f32; wq/wk/wv/wo (D, D) in
-// torch Linear layout and bq/bk/bv/bo (D,), bf16; workspace ao (B, S, D)
-// bf16; out (B, S, D) bf16. All contiguous. Launches both passes on
-// `stream` and returns the first failing launch's cudaError_t (0 on
-// success).
+// torch Linear layout and bq/bk/bv/bo (D,), bf16; out (B, S, D) bf16; the
+// workspaces xn, q_ws/k_ws/v_ws and ao (B, S, D) bf16. D = heads * 64.
+// Launches the four stages on `stream` and returns the first failing
+// call's cudaError_t (0 on success).
 int pigeon_fused_block_attention(const void* x, const void* ln_scale,
                                  const void* ln_bias, const void* wq,
                                  const void* wk, const void* wv,
                                  const void* bq, const void* bk,
                                  const void* bv, const void* wo,
-                                 const void* bo, void* ao, void* out,
-                                 int batch, int seq, int dim, int heads,
-                                 float eps, void* stream) {
-  if (heads * DH != dim || dim % gemm::BN != 0) {
+                                 const void* bo, void* out, void* xn_ws,
+                                 void* q_ws, void* k_ws, void* v_ws,
+                                 void* ao_ws, int batch, int seq, int dim,
+                                 int heads, float eps, void* stream) {
+  if (heads * HD != dim || !qkv_forward_shape_ok(batch, seq, dim, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_ln_qkv_attention(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
-      static_cast<const bf16*>(bq), static_cast<const bf16*>(bk),
-      static_cast<const bf16*>(bv), static_cast<bf16*>(ao), batch, seq, dim,
-      heads, eps, st);
+  const int M = batch * seq;
+
+  // 1. xn = bf16(LN1(x)).
+  cudaError_t err = launch_layer_norm<K6LayerNorm>(x, ln_scale, ln_bias,
+                                                   xn_ws, M, dim, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = batch * seq;
-  out_proj_kernel<<<dim3((rows + gemm::BM - 1) / gemm::BM, dim / gemm::BN),
-                    gemm::THREADS, 0, st>>>(
-      static_cast<const bf16*>(ao), static_cast<const bf16*>(wo),
-      static_cast<const bf16*>(bo), static_cast<const bf16*>(x),
-      static_cast<bf16*>(out), rows, dim);
-  return static_cast<int>(cudaGetLastError());
+
+  // 2 and 3. ao = K1(xn): the projection GEMM, then K3's streaming forward.
+  err = launch_qkv_attention_forward<K6Projection, K6Attention>(
+      xn_ws, wq, wk, wv, bq, bk, bv, ao_ws, q_ws, k_ws, v_ws, batch, seq, dim,
+      heads, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 4. out = bf16(x + (ao Wo^T + bo)).
+  const bf16* const ao[1] = {static_cast<const bf16*>(ao_ws)};
+  const bf16* const w[1] = {static_cast<const bf16*>(wo)};
+  const bf16* const bias[1] = {static_cast<const bf16*>(bo)};
+  bf16* const outs[1] = {static_cast<bf16*>(out)};
+  const bf16* const residual[1] = {static_cast<const bf16*>(x)};
+  return static_cast<int>(
+      gemm_sm90<K6OutProjection, true, EpilogueResidualAccBias>(
+          ao, w, bias, outs, M, dim, dim, dim, dim, st, residual));
 }
 
 }  // extern "C"

@@ -24,12 +24,11 @@
 // device memory) behind a LayerNorm pass, three launches on the caller's
 // stream:
 //
-//   1. LN1: `layer_norm_kernel` reads raw x and writes xn (B, S, D) bf16
-//      to a workspace, one warp a row: f32 sums of x and x^2 over the row
-//      in 16-byte vectors, a butterfly of shuffles, then each element
-//      normalised, scaled and shifted in f32 and rounded once, by
-//      ln_row.cuh, the arithmetic K6's block folds into its staging
-//      (ln_qkv_attention_tile.cuh) and K9 into its fc1 (fused_mlp.cu);
+//   1. LN1: ln_row.cuh's `layer_norm_kernel` reads raw x and writes xn
+//      (B, S, D) bf16 to a workspace, one warp a row: f32 sums of x and
+//      x^2 over the row in 16-byte vectors, a butterfly of shuffles, then
+//      each element normalised, scaled and shifted in f32 and rounded
+//      once (K6 and K9 launch the same kernel under their own tags);
 //   2. projection: q|k|v = bf16(xn [Wq; Wk; Wv]^T + b), the wgmma GEMM of
 //      gemm_sm90.cuh, and
 //   3. attention: K3's streaming forward (flash_fwd_sm90.cuh) on q/k/v,
@@ -60,28 +59,6 @@ struct K5LayerNorm {};
 struct K5Projection {};
 struct K5Attention {};
 
-constexpr int LN_THREADS = 256;  // eight warps, one row each
-
-// xn[r] = bf16((x[r] - mean) * (rs * ls) + lb), rs = rsqrt(max(E[x^2] -
-// E[x]^2, 0) + eps), over the M rows of x (M, D), D a multiple of 8.
-template <class Tag>
-__global__ void __launch_bounds__(LN_THREADS)
-layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ ls,
-                  const float* __restrict__ lb, bf16* __restrict__ xn, int M,
-                  int D, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int r = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32;
-  if (r >= M) return;
-  const bf16* row = x + static_cast<size_t>(r) * D;
-  const LnStats stats = ln_warp_stats(row, D, eps);
-  bf16* dst = xn + static_cast<size_t>(r) * D;
-  for (int c = lane * 8; c < D; c += 32 * 8) {
-    *reinterpret_cast<uint4*>(dst + c) =
-        ln_normalise8(*reinterpret_cast<const uint4*>(row + c), stats.mean,
-                      stats.rs, ls + c, lb + c);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -110,12 +87,8 @@ int pigeon_fused_ln_qkv_attention(const void* x, const void* ln_scale,
   const int M = batch * seq;
 
   // 1. xn = bf16(LN1(x)).
-  constexpr int rows = LN_THREADS / 32;
-  layer_norm_kernel<K5LayerNorm><<<(M + rows - 1) / rows, LN_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<bf16*>(xn_ws), M, dim,
-      eps);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_layer_norm<K5LayerNorm>(
+      x, ln_scale, ln_bias, xn_ws, M, dim, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // 2 and 3. q|k|v = bf16(xn [Wq; Wk; Wv]^T + b), then K3's streaming

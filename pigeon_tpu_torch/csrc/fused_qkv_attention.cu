@@ -18,10 +18,10 @@
 // The TPU kernel keeps a head group's q/k/v in VMEM. On Hopper every
 // 128-row query tile needs the K and V of every key, so keeping them on
 // chip means either one block per (batch, head) holding all S rows (this
-// kernel's first design, attention_tile.cuh's fused_qkv_attention_block:
-// 64 blocks for 132 SMs at 4 views, WMMA products at ~6% of the bf16
-// peak) or projecting K and V again for each query tile (the projection
-// is 73% of the work; the reason K2 writes them out too). Splitting the
+// kernel's first design, a resident WMMA block: 64 blocks for 132 SMs at
+// 4 views, WMMA products at ~6% of the bf16 peak) or projecting K and V
+// again for each query tile (the projection is 73% of the work; the
+// reason K2 writes them out too). Splitting the
 // query tiles of the resident design across blocks repeats that
 // projection as well. So the call is two launches on the caller's stream
 // (qkv_forward_sm90.cuh, which K5 runs too):

@@ -1,21 +1,24 @@
 // A persistent bf16 GEMM on Hopper's wgmma with TMA-fed operands:
 //
-//     out[m, n] = bf16(sum_k A[m, k] B(k, n) + bias[n])    (f32 sums and bias)
+//     out[m, n] = bf16(epilogue(sum_k A[m, k] B(k, n), bias[n], res[m, n]))
 //
-// for a row-major bf16 A (M, K) and a bf16 B stored either K-major, (N, K)
-// as a torch Linear weight ("A B^T", B_KMAJOR), or MN-major, (K, N)
-// ("A B"). Each operand may be up to three row-major matrices laid end to
-// end: A, and an MN-major B, along K in segments of `seg_k`; a K-major B,
-// the biases and the output along N in segments of `seg_n`. Kernel K2
-// (fused_qkv_attention_bwd.cu) runs both forms: its projection
-// q|k|v = x [Wq; Wk; Wv]^T + b (N in three segments) and its dx =
-// [dq|dk|dv] [Wq; Wk; Wv] (K in three segments, one f32 sum over all
-// of them, rounded once).
+// (f32 sums, f32 epilogue, one rounding) for a row-major bf16 A (M, K) and
+// a bf16 B stored either K-major, (N, K) as a torch Linear weight ("A
+// B^T", B_KMAJOR), or MN-major, (K, N) ("A B"). Each operand may be up to
+// three row-major matrices laid end to end: A, and an MN-major B, along K
+// in segments of `seg_k`; a K-major B, the biases, the residuals and the
+// output along N in segments of `seg_n`. The epilogue is a policy type
+// (below): bias then one rounding for K1's, K2's and K5's projections and
+// K2's dx = [dq|dk|dv] [Wq; Wk; Wv] (K in three segments, one f32 sum);
+// bias and quick-GELU for K9's fc1; bias and a bf16 residual, in the
+// association order each TPU kernel has, for K9's fc2 and K6's
+// out-projection.
 //
 // What bounds it on the H100: at K2's training shape (M = 32 x 577, N or
 // K = 3 x 1024, the other 1024) each GEMM is 116 GFLOP over ~190 MB, about
-// 600 FLOP per byte: the tensor cores bound it (0.117 ms). The design
-// keeps them fed:
+// 600 FLOP per byte: the tensor cores bound it (0.117 ms). K9's fc1 and
+// fc2 (155 GFLOP each at M = 18464, I = 4096) sit further above the
+// card's ridge. The design keeps the tensor cores fed:
 //   - output tiles of 128 x BN (BN 256, or 128 where the widths are not
 //     multiples of 256), K in 64-wide steps (one 128-byte swizzled row);
 //   - a block of 384 threads: a producer warpgroup (40 registers by
@@ -27,8 +30,9 @@
 //     in flight while the next step's data is awaited;
 //   - a persistent grid, one block an SM, walking the tiles N-fastest: the
 //     blocks at work share A's rows, and all of B stays in L2.
-// The epilogue adds the bias in f32, rounds once to bf16 and writes the
-// rows below M (TMA reads rows past M as zeros).
+// The epilogue runs after the tile's last wgmma_wait, on the rows below M
+// (TMA reads rows past M as zeros): a branch or a wait inside a stage
+// would make ptxas serialise the products.
 
 #pragma once
 
@@ -66,6 +70,64 @@ struct GemmSm90Args {
   int seg_k, seg_n;
   const bf16* bias[GEMM_MAX_SEGS];  // per N segment, or null
   bf16* out[GEMM_MAX_SEGS];         // per N segment, (M, seg_n)
+  // Per N segment, (M, seg_n), read by a RESIDUAL epilogue; else null.
+  const bf16* residual[GEMM_MAX_SEGS];
+};
+
+// The epilogue policies. `store` takes a consumer thread's f32 sums at
+// (m, n) and (m, n + 1), the bias there in f32 (zeros where the GEMM has
+// none) and, for a RESIDUAL policy, the residual's pair at the same place
+// (`res`; unused otherwise), and stores the bf16 pair at `dst`, rounded
+// once from f32.
+
+// bf16(acc + bias): K1's, K2's and K5's projections, K2's dx.
+struct EpilogueBias {
+  static constexpr bool RESIDUAL = false;
+  __device__ static __forceinline__ void store(bf16* dst, const bf16*,
+                                               float a0, float a1, float2 b) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a0 + b.x, a1 + b.y);
+  }
+};
+
+// bf16(quick_gelu(acc + bias)), quick_gelu(y) = y sigmoid(1.702 y): K9's
+// fc1 (fused_mlp.py::_fused_ln_mlp_kernel). The exponential and the
+// reciprocal on the special-function unit: a few f32 ulps, far under the
+// one bf16 rounding that follows; exp overflowing to inf gives -0.
+struct EpilogueBiasQuickGelu {
+  static constexpr bool RESIDUAL = false;
+  __device__ static __forceinline__ float quick_gelu(float y) {
+    return __fdividef(y, 1.0f + __expf(-1.702f * y));
+  }
+  __device__ static __forceinline__ void store(bf16* dst, const bf16*,
+                                               float a0, float a1, float2 b) {
+    *reinterpret_cast<uint32_t*>(dst) =
+        pack_bf16(quick_gelu(a0 + b.x), quick_gelu(a1 + b.y));
+  }
+};
+
+// bf16((res + bias) + acc): K9's fc2, x + b2 + h W2^T in that order.
+struct EpilogueResidualBiasAcc {
+  static constexpr bool RESIDUAL = true;
+  __device__ static __forceinline__ void store(bf16* dst, const bf16* res,
+                                               float a0, float a1, float2 b) {
+    const float2 r =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res));
+    *reinterpret_cast<uint32_t*>(dst) =
+        pack_bf16((r.x + b.x) + a0, (r.y + b.y) + a1);
+  }
+};
+
+// bf16(res + (acc + bias)): K6's out-projection, x + (ao Wo^T + bo) in
+// that order (flash_attention.py::_fused_block_reference).
+struct EpilogueResidualAccBias {
+  static constexpr bool RESIDUAL = true;
+  __device__ static __forceinline__ void store(bf16* dst, const bf16* res,
+                                               float a0, float a1, float2 b) {
+    const float2 r =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res));
+    *reinterpret_cast<uint32_t*>(dst) =
+        pack_bf16(r.x + (a0 + b.x), r.y + (a1 + b.y));
+  }
 };
 
 // d (+)= A B on a 64 x BN tile.
@@ -80,9 +142,32 @@ __device__ __forceinline__ void wgmma_ss_bn(float (&d)[BN / 2],
   }
 }
 
+// Prefetch into L2 the residual of a consumer thread's rows m and m + 8
+// (those below M) at columns n0 .. n0 + BN - 1: the four threads of a row
+// take one BN / 4-column share each.
+template <int BN>
+__device__ __forceinline__ void residual_to_l2(const GemmSm90Args& args,
+                                               int m, int n0, int quad) {
+  const int t = n0 / args.seg_n;
+  const bf16* res =
+      t == 0 ? args.residual[0] : t == 1 ? args.residual[1] : args.residual[2];
+  const bf16* p = res + static_cast<size_t>(m) * args.seg_n +
+                  (n0 - t * args.seg_n) + quad * (BN / 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (m + 8 * r < args.M) {
+#pragma unroll
+      for (int c = 0; c < BN / 4; c += 64) {  // 128-byte lines
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+            p + static_cast<size_t>(8 * r) * args.seg_n + c));
+      }
+    }
+  }
+}
+
 // `Tag` names the instance, so that each user has a symbol of its own in
-// a profile.
-template <class Tag, int BN, bool B_KMAJOR>
+// a profile; `Epilogue` is one of the policies above.
+template <class Tag, int BN, bool B_KMAJOR, class Epilogue>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ GemmSm90Maps maps,
                  GemmSm90Args args) {
@@ -154,6 +239,12 @@ gemm_sm90_kernel(const __grid_constant__ GemmSm90Maps maps,
   int it = 0;
   for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
     const int m0 = w / n_tiles * GEMM_BM, n0 = w % n_tiles * BN;
+    if constexpr (Epilogue::RESIDUAL) {
+      // Bring the tile's residual rows into L2 while its products run: the
+      // epilogue's loads would otherwise wait on device memory, a round
+      // trip for each group of them the registers can hold.
+      residual_to_l2<BN>(args, m0 + cw * 64 + row, n0, quad);
+    }
     for (int ks = 0; ks < steps; ++ks, ++it) {
       const int st = it % GEMM_STAGES;
       const uint32_t a_addr = base + st * STAGE + cw * 64 * ROW_BYTES;
@@ -182,7 +273,7 @@ gemm_sm90_kernel(const __grid_constant__ GemmSm90Maps maps,
     fence_regs(acc);
     mbar_arrive(empty + (it - 1) % GEMM_STAGES);
 
-    // out = bf16(acc + bias) on the rows below M.
+    // out = bf16(epilogue(acc, bias, res)) on the rows below M.
     // The segment by selects: a run-time index into the parameter's
     // arrays would copy them to the stack.
     const int t = n0 / args.seg_n;
@@ -191,7 +282,15 @@ gemm_sm90_kernel(const __grid_constant__ GemmSm90Maps maps,
         t == 0 ? args.bias[0] : t == 1 ? args.bias[1] : args.bias[2];
     bf16* out = t == 0 ? args.out[0] : t == 1 ? args.out[1] : args.out[2];
     const int m = m0 + cw * 64 + row;
-    bf16* dst = out + static_cast<size_t>(m) * args.seg_n + n_local;
+    const size_t at = static_cast<size_t>(m) * args.seg_n + n_local;
+    bf16* dst = out + at;
+    const bf16* res = nullptr;
+    if constexpr (Epilogue::RESIDUAL) {
+      res = (t == 0   ? args.residual[0]
+             : t == 1 ? args.residual[1]
+                      : args.residual[2]) +
+            at;
+    }
     const bool in[2] = {m < args.M, m + 8 < args.M};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -204,53 +303,22 @@ gemm_sm90_kernel(const __grid_constant__ GemmSm90Maps maps,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (!in[r]) continue;
-        *reinterpret_cast<uint32_t*>(
-            dst + static_cast<size_t>(8 * r) * args.seg_n + c) =
-            pack_bf16(acc[4 * j + 2 * r] + b2.x, acc[4 * j + 2 * r + 1] + b2.y);
+        const size_t off = static_cast<size_t>(8 * r) * args.seg_n + c;
+        Epilogue::store(dst + off, Epilogue::RESIDUAL ? res + off : nullptr,
+                        acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1], b2);
       }
     }
   }
 }
 
-template <class Tag, int BN, bool B_KMAJOR>
-inline cudaError_t launch_gemm_sm90(const GemmSm90Maps& maps,
-                                    const GemmSm90Args& args,
-                                    cudaStream_t stream) {
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  static bool smem_set = false;  // once a process
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(gemm_sm90_kernel<Tag, BN, B_KMAJOR>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               gemm_smem_bytes<BN>());
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const long tiles =
-      static_cast<long>((args.M + GEMM_BM - 1) / GEMM_BM) * (args.N / BN);
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  gemm_sm90_kernel<Tag, BN, B_KMAJOR>
-      <<<grid, GEMM_THREADS, gemm_smem_bytes<BN>(), stream>>>(maps, args);
-  return cudaGetLastError();
-}
-
-// out = A B^T (B_KMAJOR: b[i] is (seg_n, K), N = segments x seg_n) or
-// A B (b[i] is (seg_k, N), K = segments x seg_k) on `stream`; a[i] is
-// (M, seg_k), out[i] (M, seg_n) and bias[i] (seg_n,) or null, all bf16,
-// row-major, contiguous, 16-byte aligned. seg_n a multiple of 128 and of
-// N's tile, seg_k of 64. Returns the first failing call's error.
-template <class Tag, bool B_KMAJOR>
-inline cudaError_t gemm_sm90(const bf16* const* a, const bf16* const* b,
-                             const bf16* const* bias, bf16* const* out,
-                             int M, int N, int K, int seg_k, int seg_n,
-                             cudaStream_t stream) {
-  if (M < 1 || seg_k < GEMM_BK || seg_k % GEMM_BK || seg_n < 128 ||
-      seg_n % 128 || K % seg_k || N % seg_n ||
-      K / seg_k > GEMM_MAX_SEGS || N / seg_n > GEMM_MAX_SEGS) {
-    return cudaErrorInvalidValue;
-  }
-  const int bn = seg_n % 256 == 0 ? 256 : 128;
+// The GEMM at tile width BN (seg_n a multiple of BN): tensor maps,
+// arguments and the persistent launch. `gemm_sm90` picks BN.
+template <class Tag, int BN, bool B_KMAJOR, class Epilogue>
+inline cudaError_t gemm_sm90_at(const bf16* const* a, const bf16* const* b,
+                                const bf16* const* bias, bf16* const* out,
+                                const bf16* const* residual, int M, int N,
+                                int K, int seg_k, int seg_n,
+                                cudaStream_t stream) {
   GemmSm90Maps maps = {};
   GemmSm90Args args = {};
   args.M = M;
@@ -266,13 +334,53 @@ inline cudaError_t gemm_sm90(const bf16* const* a, const bf16* const* b,
     if (err != cudaSuccess) return err;
   }
   for (int i = 0; i < N / seg_n; ++i) {
-    if (B_KMAJOR) err = rowmajor_map(&maps.b[i], b[i], seg_n, K, bn);
+    if (B_KMAJOR) err = rowmajor_map(&maps.b[i], b[i], seg_n, K, BN);
     if (err != cudaSuccess) return err;
     args.bias[i] = bias == nullptr ? nullptr : bias[i];
     args.out[i] = out[i];
+    args.residual[i] = residual == nullptr ? nullptr : residual[i];
   }
-  return bn == 256 ? launch_gemm_sm90<Tag, 256, B_KMAJOR>(maps, args, stream)
-                   : launch_gemm_sm90<Tag, 128, B_KMAJOR>(maps, args, stream);
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  static bool smem_set = false;  // once a process
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(gemm_sm90_kernel<Tag, BN, B_KMAJOR, Epilogue>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               gemm_smem_bytes<BN>());
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const long tiles = static_cast<long>((M + GEMM_BM - 1) / GEMM_BM) * (N / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  gemm_sm90_kernel<Tag, BN, B_KMAJOR, Epilogue>
+      <<<grid, GEMM_THREADS, gemm_smem_bytes<BN>(), stream>>>(maps, args);
+  return cudaGetLastError();
+}
+
+// out = epilogue(A B^T) (B_KMAJOR: b[i] is (seg_n, K), N = segments x
+// seg_n) or epilogue(A B) (b[i] is (seg_k, N), K = segments x seg_k) on
+// `stream`; a[i] is (M, seg_k), out[i] and residual[i] (M, seg_n) and
+// bias[i] (seg_n,) or null, all bf16, row-major, contiguous, 16-byte
+// aligned; `residual` may be null unless the epilogue reads it. seg_n a
+// multiple of 128, seg_k of 64. Returns the first failing call's error.
+template <class Tag, bool B_KMAJOR, class Epilogue = EpilogueBias>
+inline cudaError_t gemm_sm90(const bf16* const* a, const bf16* const* b,
+                             const bf16* const* bias, bf16* const* out,
+                             int M, int N, int K, int seg_k, int seg_n,
+                             cudaStream_t stream,
+                             const bf16* const* residual = nullptr) {
+  if (M < 1 || seg_k < GEMM_BK || seg_k % GEMM_BK || seg_n < 128 ||
+      seg_n % 128 || K % seg_k || N % seg_n ||
+      K / seg_k > GEMM_MAX_SEGS || N / seg_n > GEMM_MAX_SEGS ||
+      (Epilogue::RESIDUAL && residual == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  return seg_n % 256 == 0
+             ? gemm_sm90_at<Tag, 256, B_KMAJOR, Epilogue>(
+                   a, b, bias, out, residual, M, N, K, seg_k, seg_n, stream)
+             : gemm_sm90_at<Tag, 128, B_KMAJOR, Epilogue>(
+                   a, b, bias, out, residual, M, N, K, seg_k, seg_n, stream);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Tiled GEMM pieces shared by kernels K9 (fused_mlp.cu), K6
-// (fused_block_attention.cu) and K7 (fused_block_attention_int8.cu):
+// The tiled int8 GEMM of kernel K7's out-projection
+// (fused_block_attention_int8.cu):
 //
 //     C[m, n] = epilogue(sum_k A[m, k] W[n, k])      A (M, K), W (N, K)
 //
@@ -7,11 +7,8 @@
 // THREADS = 256 threads (8 warps, 4 along M x 2 along N, each warp 32 x 64
 // as 2 x 4 WMMA fragments) computes one BM x BN = 128 x 128 output tile,
 // walking K in steps whose W tile is double-buffered by cp.async while the
-// caller's `load_a` stages the matching A tile (cp.async as well, or plain
-// stores when A is transformed on the way: normalised, quantized).
+// caller's `load_a` stages the matching A tile (quantized on the way).
 //
-//   mma_bf16: bf16 x bf16 -> f32, K in 32-wide steps, tiles (row, k) with
-//             row stride LDK;
 //   mma_int8: int8 x int8 -> int32, K in 64-byte steps, each tile stored
 //             as four [rows][16 bytes] sub-tiles, one per WMMA k step, so
 //             every fragment starts on a 256-byte boundary with a 16-byte
@@ -42,25 +39,15 @@ typedef __nv_bfloat16 bf16;
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 128;       // block tile rows
 constexpr int BN = 128;       // block tile columns
-// bf16: 32-deep K steps, tiles stored (row, k) with a padded stride.
-constexpr int BK = 32;
-constexpr int LDK = BK + 8;          // 40
-constexpr int STAGE = BM * LDK * 2;  // one 128 x 32 bf16 tile: 10240 B
-// int8: 64-byte K steps as four 16-byte sub-tiles.
+// 64-byte K steps as four 16-byte sub-tiles.
 constexpr int BK8 = 64;
 constexpr int SUB = 16;
 constexpr int STAGE8 = BM * BK8;     // one 128 x 64 int8 tile: 8192 B
 constexpr int EPI_LD = 20;           // per-warp 16 x 16 patch stride
 // Static shared memory of a GEMM block: two buffers of an A and a W tile.
-constexpr int SMEM_BYTES = 4 * STAGE;
-static_assert(4 * STAGE8 <= SMEM_BYTES, "int8 staging overflows");
+constexpr int SMEM_BYTES = 4 * STAGE8;
 static_assert(8 * 16 * EPI_LD * 4 <= SMEM_BYTES, "epilogue overflows");
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
                        wmma::row_major>
     FragA8;
@@ -85,86 +72,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// bf16 main loop of the block tile whose W rows start at n0: acc +=
-// A_tile @ W[n0:n0+BN]^T over K (a multiple of BK). load_a(bf16* as, int
-// k0) stages the block's BM x BK A tile at K offset k0 into `as` (row
-// stride LDK); it may issue cp.async copies, which join the W tile's
-// group. `smem` holds SMEM_BYTES.
-template <class LoadA>
-__device__ __forceinline__ void mma_bf16(unsigned char* smem, LoadA load_a,
-                                         const bf16* __restrict__ w, int K,
-                                         int n0, FragC (&acc)[2][4]) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2;  // 32-row strip of the block tile
-  const int wn = warp % 2;  // 64-column strip
-  auto load_stage = [&](int buf, int k0) {
-    bf16* as = reinterpret_cast<bf16*>(smem + buf * 2 * STAGE);
-    bf16* bs = reinterpret_cast<bf16*>(smem + buf * 2 * STAGE + STAGE);
-    load_a(as, k0);
-    // W rows n (the output columns), K contiguous: stored (n, k).
-    for (int i = threadIdx.x; i < BN * BK / 8; i += THREADS) {
-      const int r = i / (BK / 8);
-      const int c = (i % (BK / 8)) * 8;
-      cp_async16(bs + r * LDK + c, w + (size_t)(n0 + r) * K + k0 + c, true);
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int steps = K / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) load_stage((s + 1) & 1, (s + 1) * BK);
-    cp_async_commit();  // possibly empty: keeps the wait count uniform
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* as = reinterpret_cast<const bf16*>(smem + (s & 1) * 2 * STAGE);
-    const bf16* bs =
-        reinterpret_cast<const bf16*>(smem + (s & 1) * 2 * STAGE + STAGE);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * LDK + kk,
-                               LDK);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, bs + (wn * 64 + j * 16) * LDK + kk, LDK);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Stage A[m0:m0+BM, k0:k0+BK] (row stride K) by cp.async, rows at or past
-// M as zeros: the load_a of an untransformed bf16 A.
-__device__ __forceinline__ void copy_a_bf16(bf16* as,
-                                            const bf16* __restrict__ a,
-                                            int M, int K, int m0, int k0) {
-  for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-    const int r = i / (BK / 8);
-    const int c = (i % (BK / 8)) * 8;
-    const bool ok = m0 + r < M;
-    cp_async16(as + r * LDK + c,
-               a + (size_t)(ok ? m0 + r : 0) * K + k0 + c, ok);
-  }
-}
-
-// int8 main loop, as mma_bf16 with K in BK8-byte steps (K a multiple of
-// BK8): load_a(int8_t* as, int k0) stages the BM x BK8 A tile as four
-// [BM][SUB] sub-tiles (sub-tile c / SUB holds bytes c .. c + 15 of each
-// row).
+// int8 main loop of the block tile whose W rows start at n0: acc +=
+// A_tile @ W[n0:n0+BN]^T over K (a multiple of BK8). load_a(int8_t* as,
+// int k0) stages the BM x BK8 A tile at K offset k0 as four [BM][SUB]
+// sub-tiles (sub-tile c / SUB holds bytes c .. c + 15 of each row); it may
+// issue cp.async copies, which join the W tile's group. `smem` holds
+// SMEM_BYTES.
 template <class LoadA>
 __device__ __forceinline__ void mma_int8(unsigned char* smem, LoadA load_a,
                                          const int8_t* __restrict__ w, int K,

@@ -4,14 +4,17 @@
 //     mean = E[x],  rs = rsqrt(max(E[x^2] - mean^2, 0) + eps)     (f32)
 //     xn   = bf16((x - mean) * (rs * ln_scale) + ln_bias)          (f32)
 //
-// The one copy of this arithmetic: K5's LayerNorm kernel
-// (fused_ln_qkv_attention.cu), K6's staging (ln_qkv_attention_tile.cuh) and
-// K9's statistics and fc1 staging (fused_mlp.cu) all call it, so the three
-// round xn alike. No other header is needed.
+// The one copy of this arithmetic, and the LayerNorm kernel that writes xn
+// (M, D) bf16 to a workspace, one warp a row: K5, K6 and K9
+// (fused_ln_qkv_attention.cu, fused_block_attention.cu, fused_mlp.cu) each
+// launch it under a tag of their own (K5LayerNorm, K6LayerNorm,
+// K9LayerNorm), so the three round xn alike and a profile tells them
+// apart. No other header is needed.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -63,6 +66,43 @@ __device__ __forceinline__ uint4 ln_normalise8(uint4 raw, float mean,
                             lb[j]);
   }
   return packed;
+}
+
+constexpr int LN_THREADS = 256;  // eight warps, one row each
+
+// xn[r] = bf16((x[r] - mean) * (rs * ls) + lb), rs = rsqrt(max(E[x^2] -
+// E[x]^2, 0) + eps), over the M rows of x (M, D), D a multiple of 8.
+// `Tag` names the user's instance.
+template <class Tag>
+__global__ void __launch_bounds__(LN_THREADS)
+layer_norm_kernel(const __nv_bfloat16* __restrict__ x,
+                  const float* __restrict__ ls, const float* __restrict__ lb,
+                  __nv_bfloat16* __restrict__ xn, int M, int D, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32;
+  if (r >= M) return;
+  const __nv_bfloat16* row = x + static_cast<size_t>(r) * D;
+  const LnStats stats = ln_warp_stats(row, D, eps);
+  __nv_bfloat16* dst = xn + static_cast<size_t>(r) * D;
+  for (int c = lane * 8; c < D; c += 32 * 8) {
+    *reinterpret_cast<uint4*>(dst + c) =
+        ln_normalise8(*reinterpret_cast<const uint4*>(row + c), stats.mean,
+                      stats.rs, ls + c, lb + c);
+  }
+}
+
+// x (M, D) bf16 and ls/lb (D,) f32 to xn (M, D) bf16 on `stream`, D a
+// multiple of 8, all 16-byte aligned; returns the launch's error.
+template <class Tag>
+inline cudaError_t launch_layer_norm(const void* x, const void* ls,
+                                     const void* lb, void* xn, int M, int D,
+                                     float eps, cudaStream_t stream) {
+  constexpr int rows = LN_THREADS / 32;
+  layer_norm_kernel<Tag><<<(M + rows - 1) / rows, LN_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ls),
+      static_cast<const float*>(lb), static_cast<__nv_bfloat16*>(xn), M, D,
+      eps);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -5,11 +5,13 @@ K6 replaces `pigeon_tpu/kernels/flash_attention.py::_block_attn_kernel`
 (launcher `_fused_block_attn_forward`, entry `fused_block_attention`),
 reached once per encoder layer on the ``flash_fused_block`` route, where
 the layer is K6 and then K9 and adds no residual of its own. It is CUDA
-C++ for ``sm_90a`` (`csrc/fused_block_attention.cu`: the LN-folded
-block of `csrc/ln_qkv_attention_tile.cuh`, then the GEMM K9's fc2 runs,
-both shared through headers), built by ``nvcc`` at first use and bound
-with ``ctypes``; the source note says what bounds it on the card and how
-the design answers that.
+C++ for ``sm_90a`` (`csrc/fused_block_attention.cu`), built by ``nvcc``
+at first use and bound with ``ctypes``: K5's stages (a LayerNorm kernel
+into ``xn``, the ``wgmma`` projection GEMM into q/k/v, K3's streaming
+forward into ``ao``), then the same GEMM for the out-projection with a
+bias + residual epilogue. The source note says what bounds it on the
+card and how the design answers that; :func:`forward_workspaces` gives
+its scratch.
 
 Weights are in ``torch.nn.Linear`` layout, ``(D, D)`` each with
 ``D = H * 64``.
@@ -19,8 +21,9 @@ version (:func:`fused_block_attention_reference`); a CUDA tensor launches
 the kernel or raises. :class:`FusedBlockAttention` is the differentiable
 face: K6 forward; the backward is `_fused_block_bwd`, the VJP of the
 reference composition: LN1 recomputed under autograd, K1 run again for
-the out-projection's input, K1's VJP (`fused_qkv_attention_grads`: K2, or
-K4 under ``PIGEON_FUSED_BWD=xla``), the out-projection's in f32. Its
+the out-projection's input where Wo wants a gradient, K1's VJP
+(`fused_qkv_attention_grads`: K2, or K4 under ``PIGEON_FUSED_BWD=xla``),
+the out-projection's in f32. Its
 forward goes through the registered operator
 ``pigeon::fused_block_attention``, which the ``attn_kernel`` remat policy
 names to save K6's output (the JAX ``attn_out``).
@@ -30,18 +33,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from pigeon_tpu_torch import native
 from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+from pigeon_tpu_torch.kernels import fused_ln_qkv_attention as k5
 from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
     check_ln_params,
     flax_layer_norm_f32,
 )
-
-#: The out-projection GEMM takes D in 128-wide tiles.
-TILE = 128
 
 
 def fused_block_attention_reference(x, ln_scale, ln_bias, wq, wk, wv, bq,
@@ -63,23 +65,42 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(native.build_cuda("fused_block_attention").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_block_attention.argtypes = [ptr] * 13 + [
+    lib.pigeon_fused_block_attention.argtypes = [ptr] * 17 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ptr]
     lib.pigeon_fused_block_attention.restype = ctypes.c_int
-    lib.pigeon_fused_block_attention_max_seq.argtypes = []
-    lib.pigeon_fused_block_attention_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+class Workspaces(NamedTuple):
+    """K6's scratch, each ``(B, S, D)`` bf16: K5's normalised ``xn`` and
+    projected ``q``, ``k``, ``v`` (`fused_ln_qkv_attention.Workspaces`),
+    then the attention output ``ao`` the out-projection reads."""
+
+    xn: torch.Tensor
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    ao: torch.Tensor
+
+
+def forward_workspaces(x, num_heads: int) -> Workspaces:
+    """K6's workspaces for raw ``x`` (B, S, D) and ``num_heads`` heads of
+    64 (D = H * 64), from PyTorch's allocator (uninitialised: every stage
+    writes all of its rows)."""
+    return Workspaces(*k5.forward_workspaces(x, num_heads),
+                      torch.empty_like(x))
+
+
 def _check_operands(x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv, wo, bo,
-                    num_heads: int, max_seq: int):
-    k1._check_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads, max_seq)
+                    num_heads: int):
+    """K1's and K5's operands (`_check_gemm_operands`: any S, D and P
+    multiples of 128), D = H * 64, and Wo (D, D), bo (D,)."""
+    k1._check_gemm_operands(x, (wq, wk, wv), (bq, bk, bv), num_heads)
     d = x.shape[-1]
-    if num_heads * k1.HEAD_DIM != d or d % TILE:
-        raise ValueError(f"D={d} must be H * {k1.HEAD_DIM} (H={num_heads}) "
-                         f"and a multiple of {TILE}")
+    if num_heads * k1.HEAD_DIM != d:
+        raise ValueError(f"D={d} must be H * {k1.HEAD_DIM} (H={num_heads})")
     for name, t, shape in (("wo", wo, (d, d)), ("bo", bo, (d,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
@@ -98,10 +119,12 @@ def fused_block_attention(x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv, wo,
     D)``, the residual included.
 
     CPU tensors run the plain version; CUDA tensors (bf16 x, weights and
-    biases, f32 LN parameters, head_dim 64, D = H * 64 a multiple of 128)
-    launch the kernel on PyTorch's current stream and count the launch in
-    ``fused_block_attention.launches``; any other device raises. The
-    kernel's ``(B, S, D)`` attention-output workspace is allocated here.
+    biases, f32 LN parameters, head_dim 64, D = H * 64 a multiple of 128,
+    any S) launch the kernel's four stages (LN1 into ``xn``, the
+    projection GEMM, K3's streaming forward into ``ao``, the
+    out-projection GEMM; :func:`forward_workspaces`, allocated here on
+    every call) on PyTorch's current stream and count one launch in
+    ``fused_block_attention.launches``; any other device raises.
     """
     if x.device.type == "cpu":
         return fused_block_attention_reference(
@@ -109,17 +132,17 @@ def fused_block_attention(x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv, wo,
             eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_attention: no kernel for {x.device}")
-    lib = load()
     _check_operands(x, ln_scale, ln_bias, wq, wk, wv, bq, bk, bv, wo, bo,
-                    num_heads, lib.pigeon_fused_block_attention_max_seq())
+                    num_heads)
+    lib = load()
     b, s, d = x.shape
     out = torch.empty_like(x)
-    workspace = torch.empty_like(x)
+    ws = forward_workspaces(x, num_heads)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_block_attention(
             *(t.data_ptr() for t in (x, ln_scale, ln_bias, wq, wk, wv, bq,
-                                     bk, bv, wo, bo, workspace, out)),
+                                     bk, bv, wo, bo, out, *ws)),
             b, s, d, num_heads, float(eps), stream)
     if rc != 0:
         raise RuntimeError(
@@ -151,11 +174,12 @@ class FusedBlockAttention(torch.autograd.Function):
     D), bo (D,)) -> (B, S, D)``.
 
     The backward is `_fused_block_bwd`, the VJP of
-    `_fused_block_reference`: LN1 recomputed under autograd; K1 launched
-    again (the JAX VJP reruns `fused_qkv_mha`'s forward) for the
-    out-projection's input ``ao``; ``dao = g Wo``, ``dWo = g^T ao`` and
-    ``dbo = sum g`` in f32 (no TF32); K1's VJP at ``dao``; the
-    LayerNorm's VJP; and the residual's ``g`` added to ``dx``.
+    `_fused_block_reference`: LN1 recomputed under autograd; where Wo
+    wants a gradient, K1 launched again (the JAX VJP reruns
+    `fused_qkv_mha`'s forward) for ``dWo = g^T ao``, the only reader of
+    ``ao``; ``dao = g Wo`` and ``dbo = sum g`` in f32 (no TF32); K1's VJP
+    at ``dao``; the LayerNorm's VJP; and the residual's ``g`` added to
+    ``dx``.
     """
 
     @staticmethod
@@ -175,12 +199,14 @@ class FusedBlockAttention(torch.autograd.Function):
                      for t, n in zip((x, ln_scale, ln_bias), need[:3])]
         with torch.enable_grad():
             xn = flax_layer_norm_f32(*ln_inputs, ctx.eps).to(x.dtype)
-        ao = k1.fused_qkv_attention(xn.detach(), *proj, ctx.num_heads)
         gf = g.float()
         d = x.shape[-1]
-        dao = (gf @ wo.float()).to(ao.dtype)
-        dwo = ((gf.reshape(-1, d).t() @ ao.float().reshape(-1, d))
-               .to(wo.dtype) if need[9] else None)
+        dao = (gf @ wo.float()).to(x.dtype)
+        dwo = None
+        if need[9]:
+            ao = k1.fused_qkv_attention(xn.detach(), *proj, ctx.num_heads)
+            dwo = (gf.reshape(-1, d).t() @ ao.float().reshape(-1, d)) \
+                .to(wo.dtype)
         dbo = gf.sum((0, 1)).to(bo.dtype) if need[10] else None
         dxn, *dproj = k1.fused_qkv_attention_grads(
             xn.detach(), *proj, dao, ctx.num_heads,

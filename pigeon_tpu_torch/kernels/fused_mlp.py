@@ -2,11 +2,15 @@
 
 K9 replaces `pigeon_tpu/kernels/fused_mlp.py::_fused_ln_mlp_kernel`
 (launcher `_fused_ln_mlp_forward`), reached through `fused_ln_mlp` once
-per encoder layer on the ``flash_fused_mlp`` route: the whole MLP half
-``x + fc2(quick_gelu(fc1(LN2(x))))``. It is CUDA C++ for ``sm_90a``
-(`csrc/fused_mlp.cu`), built by ``nvcc`` at first use and bound with
-``ctypes``; the source note says what bounds it on the card and how the
-design answers that.
+per encoder layer on the ``flash_fused_mlp`` and ``flash_fused_block``
+routes: the whole MLP half ``x + fc2(quick_gelu(fc1(LN2(x))))``. It is
+CUDA C++ for ``sm_90a`` (`csrc/fused_mlp.cu`), built by ``nvcc`` at first
+use and bound with ``ctypes``: a LayerNorm kernel writes ``xn`` to a
+workspace, then the ``wgmma`` GEMM of `csrc/gemm_sm90.cuh` runs fc1 with
+a bias + quick-GELU epilogue into the hidden workspace ``h`` and fc2 with
+a bias + residual one. The source note says what bounds it on the card
+and how the design answers that; :func:`forward_workspaces` gives its
+scratch.
 
 Weights are in ``torch.nn.Linear`` layout: ``w1`` (I, D), ``w2`` (D, I).
 
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +84,23 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+class Workspaces(NamedTuple):
+    """K9's scratch: the normalised ``xn`` ``(B*S, D)`` and the hidden
+    ``h`` ``(B*S, I)``, both bf16."""
+
+    xn: torch.Tensor
+    h: torch.Tensor
+
+
+def forward_workspaces(x, inter: int) -> Workspaces:
+    """K9's workspaces for ``x`` (B, S, D) and ``inter`` hidden columns,
+    from PyTorch's allocator (uninitialised: every stage writes all of its
+    rows)."""
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    return Workspaces(*(torch.empty((rows, n), dtype=x.dtype,
+                                    device=x.device) for n in (d, inter)))
+
+
 def _check_operands(x, ln_scale, ln_bias, w1, b1, w2, b2):
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, D), got {tuple(x.shape)}")
@@ -104,10 +126,10 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
 
     CPU tensors run the plain version; CUDA tensors (bf16 x, weights and
     biases, f32 LN parameters, D and I multiples of 128) launch the
-    kernel on PyTorch's current stream and count the launch in
-    ``fused_ln_mlp.launches``; any other device raises. The kernel's
-    ``(B*S, I)`` bf16 hidden workspace and row statistics are allocated
-    here.
+    kernel's three stages (LN2 into ``xn``, fc1 into ``h``, fc2;
+    :func:`forward_workspaces`, allocated here on every call) on
+    PyTorch's current stream and count one launch in
+    ``fused_ln_mlp.launches``; any other device raises.
     """
     if x.device.type == "cpu":
         return fused_ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
@@ -118,13 +140,12 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     _check_operands(x, ln_scale, ln_bias, w1, b1, w2, b2)
     rows, d, inter = x.numel() // x.shape[-1], x.shape[-1], w1.shape[0]
     out = torch.empty_like(x)
-    hidden = torch.empty((rows, inter), dtype=x.dtype, device=x.device)
-    stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    ws = forward_workspaces(x, inter)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_ln_mlp(
             *(t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                     hidden, stats, out)),
+                                     *ws, out)),
             rows, d, inter, float(eps), stream)
     if rc != 0:
         raise RuntimeError(

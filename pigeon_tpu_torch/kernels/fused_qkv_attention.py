@@ -52,10 +52,10 @@ from pigeon_tpu_torch.kernels.attention import (
 
 #: The head width the kernel is written for (ViT-B and ViT-L both use 64).
 HEAD_DIM = 64
-#: `_check_operands` takes D in multiples of this many columns (the block
-#: K6 launches stages D in such chunks).
+#: `_check_operands` takes D in multiples of this many columns, as the
+#: JAX kernels do.
 D_CHUNK = 64
-#: K1's, K2's and K5's GEMMs take D and P in multiples of 128 (their
+#: K1's, K2's, K5's and K6's GEMMs take D and P in multiples of 128 (their
 #: output tiles).
 GEMM_TILE = 128
 
@@ -125,9 +125,9 @@ def _check_operands(x, weights, biases, num_heads: int, max_seq: int):
 
 
 def _check_gemm_operands(x, weights, biases, num_heads: int):
-    """The operands of K1, K2 and K5 (whose first stage is the projection
-    GEMM): `_check_operands`'s at any S, and D and P multiples of
-    `GEMM_TILE`."""
+    """The operands of K1, K2, K5 and K6 (whose first stage after any
+    LayerNorm is the projection GEMM): `_check_operands`'s at any S, and D
+    and P multiples of `GEMM_TILE`."""
     _check_operands(x, weights, biases, num_heads, max_seq=x.shape[1])
     d, p = x.shape[2], num_heads * HEAD_DIM
     if d % GEMM_TILE or p % GEMM_TILE:

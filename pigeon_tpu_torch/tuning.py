@@ -11,8 +11,9 @@ variant's outputs against the plain versions' on the same inputs, then
 times the variant and its plain version. A variant of several parts
 (``split4``) times each part on its own as well.
 
-K1's and K5's seeded operands and their library yardstick
-(``qkv_operands``, ``qkv_composition``) live here too: `chip_smoke.py` and
+K1's, K5's, K6's and K9's seeded operands and their library yardsticks
+(``qkv_operands``, ``qkv_composition``, ``block_composition``,
+``mlp_operands``) live here too: `chip_smoke.py` and
 `scripts/bench_torch_flash_sm90.py` both time the kernels on them.
 """
 
@@ -118,6 +119,32 @@ def qkv_composition(x: torch.Tensor, ws: Sequence, bs: Sequence,
            .transpose(1, 2) for w, bb in zip(ws, bs)]
     out = torch.nn.functional.scaled_dot_product_attention(*qkv)
     return out.transpose(1, 2).reshape(b, s, -1)
+
+
+def block_composition(x: torch.Tensor, ln: Sequence, ws: Sequence,
+                      bs: Sequence, wo: torch.Tensor, bo: torch.Tensor,
+                      h: int) -> torch.Tensor:
+    """K6's yardstick, never on a path: ``F.layer_norm`` with the bf16
+    parameters ``ln``, K1's library composition, ``F.linear`` for the
+    out-projection and the residual, all in ``x.dtype``."""
+    xn = torch.nn.functional.layer_norm(x, x.shape[-1:], *ln)
+    return x + torch.nn.functional.linear(qkv_composition(xn, ws, bs, h),
+                                          wo, bo)
+
+
+def mlp_operands(gen: torch.Generator, b: int, s: int, d: int,
+                 inter: int) -> tuple:
+    """K9's operands, made on the card from ``gen``: bf16 x (B, S, D) of
+    scale 1, LN scale 1 +- 0.5 and bias +- 0.5 in f32 (as widely spread as
+    a trained CLIP's), W1 (I, D) and W2 (D, I) at 1/sqrt(fan-in), biases
+    of magnitude 0.1."""
+    x = torch.randn(b, s, d, generator=gen, device=gen.device).bfloat16()
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device=gen.device)
+    lb = 0.5 * torch.randn(d, generator=gen, device=gen.device)
+    w1 = normal(gen, 1, (inter, d), d ** -0.5)[0]
+    w2 = normal(gen, 1, (d, inter), inter ** -0.5)[0]
+    b1, b2 = (normal(gen, 1, (n,), 0.1)[0] for n in (inter, d))
+    return x, ls, lb, w1, b1, w2, b2
 
 
 def window_ms(fn: Callable, iters: int, windows: int,

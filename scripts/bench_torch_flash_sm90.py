@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the wgmma kernels K1, K2, K3, K3′, K4 and K5 of `pigeon_tpu_torch`
-on one GPU.
+"""Times the wgmma kernels K1, K2, K3, K3′, K4, K5, K6 and K9 of
+`pigeon_tpu_torch` on one GPU.
 
     python3 scripts/bench_torch_flash_sm90.py [--runs N]
 
@@ -29,6 +29,17 @@ CUDA-event medians over ``--runs`` calls after a warm-up:
   device time of each launch, and the library composition of the same
   function (three ``F.linear`` and SDPA, after ``F.layer_norm`` for K5)
   on the same values;
+* K6 (`fused_block_attention.fused_block_attention`) and K9
+  (`fused_mlp.fused_ln_mlp`, I = 4096) at x (B, 577, 1024) for B in 32
+  and 4: through the wrapper, their TFLOP/s on the TPU kernels' work, the
+  device time of each launch, and the library composition of the same
+  function (K6: ``F.layer_norm``, K1's composition, ``F.linear`` and the
+  residual; K9: `fused_mlp.ln_mlp_composition`) on the same values;
+* the tile widths of the wgmma GEMM (`csrc/gemm_sm90.cuh`): K9's fc1 and
+  fc2 and K6's out-projection at M = B x 577 for B in 4 and 32, with
+  128 x 128 and 128 x 256 output tiles on the same operands
+  (`csrc/gemm_sm90_tiles.cu`, built here), each width's output against
+  the other's;
 * the host microseconds a call of K1's and K5's wrappers takes at those
   shapes, and of K3's and K4's at a toy shape.
 
@@ -149,6 +160,88 @@ def fused_forwards(b: int, runs: int) -> None:
         host_us(f"{name} views={b}", fn)
 
 
+def block_and_mlp(b: int, runs: int) -> None:
+    """K6 and K9 at x (b, 577, 1024), and their library compositions."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
+    from pigeon_tpu_torch.tuning import (block_composition, mlp_operands,
+                                         normal, qkv_operands)
+
+    d, inter = HEADS * HEAD_DIM, 4 * HEADS * HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    x, ws, bs = qkv_operands(gen, b, SEQ, d, raw=True)
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    lb = 0.5 * torch.randn(d, generator=gen, device="cuda")
+    wo, bo = normal(gen, 1, (d, d), 0.02)[0], normal(gen, 1, (d,), 0.02)[0]
+    block = (x, ls, lb, *ws, *bs, wo, bo, HEADS, 1e-5)
+    mlp = (*mlp_operands(gen, b, SEQ, d, inter), 1e-5)
+    ln = (ls.bfloat16(), lb.bfloat16())
+    # The TPU kernels' work: K1's products and the out-projection; fc1 and
+    # fc2.
+    flops = {"K6": 4 * 2 * b * SEQ * d * d
+             + 2 * 2 * b * HEADS * SEQ * SEQ * HEAD_DIM,
+             "K9": 2 * 2 * b * SEQ * d * inter}
+    for name, fn, library in (
+            ("K6", lambda: k6.fused_block_attention(*block),
+             lambda: block_composition(x, ln, ws, bs, wo, bo, HEADS)),
+            ("K9", lambda: k9.fused_ln_mlp(*mlp),
+             lambda: k9.ln_mlp_composition(*mlp))):
+        ms = median_ms(fn, runs)
+        library_ms = median_ms(library, runs)
+        print(f"{name} views={b} ms={ms:.4f} "
+              f"tflops={flops[name] / ms / 1e9:.1f} "
+              f"composition_ms={library_ms:.4f}", flush=True)
+        launches(f"{name} views={b}", fn)
+
+
+def gemm_tiles(runs: int) -> None:
+    """K9's fc1 and fc2 and K6's out-projection with 128-wide and
+    256-wide output tiles, at M = 4 x 577 and 32 x 577."""
+    import ctypes
+
+    import torch
+
+    from pigeon_tpu_torch import native
+
+    lib = ctypes.CDLL(native.build_cuda("gemm_sm90_tiles").path)
+    lib.pigeon_gemm_sm90_tiles.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    d, inter = HEADS * HEAD_DIM, 4 * HEADS * HEAD_DIM
+    for b in (4, 32):
+        m = b * SEQ
+        for which, name, n, k in ((0, "fc1", inter, d), (1, "fc2", d, inter),
+                                  (2, "out_projection", d, d)):
+            a = (torch.randn(m, k, device="cuda")).bfloat16()
+            w = (torch.randn(n, k, device="cuda") * k ** -0.5).bfloat16()
+            bias = (torch.randn(n, device="cuda") * 0.1).bfloat16()
+            res = torch.randn(m, n, device="cuda").bfloat16()
+            outs = {}
+            for bn in (128, 256):
+                out = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+
+                def call(bn=bn, out=out):
+                    if lib.pigeon_gemm_sm90_tiles(
+                            which, bn, *(t.data_ptr() for t in
+                                         (a, w, bias, res, out)),
+                            m, n, k, stream):
+                        raise RuntimeError(f"{name} at BN {bn} failed")
+
+                call()
+                torch.cuda.synchronize()
+                outs[bn] = out
+                ms = median_ms(call, runs)
+                print(f"gemm_tiles {name} views={b} M={m} N={n} K={k} "
+                      f"BN={bn} tiles={(m + 127) // 128 * (n // bn)} "
+                      f"ms={ms:.4f} tflops={2 * m * n * k / ms / 1e9:.1f}",
+                      flush=True)
+            diff = (outs[128].float() - outs[256].float()).abs().max()
+            print(f"gemm_tiles {name} views={b} max_abs_diff_128_vs_256="
+                  f"{diff.item():.3g}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--runs", type=int, default=40)
@@ -219,6 +312,9 @@ def main() -> int:
     launches("K2", k2)
     for b in (32, 4):
         fused_forwards(b, args.runs)
+    for b in (32, 4):
+        block_and_mlp(b, args.runs)
+    gemm_tiles(args.runs)
     tiny = q[:1, :64].contiguous()
     host_us("K3", lambda: k34.flash_attention(tiny, tiny, tiny))
     host_us("K4", lambda: k34.flash_attention_backward(tiny, tiny, tiny,

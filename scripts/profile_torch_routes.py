@@ -36,15 +36,16 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: The port's kernels by a substring of their CUDA function names, the
 #: first match in this order (the tags before the library's generic
-#: "gemm": K1's, K2's and K5's GEMMs are the port's). K1's two stages
-#: (projection GEMM, K3's streaming forward on its q/k/v) and K5's three
-#: (LN1, the same two) run on the fused routes, each kernel tagged K1* or
-#: K5*; K2's three stages (projection GEMM, K4's attention passes on its
-#: q/k/v, dx GEMM), each kernel tagged K2*; K4's three passes
-#: (statistics, gradients, dq cast), each a group, on ``flash`` and under
-#: ``PIGEON_FUSED_BWD=xla``. K3 and K3′ launch one kernel under the tags
-#: K3Forward and K3OnlineForward. K6 launches its LN-folded block, then
-#: its out-projection.
+#: "gemm": K1's, K2's, K5's, K6's and K9's GEMMs are the port's). K1's two
+#: stages (projection GEMM, K3's streaming forward on its q/k/v) and K5's
+#: three (LN1, the same two) run on the fused routes, each kernel tagged
+#: K1* or K5*; K6's four (K5's three, then the out-projection GEMM) on
+#: ``block``, tagged K6*; K9's three (LN2, fc1 and fc2 GEMMs) on
+#: ``fused_mlp`` and ``block``, tagged K9*; K2's three stages (projection
+#: GEMM, K4's attention passes on its q/k/v, dx GEMM), each kernel tagged
+#: K2*; K4's three passes (statistics, gradients, dq cast), each a group,
+#: on ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K3 and K3′ launch one
+#: kernel under the tags K3Forward and K3OnlineForward.
 KERNEL_GROUPS = (
     ("K1 projection GEMM", "K1Projection"),
     ("K1 attention", "K1Attention"),
@@ -56,16 +57,19 @@ KERNEL_GROUPS = (
     ("K2 dx GEMM", "K2Dx"),
     ("K3′", "K3OnlineForward"),
     ("K3", "K3Forward"),
-    ("K6 block", "fused_ln_qkv_attention_kernel"),
-    ("K6 out-projection", "::out_proj_kernel"),
+    ("K6 LN1", "K6LayerNorm"),
+    ("K6 projection GEMM", "K6Projection"),
+    ("K6 attention", "K6Attention"),
+    ("K6 out-projection GEMM", "K6OutProjection"),
     ("K7", "ln_quantize_kernel"),
     ("K7", "::attention_int8_kernel"),
     ("K7", "out_proj_int8_kernel"),
     ("K4 statistics", "flash_attention_bwd_stats"),
     ("K4 gradients", "flash_attention_bwd_grad"),
     ("K4 dq cast", "flash_attention_bwd_dq"),
-    ("K9", "mlp_gemm_kernel"),
-    ("K9", "ln_stats_kernel"),
+    ("K9 LN2", "K9LayerNorm"),
+    ("K9 fc1 GEMM", "K9Fc1"),
+    ("K9 fc2 GEMM", "K9Fc2"),
     ("K10", "smooth_labels_kernel"),
 )
 #: Library GEMMs (cuBLAS, CUTLASS) by name.
@@ -84,8 +88,8 @@ NUM_CELLS = 2203
 
 
 def group_of(name: str) -> str:
-    # The port's marks come before the library's generic "gemm": K9's
-    # "mlp_gemm_kernel" is the port's.
+    # The port's marks come before the library's generic "gemm": the
+    # port's "gemm_sm90_kernel" instances carry their users' tags.
     for label, mark in KERNEL_GROUPS:
         if mark in name:
             return label

@@ -3,8 +3,9 @@ folded in) in their wgmma form: the projection GEMM feeding K3's
 streaming forward, behind a LayerNorm pass for K5. On the CPU, their
 plain versions against the JAX package's `_fused_qkv_forward` and
 `_fused_ln_qkv_forward` (Pallas kernels in interpret mode) at ragged
-lengths around the 64- and 128-row tiles, the wrappers' checks and the
-workspaces' shapes; on a GPU (``-m gpu``), both kernels against their
+lengths around the 64- and 128-row tiles, the wrappers' checks (and
+K6's, which runs K5's stages) and the workspaces' shapes (and K6's and
+K9's); on a GPU (``-m gpu``), both kernels against their
 plain versions at those lengths and three widths.
 """
 
@@ -113,14 +114,15 @@ def test_k1_and_k5_checks_refuse_widths_off_the_gemm_tiles(d, heads, match):
         k1._check_gemm_operands(x, ws, bs, heads)
 
 
-def test_k6_keeps_its_resident_block_limit():
-    """K6 still launches the resident block, so the operand check it
-    runs still refuses S past its limit."""
-    x, ws, bs = bf16_operands(640)
-    k1._check_operands(x, ws, bs, HEADS, max_seq=640)
-    x, ws, bs = bf16_operands(641)
-    with pytest.raises(ValueError, match="outside"):
-        k1._check_operands(x, ws, bs, HEADS, max_seq=640)
+def test_k6_checks_take_any_length():
+    """K6 runs K5's stages and a GEMM, so its checks take S = 1024, past
+    the 640 rows its resident block once held."""
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+
+    x, ws, bs = bf16_operands(1024)
+    wo = torch.zeros(D, D, dtype=torch.bfloat16)
+    k6._check_operands(x, torch.ones(D), torch.zeros(D), *ws, *bs, wo,
+                       torch.zeros(D, dtype=torch.bfloat16), HEADS)
 
 
 @pytest.mark.parametrize("s", [1, 65, 577])
@@ -135,8 +137,21 @@ def test_workspaces_have_the_kernels_shapes(s):
         assert buf.dtype == torch.bfloat16 and buf.is_contiguous()
     for buf in (*ws, *ln_ws[1:]):
         assert buf.shape == (3, s, HEADS * 64)
-    # K2's workspaces start with K1's.
+    # K2's workspaces start with K1's; K6's are K5's and the attention
+    # output; K9's the normalised x and the hidden (B*S, 4D).
     assert k1.backward_workspaces(x, HEADS).q.shape == ws.q.shape
+    from pigeon_tpu_torch.kernels import fused_block_attention as k6
+    from pigeon_tpu_torch.kernels import fused_mlp as k9
+
+    block_ws = k6.forward_workspaces(x, HEADS)
+    assert block_ws._fields == ("xn", "q", "k", "v", "ao")
+    mlp_ws = k9.forward_workspaces(x, 4 * D)
+    assert mlp_ws._fields == ("xn", "h")
+    assert (mlp_ws.xn.shape, mlp_ws.h.shape) == ((3 * s, D), (3 * s, 4 * D))
+    for buf in (*block_ws, *mlp_ws):
+        assert buf.dtype == torch.bfloat16 and buf.is_contiguous()
+    for buf in block_ws:
+        assert buf.shape == x.shape
 
 
 # ---------------------------------------------------------------------------

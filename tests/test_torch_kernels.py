@@ -729,7 +729,9 @@ def test_cuda_k5_matches_plain_version(cuda, b, s, d, heads):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, s, d, inter", [(1, 1, 128, 128), (2, 65, 128,
                                                                512),
-                                            (32, 577, 1024, 4096)])
+                                            (32, 577, 1024, 4096)]
+                         + [(3, s, d, 4 * d) for d in (128, 1024)
+                            for s in (1, 63, 65, 129, 577)])
 def test_cuda_k9_matches_plain_version(cuda, b, s, d, inter):
     gen = torch.Generator(device=cuda).manual_seed(s)
     x = torch.randn(b, s, d, generator=gen, device=cuda).bfloat16()
@@ -746,6 +748,7 @@ def test_cuda_k9_matches_plain_version(cuda, b, s, d, inter):
     torch.cuda.synchronize()
     assert k9.fused_ln_mlp.launches == before + 1
     want = k9.fused_ln_mlp_reference(x, ls, lb, w1, b1, w2, b2, 1e-5)
+    assert bool(torch.isfinite(got.float()).all())
     # 2e-2 of the output's magnitude: h is rounded to bf16 from f32 sums
     # taken in another order, and fc2 sums I of them.
     scale = want.float().abs().max().item()
