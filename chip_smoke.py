@@ -10,10 +10,11 @@ Phases, one line each, any failure raises:
              and the tuning kernels V1-V5 and V6-V10 (two sources), one
              nvcc for each source, all started together, sm_90a, and the
              native JPEG decoder (g++, where libjpeg's headers exist)
-             from the checkout's sources, with nvcc's register and spill
-             lines and the HGMMA count of the SASS of the wgmma kernels
-             K1, K2, K3, K3′, K4, K5, K6 and K9 (cuobjdump; a source
-             without HGMMA fails the phase);
+             from the checkout's sources, with nvcc's register, spill and
+             wgmma-serialisation (C7513/C7514) lines and the HGMMA count
+             of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
+             K7, K8 and K9 (cuobjdump; a source without HGMMA fails the
+             phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -40,7 +41,13 @@ Phases, one line each, any failure raises:
              record is the calibration shape's); TFLOP/s on its two walks;
              K8 at the int8 serving shape x (4, 577, 1024) bf16, H=16,
              int8 weights quantized from seeded f32 ones, max abs error
-             <= 3e-2;
+             <= 3e-2 and <= 2e-2 of the output's magnitude (K1's bound),
+             its plain version with the value bias dropped missing by
+             more than twice that; the device ms of its two stages
+             (int8 projection GEMM, streaming forward) and, as a
+             yardstick timed only, `quantize_static`, three static
+             `QuantLinear` products and PyTorch's fused attention
+             (`tuning.int8_qkv_composition`);
              K4 at the ``flash`` training shape q/k/v/g (32, 577, 16, 64)
              bf16, each of dq/dk/dv's max abs error over its max
              magnitude <= 2e-2 (K2's bound), and its statistics workspace
@@ -73,7 +80,13 @@ Phases, one line each, any failure raises:
              K7 at the int8 serving shape, raw x (4, 577, 1024), max abs
              error <= 1.5 out-projection LSBs (ao * max(so) * 127) + 3e-2
              and under 0.5% of elements off by more than 3e-2, with the
-             dropped-LN guard on that bound;
+             dropped-LN guard on that bound; the device ms of its four
+             stages (LN1 + quantize, int8 projection GEMM, streaming
+             forward + requantize, int8 out-projection GEMM) and, as a
+             yardstick timed only, the Flax-form LayerNorm, K8's
+             composition, the quantize, a static `QuantLinear`
+             out-projection and the residual
+             (`tuning.int8_block_composition`);
              K3′ at K3's shape, max abs error <= 3e-2, K3 timed on the
              same inputs beside it; TFLOP/s on its two walks;
              PyTorch's scaled_dot_product_attention forward at K3's shape
@@ -237,7 +250,8 @@ KERNELS = {
 WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd",
                  "fused_qkv_attention_bwd", "flash_attention_online",
                  "fused_qkv_attention", "fused_ln_qkv_attention",
-                 "fused_block_attention", "fused_mlp")
+                 "fused_block_attention", "fused_mlp",
+                 "fused_qkv_attention_int8", "fused_block_attention_int8")
 #: K2's stages by the tag in their kernels' names (`csrc/
 #: fused_qkv_attention_bwd.cu`), for [kernel]'s device-time split.
 K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
@@ -267,6 +281,15 @@ K9_STAGES = (("layer_norm", "K9LayerNorm"), ("fc1", "K9Fc1"),
 #: at 700 W (PERF.md), printed beside the wgmma design's.
 K6_WMMA_MS = {4: "1.067-1.204", 32: "4.146-4.495"}
 K9_WMMA_MS = {4: "0.461-0.511", 32: "2.279-2.479"}
+#: K8's and K7's stages by the tags in their kernels' names (`csrc/
+#: fused_qkv_attention_int8.cu`, `fused_block_attention_int8.cu`).
+K8_STAGES = (("projection", "K8Projection"), ("attention", "K8Attention"))
+K7_STAGES = (("layer_norm", "K7LayerNorm"), ("projection", "K7Projection"),
+             ("attention", "K7Attention"),
+             ("out_projection", "K7OutProjection"))
+#: K8's and K7's times at 4 views in their resident-block WMMA designs,
+#: H100 80GB HBM3 at 700 W (PERF.md), printed beside the wgmma design's.
+K8_WMMA_MS, K7_WMMA_MS = "0.61-0.81", "0.706-0.741"
 #: The tuning drivers run by [variants], in order: the ports of
 #: `scripts/bench_attn_bwd.py`, `bench_attn_fwd_diag.py` and
 #: `bench_attn_qkv_fused.py`.
@@ -318,6 +341,11 @@ K1_TOL = 2e-2
 K2_TOL = 2e-2
 K10_TOL = 2e-5
 K3_TOL = 3e-2
+#: K8 against its plain version: max abs error (the repo's bf16 attention
+#: bound), and over the output's max magnitude K1's bound, K8 being K1's
+#: stages on int8 operands (q/k/v equal bit for bit, p rounded against
+#: the running max): the absolute bound alone could not see a streaming
+#: error on outputs of ~0.03.
 K8_TOL = 3e-2
 #: K4 against its plain version, each output's max abs error over its max
 #: magnitude: the backward K2 runs after its projection, so K2's bound.
@@ -673,35 +701,49 @@ def check_attention_kernel_at(k3, seed: int, b: int) -> dict:
 
 
 def check_int8_kernel(seed: int) -> dict:
-    """K8 against its plain version at the int8 serving shape."""
+    """K8 against its plain version at the int8 serving shape: error, the
+    dropped-value-bias guard, times, its stages' device time and the
+    library composition's time."""
     import torch
 
     from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
-    from pigeon_tpu_torch.models.quant import quantize_channelwise
+    from pigeon_tpu_torch.tuning import int8_packs, int8_qkv_composition
 
     b, s, d, h = 4, 577, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.nn.functional.layer_norm(
         torch.randn(b, s, d, generator=gen, device="cuda"), (d,)).bfloat16()
     act_scale = x.float().abs().max() * 1.1 / 127
-    ops = []
-    for _ in range(3):
-        w_q, scale = quantize_channelwise(
-            torch.randn(d, d, generator=gen, device="cuda") * 0.02)
-        ops += [w_q, scale,
-                torch.randn(d, generator=gen, device="cuda") * 0.02]
+    packs = int8_packs(gen, d, (0.02,) * 3)
+    ops = [t for pack in packs for t in pack]
     got = k8.fused_qkv_attention_int8(x, act_scale, *ops, h)
     want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, h)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    finite = bool(torch.isfinite(got.float()).all())
-    if not finite or not err <= K8_TOL:
+    rel = rel_errors([got], [want], ("out",))["out"]
+    err = max_abs([got], [want])
+    if not (err <= K8_TOL and rel <= K1_TOL):
         raise RuntimeError(f"K8 disagrees with its plain version: max abs "
-                           f"error {err} (limit {K8_TOL}), finite={finite}")
+                           f"error {err} (limit {K8_TOL}), over the "
+                           f"output's magnitude {rel} (limit {K1_TOL})")
+    # The plain version with the value bias dropped must miss by more than
+    # twice the relative limit: the check can fail a kernel that drops it.
+    wrong = ops[:8] + [torch.zeros_like(ops[8])]
+    miss = rel_errors([k8.fused_qkv_attention_int8_reference(
+        x, act_scale, *wrong, h)], [want], ("value bias",))["value bias"]
+    if not miss > 2 * K1_TOL:
+        raise RuntimeError(f"K8's check cannot see a dropped value bias: it "
+                           f"moves the output by {miss} of its magnitude, "
+                           f"limit {K1_TOL}")
+    del want
     ms = median_ms(lambda: k8.fused_qkv_attention_int8(x, act_scale, *ops,
                                                         h))
+    stages = device_ms_by_mark(
+        lambda: k8.fused_qkv_attention_int8(x, act_scale, *ops, h),
+        K8_STAGES)
     plain_ms = median_ms(lambda: k8.fused_qkv_attention_int8_reference(
         x, act_scale, *ops, h))
+    composition_ms = median_ms(lambda: int8_qkv_composition(
+        x, act_scale, packs, h))
     # 2*B*S*D*P int8 operations for each projection, 2*B*H*S*S*dh bf16
     # for QK^T and for PV.
     int8_ops, bf16_ops = 3 * 2 * b * s * d * d, 2 * 2 * b * h * s * s * 64
@@ -711,8 +753,12 @@ def check_int8_kernel(seed: int) -> dict:
                    nbytes(x, *ops, got)),
            "library_ms": None}
     phase("kernel", name="fused_qkv_attention_int8", shape=f"({b},{s},{d})",
-          heads=h, max_abs_err=err, tol=K8_TOL, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"], tops=round(gop / ms, 1),
+          heads=h, out_err=round(rel, 6), tol=K1_TOL, max_abs_err=err,
+          abs_tol=K8_TOL, value_bias_miss=round(miss, 4), ms=ms,
+          wmma_design_ms=K8_WMMA_MS,
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms, tops=round(gop / ms, 1),
           plain_tops=round(gop / plain_ms, 1))
     return rec
 
@@ -1008,7 +1054,7 @@ def check_block_int8_kernel(seed: int) -> dict:
     from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
         flax_layer_norm_f32,
     )
-    from pigeon_tpu_torch.models.quant import quantize_channelwise
+    from pigeon_tpu_torch.tuning import int8_block_composition, int8_packs
 
     b, s, d, h = 4, 577, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1018,12 +1064,7 @@ def check_block_int8_kernel(seed: int) -> dict:
     ls, lb = ln_params(d, gen)
     # Scales that give the attention half a share of the output as large
     # as the residual's, so that a dropped LN parameter shows.
-    packs = []
-    for std in (0.05, 0.05, 0.03, 0.02):
-        w_q, scale = quantize_channelwise(
-            torch.randn(d, d, generator=gen, device="cuda") * std)
-        packs.append([w_q, scale,
-                      torch.randn(d, generator=gen, device="cuda") * 0.02])
+    packs = int8_packs(gen, d, (0.05, 0.05, 0.03, 0.02))
     a_qkv = flax_layer_norm_f32(x, ls, lb, 1e-5).abs().max() * 1.1 / 127
     ao = torch.tensor(5.5 / 127, device="cuda")   # ~max |o| / 127
     args = (x, ls, lb, a_qkv, *packs[0], *packs[1], *packs[2], ao, *packs[3],
@@ -1051,8 +1092,12 @@ def check_block_int8_kernel(seed: int) -> dict:
                                f"it moves the output by {miss}, limit "
                                f"{limit}")
     ms = median_ms(lambda: k7.fused_block_attention_int8(*args))
+    stages = device_ms_by_mark(lambda: k7.fused_block_attention_int8(*args),
+                               K7_STAGES)
     plain_ms = median_ms(lambda: k7.fused_block_attention_int8_reference(
         *args))
+    composition_ms = median_ms(lambda: int8_block_composition(
+        x, ls, lb, 1e-5, a_qkv, packs, ao, h))
     # 2*B*S*D*D int8 operations for each of the four projections,
     # 2*B*H*S*S*dh bf16 for QK^T and for PV.
     int8_ops, bf16_ops = 4 * 2 * b * s * d * d, 2 * 2 * b * h * s * s * 64
@@ -1062,8 +1107,11 @@ def check_block_int8_kernel(seed: int) -> dict:
            "library_ms": None}
     phase("kernel", name="fused_block_attention_int8", shape=f"({b},{s},{d})",
           heads=h, max_abs_err=err, tol=limit, lsb=lsb,
-          share_over_abs=share, share_tol=K7_SHARE, ms=ms, plain_ms=plain_ms,
-          bound_ms=rec["bound_ms"],
+          share_over_abs=share, share_tol=K7_SHARE, ms=ms,
+          wmma_design_ms=K7_WMMA_MS,
+          **{f"{n}_device_ms": round(v, 4) for n, v in stages.items()},
+          plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          composition_ms=composition_ms,
           tops=round((int8_ops + bf16_ops) / 1e9 / ms, 1))
     return rec
 
@@ -2175,18 +2223,22 @@ def build_kernels() -> None:
     wall = time.perf_counter() - t0
     for name, b in built.items():
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(mark in line for mark in ("registers", "spill", "C7513",
+                                             "C7514")):
                 phase("ptxas", kernel=name, line=line.strip())
         phase("build", kernel=name, seconds=round(b.seconds, 3))
-    # The wgmma kernels' products in their SASS: HGMMA instructions.
+    # The wgmma kernels' products in their SASS: HGMMA instructions (bf16),
+    # and IGMMA (int8) in K7's and K8's GEMMs.
     cuobjdump = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
     for name in WGMMA_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", built[name].path],
-                              capture_output=True, text=True, check=True)
-        hgmma = sum("HGMMA" in line for line in sass.stdout.splitlines())
-        if not hgmma:
-            raise RuntimeError(f"{name}: no HGMMA in its SASS")
-        phase("sass", kernel=name, hgmma=hgmma)
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+        hgmma = sum("HGMMA" in line for line in sass)
+        igmma = sum("IGMMA" in line for line in sass)
+        if not hgmma or (name.endswith("_int8") and not igmma):
+            raise RuntimeError(f"{name}: no HGMMA or IGMMA in its SASS")
+        phase("sass", kernel=name, hgmma=hgmma, igmma=igmma)
     k.load()
     k.load_backward()
     geodesy.load()

@@ -9,7 +9,11 @@
 // K3′ (flash_attention_online.cu) launches the same kernel: its function,
 // _attn_kernel_online, is this one (128-key chunks, p rounded to bf16
 // against the running max, den from f32 p). The kernel's `Tag` names each
-// user's instance, so K3 and K3′ are told apart in a profile.
+// user's instance, so K3 and K3′ are told apart in a profile. Its `Out`
+// policy writes out: bf16 (every user but K7), or K7's requantize of the
+// bf16 output, oq = clip(rint(f32(out) / ao), +-127) as int8, so that the
+// bf16 output never goes to device memory there (the TPU kernel keeps it
+// in VMEM).
 //
 // A persistent grid (one block an SM) walks the (128-row query tile,
 // head, image) tiles, query tiles of a head next to each other so their
@@ -55,6 +59,31 @@ constexpr int FWD_BAR_OFF = FWD_KV_OFF + FWD_STAGES * 2 * TILE128;
 // empty[STAGES].
 constexpr int FWD_SMEM = FWD_BAR_OFF + (4 + 3 * FWD_STAGES) * 8 + 1024;
 
+// The output policies: `store` takes a thread's pair o / l at two
+// neighbouring columns and the policy's scale (read once from the
+// caller's device pointer where SCALED) and writes the pair at `dst`.
+struct AttnOutBf16 {
+  typedef bf16 T;
+  static constexpr bool SCALED = false;
+  __device__ static __forceinline__ void store(T* dst, float o0, float o1,
+                                               float) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
+  }
+};
+
+// int8(clip(rint(f32(bf16(o / l)) / a), +-127)): K7's requantize of the
+// attention output, rounded to bf16 first as the TPU kernel's oall_ref.
+struct AttnOutQuantized {
+  typedef int8_t T;
+  static constexpr bool SCALED = true;
+  __device__ static __forceinline__ void store(T* dst, float o0, float o1,
+                                               float a) {
+    const float2 o = __bfloat1622float2(__floats2bfloat162_rn(o0, o1));
+    *reinterpret_cast<char2*>(dst) =
+        make_char2(quantize_s8(o.x, a), quantize_s8(o.y, a));
+  }
+};
+
 // Online softmax of one chunk's scores on the thread's two rows, in
 // place: masks keys at or past `kv`, updates the running max `m` (units of
 // s) and the partial denominator `l`, leaves p in `s` and returns the
@@ -88,13 +117,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 }
 
-template <class Tag>
+template <class Tag, class Out>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
-                             bf16* __restrict__ out, int S, int H, int B,
-                             float c2) {
+                             typename Out::T* __restrict__ out,
+                             const float* __restrict__ out_scale, int S,
+                             int H, int B, float c2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int n_qt = (S + FWD_ROWS - 1) / FWD_ROWS;
@@ -159,6 +189,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int quad = lane % 4;
   const size_t ld = static_cast<size_t>(H) * HD;
   const uint32_t kv_base = smem_u32(smem + FWD_KV_OFF);
+  const float out_a = Out::SCALED ? *out_scale : 0.0f;
 
   int it = 0, qi = 0;
   for (int w = blockIdx.x; w < n_tiles; w += gridDim.x, ++qi) {
@@ -248,31 +279,36 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_arrive(q_empty + qs);
 
-    // out = bf16(o / l) on the rows below S.
+    // out = Out(o / l) on the rows below S.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int q = qt * FWD_ROWS + cw * 64 + row + 8 * r;
       if (q >= S) continue;
-      bf16* dst = out + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+      typename Out::T* dst =
+          out + (static_cast<size_t>(b) * S + q) * ld + h * HD;
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8) {
-        *reinterpret_cast<uint32_t*>(dst + 8 * j8 + 2 * quad) = pack_bf16(
-            o[4 * j8 + 2 * r] / l[r], o[4 * j8 + 2 * r + 1] / l[r]);
+        Out::store(dst + 8 * j8 + 2 * quad, o[4 * j8 + 2 * r] / l[r],
+                   o[4 * j8 + 2 * r + 1] / l[r], out_a);
       }
     }
   }
 }
 
-// Launch the forward over (B, S, H, 64) q/k/v on `stream`; returns the
-// first failing call's error.
-template <class Tag>
+// Launch the forward over (B, S, H, 64) q/k/v on `stream` into out (B, S,
+// H, 64) of the policy's type; `out_scale` a device pointer to the f32
+// scale of a SCALED policy. Returns the first failing call's error.
+template <class Tag, class Out = AttnOutBf16>
 inline cudaError_t launch_flash_forward(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int seq, int heads,
-                                        cudaStream_t stream) {
-  if (batch < 1 || seq < 1 || heads < 1) return cudaErrorInvalidValue;
+                                        cudaStream_t stream,
+                                        const float* out_scale = nullptr) {
+  if (batch < 1 || seq < 1 || heads < 1 || (Out::SCALED && !out_scale)) {
+    return cudaErrorInvalidValue;
+  }
   CUtensorMap maps[3];
   const void* srcs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -284,7 +320,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag>,
+    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag, Out>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                FWD_SMEM);
     if (err != cudaSuccess) return err;
@@ -293,9 +329,11 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   const long tiles =
       static_cast<long>((seq + FWD_ROWS - 1) / FWD_ROWS) * heads * batch;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  flash_attention_kernel_wgmma<Tag><<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), seq, heads, batch,
-      LOG2E / sqrtf(static_cast<float>(HD)));
+  flash_attention_kernel_wgmma<Tag, Out>
+      <<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<typename Out::T*>(out),
+          out_scale, seq, heads, batch,
+          LOG2E / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 

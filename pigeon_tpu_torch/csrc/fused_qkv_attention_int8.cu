@@ -20,97 +20,68 @@
 // up to D = 1040.
 //
 // What bounds it on the H100: at the serving shape (B=4 views, S=577,
-// D=1024, H=16) the projections are ~14.5 G int8 operations and the
-// attention ~5.5 GFLOP of bf16 (~2.7 more for the two-pass softmax's
-// second QK^T) over ~13 MB of unique operands (x_q 2.4 MB, the three
-// int8 weights 3.1 MB, out 4.7 MB): far above the ridge, so the tensor
-// cores bound it. The design is K1's (fused_qkv_attention.cu) with int8
-// operands: one block per (batch, head) projects that head's K and V for
-// all S rows with int8 x int8 -> int32 WMMA, dequantizes in an f32
-// epilogue, keeps them resident in shared memory as bf16 (2 x S_pad x 72
-// bf16 = 184 KB at S=577), then walks 64-row query tiles: project the Q
-// tile the same way and run `attend_tile` (attention_tile.cuh, the body
-// K1 and K3 share). x and the weight slices stream through shared memory
-// in 64-wide int8 chunks: half the bytes of K1's bf16 chunks.
+// D=1024, H=16) the projections are 14.5 G int8 operations (0.0073 ms at
+// 1,979 TOP/s) and the attention 5.5 GFLOP of bf16 (0.0055 ms) over ~10
+// MB of operands (x_q 2.4 MB, the three int8 weights 3.1 MB, out 4.7 MB):
+// far above the ridge, so the tensor cores bound it. The design is K1's
+// (fused_qkv_attention.cu) with int8 operands, two launches on the
+// caller's stream (qkv_forward_sm90.cuh):
 //
-// The block body is `fused_qkv_attention_int8_block` of attention_tile.cuh
-// (shared with K7, which quantizes x in a launch of its own first).
-// The int8 tiles are staged as four [64 rows][16 bytes] sub-tiles, one per
-// WMMA k step, so every fragment starts on a 256-byte boundary with a
-// 16-byte leading dimension (WMMA's alignment rules for 8-bit operands).
-// B x H = 64 blocks leave half of the 132 SMs idle at the serving shape,
-// as in K1; cp.async/TMA staging and wgmma are later tuning steps.
+//   1. projection (K8Projection): q|k|v by the persistent wgmma GEMM of
+//      gemm_sm90.cuh on int8 operands ("A B^T", both K-major as 8-bit
+//      wgmma wants them: x_q (B*S, D) row-major, [Wq; Wk; Wv] (3P, D) in
+//      three N segments; m64n256k32 s8 products, s32 sums; TMA moves the
+//      int8 tiles as UINT8, 128 values of K a 128-byte swizzled row) with
+//      the dequant epilogue above, into three (B, S, P) bf16 workspaces;
+//   2. attention (K8Attention): K3's streaming forward
+//      (flash_fwd_sm90.cuh) on them.
 //
-// Constraints (checked by the Python wrapper before launch): head_dim 64,
-// D a multiple of 64, S <= pigeon_fused_qkv_attention_int8_max_seq();
-// x_q and W int8, scales and biases f32, out bf16; all contiguous and
-// 16-byte aligned. Rows past S are projected from zeros (giving the
-// bias), excluded from the softmax and never written.
+// x_q is read once by the projection, not once for each head; every GEMM
+// tile is full width, and the grid spans all SMs. q/k/v make one round
+// trip through device memory (14 MB at 4 views). p is rounded to bf16
+// against the running max over 128-key chunks, not the exact row max of
+// _fused_qkv_int8_kernel, as K1: within 2e-2 of the output's magnitude of
+// the exact-max plain version.
+//
+// Constraints (checked by the Python wrapper): head_dim 64, D and P
+// multiples of 128 (the GEMM's tiles), any S >= 1; x_q and W int8, scales
+// and biases f32, out and the workspaces q/k/v (B, S, P) bf16; all
+// contiguous and 16-byte aligned. Ragged M = B x S: TMA reads rows past M
+// as zeros and none is written; K3 masks keys past S and writes no row
+// past S.
 
-#include "attention_tile.cuh"
+#include "qkv_forward_sm90.cuh"
 
 namespace {
-
-__host__ __device__ constexpr int smem_bytes(int s_pad) {
-  return resident_smem_bytes(s_pad, INT8_WORK_BYTES);
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-fused_qkv_attention_int8_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-    const int8_t* __restrict__ wk, const int8_t* __restrict__ wv,
-    const float* __restrict__ fsq, const float* __restrict__ fsk,
-    const float* __restrict__ fsv, const float* __restrict__ bq,
-    const float* __restrict__ bk, const float* __restrict__ bv,
-    bf16* __restrict__ out, int S, int D, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  fused_qkv_attention_int8_block(smem, xq + (size_t)blockIdx.y * S * D, wq,
-                                 wk, wv, fsq, fsk, fsv, bq, bk, bv, out, S,
-                                 D, H, scale);
-}
-
+// This kernel's instances of the GEMM and of the attention forward.
+struct K8Projection {};
+struct K8Attention {};
 }  // namespace
 
 extern "C" {
-
-// Longest sequence whose resident K/V fit one block's shared memory.
-int pigeon_fused_qkv_attention_int8_max_seq() {
-  return resident_max_seq(INT8_WORK_BYTES);
-}
 
 const char* pigeon_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// xq (B, S, D) int8; wq/wk/wv (H*64, D) int8 in torch Linear layout;
-// fsq/fsk/fsv (H*64,) f32 dequant scales (act_scale folded in); bq/bk/bv
-// (H*64,) f32; out (B, S, H*64) bf16. All contiguous. Launches on `stream`
-// and returns the launch's cudaError_t (0 on success).
+// xq (B, S, D) int8; wq/wk/wv (P, D) int8 in torch Linear layout;
+// fsq/fsk/fsv (P,) f32 dequant scales (act_scale folded in); bq/bk/bv
+// (P,) f32; out (B, S, P) bf16; q_ws/k_ws/v_ws (B, S, P) bf16 workspaces.
+// P = heads * 64. Launches the two stages on `stream` and returns the
+// first failing call's cudaError_t (0 on success).
 int pigeon_fused_qkv_attention_int8(
     const void* xq, const void* wq, const void* wk, const void* wv,
     const void* fsq, const void* fsk, const void* fsv, const void* bq,
-    const void* bk, const void* bv, void* out, int batch, int seq, int dim,
-    int heads, void* stream) {
-  const int s_pad = ((seq + TILE - 1) / TILE) * TILE;
-  const int smem = smem_bytes(s_pad);
-  if (batch < 1 || seq < 1 || heads < 1 || dim % KC8 != 0 || smem > MAX_SMEM) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_qkv_attention_int8_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(heads, batch);
-  fused_qkv_attention_int8_kernel<<<grid, THREADS, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
-      static_cast<const int8_t*>(wk), static_cast<const int8_t*>(wv),
-      static_cast<const float*>(fsq), static_cast<const float*>(fsk),
-      static_cast<const float*>(fsv), static_cast<const float*>(bq),
-      static_cast<const float*>(bk), static_cast<const float*>(bv),
-      static_cast<bf16*>(out), seq, dim, heads,
-      1.0f / sqrtf(static_cast<float>(DH)));
-  return static_cast<int>(cudaGetLastError());
+    const void* bk, const void* bv, void* out, void* q_ws, void* k_ws,
+    void* v_ws, int batch, int seq, int dim, int heads, void* stream) {
+  const float* const scales[3] = {static_cast<const float*>(fsq),
+                                  static_cast<const float*>(fsk),
+                                  static_cast<const float*>(fsv)};
+  return static_cast<int>(
+      launch_qkv_attention_forward<K8Projection, K8Attention,
+                                   EpilogueDequantBias>(
+          xq, wq, wk, wv, bq, bk, bv, out, q_ws, k_ws, v_ws, batch, seq,
+          dim, heads, static_cast<cudaStream_t>(stream), scales));
 }
 
 }  // extern "C"

@@ -1,30 +1,33 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels: the attention
-// forward and backward (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh; K3, K3′,
-// K4 and K2's attention passes) and the GEMM (gemm_sm90.cuh; K2's
-// projection and dx). TMA loads of (B, S, H, 64) or row-major 2-D bf16
-// tiles into 128-byte-swizzled shared memory, mbarrier waits, wgmma on
-// those tiles (operands from shared memory or, for A, from registers),
-// the bulk f32 reduce-add to device memory, and the host-side tensor maps.
+// forward and backward (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh) and the
+// GEMM (gemm_sm90.cuh), which every wgmma kernel of the port runs on. TMA
+// loads of (B, S, H, 64) bf16 or row-major 2-D bf16 or int8 tiles into
+// 128-byte-swizzled shared memory, mbarrier waits, wgmma on those tiles
+// (bf16 operands from shared memory or, for A, from registers; int8 from
+// shared memory, s32 sums), the int8 requantize, the bulk f32 reduce-add
+// to device memory, and the host-side tensor maps.
 //
-// Layouts. A tile of R rows of one head (or of 64 columns of a row-major
-// matrix) is R x 128 bytes in shared memory (64 bf16 are one 128-byte
-// row), swizzled by TMA in 1024-byte groups of 8 rows: the 16-byte chunk
-// c of row r sits at chunk c ^ (r % 8). Tiles start on 1024-byte
-// boundaries. wgmma reads such a tile through a descriptor with the
-// 128-byte swizzle and a stride of 1024 bytes between 8-row groups:
+// Layouts. A tile of R rows of one head (or of 128 bytes of a row-major
+// matrix: 64 bf16 or 128 int8) is R x 128 bytes in shared memory,
+// swizzled by TMA in 1024-byte groups of 8 rows: the 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8). Tiles start on 1024-byte boundaries.
+// wgmma reads such a tile through a descriptor with the 128-byte swizzle
+// and a stride of 1024 bytes between 8-row groups:
 //   - K-major (the reduced dimension along the row, e.g. Q and K in
-//     Q K^T): one k16 step is +32 bytes within the row;
+//     Q K^T): one k16 step of bf16, or k32 step of int8, is +32 bytes
+//     within the row (8-bit wgmma takes both operands K-major only);
 //   - MN-major (the output dimension along the row, e.g. V in P V, where
 //     the keys are the reduced dimension): one k16 step is 16 rows,
 //     +2048 bytes, and the transpose flag is set. An operand wider than
 //     64 outputs is several such tiles side by side, the descriptor's
 //     leading byte offset the distance from one to the next.
 //
-// Accumulators follow wgmma's m64nN f32 layout: thread t of warp w holds,
-// for each 8-column group j, (row 16w + t/4, cols 8j + 2(t%4) + {0,1}) in
-// d[4j], d[4j+1] and the same columns of row +8 in d[4j+2], d[4j+3]. For
-// bf16 that is also the A-operand layout of a k16 step over 16 columns:
-// acc_to_a packs it, so a product's output feeds the next from registers.
+// Accumulators follow wgmma's m64nN f32 (and s32) layout: thread t of
+// warp w holds, for each 8-column group j, (row 16w + t/4, cols 8j +
+// 2(t%4) + {0,1}) in d[4j], d[4j+1] and the same columns of row +8 in
+// d[4j+2], d[4j+3]. For bf16 that is also the A-operand layout of a k16
+// step over 16 columns: acc_to_a packs it, so a product's output feeds
+// the next from registers.
 
 #pragma once
 
@@ -227,6 +230,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
@@ -235,6 +244,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// clip(rint(v / a), -127, 127) as int8: the requantize of the int8
+// routes (`quantize_static`), a true division rounded half to even.
+__device__ __forceinline__ int8_t quantize_s8(float v, float a) {
+  return static_cast<int8_t>(
+      fminf(fmaxf(rintf(__fdiv_rn(v, a)), -127.0f), 127.0f));
 }
 
 // The A fragments of k16 step `k` from an f32 accumulator (its columns
@@ -396,6 +412,106 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(accumulate), "n"(TRANS_B));
 }
 
+// d (+)= A B for int8 A and B, both K-major from shared memory, s32 sums
+// (128 columns, one k32 step: 32 bytes of K). Integer wgmma has only
+// scale-d: no scale-a, scale-b or transpose immediates.
+__device__ __forceinline__ void wgmma_ss_s8_n128(int32_t (&d)[64],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (+)= A B for int8 A and B, both K-major from shared memory, s32 sums
+// (256 columns, one k32 step: 32 bytes of K). Integer wgmma has only
+// scale-d: no scale-a, scale-b or transpose immediates.
+__device__ __forceinline__ void wgmma_ss_s8_n256(int32_t (&d)[128],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // ---------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -453,9 +569,23 @@ inline cudaError_t bshd_map(CUtensorMap* map, const void* base, int batch,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Tensor map of a row-major (rows, cols) bf16 matrix, boxes of 64 columns
-// (128 bytes) by `box_rows` rows (at most 256), 128-byte swizzle. A box
-// past the last row reads zeros.
+// The tensor-map element type of T. TMA has no signed 8-bit type:
+// UINT8 moves the same bytes.
+template <class T>
+struct TmaType;
+template <>
+struct TmaType<bf16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<int8_t> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+// Tensor map of a row-major (rows, cols) matrix of T (bf16 or int8),
+// boxes of 128 bytes of a row (64 bf16 or 128 int8) by `box_rows` rows (at
+// most 256), 128-byte swizzle. A box past the last row reads zeros.
+template <class T = bf16>
 inline cudaError_t rowmajor_map(CUtensorMap* map, const void* base, int rows,
                                 int cols, int box_rows) {
   EncodeTiled encode = nullptr;
@@ -463,14 +593,14 @@ inline cudaError_t rowmajor_map(CUtensorMap* map, const void* base, int rows,
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {HD, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ROW_BYTES / sizeof(T)),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, TmaType<T>::value, 2, const_cast<void*>(base), dims, strides, box,
+      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

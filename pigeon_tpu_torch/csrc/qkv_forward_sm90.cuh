@@ -1,12 +1,17 @@
-// K1's two stages, which K1 (fused_qkv_attention.cu) runs on x and K5
-// (fused_ln_qkv_attention.cu) on its LayerNorm's xn, each under tags of its
-// own so that a profile tells the two apart:
+// K1's two stages, which K1 (fused_qkv_attention.cu) runs on x, K5
+// (fused_ln_qkv_attention.cu) and K6 (fused_block_attention.cu) on their
+// LayerNorm's xn, and the int8 routes' K8 (fused_qkv_attention_int8.cu)
+// and K7 (fused_block_attention_int8.cu) on int8 x, each under tags of
+// their own so that a profile tells them apart:
 //
-//   1. projection: q|k|v = bf16(x [Wq; Wk; Wv]^T + b) into three (B, S, P)
-//      workspaces by gemm_sm90.cuh's persistent wgmma GEMM (N = 3P in three
-//      segments, f32 sums and bias, one rounding);
+//   1. projection: q|k|v = bf16(epilogue(x [Wq; Wk; Wv]^T)) into three
+//      (B, S, P) workspaces by gemm_sm90.cuh's persistent wgmma GEMM
+//      (N = 3P in three segments, one rounding): bf16 operands with the
+//      bias (EpilogueBias), or int8 operands with the per-channel dequant
+//      scale and the bias (EpilogueDequantBias);
 //   2. attention: K3's streaming forward (flash_fwd_sm90.cuh) on them,
-//      whose (B, S, P) layout is K3's (B, S, H, 64).
+//      whose (B, S, P) layout is K3's (B, S, H, 64), writing out in bf16
+//      or, for K7, requantized to int8 (AttnOutQuantized).
 
 #pragma once
 
@@ -22,33 +27,41 @@ inline bool qkv_forward_shape_ok(int batch, int seq, int dim, int heads) {
          (heads * HD) % 128 == 0;
 }
 
-// x (B, S, D); wq/wk/wv (P, D) in torch Linear layout; bq/bk/bv (P,); out
-// and the workspaces q_ws/k_ws/v_ws (B, S, P); all bf16. Launches the two
-// stages on `stream` and returns the first failing call's error.
-template <class ProjectionTag, class AttentionTag>
+// x (B, S, D) and wq/wk/wv (P, D) in torch Linear layout, of the
+// projection policy's operand type; bq/bk/bv (P,) of its Bias type; for
+// the int8 policy `scales` the three (P,) f32 dequant scales; the
+// workspaces q_ws/k_ws/v_ws (B, S, P) bf16; out (B, S, P) of the attention
+// policy's type, `out_scale` its device scale where it needs one.
+// Launches the two stages on `stream` and returns the first failing
+// call's error.
+template <class ProjectionTag, class AttentionTag,
+          class Projection = EpilogueBias, class Attention = AttnOutBf16>
 inline cudaError_t launch_qkv_attention_forward(
     const void* x, const void* wq, const void* wk, const void* wv,
     const void* bq, const void* bk, const void* bv, void* out, void* q_ws,
     void* k_ws, void* v_ws, int batch, int seq, int dim, int heads,
-    cudaStream_t stream) {
+    cudaStream_t stream, const float* const* scales = nullptr,
+    const float* out_scale = nullptr) {
+  typedef GemmIn<Projection> T;
+  typedef GemmBias<Projection> Bias;
   if (!qkv_forward_shape_ok(batch, seq, dim, heads)) {
     return cudaErrorInvalidValue;
   }
   const int P = heads * HD;
-  const bf16* const xs[1] = {static_cast<const bf16*>(x)};
-  const bf16* const w[3] = {static_cast<const bf16*>(wq),
-                            static_cast<const bf16*>(wk),
-                            static_cast<const bf16*>(wv)};
-  const bf16* const bias[3] = {static_cast<const bf16*>(bq),
-                               static_cast<const bf16*>(bk),
-                               static_cast<const bf16*>(bv)};
+  const T* const xs[1] = {static_cast<const T*>(x)};
+  const T* const w[3] = {static_cast<const T*>(wq), static_cast<const T*>(wk),
+                         static_cast<const T*>(wv)};
+  const Bias* const bias[3] = {static_cast<const Bias*>(bq),
+                               static_cast<const Bias*>(bk),
+                               static_cast<const Bias*>(bv)};
   bf16* const qkv[3] = {static_cast<bf16*>(q_ws), static_cast<bf16*>(k_ws),
                         static_cast<bf16*>(v_ws)};
-  const cudaError_t err = gemm_sm90<ProjectionTag, true>(
-      xs, w, bias, qkv, batch * seq, 3 * P, dim, dim, P, stream);
+  const cudaError_t err = gemm_sm90<ProjectionTag, true, Projection>(
+      xs, w, bias, qkv, batch * seq, 3 * P, dim, dim, P, stream, nullptr,
+      scales);
   if (err != cudaSuccess) return err;
-  return launch_flash_forward<AttentionTag>(q_ws, k_ws, v_ws, out, batch,
-                                            seq, heads, stream);
+  return launch_flash_forward<AttentionTag, Attention>(
+      q_ws, k_ws, v_ws, out, batch, seq, heads, stream, out_scale);
 }
 
 }  // namespace

@@ -7,11 +7,13 @@ encoder layer of a static int8 tower under
 ``PIGEON_QUANT_ATTN_IMPL=flash_fused_block``: LN1, the shared-scale
 quantize, the int8 q/k/v products, bf16 attention, the quantize of the
 attention output, the int8 out-projection and the residual. It is CUDA
-C++ for ``sm_90a`` (`csrc/fused_block_attention_int8.cu`: an LN + quantize
-launch, K8's block body, and an int8 GEMM quantizing its A tiles as it
-stages them), built by ``nvcc`` at first use and bound with ``ctypes``;
-the source note says what bounds it on the card and how the design
-answers that. Forward only: the int8 tower serves and is never trained.
+C++ for ``sm_90a`` (`csrc/fused_block_attention_int8.cu`: K6's four stages
+on int8 operands, a LayerNorm kernel writing int8 xn, K8's projection GEMM
+and K3's streaming forward requantizing its output, and the int8
+out-projection GEMM with a residual + dequant epilogue), built by
+``nvcc`` at first use and bound with ``ctypes``; the source note says
+what bounds it on the card and how the design answers that. Forward only:
+the int8 tower serves and is never trained.
 
 Weights arrive in `models.quant.QuantLinear`'s layout: int8 ``(D, D)``
 with f32 per-channel ``scale`` and ``bias``. ``a_qkv`` is the shared
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -38,14 +41,12 @@ from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
     check_ln_params,
     flax_layer_norm_f32,
 )
+from pigeon_tpu_torch.kernels.fused_qkv_attention import GEMM_TILE, HEAD_DIM
 from pigeon_tpu_torch.kernels.fused_qkv_attention_int8 import (
-    HEAD_DIM,
+    fold_scales,
     fused_qkv_attention_int8_reference,
 )
 from pigeon_tpu_torch.models.quant import int8_matmul, quantize_static
-
-#: The out-projection GEMM takes D in 128-wide tiles.
-TILE = 128
 
 
 def _scalar(a, device):
@@ -77,26 +78,24 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(native.build_cuda("fused_block_attention_int8").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_block_attention_int8.argtypes = [ptr] * 20 + [
+    lib.pigeon_fused_block_attention_int8.argtypes = [ptr] * 23 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ptr]
     lib.pigeon_fused_block_attention_int8.restype = ctypes.c_int
-    lib.pigeon_fused_block_attention_int8_max_seq.argtypes = []
-    lib.pigeon_fused_block_attention_int8_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check_operands(x, ln_scale, ln_bias, scalars, weights, vectors,
-                    num_heads: int, max_seq: int):
+                    num_heads: int):
+    """K7's operands: any S, D = H * 64 a multiple of `GEMM_TILE` (the
+    int8 GEMMs' tiles)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, D), got {tuple(x.shape)}")
-    _, s, d = x.shape
-    if num_heads * HEAD_DIM != d or d % TILE:
+    d = x.shape[-1]
+    if num_heads * HEAD_DIM != d or d % GEMM_TILE:
         raise ValueError(f"D={d} must be H * {HEAD_DIM} (H={num_heads}) "
-                         f"and a multiple of {TILE}")
-    if not 1 <= s <= max_seq:
-        raise ValueError(f"S={s} outside the kernel's 1..{max_seq}")
+                         f"and a multiple of {GEMM_TILE}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x: dtype {x.dtype}, kernel takes bf16")
     for name, t, shape, dtype in (
@@ -114,6 +113,30 @@ def _check_operands(x, ln_scale, ln_bias, scalars, weights, vectors,
     check_ln_params(x, ln_scale, ln_bias)
 
 
+class ForwardWorkspaces(NamedTuple):
+    """K7's scratch, each ``(B, S, D)``: the quantized xn ``xq`` (int8),
+    the projected ``q``, ``k`` and ``v`` (bf16, read by K3's streaming
+    forward as ``(B, S, H, 64)``) and the requantized attention output
+    ``oq`` (int8)."""
+
+    xq: torch.Tensor
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    oq: torch.Tensor
+
+
+def forward_workspaces(x) -> ForwardWorkspaces:
+    """K7's workspaces for ``x`` (B, S, D) from PyTorch's allocator
+    (uninitialised: each stage writes every row below B * S)."""
+    def empty(dtype):
+        return torch.empty(x.shape, dtype=dtype, device=x.device)
+
+    return ForwardWorkspaces(empty(torch.int8), *(empty(torch.bfloat16)
+                                                  for _ in range(3)),
+                             empty(torch.int8))
+
+
 def fused_block_attention_int8(x, ln_scale, ln_bias, a_qkv, wq, sq, bq, wk,
                                sk, bk, wv, sv, bv, ao, wo, so, bo,
                                num_heads: int, eps: float):
@@ -122,10 +145,12 @@ def fused_block_attention_int8(x, ln_scale, ln_bias, a_qkv, wq, sq, bq, wk,
 
     ``a_qkv``, ``ao`` f32 scalars; ``w*`` int8 ``(D, D)``; ``s*``, ``b*``
     f32 ``(D,)``. CPU tensors run the plain version; CUDA tensors (x bf16,
-    head_dim 64, D = H * 64 a multiple of 128) launch the kernel on
-    PyTorch's current stream and count the launch in
-    ``fused_block_attention_int8.launches``; any other device raises. The
-    kernel's int8 and bf16 ``(B, S, D)`` workspaces are allocated here.
+    head_dim 64, D = H * 64 a multiple of 128, any S) launch the kernel's
+    four stages (LN1 + quantize, the int8 projection GEMM, K3's streaming
+    forward requantizing its output, the int8 out-projection GEMM;
+    :func:`forward_workspaces`, allocated here on every call) on PyTorch's
+    current stream and count one launch in
+    ``fused_block_attention_int8.launches``; any other device raises.
     """
     if x.device.type == "cpu":
         return fused_block_attention_int8_reference(
@@ -134,27 +159,25 @@ def fused_block_attention_int8(x, ln_scale, ln_bias, a_qkv, wq, sq, bq, wk,
     if x.device.type != "cuda":
         raise ValueError(
             f"fused_block_attention_int8: no kernel for {x.device}")
-    lib = load()
     a_qkv = _scalar(a_qkv, x.device).contiguous()
     ao = _scalar(ao, x.device).contiguous()
-    folded = [(a * s.float()).contiguous()
-              for a, s in ((a_qkv, sq), (a_qkv, sk), (a_qkv, sv), (ao, so))]
+    folded = fold_scales(a_qkv, (sq, sk, sv)) + fold_scales(ao, (so,))
     _check_operands(
         x, ln_scale, ln_bias, (("a_qkv", a_qkv), ("ao", ao)),
         (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)),
         [(f"fs{n}", f) for n, f in zip("qkvo", folded)]
         + [("bq", bq), ("bk", bk), ("bv", bv), ("bo", bo)],
-        num_heads, lib.pigeon_fused_block_attention_int8_max_seq())
+        num_heads)
+    lib = load()
     b, s, d = x.shape
     out = torch.empty_like(x)
-    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    o = torch.empty_like(x)
+    ws = forward_workspaces(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_block_attention_int8(
             *(t.data_ptr() for t in (x, ln_scale, ln_bias, a_qkv, wq, wk, wv,
                                      *folded[:3], bq, bk, bv, ao, wo,
-                                     folded[3], bo, xq, o, out)),
+                                     folded[3], bo, out, *ws)),
             b, s, d, num_heads, float(eps), stream)
     if rc != 0:
         raise RuntimeError(

@@ -4,17 +4,18 @@ K8 replaces `pigeon_tpu/kernels/flash_attention.py::_fused_qkv_int8_kernel`,
 reached through `fused_qkv_mha_int8` once per encoder layer of an int8
 (static-quant) tower on the `flash_fused` route: every layer of every
 ``serve --quant`` request. It is CUDA C++ for ``sm_90a``
-(`csrc/fused_qkv_attention_int8.cu`: K1's design with int8 x int8 ->
-int32 projections and an f32 dequant epilogue, attention through the body
-K1 and K3 share), built by ``nvcc`` at first use and bound with
-``ctypes``; the source note says what bounds it on the card and how the
-design answers that.
+(`csrc/fused_qkv_attention_int8.cu`: K1's two stages on int8 operands,
+the `wgmma` GEMM with s8 products and a dequant epilogue projecting q/k/v
+into (B, S, P) workspaces, then K3's streaming forward on them), built by
+``nvcc`` at first use and bound with ``ctypes``; the source note says what
+bounds it on the card and how the design answers that.
 
 Weights are int8 in ``torch.nn.Linear`` layout, ``(P, D)`` with
 ``P = H * 64``; scales and biases f32 ``(P,)``. As in the JAX wrapper, x
 is quantized here at the shared per-tensor ``act_scale`` (a plain torch
 op, XLA's in the JAX package) and ``act_scale`` is folded into the
-per-channel weight scales, so the kernel takes no scalar.
+per-channel weight scales (:func:`fold_scales`), so the kernel takes no
+scalar.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (:func:`fused_qkv_attention_int8_reference`, which the CPU tests
@@ -31,12 +32,20 @@ import torch
 
 from pigeon_tpu_torch import native
 from pigeon_tpu_torch.kernels.attention import flash_attention_reference
+from pigeon_tpu_torch.kernels.fused_qkv_attention import (
+    GEMM_TILE,
+    HEAD_DIM,
+    ForwardWorkspaces,
+    forward_workspaces,
+)
 from pigeon_tpu_torch.models.quant import int8_matmul, quantize_static
 
-#: The head width the kernel is written for (ViT-B and ViT-L both use 64).
-HEAD_DIM = 64
-#: The kernel stages D in chunks of this many int8 columns.
-D_CHUNK = 64
+
+def fold_scales(act_scale, scales) -> list:
+    """The per-channel dequant scales with the activation scale folded in,
+    ``act_scale * f32(s)`` for each ``s``, contiguous f32 (the JAX
+    wrappers' ``fold`` and ``sv_vec``)."""
+    return [(act_scale * s.float()).contiguous() for s in scales]
 
 
 def fused_qkv_attention_int8_reference(x, act_scale, wq, sq, bq, wk, sk, bk,
@@ -70,26 +79,24 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     lib = ctypes.CDLL(native.build_cuda("fused_qkv_attention_int8").path)
     ptr = ctypes.c_void_p
-    lib.pigeon_fused_qkv_attention_int8.argtypes = [ptr] * 11 + [
+    lib.pigeon_fused_qkv_attention_int8.argtypes = [ptr] * 14 + [
         ctypes.c_int] * 4 + [ptr]
     lib.pigeon_fused_qkv_attention_int8.restype = ctypes.c_int
-    lib.pigeon_fused_qkv_attention_int8_max_seq.argtypes = []
-    lib.pigeon_fused_qkv_attention_int8_max_seq.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operands(x, x_q, weights, scales, biases, num_heads: int,
-                    max_seq: int):
+def _check_operands(x, x_q, weights, scales, biases, num_heads: int):
+    """K8's operands: any S, D and P multiples of `GEMM_TILE` (the int8
+    GEMM's tiles), head_dim 64."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, D), got {tuple(x.shape)}")
     b, s, d = x.shape
     p = num_heads * HEAD_DIM
-    if d % D_CHUNK:
-        raise ValueError(f"D={d} is not a multiple of {D_CHUNK}")
-    if not 1 <= s <= max_seq:
-        raise ValueError(f"S={s} outside the kernel's 1..{max_seq}")
+    if d % GEMM_TILE or p % GEMM_TILE:
+        raise ValueError(f"D={d} and P={p} must be multiples of {GEMM_TILE} "
+                         "(an even head count)")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x: dtype {x.dtype}, kernel writes bf16")
     for name, t, shape, dtype in (
@@ -121,9 +128,12 @@ def fused_qkv_attention_int8(x, act_scale, wq, sq, bq, wk, sk, bk, wv, sv,
 
     ``x`` float activations; ``act_scale`` the f32 per-tensor input scale;
     ``w*`` int8 ``(P, D)``; ``s*``, ``b*`` f32 ``(P,)``. CPU tensors run
-    the plain version; CUDA tensors (x bf16, head_dim 64) launch the kernel
-    on PyTorch's current stream and count the launch in
-    ``fused_qkv_attention_int8.launches``; any other device raises.
+    the plain version; CUDA tensors (x bf16, head_dim 64, D and P
+    multiples of 128, any S) launch the kernel's two stages (the int8
+    projection GEMM into K1's :func:`forward_workspaces`, allocated here
+    on every call, then K3's streaming forward) on PyTorch's current
+    stream and count one launch in ``fused_qkv_attention_int8.launches``;
+    any other device raises.
     """
     if x.device.type == "cpu":
         return fused_qkv_attention_int8_reference(
@@ -131,21 +141,20 @@ def fused_qkv_attention_int8(x, act_scale, wq, sq, bq, wk, sk, bk, wv, sv,
     if x.device.type != "cuda":
         raise ValueError(
             f"fused_qkv_attention_int8: no kernel for {x.device}")
-    lib = load()
     act_scale = torch.as_tensor(act_scale, dtype=torch.float32,
                                 device=x.device)
     x_q = quantize_static(x, act_scale)
-    folded = [(act_scale * sc.float()).contiguous() for sc in (sq, sk, sv)]
-    _check_operands(x, x_q, (wq, wk, wv), folded, (bq, bk, bv), num_heads,
-                    lib.pigeon_fused_qkv_attention_int8_max_seq())
+    folded = fold_scales(act_scale, (sq, sk, sv))
+    _check_operands(x, x_q, (wq, wk, wv), folded, (bq, bk, bv), num_heads)
+    lib = load()
     b, s, d = x.shape
-    out = torch.empty((b, s, num_heads * HEAD_DIM), dtype=x.dtype,
-                      device=x.device)
+    ws: ForwardWorkspaces = forward_workspaces(x, num_heads)
+    out = torch.empty_like(ws.q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pigeon_fused_qkv_attention_int8(
             *(t.data_ptr() for t in (x_q, wq, wk, wv, *folded, bq, bk, bv,
-                                     out)),
+                                     out, *ws)),
             b, s, d, num_heads, stream)
     if rc != 0:
         raise RuntimeError(

@@ -11,8 +11,9 @@ variant's outputs against the plain versions' on the same inputs, then
 times the variant and its plain version. A variant of several parts
 (``split4``) times each part on its own as well.
 
-K1's, K5's, K6's and K9's seeded operands and their library yardsticks
-(``qkv_operands``, ``qkv_composition``, ``block_composition``,
+K1's, K5's, K6's, K7's, K8's and K9's seeded operands and their library
+yardsticks (``qkv_operands``, ``qkv_composition``, ``block_composition``,
+``int8_packs``, ``int8_qkv_composition``, ``int8_block_composition``,
 ``mlp_operands``) live here too: `chip_smoke.py` and
 `scripts/bench_torch_flash_sm90.py` both time the kernels on them.
 """
@@ -26,6 +27,15 @@ import sys
 from typing import Callable, Sequence
 
 import torch
+
+from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
+    flax_layer_norm_f32,
+)
+from pigeon_tpu_torch.models.quant import (
+    int8_matmul,
+    quantize_channelwise,
+    quantize_static,
+)
 
 #: The TPU scripts' flagship shape: 32 views of ViT-L/14-336 (S = 577), 16
 #: heads of 64 (BH = 512), and the model width of the QKV script.
@@ -130,6 +140,53 @@ def block_composition(x: torch.Tensor, ln: Sequence, ws: Sequence,
     xn = torch.nn.functional.layer_norm(x, x.shape[-1:], *ln)
     return x + torch.nn.functional.linear(qkv_composition(xn, ws, bs, h),
                                           wo, bo)
+
+
+def int8_packs(gen: torch.Generator, d: int, stds: Sequence) -> list:
+    """K7's and K8's weight packs, made on the card from ``gen``: for each
+    std a ``[w (D, D) int8, scale (D,) f32, bias (D,) f32]`` in
+    `QuantLinear`'s layout, quantized per channel from N(0, std^2) f32
+    weights, biases of magnitude 0.02."""
+    packs = []
+    for std in stds:
+        w_q, scale = quantize_channelwise(
+            torch.randn(d, d, generator=gen, device=gen.device) * std)
+        packs.append([w_q, scale,
+                      torch.randn(d, generator=gen, device=gen.device)
+                      * 0.02])
+    return packs
+
+
+def _quant_linear(x_q, act_scale, w, scale, bias, dtype):
+    """A static `QuantLinear`'s product on an already quantized input."""
+    y = int8_matmul(x_q, w).float() * (act_scale * scale) + bias
+    return y.to(dtype)
+
+
+def int8_qkv_composition(x: torch.Tensor, act_scale, packs: Sequence,
+                         h: int) -> torch.Tensor:
+    """K8's yardstick, never on a path: ``quantize_static`` once, three
+    static `QuantLinear` products (``torch._int_mm``, dequant, bias) and
+    PyTorch's fused attention in its (B, H, S, dh) layout, the heads put
+    back as (B, S, P)."""
+    b, s, _ = x.shape
+    x_q = quantize_static(x, act_scale)
+    qkv = [_quant_linear(x_q, act_scale, *pack, x.dtype).view(b, s, h, -1)
+           .transpose(1, 2) for pack in packs]
+    out = torch.nn.functional.scaled_dot_product_attention(*qkv)
+    return out.transpose(1, 2).reshape(b, s, -1)
+
+
+def int8_block_composition(x: torch.Tensor, ln_scale, ln_bias, eps: float,
+                           a_qkv, packs: Sequence, ao,
+                           h: int) -> torch.Tensor:
+    """K7's yardstick, never on a path: the Flax-form LayerNorm in f32
+    rounded to ``x.dtype``, K8's library composition at ``a_qkv`` on the
+    first three packs, the quantize at ``ao``, a static `QuantLinear`
+    out-projection on the fourth and the residual."""
+    xn = flax_layer_norm_f32(x, ln_scale, ln_bias, eps).to(x.dtype)
+    o = int8_qkv_composition(xn, a_qkv, packs[:3], h)
+    return x + _quant_linear(quantize_static(o, ao), ao, *packs[3], x.dtype)
 
 
 def mlp_operands(gen: torch.Generator, b: int, s: int, d: int,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the wgmma kernels K1, K2, K3, K3′, K4, K5, K6 and K9 of
+"""Times the wgmma kernels K1, K2, K3, K3′, K4, K5, K6, K7, K8 and K9 of
 `pigeon_tpu_torch` on one GPU.
 
     python3 scripts/bench_torch_flash_sm90.py [--runs N]
@@ -35,11 +35,23 @@ CUDA-event medians over ``--runs`` calls after a warm-up:
   device time of each launch, and the library composition of the same
   function (K6: ``F.layer_norm``, K1's composition, ``F.linear`` and the
   residual; K9: `fused_mlp.ln_mlp_composition`) on the same values;
+* K8 (`fused_qkv_attention_int8.fused_qkv_attention_int8`) and K7
+  (`fused_block_attention_int8.fused_block_attention_int8`) at x (4,
+  577, 1024), H = 16, on `chip_smoke.py`'s operands: through the
+  wrapper, by a bare call of the C entry point on workspaces allocated
+  once, their TOP/s on the TPU kernels' work, the device time of each
+  launch, and the library composition of the same function
+  (`tuning.int8_qkv_composition`, `tuning.int8_block_composition`); for
+  K8 whether its q/k/v workspaces equal the plain projections bit for
+  bit, for K7 the share of its int8 workspaces xq and oq that differ
+  from the plain version's quantize of LN1 and of the attention output
+  (a requantize flip), and its output error in out-projection LSBs;
 * the tile widths of the wgmma GEMM (`csrc/gemm_sm90.cuh`): K9's fc1 and
-  fc2 and K6's out-projection at M = B x 577 for B in 4 and 32, with
-  128 x 128 and 128 x 256 output tiles on the same operands
-  (`csrc/gemm_sm90_tiles.cu`, built here), each width's output against
-  the other's;
+  fc2, K6's out-projection and the int8 GEMMs of K8 and K7 (a q/k/v
+  projection, N = 3 x 1024, and K7's out-projection) at M = B x 577 for
+  B in 4 and 32, with 128 x 128 and 128 x 256 output tiles on the same
+  operands (`csrc/gemm_sm90_tiles.cu`, built here), each width's output
+  against the other's;
 * the host microseconds a call of K1's and K5's wrappers takes at those
   shapes, and of K3's and K4's at a toy shape.
 
@@ -196,9 +208,113 @@ def block_and_mlp(b: int, runs: int) -> None:
         launches(f"{name} views={b}", fn)
 
 
+def int8_forwards(runs: int) -> None:
+    """K8 and K7 at x (4, 577, 1024) on `chip_smoke.py`'s operands, their
+    library compositions, and what their workspaces hold against the
+    plain versions' intermediates."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
+        flax_layer_norm_f32,
+    )
+    from pigeon_tpu_torch.models.quant import int8_matmul, quantize_static
+    from pigeon_tpu_torch.tuning import (int8_block_composition,
+                                         int8_packs, int8_qkv_composition)
+
+    b, d = 4, HEADS * HEAD_DIM
+    stream = torch.cuda.current_stream().cuda_stream
+    # K8: chip_smoke.check_int8_kernel's operands.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.nn.functional.layer_norm(
+        torch.randn(b, SEQ, d, generator=gen, device="cuda"), (d,)).bfloat16()
+    act = x.float().abs().max() * 1.1 / 127
+    packs = int8_packs(gen, d, (0.02,) * 3)
+    ops = [t for pack in packs for t in pack]
+    x_q = quantize_static(x, act)
+    folded = k8.fold_scales(act, ops[1::3])
+    ws8 = k8.forward_workspaces(x, HEADS)
+    out8 = torch.empty_like(ws8.q)
+
+    def bare8():
+        if k8.load().pigeon_fused_qkv_attention_int8(
+                *(t.data_ptr() for t in (x_q, *ops[0::3], *folded,
+                                         *ops[2::3], out8, *ws8)),
+                b, SEQ, d, HEADS, stream):
+            raise RuntimeError("K8's launch failed")
+
+    bare8()
+    torch.cuda.synchronize()
+    same = all(torch.equal(w, (int8_matmul(x_q, wq).float() * f + bias)
+                           .bfloat16())
+               for w, wq, f, bias in zip(ws8, ops[0::3], folded, ops[2::3]))
+    want = k8.fused_qkv_attention_int8_reference(x, act, *ops, HEADS)
+    err = (out8.float() - want.float()).abs().max().item()
+    print(f"K8 views={b} qkv_bitwise={same} max_abs_err={err:.3g} "
+          f"rel_err={err / want.float().abs().max().item():.3g}", flush=True)
+    # K7: chip_smoke.check_block_int8_kernel's operands.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xr = (torch.randn(b, SEQ, d, generator=gen, device="cuda") * 0.5 + 0.5) \
+        .bfloat16()
+    ls = 1 + 0.5 * torch.randn(d, generator=gen, device="cuda")
+    lb = 0.5 * torch.randn(d, generator=gen, device="cuda")
+    bpacks = int8_packs(gen, d, (0.05, 0.05, 0.03, 0.02))
+    xn = flax_layer_norm_f32(xr, ls, lb, 1e-5)
+    a_qkv = xn.abs().max() * 1.1 / 127
+    xn = xn.bfloat16()
+    ao = torch.tensor(5.5 / 127, device="cuda")
+    bops = [t for pack in bpacks for t in pack]
+    args7 = (xr, ls, lb, a_qkv, *bops[:9], ao, *bops[9:], HEADS, 1e-5)
+    bfolded = k7.fold_scales(a_qkv, bops[1:9:3]) + k7.fold_scales(
+        ao, bops[10:11])
+    ws7 = k7.forward_workspaces(xr)
+    out7 = torch.empty_like(xr)
+
+    def bare7():
+        if k7.load().pigeon_fused_block_attention_int8(
+                *(t.data_ptr() for t in (
+                    xr, ls, lb, a_qkv, *bops[0:9:3], *bfolded[:3],
+                    *bops[2:9:3], ao, bops[9], bfolded[3], bops[11], out7,
+                    *ws7)),
+                b, SEQ, d, HEADS, 1e-5, stream):
+            raise RuntimeError("K7's launch failed")
+
+    bare7()
+    torch.cuda.synchronize()
+    o = k8.fused_qkv_attention_int8_reference(xn, a_qkv, *bops[:9], HEADS)
+    xq_flips = (ws7.xq != quantize_static(xn, a_qkv)).float().mean().item()
+    oq_flips = (ws7.oq != quantize_static(o, ao)).float().mean().item()
+    want = k7.fused_block_attention_int8_reference(*args7)
+    diff = (out7.float() - want.float()).abs()
+    lsb = (ao * bops[10].max() * 127).item()
+    print(f"K7 views={b} xq_flip_share={xq_flips:.3g} "
+          f"oq_flip_share={oq_flips:.3g} max_abs_err={diff.max().item():.4g} "
+          f"lsb={lsb:.4g} limit={1.5 * lsb + 3e-2:.4g} "
+          f"share_over_3e-2={(diff > 3e-2).float().mean().item():.3g}",
+          flush=True)
+    ops7 = {"K8": 3 * 2 * b * SEQ * d * d, "K7": 4 * 2 * b * SEQ * d * d}
+    attn = 2 * 2 * b * HEADS * SEQ * SEQ * HEAD_DIM
+    for name, fn, bare, library in (
+            ("K8", lambda: k8.fused_qkv_attention_int8(x, act, *ops, HEADS),
+             bare8, lambda: int8_qkv_composition(x, act, packs, HEADS)),
+            ("K7", lambda: k7.fused_block_attention_int8(*args7), bare7,
+             lambda: int8_block_composition(xr, ls, lb, 1e-5, a_qkv, bpacks,
+                                            ao, HEADS))):
+        ms = median_ms(fn, runs)
+        bare_ms = median_ms(bare, runs)
+        library_ms = median_ms(library, runs)
+        print(f"{name} views={b} ms={ms:.4f} bare_ms={bare_ms:.4f} "
+              f"tops={(ops7[name] + attn) / ms / 1e9:.1f} "
+              f"composition_ms={library_ms:.4f}", flush=True)
+        launches(f"{name} views={b}", fn)
+        host_us(f"{name} views={b}", fn)
+
+
 def gemm_tiles(runs: int) -> None:
-    """K9's fc1 and fc2 and K6's out-projection with 128-wide and
-    256-wide output tiles, at M = 4 x 577 and 32 x 577."""
+    """K9's fc1 and fc2, K6's out-projection and the int8 GEMMs of K8 and
+    K7 with 128-wide and 256-wide output tiles, at M = 4 x 577 and 32 x
+    577."""
     import ctypes
 
     import torch
@@ -207,16 +323,26 @@ def gemm_tiles(runs: int) -> None:
 
     lib = ctypes.CDLL(native.build_cuda("gemm_sm90_tiles").path)
     lib.pigeon_gemm_sm90_tiles.argtypes = [ctypes.c_int] * 2 + [
-        ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
     d, inter = HEADS * HEAD_DIM, 4 * HEADS * HEAD_DIM
     for b in (4, 32):
         m = b * SEQ
         for which, name, n, k in ((0, "fc1", inter, d), (1, "fc2", d, inter),
-                                  (2, "out_projection", d, d)):
-            a = (torch.randn(m, k, device="cuda")).bfloat16()
-            w = (torch.randn(n, k, device="cuda") * k ** -0.5).bfloat16()
-            bias = (torch.randn(n, device="cuda") * 0.1).bfloat16()
+                                  (2, "out_projection", d, d),
+                                  (3, "s8_projection", 3 * d, d),
+                                  (4, "s8_out_projection", d, d)):
+            if which < 3:
+                a = (torch.randn(m, k, device="cuda")).bfloat16()
+                w = (torch.randn(n, k, device="cuda") * k ** -0.5).bfloat16()
+                bias = (torch.randn(n, device="cuda") * 0.1).bfloat16()
+            else:
+                a = torch.randint(-127, 128, (m, k), device="cuda",
+                                  dtype=torch.int8)
+                w = torch.randint(-127, 128, (n, k), device="cuda",
+                                  dtype=torch.int8)
+                bias = torch.randn(n, device="cuda") * 0.1
+            scale = torch.rand(n, device="cuda") * 1e-5
             res = torch.randn(m, n, device="cuda").bfloat16()
             outs = {}
             for bn in (128, 256):
@@ -225,7 +351,7 @@ def gemm_tiles(runs: int) -> None:
                 def call(bn=bn, out=out):
                     if lib.pigeon_gemm_sm90_tiles(
                             which, bn, *(t.data_ptr() for t in
-                                         (a, w, bias, res, out)),
+                                         (a, w, bias, scale, res, out)),
                             m, n, k, stream):
                         raise RuntimeError(f"{name} at BN {bn} failed")
 
@@ -235,7 +361,7 @@ def gemm_tiles(runs: int) -> None:
                 ms = median_ms(call, runs)
                 print(f"gemm_tiles {name} views={b} M={m} N={n} K={k} "
                       f"BN={bn} tiles={(m + 127) // 128 * (n // bn)} "
-                      f"ms={ms:.4f} tflops={2 * m * n * k / ms / 1e9:.1f}",
+                      f"ms={ms:.4f} tops={2 * m * n * k / ms / 1e9:.1f}",
                       flush=True)
             diff = (outs[128].float() - outs[256].float()).abs().max()
             print(f"gemm_tiles {name} views={b} max_abs_diff_128_vs_256="
@@ -314,6 +440,7 @@ def main() -> int:
         fused_forwards(b, args.runs)
     for b in (32, 4):
         block_and_mlp(b, args.runs)
+    int8_forwards(args.runs)
     gemm_tiles(args.runs)
     tiny = q[:1, :64].contiguous()
     host_us("K3", lambda: k34.flash_attention(tiny, tiny, tiny))

@@ -2,6 +2,7 @@
 """Device-time breakdown of `pigeon_tpu_torch`'s attention routes on one GPU.
 
     python3 scripts/profile_torch_routes.py [--steps N] [--seed N]
+                                            [--serve-only]
 
 Builds the PIGEON preset at full ViT-L/14-336 width (24 layers, D=1024,
 seeded weights and 2203 seeded geocells) as ``finetune`` does (every
@@ -14,7 +15,13 @@ pixels and labels made on the device, and profiles with `torch.profiler`:
   ``flash`` with ``PIGEON_FLASH_FWD=online``;
 * the serving forward of one panorama (4 views) on ``fused``, ``flash``,
   ``fused_ln``, ``fused_mlp``, ``block`` and ``flash`` with
-  ``PIGEON_FLASH_FWD=online``.
+  ``PIGEON_FLASH_FWD=online``;
+* then the int8 serving forward (``serve --quant``) of the same weights,
+  quantized and calibrated on two panoramas of the batch (margin 1.1), on
+  ``fused`` (K8) and ``block`` (K7, ``PIGEON_QUANT_ATTN_IMPL=
+  flash_fused_block``).
+
+``--serve-only`` skips the train steps.
 
 For each it prints one line: the host-clock milliseconds of a
 synchronised step or forward (median), the summed self device time of
@@ -36,7 +43,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: The port's kernels by a substring of their CUDA function names, the
 #: first match in this order (the tags before the library's generic
-#: "gemm": K1's, K2's, K5's, K6's and K9's GEMMs are the port's). K1's two
+#: "gemm": K1's, K2's, K5's, K6's, K7's, K8's and K9's GEMMs are the
+#: port's). K1's two
 #: stages (projection GEMM, K3's streaming forward on its q/k/v) and K5's
 #: three (LN1, the same two) run on the fused routes, each kernel tagged
 #: K1* or K5*; K6's four (K5's three, then the out-projection GEMM) on
@@ -45,7 +53,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: GEMM, K4's attention passes on its q/k/v, dx GEMM), each kernel tagged
 #: K2*; K4's three passes (statistics, gradients, dq cast), each a group,
 #: on ``flash`` and under ``PIGEON_FUSED_BWD=xla``. K3 and K3′ launch one
-#: kernel under the tags K3Forward and K3OnlineForward.
+#: kernel under the tags K3Forward and K3OnlineForward. The int8 forwards
+#: run K8's two stages (int8 projection GEMM, streaming forward; K8*) on
+#: ``fused`` and K7's four (LN1 + quantize, K8's two stages requantizing
+#: the attention output, the int8 out-projection GEMM; K7*) on ``block``.
 KERNEL_GROUPS = (
     ("K1 projection GEMM", "K1Projection"),
     ("K1 attention", "K1Attention"),
@@ -61,9 +72,12 @@ KERNEL_GROUPS = (
     ("K6 projection GEMM", "K6Projection"),
     ("K6 attention", "K6Attention"),
     ("K6 out-projection GEMM", "K6OutProjection"),
-    ("K7", "ln_quantize_kernel"),
-    ("K7", "::attention_int8_kernel"),
-    ("K7", "out_proj_int8_kernel"),
+    ("K8 projection GEMM", "K8Projection"),
+    ("K8 attention", "K8Attention"),
+    ("K7 LN1", "K7LayerNorm"),
+    ("K7 projection GEMM", "K7Projection"),
+    ("K7 attention", "K7Attention"),
+    ("K7 out-projection GEMM", "K7OutProjection"),
     ("K4 statistics", "flash_attention_bwd_stats"),
     ("K4 gradients", "flash_attention_bwd_grad"),
     ("K4 dq cast", "flash_attention_bwd_dq"),
@@ -84,6 +98,9 @@ SERVE_ROUTES = (("fused", "fused", {}), ("flash", "flash", {}),
                 ("fused_ln", "fused_ln", {}), ("fused_mlp", "fused_mlp", {}),
                 ("block", "block", {}),
                 ("flash+online", "flash", {"PIGEON_FLASH_FWD": "online"}))
+#: The int8 serving forwards: ``flash_fused`` (K8) and ``flash_fused_block``
+#: (K7) on the quantized tower.
+INT8_SERVE_ROUTES = (("fused_int8", "fused", {}), ("block_int8", "block", {}))
 NUM_CELLS = 2203
 
 
@@ -138,6 +155,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=2,
                         help="profiled steps (and forwards) per route")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--serve-only", action="store_true",
+                        help="profile the serving forwards only")
     args = parser.parse_args()
 
     import numpy as np
@@ -150,6 +169,7 @@ def main() -> int:
 
     from pigeon_tpu_torch.config import pigeon_config
     from pigeon_tpu_torch.models.clip import set_route
+    from pigeon_tpu_torch.models.quant import quantize_and_calibrate
     from pigeon_tpu_torch.models.super_guessr import init_weights
     from pigeon_tpu_torch.serve.server import make_serving_fn
     from pigeon_tpu_torch.train.modes import build_finetune_model
@@ -204,7 +224,7 @@ def main() -> int:
         return host, prof, window_ms
 
     train_step = make_train_step(cfg.head, cells)
-    for label, route, env in TRAIN_ROUTES:
+    for label, route, env in () if args.serve_only else TRAIN_ROUTES:
         model.load_state_dict(start)
         set_route(model, route)
         os.environ.update(env)
@@ -223,13 +243,23 @@ def main() -> int:
 
     serve_fn = make_serving_fn(model, cfg.head, cells.cpu().numpy(), device)
     pixels = batch["inputs"][:1]
-    for label, route, env in SERVE_ROUTES:
-        set_route(model, route)
-        os.environ.update(env)
-        host, prof, window_ms = window(lambda: serve_fn(pixels), args.steps)
-        report("serve", label, host, prof, args.steps, window_ms)
-        for key in env:
-            os.environ.pop(key)
+
+    def serve_routes(routes):
+        for label, route, env in routes:
+            set_route(model, route)
+            os.environ.update(env)
+            host, prof, window_ms = window(lambda: serve_fn(pixels),
+                                           args.steps)
+            report("serve", label, host, prof, args.steps, window_ms)
+            for key in env:
+                os.environ.pop(key)
+
+    serve_routes(SERVE_ROUTES)
+    # serve_fn runs the same model, its tower now int8.
+    set_route(model, "fused")
+    quantize_and_calibrate(model, batch["inputs"][:2], tower_key="vision",
+                           margin=1.1)
+    serve_routes(INT8_SERVE_ROUTES)
     return 0
 
 

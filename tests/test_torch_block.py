@@ -368,22 +368,20 @@ def test_k7_operand_checks(case, error, match):
     elif case == "heads":
         heads = 4
     if error is None:
-        k7._check_operands(x, ls, lb, scalars, weights, vectors, heads, 640)
+        k7._check_operands(x, ls, lb, scalars, weights, vectors, heads)
     else:
         with pytest.raises(error, match=match):
-            k7._check_operands(x, ls, lb, scalars, weights, vectors, heads,
-                               640)
+            k7._check_operands(x, ls, lb, scalars, weights, vectors, heads)
 
 
 def test_new_sources_name_the_headers_they_include():
-    """K7 builds from shared headers (K8's block, the int8 GEMM), the
-    tuning kernels from the WMMA online body and attention backward, K3
-    and K3′ from the wgmma forward, K4 from the wgmma backward, K2 from
-    that backward and the wgmma GEMM, K5 and K6 from K1's two stages (that
-    GEMM and the wgmma forward), K9 from the GEMM alone, all over the
-    Hopper building blocks; K5, K6 and K9 share the LayerNorm kernel.
-    Editing one renames the libraries that include it
-    (`native.library_path`)."""
+    """The tuning kernels build from the WMMA online body and attention
+    backward, K3 and K3′ from the wgmma forward, K4 from the wgmma
+    backward, K2 from that backward and the wgmma GEMM, K5, K6, K7 and K8
+    from K1's two stages (that GEMM and the wgmma forward), K9 from the
+    GEMM alone, all over the Hopper building blocks; K5, K6, K7 and K9
+    share the LayerNorm kernel. Editing one renames the libraries that
+    include it (`native.library_path`)."""
     from pigeon_tpu_torch import native
 
     for kernel, headers in (
@@ -393,8 +391,12 @@ def test_new_sources_name_the_headers_they_include():
             ("fused_ln_qkv_attention", ["ln_row.cuh", "qkv_forward_sm90.cuh",
                                         "gemm_sm90.cuh", "hopper_sm90.cuh",
                                         "flash_fwd_sm90.cuh"]),
-            ("fused_block_attention_int8", ["attention_tile.cuh",
-                                            "gemm_tile.cuh"]),
+            ("fused_block_attention_int8", [
+                "ln_row.cuh", "qkv_forward_sm90.cuh", "gemm_sm90.cuh",
+                "hopper_sm90.cuh", "flash_fwd_sm90.cuh"]),
+            ("fused_qkv_attention_int8", [
+                "qkv_forward_sm90.cuh", "gemm_sm90.cuh", "hopper_sm90.cuh",
+                "flash_fwd_sm90.cuh"]),
             ("fused_mlp", ["gemm_sm90.cuh", "hopper_sm90.cuh",
                            "ln_row.cuh"]),
             ("flash_attention_online", ["flash_fwd_sm90.cuh",
@@ -462,7 +464,8 @@ def test_cuda_k6_matches_plain_version(cuda, b, s, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, s, d", [(1, 1, 128), (2, 65, 256),
-                                     (1, 640, 128), (4, 577, 1024)])
+                                     (1, 640, 128), (4, 577, 1024),
+                                     (1, 1025, 128), (3, 63, 1024)])
 def test_cuda_k7_matches_plain_version(cuda, b, s, d):
     from pigeon_tpu_torch.models.quant import quantize_channelwise
 

@@ -397,10 +397,9 @@ def test_cuda_smoothing_kernel_matches_plain_version(cuda, b, c):
 
 
 def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
-    """K1 builds from its two stages' header over the wgmma GEMM and
-    forward headers, K8 from
-    `csrc/attention_tile.cuh`: editing a header must give every library
-    that includes it a new name, so a stale build is never loaded."""
+    """K1 and K8 build from their two stages' header over the wgmma GEMM
+    and forward headers: editing a header must give every library that
+    includes it a new name, so a stale build is never loaded."""
     import os
 
     from pigeon_tpu_torch import native
@@ -421,7 +420,9 @@ def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
             ("fused_qkv_attention", ["qkv_forward_sm90.cuh",
                                      "gemm_sm90.cuh", "hopper_sm90.cuh",
                                      "flash_fwd_sm90.cuh"]),
-            ("fused_qkv_attention_int8", ["attention_tile.cuh"])):
+            ("fused_qkv_attention_int8", ["qkv_forward_sm90.cuh",
+                                          "gemm_sm90.cuh", "hopper_sm90.cuh",
+                                          "flash_fwd_sm90.cuh"])):
         closure = native.source_closure(
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))
         assert [os.path.basename(p) for p in closure] == [

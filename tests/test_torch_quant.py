@@ -268,7 +268,7 @@ def test_attention_operand_checks(case, error, match):
 @pytest.mark.parametrize("case, error, match", [
     ("ok", None, None), ("x_f32", TypeError, "kernel writes bf16"),
     ("w_bf16", TypeError, "dtype"), ("scale_shape", ValueError, "shape"),
-    ("ragged_d", ValueError, "multiple of 64"),
+    ("ragged_d", ValueError, "D=96 .* multiples of 128"),
     ("strided", ValueError, "contiguous")])
 def test_int8_operand_checks(case, error, match):
     d, heads, p = 128, 2, 128
@@ -288,11 +288,10 @@ def test_int8_operand_checks(case, error, match):
         ws[0] = torch.zeros(d, p, dtype=torch.int8).t()
     x_q = torch.zeros(x.shape, dtype=torch.int8)
     if error is None:
-        k8._check_operands(x, x_q, ws, scales, biases, heads, max_seq=640)
+        k8._check_operands(x, x_q, ws, scales, biases, heads)
     else:
         with pytest.raises(error, match=match):
-            k8._check_operands(x, x_q, ws, scales, biases, heads,
-                               max_seq=640)
+            k8._check_operands(x, x_q, ws, scales, biases, heads)
 
 
 def test_backward_through_k3_raises_naming_k4():
@@ -598,8 +597,8 @@ def test_cuda_attention_kernel_matches_plain_version(cuda, b, s, heads):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, s, d, heads", [
-    (1, 1, 64, 1), (1, 17, 128, 2), (2, 65, 256, 4), (1, 640, 128, 2),
-    (4, 577, 1024, 16)])
+    (1, 1, 128, 2), (1, 17, 128, 2), (2, 65, 256, 4), (1, 640, 128, 2),
+    (4, 577, 1024, 16), (2, 1025, 256, 4), (3, 63, 1024, 16)])
 def test_cuda_int8_kernel_matches_plain_version(cuda, b, s, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(s)
     p = heads * 64
@@ -616,8 +615,13 @@ def test_cuda_int8_kernel_matches_plain_version(cuda, b, s, d, heads):
     torch.cuda.synchronize()
     assert k8.fused_qkv_attention_int8.launches == before + 1
     want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, heads)
-    # 3e-2: the repo's bf16 attention bound; q/k/v agree bit for bit.
-    assert (got.float() - want.float()).abs().max().item() <= 3e-2
+    assert bool(torch.isfinite(got.float()).all())
+    # 3e-2: the repo's bf16 attention bound; and 2e-2 of the output's
+    # magnitude, K1's bound: q/k/v agree bit for bit, p is rounded against
+    # K3's running max, the plain version's against the exact one.
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 3e-2
+    assert err <= 2e-2 * want.float().abs().max().item()
 
 
 @pytest.mark.gpu
