@@ -13,8 +13,9 @@ Phases, one line each, any failure raises:
              from the checkout's sources, with nvcc's register, spill and
              wgmma-serialisation (C7513/C7514) lines and the HGMMA count
              of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
-             K7, K8 and K9 (cuobjdump; a source without HGMMA fails the
-             phase);
+             K7, K8 and K9 and of the two tuning sources, whose V10 and
+             V1 run K3's and K4's wgmma kernels (cuobjdump; a source
+             without HGMMA fails the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -157,7 +158,11 @@ Phases, one line each, any failure raises:
              checked against its plain version (`check_variants` states
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
-             launches of K1-K10 and K3′ stay those of phases 4-8.
+             launches of K1-K10 and K3′ stay those of phases 4-8. Then,
+             from the same driver runs, V10's ms beside K3′'s and V1's
+             beside K4's, and V1's and K4's device ms by pass
+             (statistics, gradient, dq; torch.profiler, by each
+             wrapper's tag), after the launches are read.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -251,7 +256,8 @@ WGMMA_SOURCES = ("flash_attention", "flash_attention_bwd",
                  "fused_qkv_attention_bwd", "flash_attention_online",
                  "fused_qkv_attention", "fused_ln_qkv_attention",
                  "fused_block_attention", "fused_mlp",
-                 "fused_qkv_attention_int8", "fused_block_attention_int8")
+                 "fused_qkv_attention_int8", "fused_block_attention_int8",
+                 "attention_fwd_variants", "attention_bwd_variants")
 #: K2's stages by the tag in their kernels' names (`csrc/
 #: fused_qkv_attention_bwd.cu`), for [kernel]'s device-time split.
 K2_STAGES = (("projection", "K2Projection"), ("attention", "K2Attention"),
@@ -319,6 +325,18 @@ VARIANT_LIBRARY = {"bwd_r_from_o": "sdpa_backward",
                    "flash_attention_online_c256": "sdpa_forward"}
 #: [variants]: each driver's windows and calls a window.
 VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
+#: [variants]: the tuning kernels on K3's and K4's wgmma kernels, each
+#: beside the K kernel whose design it shares, by the drivers' variant
+#: names: V10 (256-key steps) beside K3′ (128), V1 beside K4.
+VARIANT_PAIRS = (("online_softmax_p4_c256", "online_softmax_p4_c128"),
+                 ("r_from_o_pack2", "base_pack2"))
+#: The attention backward's three stages by their kernels' names
+#: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own), and the
+#: tag of each wrapper's instance, for [variants]' device-time split.
+BWD_PASSES = (("statistics", "bwd_stats"), ("gradient", "bwd_grad"),
+              ("dq", "bwd_dq"))
+BWD_TAGS = (("bwd_r_from_o", "V1Attention"),
+            ("flash_attention_bwd", "K4Attention"))
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -516,8 +534,9 @@ def check_kernel_at(seed: int, b: int) -> dict:
 
 def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
     """Self device milliseconds a call of ``fn`` spends in the kernels
-    whose names hold each ``(label, mark)``'s mark, and in the rest
-    (``other``), from `torch.profiler` over ``calls`` calls."""
+    whose names hold each ``(label, mark)``'s mark (a string, or a tuple
+    of strings a name must all hold), and in the rest (``other``), from
+    `torch.profiler` over ``calls`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -532,7 +551,10 @@ def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        label = next((lb for lb, mark in marks if mark in evt.key), "other")
+        label = next((lb for lb, mark in marks
+                      if all(m in evt.key for m in
+                             ((mark,) if isinstance(mark, str) else mark))),
+                     "other")
         out[label] += us / 1e3 / calls
     return out
 
@@ -2177,6 +2199,12 @@ def check_variants() -> tuple:
         torch.cuda.empty_cache()
     launches = {name: fn.launches for name, fn in counters.items()}
     phase("variants", launches=json.dumps(launches, separators=(",", ":")))
+    by_name = {r["variant"]: r["ms_per_call"] for r in records
+               if "variant" in r}
+    for name, beside in VARIANT_PAIRS:
+        phase("variants", variant=name, ms=by_name[name], beside=beside,
+              beside_ms=by_name[beside])
+    backward_stages()
     yardsticks = {r["yardstick"]: r["ms_per_call"] for r in records
                   if "yardstick" in r}
     out, counts = {}, {}
@@ -2195,6 +2223,37 @@ def check_variants() -> tuple:
                      "library_ms": yardsticks.get(VARIANT_LIBRARY.get(name))}
         counts[name] = launches[name]
     return counts, out
+
+
+def backward_stages() -> None:
+    """[variants]: V1's and K4's device ms by pass (`BWD_PASSES`), each
+    pass found by its kernel's name and the wrapper's tag (`BWD_TAGS`), at
+    the drivers' shape; raises if a pass of a tag takes no time. Runs
+    after [variants] has read its launch counts."""
+    import torch
+
+    from pigeon_tpu_torch import tuning
+    from pigeon_tpu_torch.kernels import attention as k34
+    from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, g = tuning.normal(gen, 4, (tuning.BATCH, tuning.SEQ,
+                                        tuning.HEADS, tuning.HEAD_DIM))
+    fns = {"bwd_r_from_o": bv.bwd_r_from_o,
+           "flash_attention_bwd": k34.flash_attention_backward}
+    for name, tag in BWD_TAGS:
+        ms = device_ms_by_mark(
+            lambda: fns[name](q, k, v, g),
+            [(label, (mark, tag)) for label, mark in BWD_PASSES])
+        idle = [label for label, _ in BWD_PASSES if ms[label] <= 0]
+        if idle:
+            raise RuntimeError(f"{name}: no device time in {idle} under "
+                               f"{tag}")
+        phase("variants", kernel=name, tag=tag,
+              **{f"{label}_device_ms": round(x, 4)
+                 for label, x in ms.items()})
+    del q, k, v, g
+    torch.cuda.empty_cache()
 
 
 def build_kernels() -> None:

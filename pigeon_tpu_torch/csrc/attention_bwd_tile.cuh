@@ -1,4 +1,4 @@
-// The WMMA softmax-attention backward of the tuning variants V1-V3
+// The WMMA softmax-attention backward of the tuning variants V2 and V3
 // (attention_bwd_variants.cu), kept in the design K2 and K4 had before
 // they moved to wgmma (flash_bwd_sm90.cuh): dq, dk and dv of one head's
 // attention on (B, S, H*64) q/k/v and output cotangent g, with the
@@ -18,13 +18,9 @@
 //              tiles and walks the key tiles three times: the row max m;
 //              den and sum(dp * u) (so r comes from f32 u, not from the
 //              forward's bf16 output); then dl and dq += dl k. It writes
-//              m, den and r to a (3, B, H, S) f32 workspace. Two template
-//              switches give the tuning variants of
-//              attention_bwd_variants.cu: R_FROM_O takes r as
-//              sum(g * (bf16(u) v) / den) (one product with V in the
-//              second sweep instead of dp), and WRITE_DQ = false stops
-//              after the statistics (the statistics pass of a dk/dv-only
-//              call).
+//              m, den and r to a (3, B, H, S) f32 workspace. Under
+//              WRITE_DQ = false it stops after the statistics (the
+//              statistics pass of V3's dk/dv-only call).
 //   dk/dv pass: one block per (key tile, head, batch) holds its K and V
 //              tiles and walks the query tiles: dv += bf16(u)^T g_n and
 //              dk += dl^T q, with the row statistics of the dq pass.
@@ -54,7 +50,7 @@ struct AttnArgs {
 };
 
 // Pass 2: one block per (query tile, head, batch).
-template <bool R_FROM_O, bool WRITE_DQ>
+template <bool WRITE_DQ>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_kernel(AttnArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -99,72 +95,30 @@ attn_bwd_dq_kernel(AttnArgs args) {
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
 
-  // Sweep 2: den = sum(u), u = exp(s - m) in f32, and sum(dp * u) or,
-  // under R_FROM_O, o = bf16(u) v accumulated in fragments.
+  // Sweep 2: den = sum(u), u = exp(s - m) in f32, and sum(dp * u).
   float den = 0.0f, num = 0.0f;
-  FragC acc_o[2];
-  if (R_FROM_O) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc_o[j], 0.0f);
-  }
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int kv = min(TILE, S - kt * TILE);
     stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
     stage_tile(vs, args.v + head + (size_t)kt * TILE * P, P, kv);
     __syncthreads();
     score_tile(sf, qs, ks, rf, cf);
-    if (!R_FROM_O) score_tile(dpf, gs, vs, rf, cf);
+    score_tile(dpf, gs, vs, rf, cf);
     __syncthreads();
 #pragma unroll
     for (int c = c0; c < c0 + 16; ++c) {
-      float u = 0.0f;
       if (c < kv) {
-        u = expf(sf[row * LDF + c] * scale - m);
+        const float u = expf(sf[row * LDF + c] * scale - m);
         den += u;
-        if (!R_FROM_O) num += dpf[row * LDF + c] * u;
+        num += dpf[row * LDF + c] * u;
       }
-      if (R_FROM_O) dls[row * LDB + c] = __float2bfloat16(u);
-    }
-    if (R_FROM_O) {
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, dls + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragBRow fb;
-          wmma::load_matrix_sync(fb, vs + kk * LDB + (cf + j) * 16, LDB);
-          wmma::mma_sync(acc_o[j], fa, fb, acc_o[j]);
-        }
-      }
-      __syncthreads();  // vs and dls are rewritten next iteration
     }
   }
   den += __shfl_xor_sync(0xffffffffu, den, 1);
   den += __shfl_xor_sync(0xffffffffu, den, 2);
-  float r;
-  if (R_FROM_O) {
-    // r = sum(g * o / den) over the row's 64 columns (the TPU variant's
-    // o_rec = (bf16(u) v) / den, then rowsum(g * o_rec)).
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(dpf + rf * 16 * LDF + (cf + j) * 16, acc_o[j],
-                              LDF, wmma::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = c0; c < c0 + 16; ++c) {
-      num += __bfloat162float(gs[row * LDB + c]) * (dpf[row * LDF + c] / den);
-    }
-    num += __shfl_xor_sync(0xffffffffu, num, 1);
-    num += __shfl_xor_sync(0xffffffffu, num, 2);
-    r = num;
-  } else {
-    num += __shfl_xor_sync(0xffffffffu, num, 1);
-    num += __shfl_xor_sync(0xffffffffu, num, 2);
-    r = num / den;
-  }
+  num += __shfl_xor_sync(0xffffffffu, num, 1);
+  num += __shfl_xor_sync(0xffffffffu, num, 2);
+  const float r = num / den;
   const float dl_scale = scale / den;
   if (row < rows && threadIdx.x % 4 == 0) {
     const size_t i = ((size_t)b * H + h) * S + q0 + row;
@@ -322,15 +276,15 @@ attn_bwd_dkdv_kernel(AttnArgs args) {
 
 // Launch the dq pass (its statistics alone when !WRITE_DQ) on `stream`
 // over `batch` sequences; returns the first failing call's error.
-template <bool R_FROM_O, bool WRITE_DQ>
+template <bool WRITE_DQ>
 inline cudaError_t attention_dq_pass(const AttnArgs& args, int batch,
                                      cudaStream_t stream) {
   const dim3 tiles((args.S + TILE - 1) / TILE, args.H, batch);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<R_FROM_O, WRITE_DQ>,
+      attn_bwd_dq_kernel<WRITE_DQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<R_FROM_O, WRITE_DQ>
+  attn_bwd_dq_kernel<WRITE_DQ>
       <<<tiles, THREADS, DQ_SMEM, stream>>>(args);
   return cudaGetLastError();
 }

@@ -4,30 +4,40 @@
 // named at its entry point below); on the card they answer what bounds
 // K4 (flash_attention_bwd.cu) and K2's attention passes:
 //
-//   V1 bwd_r_from_o  K4's dq, dk, dv with r = sum(g * (bf16(u) v) / den):
-//                    the dq pass's second sweep runs bf16(u) @ V instead
-//                    of dp = g V^T and its S-wide sum(dp * u), then K4's
-//                    dk/dv pass.
-//   V2 dq            dq alone: K4's dq pass, its statistics into a
-//                    workspace the caller drops.
+//   V1 bwd_r_from_o  K4's dq, dk, dv with r = sum(g * (bf16(u) v) / den),
+//                    u = exp(s - m) against the exact row max: r from the
+//                    recomputed output, where K4 takes sum(dp * u) / den.
+//                    It runs on K4's wgmma passes (flash_bwd_sm90.cuh)
+//                    under its own tag, V1Attention: a statistics pass of
+//                    its own (flash_attention_bwd_stats_from_output_kernel:
+//                    K4's block, Q and G tiles and K/V ring; one sweep of
+//                    Q K^T for the exact max, a second for u, den and
+//                    o_rec = bf16(u) V on wgmma, then r from G's tile),
+//                    then K4's gradient and dq passes unchanged. Eight
+//                    S x S x 64 walks against K4's seven, as the TPU
+//                    body's six products against K4's five: the time
+//                    against K4's in one driver run is what statistics
+//                    from the output, not from dp, cost or save.
+//   V2 dq            dq alone: the WMMA dq pass (attention_bwd_tile.cuh),
+//                    its statistics into a workspace the caller drops.
 //   V3 dkv           dk, dv alone: a block of 64 keys never sees a whole
 //                    query row, so it cannot find the row's max and
 //                    denominator without walking every key tile; V3 is
 //                    the dq pass's first two sweeps (the statistics, no
-//                    dq), then K4's dk/dv pass.
+//                    dq), then the WMMA dk/dv pass.
 //   V4 dots_only     diagnostic: K4's products with the softmax chain
 //                    replaced by casts (s = q k^T unscaled, dv = bf16(s)^T
 //                    g, dp = g v^T, dl = bf16(s * dp), dq = dl k,
-//                    dk = dl^T q). Two launches as K4's: a dq pass and a
-//                    dk/dv pass, each forming s and dp for its tiles, 7
-//                    products a (query tile, key tile) pair where K4 forms
-//                    10 and the TPU body 5.
+//                    dk = dl^T q). Two launches: a dq pass and a dk/dv
+//                    pass, each forming s and dp for its tiles, 7 products
+//                    a (query tile, key tile) pair where the TPU body
+//                    forms 5.
 //   V5 vpu_only      diagnostic: the scores and K4's S-wide softmax chain
 //                    with the output products removed (dp stands in as
 //                    the scaled scores): dq = bf16(q + bf16(dl[:, :64])),
 //                    dk = k, dv = bf16(g / den). One launch, a block per
-//                    query tile walking the key tiles three times as K4's
-//                    dq pass does (the max; den and sum(dp * u); dl).
+//                    query tile walking the key tiles three times (the
+//                    max; den and sum(dp * u); dl).
 //
 // What bounds them on the H100, at the tuning shape (B = 32 views,
 // S = 577, H = 16): the TPU bodies' products are ~22 GFLOP each
@@ -36,11 +46,10 @@
 // (~0.08 ms), so the tensor cores bound the exact variants and V4. V5's
 // TPU body does one product and ~12 f32 operations an S x S element
 // (~2 G at 67 TFLOP/s, ~0.03 ms): its own bound is small, and its time
-// is what K4's softmax chain costs as K4's dq pass runs it (three sweeps,
-// the scores formed in each). The design is the one K2 and K4 had before
-// they moved to wgmma (attention_bwd_tile.cuh: WMMA from shared memory,
-// no copy/compute overlap), so the variants differ from that design only
-// in what they compute, and their times against it measure that.
+// is what the softmax chain costs as the WMMA dq pass runs it (three
+// sweeps, the scores formed in each). V2-V5 keep the design K2 and K4 had
+// before they moved to wgmma (WMMA from shared memory, no copy/compute
+// overlap); V1 runs K4's wgmma passes.
 //
 // Keeping the measured work alive: nvcc deletes what never reaches
 // memory. V5 stores only dl's first 64 columns; every other column of dl
@@ -53,12 +62,17 @@
 //
 // Constraints (checked by the Python wrapper before launch): head_dim 64,
 // bf16, (B, S, H, 64) contiguous and 16-byte aligned; V5 needs S >= 64;
-// the row-statistics workspace is (3, B, H, S) f32. Ragged S is masked as
-// in attention_bwd_tile.cuh.
+// the row-statistics workspace is (3, B, H, S) f32; V1 also takes K4's
+// g_n (B, S, H, 64) bf16 and zeroed dq_acc (B, H, ceil(S / 64), 4096)
+// f32 workspaces. Ragged S is masked as in attention_bwd_tile.cuh and
+// flash_bwd_sm90.cuh.
 
 #include "attention_bwd_tile.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
+
+struct V1Attention {};  // V1's instance of K4's passes
 
 constexpr int DOTS_DKDV_SMEM = 6 * TILE_B + 2 * TILE_F;  // 90,112 B
 constexpr int VPU_SMEM = 2 * TILE_B + TILE_F;            // 35,840 B
@@ -376,18 +390,31 @@ const char* pigeon_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// V1, scripts/bench_attn_bwd.py::bwd_r_from_o: dq, dk, dv.
+// V1, scripts/bench_attn_bwd.py::bwd_r_from_o: dq, dk, dv, with K4's
+// workspaces (stats, g_n and dq_acc, zeroed).
 int pigeon_attention_bwd_r_from_o(const void* q, const void* k,
                                   const void* v, const void* g, void* dq,
-                                  void* dk, void* dv, void* stats, int batch,
-                                  int seq, int heads, void* stream) {
+                                  void* dk, void* dv, void* stats, void* g_n,
+                                  void* dq_acc, int batch, int seq, int heads,
+                                  void* stream) {
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
-  const AttnArgs a = make_args(q, k, v, g, dq, dk, dv, stats, batch, seq,
-                               heads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attention_dq_pass<true, true>(a, batch, st);
-  if (err == cudaSuccess) err = attention_dkdv_pass(a, batch, st);
-  return static_cast<int>(err);
+  float* f = static_cast<float*>(stats);
+  const size_t n_rows = (size_t)batch * heads * seq;
+  BwdArgs args = {};
+  args.m = f;
+  args.den = f + n_rows;
+  args.r = f + 2 * n_rows;
+  args.g_n = static_cast<bf16*>(g_n);
+  args.dq_acc = static_cast<float*>(dq_acc);
+  args.dq = static_cast<bf16*>(dq);
+  args.dk = static_cast<bf16*>(dk);
+  args.dv = static_cast<bf16*>(dv);
+  args.S = seq;
+  args.H = heads;
+  args.scale = 1.0f / sqrtf(static_cast<float>(HD));
+  args.scale_log2 = args.scale * LOG2E;
+  return static_cast<int>(launch_flash_backward<V1Attention, true>(
+      q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
 }
 
 // V2, scripts/bench_attn_bwd.py::dq_body: dq.
@@ -397,7 +424,7 @@ int pigeon_attention_dq(const void* q, const void* k, const void* v,
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
   const AttnArgs a = make_args(q, k, v, g, dq, nullptr, nullptr, stats,
                                batch, seq, heads);
-  return static_cast<int>(attention_dq_pass<false, true>(
+  return static_cast<int>(attention_dq_pass<true>(
       a, batch, static_cast<cudaStream_t>(stream)));
 }
 
@@ -410,7 +437,7 @@ int pigeon_attention_dkv(const void* q, const void* k, const void* v,
   const AttnArgs a = make_args(q, k, v, g, nullptr, dk, dv, stats, batch,
                                seq, heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attention_dq_pass<false, false>(a, batch, st);
+  cudaError_t err = attention_dq_pass<false>(a, batch, st);
   if (err == cudaSuccess) err = attention_dkdv_pass(a, batch, st);
   return static_cast<int>(err);
 }

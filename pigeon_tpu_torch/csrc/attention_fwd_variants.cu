@@ -4,11 +4,24 @@
 // answer what bounds K3 (flash_attention.cu) and K3′
 // (flash_attention_online.cu):
 //
-//   V10 online_c256  exact attention, online softmax over 256-key chunks:
-//                    the WMMA body K3′ had before it moved to K3's wgmma
-//                    forward (online_attention_tile.cuh) at CHUNK = 256,
-//                    a 64 x 256 f32 score tile, 163 KB of shared memory,
-//                    one block an SM (at 128 keys: 95 KB, two).
+//   V10 online_c256  exact attention, online softmax over 256-key chunks
+//                    (p rounded to bf16 against the running max, l from
+//                    f32 p): K3′'s function at chunk 256. It runs K3's
+//                    streaming wgmma forward (flash_fwd_sm90.cuh) at
+//                    STEP = 256 under its own tag, V10OnlineForward: TMA
+//                    keeps loading 128-key K/V tiles into the four-stage
+//                    ring and a step consumes two of them, s of both
+//                    halves in registers (2 x four m64n128k16), one max
+//                    over both before any exp, then 16 m64n64k16 P V
+//                    steps from registers, the first half's under the
+//                    second half's exps. Against K3′ (128-key steps, the
+//                    next chunk's s overlapped with this one's P V) it
+//                    takes half the max shuffles and rescales of o, and
+//                    gives up the overlap of Q K^T with the softmax. Its
+//                    exponent is K3′'s, 2^(s c2 - m c2) by one FFMA and
+//                    ex2.approx, c2 = 64^-0.5 log2(e); the TPU body takes
+//                    exp of the scaled f32 scores (a few f32 ulps apart
+//                    before the bf16 rounding).
 //   V6 dots_only     diagnostic: bf16(q k^T) v, no scale, no softmax.
 //   V7 softmax_only  diagnostic: the scaled scores' softmax with the PV
 //                    product removed: out = p[:, :64] / den + v.
@@ -17,18 +30,18 @@
 //
 // V6-V9 take a block per (64-row query tile, head, batch) and walk the
 // key tiles through shared memory (K and V staged 64 rows at a time, WMMA
-// 16x16x16 bf16 fragments, f32 accumulation), as K4's dq pass does. V7
-// walks them twice, as K3's body does (the exact row max, then exp and
-// the denominator); V6, V8 and V9 once.
+// 16x16x16 bf16 fragments from attention_tile.cuh, f32 accumulation), the
+// design the attention kernels had before wgmma. V7 walks them twice (the
+// exact row max, then exp and the denominator); V6, V8 and V9 once.
 //
 // What bounds them on the H100, at the tuning shape (B = 32 views,
-// S = 577, H = 16): q/k/v and the output are ~75 MB (~0.023 ms); one
-// S x S x 64 product is ~22 GFLOP (~0.022 ms). V10 and V6 do two
-// products, V7 (formed twice), V8 and V9 one; V10's and V7's softmax adds
-// ~5 f32 operations and an exp an S x S element (~1 G, ~0.015 ms).
-// The bytes and the products are within a factor two of each other:
-// neither leaves room, and the diagnostics' times against K3's say which
-// part of K3's 3 ms is which.
+// S = 577, H = 16): q/k/v and the output are ~151 MB (~0.045 ms at
+// 3.35 TB/s); one S x S x 64 product is ~22 GFLOP (~0.022 ms at 989
+// TFLOP/s). V10 and V6 do two products, V7, V8 and V9 one; V10's and
+// V7's softmax adds ~5 f32 operations and an exp an S x S element (~1 G,
+// ~0.015 ms). The bytes and the products are within a factor two of each
+// other: neither leaves room, and the diagnostics' times against K3's say
+// which part of K3's time is which.
 //
 // Keeping the measured work alive: nvcc deletes what never reaches
 // memory. V8 stores only 64 score columns; every other score goes into a
@@ -45,9 +58,12 @@
 // S >= 64. Rows of K/V past S are zero-filled and masked; query rows past
 // S are never written.
 
-#include "online_attention_tile.cuh"
+#include "attention_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
+
+struct V10OnlineForward {};  // V10's instance of the streaming forward
 
 constexpr int DIAG_SMEM = 4 * TILE_B + TILE_F;  // 54,272 B
 
@@ -224,8 +240,10 @@ const char* pigeon_cuda_error_string(int code) {
 int pigeon_attention_online_c256(const void* q, const void* k, const void* v,
                                  void* out, int batch, int seq, int heads,
                                  void* stream) {
-  return static_cast<int>(launch_online_attention<256, 1>(
-      q, k, v, out, batch, seq, heads, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      launch_flash_forward<V10OnlineForward, AttnOutBf16, 256>(
+          q, k, v, out, batch, seq, heads,
+          static_cast<cudaStream_t>(stream)));
 }
 
 // V6, scripts/bench_attn_fwd_diag.py::dots_only.

@@ -11,8 +11,11 @@
 //   dq = dl k,  dk = dl^T q                              (f32 accumulate)
 //
 // Three launches, seven S x S x 64 product walks in all. Each kernel's
-// `Tag` names the user's instance, so K2's passes and K4's are told apart
-// in a profile:
+// `Tag` names the user's instance, so K2's passes, K4's and the tuning
+// kernel V1's are told apart in a profile. V1 (attention_bwd_variants.cu)
+// takes r from the recomputed output instead: its own statistics pass
+// (flash_attention_bwd_stats_from_output_kernel, below, three walks),
+// then the gradient and dq passes unchanged, eight walks in all.
 //
 //   statistics pass (flash_attention_bwd_stats_kernel): one block per
 //     (128-row query tile, head, image) holds its Q and G tiles and
@@ -87,6 +90,29 @@ struct BwdArgs {
 };
 
 // ------------------------------------------------------------ statistics
+
+// g_n = bf16(g / den) of row `tr` of a swizzled 64-row G tile, this
+// thread's quarter of it (two 16-byte chunks) to `dst`, the row in the
+// (B, S, H, 64) output.
+__device__ __forceinline__ void store_g_n(bf16* dst,
+                                          const unsigned char* g_tile,
+                                          int tr, int quad, float den) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int c = 2 * quad + half;  // 16-byte chunk of the row
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        g_tile + tr * ROW_BYTES + ((c ^ (tr & 7)) * 16));
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    uint4 outv;
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(&outv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(in[e]);
+      o32[e] = pack_bf16(f.x / den, f.y / den);
+    }
+    *reinterpret_cast<uint4*>(dst + 8 * c) = outv;
+  }
+}
 
 template <class Tag>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
@@ -225,22 +251,239 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
       args.den[stat_row + q] = den[r];
       args.r[stat_row + q] = num[r] / den[r];
     }
-    bf16* dst = args.g_n + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+    store_g_n(args.g_n + (static_cast<size_t>(b) * S + q) * ld + h * HD,
+              g_tile, tr, quad, den[r]);
+  }
+}
+
+// u = 2^(s c2 - mc) of one 128-key chunk's scores in place on the
+// thread's two rows, 0 for keys at or past `kv`; adds u to `den`.
+__device__ __forceinline__ void exp_chunk(float (&s)[64], int kv, int quad,
+                                          float c2, const float (&mc)[2],
+                                          float (&den)[2]) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = 2 * quad + half;  // 16-byte chunk of the row
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          g_tile + tr * ROW_BYTES + ((c ^ (tr & 7)) * 16));
-      const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint4 outv;
-      uint32_t* o32 = reinterpret_cast<uint32_t*>(&outv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(in[e]);
-        o32[e] = pack_bf16(f.x / den[r], f.y / den[r]);
-      }
-      *reinterpret_cast<uint4*>(dst + 8 * c) = outv;
+  for (int i = 0; i < 64; ++i) {
+    const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+    s[i] = col < kv ? fast_exp2(fmaf(s[i], c2, -mc[(i >> 1) & 1])) : 0.0f;
+    den[(i >> 1) & 1] += s[i];
+  }
+}
+
+// The statistics of the tuning kernel V1 (attention_bwd_variants.cu):
+// r from the recomputed output, o_rec = (bf16(u) V) / den and
+// r = sum(g * o_rec), where K4's pass takes sum(dp * u) / den. The block,
+// its Q and G tiles and the two-stage K/V ring are K4's; the keys are
+// swept twice:
+//   1. s = Q K^T (m64n128k16 from shared memory, K alone in the ring) for
+//      the exact row max m;
+//   2. s = Q K^T again, u = 2^(s c2 - m c2) against the final m, den =
+//      sum(u) in f32, and o_rec += bf16(u) V_c on wgmma with A from
+//      registers (eight m64n64k16, V MN-major), the next chunk's s issued
+//      with this chunk's P V and its exps run while P V does (the
+//      forward's overlap; no rescale, m is final).
+// Then r = sum over the row's 64 columns of g * (o_rec / den), g read
+// from the G tile. m, den and r go to the (3, B, H, S) workspace in K4's
+// units (m in units of s), g_n = bf16(g / den) to its workspace, so K4's
+// gradient and dq passes run on them unchanged. Three S x S x 64 walks.
+template <class Tag>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_attention_bwd_stats_from_output_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap g_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int S = args.S, H = args.H;
+  const int q0 = blockIdx.x * 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (S + 127) / 128;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ST_BAR_OFF);
+  uint64_t* qg_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + BWD_STAGES;
+  uint64_t* empty = bars + 1 + 2 * BWD_STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(empty + st, 2 * 128);
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Ring step `it` holds chunk it of sweep 1 (K) or chunk it - n_chunks of
+  // sweep 2 (K and V). The stages alternate, so the jj-th chunk of sweep 2
+  // is the (jj / 2)-th V a stage has taken.
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qg_full, 2 * BWD_TILE);
+      tma_load(smem, &q_map, qg_full, h, q0, b);
+      tma_load(smem + BWD_TILE, &g_map, qg_full, h, q0, b);
+      for (int it = 0; it < 2 * n_chunks; ++it) {
+        const int st = it % BWD_STAGES;
+        const int j = it < n_chunks ? it : it - n_chunks;
+        if (it >= BWD_STAGES) {
+          mbar_wait(empty + st, (it / BWD_STAGES - 1) & 1);
+        }
+        unsigned char* kv = smem + ST_KV_OFF + st * 2 * BWD_TILE;
+        mbar_expect_tx(k_full + st, BWD_TILE);
+        tma_load(kv, &k_map, k_full + st, h, j * 128, b);
+        if (it >= n_chunks) {
+          mbar_expect_tx(v_full + st, BWD_TILE);
+          tma_load(kv + BWD_TILE, &v_map, v_full + st, h, j * 128, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = (tid / 32) * 16 + lane / 4;  // and row + 8
+  const int quad = lane % 4;
+  const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  const uint32_t kv_base = smem_u32(smem + ST_KV_OFF);
+  const float c2 = args.scale_log2;
+  float s[64];
+
+  // Sweep 1: the exact row max of the unscaled scores.
+  float mx[2] = {-INFINITY, -INFINITY};
+  mbar_wait(qg_full, 0);
+  for (int it = 0; it < n_chunks; ++it) {
+    const int st = it % BWD_STAGES;
+    const uint32_t k_addr = kv_base + st * 2 * BWD_TILE;
+    mbar_wait(k_full + st, (it / BWD_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                          desc_sw128(k_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(empty + st);
+    const int kv = S - it * 128;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      if (col < kv) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  }
+  float mc[2];  // m c2, the max in the exponent's units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mc[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * c2;
+  }
+
+  // Sweep 2: u against the final max, den, and o_rec = bf16(u) V.
+  float o[32], den[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  uint32_t pa[8][4];
+  int it = n_chunks;
+  int st = it % BWD_STAGES;
+  mbar_wait(k_full + st, (it / BWD_STAGES) & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                        desc_sw128(kv_base + st * 2 * BWD_TILE + kk * 32),
+                        kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  exp_chunk(s, S, quad, c2, mc, den);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+  // Chunk jj's scores issued with chunk jj - 1's P V, its exps while P V
+  // runs; the waits come before the products.
+  for (int jj = 1; jj < n_chunks; ++jj) {
+    const int prev = st;
+    ++it;
+    st = it % BWD_STAGES;
+    mbar_wait(v_full + prev, ((jj - 1) / BWD_STAGES) & 1);
+    mbar_wait(k_full + st, (it / BWD_STAGES) & 1);
+    const uint32_t k_addr = kv_base + st * 2 * BWD_TILE;
+    const uint32_t v_addr = kv_base + prev * 2 * BWD_TILE + BWD_TILE;
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                          desc_sw128(k_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    exp_chunk(s, S - jj * 128, quad, c2, mc, den);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + prev);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+  }
+  {
+    const uint32_t v_addr = kv_base + st * 2 * BWD_TILE + BWD_TILE;
+    mbar_wait(v_full + st, ((n_chunks - 1) / BWD_STAGES) & 1);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + st);
+  }
+
+  // r = sum(g * o_rec / den) over the row's 64 columns; m (in units of
+  // s), den and r of the rows below S; g_n = bf16(g / den).
+  const size_t ld = static_cast<size_t>(H) * HD;
+  const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+  const unsigned char* g_tile = smem + BWD_TILE + cw * 64 * ROW_BYTES;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
+    const int tr = row + 8 * r;  // row in the warpgroup's 64
+    float num = 0.0f;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const float2 g = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(
+              g_tile + tr * ROW_BYTES + ((j8 ^ (tr & 7)) * 16) + quad * 4));
+      num += g.x * (o[4 * j8 + 2 * r] / den[r]);
+      num += g.y * (o[4 * j8 + 2 * r + 1] / den[r]);
+    }
+    num += __shfl_xor_sync(0xffffffffu, num, 1);
+    num += __shfl_xor_sync(0xffffffffu, num, 2);
+    const int q = q0 + cw * 64 + tr;
+    if (q >= S) continue;
+    if (quad == 0) {
+      args.m[stat_row + q] = mc[r] / LOG2E;
+      args.den[stat_row + q] = den[r];
+      args.r[stat_row + q] = num;
+    }
+    store_g_n(args.g_n + (static_cast<size_t>(b) * S + q) * ld + h * HD,
+              g_tile, tr, quad, den[r]);
   }
 }
 
@@ -508,9 +751,19 @@ __global__ void flash_attention_bwd_dq_kernel(BwdArgs args, int batch) {
   }
 }
 
-// Launch the three passes on `stream`; returns the first failing call's
-// error.
-template <class Tag>
+// The statistics pass a launch takes: K4's, or V1's from the output.
+template <class Tag, bool FROM_OUTPUT>
+inline auto stats_kernel() {
+  if constexpr (FROM_OUTPUT) {
+    return &flash_attention_bwd_stats_from_output_kernel<Tag>;
+  } else {
+    return &flash_attention_bwd_stats_kernel<Tag>;
+  }
+}
+
+// Launch the three passes on `stream`, the statistics pass from the
+// output where FROM_OUTPUT (V1); returns the first failing call's error.
+template <class Tag, bool FROM_OUTPUT = false>
 inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                          const void* v, const void* g,
                                          BwdArgs args, int batch,
@@ -530,9 +783,10 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
     err = bshd_map(mp.map, mp.base, batch, S, H, mp.rows);
     if (err != cudaSuccess) return err;
   }
+  const auto stats = stats_kernel<Tag, FROM_OUTPUT>();
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_bwd_stats_kernel<Tag>,
+    err = cudaFuncSetAttribute(stats,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                ST_SMEM);
     if (err != cudaSuccess) return err;
@@ -543,8 +797,8 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
     smem_set = true;
   }
   const dim3 grid((S + 127) / 128, H, batch);
-  flash_attention_bwd_stats_kernel<Tag>
-      <<<grid, BWD_THREADS, ST_SMEM, stream>>>(q128, g128, k128, v128, args);
+  stats<<<grid, BWD_THREADS, ST_SMEM, stream>>>(q128, g128, k128, v128,
+                                                args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_attention_bwd_grad_kernel<Tag>

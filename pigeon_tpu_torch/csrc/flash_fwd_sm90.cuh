@@ -8,8 +8,11 @@
 //
 // K3′ (flash_attention_online.cu) launches the same kernel: its function,
 // _attn_kernel_online, is this one (128-key chunks, p rounded to bf16
-// against the running max, den from f32 p). The kernel's `Tag` names each
-// user's instance, so K3 and K3′ are told apart in a profile. Its `Out`
+// against the running max, den from f32 p). The tuning kernel V10
+// (attention_fwd_variants.cu) is the same function at 256-key chunks:
+// the kernel's STEP, keys a softmax step, is 128 for every other user.
+// The kernel's `Tag` names each user's instance, so K3, K3′ and V10 are
+// told apart in a profile. Its `Out`
 // policy writes out: bf16 (every user but K7), or K7's requantize of the
 // bf16 output, oq = clip(rint(f32(out) / ao), +-127) as int8, so that the
 // bf16 output never goes to device memory there (the TPU kernel keeps it
@@ -33,6 +36,12 @@
 //     runs while P V does, so the tensor cores and the exp unit work at
 //     the same time (FlashAttention-3's intra-warpgroup overlap); p is
 //     packed into the A fragments only once P V has read them.
+//     At STEP = 256 a step takes two ring stages: s of both halves (2 x
+//     four m64n128k16, 128 f32 registers), one max over both, then the
+//     first half's P V runs while the second half's exps do. The next
+//     step's s is not overlapped: two score halves, p and o would pass
+//     the consumers' 232 registers. An odd chunk count ends on a step of
+//     one half (S in (256k, 256k + 128]).
 // o stays in registers in f32 and is divided by l once. Two S x S x 64
 // product walks, no score tile in shared memory, no sequence limit.
 //
@@ -84,22 +93,28 @@ struct AttnOutQuantized {
   }
 };
 
-// Online softmax of one chunk's scores on the thread's two rows, in
-// place: masks keys at or past `kv`, updates the running max `m` (units of
-// s) and the partial denominator `l`, leaves p in `s` and returns the
-// rows' correction 2^((m - m_new) c2).
-__device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
-                                               int quad, float c2,
-                                               float (&m)[2], float (&l)[2],
-                                               float (&corr)[2]) {
-  float mx[2] = {m[0], m[1]};
+// The online softmax in parts, on the thread's two rows of a 64-row
+// tile. chunk_max masks keys at or past `kv` of one 128-key chunk's
+// scores (in place, s = -inf) and folds the chunk into the rows' partial
+// max `mx`; update_max reduces `mx` over the row's four threads, moves the
+// running max `m` (units of s) to it and gives mc = m_new c2 (0 while the
+// row's max is -inf, so ex2 never sees -inf - (-inf)) and the correction
+// corr = 2^((m - m_new) c2); chunk_exp leaves p = 2^(s c2 - mc) in `s`
+// and adds the rows' sums of p to `psum`. A step takes one max over all
+// its chunks before any exp.
+__device__ __forceinline__ void chunk_max(float (&s)[64], int kv, int quad,
+                                          float (&mx)[2]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
     s[i] = col < kv ? s[i] : -INFINITY;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   }
-  float mc[2], psum[2] = {0.0f, 0.0f};
+}
+
+__device__ __forceinline__ void update_max(float (&mx)[2], float c2,
+                                           float (&m)[2], float (&mc)[2],
+                                           float (&corr)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -108,16 +123,35 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
     corr[r] = fast_exp2(m[r] * c2 - mc[r]);
     m[r] = mx[r];
   }
+}
+
+__device__ __forceinline__ void chunk_exp(float (&s)[64], float c2,
+                                          const float (&mc)[2],
+                                          float (&psum)[2]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     s[i] = fast_exp2(fmaf(s[i], c2, -mc[(i >> 1) & 1]));
     psum[(i >> 1) & 1] += s[i];
   }
+}
+
+// Online softmax of one 128-key chunk's scores, in place: masks keys at
+// or past `kv`, updates the running max `m` and the partial denominator
+// `l`, leaves p in `s` and returns the rows' correction in `corr`.
+__device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
+                                               int quad, float c2,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+  float mx[2] = {m[0], m[1]};
+  chunk_max(s, kv, quad, mx);
+  float mc[2], psum[2] = {0.0f, 0.0f};
+  update_max(mx, c2, m, mc, corr);
+  chunk_exp(s, c2, mc, psum);
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 }
 
-template <class Tag, class Out>
+template <class Tag, class Out, int STEP>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -207,75 +241,186 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     uint32_t pa[8][4];
     mbar_wait(q_full + qs, (qi / 2) & 1);
 
-    // Chunk 0's scores and softmax.
-    int st = it % FWD_STAGES;
-    mbar_wait(k_full + st, (it / FWD_STAGES) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t k_addr = kv_base + st * 2 * TILE128;
-      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
-                          desc_sw128(k_addr + kk * 32), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    online_softmax(s, S, quad, c2, m, l, corr);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
-
-    // Chunk j's scores issued with chunk j - 1's P V, its softmax while
-    // P V runs. The waits come before the products: a branch between
-    // wgmma.fence and a stage's last product makes ptxas serialise them.
-    for (int j = 1; j < n_chunks; ++j) {
-      const int prev = st;
-      const int prev_parity = (it / FWD_STAGES) & 1;
-      ++it;
-      st = it % FWD_STAGES;
-      mbar_wait(v_full + prev, prev_parity);
+    if constexpr (STEP == FWD_CHUNK) {
+      // Chunk 0's scores and softmax.
+      int st = it % FWD_STAGES;
       mbar_wait(k_full + st, (it / FWD_STAGES) & 1);
-      const uint32_t k_addr = kv_base + st * 2 * TILE128;
-      const uint32_t v_addr = kv_base + prev * 2 * TILE128 + TILE128;
-      fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t k_addr = kv_base + st * 2 * TILE128;
         wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
                             desc_sw128(k_addr + kk * 32), kk > 0);
       }
       wgmma_commit();
-#pragma unroll
-      for (int k = 0; k < FWD_CHUNK / 16; ++k) {
-        wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-      online_softmax(s, S - j * FWD_CHUNK, quad, c2, m, l, corr);
       wgmma_wait<0>();
-      fence_regs(o);
-      mbar_arrive(empty + prev);
-      // p goes into the A fragments once P V has read them.
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+      fence_regs(s);
+      online_softmax(s, S, quad, c2, m, l, corr);
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
-    }
-    // The last chunk's P V.
-    {
-      const uint32_t v_addr = kv_base + st * 2 * TILE128 + TILE128;
-      mbar_wait(v_full + st, (it / FWD_STAGES) & 1);
-      fence_regs(o);
-      wgmma_fence();
+
+      // Chunk j's scores issued with chunk j - 1's P V, its softmax while
+      // P V runs. The waits come before the products: a branch between
+      // wgmma.fence and a stage's last product makes ptxas serialise them.
+      for (int j = 1; j < n_chunks; ++j) {
+        const int prev = st;
+        const int prev_parity = (it / FWD_STAGES) & 1;
+        ++it;
+        st = it % FWD_STAGES;
+        mbar_wait(v_full + prev, prev_parity);
+        mbar_wait(k_full + st, (it / FWD_STAGES) & 1);
+        const uint32_t k_addr = kv_base + st * 2 * TILE128;
+        const uint32_t v_addr = kv_base + prev * 2 * TILE128 + TILE128;
+        fence_regs(o);
+        wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < FWD_CHUNK / 16; ++k) {
-        wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES), 1);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                              desc_sw128(k_addr + kk * 32), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+          wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES),
+                          1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        online_softmax(s, S - j * FWD_CHUNK, quad, c2, m, l, corr);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty + prev);
+        // p goes into the A fragments once P V has read them.
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-      mbar_arrive(empty + st);
-      ++it;
+      // The last chunk's P V.
+      {
+        const uint32_t v_addr = kv_base + st * 2 * TILE128 + TILE128;
+        mbar_wait(v_full + st, (it / FWD_STAGES) & 1);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+          wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES),
+                          1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty + st);
+        ++it;
+      }
+    } else {
+      // 256-key steps: each consumes two ring stages, one max over both
+      // halves' scores before any exp. The first half's P V runs while
+      // the second half's exps do; no step overlaps the next one's
+      // scores (two score halves, p and o would outgrow the registers).
+      float s1[64];
+      uint32_t pb[8][4];
+      const int n_pairs = n_chunks / 2;
+      for (int j = 0; j < n_pairs; ++j, it += 2) {
+        const int st0 = it % FWD_STAGES, st1 = (it + 1) % FWD_STAGES;
+        const int par0 = (it / FWD_STAGES) & 1;
+        const int par1 = ((it + 1) / FWD_STAGES) & 1;
+        const uint32_t k0_addr = kv_base + st0 * 2 * TILE128;
+        const uint32_t k1_addr = kv_base + st1 * 2 * TILE128;
+        mbar_wait(k_full + st0, par0);
+        mbar_wait(k_full + st1, par1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                              desc_sw128(k0_addr + kk * 32), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          wgmma_ss_n128<0, 0>(s1, desc_sw128(q_addr + kk * 32),
+                              desc_sw128(k1_addr + kk * 32), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(s1);
+
+        const int kv = S - 2 * j * FWD_CHUNK;
+        float mx[2] = {m[0], m[1]};
+        chunk_max(s, kv, quad, mx);
+        chunk_max(s1, kv - FWD_CHUNK, quad, mx);
+        float mc[2], psum[2] = {0.0f, 0.0f};
+        update_max(mx, c2, m, mc, corr);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+        chunk_exp(s, c2, mc, psum);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+        mbar_wait(v_full + st0, par0);
+        mbar_wait(v_full + st1, par1);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+          wgmma_rs_n64<1>(o, pa[k],
+                          desc_sw128(k0_addr + TILE128 + k * 16 * ROW_BYTES),
+                          1);
+        }
+        wgmma_commit();
+        chunk_exp(s1, c2, mc, psum);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc_to_a(s1, k, pb[k]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+          wgmma_rs_n64<1>(o, pb[k],
+                          desc_sw128(k1_addr + TILE128 + k * 16 * ROW_BYTES),
+                          1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty + st0);
+        mbar_arrive(empty + st1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+      }
+      // An odd chunk count leaves one 128-key half: a step of its own.
+      if (n_chunks & 1) {
+        const int st = it % FWD_STAGES;
+        const int parity = (it / FWD_STAGES) & 1;
+        const uint32_t k_addr = kv_base + st * 2 * TILE128;
+        mbar_wait(k_full + st, parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                              desc_sw128(k_addr + kk * 32), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        online_softmax(s, S - 2 * n_pairs * FWD_CHUNK, quad, c2, m, l, corr);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+        mbar_wait(v_full + st, parity);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+          wgmma_rs_n64<1>(o, pa[k],
+                          desc_sw128(k_addr + TILE128 + k * 16 * ROW_BYTES),
+                          1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty + st);
+        ++it;
+      }
     }
     mbar_arrive(q_empty + qs);
 
@@ -298,14 +443,17 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 }
 
 // Launch the forward over (B, S, H, 64) q/k/v on `stream` into out (B, S,
-// H, 64) of the policy's type; `out_scale` a device pointer to the f32
-// scale of a SCALED policy. Returns the first failing call's error.
-template <class Tag, class Out = AttnOutBf16>
+// H, 64) of the policy's type, STEP keys a softmax step (128 or 256);
+// `out_scale` a device pointer to the f32 scale of a SCALED policy.
+// Returns the first failing call's error.
+template <class Tag, class Out = AttnOutBf16, int STEP = FWD_CHUNK>
 inline cudaError_t launch_flash_forward(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int seq, int heads,
                                         cudaStream_t stream,
                                         const float* out_scale = nullptr) {
+  static_assert(STEP == FWD_CHUNK || STEP == 2 * FWD_CHUNK,
+                "a step is one or two 128-key chunks");
   if (batch < 1 || seq < 1 || heads < 1 || (Out::SCALED && !out_scale)) {
     return cudaErrorInvalidValue;
   }
@@ -320,7 +468,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag, Out>,
+    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag, Out, STEP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                FWD_SMEM);
     if (err != cudaSuccess) return err;
@@ -329,7 +477,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   const long tiles =
       static_cast<long>((seq + FWD_ROWS - 1) / FWD_ROWS) * heads * batch;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  flash_attention_kernel_wgmma<Tag, Out>
+  flash_attention_kernel_wgmma<Tag, Out, STEP>
       <<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
           maps[0], maps[1], maps[2], static_cast<typename Out::T*>(out),
           out_scale, seq, heads, batch,

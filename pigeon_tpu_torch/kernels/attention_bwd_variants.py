@@ -14,11 +14,16 @@ body that wins can take K4's place without a transpose:
   (`vpu_only`): diagnostics, K4's products without the softmax chain and
   the chain without the output products.
 
-All are CUDA C++ for ``sm_90a`` in `csrc/attention_bwd_variants.cu`
-(V1-V3 reuse K4's passes from `csrc/attention_bwd_tile.cuh`), built by
-``nvcc`` at first use and bound with ``ctypes``; the source note says what
-bounds each on the card and how the designs answer that. The TPU script
-times them; on the card `scripts/bench_torch_attn_bwd.py` does.
+All are CUDA C++ for ``sm_90a`` in `csrc/attention_bwd_variants.cu`,
+built by ``nvcc`` at first use and bound with ``ctypes``; the source note
+says what bounds each on the card and how the designs answer that. V1
+runs K4's ``wgmma`` passes (`csrc/flash_bwd_sm90.cuh`) behind a
+statistics pass of its own, which sweeps the keys twice (the exact row
+max, then ``u``, ``den`` and ``o_rec`` on ``wgmma``) and takes ``r`` from
+``o_rec``; it allocates K4's workspaces
+(`attention.backward_workspaces`). V2-V5 keep the WMMA design K4 had
+before ``wgmma`` (`csrc/attention_bwd_tile.cuh`). The TPU script times
+them; on the card `scripts/bench_torch_attn_bwd.py` does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (``*_reference``, the arithmetic of the TPU body, which the CPU
@@ -35,7 +40,11 @@ import functools
 import torch
 
 from pigeon_tpu_torch import native
-from pigeon_tpu_torch.kernels.attention import HEAD_DIM, _check_operands
+from pigeon_tpu_torch.kernels.attention import (
+    HEAD_DIM,
+    _check_operands,
+    backward_workspaces,
+)
 
 
 def _heads(dt, *tensors):
@@ -56,6 +65,11 @@ def _softmax(qh, kh, scale):
     return logits, u, u.sum(-1, keepdim=True)
 
 
+def _r_from_output(gh, vh, u, den, dt):
+    """V1's ``r = sum(g * o_rec)``, ``o_rec = (bf16(u) v) / den`` in f32."""
+    return (gh * ((u.to(dt).float() @ vh) / den)).sum(-1, keepdim=True)
+
+
 def bwd_r_from_o_reference(q, k, v, g):
     """Plain V1: ``(dq, dk, dv)``, each ``(B, S, H, dh)`` in ``q.dtype``.
 
@@ -69,12 +83,23 @@ def bwd_r_from_o_reference(q, k, v, g):
     _, u, den = _softmax(qh, kh, scale)
     u_lo = u.to(dt).float()
     dv = (u_lo.transpose(-1, -2) @ (gh / den).to(dt).float()).to(dt)
-    r = (gh * ((u_lo @ vh) / den)).sum(-1, keepdim=True)
+    r = _r_from_output(gh, vh, u, den, dt)
     dp = gh @ vh.transpose(-1, -2)
     dl = (u * (dp - r) * (scale / den)).to(dt).float()
     dq = (dl @ kh).to(dt)
     dk = (dl.transpose(-1, -2) @ qh).to(dt)
     return _tokens(dq, dk, dv)
+
+
+def bwd_r_from_o_stats_reference(q, k, v, g):
+    """Plain V1's row statistics, ``(3, B, H, S)`` f32 in K4's workspace
+    layout: ``m`` (the max of ``s = q k^T * dh ** -0.5``), ``den =
+    sum(exp(s - m))`` and ``r`` of :func:`bwd_r_from_o_reference`."""
+    dt = q.dtype
+    qh, kh, vh, gh = _heads(dt, q, k, v, g)
+    logits, u, den = _softmax(qh, kh, q.shape[-1] ** -0.5)
+    r = _r_from_output(gh, vh, u, den, dt)
+    return torch.stack([logits.amax(-1), den[..., 0], r[..., 0]])
 
 
 def _k4_dl(qh, kh, vh, gh, dt):
@@ -148,7 +173,7 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the variants' library."""
     lib = ctypes.CDLL(native.build_cuda("attention_bwd_variants").path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn, n_ptrs in (("bwd_r_from_o", 8), ("dq", 6), ("dkv", 7),
+    for fn, n_ptrs in (("bwd_r_from_o", 10), ("dq", 6), ("dkv", 7),
                        ("bwd_dots_only", 7), ("bwd_vpu_only", 8)):
         entry = getattr(lib, f"pigeon_attention_{fn}")
         entry.argtypes = [ptr] * n_ptrs + [i32] * 3 + [ptr]
@@ -197,12 +222,14 @@ def _stats(q):
 
 def bwd_r_from_o(q, k, v, g):
     """V1: ``(dq, dk, dv)`` of softmax attention, ``r`` from the recomputed
-    output; CPU tensors run :func:`bwd_r_from_o_reference`."""
+    output; CPU tensors run :func:`bwd_r_from_o_reference`. K4's
+    workspaces (statistics, ``g_n``, zeroed ``dq_acc``) are allocated
+    here."""
     if q.device.type == "cpu":
         return bwd_r_from_o_reference(q, k, v, g)
     _on_card("bwd_r_from_o", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    _launch("bwd_r_from_o", q, k, v, g, dq, dk, dv, _stats(q))
+    _launch("bwd_r_from_o", q, k, v, g, dq, dk, dv, *backward_workspaces(q))
     bwd_r_from_o.launches += 1
     return dq, dk, dv
 

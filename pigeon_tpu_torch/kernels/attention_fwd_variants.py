@@ -13,12 +13,14 @@ Each replaces one Pallas body of that TPU script, on the port's
   :func:`fwd_qk_chunked` (`qk_chunked`): diagnostics that drop the
   softmax, the PV product or the (S, S) block from K3's body.
 
-All are CUDA C++ for ``sm_90a`` in `csrc/attention_fwd_variants.cu` (V10
-is K3′'s body from `csrc/online_attention_tile.cuh` at a chunk of 256),
+All are CUDA C++ for ``sm_90a`` in `csrc/attention_fwd_variants.cu`,
 built by ``nvcc`` at first use and bound with ``ctypes``; the source note
-says what bounds each on the card and how the designs answer that. The
-TPU script times them; on the card `scripts/bench_torch_attn_fwd_diag.py`
-does.
+says what bounds each on the card and how the designs answer that. V10
+runs K3's streaming ``wgmma`` forward (`csrc/flash_fwd_sm90.cuh`) with
+256-key softmax steps, each taking two of its 128-key K/V stages and one
+max over both before any exp; V6-V9 keep the WMMA design K3 had before
+``wgmma`` (`csrc/attention_tile.cuh`). The TPU script times them; on the
+card `scripts/bench_torch_attn_fwd_diag.py` does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (``*_reference``, the arithmetic of the TPU body, which the CPU

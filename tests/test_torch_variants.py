@@ -235,6 +235,148 @@ def test_side_outputs_keep_the_whole_row():
 
 
 # ---------------------------------------------------------------------------
+# Models of the CUDA designs of V10 and V1
+# ---------------------------------------------------------------------------
+
+#: log2(e) and c2 = 64^-0.5 log2(e) in f32, as the kernels fold them.
+LOG2E = np.float32(1.4426950408889634)
+C2 = float(LOG2E / np.float32(8.0))
+LOG2E = float(LOG2E)
+
+
+def v10_model(q, k, v):
+    """V10's arithmetic on the card (`csrc/flash_fwd_sm90.cuh` at 256-key
+    steps): per step the max of the unscaled scores over all 256 keys,
+    ``p = 2^(s c2 - m c2)`` (c2 folded into the exponent), ``p`` rounded
+    to ``q.dtype`` against the running max, ``l`` from f32 ``p``."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    m = torch.full(qh.shape[:-1] + (1,), -torch.inf)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for c0 in range(0, q.shape[1], 256):
+        s = qh @ kh[:, :, c0:c0 + 256].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        mc = m_new * C2
+        p = torch.exp2(s * C2 - mc)
+        corr = torch.exp2(m * C2 - mc)
+        den = den * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(dt).float() @ vh[:, :, c0:c0 + 256]
+        m = m_new
+    return (acc / den).to(dt).transpose(1, 2).contiguous()
+
+
+def crafted_operands(s: int, dtype=torch.bfloat16):
+    """Seeded q/k/v whose rows take their max in keys 128-255, about 2
+    (scaled) above every other key: q's first feature is 4 and the keys
+    128-255 have 4 more in theirs. A 128-key online softmax rounds p of
+    keys 0-127 against a max that later moves; a 256-key one does not."""
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.normal(size=(B, s, H, DH)).astype(np.float32)
+               for _ in range(3))
+    q[..., 0] = 4.0
+    k[:, 128:256, :, 0] += 4.0
+    return [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+
+
+def mean_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().mean().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 300, 577])
+def test_v10_design_matches_its_plain_version(s, dtype):
+    """(a) The model of V10's kernel arithmetic against V10's plain
+    version (exp of the scaled scores at chunk 256)."""
+    _, (q, k, v) = operands(3, s, dtype)
+    assert_close(fold(v10_model(q, k, v)),
+                 fold(fv.flash_attention_online_c256_reference(q, k, v)),
+                 FWD_TOL[dtype], False)
+
+
+@pytest.mark.parametrize("s", [300, 577])
+def test_v10_design_is_nearer_chunk_256_than_chunk_128(s):
+    """(a) On rows whose max lies in keys 128-255 the model of V10 sits
+    far nearer the chunk-256 plain version than the chunk-128 one (K3′'s):
+    the premise of the card's test that V10 runs 256-key steps."""
+    q, k, v = crafted_operands(s)
+    logits = (q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)) \
+        * DH ** -0.5
+    top = logits.argmax(-1)
+    assert ((top >= 128) & (top < 256)).float().mean() > 0.98
+    margin = logits[..., 128:256].amax(-1) - torch.cat(
+        [logits[..., :128], logits[..., 256:]], -1).amax(-1)
+    assert 1.5 < margin.mean().item() < 2.5
+    got = v10_model(q, k, v)
+    near = mean_abs(got, fv.flash_attention_online_c256_reference(q, k, v))
+    far = mean_abs(got, k34.flash_attention_online_reference(q, k, v,
+                                                             chunk=128))
+    assert near < 0.05 * far, (near, far)
+
+
+def v1_stats_model(q, k, v, g):
+    """V1's statistics pass on the card (`flash_bwd_sm90.cuh`,
+    ``flash_attention_bwd_stats_from_output_kernel``): sweep 1 the exact
+    max of the unscaled scores over 128-key chunks; sweep 2 ``u = 2^(s c2
+    - m c2)`` against it, ``den`` and ``o_rec = bf16(u) v`` summed chunk
+    by chunk; ``r = sum(g * o_rec / den)``. ``(3, B, H, S)`` in K4's
+    workspace units (``m`` of the scaled scores)."""
+    dt = q.dtype
+    qh, kh, vh, gh = (t.transpose(1, 2).float() for t in (q, k, v, g))
+    chunks = range(0, q.shape[1], 128)
+    scores = [qh @ kh[:, :, c0:c0 + 128].transpose(-1, -2) for c0 in chunks]
+    mc = torch.stack([s.amax(-1) for s in scores]).amax(0) * C2
+    den = torch.zeros_like(mc)
+    o_rec = torch.zeros_like(qh)
+    for c0, s in zip(chunks, scores):
+        u = torch.exp2(s * C2 - mc[..., None])
+        den = den + u.sum(-1)
+        o_rec = o_rec + u.to(dt).float() @ vh[:, :, c0:c0 + 128]
+    r = (gh * (o_rec / den[..., None])).sum(-1)
+    return torch.stack([mc / LOG2E, den, r])
+
+
+def k4_grads_from_stats(q, k, v, g, stats):
+    """K4's gradient arithmetic (`flash_bwd_sm90.cuh`'s gradient pass) on
+    given row statistics: ``u = 2^(s c2 - m log2 e)``, ``g_n =
+    bf16(g / den)``, ``dl = bf16(u (dp - r) scale / den)``; ``(dq, dk,
+    dv)`` in ``q.dtype``."""
+    dt = q.dtype
+    qh, kh, vh, gh = (t.transpose(1, 2).float() for t in (q, k, v, g))
+    m, den, r = (x[..., None] for x in stats)
+    u = torch.exp2((qh @ kh.transpose(-1, -2)) * C2 - m * LOG2E)
+    dp = gh @ vh.transpose(-1, -2)
+    dl = (u * (dp - r) * (DH ** -0.5 / den)).to(dt).float()
+    dv = (u.to(dt).float().transpose(-1, -2) @ (gh / den).to(dt).float())
+    return tuple(x.to(dt).transpose(1, 2).contiguous()
+                 for x in (dl @ kh, dl.transpose(-1, -2) @ qh, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97])
+def test_v1_design_matches_its_plain_version(s, dtype):
+    """(b) The model of V1's two-sweep statistics: in f32 its m, den and r
+    equal the plain version's within 1e-6 of each one's magnitude; K4's
+    gradient arithmetic on them gives the plain version's (dq, dk, dv)
+    within the backward bound. K4's own r (from dp) is further off than
+    the card's statistics bound in bf16, so that check tells them apart."""
+    _, (q, k, v, g) = operands(4, s, dtype)
+    stats = v1_stats_model(q, k, v, g)
+    want = bv.bwd_r_from_o_stats_reference(q, k, v, g)
+    rel = [((a - w).abs().max() / w.abs().max()).item()
+           for a, w in zip(stats, want)]
+    if dtype == "float32":
+        assert max(rel) <= 1e-6, rel
+    else:
+        assert max(rel) <= 1e-4, rel
+        k4_r = k34.flash_attention_backward_stats_reference(q, k, v, g)[2]
+        assert ((k4_r - want[2]).abs().max() / want[2].abs().max()) > 2e-4
+    for a, w in zip(k4_grads_from_stats(q, k, v, g, stats),
+                    bv.bwd_r_from_o_reference(q, k, v, g), strict=True):
+        assert_close(fold(a), fold(w), BWD_TOL[dtype], dtype == "bfloat16")
+
+
+# ---------------------------------------------------------------------------
 # Dispatch, operand checks, K3′'s chunk
 # ---------------------------------------------------------------------------
 
@@ -301,8 +443,9 @@ def test_fwd_operand_checks():
 def test_k3_online_keeps_chunk_128_and_v10_runs_256():
     """K3′'s entry point stays at 128-key chunks (its plain version, and
     its CUDA entry point, which launches K3's streaming forward with its
-    128-key chunks); V10 is the online body at 256, and in bf16 the two
-    differ where S spans several chunks."""
+    128-key chunks); V10 is the online body at 256 (its CUDA entry point
+    launches the same forward at 256-key steps under its own tag), and in
+    bf16 the two differ where S spans several chunks."""
     assert k34.ONLINE_CHUNK == 128 and fv.CHUNK_256 == 256
     with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
                            "flash_attention_online.cu")) as f:
@@ -314,8 +457,9 @@ def test_k3_online_keeps_chunk_128_and_v10_runs_256():
                           f.read()) == ["128"]
     with open(os.path.join(ROOT, "pigeon_tpu_torch", "csrc",
                            "attention_fwd_variants.cu")) as f:
-        assert re.findall(r"launch_online_attention<(\d+), (\d+)>",
-                          f.read()) == [("256", "1")]
+        assert re.findall(r"launch_flash_forward<(\w+), (\w+), (\d+)>",
+                          f.read()) == [("V10OnlineForward", "AttnOutBf16",
+                                         "256")]
     _, (q, k, v) = operands(3, 300, "bfloat16")
     k3p = k34.flash_attention_online(q, k, v)
     torch.testing.assert_close(
@@ -429,6 +573,9 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, s, heads", [(1, 64, 1), (2, 65, 2), (2, 97, 2),
+                                         (2, 127, 2), (2, 129, 2),
+                                         (1, 255, 2), (1, 256, 2),
+                                         (1, 257, 2), (1, 385, 2),
                                          (1, 640, 2), (32, 577, 16)])
 @pytest.mark.parametrize("wrapper, plain, n_in", WRAPPERS,
                          ids=[w[0].__name__ for w in WRAPPERS])
@@ -448,3 +595,82 @@ def test_cuda_variant_matches_plain_version(cuda, wrapper, plain, n_in, b, s,
         assert rel_err <= tuning.BWD_TOL
     else:
         assert rel_err <= tuning.DIAG_TOL
+
+
+#: V1's statistics workspace against the plain version's, each row's max
+#: abs error over its max magnitude: m and den at K4's statistics bound
+#: (f32 sums over 128-key chunks in another order, exp2 with log2(e)
+#: folded in); r also takes bf16(u), which one f32 ulp of u can flip at
+#: a rounding boundary, moving r by 2^-8 u g.v / den for that key.
+STATS_TOL, R_TOL = 1e-4, 2e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 64, 65, 127, 128, 129, 255, 256, 257, 384,
+                               385, 577])
+@pytest.mark.parametrize("wrapper, plain, n_in", [WRAPPERS[0], WRAPPERS[-1]],
+                         ids=["bwd_r_from_o", "flash_attention_online_c256"])
+def test_cuda_v1_and_v10_at_ragged_steps(cuda, wrapper, plain, n_in, s):
+    """V10's last 256-key step may hold one 128-key half (S in (256k,
+    256k + 128]) or a ragged second half; V1's sweeps end on a ragged
+    chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, n_in, (2, s, 2, DH))
+    got = tuning.outputs(wrapper(*args))
+    torch.cuda.synchronize()
+    want = tuning.outputs(plain(*args))
+    if n_in == 3:
+        assert tuning.errors(got, want)[0] <= tuning.FWD_TOL
+    elif s == 1:
+        # One key: dq and dk are 0 (dp - r = g.v - g.v, the two sums taken
+        # in other orders leave f32 rounding, ~1e-7); dv = g.
+        assert tuning.errors(got[2:], want[2:])[1] <= tuning.BWD_TOL
+        assert tuning.errors(got[:2], want[:2])[0] <= 1e-5
+    else:
+        assert tuning.errors(got, want)[1] <= tuning.BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [300, 577])
+def test_cuda_v10_is_nearer_its_chunk_256_plain_version(cuda, s):
+    """(c) On rows whose max lies in keys 128-255, V10 sits nearer the
+    chunk-256 plain version than the chunk-128 one, and K3′ (128-key
+    steps) the other way round: V10 is not K3′'s instance."""
+    q, k, v = (t.to(cuda) for t in crafted_operands(s))
+    c256 = fv.flash_attention_online_c256_reference(q, k, v)
+    c128 = k34.flash_attention_online_reference(q, k, v, chunk=128)
+    v10 = fv.flash_attention_online_c256(q, k, v)
+    k3p = k34.flash_attention_online(q, k, v)
+    torch.cuda.synchronize()
+    assert mean_abs(v10, c256) < 0.25 * mean_abs(v10, c128)
+    assert mean_abs(k3p, c128) < 0.25 * mean_abs(k3p, c256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 80, 2), (2, 97, 2), (1, 385, 2),
+                                         (4, 577, 4)])
+def test_cuda_v1_statistics_take_r_from_the_output(cuda, b, s, heads):
+    """(d) V1 launched through ``_launch`` with workspaces the test holds:
+    its statistics agree with the plain version's (m and den within
+    `STATS_TOL`, r within `R_TOL`); r's mean error is far below that of
+    K4's r (from dp and f32 u) against the same plain r, so the check
+    tells the two apart; the gradients are within the backward bound."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v, g = tuning.normal(gen, 4, (b, s, heads, DH))
+    ws = k34.backward_workspaces(q)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bv._launch("bwd_r_from_o", q, k, v, g, dq, dk, dv, *ws)
+    torch.cuda.synchronize()
+    want = bv.bwd_r_from_o_stats_reference(q, k, v, g)
+
+    def rel(a, w):
+        return ((a - w).abs().max() / w.abs().max()).item()
+
+    for got_row, want_row, tol in zip(ws.stats, want,
+                                      (STATS_TOL, STATS_TOL, R_TOL)):
+        assert rel(got_row, want_row) <= tol
+    k4_r = k34.flash_attention_backward_stats_reference(q, k, v, g)[2]
+    assert mean_abs(ws.stats[2], want[2]) < 0.25 * mean_abs(k4_r, want[2])
+    _, rel_err = tuning.errors((dq, dk, dv),
+                               bv.bwd_r_from_o_reference(q, k, v, g))
+    assert rel_err <= tuning.BWD_TOL
