@@ -14,7 +14,7 @@ Phases, one line each, any failure raises:
              wgmma-serialisation (C7513/C7514) lines and the HGMMA count
              of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
              K7, K8 and K9 and of the two tuning sources, whose V10 and
-             V1 run K3's and K4's wgmma kernels (cuobjdump; a source
+             V1-V3 run K3's and K4's wgmma kernels (cuobjdump; a source
              without HGMMA fails the phase);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
@@ -160,9 +160,12 @@ Phases, one line each, any failure raises:
              tuning kernels V1-V10 launched there. The kernels line's
              launches of K1-K10 and K3′ stay those of phases 4-8. Then,
              from the same driver runs, V10's ms beside K3′'s and V1's
-             beside K4's, and V1's and K4's device ms by pass
-             (statistics, gradient, dq; torch.profiler, by each
-             wrapper's tag), after the launches are read.
+             and split4's (V2 + V3) beside K4's, and V1's, V2's, V3's
+             and K4's device ms by pass (statistics, gradient, dq, V2's
+             dq rows; torch.profiler, by each wrapper's tag; a pass a
+             wrapper does not launch must show none), with V2's and
+             V3's wrapper and bare C call ms, after the launches are
+             read.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -174,6 +177,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import functools
 import glob
 import json
 import os
@@ -327,16 +331,23 @@ VARIANT_LIBRARY = {"bwd_r_from_o": "sdpa_backward",
 VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: [variants]: the tuning kernels on K3's and K4's wgmma kernels, each
 #: beside the K kernel whose design it shares, by the drivers' variant
-#: names: V10 (256-key steps) beside K3′ (128), V1 beside K4.
+#: names: V10 (256-key steps) beside K3′ (128), V1 and split4 (V2 + V3)
+#: beside K4.
 VARIANT_PAIRS = (("online_softmax_p4_c256", "online_softmax_p4_c128"),
-                 ("r_from_o_pack2", "base_pack2"))
-#: The attention backward's three stages by their kernels' names
-#: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own), and the
-#: tag of each wrapper's instance, for [variants]' device-time split.
+                 ("r_from_o_pack2", "base_pack2"),
+                 ("split4", "base_pack2"))
+#: The attention backward's passes by their kernels' names
+#: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own, V2's dq
+#: rows are V2's alone), and each wrapper's tag and the passes it
+#: launches, for [variants]' device-time split: a listed pass must show
+#: device time under the tag, an unlisted one none.
 BWD_PASSES = (("statistics", "bwd_stats"), ("gradient", "bwd_grad"),
-              ("dq", "bwd_dq"))
-BWD_TAGS = (("bwd_r_from_o", "V1Attention"),
-            ("flash_attention_bwd", "K4Attention"))
+              ("dq", "bwd_dq"), ("dq_rows", "bwd_rows"))
+BWD_TAGS = (("bwd_r_from_o", "V1Attention", ("statistics", "gradient", "dq")),
+            ("attention_dq", "V2Attention", ("statistics", "dq_rows")),
+            ("attention_dkv", "V3Attention", ("statistics", "gradient")),
+            ("flash_attention_bwd", "K4Attention",
+             ("statistics", "gradient", "dq")))
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -536,7 +547,11 @@ def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
     """Self device milliseconds a call of ``fn`` spends in the kernels
     whose names hold each ``(label, mark)``'s mark (a string, or a tuple
     of strings a name must all hold), and in the rest (``other``), from
-    `torch.profiler` over ``calls`` calls."""
+    `torch.profiler` over ``calls`` calls. Each kernel counts its mean
+    over the launches the profiler recorded, times its launches a call
+    (at least one): late in a long process the profiler may drop some
+    kernels' records (seen on the H100: 2-4 of 5), which a sum over
+    ``calls`` would read as less device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -551,11 +566,13 @@ def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
+        if not us or not evt.count:
+            continue
         label = next((lb for lb, mark in marks
                       if all(m in evt.key for m in
                              ((mark,) if isinstance(mark, str) else mark))),
                      "other")
-        out[label] += us / 1e3 / calls
+        out[label] += us / evt.count * max(1, round(evt.count / calls)) / 1e3
     return out
 
 
@@ -2226,10 +2243,14 @@ def check_variants() -> tuple:
 
 
 def backward_stages() -> None:
-    """[variants]: V1's and K4's device ms by pass (`BWD_PASSES`), each
-    pass found by its kernel's name and the wrapper's tag (`BWD_TAGS`), at
-    the drivers' shape; raises if a pass of a tag takes no time. Runs
-    after [variants] has read its launch counts."""
+    """[variants]: V1's, V2's, V3's and K4's device ms by pass
+    (`BWD_PASSES`), each pass found by its kernel's name and the wrapper's
+    tag (`BWD_TAGS`), at the drivers' shape; raises if a pass a tag lists
+    takes no time, or one it does not list takes some. Beside them the
+    host ms a call takes to enqueue its work (calls without a
+    synchronise: below the device ms, the wrapper is device-bound), and
+    V2's and V3's wrapper ms beside the bare C call's, on workspaces
+    allocated once. Runs after [variants] has read its launch counts."""
     import torch
 
     from pigeon_tpu_torch import tuning
@@ -2237,22 +2258,47 @@ def backward_stages() -> None:
     from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, g = tuning.normal(gen, 4, (tuning.BATCH, tuning.SEQ,
-                                        tuning.HEADS, tuning.HEAD_DIM))
+    shape = (tuning.BATCH, tuning.SEQ, tuning.HEADS, tuning.HEAD_DIM)
+    q, k, v, g = tuning.normal(gen, 4, shape)
     fns = {"bwd_r_from_o": bv.bwd_r_from_o,
+           "attention_dq": bv.attention_dq,
+           "attention_dkv": bv.attention_dkv,
            "flash_attention_bwd": k34.flash_attention_backward}
-    for name, tag in BWD_TAGS:
+    lib = bv.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    stats, g_n = bv._stats_workspaces(q)
+    outs = [torch.empty_like(q) for _ in range(2)]
+    bare = {"attention_dq": lambda: lib.pigeon_attention_dq(
+                *(t.data_ptr() for t in (q, k, v, g, outs[0], stats, g_n)),
+                *shape[:3], stream),
+            "attention_dkv": lambda: lib.pigeon_attention_dkv(
+                *(t.data_ptr() for t in (q, k, v, g, *outs, stats, g_n)),
+                *shape[:3], stream)}
+    for name, tag, passes in BWD_TAGS:
+        fn = functools.partial(fns[name], q, k, v, g)
         ms = device_ms_by_mark(
-            lambda: fns[name](q, k, v, g),
-            [(label, (mark, tag)) for label, mark in BWD_PASSES])
-        idle = [label for label, _ in BWD_PASSES if ms[label] <= 0]
-        if idle:
-            raise RuntimeError(f"{name}: no device time in {idle} under "
-                               f"{tag}")
+            fn, [(label, (mark, tag)) for label, mark in BWD_PASSES])
+        idle = [label for label in passes if ms[label] <= 0]
+        stray = [label for label, _ in BWD_PASSES
+                 if label not in passes and ms[label] > 0]
+        if idle or stray:
+            raise RuntimeError(f"{name}: no device time in {idle}, or time "
+                               f"in passes it does not launch {stray}, "
+                               f"under {tag}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        times = {"enqueue_ms": round((time.perf_counter() - t0) / 20 * 1e3,
+                                    4)}
+        torch.cuda.synchronize()
+        if name in bare:
+            times.update(wrapper_ms=round(median_ms(fn), 4),
+                         bare_ms=round(median_ms(bare[name]), 4))
         phase("variants", kernel=name, tag=tag,
-              **{f"{label}_device_ms": round(x, 4)
-                 for label, x in ms.items()})
-    del q, k, v, g
+              **{f"{label}_device_ms": round(ms[label], 4)
+                 for label in (*passes, "other")}, **times)
+    del q, k, v, g, stats, g_n, outs
     torch.cuda.empty_cache()
 
 

@@ -18,13 +18,18 @@
 //                    body's six products against K4's five: the time
 //                    against K4's in one driver run is what statistics
 //                    from the output, not from dp, cost or save.
-//   V2 dq            dq alone: the WMMA dq pass (attention_bwd_tile.cuh),
-//                    its statistics into a workspace the caller drops.
-//   V3 dkv           dk, dv alone: a block of 64 keys never sees a whole
-//                    query row, so it cannot find the row's max and
-//                    denominator without walking every key tile; V3 is
-//                    the dq pass's first two sweeps (the statistics, no
-//                    dq), then the WMMA dk/dv pass.
+//   V2 dq            dq alone (the script's split4, first half): K4's
+//                    statistics pass under the tag V2Attention (two walks:
+//                    s, dp), then a query-major dq pass
+//                    (flash_attention_bwd_rows_dq_kernel, three walks: s,
+//                    dp, dl k) that keeps each row's dq in registers. 2 + 3
+//                    walks against the TPU body's 3 products. The g_n the
+//                    statistics pass writes goes unread.
+//   V3 dkv           dk, dv alone (split4's second half): K4's statistics
+//                    pass under V3Attention, then K4's gradient pass
+//                    without its dq product (DQ = false: no dl^T tile, no
+//                    f32 workspace, no reduce-add, no dq cast). 2 + 4
+//                    walks against the TPU body's 4.
 //   V4 dots_only     diagnostic: K4's products with the softmax chain
 //                    replaced by casts (s = q k^T unscaled, dv = bf16(s)^T
 //                    g, dp = g v^T, dl = bf16(s * dp), dq = dl k,
@@ -39,17 +44,25 @@
 //                    query tile walking the key tiles three times (the
 //                    max; den and sum(dp * u); dl).
 //
+// Why V2 and V3 need a statistics pass the TPU bodies do not: a TPU body
+// holds a head's whole (S, S) score block in VMEM, so it finds each row's
+// max, den and r in the block it takes the products from. A Hopper block
+// holds 128 rows and one 128-key chunk (227 KB of shared memory): V3's
+// key-major block never sees a whole query row, and V2's query-major
+// block needs the row's r, a sum over every key, before its first dl.
+//
 // What bounds them on the H100, at the tuning shape (B = 32 views,
 // S = 577, H = 16): the TPU bodies' products are ~22 GFLOP each
-// (2 B H S^2 64); V1 has six (~131 GFLOP, ~0.13 ms at 989 TFLOP/s), V2 +
-// V3 seven (~153 GFLOP), V4 five; q/k/v/g and the outputs are ~265 MB
-// (~0.08 ms), so the tensor cores bound the exact variants and V4. V5's
-// TPU body does one product and ~12 f32 operations an S x S element
-// (~2 G at 67 TFLOP/s, ~0.03 ms): its own bound is small, and its time
-// is what the softmax chain costs as the WMMA dq pass runs it (three
-// sweeps, the scores formed in each). V2-V5 keep the design K2 and K4 had
-// before they moved to wgmma (WMMA from shared memory, no copy/compute
-// overlap); V1 runs K4's wgmma passes.
+// (2 B H S^2 64, 0.022 ms at 989 TFLOP/s); V1 has six (~131 GFLOP,
+// ~0.13 ms), V2 three and V3 four (~153 GFLOP together), V4 five; q/k/v/g
+// and the outputs are ~265 MB (~0.08 ms), so the tensor cores bound the
+// exact variants and V4. V2 and V3 walk 5 and 6 times, each walk's
+// products waiting on its exps. V5's TPU body does one product and ~12
+// f32 operations an S x S element (~2 G at 67 TFLOP/s, ~0.03 ms): its own
+// bound is small, and its time is what the softmax chain costs as the
+// WMMA pass runs it (three sweeps, the scores formed in each). V4 and V5
+// keep the design the attention kernels had before they moved to wgmma
+// (WMMA from shared memory, no copy/compute overlap; attention_tile.cuh).
 //
 // Keeping the measured work alive: nvcc deletes what never reaches
 // memory. V5 stores only dl's first 64 columns; every other column of dl
@@ -62,18 +75,33 @@
 //
 // Constraints (checked by the Python wrapper before launch): head_dim 64,
 // bf16, (B, S, H, 64) contiguous and 16-byte aligned; V5 needs S >= 64;
-// the row-statistics workspace is (3, B, H, S) f32; V1 also takes K4's
-// g_n (B, S, H, 64) bf16 and zeroed dq_acc (B, H, ceil(S / 64), 4096)
-// f32 workspaces. Ragged S is masked as in attention_bwd_tile.cuh and
-// flash_bwd_sm90.cuh.
+// V1-V3 take K4's row-statistics workspace (3, B, H, S) f32 and its g_n
+// (B, S, H, 64) bf16; V1 also K4's zeroed dq_acc (B, H, ceil(S / 64),
+// 4096) f32. Ragged S is masked: rows past S are staged as zeros (TMA
+// reads zeros past row S for V1-V3), get u = 0 and are never written.
 
-#include "attention_bwd_tile.cuh"
+#include "attention_tile.cuh"
 #include "flash_bwd_sm90.cuh"
 
 namespace {
 
-struct V1Attention {};  // V1's instance of K4's passes
+// V1-V3's instances of K4's passes.
+struct V1Attention {};
+struct V2Attention {};
+struct V3Attention {};
 
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
+    FragAT;
+
+// The arguments of V4 and V5: q/k/v/g and dq/dk/dv (B, S, H*64).
+struct AttnArgs {
+  const bf16 *q, *k, *v, *g;
+  bf16 *dq, *dk, *dv;
+  int S, H;
+  float scale;
+};
+
+constexpr int DQ_SMEM = 5 * TILE_B + 2 * TILE_F;         // 80,896 B
 constexpr int DOTS_DKDV_SMEM = 6 * TILE_B + 2 * TILE_F;  // 90,112 B
 constexpr int VPU_SMEM = 2 * TILE_B + TILE_F;            // 35,840 B
 
@@ -353,14 +381,10 @@ inline cudaError_t launch(void (*kernel)(AttnArgs), int smem,
   return cudaGetLastError();
 }
 
-// The arguments of every entry point: q/k/v/g and dq/dk/dv (B, S, H, 64)
-// bf16 (an output the variant does not produce may be null), stats
-// (3, B, H, S) f32 (null where unused).
+// V4's and V5's arguments: q/k/v/g and dq/dk/dv (B, S, H, 64) bf16.
 AttnArgs make_args(const void* q, const void* k, const void* v,
-                   const void* g, void* dq, void* dk, void* dv, void* stats,
-                   int batch, int seq, int heads) {
-  float* f = static_cast<float*>(stats);
-  const size_t n_rows = (size_t)batch * heads * seq;
+                   const void* g, void* dq, void* dk, void* dv, int seq,
+                   int heads) {
   AttnArgs args = {};
   args.q = static_cast<const bf16*>(q);
   args.k = static_cast<const bf16*>(k);
@@ -369,12 +393,32 @@ AttnArgs make_args(const void* q, const void* k, const void* v,
   args.dq = static_cast<bf16*>(dq);
   args.dk = static_cast<bf16*>(dk);
   args.dv = static_cast<bf16*>(dv);
-  args.m = f;
-  args.den = f ? f + n_rows : nullptr;
-  args.r = f ? f + 2 * n_rows : nullptr;
   args.S = seq;
   args.H = heads;
   args.scale = 1.0f / sqrtf(static_cast<float>(DH));
+  return args;
+}
+
+// V1-V3's arguments of K4's passes: the statistics (3, B, H, S) f32 and
+// g_n workspaces, dq_acc (V1 alone, else null) and the outputs each
+// produces (the others null).
+BwdArgs bwd_args(void* stats, void* g_n, void* dq_acc, void* dq, void* dk,
+                 void* dv, int batch, int seq, int heads) {
+  float* f = static_cast<float*>(stats);
+  const size_t n_rows = (size_t)batch * heads * seq;
+  BwdArgs args = {};
+  args.m = f;
+  args.den = f + n_rows;
+  args.r = f + 2 * n_rows;
+  args.g_n = static_cast<bf16*>(g_n);
+  args.dq_acc = static_cast<float*>(dq_acc);
+  args.dq = static_cast<bf16*>(dq);
+  args.dk = static_cast<bf16*>(dk);
+  args.dv = static_cast<bf16*>(dv);
+  args.S = seq;
+  args.H = heads;
+  args.scale = 1.0f / sqrtf(static_cast<float>(HD));
+  args.scale_log2 = args.scale * LOG2E;
   return args;
 }
 
@@ -398,48 +442,38 @@ int pigeon_attention_bwd_r_from_o(const void* q, const void* k,
                                   void* dq_acc, int batch, int seq, int heads,
                                   void* stream) {
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
-  float* f = static_cast<float*>(stats);
-  const size_t n_rows = (size_t)batch * heads * seq;
-  BwdArgs args = {};
-  args.m = f;
-  args.den = f + n_rows;
-  args.r = f + 2 * n_rows;
-  args.g_n = static_cast<bf16*>(g_n);
-  args.dq_acc = static_cast<float*>(dq_acc);
-  args.dq = static_cast<bf16*>(dq);
-  args.dk = static_cast<bf16*>(dk);
-  args.dv = static_cast<bf16*>(dv);
-  args.S = seq;
-  args.H = heads;
-  args.scale = 1.0f / sqrtf(static_cast<float>(HD));
-  args.scale_log2 = args.scale * LOG2E;
-  return static_cast<int>(launch_flash_backward<V1Attention, true>(
-      q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
+  const BwdArgs args =
+      bwd_args(stats, g_n, dq_acc, dq, dk, dv, batch, seq, heads);
+  return static_cast<int>(
+      launch_flash_backward<V1Attention, BwdPasses::kFromOutput>(
+          q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
 }
 
-// V2, scripts/bench_attn_bwd.py::dq_body: dq.
+// V2, scripts/bench_attn_bwd.py::dq_body: dq, with K4's statistics and
+// g_n workspaces.
 int pigeon_attention_dq(const void* q, const void* k, const void* v,
-                        const void* g, void* dq, void* stats, int batch,
-                        int seq, int heads, void* stream) {
+                        const void* g, void* dq, void* stats, void* g_n,
+                        int batch, int seq, int heads, void* stream) {
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
-  const AttnArgs a = make_args(q, k, v, g, dq, nullptr, nullptr, stats,
-                               batch, seq, heads);
-  return static_cast<int>(attention_dq_pass<true>(
-      a, batch, static_cast<cudaStream_t>(stream)));
+  const BwdArgs args = bwd_args(stats, g_n, nullptr, dq, nullptr, nullptr,
+                                batch, seq, heads);
+  return static_cast<int>(
+      launch_flash_backward<V2Attention, BwdPasses::kRowsDq>(
+          q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
 }
 
-// V3, scripts/bench_attn_bwd.py::dkv_body: dk, dv (the statistics pass,
-// then the dk/dv pass).
+// V3, scripts/bench_attn_bwd.py::dkv_body: dk, dv, with K4's statistics
+// and g_n workspaces.
 int pigeon_attention_dkv(const void* q, const void* k, const void* v,
                          const void* g, void* dk, void* dv, void* stats,
-                         int batch, int seq, int heads, void* stream) {
+                         void* g_n, int batch, int seq, int heads,
+                         void* stream) {
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
-  const AttnArgs a = make_args(q, k, v, g, nullptr, dk, dv, stats, batch,
-                               seq, heads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = attention_dq_pass<false>(a, batch, st);
-  if (err == cudaSuccess) err = attention_dkdv_pass(a, batch, st);
-  return static_cast<int>(err);
+  const BwdArgs args = bwd_args(stats, g_n, nullptr, nullptr, dk, dv, batch,
+                                seq, heads);
+  return static_cast<int>(
+      launch_flash_backward<V3Attention, BwdPasses::kDkDv>(
+          q, k, v, g, args, batch, static_cast<cudaStream_t>(stream)));
 }
 
 // V4, scripts/bench_attn_bwd.py::dots_only: dq, dk, dv.
@@ -448,8 +482,7 @@ int pigeon_attention_bwd_dots_only(const void* q, const void* k,
                                    void* dk, void* dv, int batch, int seq,
                                    int heads, void* stream) {
   if (bad_shape(batch, seq, heads)) return cudaErrorInvalidValue;
-  const AttnArgs a = make_args(q, k, v, g, dq, dk, dv, nullptr, batch, seq,
-                               heads);
+  const AttnArgs a = make_args(q, k, v, g, dq, dk, dv, seq, heads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch(dots_only_dq_kernel, DQ_SMEM, a, batch, st);
   if (err == cudaSuccess) {
@@ -466,8 +499,7 @@ int pigeon_attention_bwd_vpu_only(const void* q, const void* k,
                                   int batch, int seq, int heads,
                                   void* stream) {
   if (bad_shape(batch, seq, heads) || seq < DH) return cudaErrorInvalidValue;
-  const AttnArgs a = make_args(q, k, v, g, dq, dk, dv, nullptr, batch, seq,
-                               heads);
+  const AttnArgs a = make_args(q, k, v, g, dq, dk, dv, seq, heads);
   const dim3 tiles((seq + TILE - 1) / TILE, heads, batch);
   cudaError_t err = cudaFuncSetAttribute(
       vpu_only_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

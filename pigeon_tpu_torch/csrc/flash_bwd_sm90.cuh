@@ -12,10 +12,26 @@
 //
 // Three launches, seven S x S x 64 product walks in all. Each kernel's
 // `Tag` names the user's instance, so K2's passes, K4's and the tuning
-// kernel V1's are told apart in a profile. V1 (attention_bwd_variants.cu)
-// takes r from the recomputed output instead: its own statistics pass
-// (flash_attention_bwd_stats_from_output_kernel, below, three walks),
-// then the gradient and dq passes unchanged, eight walks in all.
+// kernels V1-V3's (attention_bwd_variants.cu) are told apart in a
+// profile. A launch's passes (BwdPasses) are K4's three, or a tuning
+// kernel's:
+//   V1 takes r from the recomputed output: its own statistics pass
+//      (flash_attention_bwd_stats_from_output_kernel, three walks), then
+//      the gradient and dq passes unchanged, eight walks in all;
+//   V2 (dq alone) runs the statistics pass, then a query-major dq pass
+//      (flash_attention_bwd_rows_dq_kernel, three walks: s, dp, dl k),
+//      2 + 3 walks against the TPU body's 3;
+//   V3 (dk, dv alone) runs the statistics pass, then the gradient pass
+//      without dq (four walks: s, dp, dv, dk), 2 + 4 against its 4.
+// The TPU bodies hold a whole (S, S) score block of a head in VMEM, so
+// each finds its rows' max, den and r in the same block it takes the
+// products from. A Hopper block sees 128 queries and one 128-key chunk
+// at a time (227 KB of shared memory): a key-major block never sees a
+// whole query row, and a query-major one needs the row's r, a sum over
+// every key, before its first dl (a running r cannot be corrected once
+// bf16(dl) has fed the dq product). So every design here takes the
+// statistics first, in a pass of their own, and forms the gradients
+// from final statistics.
 //
 //   statistics pass (flash_attention_bwd_stats_kernel): one block per
 //     (128-row query tile, head, image) holds its Q and G tiles and
@@ -38,20 +54,34 @@
 //       dq_part = dl k  (dl^T written to a swizzled shared tile, read as a
 //                        transposed A operand; K read MN-major),
 //     and adds dq_part to an f32 workspace with one bulk reduce-add of
-//     16 KB (cp.reduce.async.bulk ... add.f32). Five walks.
+//     16 KB (cp.reduce.async.bulk ... add.f32). Five walks; four under
+//     DQ = false (V3), with no dl^T tile, staging or reduce.
 //   dq pass (flash_attention_bwd_dq_kernel): the f32 workspace to bf16 dq
 //     in (B, S, H, 64).
+//   dq rows (flash_attention_bwd_rows_dq_kernel, V2): the statistics
+//     pass's block, tiles and ring; each consumer warpgroup keeps its 64
+//     rows' dq in registers and per 128-key chunk takes s and dp as the
+//     statistics pass does, dl in place, then dq += dl K on wgmma with dl
+//     from registers and K read MN-major (the forward's P V, with dl for p
+//     and K for V). No f32 workspace, no reduce-add, no cast launch.
 //
 // Because the statistics are final before any gradient is formed, each
 // rounding of the plain version is reproduced at the same place: u
 // relative to the final max, bf16(u) for dv, bf16(g / den), bf16(dl).
-// dq's f32 sums over the key tiles arrive in the order the bulk reduces
-// land, which changes from run to run.
+// K4's dq sums over the key tiles arrive in the order the bulk reduces
+// land, which changes from run to run; V2's run in one fixed order.
+//
+// What bounds them: at 32 views (S 577, H 16) one walk is 21.8 GFLOP,
+// 0.022 ms at 989 TFLOP/s, and q/k/v/g with the outputs ~0.1 ms of
+// bytes, so the tensor cores bound each pass; the statistics pass's and
+// the dq rows' products wait on each chunk's exps (no overlap within a
+// warpgroup), the gradient pass's on its dq traffic.
 //
 // Ragged S: TMA reads zeros past row S. Keys past S get s = -inf in the
-// statistics pass and u = 0 in the gradient pass; query rows past S take
-// m = +inf, scale / den = 0 and r = 0 in the gradient pass, so they add
-// nothing (their den would be 0), and are never written.
+// statistics pass and u = 0 in the gradient pass and the dq rows; query
+// rows past S take m = +inf, scale / den = 0 and r = 0 in the gradient
+// pass and the dq rows, so they add nothing (their den would be 0), and
+// are never written.
 
 #pragma once
 
@@ -64,8 +94,9 @@ constexpr int BWD_TILE = 128 * ROW_BYTES;   // 128-row tile, 16 KB
 constexpr int BWD_CHUNK = 64 * ROW_BYTES;   // 64-row tile, 8 KB
 constexpr int BWD_STAGES = 2;
 
-// Statistics pass: Q and G tiles, then the K/V ring, then the barriers
-// (qg_full, k_full[2], v_full[2], empty[2]).
+// The query-major passes (statistics, V1's statistics, V2's dq rows): Q
+// and G tiles, then the K/V ring, then the barriers (qg_full, k_full[2],
+// v_full[2], empty[2]).
 constexpr int ST_KV_OFF = 2 * BWD_TILE;
 constexpr int ST_BAR_OFF = ST_KV_OFF + BWD_STAGES * 2 * BWD_TILE;
 constexpr int ST_SMEM = ST_BAR_OFF + (1 + 3 * BWD_STAGES) * 8 + 1024;
@@ -114,6 +145,55 @@ __device__ __forceinline__ void store_g_n(bf16* dst,
   }
 }
 
+// The ring of the query-major passes (statistics, V1's statistics, V2's
+// dq rows): the block's Q and G tiles, two stages of a 128-key K and V
+// chunk, and their barriers at ST_BAR_OFF (qg_full, k_full[2],
+// v_full[2], empty[2]; each stage freed by both consumer warpgroups).
+struct RowRing {
+  uint64_t *qg_full, *k_full, *v_full, *empty;
+};
+
+// The barriers of `smem`'s ring, initialised by thread 0 before any
+// thread of the block goes on.
+__device__ __forceinline__ RowRing row_ring_init(unsigned char* smem) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ST_BAR_OFF);
+  const RowRing ring = {bars, bars + 1, bars + 1 + BWD_STAGES,
+                        bars + 1 + 2 * BWD_STAGES};
+  if (threadIdx.x == 0) {
+    mbar_init(ring.qg_full, 1);
+    for (int st = 0; st < BWD_STAGES; ++st) {
+      mbar_init(ring.k_full + st, 1);
+      mbar_init(ring.v_full + st, 1);
+      mbar_init(ring.empty + st, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  return ring;
+}
+
+// The producer thread: the Q and G tiles of rows q0.., then each 128-key
+// chunk of K and V into the next free stage.
+__device__ __forceinline__ void row_ring_load(
+    unsigned char* smem, const RowRing& ring, const CUtensorMap* q_map,
+    const CUtensorMap* g_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, int h, int q0, int b, int n_chunks) {
+  mbar_expect_tx(ring.qg_full, 2 * BWD_TILE);
+  tma_load(smem, q_map, ring.qg_full, h, q0, b);
+  tma_load(smem + BWD_TILE, g_map, ring.qg_full, h, q0, b);
+  for (int j = 0; j < n_chunks; ++j) {
+    const int st = j % BWD_STAGES;
+    if (j >= BWD_STAGES) {
+      mbar_wait(ring.empty + st, (j / BWD_STAGES - 1) & 1);
+    }
+    unsigned char* kv = smem + ST_KV_OFF + st * 2 * BWD_TILE;
+    mbar_expect_tx(ring.k_full + st, BWD_TILE);
+    tma_load(kv, k_map, ring.k_full + st, h, j * 128, b);
+    mbar_expect_tx(ring.v_full + st, BWD_TILE);
+    tma_load(kv + BWD_TILE, v_map, ring.v_full + st, h, j * 128, b);
+  }
+}
+
 template <class Tag>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -127,39 +207,14 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = blockIdx.x * 128;
   const int h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = (S + 127) / 128;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ST_BAR_OFF);
-  uint64_t* qg_full = bars;
-  uint64_t* k_full = bars + 1;
-  uint64_t* v_full = bars + 1 + BWD_STAGES;
-  uint64_t* empty = bars + 1 + 2 * BWD_STAGES;
+  const RowRing ring = row_ring_init(smem);
   const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(qg_full, 1);
-    for (int st = 0; st < BWD_STAGES; ++st) {
-      mbar_init(k_full + st, 1);
-      mbar_init(v_full + st, 1);
-      mbar_init(empty + st, 2 * 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
 
   if (wg == 0) {
     regs_dec<40>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qg_full, 2 * BWD_TILE);
-      tma_load(smem, &q_map, qg_full, h, q0, b);
-      tma_load(smem + BWD_TILE, &g_map, qg_full, h, q0, b);
-      for (int j = 0; j < n_chunks; ++j) {
-        const int st = j % BWD_STAGES;
-        if (j >= BWD_STAGES) mbar_wait(empty + st, (j / BWD_STAGES - 1) & 1);
-        unsigned char* kv = smem + ST_KV_OFF + st * 2 * BWD_TILE;
-        mbar_expect_tx(k_full + st, BWD_TILE);
-        tma_load(kv, &k_map, k_full + st, h, j * 128, b);
-        mbar_expect_tx(v_full + st, BWD_TILE);
-        tma_load(kv + BWD_TILE, &v_map, v_full + st, h, j * 128, b);
-      }
+      row_ring_load(smem, ring, &q_map, &g_map, &k_map, &v_map, h, q0, b,
+                    n_chunks);
     }
     return;
   }
@@ -176,7 +231,7 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
 
   float m[2] = {-INFINITY, -INFINITY};
   float den[2] = {0.0f, 0.0f}, num[2] = {0.0f, 0.0f};
-  mbar_wait(qg_full, 0);
+  mbar_wait(ring.qg_full, 0);
   for (int j = 0; j < n_chunks; ++j) {
     const int st = j % BWD_STAGES;
     const int parity = (j / BWD_STAGES) & 1;
@@ -184,8 +239,8 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t v_addr = k_addr + BWD_TILE;
 
     float s[64], dp[64];
-    mbar_wait(k_full + st, parity);
-    mbar_wait(v_full + st, parity);
+    mbar_wait(ring.k_full + st, parity);
+    mbar_wait(ring.v_full + st, parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
@@ -201,7 +256,7 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait();
     fence_regs(s);
     fence_regs(dp);
-    mbar_arrive(empty + st);
+    mbar_arrive(ring.empty + st);
 
     const int kv = S - j * 128;
     float mx[2] = {m[0], m[1]};
@@ -298,23 +353,12 @@ flash_attention_bwd_stats_from_output_kernel(
   const int q0 = blockIdx.x * 128;
   const int h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = (S + 127) / 128;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ST_BAR_OFF);
-  uint64_t* qg_full = bars;
-  uint64_t* k_full = bars + 1;
-  uint64_t* v_full = bars + 1 + BWD_STAGES;
-  uint64_t* empty = bars + 1 + 2 * BWD_STAGES;
+  const RowRing ring = row_ring_init(smem);
+  uint64_t* qg_full = ring.qg_full;
+  uint64_t* k_full = ring.k_full;
+  uint64_t* v_full = ring.v_full;
+  uint64_t* empty = ring.empty;
   const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(qg_full, 1);
-    for (int st = 0; st < BWD_STAGES; ++st) {
-      mbar_init(k_full + st, 1);
-      mbar_init(v_full + st, 1);
-      mbar_init(empty + st, 2 * 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
 
   // Ring step `it` holds chunk it of sweep 1 (K) or chunk it - n_chunks of
   // sweep 2 (K and V). The stages alternate, so the jj-th chunk of sweep 2
@@ -489,7 +533,9 @@ flash_attention_bwd_stats_from_output_kernel(
 
 // -------------------------------------------------------------- gradients
 
-template <class Tag>
+// The gradient pass; under DQ = false (V3) it forms dk and dv alone: no
+// dl^T tile, no dq product, staging or reduce-add.
+template <class Tag, bool DQ = true>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -564,9 +610,12 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
   const int quad = lane % 4;
   const uint32_t k_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
   const uint32_t v_addr = k_addr + BWD_TILE;
-  unsigned char* dl_tile = smem + GR_DL_OFF + cw * BWD_CHUNK;
-  const uint32_t dl_addr = smem_u32(dl_tile);
-  float* dq_stage = reinterpret_cast<float*>(smem + GR_DQ_OFF) + cw * 64 * HD;
+  // The dl^T tile and dq staging (unused under DQ = false).
+  [[maybe_unused]] unsigned char* dl_tile =
+      smem + GR_DL_OFF + cw * BWD_CHUNK;
+  [[maybe_unused]] const uint32_t dl_addr = smem_u32(dl_tile);
+  [[maybe_unused]] float* dq_stage =
+      reinterpret_cast<float*>(smem + GR_DQ_OFF) + cw * 64 * HD;
   const float c2 = args.scale_log2;
   bool key_in[2];
 #pragma unroll
@@ -637,40 +686,43 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
     }
     wgmma_commit();
 
-    // dl^T as a swizzled [key][query] tile: the transposed A of dq.
+    [[maybe_unused]] float dq[32];
+    if constexpr (DQ) {
+      // dl^T as a swizzled [key][query] tile: the transposed A of dq.
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < 4; ++k) {
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int tr = row + 8 * rr;
+        for (int rr = 0; rr < 2; ++rr) {
+          const int tr = row + 8 * rr;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int chunk = 2 * k + half;  // 8-query group
-          *reinterpret_cast<uint32_t*>(dl_tile + tr * ROW_BYTES +
-                                       ((chunk ^ (tr & 7)) * 16) + quad * 4) =
-              dla[k][2 * half + rr];
+          for (int half = 0; half < 2; ++half) {
+            const int chunk = 2 * k + half;  // 8-query group
+            *reinterpret_cast<uint32_t*>(dl_tile + tr * ROW_BYTES +
+                                         ((chunk ^ (tr & 7)) * 16) +
+                                         quad * 4) = dla[k][2 * half + rr];
+          }
         }
       }
-    }
-    fence_proxy_async();
-    // The previous chunk's reduce has read the dq staging once this
-    // barrier passes.
-    if (tid == 0) bulk_wait_read();
-    named_barrier(1 + cw, 128);
+      fence_proxy_async();
+      // The previous chunk's reduce has read the dq staging once this
+      // barrier passes.
+      if (tid == 0) bulk_wait_read();
+      named_barrier(1 + cw, 128);
 
-    // dq_part = dl K: A = dl^T tile and B = K, both MN-major.
-    float dq[32];
-    wgmma_fence();
+      // dq_part = dl K: A = dl^T tile and B = K, both MN-major.
+      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      wgmma_ss_n64<1, 1>(dq, desc_sw128(dl_addr + k * 16 * ROW_BYTES),
-                         desc_sw128(k_addr + k * 16 * ROW_BYTES), k > 0);
+      for (int k = 0; k < 4; ++k) {
+        wgmma_ss_n64<1, 1>(dq, desc_sw128(dl_addr + k * 16 * ROW_BYTES),
+                           desc_sw128(k_addr + k * 16 * ROW_BYTES), k > 0);
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
+    // Waits for dv and dk too (and dq where DQ).
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
-    fence_regs(dq);
+    if constexpr (DQ) fence_regs(dq);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       fence_regs(ua[k]);
@@ -678,25 +730,29 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
     }
     mbar_arrive(empty + st);
 
-    // Stage dq_part as a row-major 64 x 64 f32 tile, 32-byte chunk c of
-    // row r at chunk c ^ (r % 8) (no bank conflicts), and add it to the
-    // workspace in one bulk reduce.
+    if constexpr (DQ) {
+      // Stage dq_part as a row-major 64 x 64 f32 tile, 32-byte chunk c of
+      // row r at chunk c ^ (r % 8) (no bank conflicts), and add it to the
+      // workspace in one bulk reduce.
 #pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      const int r = row + 8 * ((e >> 1) & 1);
-      *reinterpret_cast<float2*>(dq_stage + r * HD +
-                                 (((e >> 2) ^ (r & 7)) * 8) + 2 * quad) =
-          make_float2(dq[e], dq[e + 1]);
-    }
-    fence_proxy_async();
-    named_barrier(1 + cw, 128);
-    if (tid == 0) {
-      bulk_reduce_add_f32(
-          args.dq_acc + ((static_cast<size_t>(b) * H + h) * n_q + i) * 64 * HD,
-          dq_stage, 64 * HD * 4);
+      for (int e = 0; e < 32; e += 2) {
+        const int r = row + 8 * ((e >> 1) & 1);
+        *reinterpret_cast<float2*>(dq_stage + r * HD +
+                                   (((e >> 2) ^ (r & 7)) * 8) + 2 * quad) =
+            make_float2(dq[e], dq[e + 1]);
+      }
+      fence_proxy_async();
+      named_barrier(1 + cw, 128);
+      if (tid == 0) {
+        bulk_reduce_add_f32(args.dq_acc + ((static_cast<size_t>(b) * H + h) *
+                                               n_q + i) * 64 * HD,
+                            dq_stage, 64 * HD * 4);
+      }
     }
   }
-  if (tid == 0) bulk_wait();
+  if constexpr (DQ) {
+    if (tid == 0) bulk_wait();
+  }
 
   // dk and dv of the keys below S.
   const size_t ld = static_cast<size_t>(H) * HD;
@@ -751,23 +807,179 @@ __global__ void flash_attention_bwd_dq_kernel(BwdArgs args, int batch) {
   }
 }
 
+// ---------------------------------------------------------------- dq rows
+
+// V2's dq (attention_bwd_variants.cu) behind the statistics pass: one
+// block per (128-row query tile, head, image), the statistics pass's
+// tiles and ring; each consumer warpgroup keeps its 64 rows' dq in
+// registers. Per 128-key chunk: s = Q K^T and dp = G V^T (four
+// m64n128k16 each from shared memory), u = 2^(s c2 - m log2 e) (0 for
+// keys past S), dl = u (dp - r) scale / den in place, dl packed to bf16
+// A fragments, dq += dl K_c (eight m64n64k16, K read MN-major). The
+// stage is freed once the dq product has read it. Three walks; dq is
+// summed chunk by chunk in one order, so a call gives the same bits as
+// the last.
+template <class Tag>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_attention_bwd_rows_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                                   const __grid_constant__ CUtensorMap g_map,
+                                   const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map,
+                                   BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int S = args.S, H = args.H;
+  const int q0 = blockIdx.x * 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (S + 127) / 128;
+  const RowRing ring = row_ring_init(smem);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      row_ring_load(smem, ring, &q_map, &g_map, &k_map, &v_map, h, q0, b,
+                    n_chunks);
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = (tid / 32) * 16 + lane / 4;  // and row + 8
+  const int quad = lane % 4;
+  const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
+  const uint32_t g_addr = q_addr + BWD_TILE;
+  const float c2 = args.scale_log2;
+
+  // The rows' m log2 e, scale / den and r, once; rows past S take +inf,
+  // 0 and 0, so their u and dl are 0.
+  const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+  float mc[2], dsc[2], rr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + cw * 64 + row + 8 * r;
+    const bool in = q < S;
+    mc[r] = in ? args.m[stat_row + q] * LOG2E : INFINITY;
+    dsc[r] = in ? args.scale / args.den[stat_row + q] : 0.0f;
+    rr[r] = in ? args.r[stat_row + q] : 0.0f;
+  }
+
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  mbar_wait(ring.qg_full, 0);
+  for (int j = 0; j < n_chunks; ++j) {
+    const int st = j % BWD_STAGES;
+    const int parity = (j / BWD_STAGES) & 1;
+    const uint32_t k_addr = smem_u32(smem + ST_KV_OFF + st * 2 * BWD_TILE);
+    const uint32_t v_addr = k_addr + BWD_TILE;
+
+    float s[64], dp[64];
+    mbar_wait(ring.k_full + st, parity);
+    mbar_wait(ring.v_full + st, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                          desc_sw128(k_addr + kk * 32), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(dp, desc_sw128(g_addr + kk * 32),
+                          desc_sw128(v_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dl = u (dp - r) scale / den in place, 0 for keys past S.
+    const int kv = S - j * 128;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      const int r = (i >> 1) & 1;
+      const float u = col < kv ? fast_exp2(fmaf(s[i], c2, -mc[r])) : 0.0f;
+      dp[i] = u * (dp[i] - rr[r]) * dsc[r];
+    }
+    uint32_t dla[8][4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc_to_a(dp, k, dla[k]);
+      fence_regs(dla[k]);
+    }
+
+    // dq += dl K_c: B is the chunk's keys read MN-major, 16 keys (2048
+    // bytes) a step.
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      wgmma_rs_n64<1>(dq, dla[k], desc_sw128(k_addr + k * 16 * ROW_BYTES), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) fence_regs(dla[k]);
+    mbar_arrive(ring.empty + st);
+  }
+
+  // dq of the rows below S.
+  const size_t ld = static_cast<size_t>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + cw * 64 + row + 8 * r;
+    if (q >= S) continue;
+    bf16* dst = args.dq + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * j8 + 2 * quad) =
+          pack_bf16(dq[4 * j8 + 2 * r], dq[4 * j8 + 2 * r + 1]);
+    }
+  }
+}
+
+// The passes a launch runs:
+//   kK4          statistics, gradient, dq cast: dq, dk, dv (K4, K2);
+//   kFromOutput  V1's statistics from the output, then as kK4;
+//   kRowsDq      statistics, the query-major dq rows: dq alone (V2);
+//   kDkDv        statistics, the gradient pass without dq: dk, dv (V3).
+// kRowsDq and kDkDv take no dq_acc; kRowsDq leaves g_n unread.
+enum class BwdPasses { kK4, kFromOutput, kRowsDq, kDkDv };
+
 // The statistics pass a launch takes: K4's, or V1's from the output.
-template <class Tag, bool FROM_OUTPUT>
+template <class Tag, BwdPasses P>
 inline auto stats_kernel() {
-  if constexpr (FROM_OUTPUT) {
+  if constexpr (P == BwdPasses::kFromOutput) {
     return &flash_attention_bwd_stats_from_output_kernel<Tag>;
   } else {
     return &flash_attention_bwd_stats_kernel<Tag>;
   }
 }
 
-// Launch the three passes on `stream`, the statistics pass from the
-// output where FROM_OUTPUT (V1); returns the first failing call's error.
-template <class Tag, bool FROM_OUTPUT = false>
+// The pass after the statistics: the gradient pass (with its dq product
+// but under kDkDv), or V2's dq rows.
+template <class Tag, BwdPasses P>
+inline auto second_kernel() {
+  if constexpr (P == BwdPasses::kRowsDq) {
+    return &flash_attention_bwd_rows_dq_kernel<Tag>;
+  } else {
+    return &flash_attention_bwd_grad_kernel<Tag, P != BwdPasses::kDkDv>;
+  }
+}
+
+// Launch the passes `P` names on `stream`; returns the first failing
+// call's error.
+template <class Tag, BwdPasses P = BwdPasses::kK4>
 inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                          const void* v, const void* g,
                                          BwdArgs args, int batch,
                                          cudaStream_t stream) {
+  constexpr bool ROWS = P == BwdPasses::kRowsDq;
   const int S = args.S, H = args.H;
   if (batch < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
   CUtensorMap q128, g128, k128, v128, q64, g64, gn64;
@@ -779,20 +991,23 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
   } maps[] = {{&q128, q, 128}, {&g128, g, 128}, {&k128, k, 128},
               {&v128, v, 128}, {&q64, q, 64},   {&g64, g, 64},
               {&gn64, args.g_n, 64}};
-  for (const auto& mp : maps) {
-    err = bshd_map(mp.map, mp.base, batch, S, H, mp.rows);
+  // The dq rows read the 128-row maps alone.
+  for (int i = 0; i < (ROWS ? 4 : 7); ++i) {
+    err = bshd_map(maps[i].map, maps[i].base, batch, S, H, maps[i].rows);
     if (err != cudaSuccess) return err;
   }
-  const auto stats = stats_kernel<Tag, FROM_OUTPUT>();
+  const auto stats = stats_kernel<Tag, P>();
+  const auto second = second_kernel<Tag, P>();
+  constexpr int SECOND_SMEM = ROWS ? ST_SMEM : GR_SMEM;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
     err = cudaFuncSetAttribute(stats,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                ST_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_attention_bwd_grad_kernel<Tag>,
+    err = cudaFuncSetAttribute(second,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               GR_SMEM);
+                               SECOND_SMEM);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
@@ -801,16 +1016,25 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                                 args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_grad_kernel<Tag>
-      <<<grid, BWD_THREADS, GR_SMEM, stream>>>(k128, v128, q64, g64, gn64,
-                                                args);
+  if constexpr (ROWS) {
+    second<<<grid, BWD_THREADS, SECOND_SMEM, stream>>>(q128, g128, k128,
+                                                       v128, args);
+  } else {
+    second<<<grid, BWD_THREADS, SECOND_SMEM, stream>>>(k128, v128, q64, g64,
+                                                       gn64, args);
+  }
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t items = static_cast<size_t>(batch) * H * ((S + 63) / 64) * 512;
-  const int blocks = static_cast<int>(
-      (items + 255) / 256 < 65535 ? (items + 255) / 256 : 65535);
-  flash_attention_bwd_dq_kernel<Tag><<<blocks, 256, 0, stream>>>(args, batch);
-  return cudaGetLastError();
+  if constexpr (P == BwdPasses::kK4 || P == BwdPasses::kFromOutput) {
+    if (err != cudaSuccess) return err;
+    const size_t items =
+        static_cast<size_t>(batch) * H * ((S + 63) / 64) * 512;
+    const int blocks = static_cast<int>(
+        (items + 255) / 256 < 65535 ? (items + 255) / 256 : 65535);
+    flash_attention_bwd_dq_kernel<Tag>
+        <<<blocks, 256, 0, stream>>>(args, batch);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace

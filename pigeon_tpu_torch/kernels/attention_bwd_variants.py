@@ -16,14 +16,27 @@ body that wins can take K4's place without a transpose:
 
 All are CUDA C++ for ``sm_90a`` in `csrc/attention_bwd_variants.cu`,
 built by ``nvcc`` at first use and bound with ``ctypes``; the source note
-says what bounds each on the card and how the designs answer that. V1
-runs K4's ``wgmma`` passes (`csrc/flash_bwd_sm90.cuh`) behind a
-statistics pass of its own, which sweeps the keys twice (the exact row
-max, then ``u``, ``den`` and ``o_rec`` on ``wgmma``) and takes ``r`` from
-``o_rec``; it allocates K4's workspaces
-(`attention.backward_workspaces`). V2-V5 keep the WMMA design K4 had
-before ``wgmma`` (`csrc/attention_bwd_tile.cuh`). The TPU script times
-them; on the card `scripts/bench_torch_attn_bwd.py` does.
+says what bounds each on the card and how the designs answer that.
+V1-V3 run on K4's ``wgmma`` passes (`csrc/flash_bwd_sm90.cuh`), each
+under its own tag:
+
+- V1 behind a statistics pass of its own, which sweeps the keys twice
+  (the exact row max, then ``u``, ``den`` and ``o_rec`` on ``wgmma``) and
+  takes ``r`` from ``o_rec``, then K4's gradient and dq passes, on K4's
+  workspaces (`attention.backward_workspaces`);
+- V2 behind K4's statistics pass, then a query-major dq pass that keeps
+  each row's dq in registers (2 + 3 walks against the TPU body's 3);
+- V3 behind K4's statistics pass, then K4's gradient pass without its dq
+  product (2 + 4 walks against the TPU body's 4).
+
+A TPU body holds a head's whole score block in VMEM and finds each row's
+max, den and r in it; a Hopper block holds 128 rows and 128 keys at a
+time, so V2 and V3 take the statistics first, in a pass of their own.
+V2 and V3 take K4's statistics and ``g_n`` workspaces, not its f32
+``dq_acc``: V2's dq is summed in one order, the same bits every call.
+V4 and V5 keep the WMMA design K4 had before ``wgmma``
+(`csrc/attention_tile.cuh`). The TPU script times them; on the card
+`scripts/bench_torch_attn_bwd.py` does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (``*_reference``, the arithmetic of the TPU body, which the CPU
@@ -173,7 +186,7 @@ def load() -> ctypes.CDLL:
     """Build (at first use) and load the variants' library."""
     lib = ctypes.CDLL(native.build_cuda("attention_bwd_variants").path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn, n_ptrs in (("bwd_r_from_o", 10), ("dq", 6), ("dkv", 7),
+    for fn, n_ptrs in (("bwd_r_from_o", 10), ("dq", 7), ("dkv", 8),
                        ("bwd_dots_only", 7), ("bwd_vpu_only", 8)):
         entry = getattr(lib, f"pigeon_attention_{fn}")
         entry.argtypes = [ptr] * n_ptrs + [i32] * 3 + [ptr]
@@ -214,10 +227,12 @@ def _launch(name: str, q, *tensors) -> None:
                            f"(CUDA error {rc})")
 
 
-def _stats(q):
-    """The (3, B, H, S) f32 row-statistics workspace of K4's passes."""
+def _stats_workspaces(q) -> tuple:
+    """K4's row-statistics (3, B, H, S) f32 and ``g_n`` (B, S, H, 64)
+    workspaces, which V2 and V3 take (not its ``dq_acc``)."""
     b, s, h, _ = q.shape
-    return torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    return (torch.empty((3, b, h, s), dtype=torch.float32, device=q.device),
+            torch.empty_like(q))
 
 
 def bwd_r_from_o(q, k, v, g):
@@ -238,12 +253,13 @@ bwd_r_from_o.launches = 0
 
 
 def attention_dq(q, k, v, g):
-    """V2: dq alone; CPU tensors run :func:`attention_dq_reference`."""
+    """V2: dq alone, its row statistics found by K4's statistics pass;
+    CPU tensors run :func:`attention_dq_reference`."""
     if q.device.type == "cpu":
         return attention_dq_reference(q, k, v, g)
     _on_card("attention_dq", q, k, v, g)
     dq = torch.empty_like(q)
-    _launch("dq", q, k, v, g, dq, _stats(q))
+    _launch("dq", q, k, v, g, dq, *_stats_workspaces(q))
     attention_dq.launches += 1
     return dq
 
@@ -258,7 +274,7 @@ def attention_dkv(q, k, v, g):
         return attention_dkv_reference(q, k, v, g)
     _on_card("attention_dkv", q, k, v, g)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    _launch("dkv", q, k, v, g, dk, dv, _stats(q))
+    _launch("dkv", q, k, v, g, dk, dv, *_stats_workspaces(q))
     attention_dkv.launches += 1
     return dk, dv
 

@@ -404,8 +404,7 @@ def test_new_sources_name_the_headers_they_include():
             ("attention_fwd_variants", ["attention_tile.cuh",
                                         "flash_fwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
-            ("attention_bwd_variants", ["attention_bwd_tile.cuh",
-                                        "attention_tile.cuh",
+            ("attention_bwd_variants", ["attention_tile.cuh",
                                         "flash_bwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
             ("flash_attention", ["flash_fwd_sm90.cuh", "hopper_sm90.cuh"]),

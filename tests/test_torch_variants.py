@@ -235,7 +235,7 @@ def test_side_outputs_keep_the_whole_row():
 
 
 # ---------------------------------------------------------------------------
-# Models of the CUDA designs of V10 and V1
+# Models of the CUDA designs of V10, V1, V2 and V3
 # ---------------------------------------------------------------------------
 
 #: log2(e) and c2 = 64^-0.5 log2(e) in f32, as the kernels fold them.
@@ -374,6 +374,82 @@ def test_v1_design_matches_its_plain_version(s, dtype):
     for a, w in zip(k4_grads_from_stats(q, k, v, g, stats),
                     bv.bwd_r_from_o_reference(q, k, v, g), strict=True):
         assert_close(fold(a), fold(w), BWD_TOL[dtype], dtype == "bfloat16")
+
+
+def v2_rows_model(q, k, v, g, stats):
+    """V2's dq-rows pass on the card (`flash_bwd_sm90.cuh`,
+    ``flash_attention_bwd_rows_dq_kernel``) on given row statistics: per
+    128-key chunk ``u = 2^(s c2 - m log2 e)``, ``dl = bf16(u (dp - r)
+    scale / den)``, ``dq += dl k_c`` in f32, chunk by chunk; dq in
+    ``q.dtype``."""
+    dt = q.dtype
+    qh, kh, vh, gh = (t.transpose(1, 2).float() for t in (q, k, v, g))
+    m, den, r = (x[..., None] for x in stats)
+    dq = torch.zeros_like(qh)
+    for c0 in range(0, q.shape[1], 128):
+        kc, vc = kh[:, :, c0:c0 + 128], vh[:, :, c0:c0 + 128]
+        u = torch.exp2((qh @ kc.transpose(-1, -2)) * C2 - m * LOG2E)
+        dp = gh @ vc.transpose(-1, -2)
+        dl = (u * (dp - r) * (DH ** -0.5 / den)).to(dt).float()
+        dq = dq + dl @ kc
+    return dq.to(dt).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v2_design_matches_its_plain_version(s, dtype):
+    """The model of V2 on the card, K4's statistics pass
+    (`flash_attention_backward_stats_reference`) then the dq rows over
+    128-key chunks, against V2's plain version within the backward
+    bound; at S = 300 the rows span three chunks, the last ragged."""
+    _, (q, k, v, g) = operands(4, s, dtype)
+    stats = k34.flash_attention_backward_stats_reference(q, k, v, g)
+    assert_close(fold(v2_rows_model(q, k, v, g, stats)),
+                 fold(bv.attention_dq_reference(q, k, v, g)),
+                 BWD_TOL[dtype], dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v3_design_matches_its_plain_version(s, dtype):
+    """V3 on the card is K4's statistics pass, then K4's gradient
+    arithmetic without dq: (dk, dv) of `k4_grads_from_stats` on K4's
+    statistics against V3's plain version within the backward bound."""
+    _, (q, k, v, g) = operands(4, s, dtype)
+    stats = k34.flash_attention_backward_stats_reference(q, k, v, g)
+    _, dk, dv = k4_grads_from_stats(q, k, v, g, stats)
+    for a, w in zip((dk, dv), bv.attention_dkv_reference(q, k, v, g),
+                    strict=True):
+        assert_close(fold(a), fold(w), BWD_TOL[dtype], dtype == "bfloat16")
+
+
+def test_split_runs_k4s_statistics_pass_under_its_own_tags():
+    """The sources: V1-V3 launch K4's passes under their own tags, V2 and
+    V3 K4's statistics pass (V1 its own); V2's second pass is the dq rows,
+    V3's the gradient pass with DQ = false; the WMMA tile header of V2
+    and V3 is gone and nothing includes it."""
+    csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
+
+    def read(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    assert re.findall(r"launch_flash_backward<(\w+), BwdPasses::(\w+)>",
+                      read("attention_bwd_variants.cu")) == [
+        ("V1Attention", "kFromOutput"), ("V2Attention", "kRowsDq"),
+        ("V3Attention", "kDkDv")]
+    header = read("flash_bwd_sm90.cuh")
+    assert re.findall(r"return &(flash_attention_bwd_\w+_kernel)<Tag(.*)>;",
+                      header) == [
+        ("flash_attention_bwd_stats_from_output_kernel", ""),
+        ("flash_attention_bwd_stats_kernel", ""),
+        ("flash_attention_bwd_rows_dq_kernel", ""),
+        ("flash_attention_bwd_grad_kernel", ", P != BwdPasses::kDkDv")]
+    assert re.findall(r"template <class Tag, bool DQ = true>\s+__global__"
+                      r"[^\n]*\nflash_attention_bwd_grad_kernel", header)
+    assert not os.path.exists(os.path.join(csrc, "attention_bwd_tile.cuh"))
+    for name in os.listdir(csrc):
+        assert "attention_bwd_tile.cuh" not in read(name), name
 
 
 # ---------------------------------------------------------------------------
@@ -605,15 +681,22 @@ def test_cuda_variant_matches_plain_version(cuda, wrapper, plain, n_in, b, s,
 STATS_TOL, R_TOL = 1e-4, 2e-3
 
 
+#: The outputs of V1-V3 that are 0 by the math at S = 1 (dq and dk).
+ZERO_AT_ONE_KEY = {"bwd_r_from_o": (0, 1), "attention_dq": (0,),
+                   "attention_dkv": (0,)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [1, 64, 65, 127, 128, 129, 255, 256, 257, 384,
                                385, 577])
-@pytest.mark.parametrize("wrapper, plain, n_in", [WRAPPERS[0], WRAPPERS[-1]],
-                         ids=["bwd_r_from_o", "flash_attention_online_c256"])
+@pytest.mark.parametrize("wrapper, plain, n_in",
+                         [*WRAPPERS[:3], WRAPPERS[-1]],
+                         ids=["bwd_r_from_o", "attention_dq", "attention_dkv",
+                              "flash_attention_online_c256"])
 def test_cuda_v1_and_v10_at_ragged_steps(cuda, wrapper, plain, n_in, s):
     """V10's last 256-key step may hold one 128-key half (S in (256k,
-    256k + 128]) or a ragged second half; V1's sweeps end on a ragged
-    chunk."""
+    256k + 128]) or a ragged second half; V1's sweeps, V2's dq rows and
+    V3's gradient pass end on a ragged chunk."""
     gen = torch.Generator(device=cuda).manual_seed(s)
     args = tuning.normal(gen, n_in, (2, s, 2, DH))
     got = tuning.outputs(wrapper(*args))
@@ -624,10 +707,58 @@ def test_cuda_v1_and_v10_at_ragged_steps(cuda, wrapper, plain, n_in, s):
     elif s == 1:
         # One key: dq and dk are 0 (dp - r = g.v - g.v, the two sums taken
         # in other orders leave f32 rounding, ~1e-7); dv = g.
-        assert tuning.errors(got[2:], want[2:])[1] <= tuning.BWD_TOL
-        assert tuning.errors(got[:2], want[:2])[0] <= 1e-5
+        zero = ZERO_AT_ONE_KEY[wrapper.__name__]
+        rest = [i for i in range(len(got)) if i not in zero]
+        assert tuning.errors([got[i] for i in zero],
+                             [want[i] for i in zero])[0] <= 1e-5
+        if rest:
+            assert tuning.errors([got[i] for i in rest],
+                                 [want[i] for i in rest])[1] \
+                <= tuning.BWD_TOL
     else:
         assert tuning.errors(got, want)[1] <= tuning.BWD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 129, 2), (4, 577, 4),
+                                         (32, 577, 16)])
+def test_cuda_v2_and_v3_repeat_bit_for_bit(cuda, b, s, heads):
+    """V2 keeps each row's dq in registers and sums it over the key
+    chunks in one order, so two calls give the same bits (K4's dq, summed
+    by bulk reduce-adds in the order they land, need not); V3's dk and dv
+    are register sums of one block too."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 4, (b, s, heads, DH))
+    first = (bv.attention_dq(*args), *bv.attention_dkv(*args))
+    second = (bv.attention_dq(*args), *bv.attention_dkv(*args))
+    torch.cuda.synchronize()
+    for a, w in zip(first, second, strict=True):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, n_out", [("dq", 1), ("dkv", 2)])
+@pytest.mark.parametrize("b, s, heads", [(2, 80, 2), (2, 97, 2), (1, 385, 2),
+                                         (4, 577, 4)])
+def test_cuda_v2_and_v3_statistics_are_k4s(cuda, name, n_out, b, s, heads):
+    """V2 and V3 launched through ``_launch`` with workspaces the test
+    holds: K4's statistics pass wrote m, den and r, each within
+    `STATS_TOL` of K4's plain statistics pass, and the gradients are
+    within the backward bound."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v, g = tuning.normal(gen, 4, (b, s, heads, DH))
+    stats, g_n = bv._stats_workspaces(q)
+    outs = [torch.empty_like(q) for _ in range(n_out)]
+    bv._launch(name, q, k, v, g, *outs, stats, g_n)
+    torch.cuda.synchronize()
+    want = k34.flash_attention_backward_stats_reference(q, k, v, g)
+    for got_row, want_row in zip(stats, want, strict=True):
+        err = ((got_row - want_row).abs().max() / want_row.abs().max())
+        assert err.item() <= STATS_TOL
+    plain = (bv.attention_dq_reference if name == "dq"
+             else bv.attention_dkv_reference)
+    assert tuning.errors(outs, tuning.outputs(plain(q, k, v, g)))[1] \
+        <= tuning.BWD_TOL
 
 
 @pytest.mark.gpu
