@@ -14,8 +14,10 @@ Phases, one line each, any failure raises:
              wgmma-serialisation (C7513/C7514) lines and the HGMMA count
              of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
              K7, K8 and K9 and of the two tuning sources, whose V10 and
-             V1-V3 run K3's and K4's wgmma kernels (cuobjdump; a source
-             without HGMMA fails the phase);
+             V1-V5 run K3's and K4's wgmma kernels (cuobjdump; a source
+             without HGMMA fails the phase), and the HGMMA and MUFU.EX2
+             counts of each kernel of V4 and V5 (a V5 kernel without
+             MUFU.EX2 fails it: its exps were deleted);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -159,13 +161,14 @@ Phases, one line each, any failure raises:
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
              launches of K1-K10 and K3′ stay those of phases 4-8. Then,
-             from the same driver runs, V10's ms beside K3′'s and V1's
-             and split4's (V2 + V3) beside K4's, and V1's, V2's, V3's
-             and K4's device ms by pass (statistics, gradient, dq, V2's
-             dq rows; torch.profiler, by each wrapper's tag; a pass a
-             wrapper does not launch must show none), with V2's and
-             V3's wrapper and bare C call ms, after the launches are
-             read.
+             from the same driver runs, V10's ms beside K3′'s and V1's,
+             split4's (V2 + V3), V4's and V5's beside K4's, and V1's,
+             V2's, V3's, V4's, V5's and K4's device ms by pass
+             (statistics, gradient, dq, V2's dq rows, V5's dl sweep;
+             torch.profiler, by each wrapper's tag; a pass a wrapper does
+             not launch must show none), with V2's and V3's wrapper and
+             bare C call ms, then K4's gradient pass minus V4's and K4's
+             statistics pass minus V5's, after the launches are read.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -331,23 +334,37 @@ VARIANT_LIBRARY = {"bwd_r_from_o": "sdpa_backward",
 VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: [variants]: the tuning kernels on K3's and K4's wgmma kernels, each
 #: beside the K kernel whose design it shares, by the drivers' variant
-#: names: V10 (256-key steps) beside K3′ (128), V1 and split4 (V2 + V3)
-#: beside K4.
+#: names: V10 (256-key steps) beside K3′ (128), V1, split4 (V2 + V3), V4
+#: and V5 beside K4.
 VARIANT_PAIRS = (("online_softmax_p4_c256", "online_softmax_p4_c128"),
                  ("r_from_o_pack2", "base_pack2"),
-                 ("split4", "base_pack2"))
+                 ("split4", "base_pack2"),
+                 ("diag_dots_only_p2", "base_pack2"),
+                 ("diag_vpu_only_p2", "base_pack2"))
 #: The attention backward's passes by their kernels' names
 #: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own, V2's dq
-#: rows are V2's alone), and each wrapper's tag and the passes it
-#: launches, for [variants]' device-time split: a listed pass must show
-#: device time under the tag, an unlisted one none.
+#: rows and V5's dl sweep are theirs alone), and each wrapper's tag and
+#: the passes it launches, for [variants]' device-time split: a listed
+#: pass must show device time under the tag, an unlisted one none.
 BWD_PASSES = (("statistics", "bwd_stats"), ("gradient", "bwd_grad"),
-              ("dq", "bwd_dq"), ("dq_rows", "bwd_rows"))
+              ("dq", "bwd_dq"), ("dq_rows", "bwd_rows"),
+              ("dl_sweep", "bwd_dl_sweep"))
 BWD_TAGS = (("bwd_r_from_o", "V1Attention", ("statistics", "gradient", "dq")),
             ("attention_dq", "V2Attention", ("statistics", "dq_rows")),
             ("attention_dkv", "V3Attention", ("statistics", "gradient")),
+            ("bwd_dots_only", "V4Attention", ("gradient", "dq")),
+            ("bwd_vpu_only", "V5Attention", ("statistics", "dl_sweep")),
             ("flash_attention_bwd", "K4Attention",
              ("statistics", "gradient", "dq")))
+#: [variants]: each diagnostic's pass against K4's same pass, device ms
+#: (K4's minus the diagnostic's): the exps' share of K4's gradient pass
+#: (V4 runs it with casts for the softmax chain) and the dp product's
+#: share of K4's statistics pass (V5 runs it without G V^T).
+BWD_DIFFS = (("gradient", "bwd_dots_only"), ("statistics", "bwd_vpu_only"))
+#: [sass]: the tuning kernels whose every kernel's HGMMA and MUFU.EX2
+#: counts the build phase prints, by tag; the diagnostics whose kernels
+#: must each keep MUFU.EX2 (their exps are the measured work).
+SASS_TAGS, SASS_EXPS = ("V4Attention", "V5Attention"), ("V5Attention",)
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -2243,14 +2260,15 @@ def check_variants() -> tuple:
 
 
 def backward_stages() -> None:
-    """[variants]: V1's, V2's, V3's and K4's device ms by pass
-    (`BWD_PASSES`), each pass found by its kernel's name and the wrapper's
-    tag (`BWD_TAGS`), at the drivers' shape; raises if a pass a tag lists
+    """[variants]: V1's-V5's and K4's device ms by pass (`BWD_PASSES`),
+    each pass found by its kernel's name and the wrapper's tag
+    (`BWD_TAGS`), at the drivers' shape; raises if a pass a tag lists
     takes no time, or one it does not list takes some. Beside them the
     host ms a call takes to enqueue its work (calls without a
     synchronise: below the device ms, the wrapper is device-bound), and
     V2's and V3's wrapper ms beside the bare C call's, on workspaces
-    allocated once. Runs after [variants] has read its launch counts."""
+    allocated once; then K4's passes minus V4's and V5's (`BWD_DIFFS`).
+    Runs after [variants] has read its launch counts."""
     import torch
 
     from pigeon_tpu_torch import tuning
@@ -2263,6 +2281,8 @@ def backward_stages() -> None:
     fns = {"bwd_r_from_o": bv.bwd_r_from_o,
            "attention_dq": bv.attention_dq,
            "attention_dkv": bv.attention_dkv,
+           "bwd_dots_only": bv.bwd_dots_only,
+           "bwd_vpu_only": bv.bwd_vpu_only,
            "flash_attention_bwd": k34.flash_attention_backward}
     lib = bv.load()
     stream = torch.cuda.current_stream().cuda_stream
@@ -2274,9 +2294,10 @@ def backward_stages() -> None:
             "attention_dkv": lambda: lib.pigeon_attention_dkv(
                 *(t.data_ptr() for t in (q, k, v, g, *outs, stats, g_n)),
                 *shape[:3], stream)}
+    by_pass = {}
     for name, tag, passes in BWD_TAGS:
         fn = functools.partial(fns[name], q, k, v, g)
-        ms = device_ms_by_mark(
+        ms = by_pass[name] = device_ms_by_mark(
             fn, [(label, (mark, tag)) for label, mark in BWD_PASSES])
         idle = [label for label in passes if ms[label] <= 0]
         stray = [label for label, _ in BWD_PASSES
@@ -2298,8 +2319,33 @@ def backward_stages() -> None:
         phase("variants", kernel=name, tag=tag,
               **{f"{label}_device_ms": round(ms[label], 4)
                  for label in (*passes, "other")}, **times)
+    k4 = by_pass["flash_attention_bwd"]
+    phase("variants", k4_minus_diagnostic_device_ms=json.dumps(
+        {f"{label}-{name}": round(k4[label] - by_pass[name][label], 4)
+         for label, name in BWD_DIFFS}, separators=(",", ":")))
     del q, k, v, g, stats, g_n, outs
     torch.cuda.empty_cache()
+
+
+def sass_by_function(sass) -> None:
+    """[sass]: each kernel of the tags in `SASS_TAGS` in the lines of a
+    `cuobjdump -sass` listing, with its HGMMA and MUFU.EX2 counts; raises
+    if a kernel of a tag in `SASS_EXPS` has no MUFU.EX2."""
+    counts, name = {}, None
+    for line in sass:
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "MUFU.EX2" in line
+    for name, (hgmma, ex2) in counts.items():
+        tag = next((tag for tag in SASS_TAGS if tag in name), None)
+        if tag is None:
+            continue
+        phase("sass", function=name, hgmma=hgmma, mufu_ex2=ex2)
+        if tag in SASS_EXPS and not ex2:
+            raise RuntimeError(f"{name}: no MUFU.EX2 in its SASS")
 
 
 def build_kernels() -> None:
@@ -2344,6 +2390,8 @@ def build_kernels() -> None:
         if not hgmma or (name.endswith("_int8") and not igmma):
             raise RuntimeError(f"{name}: no HGMMA or IGMMA in its SASS")
         phase("sass", kernel=name, hgmma=hgmma, igmma=igmma)
+        if name == "attention_bwd_variants":
+            sass_by_function(sass)
     k.load()
     k.load_backward()
     geodesy.load()

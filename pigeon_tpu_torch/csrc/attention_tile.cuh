@@ -1,8 +1,8 @@
-// The WMMA attention tiles of the tuning kernels V4 and V5
-// (attention_bwd_variants.cu) and V6-V9 (attention_fwd_variants.cu),
-// kept in the design the attention kernels had before they moved to
-// wgmma: 64-row tiles of one head staged in shared memory, WMMA 16x16x16
-// bf16 fragments with f32 accumulation.
+// The WMMA attention tiles of the tuning kernels V6-V9
+// (attention_fwd_variants.cu) and of nothing else: the design the
+// attention kernels had before they moved to wgmma, 64-row tiles of one
+// head staged in shared memory, WMMA 16x16x16 bf16 fragments with f32
+// accumulation.
 // `stage_tile` stages a 64 x 64 bf16 block, `score_tile` takes a 64 x 64
 // f32 score tile Q K^T, `write_rows` writes an f32 tile's rows as bf16.
 //

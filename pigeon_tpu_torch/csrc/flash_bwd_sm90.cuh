@@ -12,7 +12,7 @@
 //
 // Three launches, seven S x S x 64 product walks in all. Each kernel's
 // `Tag` names the user's instance, so K2's passes, K4's and the tuning
-// kernels V1-V3's (attention_bwd_variants.cu) are told apart in a
+// kernels V1-V5's (attention_bwd_variants.cu) are told apart in a
 // profile. A launch's passes (BwdPasses) are K4's three, or a tuning
 // kernel's:
 //   V1 takes r from the recomputed output: its own statistics pass
@@ -22,7 +22,18 @@
 //      (flash_attention_bwd_rows_dq_kernel, three walks: s, dp, dl k),
 //      2 + 3 walks against the TPU body's 3;
 //   V3 (dk, dv alone) runs the statistics pass, then the gradient pass
-//      without dq (four walks: s, dp, dv, dk), 2 + 4 against its 4.
+//      without dq (four walks: s, dp, dv, dk), 2 + 4 against its 4;
+//   V4 (the products alone) runs no statistics pass: the gradient pass
+//      under CastChain (u = s, dl = s dp; no exp, no statistics read),
+//      dv's B operand g itself, then the dq cast, five walks as its TPU
+//      body's five. K4's gradient time minus V4's is what the exps and
+//      the statistics cost that pass;
+//   V5 (the chain alone) runs the statistics pass without G V^T (DP =
+//      false: dp = s scale, V never loaded; its g_n = bf16(g / den) is
+//      V5's dv), then one query-major sweep for dl
+//      (flash_attention_bwd_dl_sweep_kernel: s, dl against the final max,
+//      sum |dl|, dq and dk), one walk each. K4's statistics time minus
+//      V5's is what the dp product costs that pass.
 // The TPU bodies hold a whole (S, S) score block of a head in VMEM, so
 // each finds its rows' max, den and r in the same block it takes the
 // products from. A Hopper block sees 128 queries and one 128-key chunk
@@ -55,7 +66,9 @@
 //                        transposed A operand; K read MN-major),
 //     and adds dq_part to an f32 workspace with one bulk reduce-add of
 //     16 KB (cp.reduce.async.bulk ... add.f32). Five walks; four under
-//     DQ = false (V3), with no dl^T tile, staging or reduce.
+//     DQ = false (V3), with no dl^T tile, staging or reduce. The chain
+//     from s and dp to u and dl is a policy (SoftmaxChain, K4's; V4's
+//     CastChain).
 //   dq pass (flash_attention_bwd_dq_kernel): the f32 workspace to bf16 dq
 //     in (B, S, H, 64).
 //   dq rows (flash_attention_bwd_rows_dq_kernel, V2): the statistics
@@ -118,6 +131,7 @@ struct BwdArgs {
   bf16 *dq, *dk, *dv;  // (B, S, H, 64)
   int S, H;
   float scale, scale_log2;
+  float* dl_abs;       // (B, H, S) f32, V5's sum |dl| a row
 };
 
 // ------------------------------------------------------------ statistics
@@ -172,15 +186,16 @@ __device__ __forceinline__ RowRing row_ring_init(unsigned char* smem) {
   return ring;
 }
 
-// The producer thread: the Q and G tiles of rows q0.., then each 128-key
-// chunk of K and V into the next free stage.
+// The producer thread: the Q tile (and the G tile where G) of rows q0..,
+// then each 128-key chunk of K (and V where V) into the next free stage.
+template <bool G = true, bool V = true>
 __device__ __forceinline__ void row_ring_load(
     unsigned char* smem, const RowRing& ring, const CUtensorMap* q_map,
     const CUtensorMap* g_map, const CUtensorMap* k_map,
     const CUtensorMap* v_map, int h, int q0, int b, int n_chunks) {
-  mbar_expect_tx(ring.qg_full, 2 * BWD_TILE);
+  mbar_expect_tx(ring.qg_full, (G ? 2 : 1) * BWD_TILE);
   tma_load(smem, q_map, ring.qg_full, h, q0, b);
-  tma_load(smem + BWD_TILE, g_map, ring.qg_full, h, q0, b);
+  if constexpr (G) tma_load(smem + BWD_TILE, g_map, ring.qg_full, h, q0, b);
   for (int j = 0; j < n_chunks; ++j) {
     const int st = j % BWD_STAGES;
     if (j >= BWD_STAGES) {
@@ -189,12 +204,16 @@ __device__ __forceinline__ void row_ring_load(
     unsigned char* kv = smem + ST_KV_OFF + st * 2 * BWD_TILE;
     mbar_expect_tx(ring.k_full + st, BWD_TILE);
     tma_load(kv, k_map, ring.k_full + st, h, j * 128, b);
-    mbar_expect_tx(ring.v_full + st, BWD_TILE);
-    tma_load(kv + BWD_TILE, v_map, ring.v_full + st, h, j * 128, b);
+    if constexpr (V) {
+      mbar_expect_tx(ring.v_full + st, BWD_TILE);
+      tma_load(kv + BWD_TILE, v_map, ring.v_full + st, h, j * 128, b);
+    }
   }
 }
 
-template <class Tag>
+// The statistics pass; under DP = false (V5) dp is the scaled scores
+// s scale, not G V^T: no V in the ring, no dp product.
+template <class Tag, bool DP = true>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap g_map,
@@ -213,8 +232,8 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     regs_dec<40>();
     if (threadIdx.x == 0) {
-      row_ring_load(smem, ring, &q_map, &g_map, &k_map, &v_map, h, q0, b,
-                    n_chunks);
+      row_ring_load<true, DP>(smem, ring, &q_map, &g_map, &k_map, &v_map, h,
+                              q0, b, n_chunks);
     }
     return;
   }
@@ -226,7 +245,7 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
   const int row = (tid / 32) * 16 + lane / 4;  // and row + 8
   const int quad = lane % 4;
   const uint32_t q_addr = smem_u32(smem) + cw * 64 * ROW_BYTES;
-  const uint32_t g_addr = q_addr + BWD_TILE;
+  [[maybe_unused]] const uint32_t g_addr = q_addr + BWD_TILE;
   const float c2 = args.scale_log2;
 
   float m[2] = {-INFINITY, -INFINITY};
@@ -236,26 +255,28 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
     const int st = j % BWD_STAGES;
     const int parity = (j / BWD_STAGES) & 1;
     const uint32_t k_addr = smem_u32(smem + ST_KV_OFF + st * 2 * BWD_TILE);
-    const uint32_t v_addr = k_addr + BWD_TILE;
+    [[maybe_unused]] const uint32_t v_addr = k_addr + BWD_TILE;
 
     float s[64], dp[64];
     mbar_wait(ring.k_full + st, parity);
-    mbar_wait(ring.v_full + st, parity);
+    if constexpr (DP) mbar_wait(ring.v_full + st, parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
                           desc_sw128(k_addr + kk * 32), kk > 0);
     }
+    if constexpr (DP) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wgmma_ss_n128<0, 0>(dp, desc_sw128(g_addr + kk * 32),
-                          desc_sw128(v_addr + kk * 32), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_ss_n128<0, 0>(dp, desc_sw128(g_addr + kk * 32),
+                            desc_sw128(v_addr + kk * 32), kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
-    fence_regs(dp);
+    if constexpr (DP) fence_regs(dp);
     mbar_arrive(ring.empty + st);
 
     const int kv = S - j * 128;
@@ -263,6 +284,7 @@ flash_attention_bwd_stats_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      if constexpr (!DP) dp[i] = s[i] * args.scale;
       s[i] = col < kv ? s[i] * c2 : -INFINITY;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
@@ -533,9 +555,50 @@ flash_attention_bwd_stats_from_output_kernel(
 
 // -------------------------------------------------------------- gradients
 
+// The gradient pass's chain: a chunk's s^T and dp^T (this thread's 32
+// elements of a m64n64 accumulator: two key rows, query columns c) to u
+// and dl in place. K4's: u = 2^(s c2 - m log2 e) against the chunk's
+// staged statistics (0 for keys past S) and dl = u (dp - r) scale / den.
+struct SoftmaxChain {
+  static constexpr bool kStats = true;  // the producer stages statistics
+  __device__ __forceinline__ static void apply(float (&s)[32],
+                                               float (&dp)[32],
+                                               const float* stats,
+                                               const bool (&key_in)[2],
+                                               int quad, float c2) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = 8 * (e >> 2) + 2 * quad + (e & 1);
+      const float u = key_in[(e >> 1) & 1]
+                          ? fast_exp2(fmaf(s[e], c2, -stats[c])) : 0.0f;
+      s[e] = u;
+      dp[e] = u * (dp[e] - stats[128 + c]) * stats[64 + c];
+    }
+  }
+};
+
+// V4's casts: u = s (0 for keys past S) and dl = s dp, the unscaled
+// scores; no exp, no statistics.
+struct CastChain {
+  static constexpr bool kStats = false;
+  __device__ __forceinline__ static void apply(float (&s)[32],
+                                               float (&dp)[32], const float*,
+                                               const bool (&key_in)[2], int,
+                                               float) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float u = key_in[(e >> 1) & 1] ? s[e] : 0.0f;
+      s[e] = u;
+      dp[e] = u * dp[e];
+    }
+  }
+};
+
 // The gradient pass; under DQ = false (V3) it forms dk and dv alone: no
-// dl^T tile, no dq product, staging or reduce-add.
-template <class Tag, bool DQ = true>
+// dl^T tile, no dq product, staging or reduce-add. `Chain` forms u and
+// dl (SoftmaxChain, or V4's CastChain, whose producer stages no
+// statistics and whose g_n map reads g itself).
+template <class Tag, bool DQ = true, class Chain = SoftmaxChain>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -571,7 +634,8 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
     regs_dec<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
-      const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+      [[maybe_unused]] const size_t stat_row =
+          (static_cast<size_t>(b) * H + h) * S;
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * BWD_TILE);
         tma_load(smem, &k_map, kv_full, h, k0, b);
@@ -587,14 +651,16 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
           tma_load(stage + BWD_CHUNK, &g_map, full + st, h, i * 64, b);
           tma_load(stage + 2 * BWD_CHUNK, &gn_map, full + st, h, i * 64, b);
         }
-        float* stats = reinterpret_cast<float*>(stage + 3 * BWD_CHUNK);
+        if constexpr (Chain::kStats) {
+          float* stats = reinterpret_cast<float*>(stage + 3 * BWD_CHUNK);
 #pragma unroll
-        for (int e = lane; e < 64; e += 32) {
-          const int q = i * 64 + e;
-          const bool in = q < S;
-          stats[e] = in ? args.m[stat_row + q] * LOG2E : INFINITY;
-          stats[64 + e] = in ? args.scale / args.den[stat_row + q] : 0.0f;
-          stats[128 + e] = in ? args.r[stat_row + q] : 0.0f;
+          for (int e = lane; e < 64; e += 32) {
+            const int q = i * 64 + e;
+            const bool in = q < S;
+            stats[e] = in ? args.m[stat_row + q] * LOG2E : INFINITY;
+            stats[64 + e] = in ? args.scale / args.den[stat_row + q] : 0.0f;
+            stats[128 + e] = in ? args.r[stat_row + q] : 0.0f;
+          }
         }
         mbar_arrive(full + st);
       }
@@ -653,15 +719,8 @@ flash_attention_bwd_grad_kernel(const __grid_constant__ CUtensorMap k_map,
     fence_regs(s);
     fence_regs(dp);
 
-    // u = exp(s - m) and dl = u (dp - r) scale / den, in place.
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int c = 8 * (e >> 2) + 2 * quad + (e & 1);
-      const float u = key_in[(e >> 1) & 1]
-                          ? fast_exp2(fmaf(s[e], c2, -stats[c])) : 0.0f;
-      s[e] = u;
-      dp[e] = u * (dp[e] - stats[128 + c]) * stats[64 + c];
-    }
+    // u and dl in place (K4: u = exp(s - m), dl = u (dp - r) scale / den).
+    Chain::apply(s, dp, stats, key_in, quad, c2);
     uint32_t ua[4][4], dla[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -943,30 +1002,165 @@ flash_attention_bwd_rows_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---------------------------------------------------------------- dl sweep
+
+// V5's dl (attention_bwd_variants.cu) behind its statistics pass (DP =
+// false): one block per (128-row query tile, head, image), the
+// statistics pass's block and ring with the Q tile and K alone. Per
+// 128-key chunk: s = Q K^T (four m64n128k16 from shared memory), u =
+// 2^(s c2 - m log2 e) against the final max (0 for keys past S), dl =
+// u (s scale - r) scale / den in place, |dl| summed a row. Chunk 0's
+// first 64 columns give dq = bf16(q + bf16(dl)) at once, q read from the
+// Q tile; after the sweep each row's sum |dl| goes to dl_abs and dk = k
+// is copied for the block's rows (k read from device memory). One walk.
+template <class Tag>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_attention_bwd_dl_sweep_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const bf16* __restrict__ k,
+                                    BwdArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int S = args.S, H = args.H;
+  const int q0 = blockIdx.x * 128;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (S + 127) / 128;
+  const RowRing ring = row_ring_init(smem);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      row_ring_load<false, false>(smem, ring, &q_map, nullptr, &k_map,
+                                  nullptr, h, q0, b, n_chunks);
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row = (tid / 32) * 16 + lane / 4;  // and row + 8
+  const int quad = lane % 4;
+  const unsigned char* q_tile = smem + cw * 64 * ROW_BYTES;
+  const uint32_t q_addr = smem_u32(q_tile);
+  const float c2 = args.scale_log2, scale = args.scale;
+  const size_t ld = static_cast<size_t>(H) * HD;
+
+  // The rows' m log2 e, scale / den and r, once; rows past S take +inf,
+  // 0 and 0, so their u and dl are 0.
+  const size_t stat_row = (static_cast<size_t>(b) * H + h) * S;
+  float mc[2], dsc[2], rr[2], dl_abs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + cw * 64 + row + 8 * r;
+    const bool in = q < S;
+    mc[r] = in ? args.m[stat_row + q] * LOG2E : INFINITY;
+    dsc[r] = in ? scale / args.den[stat_row + q] : 0.0f;
+    rr[r] = in ? args.r[stat_row + q] : 0.0f;
+  }
+
+  mbar_wait(ring.qg_full, 0);
+  for (int j = 0; j < n_chunks; ++j) {
+    const int st = j % BWD_STAGES;
+    const uint32_t k_addr = smem_u32(smem + ST_KV_OFF + st * 2 * BWD_TILE);
+    float s[64];
+    mbar_wait(ring.k_full + st, (j / BWD_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_n128<0, 0>(s, desc_sw128(q_addr + kk * 32),
+                          desc_sw128(k_addr + kk * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    mbar_arrive(ring.empty + st);
+
+    // dl = u (s scale - r) scale / den in place, 0 for keys past S.
+    const int kv = S - j * 128;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i >> 2) + 2 * quad + (i & 1);
+      const int r = (i >> 1) & 1;
+      const float u = col < kv ? fast_exp2(fmaf(s[i], c2, -mc[r])) : 0.0f;
+      s[i] = u * (s[i] * scale - rr[r]) * dsc[r];
+      dl_abs[r] += fabsf(s[i]);
+    }
+    if (j > 0) continue;
+    // dq = bf16(q + bf16(dl)) of the first 64 keys' columns (S >= 64).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tr = row + 8 * r;  // row in the warpgroup's 64
+      const int q = q0 + cw * 64 + tr;
+      if (q >= S) continue;
+      bf16* dst = args.dq + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const float2 qv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(
+                q_tile + tr * ROW_BYTES + ((j8 ^ (tr & 7)) * 16) + quad * 4));
+        const int e = 4 * j8 + 2 * r;
+        *reinterpret_cast<uint32_t*>(dst + 8 * j8 + 2 * quad) = pack_bf16(
+            qv.x + __bfloat162float(__float2bfloat16(s[e])),
+            qv.y + __bfloat162float(__float2bfloat16(s[e + 1])));
+      }
+    }
+  }
+
+  // Each row's sum |dl| over all keys, then dk = k for the block's rows
+  // (64 rows of 8 16-byte chunks a warpgroup).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dl_abs[r] += __shfl_xor_sync(0xffffffffu, dl_abs[r], 1);
+    dl_abs[r] += __shfl_xor_sync(0xffffffffu, dl_abs[r], 2);
+    const int q = q0 + cw * 64 + row + 8 * r;
+    if (q < S && quad == 0) args.dl_abs[stat_row + q] = dl_abs[r];
+  }
+  for (int c = tid; c < 64 * 8; c += 128) {
+    const int q = q0 + cw * 64 + c / 8;
+    if (q >= S) continue;
+    const size_t off =
+        (static_cast<size_t>(b) * S + q) * ld + h * HD + 8 * (c % 8);
+    *reinterpret_cast<uint4*>(args.dk + off) =
+        *reinterpret_cast<const uint4*>(k + off);
+  }
+}
+
 // The passes a launch runs:
 //   kK4          statistics, gradient, dq cast: dq, dk, dv (K4, K2);
 //   kFromOutput  V1's statistics from the output, then as kK4;
 //   kRowsDq      statistics, the query-major dq rows: dq alone (V2);
-//   kDkDv        statistics, the gradient pass without dq: dk, dv (V3).
-// kRowsDq and kDkDv take no dq_acc; kRowsDq leaves g_n unread.
-enum class BwdPasses { kK4, kFromOutput, kRowsDq, kDkDv };
+//   kDkDv        statistics, the gradient pass without dq: dk, dv (V3);
+//   kDotsOnly    the gradient pass under CastChain, dq cast (V4);
+//   kVpuOnly     statistics without G V^T, the dl sweep (V5).
+// kRowsDq, kDkDv and kVpuOnly take no dq_acc; kRowsDq leaves g_n unread;
+// kDotsOnly takes no statistics, and its g_n is g.
+enum class BwdPasses { kK4, kFromOutput, kRowsDq, kDkDv, kDotsOnly, kVpuOnly };
 
-// The statistics pass a launch takes: K4's, or V1's from the output.
+// The statistics pass a launch takes: K4's, V1's from the output, or
+// V5's without the dp product (none under kDotsOnly).
 template <class Tag, BwdPasses P>
 inline auto stats_kernel() {
   if constexpr (P == BwdPasses::kFromOutput) {
     return &flash_attention_bwd_stats_from_output_kernel<Tag>;
   } else {
-    return &flash_attention_bwd_stats_kernel<Tag>;
+    return &flash_attention_bwd_stats_kernel<Tag, P != BwdPasses::kVpuOnly>;
   }
 }
 
 // The pass after the statistics: the gradient pass (with its dq product
-// but under kDkDv), or V2's dq rows.
+// but under kDkDv, V4's chain under kDotsOnly), V2's dq rows or V5's dl
+// sweep.
 template <class Tag, BwdPasses P>
 inline auto second_kernel() {
   if constexpr (P == BwdPasses::kRowsDq) {
     return &flash_attention_bwd_rows_dq_kernel<Tag>;
+  } else if constexpr (P == BwdPasses::kVpuOnly) {
+    return &flash_attention_bwd_dl_sweep_kernel<Tag>;
+  } else if constexpr (P == BwdPasses::kDotsOnly) {
+    return &flash_attention_bwd_grad_kernel<Tag, true, CastChain>;
   } else {
     return &flash_attention_bwd_grad_kernel<Tag, P != BwdPasses::kDkDv>;
   }
@@ -979,7 +1173,9 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                          const void* v, const void* g,
                                          BwdArgs args, int batch,
                                          cudaStream_t stream) {
-  constexpr bool ROWS = P == BwdPasses::kRowsDq;
+  // The second pass is query-major (the dq rows, the dl sweep).
+  constexpr bool ROWS = P == BwdPasses::kRowsDq || P == BwdPasses::kVpuOnly;
+  constexpr bool STATS = P != BwdPasses::kDotsOnly;
   const int S = args.S, H = args.H;
   if (batch < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
   CUtensorMap q128, g128, k128, v128, q64, g64, gn64;
@@ -991,20 +1187,21 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
   } maps[] = {{&q128, q, 128}, {&g128, g, 128}, {&k128, k, 128},
               {&v128, v, 128}, {&q64, q, 64},   {&g64, g, 64},
               {&gn64, args.g_n, 64}};
-  // The dq rows read the 128-row maps alone.
+  // The query-major passes read the 128-row maps alone.
   for (int i = 0; i < (ROWS ? 4 : 7); ++i) {
     err = bshd_map(maps[i].map, maps[i].base, batch, S, H, maps[i].rows);
     if (err != cudaSuccess) return err;
   }
-  const auto stats = stats_kernel<Tag, P>();
   const auto second = second_kernel<Tag, P>();
   constexpr int SECOND_SMEM = ROWS ? ST_SMEM : GR_SMEM;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(stats,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ST_SMEM);
-    if (err != cudaSuccess) return err;
+    if constexpr (STATS) {
+      err = cudaFuncSetAttribute(stats_kernel<Tag, P>(),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 ST_SMEM);
+      if (err != cudaSuccess) return err;
+    }
     err = cudaFuncSetAttribute(second,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SECOND_SMEM);
@@ -1012,11 +1209,17 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
     smem_set = true;
   }
   const dim3 grid((S + 127) / 128, H, batch);
-  stats<<<grid, BWD_THREADS, ST_SMEM, stream>>>(q128, g128, k128, v128,
-                                                args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if constexpr (ROWS) {
+  if constexpr (STATS) {
+    const auto stats = stats_kernel<Tag, P>();
+    stats<<<grid, BWD_THREADS, ST_SMEM, stream>>>(q128, g128, k128, v128,
+                                                  args);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (P == BwdPasses::kVpuOnly) {
+    second<<<grid, BWD_THREADS, SECOND_SMEM, stream>>>(
+        q128, k128, static_cast<const bf16*>(k), args);
+  } else if constexpr (ROWS) {
     second<<<grid, BWD_THREADS, SECOND_SMEM, stream>>>(q128, g128, k128,
                                                        v128, args);
   } else {
@@ -1024,7 +1227,8 @@ inline cudaError_t launch_flash_backward(const void* q, const void* k,
                                                        gn64, args);
   }
   err = cudaGetLastError();
-  if constexpr (P == BwdPasses::kK4 || P == BwdPasses::kFromOutput) {
+  if constexpr (P == BwdPasses::kK4 || P == BwdPasses::kFromOutput ||
+                P == BwdPasses::kDotsOnly) {
     if (err != cudaSuccess) return err;
     const size_t items =
         static_cast<size_t>(batch) * H * ((S + 63) / 64) * 512;

@@ -305,14 +305,20 @@ class BackwardWorkspaces(NamedTuple):
     dq_acc: torch.Tensor
 
 
+def dq_workspace(q) -> torch.Tensor:
+    """K4's zeroed dq sums (`BackwardWorkspaces.dq_acc`) for ``(B, S, H,
+    dh)`` operands like ``q``."""
+    b, s, h, dh = q.shape
+    return torch.zeros((b, h, -(-s // 64), 64 * dh), dtype=torch.float32,
+                       device=q.device)
+
+
 def backward_workspaces(q) -> BackwardWorkspaces:
     """K4's workspaces for ``(B, S, H, dh)`` operands like ``q``."""
-    b, s, h, dh = q.shape
+    b, s, h, _ = q.shape
     return BackwardWorkspaces(
         torch.empty((3, b, h, s), dtype=torch.float32, device=q.device),
-        torch.empty_like(q),
-        torch.zeros((b, h, -(-s // 64), 64 * dh), dtype=torch.float32,
-                    device=q.device))
+        torch.empty_like(q), dq_workspace(q))
 
 
 @functools.lru_cache(maxsize=None)

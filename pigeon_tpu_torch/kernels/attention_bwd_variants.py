@@ -17,8 +17,8 @@ body that wins can take K4's place without a transpose:
 All are CUDA C++ for ``sm_90a`` in `csrc/attention_bwd_variants.cu`,
 built by ``nvcc`` at first use and bound with ``ctypes``; the source note
 says what bounds each on the card and how the designs answer that.
-V1-V3 run on K4's ``wgmma`` passes (`csrc/flash_bwd_sm90.cuh`), each
-under its own tag:
+All run on K4's ``wgmma`` passes (`csrc/flash_bwd_sm90.cuh`), each under
+its own tag:
 
 - V1 behind a statistics pass of its own, which sweeps the keys twice
   (the exact row max, then ``u``, ``den`` and ``o_rec`` on ``wgmma``) and
@@ -27,16 +27,22 @@ under its own tag:
 - V2 behind K4's statistics pass, then a query-major dq pass that keeps
   each row's dq in registers (2 + 3 walks against the TPU body's 3);
 - V3 behind K4's statistics pass, then K4's gradient pass without its dq
-  product (2 + 4 walks against the TPU body's 4).
+  product (2 + 4 walks against the TPU body's 4);
+- V4 on K4's gradient pass alone, its softmax chain replaced by casts
+  (``u = s``, ``dl = s dp``; no statistics pass), then K4's dq cast, on a
+  zeroed ``dq_acc``: K4's gradient time minus V4's is what the exps cost;
+- V5 on K4's statistics pass without the ``G V^T`` product (``dp`` the
+  scaled scores; its ``g_n`` is V5's dv), then one query-major sweep for
+  ``dl``, on a statistics workspace: K4's statistics time minus V5's is
+  what the dp product costs.
 
 A TPU body holds a head's whole score block in VMEM and finds each row's
 max, den and r in it; a Hopper block holds 128 rows and 128 keys at a
 time, so V2 and V3 take the statistics first, in a pass of their own.
 V2 and V3 take K4's statistics and ``g_n`` workspaces, not its f32
 ``dq_acc``: V2's dq is summed in one order, the same bits every call.
-V4 and V5 keep the WMMA design K4 had before ``wgmma``
-(`csrc/attention_tile.cuh`). The TPU script times them; on the card
-`scripts/bench_torch_attn_bwd.py` does.
+The TPU script times them; on the card `scripts/bench_torch_attn_bwd.py`
+does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (``*_reference``, the arithmetic of the TPU body, which the CPU
@@ -57,6 +63,7 @@ from pigeon_tpu_torch.kernels.attention import (
     HEAD_DIM,
     _check_operands,
     backward_workspaces,
+    dq_workspace,
 )
 
 
@@ -187,7 +194,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(native.build_cuda("attention_bwd_variants").path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, n_ptrs in (("bwd_r_from_o", 10), ("dq", 7), ("dkv", 8),
-                       ("bwd_dots_only", 7), ("bwd_vpu_only", 8)):
+                       ("bwd_dots_only", 8), ("bwd_vpu_only", 9)):
         entry = getattr(lib, f"pigeon_attention_{fn}")
         entry.argtypes = [ptr] * n_ptrs + [i32] * 3 + [ptr]
         entry.restype = ctypes.c_int
@@ -227,12 +234,17 @@ def _launch(name: str, q, *tensors) -> None:
                            f"(CUDA error {rc})")
 
 
+def _stats(q) -> torch.Tensor:
+    """K4's row-statistics workspace (3, B, H, S) f32, which V2, V3 and V5
+    take."""
+    b, s, h, _ = q.shape
+    return torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+
+
 def _stats_workspaces(q) -> tuple:
     """K4's row-statistics (3, B, H, S) f32 and ``g_n`` (B, S, H, 64)
     workspaces, which V2 and V3 take (not its ``dq_acc``)."""
-    b, s, h, _ = q.shape
-    return (torch.empty((3, b, h, s), dtype=torch.float32, device=q.device),
-            torch.empty_like(q))
+    return _stats(q), torch.empty_like(q)
 
 
 def bwd_r_from_o(q, k, v, g):
@@ -284,12 +296,14 @@ attention_dkv.launches = 0
 
 def bwd_dots_only(q, k, v, g):
     """V4 (diagnostic): ``(dq, dk, dv)`` of K4's products with casts for
-    the softmax chain; CPU tensors run :func:`bwd_dots_only_reference`."""
+    the softmax chain; CPU tensors run :func:`bwd_dots_only_reference`.
+    K4's zeroed ``dq_acc`` is allocated here, not its statistics or
+    ``g_n``."""
     if q.device.type == "cpu":
         return bwd_dots_only_reference(q, k, v, g)
     _on_card("bwd_dots_only", q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    _launch("bwd_dots_only", q, k, v, g, dq, dk, dv)
+    _launch("bwd_dots_only", q, k, v, g, dq, dk, dv, dq_workspace(q))
     bwd_dots_only.launches += 1
     return dq, dk, dv
 
@@ -300,14 +314,15 @@ bwd_dots_only.launches = 0
 def bwd_vpu_only(q, k, v, g):
     """V5 (diagnostic): ``(dq, dk, dv, dl_abs)`` of the softmax chain
     alone; CPU tensors run :func:`bwd_vpu_only_reference`. Needs
-    S >= 64."""
+    S >= 64. K4's statistics workspace is allocated here; dv is its
+    statistics pass's ``g_n``."""
     if q.device.type == "cpu":
         return bwd_vpu_only_reference(q, k, v, g)
     _on_card("bwd_vpu_only", q, k, v, g, min_seq=HEAD_DIM)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     b, s, h, _ = q.shape
     dl_abs = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("bwd_vpu_only", q, k, v, g, dq, dk, dv, dl_abs)
+    _launch("bwd_vpu_only", q, k, v, g, dq, dk, dv, dl_abs, _stats(q))
     bwd_vpu_only.launches += 1
     return dq, dk, dv, dl_abs
 

@@ -21,7 +21,8 @@ VJP of the einsum attention the TPU script takes as its reference
 (`flash_attention.py::_xla_attention_bshd`), on the first view, as
 ``max_err_vs_xla``. Times are CUDA-event medians over windows. PyTorch's
 ``scaled_dot_product_attention`` backward is timed as a yardstick, never a
-variant. The first line is the card's name and power limit, then one JSON
+variant, and so is V4's ``dots_only_composition`` (its five products as
+cuBLAS calls). The first line is the card's name and power limit, then one JSON
 line per variant. Without a CUDA device it exits non-zero.
 """
 
@@ -107,10 +108,23 @@ def sdpa_backward_ms(q, k, v, g, iters: int, windows: int) -> float:
         iters, windows)
 
 
+def dots_only_composition(q, k, v, g):
+    """V4's five products as library calls in the (B, H, S, dh) layout,
+    the scores rounded to bf16 by the product: ``s = q k^T``, ``dv = s^T
+    g``, ``dl = s (g v^T)``, ``dq = dl k``, ``dk = dl^T q``; ``(dq, dk,
+    dv)`` in (B, S, H, dh). A yardstick of V4's time, never a variant."""
+    qh, kh, vh, gh = (t.transpose(1, 2) for t in (q, k, v, g))
+    s = qh @ kh.transpose(-1, -2)
+    dv = s.transpose(-1, -2) @ gh
+    dl = s * (gh @ vh.transpose(-1, -2))
+    return tuple(t.transpose(1, 2) for t in (dl @ kh,
+                                             dl.transpose(-1, -2) @ qh, dv))
+
+
 def run(batch: int = 32, iters: int = 8, windows: int = 5, *,
         report=None) -> list:
     """Check and time every variant at ``batch`` views; one record a
-    variant, then the yardstick's. ``report`` is called with each record
+    variant, then the yardsticks'. ``report`` is called with each record
     as it is made."""
     import torch
 
@@ -134,11 +148,15 @@ def run(batch: int = 32, iters: int = 8, windows: int = 5, *,
         records.append(rec)
         if report:
             report(rec)
-    rec = {"yardstick": "sdpa_backward",
-           "ms_per_call": sdpa_backward_ms(q, k, v, g, iters, windows)}
-    records.append(rec)
-    if report:
-        report(rec)
+    for rec in ({"yardstick": "sdpa_backward",
+                 "ms_per_call": sdpa_backward_ms(q, k, v, g, iters, windows)},
+                {"yardstick": "dots_only_composition",
+                 "ms_per_call": tuning.window_ms(
+                     lambda: dots_only_composition(q, k, v, g), iters,
+                     windows)}):
+        records.append(rec)
+        if report:
+            report(rec)
     return records
 
 

@@ -427,8 +427,7 @@ def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
             ("attention_fwd_variants", ["attention_tile.cuh",
                                         "flash_fwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
-            ("attention_bwd_variants", ["attention_tile.cuh",
-                                        "flash_bwd_sm90.cuh",
+            ("attention_bwd_variants", ["flash_bwd_sm90.cuh",
                                         "hopper_sm90.cuh"])):
         closure = native.source_closure(
             os.path.join(native.CSRC_DIR, f"{kernel}.cu"))

@@ -235,7 +235,7 @@ def test_side_outputs_keep_the_whole_row():
 
 
 # ---------------------------------------------------------------------------
-# Models of the CUDA designs of V10, V1, V2 and V3
+# Models of the CUDA designs of V10 and V1-V5
 # ---------------------------------------------------------------------------
 
 #: log2(e) and c2 = 64^-0.5 log2(e) in f32, as the kernels fold them.
@@ -423,33 +423,141 @@ def test_v3_design_matches_its_plain_version(s, dtype):
         assert_close(fold(a), fold(w), BWD_TOL[dtype], dtype == "bfloat16")
 
 
+def v4_model(q, k, v, g):
+    """V4 on the card (`flash_bwd_sm90.cuh`'s gradient pass under
+    ``CastChain``, then K4's dq cast): per 128-key tile and 64-query
+    chunk, ``s^T = k_t q_c^T`` unscaled and ``dp^T = v_t g_c^T`` in f32,
+    ``u = bf16(s)``, ``dl = bf16(s dp)``; ``dv_t += u^T g_c`` and ``dk_t +=
+    dl^T q_c`` chunk by chunk, ``dq_c += dl k_t`` summed over the key
+    tiles in f32 (the bulk reduce-adds), each cast to ``q.dtype``."""
+    dt = q.dtype
+    qh, kh, vh, gh = (t.transpose(1, 2).float() for t in (q, k, v, g))
+    dq, dk, dv = (torch.zeros_like(qh) for _ in range(3))
+    for k0 in range(0, q.shape[1], 128):
+        kt, vt = kh[:, :, k0:k0 + 128], vh[:, :, k0:k0 + 128]
+        for q0 in range(0, q.shape[1], 64):
+            qc, gc = qh[:, :, q0:q0 + 64], gh[:, :, q0:q0 + 64]
+            s = kt @ qc.transpose(-1, -2)
+            dl = (s * (vt @ gc.transpose(-1, -2))).to(dt).float()
+            dv[:, :, k0:k0 + 128] += s.to(dt).float() @ gc
+            dk[:, :, k0:k0 + 128] += dl @ qc
+            dq[:, :, q0:q0 + 64] += dl.transpose(-1, -2) @ kt
+    return tuple(x.to(dt).transpose(1, 2).contiguous() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v4_design_matches_its_plain_version(s, dtype):
+    """The model of V4 on the card, K4's gradient arithmetic with casts
+    for the softmax chain over 64-query chunks of 128-key tiles, against
+    V4's plain version within the diagnostics' bound; at S = 300 the key
+    tiles and query chunks end ragged."""
+    _, (q, k, v, g) = operands(4, s, dtype)
+    for a, w in zip(v4_model(q, k, v, g), bv.bwd_dots_only_reference(
+            q, k, v, g), strict=True):
+        assert a.dtype == q.dtype
+        assert_close(fold(a), fold(w), tuning.DIAG_TOL, True)
+
+
+def v5_model(q, k, g):
+    """V5 on the card: (a) K4's statistics pass without ``G V^T``
+    (`flash_attention_backward_stats_reference`'s order over 128-key
+    chunks, with ``dp = s``, the scaled scores), ``dv = bf16(g / den)``
+    its ``g_n``; (b) the dl sweep against the final max, ``u = 2^(s c2 -
+    m log2 e)``, ``dl = u (s scale - r) scale / den``, ``dq = bf16(q +
+    bf16(dl[:, :64]))`` from chunk 0 and ``dl_abs = sum |dl|`` chunk by
+    chunk. ``((dq, dk, dv, dl_abs), den)``."""
+    dt = q.dtype
+    scale = DH ** -0.5
+    qh, kh, gh = (t.transpose(1, 2).float() for t in (q, k, g))
+    chunks = range(0, q.shape[1], 128)
+    m = torch.full(qh.shape[:-1], -torch.inf)
+    den, num = torch.zeros_like(m), torch.zeros_like(m)
+    for c0 in chunks:
+        s = (qh @ kh[:, :, c0:c0 + 128].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        u = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + u.sum(-1)
+        num = num * corr + (s * u).sum(-1)
+        m = m_new
+    r = (num / den)[..., None]
+    dl_abs = torch.zeros_like(m)
+    for c0 in chunks:
+        s = qh @ kh[:, :, c0:c0 + 128].transpose(-1, -2)
+        u = torch.exp2(s * C2 - m[..., None] * LOG2E)
+        dl = u * (s * scale - r) * (scale / den[..., None])
+        dl_abs = dl_abs + dl.abs().sum(-1)
+        if c0 == 0:
+            dq = (qh + dl[..., :DH].to(dt).float()).to(dt)
+    dv = (gh / den[..., None]).to(dt)
+    dq, dv = (x.transpose(1, 2).contiguous() for x in (dq, dv))
+    return (dq, k.clone(), dv, dl_abs), den
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v5_design_matches_its_plain_version(s, dtype):
+    """The model of V5 on the card, the online statistics over 128-key
+    chunks with dp the scaled scores, then the dl sweep against the final
+    max, against V5's plain version within the diagnostics' bound; its dv
+    is bf16(g / den) of K4's statistics model bit for bit (den does not
+    read dp)."""
+    _, (q, k, v, g) = operands(4, s, dtype)
+    got, den = v5_model(q, k, g)
+    for a, w in zip(got, bv.bwd_vpu_only_reference(q, k, v, g),
+                    strict=True):
+        assert a.dtype == w.dtype
+        assert_close(a.float().numpy(), w.float().numpy(), tuning.DIAG_TOL,
+                     True)
+    k4_den = k34.flash_attention_backward_stats_reference(q, k, v, g)[1]
+    torch.testing.assert_close(den, k4_den, rtol=0, atol=0)
+    k4_g_n = (g.transpose(1, 2).float() / k4_den[..., None]).to(q.dtype)
+    assert torch.equal(got[2], k4_g_n.transpose(1, 2).contiguous())
+
+
 def test_split_runs_k4s_statistics_pass_under_its_own_tags():
-    """The sources: V1-V3 launch K4's passes under their own tags, V2 and
-    V3 K4's statistics pass (V1 its own); V2's second pass is the dq rows,
-    V3's the gradient pass with DQ = false; the WMMA tile header of V2
-    and V3 is gone and nothing includes it."""
+    """The sources: V1-V5 launch K4's passes under their own tags, V2, V3
+    and V5 K4's statistics pass (V1 its own, V5 without the dp product,
+    DP = false; V4 none); V2's second pass is the dq rows, V3's the
+    gradient pass with DQ = false, V4's the gradient pass under its
+    CastChain, V5's the dl sweep; the WMMA tile header of V2 and V3 is
+    gone and nothing includes it; V1-V5's source holds no WMMA code, and
+    the WMMA tiles of V6-V9 have their source as their only user."""
     csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
 
     def read(name):
         with open(os.path.join(csrc, name)) as f:
             return f.read()
 
+    variants = read("attention_bwd_variants.cu")
     assert re.findall(r"launch_flash_backward<(\w+), BwdPasses::(\w+)>",
-                      read("attention_bwd_variants.cu")) == [
+                      variants) == [
         ("V1Attention", "kFromOutput"), ("V2Attention", "kRowsDq"),
-        ("V3Attention", "kDkDv")]
+        ("V3Attention", "kDkDv"), ("V4Attention", "kDotsOnly"),
+        ("V5Attention", "kVpuOnly")]
     header = read("flash_bwd_sm90.cuh")
     assert re.findall(r"return &(flash_attention_bwd_\w+_kernel)<Tag(.*)>;",
                       header) == [
         ("flash_attention_bwd_stats_from_output_kernel", ""),
-        ("flash_attention_bwd_stats_kernel", ""),
+        ("flash_attention_bwd_stats_kernel", ", P != BwdPasses::kVpuOnly"),
         ("flash_attention_bwd_rows_dq_kernel", ""),
+        ("flash_attention_bwd_dl_sweep_kernel", ""),
+        ("flash_attention_bwd_grad_kernel", ", true, CastChain"),
         ("flash_attention_bwd_grad_kernel", ", P != BwdPasses::kDkDv")]
-    assert re.findall(r"template <class Tag, bool DQ = true>\s+__global__"
-                      r"[^\n]*\nflash_attention_bwd_grad_kernel", header)
+    assert re.findall(r"template <class Tag, bool DQ = true, class Chain = "
+                      r"SoftmaxChain>\s+__global__[^\n]*\n"
+                      r"flash_attention_bwd_grad_kernel", header)
+    assert re.findall(r"template <class Tag, bool DP = true>\s+__global__"
+                      r"[^\n]*\nflash_attention_bwd_stats_kernel", header)
     assert not os.path.exists(os.path.join(csrc, "attention_bwd_tile.cuh"))
     for name in os.listdir(csrc):
         assert "attention_bwd_tile.cuh" not in read(name), name
+    assert "attention_tile.cuh" not in variants
+    assert "wmma::" not in variants and "mma.h" not in variants
+    assert [name for name in sorted(os.listdir(csrc))
+            if '#include "attention_tile.cuh"' in read(name)] == [
+        "attention_fwd_variants.cu"]
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +693,20 @@ def test_bwd_driver_runs_the_script_variants_on_the_cpu():
     xla = driver.xla_grads(*(a.float() for a in args))
     for a, w in zip(variants[2](), xla, strict=True):
         assert ((a.float() - w).abs().max() / w.abs().max()).item() < 2e-2
+
+
+@pytest.mark.parametrize("s", [80, 300])
+def test_bwd_driver_composition_computes_v4s_function(s):
+    """The driver's yardstick of V4, its five products as library calls,
+    computes V4's function: within the diagnostics' bound of V4's plain
+    version (its scores rounded to bf16 by the product), in V4's
+    layout."""
+    driver = load_driver("bench_torch_attn_bwd")
+    _, args = operands(4, s, "bfloat16")
+    got = driver.dots_only_composition(*args)
+    want = bv.bwd_dots_only_reference(*args)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert tuning.errors(got, want)[1] <= tuning.DIAG_TOL
 
 
 def test_fwd_and_qkv_drivers_run_the_script_variants_on_the_cpu():
@@ -805,3 +927,67 @@ def test_cuda_v1_statistics_take_r_from_the_output(cuda, b, s, heads):
     _, rel_err = tuning.errors((dq, dk, dv),
                                bv.bwd_r_from_o_reference(q, k, v, g))
     assert rel_err <= tuning.BWD_TOL
+
+
+#: V4 and V5 at the ragged steps of V1-V3 (V5 from S = 64: the TPU body
+#: slices 64 key columns).
+V4_V5_STEPS = [(wrapper, s)
+               for wrapper in (bv.bwd_dots_only, bv.bwd_vpu_only)
+               for s in (1, 64, 65, 127, 128, 129, 255, 256, 257, 384, 385,
+                         577)
+               if wrapper is bv.bwd_dots_only or s >= DH]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper, s", V4_V5_STEPS,
+                         ids=[f"{w.__name__}-{s}" for w, s in V4_V5_STEPS])
+def test_cuda_v4_and_v5_at_ragged_steps(cuda, wrapper, s):
+    """V4's gradient pass ends on a ragged key tile and query chunk, V5's
+    statistics pass and dl sweep on a ragged key chunk: each output
+    within the diagnostics' bound of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 4, (2, s, 2, DH))
+    plain = {bv.bwd_dots_only: bv.bwd_dots_only_reference,
+             bv.bwd_vpu_only: bv.bwd_vpu_only_reference}[wrapper]
+    got = tuning.outputs(wrapper(*args))
+    torch.cuda.synchronize()
+    assert tuning.errors(got, tuning.outputs(plain(*args)))[1] \
+        <= tuning.DIAG_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 129, 2), (4, 577, 4),
+                                         (32, 577, 16)])
+def test_cuda_v4_and_v5_repeat_bit_for_bit(cuda, b, s, heads):
+    """V4's dk and dv are register sums of one block, and V5's four
+    outputs are formed in one order, so two calls give the same bits
+    (V4's dq, summed by bulk reduce-adds in the order they land, need
+    not)."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 4, (b, s, heads, DH))
+    first = (*bv.bwd_dots_only(*args)[1:], *bv.bwd_vpu_only(*args))
+    second = (*bv.bwd_dots_only(*args)[1:], *bv.bwd_vpu_only(*args))
+    torch.cuda.synchronize()
+    for a, w in zip(first, second, strict=True):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 80, 2), (2, 97, 2), (1, 385, 2),
+                                         (4, 577, 4)])
+def test_cuda_v5_dv_is_k4s_g_n(cuda, b, s, heads):
+    """V5 launched through ``_launch`` with a statistics workspace the
+    test holds: its statistics pass forms m and den by K4's operations
+    (dp does not reach them), so they and its dv = bf16(g / den) are K4's
+    m, den and g_n on the same q/k/g bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v, g = tuning.normal(gen, 4, (b, s, heads, DH))
+    ws = k34.backward_workspaces(q)
+    k34.flash_attention_backward_into(q, k, v, g, ws)
+    stats = bv._stats(q)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dl_abs = torch.empty((b, heads, s), dtype=torch.float32, device=cuda)
+    bv._launch("bwd_vpu_only", q, k, v, g, dq, dk, dv, dl_abs, stats)
+    torch.cuda.synchronize()
+    assert torch.equal(stats[:2], ws.stats[:2])
+    assert torch.equal(dv, ws.g_n)
