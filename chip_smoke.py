@@ -13,11 +13,12 @@ Phases, one line each, any failure raises:
              from the checkout's sources, with nvcc's register, spill and
              wgmma-serialisation (C7513/C7514) lines and the HGMMA count
              of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
-             K7, K8 and K9 and of the two tuning sources, whose V10 and
-             V1-V5 run K3's and K4's wgmma kernels (cuobjdump; a source
-             without HGMMA fails the phase), and the HGMMA and MUFU.EX2
-             counts of each kernel of V4 and V5 (a V5 kernel without
-             MUFU.EX2 fails it: its exps were deleted);
+             K7, K8 and K9 and of the two tuning sources, whose V10, V6,
+             V7 and V1-V5 run K3's and K4's wgmma kernels (cuobjdump; a
+             source without HGMMA fails the phase), and the HGMMA and
+             MUFU.EX2 counts of each kernel of V4-V7 (a V5 or V7 kernel
+             without MUFU.EX2 fails it: its exps were deleted; so do a
+             V6 kernel with one, or with another HGMMA count than K3's);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -168,7 +169,11 @@ Phases, one line each, any failure raises:
              torch.profiler, by each wrapper's tag; a pass a wrapper does
              not launch must show none), with V2's and V3's wrapper and
              bare C call ms, then K4's gradient pass minus V4's and K4's
-             statistics pass minus V5's, after the launches are read.
+             statistics pass minus V5's, after the launches are read;
+             then V6's and V7's ms beside K3's, and K3's, V6's, V7's and
+             V10's device ms (torch.profiler, by tag: V6 casts for the
+             softmax chain, V7 drops the P V product), then K3's minus
+             V6's and minus V7's.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -325,22 +330,30 @@ VARIANT_WORK = {
     "flash_attention_online_c256": (2, 0, 4, 0),
 }
 #: The yardstick each tuning kernel's ``library_ms`` takes: the one
-#: PyTorch call that computes the same function, where there is one.
+#: PyTorch call that computes the same function, or its composition in
+#: library calls, where there is one (the drivers time both).
 VARIANT_LIBRARY = {"bwd_r_from_o": "sdpa_backward",
                    "attention_dq": "sdpa_backward",
                    "attention_dkv": "sdpa_backward",
+                   "bwd_dots_only": "dots_only_composition",
+                   "fwd_dots_only": "fwd_dots_only_composition",
+                   "fwd_softmax_only": "fwd_softmax_only_composition",
+                   "fwd_qk_only": "fwd_qk_only_composition",
+                   "fwd_qk_chunked": "fwd_qk_chunked_composition",
                    "flash_attention_online_c256": "sdpa_forward"}
 #: [variants]: each driver's windows and calls a window.
 VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: [variants]: the tuning kernels on K3's and K4's wgmma kernels, each
 #: beside the K kernel whose design it shares, by the drivers' variant
 #: names: V10 (256-key steps) beside K3′ (128), V1, split4 (V2 + V3), V4
-#: and V5 beside K4.
+#: and V5 beside K4, V6 and V7 beside K3.
 VARIANT_PAIRS = (("online_softmax_p4_c256", "online_softmax_p4_c128"),
                  ("r_from_o_pack2", "base_pack2"),
                  ("split4", "base_pack2"),
                  ("diag_dots_only_p2", "base_pack2"),
-                 ("diag_vpu_only_p2", "base_pack2"))
+                 ("diag_vpu_only_p2", "base_pack2"),
+                 ("diag_dots_only_p4", "base_fwd_pack4"),
+                 ("diag_softmax_only_p4", "base_fwd_pack4"))
 #: The attention backward's passes by their kernels' names
 #: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own, V2's dq
 #: rows and V5's dl sweep are theirs alone), and each wrapper's tag and
@@ -361,10 +374,23 @@ BWD_TAGS = (("bwd_r_from_o", "V1Attention", ("statistics", "gradient", "dq")),
 #: (V4 runs it with casts for the softmax chain) and the dp product's
 #: share of K4's statistics pass (V5 runs it without G V^T).
 BWD_DIFFS = (("gradient", "bwd_dots_only"), ("statistics", "bwd_vpu_only"))
+#: [variants]: the forward's one pass, K3's streaming forward
+#: (`csrc/flash_fwd_sm90.cuh`), by each wrapper's tag, as the backward's
+#: passes: K3, V6 (casts for the softmax chain), V7 (no P V product) and
+#: V10 (256-key steps); then K3's minus each diagnostic's (`FWD_DIFFS`):
+#: what the softmax chain costs K3, and what the P V walk costs it.
+FWD_PASSES = (("forward", "flash_attention_kernel_wgmma"),)
+FWD_TAGS = (("flash_attention", "K3Forward", ("forward",)),
+            ("fwd_dots_only", "V6Attention", ("forward",)),
+            ("fwd_softmax_only", "V7Attention", ("forward",)),
+            ("flash_attention_online_c256", "V10OnlineForward", ("forward",)))
+FWD_DIFFS = (("forward", "fwd_dots_only"), ("forward", "fwd_softmax_only"))
 #: [sass]: the tuning kernels whose every kernel's HGMMA and MUFU.EX2
 #: counts the build phase prints, by tag; the diagnostics whose kernels
-#: must each keep MUFU.EX2 (their exps are the measured work).
-SASS_TAGS, SASS_EXPS = ("V4Attention", "V5Attention"), ("V5Attention",)
+#: must each keep MUFU.EX2 (their exps are the measured work); those
+#: whose kernels must have none (their exps were cast away).
+SASS_TAGS = ("V4Attention", "V5Attention", "V6Attention", "V7Attention")
+SASS_EXPS, SASS_NO_EXPS = ("V5Attention", "V7Attention"), ("V6Attention",)
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -560,7 +586,7 @@ def check_kernel_at(seed: int, b: int) -> dict:
     return rec
 
 
-def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
+def device_ms_by_mark(fn, marks, calls: int = 5, expect=()) -> dict:
     """Self device milliseconds a call of ``fn`` spends in the kernels
     whose names hold each ``(label, mark)``'s mark (a string, or a tuple
     of strings a name must all hold), and in the rest (``other``), from
@@ -568,28 +594,34 @@ def device_ms_by_mark(fn, marks, calls: int = 5) -> dict:
     over the launches the profiler recorded, times its launches a call
     (at least one): late in a long process the profiler may drop some
     kernels' records (seen on the H100: 2-4 of 5), which a sum over
-    ``calls`` would read as less device time."""
+    ``calls`` would read as less device time, or all of a window's
+    records (seen there too), so it profiles up to three windows until
+    every label in ``expect`` shows device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys([label for label, _ in marks] + ["other"], 0.0)
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if not us or not evt.count:
-            continue
-        label = next((lb for lb, mark in marks
-                      if all(m in evt.key for m in
-                             ((mark,) if isinstance(mark, str) else mark))),
-                     "other")
-        out[label] += us / evt.count * max(1, round(evt.count / calls)) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys([label for label, _ in marks] + ["other"], 0.0)
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            if not us or not evt.count:
+                continue
+            label = next((lb for lb, mark in marks
+                          if all(m in evt.key for m in
+                                 ((mark,) if isinstance(mark, str)
+                                  else mark))), "other")
+            out[label] += (us / evt.count * max(1, round(evt.count / calls))
+                           / 1e3)
+        if all(out[label] > 0 for label in expect):
+            break
     return out
 
 
@@ -2218,7 +2250,12 @@ def check_variants() -> tuple:
             records.append(rec)
             if "yardstick" in rec:
                 phase("variants", driver=name, yardstick=rec["yardstick"],
-                      ms=rec["ms_per_call"])
+                      ms=rec["ms_per_call"],
+                      **{key: rec[key] for key in ("max_err_vs_plain",)
+                         if key in rec})
+                continue
+            if "check" in rec:
+                phase("variants", driver=name, **rec)
                 continue
             phase("variants", driver=name, variant=rec["variant"],
                   ms=rec["ms_per_call"], plain_ms=rec["plain_ms"],
@@ -2239,6 +2276,7 @@ def check_variants() -> tuple:
         phase("variants", variant=name, ms=by_name[name], beside=beside,
               beside_ms=by_name[beside])
     backward_stages()
+    forward_stages()
     yardsticks = {r["yardstick"]: r["ms_per_call"] for r in records
                   if "yardstick" in r}
     out, counts = {}, {}
@@ -2259,16 +2297,56 @@ def check_variants() -> tuple:
     return counts, out
 
 
+def device_stages(fns, operands, passes, tags, base, diffs,
+                  bare=None) -> dict:
+    """[variants]: each wrapper's device ms by pass on ``operands``, each
+    pass (``passes``: label, kernel name) found by its kernel's name and
+    the wrapper's tag (``tags``: wrapper, tag, the passes it launches);
+    raises if a pass a tag lists takes no time, or one it does not list
+    takes some. Beside them the host ms a call takes to enqueue its work
+    (calls without a synchronise: below the device ms, the wrapper is
+    device-bound), and the wrapper ms beside the bare C call's where
+    ``bare`` has one. Returns ``base``'s device ms of each pass minus each
+    diagnostic's (``diffs``: pass, wrapper), keyed ``pass-wrapper``."""
+    import torch
+
+    by_pass = {}
+    for name, tag, launched in tags:
+        fn = functools.partial(fns[name], *operands)
+        ms = by_pass[name] = device_ms_by_mark(
+            fn, [(label, (mark, tag)) for label, mark in passes],
+            expect=launched)
+        idle = [label for label in launched if ms[label] <= 0]
+        stray = [label for label, _ in passes
+                 if label not in launched and ms[label] > 0]
+        if idle or stray:
+            raise RuntimeError(f"{name}: no device time in {idle}, or time "
+                               f"in passes it does not launch {stray}, "
+                               f"under {tag}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        times = {"enqueue_ms": round((time.perf_counter() - t0) / 20 * 1e3,
+                                    4)}
+        torch.cuda.synchronize()
+        if bare and name in bare:
+            times.update(wrapper_ms=round(median_ms(fn), 4),
+                         bare_ms=round(median_ms(bare[name]), 4))
+        phase("variants", kernel=name, tag=tag,
+              **{f"{label}_device_ms": round(ms[label], 4)
+                 for label in (*launched, "other")}, **times)
+    return {f"{label}-{name}": round(by_pass[base][label]
+                                     - by_pass[name][label], 4)
+            for label, name in diffs}
+
+
 def backward_stages() -> None:
-    """[variants]: V1's-V5's and K4's device ms by pass (`BWD_PASSES`),
-    each pass found by its kernel's name and the wrapper's tag
-    (`BWD_TAGS`), at the drivers' shape; raises if a pass a tag lists
-    takes no time, or one it does not list takes some. Beside them the
-    host ms a call takes to enqueue its work (calls without a
-    synchronise: below the device ms, the wrapper is device-bound), and
-    V2's and V3's wrapper ms beside the bare C call's, on workspaces
-    allocated once; then K4's passes minus V4's and V5's (`BWD_DIFFS`).
-    Runs after [variants] has read its launch counts."""
+    """[variants]: V1's-V5's and K4's device ms by pass (`BWD_PASSES`,
+    `BWD_TAGS`) at the drivers' shape, V2's and V3's wrapper ms beside the
+    bare C call's on workspaces allocated once (`device_stages`); then
+    K4's passes minus V4's and V5's (`BWD_DIFFS`). Runs after [variants]
+    has read its launch counts."""
     import torch
 
     from pigeon_tpu_torch import tuning
@@ -2294,43 +2372,49 @@ def backward_stages() -> None:
             "attention_dkv": lambda: lib.pigeon_attention_dkv(
                 *(t.data_ptr() for t in (q, k, v, g, *outs, stats, g_n)),
                 *shape[:3], stream)}
-    by_pass = {}
-    for name, tag, passes in BWD_TAGS:
-        fn = functools.partial(fns[name], q, k, v, g)
-        ms = by_pass[name] = device_ms_by_mark(
-            fn, [(label, (mark, tag)) for label, mark in BWD_PASSES])
-        idle = [label for label in passes if ms[label] <= 0]
-        stray = [label for label, _ in BWD_PASSES
-                 if label not in passes and ms[label] > 0]
-        if idle or stray:
-            raise RuntimeError(f"{name}: no device time in {idle}, or time "
-                               f"in passes it does not launch {stray}, "
-                               f"under {tag}")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        times = {"enqueue_ms": round((time.perf_counter() - t0) / 20 * 1e3,
-                                    4)}
-        torch.cuda.synchronize()
-        if name in bare:
-            times.update(wrapper_ms=round(median_ms(fn), 4),
-                         bare_ms=round(median_ms(bare[name]), 4))
-        phase("variants", kernel=name, tag=tag,
-              **{f"{label}_device_ms": round(ms[label], 4)
-                 for label in (*passes, "other")}, **times)
-    k4 = by_pass["flash_attention_bwd"]
+    diffs = device_stages(fns, (q, k, v, g), BWD_PASSES, BWD_TAGS,
+                          "flash_attention_bwd", BWD_DIFFS, bare)
     phase("variants", k4_minus_diagnostic_device_ms=json.dumps(
-        {f"{label}-{name}": round(k4[label] - by_pass[name][label], 4)
-         for label, name in BWD_DIFFS}, separators=(",", ":")))
+        diffs, separators=(",", ":")))
     del q, k, v, g, stats, g_n, outs
     torch.cuda.empty_cache()
 
 
-def sass_by_function(sass) -> None:
+def forward_stages() -> None:
+    """[variants]: the device ms of K3's streaming forward under each
+    wrapper's tag (`FWD_PASSES`, `FWD_TAGS`) at the drivers' shape, K3
+    under its monolithic body (`device_stages`); then K3's minus V6's and
+    V7's (`FWD_DIFFS`). Runs after [variants] has read its launch
+    counts."""
+    from unittest import mock
+
+    import torch
+
+    from pigeon_tpu_torch import tuning
+    from pigeon_tpu_torch.kernels import attention as k34
+    from pigeon_tpu_torch.kernels import attention_fwd_variants as fv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = tuning.normal(gen, 3, (tuning.BATCH, tuning.SEQ, tuning.HEADS,
+                                     tuning.HEAD_DIM))
+    fns = {"flash_attention": k34.flash_attention,
+           "fwd_dots_only": fv.fwd_dots_only,
+           "fwd_softmax_only": fv.fwd_softmax_only,
+           "flash_attention_online_c256": fv.flash_attention_online_c256}
+    with mock.patch.dict(os.environ, {"PIGEON_FLASH_FWD": "monolithic"}):
+        diffs = device_stages(fns, (q, k, v), FWD_PASSES, FWD_TAGS,
+                              "flash_attention", FWD_DIFFS)
+    phase("variants", k3_minus_diagnostic_device_ms=json.dumps(
+        diffs, separators=(",", ":")))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def sass_by_function(sass) -> dict:
     """[sass]: each kernel of the tags in `SASS_TAGS` in the lines of a
     `cuobjdump -sass` listing, with its HGMMA and MUFU.EX2 counts; raises
-    if a kernel of a tag in `SASS_EXPS` has no MUFU.EX2."""
+    if a kernel of a tag in `SASS_EXPS` has no MUFU.EX2, or one in
+    `SASS_NO_EXPS` has any. Returns ``{tag: [(hgmma, ex2), ...]}``."""
     counts, name = {}, None
     for line in sass:
         if "Function :" in line:
@@ -2339,13 +2423,18 @@ def sass_by_function(sass) -> None:
         elif name:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "MUFU.EX2" in line
+    by_tag = {}
     for name, (hgmma, ex2) in counts.items():
         tag = next((tag for tag in SASS_TAGS if tag in name), None)
         if tag is None:
             continue
         phase("sass", function=name, hgmma=hgmma, mufu_ex2=ex2)
+        by_tag.setdefault(tag, []).append((hgmma, ex2))
         if tag in SASS_EXPS and not ex2:
             raise RuntimeError(f"{name}: no MUFU.EX2 in its SASS")
+        if tag in SASS_NO_EXPS and ex2:
+            raise RuntimeError(f"{name}: {ex2} MUFU.EX2 in its SASS")
+    return by_tag
 
 
 def build_kernels() -> None:
@@ -2381,6 +2470,7 @@ def build_kernels() -> None:
     # The wgmma kernels' products in their SASS: HGMMA instructions (bf16),
     # and IGMMA (int8) in K7's and K8's GEMMs.
     cuobjdump = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
+    hgmma_by_source, by_tag = {}, {}
     for name in WGMMA_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", built[name].path],
                               capture_output=True, text=True,
@@ -2390,8 +2480,18 @@ def build_kernels() -> None:
         if not hgmma or (name.endswith("_int8") and not igmma):
             raise RuntimeError(f"{name}: no HGMMA or IGMMA in its SASS")
         phase("sass", kernel=name, hgmma=hgmma, igmma=igmma)
-        if name == "attention_bwd_variants":
-            sass_by_function(sass)
+        hgmma_by_source[name] = hgmma
+        if name.startswith("attention_"):
+            by_tag.update(sass_by_function(sass))
+    # V6 is K3's kernel under casts for the chain: K3's products, no exp.
+    # V7 is K3's kernel without P V: K3's products less the 16 of P V.
+    k3_hgmma = hgmma_by_source["flash_attention"]
+    for tag, hgmma in (("V6Attention", k3_hgmma),
+                       ("V7Attention", k3_hgmma - 16)):
+        got = [h for h, _ in by_tag.get(tag, [])]
+        if got != [hgmma]:
+            raise RuntimeError(f"{tag}: HGMMA {got}, not [{hgmma}] "
+                               f"(K3's kernel has {k3_hgmma})")
     k.load()
     k.load_backward()
     geodesy.load()

@@ -22,17 +22,39 @@
 //                    ex2.approx, c2 = 64^-0.5 log2(e); the TPU body takes
 //                    exp of the scaled f32 scores (a few f32 ulps apart
 //                    before the bf16 rounding).
-//   V6 dots_only     diagnostic: bf16(q k^T) v, no scale, no softmax.
+//   V6 dots_only     diagnostic: bf16(q k^T) v, no scale, no softmax. K3's
+//                    streaming forward at 128-key steps under CastChain
+//                    and its own tag, V6Attention: s = Q K_c^T by four
+//                    m64n128k16 steps, bf16(s) packed straight into the A
+//                    fragments, eight m64n64k16 P V steps, the next
+//                    chunk's s issued with this chunk's P V as in K3; no
+//                    mask (keys past S score 0 on zero-filled K rows and
+//                    meet zero V rows), max, exp or l; o stored undivided.
+//                    K3's time less V6's is what the softmax chain costs
+//                    K3 with the products' schedule kept.
 //   V7 softmax_only  diagnostic: the scaled scores' softmax with the PV
-//                    product removed: out = p[:, :64] / den + v.
+//                    product removed: out = p[:, :64] / den + v, v the
+//                    query row's own V row. K3's forward with PV = false
+//                    under V7Attention: V never loaded, no P V product;
+//                    after chunk 0's exps o takes p of keys 0-63 (the
+//                    first 32 score registers are in o's m64n64 layout),
+//                    is rescaled by corr at every later chunk as K3
+//                    rescales o, and is written as o / l + v by the
+//                    output policy AttnOutPlusBf16. The kernel reads
+//                    the thread's v pairs when the tile starts, so the
+//                    load waits under the chunks, not in the epilogue,
+//                    where it would add to V7 a wait that K3 does not
+//                    have. p of chunk 0 is taken against chunk 0's max
+//                    and corrected, a few f32 ulps from the TPU body's
+//                    exp(s scale - max s). K3's time less V7's is what
+//                    the P V walk costs K3.
 //   V8 qk_only       diagnostic: out = bf16(q k^T)[:, :64] + v.
 //   V9 qk_chunked    diagnostic: out = sum over keys of q k^T, plus v.
 //
-// V6-V9 take a block per (64-row query tile, head, batch) and walk the
-// key tiles through shared memory (K and V staged 64 rows at a time, WMMA
+// V8 and V9 take a block per (64-row query tile, head, batch) and walk the
+// key tiles through shared memory (K staged 64 rows at a time, WMMA
 // 16x16x16 bf16 fragments from attention_tile.cuh, f32 accumulation), the
-// design the attention kernels had before wgmma. V7 walks them twice (the
-// exact row max, then exp and the denominator); V6, V8 and V9 once.
+// design the attention kernels had before wgmma.
 //
 // What bounds them on the H100, at the tuning shape (B = 32 views,
 // S = 577, H = 16): q/k/v and the output are ~151 MB (~0.045 ms at
@@ -47,16 +69,17 @@
 // memory. V8 stores only 64 score columns; every other score goes into a
 // per-row f32 side output, the row's sum of q k^T over all S keys, which
 // the plain version computes too. V7 stores only p's first 64 columns,
-// but every p enters den, which every output reads. V6 and V9 read every
+// but every p enters l, which every output reads. V6 and V9 read every
 // product into their outputs. Checked in the SASS (cuobjdump -sass of the
-// sm_90a build): V8 and V9 keep 16 HMMA (the score tile of every key
-// tile), V7 32 HMMA and 32 MUFU.EX2 (two walks; the exp of every key),
-// V6 32 HMMA.
+// sm_90a build; chip_smoke.py's [sass] lines): V6 24 HGMMA, as K3's
+// instance, and no MUFU.EX2; V7 8 HGMMA (K3's less the 16 of P V) and
+// K3's 132 MUFU.EX2; V8 and V9 16 HMMA each (the score tile of every
+// key tile).
 //
 // Constraints (checked by the Python wrapper before launch): head_dim 64,
 // bf16, (B, S, H, 64) contiguous and 16-byte aligned; V7 and V8 need
-// S >= 64. Rows of K/V past S are zero-filled and masked; query rows past
-// S are never written.
+// S >= 64. Rows of K/V past S are zero-filled (and masked where a
+// softmax runs); query rows past S are never written.
 
 #include "attention_tile.cuh"
 #include "flash_fwd_sm90.cuh"
@@ -64,17 +87,35 @@
 namespace {
 
 struct V10OnlineForward {};  // V10's instance of the streaming forward
+struct V6Attention {};       // V6's: CastChain
+struct V7Attention {};       // V7's: no P V
 
-constexpr int DIAG_SMEM = 4 * TILE_B + TILE_F;  // 54,272 B
+// V7's output, bf16(o / l + v): v the query row's own V row, at the
+// output's offset of the same (B, S, H, 64) layout.
+struct AttnOutPlusBf16 {
+  typedef bf16 T;
+  static constexpr bool SCALED = false;
+  static constexpr bool ADDS = true;
+  __device__ static __forceinline__ void store(T* dst, float o0, float o1,
+                                               float, uint32_t add) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&add));
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0 + v.x, o1 + v.y);
+  }
+};
 
-enum Diag { DOTS_ONLY = 0, SOFTMAX_ONLY = 1, QK_ONLY = 2, QK_CHUNKED = 3 };
+constexpr int DIAG_SMEM = 2 * TILE_B + TILE_F;  // 35,840 B
+
+// Numbered as when V6 and V7 were 0 and 1, so that fwd_diag_kernel's
+// instances keep their names (scripts/compare_torch_sass.py pairs kernels
+// across checkouts by name and first template argument).
+enum Diag { QK_ONLY = 2, QK_CHUNKED = 3 };
 
 struct FwdArgs {
   const bf16 *q, *k, *v;  // (B, S, P)
   bf16* out;              // (B, S, P)
   float* rowsum;          // (B, H, S), V8's side output
   int S, H;
-  float scale;
 };
 
 template <int KIND>
@@ -85,13 +126,10 @@ __global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
   const int n_tiles = (S + TILE - 1) / TILE;
   const int q0 = qt * TILE;
   const int rows = min(TILE, S - q0);
-  const float scale = args.scale;
 
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + TILE * LDB;
-  bf16* vs = ks + TILE * LDB;
-  bf16* ps = vs + TILE * LDB;
-  float* sf = reinterpret_cast<float*>(smem + 4 * TILE_B);
+  float* sf = reinterpret_cast<float*>(smem + 2 * TILE_B);
 
   const int warp = threadIdx.x / 32;
   const int rf = warp / 2;
@@ -102,35 +140,11 @@ __global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
   const size_t head = (size_t)b * S * P + h * DH;
   stage_tile(qs, args.q + head + (size_t)q0 * P, P, rows);
 
-  // V7's first walk: the exact row max of the scaled scores.
-  float m = -INFINITY;
-  if (KIND == SOFTMAX_ONLY) {
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv = min(TILE, S - kt * TILE);
-      stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-      __syncthreads();
-      score_tile(sf, qs, ks, rf, cf);
-      __syncthreads();
-#pragma unroll
-      for (int c = c0; c < c0 + 16; ++c) {
-        if (c < kv) m = fmaxf(m, sf[row * LDF + c] * scale);
-      }
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  }
-
-  float sum = 0.0f;  // V7: den; V8, V9: the row's sum of the scores
-  float first[16];   // V7: p, V8: the scores, of the first 64 keys
-  FragC acc[2];      // V6: bf16(s) @ V
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  float sum = 0.0f;  // the row's sum of the scores
+  float first[16];   // V8: the scores of the first 64 keys
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int kv = min(TILE, S - kt * TILE);
     stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-    if (KIND == DOTS_ONLY) {
-      stage_tile(vs, args.v + head + (size_t)kt * TILE * P, P, kv);
-    }
     __syncthreads();
     score_tile(sf, qs, ks, rf, cf);
     __syncthreads();
@@ -138,44 +152,11 @@ __global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
     for (int j = 0; j < 16; ++j) {
       const int c = c0 + j;
       const float s = c < kv ? sf[row * LDF + c] : 0.0f;
-      if (KIND == DOTS_ONLY) {
-        ps[row * LDB + c] = __float2bfloat16(s);
-      } else if (KIND == SOFTMAX_ONLY) {
-        const float p = c < kv ? expf(s * scale - m) : 0.0f;
-        sum += p;
-        if (kt == 0) first[j] = p;
-      } else {
-        sum += s;
-        if (kt == 0) first[j] = s;
-      }
-    }
-    if (KIND == DOTS_ONLY) {
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, ps + rf * 16 * LDB + kk, LDB);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragBRow fb;
-          wmma::load_matrix_sync(fb, vs + kk * LDB + (cf + j) * 16, LDB);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();  // vs and ps are rewritten next iteration
+      sum += s;
+      if (kt == 0) first[j] = s;
     }
   }
 
-  if (KIND == DOTS_ONLY) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(sf + rf * 16 * LDF + (cf + j) * 16, acc[j],
-                              LDF, wmma::mem_row_major);
-    }
-    __syncthreads();
-    write_rows(args.out + head + (size_t)q0 * P, sf, P, rows);
-    return;
-  }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
   if (row >= rows) return;
@@ -186,9 +167,7 @@ __global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float v = __bfloat162float(args.v[at + j + i]);
-      if (KIND == SOFTMAX_ONLY) {
-        o[i] = first[j + i] / sum + v;
-      } else if (KIND == QK_ONLY) {
+      if (KIND == QK_ONLY) {
         o[i] = __bfloat162float(__float2bfloat16(first[j + i])) + v;
       } else {
         o[i] = sum + v;
@@ -205,8 +184,7 @@ __global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
 template <int KIND>
 int launch_diag(const void* q, const void* k, const void* v, void* out,
                 void* rowsum, int batch, int seq, int heads, void* stream) {
-  const bool needs_64 = KIND == SOFTMAX_ONLY || KIND == QK_ONLY;
-  if (batch < 1 || seq < 1 || heads < 1 || (needs_64 && seq < DH)) {
+  if (batch < 1 || seq < 1 || heads < 1 || (KIND == QK_ONLY && seq < DH)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs args = {};
@@ -217,7 +195,6 @@ int launch_diag(const void* q, const void* k, const void* v, void* out,
   args.rowsum = static_cast<float*>(rowsum);
   args.S = seq;
   args.H = heads;
-  args.scale = 1.0f / sqrtf(static_cast<float>(DH));
   cudaError_t err = cudaFuncSetAttribute(
       fwd_diag_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DIAG_SMEM);
@@ -250,16 +227,22 @@ int pigeon_attention_online_c256(const void* q, const void* k, const void* v,
 int pigeon_attention_fwd_dots_only(const void* q, const void* k,
                                    const void* v, void* out, int batch,
                                    int seq, int heads, void* stream) {
-  return launch_diag<DOTS_ONLY>(q, k, v, out, nullptr, batch, seq, heads,
-                                stream);
+  return static_cast<int>(
+      launch_flash_forward<V6Attention, AttnOutBf16, FWD_CHUNK, CastChain>(
+          q, k, v, out, batch, seq, heads,
+          static_cast<cudaStream_t>(stream)));
 }
 
 // V7, scripts/bench_attn_fwd_diag.py::softmax_only.
 int pigeon_attention_fwd_softmax_only(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq, int heads, void* stream) {
-  return launch_diag<SOFTMAX_ONLY>(q, k, v, out, nullptr, batch, seq, heads,
-                                   stream);
+  if (seq < HD) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_flash_forward<V7Attention, AttnOutPlusBf16, FWD_CHUNK,
+                           SoftmaxChain, false>(
+          q, k, v, out, batch, seq, heads,
+          static_cast<cudaStream_t>(stream), nullptr, v));
 }
 
 // V8, scripts/bench_attn_fwd_diag.py::qk_only; rowsum (B, H, S) f32 takes

@@ -1,13 +1,13 @@
-// The WMMA attention tiles of the tuning kernels V6-V9
+// The WMMA attention tiles of the tuning kernels V8 and V9
 // (attention_fwd_variants.cu) and of nothing else: the design the
 // attention kernels had before they moved to wgmma, 64-row tiles of one
 // head staged in shared memory, WMMA 16x16x16 bf16 fragments with f32
 // accumulation.
 // `stage_tile` stages a 64 x 64 bf16 block, `score_tile` takes a 64 x 64
-// f32 score tile Q K^T, `write_rows` writes an f32 tile's rows as bf16.
+// f32 score tile Q K^T.
 //
-// Shared-memory layout, all row strides in elements: q/k/v/p tiles bf16
-// with stride LDB, the score tile f32 with stride LDF.
+// Shared-memory layout, all row strides in elements: q/k tiles bf16 with
+// stride LDB, the score tile f32 with stride LDF.
 
 #pragma once
 
@@ -36,8 +36,6 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
     FragBCol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragBRow;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // Copy a 64 x 64 bf16 block (global row stride `ld`) into shared memory,
@@ -53,22 +51,6 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
       v = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
     }
     *reinterpret_cast<uint4*>(dst + r * LDB + c) = v;
-  }
-}
-
-// Write a 64 x 64 f32 tile's first `rows` rows as bf16 into one head's
-// columns of a (B, S, P) tensor: each thread one row, 16 columns.
-__device__ __forceinline__ void write_rows(bf16* dst, const float* f,
-                                           int ld, int rows) {
-  const int row = threadIdx.x / 4;
-  const int c0 = (threadIdx.x % 4) * 16;
-  if (row < rows) {
-#pragma unroll
-    for (int c = 0; c < 16; c += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * ld + c0 + c) =
-          __floats2bfloat162_rn(f[row * LDF + c0 + c],
-                                f[row * LDF + c0 + c + 1]);
-    }
   }
 }
 

@@ -18,6 +18,18 @@
 // bf16 output never goes to device memory there (the TPU kernel keeps it
 // in VMEM).
 //
+// Two diagnostics of the tuning script run the same kernel under their
+// own tags (attention_fwd_variants.cu). The chain from a chunk's scores
+// to p is a policy, `Chain`: SoftmaxChain (above; every other user), or
+// V6's CastChain, p = bf16(s) of the unscaled scores with no mask, max,
+// exp or l, o never rescaled and stored undivided. `PV` = false (V7)
+// compiles out V's loads and every P V product: o holds p of keys 0-63
+// from chunk 0's exps (the first 32 score registers are in o's m64n64
+// layout) and is rescaled with the running max as K3 rescales o. Both
+// are template choices, never run-time branches, so every other
+// instance compiles as before. (flash_bwd_sm90.cuh has chain policies of
+// the same names for its gradient pass; no source includes both.)
+//
 // A persistent grid (one block an SM) walks the (128-row query tile,
 // head, image) tiles, query tiles of a head next to each other so their
 // K and V are read from L2. A block has 384 threads in three warpgroups:
@@ -47,8 +59,9 @@
 //
 // Keys past S (the ragged last chunk; TMA fills those rows with zeros) get
 // s = -inf before the max; a row whose max is still -inf takes 0 in its
-// place, so ex2 never sees -inf - (-inf). Query rows past S are computed
-// on zero rows and never written.
+// place, so ex2 never sees -inf - (-inf). CastChain leaves them at s = 0:
+// their V rows are zeros too, and bf16(-inf) x 0 would be NaN. Query rows
+// past S are computed on zero rows and never written.
 
 #pragma once
 
@@ -70,12 +83,17 @@ constexpr int FWD_SMEM = FWD_BAR_OFF + (4 + 3 * FWD_STAGES) * 8 + 1024;
 
 // The output policies: `store` takes a thread's pair o / l at two
 // neighbouring columns and the policy's scale (read once from the
-// caller's device pointer where SCALED) and writes the pair at `dst`.
+// caller's device pointer where SCALED) and writes the pair at `dst`;
+// where ADDS, also the pair at the same offset of the caller's (B, S, H,
+// 64) bf16 tensor `add`, two bf16 in a word, which the kernel reads when
+// the tile starts so that the load's latency hides under its chunks (0
+// otherwise).
 struct AttnOutBf16 {
   typedef bf16 T;
   static constexpr bool SCALED = false;
+  static constexpr bool ADDS = false;
   __device__ static __forceinline__ void store(T* dst, float o0, float o1,
-                                               float) {
+                                               float, uint32_t) {
     *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
   }
 };
@@ -85,8 +103,9 @@ struct AttnOutBf16 {
 struct AttnOutQuantized {
   typedef int8_t T;
   static constexpr bool SCALED = true;
+  static constexpr bool ADDS = false;
   __device__ static __forceinline__ void store(T* dst, float o0, float o1,
-                                               float a) {
+                                               float a, uint32_t) {
     const float2 o = __bfloat1622float2(__floats2bfloat162_rn(o0, o1));
     *reinterpret_cast<char2*>(dst) =
         make_char2(quantize_s8(o.x, a), quantize_s8(o.y, a));
@@ -151,14 +170,39 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
 }
 
-template <class Tag, class Out, int STEP>
+// The chain policies of a 128-key step: `apply` turns a chunk's scores
+// into p in place (its arguments are online_softmax's); where kSoftmax,
+// o is rescaled by corr after each chunk and divided by l at the end.
+struct SoftmaxChain {
+  static constexpr bool kSoftmax = true;
+  __device__ __forceinline__ static void apply(float (&s)[64], int kv,
+                                               int quad, float c2,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+    online_softmax(s, kv, quad, c2, m, l, corr);
+  }
+};
+
+// V6's casts: p = s, unscaled and unmasked (keys past S score 0 against
+// their zero-filled K rows and add 0 through their zero V rows).
+struct CastChain {
+  static constexpr bool kSoftmax = false;
+  __device__ __forceinline__ static void apply(float (&)[64], int, int,
+                                               float, float (&)[2],
+                                               float (&)[2], float (&)[2]) {}
+};
+
+template <class Tag, class Out, int STEP, class Chain, bool PV>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              typename Out::T* __restrict__ out,
                              const float* __restrict__ out_scale, int S,
-                             int H, int B, float c2) {
+                             int H, int B, float c2,
+                             const bf16* __restrict__ add) {
+  static_assert(STEP == FWD_CHUNK || (Chain::kSoftmax && PV),
+                "256-key steps run the softmax chain with P V");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const int n_qt = (S + FWD_ROWS - 1) / FWD_ROWS;
@@ -206,8 +250,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
           unsigned char* kv = smem + FWD_KV_OFF + st * 2 * TILE128;
           mbar_expect_tx(k_full + st, TILE128);
           tma_load(kv, &k_map, k_full + st, h, j * FWD_CHUNK, b);
-          mbar_expect_tx(v_full + st, TILE128);
-          tma_load(kv + TILE128, &v_map, v_full + st, h, j * FWD_CHUNK, b);
+          if constexpr (PV) {
+            mbar_expect_tx(v_full + st, TILE128);
+            tma_load(kv + TILE128, &v_map, v_full + st, h, j * FWD_CHUNK,
+                     b);
+          }
         }
       }
     }
@@ -239,10 +286,23 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     float corr[2];
     float s[64];
     uint32_t pa[8][4];
+    uint32_t adds[2][8];  // ADDS: the thread's pairs of `add`, both rows
+    if constexpr (Out::ADDS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = qt * FWD_ROWS + cw * 64 + row + 8 * r;
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            add + (static_cast<size_t>(b) * S + q) * ld + h * HD);
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8) {
+          adds[r][j8] = q < S ? __ldg(src + 4 * j8 + quad) : 0u;
+        }
+      }
+    }
     mbar_wait(q_full + qs, (qi / 2) & 1);
 
     if constexpr (STEP == FWD_CHUNK) {
-      // Chunk 0's scores and softmax.
+      // Chunk 0's scores and chain.
       int st = it % FWD_STAGES;
       mbar_wait(k_full + st, (it / FWD_STAGES) & 1);
       wgmma_fence();
@@ -255,11 +315,18 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      online_softmax(s, S, quad, c2, m, l, corr);
+      if constexpr (!PV) mbar_arrive(empty + st);  // s is all it reads
+      Chain::apply(s, S, quad, c2, m, l, corr);
+      if constexpr (PV) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+        for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+      } else {
+        // Without P V, o keeps p of keys 0-63: s[0..31] in o's layout.
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] = s[i];
+      }
 
-      // Chunk j's scores issued with chunk j - 1's P V, its softmax while
+      // Chunk j's scores issued with chunk j - 1's P V, its chain while
       // P V runs. The waits come before the products: a branch between
       // wgmma.fence and a stage's last product makes ptxas serialise them.
       for (int j = 1; j < n_chunks; ++j) {
@@ -267,11 +334,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
         const int prev_parity = (it / FWD_STAGES) & 1;
         ++it;
         st = it % FWD_STAGES;
-        mbar_wait(v_full + prev, prev_parity);
+        if constexpr (PV) mbar_wait(v_full + prev, prev_parity);
         mbar_wait(k_full + st, (it / FWD_STAGES) & 1);
         const uint32_t k_addr = kv_base + st * 2 * TILE128;
         const uint32_t v_addr = kv_base + prev * 2 * TILE128 + TILE128;
-        fence_regs(o);
+        if constexpr (PV) fence_regs(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
@@ -279,26 +346,37 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                               desc_sw128(k_addr + kk * 32), kk > 0);
         }
         wgmma_commit();
+        if constexpr (PV) {
 #pragma unroll
-        for (int k = 0; k < FWD_CHUNK / 16; ++k) {
-          wgmma_rs_n64<1>(o, pa[k], desc_sw128(v_addr + k * 16 * ROW_BYTES),
-                          1);
+          for (int k = 0; k < FWD_CHUNK / 16; ++k) {
+            wgmma_rs_n64<1>(o, pa[k],
+                            desc_sw128(v_addr + k * 16 * ROW_BYTES), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
         }
-        wgmma_commit();
-        wgmma_wait<1>();
         fence_regs(s);
-        online_softmax(s, S - j * FWD_CHUNK, quad, c2, m, l, corr);
-        wgmma_wait<0>();
-        fence_regs(o);
-        mbar_arrive(empty + prev);
+        if constexpr (!PV) mbar_arrive(empty + st);
+        Chain::apply(s, S - j * FWD_CHUNK, quad, c2, m, l, corr);
+        if constexpr (PV) {
+          wgmma_wait<0>();
+          fence_regs(o);
+          mbar_arrive(empty + prev);
+        }
         // p goes into the A fragments once P V has read them.
+        if constexpr (Chain::kSoftmax) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+          for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+        }
+        if constexpr (PV) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+          for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
+        }
       }
       // The last chunk's P V.
-      {
+      if constexpr (PV) {
         const uint32_t v_addr = kv_base + st * 2 * TILE128 + TILE128;
         mbar_wait(v_full + st, (it / FWD_STAGES) & 1);
         fence_regs(o);
@@ -312,8 +390,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait<0>();
         fence_regs(o);
         mbar_arrive(empty + st);
-        ++it;
       }
+      ++it;
     } else {
       // 256-key steps: each consumes two ring stages, one max over both
       // halves' scores before any exp. The first half's P V runs while
@@ -424,37 +502,48 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_arrive(q_empty + qs);
 
-    // out = Out(o / l) on the rows below S.
+    // out = Out(o / l) on the rows below S (Out(o) under CastChain).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if constexpr (Chain::kSoftmax) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
       const int q = qt * FWD_ROWS + cw * 64 + row + 8 * r;
       if (q >= S) continue;
       typename Out::T* dst =
           out + (static_cast<size_t>(b) * S + q) * ld + h * HD;
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8) {
-        Out::store(dst + 8 * j8 + 2 * quad, o[4 * j8 + 2 * r] / l[r],
-                   o[4 * j8 + 2 * r + 1] / l[r], out_a);
+        float o0 = o[4 * j8 + 2 * r], o1 = o[4 * j8 + 2 * r + 1];
+        if constexpr (Chain::kSoftmax) {
+          o0 = o0 / l[r];
+          o1 = o1 / l[r];
+        }
+        Out::store(dst + 8 * j8 + 2 * quad, o0, o1, out_a,
+                   Out::ADDS ? adds[r][j8] : 0u);
       }
     }
   }
 }
 
 // Launch the forward over (B, S, H, 64) q/k/v on `stream` into out (B, S,
-// H, 64) of the policy's type, STEP keys a softmax step (128 or 256);
-// `out_scale` a device pointer to the f32 scale of a SCALED policy.
-// Returns the first failing call's error.
-template <class Tag, class Out = AttnOutBf16, int STEP = FWD_CHUNK>
+// H, 64) of the policy's type, STEP keys a softmax step (128 or 256),
+// `Chain` and `PV` as the kernel's; `out_scale` a device pointer to the
+// f32 scale of a SCALED policy, `add` the (B, S, H, 64) bf16 tensor of an
+// ADDS policy. Returns the first failing call's error.
+template <class Tag, class Out = AttnOutBf16, int STEP = FWD_CHUNK,
+          class Chain = SoftmaxChain, bool PV = true>
 inline cudaError_t launch_flash_forward(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int seq, int heads,
                                         cudaStream_t stream,
-                                        const float* out_scale = nullptr) {
+                                        const float* out_scale = nullptr,
+                                        const void* add = nullptr) {
   static_assert(STEP == FWD_CHUNK || STEP == 2 * FWD_CHUNK,
                 "a step is one or two 128-key chunks");
-  if (batch < 1 || seq < 1 || heads < 1 || (Out::SCALED && !out_scale)) {
+  if (batch < 1 || seq < 1 || heads < 1 || (Out::SCALED && !out_scale) ||
+      (Out::ADDS && !add)) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap maps[3];
@@ -468,20 +557,21 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
   if (err != cudaSuccess) return err;
   static bool smem_set = false;  // once a process
   if (!smem_set) {
-    err = cudaFuncSetAttribute(flash_attention_kernel_wgmma<Tag, Out, STEP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               FWD_SMEM);
+    err = cudaFuncSetAttribute(
+        flash_attention_kernel_wgmma<Tag, Out, STEP, Chain, PV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const long tiles =
       static_cast<long>((seq + FWD_ROWS - 1) / FWD_ROWS) * heads * batch;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  flash_attention_kernel_wgmma<Tag, Out, STEP>
+  flash_attention_kernel_wgmma<Tag, Out, STEP, Chain, PV>
       <<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
           maps[0], maps[1], maps[2], static_cast<typename Out::T*>(out),
           out_scale, seq, heads, batch,
-          LOG2E / sqrtf(static_cast<float>(HD)));
+          LOG2E / sqrtf(static_cast<float>(HD)),
+          static_cast<const bf16*>(add));
   return cudaGetLastError();
 }
 

@@ -15,12 +15,16 @@ Each replaces one Pallas body of that TPU script, on the port's
 
 All are CUDA C++ for ``sm_90a`` in `csrc/attention_fwd_variants.cu`,
 built by ``nvcc`` at first use and bound with ``ctypes``; the source note
-says what bounds each on the card and how the designs answer that. V10
-runs K3's streaming ``wgmma`` forward (`csrc/flash_fwd_sm90.cuh`) with
-256-key softmax steps, each taking two of its 128-key K/V stages and one
-max over both before any exp; V6-V9 keep the WMMA design K3 had before
-``wgmma`` (`csrc/attention_tile.cuh`). The TPU script times them; on the
-card `scripts/bench_torch_attn_fwd_diag.py` does.
+says what bounds each on the card and how the designs answer that. V10,
+V6 and V7 run K3's streaming ``wgmma`` forward (`csrc/flash_fwd_sm90.cuh`)
+under tags of their own: V10 with 256-key softmax steps, each taking two
+of its 128-key K/V stages and one max over both before any exp; V6 with
+casts for the softmax chain (``CastChain``: p = bf16(s), o undivided);
+V7 without the P V product (``PV = false``: o keeps p of keys 0-63,
+rescaled as K3 rescales o, and is written as ``o / l + v``). V8 and V9
+keep the WMMA design K3 had before ``wgmma`` (`csrc/attention_tile.cuh`).
+The TPU script times them; on the card
+`scripts/bench_torch_attn_fwd_diag.py` does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version (``*_reference``, the arithmetic of the TPU body, which the CPU

@@ -235,7 +235,7 @@ def test_side_outputs_keep_the_whole_row():
 
 
 # ---------------------------------------------------------------------------
-# Models of the CUDA designs of V10 and V1-V5
+# Models of the CUDA designs of V10 and V1-V7
 # ---------------------------------------------------------------------------
 
 #: log2(e) and c2 = 64^-0.5 log2(e) in f32, as the kernels fold them.
@@ -516,6 +516,86 @@ def test_v5_design_matches_its_plain_version(s, dtype):
     assert torch.equal(got[2], k4_g_n.transpose(1, 2).contiguous())
 
 
+def v6_model(q, k, v):
+    """V6 on the card (K3's streaming forward under ``CastChain``): per
+    128-key chunk ``bf16(s) @ v_c`` of the unscaled scores, summed over
+    the chunks in f32, rounded once; no mask (keys past S are absent, as
+    their zero rows add 0)."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    acc = torch.zeros_like(qh)
+    for c0 in range(0, q.shape[1], 128):
+        s = qh @ kh[:, :, c0:c0 + 128].transpose(-1, -2)
+        acc = acc + s.to(dt).float() @ vh[:, :, c0:c0 + 128]
+    return acc.to(dt).transpose(1, 2).contiguous()
+
+
+def v7_model(q, k, v, correct: bool = True):
+    """V7 on the card (K3's streaming forward with ``PV = false``): K3's
+    online chain over 128-key chunks (``p = 2^(s c2 - m c2)`` against the
+    running max, ``den`` from f32 p); p of keys 0-63 kept from chunk 0
+    and rescaled by each later chunk's ``corr``, as K3 rescales o (not
+    rescaled where ``correct`` is false); then ``p / den + v``."""
+    dt = q.dtype
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    m = torch.full(qh.shape[:-1] + (1,), -torch.inf)
+    den = torch.zeros_like(m)
+    for c0 in range(0, q.shape[1], 128):
+        s = qh @ kh[:, :, c0:c0 + 128].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        mc = m_new * C2
+        p = torch.exp2(s * C2 - mc)
+        corr = torch.exp2(m * C2 - mc)
+        den = den * corr + p.sum(-1, keepdim=True)
+        if c0 == 0:
+            first = p[..., :DH]
+        elif correct:
+            first = first * corr
+        m = m_new
+    return (first / den + vh).to(dt).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v6_design_matches_its_plain_version(s, dtype):
+    """The model of V6 on the card, bf16 scores times V summed chunk by
+    chunk in f32, against V6's plain version (one product over all keys)
+    within the diagnostics' bound; at S = 300 the last chunk is ragged."""
+    _, (q, k, v) = operands(3, s, dtype)
+    got = v6_model(q, k, v)
+    assert got.dtype == q.dtype
+    assert_close(fold(got), fold(fv.fwd_dots_only_reference(q, k, v)),
+                 tuning.DIAG_TOL, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [80, 97, 300])
+def test_v7_design_matches_its_plain_version(s, dtype):
+    """The model of V7 on the card, K3's online chain with p of keys 0-63
+    corrected chunk by chunk, against V7's plain version (exp against the
+    exact row max) within the diagnostics' bound."""
+    _, (q, k, v) = operands(3, s, dtype)
+    got = v7_model(q, k, v)
+    assert got.dtype == q.dtype
+    assert_close(fold(got), fold(fv.fwd_softmax_only_reference(q, k, v)),
+                 tuning.DIAG_TOL, True)
+
+
+@pytest.mark.parametrize("s", [300, 577])
+def test_v7_design_corrects_chunk_0s_p_when_the_max_moves(s):
+    """On rows whose max lies in keys 128-255 (about 2 above chunk 0's),
+    V7's p of keys 0-63, taken against chunk 0's max, must be rescaled
+    by the later chunks' corr: with v = 0 the model's p / den is the
+    plain version's within f32 rounding, and without the correction it
+    is off by the factor e^2."""
+    q, k, v = crafted_operands(s, torch.float32)
+    v = torch.zeros_like(v)
+    want = fold(fv.fwd_softmax_only_reference(q, k, v))
+    assert_close(fold(v7_model(q, k, v)), want, 1e-5, True)
+    stale = fold(v7_model(q, k, v, correct=False)) / want
+    assert 5.0 < np.median(stale) < 10.0, np.median(stale)
+
+
 def test_split_runs_k4s_statistics_pass_under_its_own_tags():
     """The sources: V1-V5 launch K4's passes under their own tags, V2, V3
     and V5 K4's statistics pass (V1 its own, V5 without the dp product,
@@ -523,7 +603,8 @@ def test_split_runs_k4s_statistics_pass_under_its_own_tags():
     gradient pass with DQ = false, V4's the gradient pass under its
     CastChain, V5's the dl sweep; the WMMA tile header of V2 and V3 is
     gone and nothing includes it; V1-V5's source holds no WMMA code, and
-    the WMMA tiles of V6-V9 have their source as their only user."""
+    the WMMA tiles of V8 and V9 have their source as their only user and
+    keep nothing of V6's and V7's WMMA bodies."""
     csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
 
     def read(name):
@@ -558,6 +639,57 @@ def test_split_runs_k4s_statistics_pass_under_its_own_tags():
     assert [name for name in sorted(os.listdir(csrc))
             if '#include "attention_tile.cuh"' in read(name)] == [
         "attention_fwd_variants.cu"]
+    tile, fwd = read("attention_tile.cuh"), read("attention_fwd_variants.cu")
+    for gone in ("FragBRow", "write_rows", "DOTS_ONLY", "SOFTMAX_ONLY"):
+        assert gone not in tile and gone not in fwd, gone
+    assert re.findall(r"launch_diag<(\w+)>\(", fwd) == ["QK_ONLY",
+                                                       "QK_CHUNKED"]
+
+
+def test_v6_and_v7_run_k3s_forward_under_their_own_tags():
+    """The sources: V6 and V7 launch K3's streaming forward at 128-key
+    steps under their own tags, V6 under CastChain, V7 with PV = false
+    and its output policy (o / l + v, reading v), beside V10 at 256-key
+    steps; the kernel and its launcher take the chain and the flag as
+    template parameters whose defaults are K3's, so K3, K3′ and the
+    attention of K1 and K5-K8 launch as before; no source includes both
+    the forward and the backward, whose chain policies share names."""
+    from pigeon_tpu_torch import native
+
+    csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
+
+    def read(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    launches = re.findall(
+        r"launch_flash_forward<(\w+),\s*(\w+),\s*(\w+)(?:,\s*(\w+))?"
+        r"(?:,\s*(\w+))?>", read("attention_fwd_variants.cu"))
+    assert launches == [
+        ("V10OnlineForward", "AttnOutBf16", "256", "", ""),
+        ("V6Attention", "AttnOutBf16", "FWD_CHUNK", "CastChain", ""),
+        ("V7Attention", "AttnOutPlusBf16", "FWD_CHUNK", "SoftmaxChain",
+         "false")]
+    header = read("flash_fwd_sm90.cuh")
+    assert re.findall(r"template <class Tag, class Out, int STEP, class "
+                      r"Chain, bool PV>\s+__global__[^\n]*\n"
+                      r"flash_attention_kernel_wgmma", header)
+    assert re.findall(r"template <class Tag, class Out = AttnOutBf16, int "
+                      r"STEP = FWD_CHUNK,\s+class Chain = SoftmaxChain, "
+                      r"bool PV = true>\s+inline cudaError_t "
+                      r"launch_flash_forward", header)
+    for src, tag in (("flash_attention.cu", "K3Forward"),
+                     ("flash_attention_online.cu", "K3OnlineForward")):
+        assert re.findall(r"launch_flash_forward<(\w+)>", read(src)) == [tag]
+    assert re.findall(r"launch_flash_forward<(\w+), (\w+)>\(",
+                      read("qkv_forward_sm90.cuh")) == [("AttentionTag",
+                                                        "Attention")]
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            closure = {os.path.basename(p) for p in native.source_closure(
+                os.path.join(csrc, name))}
+            assert not {"flash_fwd_sm90.cuh",
+                        "flash_bwd_sm90.cuh"} <= closure, name
 
 
 # ---------------------------------------------------------------------------
@@ -656,12 +788,16 @@ def test_k3_online_keeps_chunk_128_and_v10_runs_256():
 # The drivers
 # ---------------------------------------------------------------------------
 
-def load_driver(name: str):
+def load_module(path: str):
     spec = importlib.util.spec_from_file_location(
-        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+        os.path.splitext(os.path.basename(path))[0], path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_driver(name: str):
+    return load_module(os.path.join(ROOT, "scripts", f"{name}.py"))
 
 
 def jax_variant_names(script: str) -> list:
@@ -707,6 +843,101 @@ def test_bwd_driver_composition_computes_v4s_function(s):
     want = bv.bwd_dots_only_reference(*args)
     assert [t.shape for t in got] == [t.shape for t in want]
     assert tuning.errors(got, want)[1] <= tuning.DIAG_TOL
+
+
+@pytest.mark.parametrize("s", [80, 300])
+@pytest.mark.parametrize("kernel", ["fwd_dots_only", "fwd_softmax_only",
+                                    "fwd_qk_only", "fwd_qk_chunked"])
+def test_fwd_driver_compositions_compute_their_variants_function(kernel, s):
+    """The forward driver's yardsticks of V6-V9, each diagnostic's
+    function in library calls (bf16 matmuls, whose scores round to bf16),
+    compute that function: within the diagnostics' bound of its plain
+    version, in its layout and types."""
+    driver = load_driver("bench_torch_attn_fwd_diag")
+    _, args = operands(3, s, "bfloat16")
+    got = tuning.outputs(driver.COMPOSITIONS[kernel](*args))
+    want = tuning.outputs(getattr(fv, f"{kernel}_reference")(*args))
+    assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                 for t in want]
+    assert tuning.errors(got, want)[1] <= tuning.DIAG_TOL
+
+
+@pytest.mark.parametrize("s", [300, 577])
+def test_fwd_driver_checks_v7_with_v_zero(monkeypatch, s):
+    """The forward driver's check of V7 with v = 0 on seeded operands
+    (not crafted ones): it passes the model of V7's kernel and refuses,
+    at more than 10 times the diagnostics' bound, the model whose p of
+    keys 0-63 missed the later chunks' corr."""
+    driver = load_driver("bench_torch_attn_fwd_diag")
+    _, (q, k) = operands(2, s, "bfloat16")
+    monkeypatch.setattr(fv, "fwd_softmax_only", v7_model)
+    rec = driver.softmax_only_without_v(q, k)
+    assert rec["check"] == "fwd_softmax_only_v_zero"
+    assert rec["max_err_vs_plain"] <= tuning.DIAG_TOL
+    assert rec["max_magnitude"] > 0
+    monkeypatch.setattr(fv, "fwd_softmax_only", functools.partial(
+        v7_model, correct=False))
+    with pytest.raises(RuntimeError, match="v = 0") as err:
+        driver.softmax_only_without_v(q, k)
+    assert float(str(err.value).split("relative error ")[1].split()[0]) \
+        > 10 * tuning.DIAG_TOL
+
+
+def test_sass_comparison_pairs_mangled_kernels_across_builds():
+    """`scripts/compare_torch_sass.py` keys a kernel whose name stays
+    mangled without the hashes that each build puts in its anonymous
+    namespace's name, so two checkouts' instances pair, and keeps the
+    template argument that tells them apart; other names are untouched."""
+    compare = load_module(os.path.join(ROOT, "scripts",
+                                       "compare_torch_sass.py"))
+    name = ("_ZN58_GLOBAL__N__{}_25_attention_fwd_variants_cu_9e1bd01b"
+            "15fwd_diag_kernelILi{}EEEvNS_7FwdArgsE")
+    here, there = (compare.stable(name.format(h, 2))
+                   for h in ("3b9d1546", "85a163e7"))
+    assert here == there and len(here) == len(name.format("3b9d1546", 2))
+    assert compare.stable(name.format("3b9d1546", 3)) != here
+    assert compare.stable("_Z3fooi") == "_Z3fooi"
+
+
+def test_smoke_tables_name_the_drivers_variants_and_yardsticks():
+    """`chip_smoke.py`'s [variants] tables name what the drivers make:
+    each pair's variants, each tuning kernel's yardstick (a record the
+    drivers time) and each forward tag (a kernel instance's tag type in
+    the sources)."""
+    smoke = load_module(os.path.join(ROOT, "chip_smoke.py"))
+    _, args3 = operands(3, 80, "bfloat16")
+    _, args4 = operands(4, 80, "bfloat16")
+    names = {v.name for v in load_driver("bench_torch_attn_fwd_diag")
+             .variants(*args3)}
+    names |= {v.name for v in load_driver("bench_torch_attn_bwd")
+              .variants(*args4)}
+    assert {n for pair in smoke.VARIANT_PAIRS for n in pair} <= names
+    sources = ""
+    for name in smoke.DRIVERS:
+        with open(os.path.join(ROOT, "scripts", f"{name}.py")) as f:
+            sources += f.read()
+    fwd = load_driver("bench_torch_attn_fwd_diag")
+    for kernel, yardstick in smoke.VARIANT_LIBRARY.items():
+        assert kernel in smoke.VARIANT_WORK
+        assert (f'"yardstick": "{yardstick}"' in sources or yardstick in
+                [f"{k}_composition" for k in fwd.COMPOSITIONS]), yardstick
+    for tags, passes, diffs in ((smoke.FWD_TAGS, smoke.FWD_PASSES,
+                                 smoke.FWD_DIFFS),
+                                (smoke.BWD_TAGS, smoke.BWD_PASSES,
+                                 smoke.BWD_DIFFS)):
+        labels = {label for label, _ in passes}
+        assert {name for _, name in diffs} <= {name for name, _, _ in tags}
+        assert all(set(launched) <= labels for _, _, launched in tags)
+        assert {label for label, _ in diffs} <= labels
+    csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
+    text = ""
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            text += f.read()
+    for _, tag, _ in smoke.FWD_TAGS:
+        assert re.search(rf"struct {tag} {{}};", text), tag
+    for tag in smoke.SASS_TAGS:
+        assert re.search(rf"struct {tag} {{}};", text), tag
 
 
 def test_fwd_and_qkv_drivers_run_the_script_variants_on_the_cpu():
@@ -991,3 +1222,58 @@ def test_cuda_v5_dv_is_k4s_g_n(cuda, b, s, heads):
     torch.cuda.synchronize()
     assert torch.equal(stats[:2], ws.stats[:2])
     assert torch.equal(dv, ws.g_n)
+
+
+#: V6 and V7 at the ragged steps of K3's 128-key chunks (V7 from S = 64:
+#: the TPU body slices 64 key columns).
+V6_V7_STEPS = [(wrapper, s)
+               for wrapper in (fv.fwd_dots_only, fv.fwd_softmax_only)
+               for s in (64, 65, 127, 128, 129, 255, 256, 257, 577)]
+FWD_PLAIN = {fv.fwd_dots_only: fv.fwd_dots_only_reference,
+             fv.fwd_softmax_only: fv.fwd_softmax_only_reference}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper, s", V6_V7_STEPS,
+                         ids=[f"{w.__name__}-{s}" for w, s in V6_V7_STEPS])
+def test_cuda_v6_and_v7_at_ragged_steps(cuda, wrapper, s):
+    """V6's and V7's last 128-key chunk may be ragged (V6's keys past S
+    unmasked, scoring 0 against zero rows of K and V; V7's masked): each
+    output within the diagnostics' bound of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 3, (2, s, 2, DH))
+    got = tuning.outputs(wrapper(*args))
+    torch.cuda.synchronize()
+    assert tuning.errors(got, tuning.outputs(FWD_PLAIN[wrapper](*args)))[1] \
+        <= tuning.DIAG_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 129, 2), (4, 577, 4),
+                                         (32, 577, 16)])
+def test_cuda_v6_and_v7_repeat_bit_for_bit(cuda, b, s, heads):
+    """V6 and V7 keep each row's sums in registers and take them in one
+    order, so two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 3, (b, s, heads, DH))
+    first = (fv.fwd_dots_only(*args), fv.fwd_softmax_only(*args))
+    second = (fv.fwd_dots_only(*args), fv.fwd_softmax_only(*args))
+    torch.cuda.synchronize()
+    for a, w in zip(first, second, strict=True):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [300, 577])
+def test_cuda_v7_corrects_chunk_0s_p_when_the_max_moves(cuda, s):
+    """On rows whose max lies in keys 128-255, V7 rescales p of keys 0-63
+    (taken against chunk 0's max) by the later chunks' corr: with v = 0
+    its output is p / den alone, within the diagnostics' bound of the
+    plain version, where p left at chunk 0's max would be e^2 times too
+    large; with the crafted v as well."""
+    q, k, v = (t.to(cuda) for t in crafted_operands(s))
+    for vv in (torch.zeros_like(v), v):
+        got = fv.fwd_softmax_only(q, k, vv)
+        torch.cuda.synchronize()
+        want = fv.fwd_softmax_only_reference(q, k, vv)
+        assert tuning.errors([got], [want])[1] <= tuning.DIAG_TOL
