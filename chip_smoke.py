@@ -13,12 +13,14 @@ Phases, one line each, any failure raises:
              from the checkout's sources, with nvcc's register, spill and
              wgmma-serialisation (C7513/C7514) lines and the HGMMA count
              of the SASS of the wgmma kernels K1, K2, K3, K3′, K4, K5, K6,
-             K7, K8 and K9 and of the two tuning sources, whose V10, V6,
-             V7 and V1-V5 run K3's and K4's wgmma kernels (cuobjdump; a
-             source without HGMMA fails the phase), and the HGMMA and
-             MUFU.EX2 counts of each kernel of V4-V7 (a V5 or V7 kernel
-             without MUFU.EX2 fails it: its exps were deleted; so do a
-             V6 kernel with one, or with another HGMMA count than K3's);
+             K7, K8 and K9 and of the two tuning sources, whose V6-V10
+             and V1-V5 run K3's and K4's wgmma kernels (cuobjdump; a
+             source without HGMMA fails the phase, and so does an HMMA in
+             the forward's), and the HGMMA and MUFU.EX2 counts of each
+             kernel of V4-V9 (a V5 or V7 kernel without MUFU.EX2 fails
+             it: its exps were deleted; so do a V6, V8 or V9 kernel with
+             one, or a V6 kernel with another HGMMA count than K3's, or a
+             V7, V8 or V9 kernel with another than K3's less 16);
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -170,10 +172,11 @@ Phases, one line each, any failure raises:
              not launch must show none), with V2's and V3's wrapper and
              bare C call ms, then K4's gradient pass minus V4's and K4's
              statistics pass minus V5's, after the launches are read;
-             then V6's and V7's ms beside K3's, and K3's, V6's, V7's and
+             then V6's-V9's ms beside K3's, and K3's, V6's-V9's and
              V10's device ms (torch.profiler, by tag: V6 casts for the
-             softmax chain, V7 drops the P V product), then K3's minus
-             V6's and minus V7's.
+             softmax chain, V7 drops the P V product, V8 and V9 are the
+             score walk alone), then K3's minus V6's-V9's, and V7's and
+             V6's minus V9's.
 
 The second-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -346,14 +349,16 @@ VARIANT_ITERS, VARIANT_WINDOWS = 3, 3
 #: [variants]: the tuning kernels on K3's and K4's wgmma kernels, each
 #: beside the K kernel whose design it shares, by the drivers' variant
 #: names: V10 (256-key steps) beside K3′ (128), V1, split4 (V2 + V3), V4
-#: and V5 beside K4, V6 and V7 beside K3.
+#: and V5 beside K4, V6-V9 beside K3.
 VARIANT_PAIRS = (("online_softmax_p4_c256", "online_softmax_p4_c128"),
                  ("r_from_o_pack2", "base_pack2"),
                  ("split4", "base_pack2"),
                  ("diag_dots_only_p2", "base_pack2"),
                  ("diag_vpu_only_p2", "base_pack2"),
                  ("diag_dots_only_p4", "base_fwd_pack4"),
-                 ("diag_softmax_only_p4", "base_fwd_pack4"))
+                 ("diag_softmax_only_p4", "base_fwd_pack4"),
+                 ("diag_qk_only_p4", "base_fwd_pack4"),
+                 ("diag_qk_chunked_p4", "base_fwd_pack4"))
 #: The attention backward's passes by their kernels' names
 #: (`csrc/flash_bwd_sm90.cuh`; V1's statistics pass is its own, V2's dq
 #: rows and V5's dl sweep are theirs alone), and each wrapper's tag and
@@ -376,21 +381,32 @@ BWD_TAGS = (("bwd_r_from_o", "V1Attention", ("statistics", "gradient", "dq")),
 BWD_DIFFS = (("gradient", "bwd_dots_only"), ("statistics", "bwd_vpu_only"))
 #: [variants]: the forward's one pass, K3's streaming forward
 #: (`csrc/flash_fwd_sm90.cuh`), by each wrapper's tag, as the backward's
-#: passes: K3, V6 (casts for the softmax chain), V7 (no P V product) and
-#: V10 (256-key steps); then K3's minus each diagnostic's (`FWD_DIFFS`):
-#: what the softmax chain costs K3, and what the P V walk costs it.
+#: passes: K3, V6 (casts for the softmax chain), V7 (no P V product), V8
+#: and V9 (the score walk alone, under a row-sum chain) and V10 (256-key
+#: steps); then K3's minus each diagnostic's (`FWD_DIFFS`): what the
+#: softmax chain costs K3, what the P V walk costs it, and what it spends
+#: beyond its score walk; then each diagnostic's minus the score walk's
+#: (`FWD_WALK_DIFFS`, V7's and V6's minus V9's): the softmax chain on one
+#: walk, which nothing overlaps, and the P V walk without a chain.
 FWD_PASSES = (("forward", "flash_attention_kernel_wgmma"),)
 FWD_TAGS = (("flash_attention", "K3Forward", ("forward",)),
             ("fwd_dots_only", "V6Attention", ("forward",)),
             ("fwd_softmax_only", "V7Attention", ("forward",)),
+            ("fwd_qk_only", "V8Attention", ("forward",)),
+            ("fwd_qk_chunked", "V9Attention", ("forward",)),
             ("flash_attention_online_c256", "V10OnlineForward", ("forward",)))
-FWD_DIFFS = (("forward", "fwd_dots_only"), ("forward", "fwd_softmax_only"))
+FWD_DIFFS = (("forward", "fwd_dots_only"), ("forward", "fwd_softmax_only"),
+             ("forward", "fwd_qk_only"), ("forward", "fwd_qk_chunked"))
+FWD_WALK_DIFFS = (("fwd_softmax_only", "fwd_qk_chunked"),
+                  ("fwd_dots_only", "fwd_qk_chunked"))
 #: [sass]: the tuning kernels whose every kernel's HGMMA and MUFU.EX2
 #: counts the build phase prints, by tag; the diagnostics whose kernels
 #: must each keep MUFU.EX2 (their exps are the measured work); those
 #: whose kernels must have none (their exps were cast away).
-SASS_TAGS = ("V4Attention", "V5Attention", "V6Attention", "V7Attention")
-SASS_EXPS, SASS_NO_EXPS = ("V5Attention", "V7Attention"), ("V6Attention",)
+SASS_TAGS = ("V4Attention", "V5Attention", "V6Attention", "V7Attention",
+             "V8Attention", "V9Attention")
+SASS_EXPS = ("V5Attention", "V7Attention")
+SASS_NO_EXPS = ("V6Attention", "V8Attention", "V9Attention")
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at
 #: 700 W): operations per second by operand type, and device-memory
 #: bytes per second. A kernel's bound is the largest of its bytes over the
@@ -2383,9 +2399,9 @@ def backward_stages() -> None:
 def forward_stages() -> None:
     """[variants]: the device ms of K3's streaming forward under each
     wrapper's tag (`FWD_PASSES`, `FWD_TAGS`) at the drivers' shape, K3
-    under its monolithic body (`device_stages`); then K3's minus V6's and
-    V7's (`FWD_DIFFS`). Runs after [variants] has read its launch
-    counts."""
+    under its monolithic body (`device_stages`); then K3's minus V6's-V9's
+    (`FWD_DIFFS`), and V7's and V6's minus V9's (`FWD_WALK_DIFFS`). Runs
+    after [variants] has read its launch counts."""
     from unittest import mock
 
     import torch
@@ -2400,12 +2416,20 @@ def forward_stages() -> None:
     fns = {"flash_attention": k34.flash_attention,
            "fwd_dots_only": fv.fwd_dots_only,
            "fwd_softmax_only": fv.fwd_softmax_only,
+           "fwd_qk_only": fv.fwd_qk_only,
+           "fwd_qk_chunked": fv.fwd_qk_chunked,
            "flash_attention_online_c256": fv.flash_attention_online_c256}
     with mock.patch.dict(os.environ, {"PIGEON_FLASH_FWD": "monolithic"}):
         diffs = device_stages(fns, (q, k, v), FWD_PASSES, FWD_TAGS,
                               "flash_attention", FWD_DIFFS)
     phase("variants", k3_minus_diagnostic_device_ms=json.dumps(
         diffs, separators=(",", ":")))
+    # (K3 - b) - (K3 - a) = a - b, from the same profiles.
+    walk = {f"{a}-{b}": round(diffs[f"forward-{b}"] - diffs[f"forward-{a}"],
+                              4)
+            for a, b in FWD_WALK_DIFFS}
+    phase("variants", diagnostic_minus_walk_device_ms=json.dumps(
+        walk, separators=(",", ":")))
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -2477,17 +2501,23 @@ def build_kernels() -> None:
                               check=True).stdout.splitlines()
         hgmma = sum("HGMMA" in line for line in sass)
         igmma = sum("IGMMA" in line for line in sass)
+        hmma = sum("HMMA" in line for line in sass)
         if not hgmma or (name.endswith("_int8") and not igmma):
             raise RuntimeError(f"{name}: no HGMMA or IGMMA in its SASS")
-        phase("sass", kernel=name, hgmma=hgmma, igmma=igmma)
+        if name == "attention_fwd_variants" and hmma:
+            raise RuntimeError(f"{name}: {hmma} HMMA (WMMA) in its SASS")
+        phase("sass", kernel=name, hgmma=hgmma, igmma=igmma, hmma=hmma)
         hgmma_by_source[name] = hgmma
         if name.startswith("attention_"):
             by_tag.update(sass_by_function(sass))
     # V6 is K3's kernel under casts for the chain: K3's products, no exp.
-    # V7 is K3's kernel without P V: K3's products less the 16 of P V.
+    # V7, V8 and V9 are K3's kernel without P V: K3's products less the 16
+    # of P V.
     k3_hgmma = hgmma_by_source["flash_attention"]
     for tag, hgmma in (("V6Attention", k3_hgmma),
-                       ("V7Attention", k3_hgmma - 16)):
+                       ("V7Attention", k3_hgmma - 16),
+                       ("V8Attention", k3_hgmma - 16),
+                       ("V9Attention", k3_hgmma - 16)):
         got = [h for h, _ in by_tag.get(tag, [])]
         if got != [hgmma]:
             raise RuntimeError(f"{tag}: HGMMA {got}, not [{hgmma}] "

@@ -48,40 +48,52 @@
 //                    and corrected, a few f32 ulps from the TPU body's
 //                    exp(s scale - max s). K3's time less V7's is what
 //                    the P V walk costs K3.
-//   V8 qk_only       diagnostic: out = bf16(q k^T)[:, :64] + v.
-//   V9 qk_chunked    diagnostic: out = sum over keys of q k^T, plus v.
+//   V8 qk_only       diagnostic: out = bf16(f32(bf16(q k^T)[:, :64]) + v),
+//                    and rowsum (B, H, S) f32, each row's sum of q k^T
+//                    over all S keys.
+//   V9 qk_chunked    diagnostic: out = bf16(the row's sum of q k^T + v),
+//                    the sum broadcast over the 64 columns.
 //
-// V8 and V9 take a block per (64-row query tile, head, batch) and walk the
-// key tiles through shared memory (K staged 64 rows at a time, WMMA
-// 16x16x16 bf16 fragments from attention_tile.cuh, f32 accumulation), the
-// design the attention kernels had before wgmma.
+// V8 and V9 are K3's forward at 128-key steps with PV = false under
+// SumChain and their own tags, V8Attention and V9Attention: one walk of
+// s = Q K_c^T by four m64n128k16 steps a chunk, V never loaded as tiles.
+// The chain only adds the thread's 32 scores of each row into l (no mask:
+// keys past S score 0 against zero-filled K rows; no max, exp or corr),
+// and the epilogue reduces l over the row's four threads. After chunk 0
+// o takes the raw scores of keys 0-63 (the first 32 score registers, in
+// o's m64n64 layout), never rescaled. V8's output policy
+// AttnOutScoresPlusBf16 rounds o to bf16 before it adds v and writes l to
+// rowsum once a row; V9's AttnOutSumPlusBf16 writes l + v in every
+// column, so its o is dead. Both read their v pairs when the tile starts,
+// as V7 does. So K3's time less V9's is what K3 spends beyond its score
+// walk, V7's less V9's the softmax chain on one walk (which nothing
+// overlaps), and V6's less V9's the P V walk.
 //
 // What bounds them on the H100, at the tuning shape (B = 32 views,
 // S = 577, H = 16): q/k/v and the output are ~151 MB (~0.045 ms at
-// 3.35 TB/s); one S x S x 64 product is ~22 GFLOP (~0.022 ms at 989
-// TFLOP/s). V10 and V6 do two products, V7, V8 and V9 one; V10's and
-// V7's softmax adds ~5 f32 operations and an exp an S x S element (~1 G,
-// ~0.015 ms). The bytes and the products are within a factor two of each
-// other: neither leaves room, and the diagnostics' times against K3's say
-// which part of K3's time is which.
+// 3.35 TB/s; V7, V8 and V9 read v once, for the add); one S x S x 64
+// product is ~21.8 GFLOP (~0.022 ms at 989 TFLOP/s). V10 and V6 do two
+// products, V7, V8 and V9 one; V10's and V7's softmax adds ~5 f32
+// operations and an exp an S x S element (~1 G, ~0.015 ms), V8's and
+// V9's sums one add an element. The bytes and the products are within a
+// factor two of each other: neither leaves room, and the diagnostics'
+// times against K3's say which part of K3's time is which.
 //
 // Keeping the measured work alive: nvcc deletes what never reaches
-// memory. V8 stores only 64 score columns; every other score goes into a
-// per-row f32 side output, the row's sum of q k^T over all S keys, which
-// the plain version computes too. V7 stores only p's first 64 columns,
-// but every p enters l, which every output reads. V6 and V9 read every
-// product into their outputs. Checked in the SASS (cuobjdump -sass of the
-// sm_90a build; chip_smoke.py's [sass] lines): V6 24 HGMMA, as K3's
-// instance, and no MUFU.EX2; V7 8 HGMMA (K3's less the 16 of P V) and
-// K3's 132 MUFU.EX2; V8 and V9 16 HMMA each (the score tile of every
-// key tile).
+// memory. V8 stores only 64 score columns; every score enters l, which
+// its side output rowsum reads (the plain version computes it too). V7
+// stores only p's first 64 columns, but every p enters l, which every
+// output reads. V6 and V9 read every product into their outputs. Checked
+// in the SASS (cuobjdump -sass of the sm_90a build; chip_smoke.py's
+// [sass] lines): V6 24 HGMMA, as K3's instance, and no MUFU.EX2; V7 8
+// HGMMA (K3's less the 16 of P V) and K3's 132 MUFU.EX2; V8 and V9 8
+// HGMMA and no MUFU.EX2 each; no HMMA in the source.
 //
 // Constraints (checked by the Python wrapper before launch): head_dim 64,
 // bf16, (B, S, H, 64) contiguous and 16-byte aligned; V7 and V8 need
 // S >= 64. Rows of K/V past S are zero-filled (and masked where a
 // softmax runs); query rows past S are never written.
 
-#include "attention_tile.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -89,6 +101,8 @@ namespace {
 struct V10OnlineForward {};  // V10's instance of the streaming forward
 struct V6Attention {};       // V6's: CastChain
 struct V7Attention {};       // V7's: no P V
+struct V8Attention {};       // V8's: SumChain, no P V, rowsum
+struct V9Attention {};       // V9's: SumChain, no P V
 
 // V7's output, bf16(o / l + v): v the query row's own V row, at the
 // output's offset of the same (B, S, H, 64) layout.
@@ -96,114 +110,45 @@ struct AttnOutPlusBf16 {
   typedef bf16 T;
   static constexpr bool SCALED = false;
   static constexpr bool ADDS = true;
+  static constexpr bool ROWSUM = false;
   __device__ static __forceinline__ void store(T* dst, float o0, float o1,
-                                               float, uint32_t add) {
+                                               float, float, uint32_t add) {
     const float2 v = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&add));
     *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0 + v.x, o1 + v.y);
   }
 };
 
-constexpr int DIAG_SMEM = 2 * TILE_B + TILE_F;  // 35,840 B
-
-// Numbered as when V6 and V7 were 0 and 1, so that fwd_diag_kernel's
-// instances keep their names (scripts/compare_torch_sass.py pairs kernels
-// across checkouts by name and first template argument).
-enum Diag { QK_ONLY = 2, QK_CHUNKED = 3 };
-
-struct FwdArgs {
-  const bf16 *q, *k, *v;  // (B, S, P)
-  bf16* out;              // (B, S, P)
-  float* rowsum;          // (B, H, S), V8's side output
-  int S, H;
+// V8's output, bf16(f32(bf16(o)) + v): o the raw scores of keys 0-63,
+// rounded to bf16 before v is added, as the TPU body casts its logits;
+// the row's sum l to the side output rowsum.
+struct AttnOutScoresPlusBf16 {
+  typedef bf16 T;
+  static constexpr bool SCALED = false;
+  static constexpr bool ADDS = true;
+  static constexpr bool ROWSUM = true;
+  __device__ static __forceinline__ void store(T* dst, float o0, float o1,
+                                               float, float, uint32_t add) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&add));
+    const float2 s = __bfloat1622float2(__floats2bfloat162_rn(o0, o1));
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(s.x + v.x, s.y + v.y);
+  }
 };
 
-template <int KIND>
-__global__ void __launch_bounds__(THREADS) fwd_diag_kernel(FwdArgs args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int S = args.S, H = args.H, P = H * DH;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + TILE - 1) / TILE;
-  const int q0 = qt * TILE;
-  const int rows = min(TILE, S - q0);
-
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + TILE * LDB;
-  float* sf = reinterpret_cast<float*>(smem + 2 * TILE_B);
-
-  const int warp = threadIdx.x / 32;
-  const int rf = warp / 2;
-  const int cf = (warp % 2) * 2;
-  const int row = threadIdx.x / 4;
-  const int c0 = (threadIdx.x % 4) * 16;
-
-  const size_t head = (size_t)b * S * P + h * DH;
-  stage_tile(qs, args.q + head + (size_t)q0 * P, P, rows);
-
-  float sum = 0.0f;  // the row's sum of the scores
-  float first[16];   // V8: the scores of the first 64 keys
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int kv = min(TILE, S - kt * TILE);
-    stage_tile(ks, args.k + head + (size_t)kt * TILE * P, P, kv);
-    __syncthreads();
-    score_tile(sf, qs, ks, rf, cf);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = c0 + j;
-      const float s = c < kv ? sf[row * LDF + c] : 0.0f;
-      sum += s;
-      if (kt == 0) first[j] = s;
-    }
+// V9's output, bf16(l + v): the row's sum of q k^T in every column.
+struct AttnOutSumPlusBf16 {
+  typedef bf16 T;
+  static constexpr bool SCALED = false;
+  static constexpr bool ADDS = true;
+  static constexpr bool ROWSUM = false;
+  __device__ static __forceinline__ void store(T* dst, float, float, float l,
+                                               float, uint32_t add) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&add));
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(l + v.x, l + v.y);
   }
-
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  if (row >= rows) return;
-  const size_t at = head + (size_t)(q0 + row) * P + c0;
-#pragma unroll
-  for (int j = 0; j < 16; j += 2) {
-    float o[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float v = __bfloat162float(args.v[at + j + i]);
-      if (KIND == QK_ONLY) {
-        o[i] = __bfloat162float(__float2bfloat16(first[j + i])) + v;
-      } else {
-        o[i] = sum + v;
-      }
-    }
-    *reinterpret_cast<__nv_bfloat162*>(args.out + at + j) =
-        __floats2bfloat162_rn(o[0], o[1]);
-  }
-  if (KIND == QK_ONLY && threadIdx.x % 4 == 0) {
-    args.rowsum[((size_t)b * H + h) * S + q0 + row] = sum;
-  }
-}
-
-template <int KIND>
-int launch_diag(const void* q, const void* k, const void* v, void* out,
-                void* rowsum, int batch, int seq, int heads, void* stream) {
-  if (batch < 1 || seq < 1 || heads < 1 || (KIND == QK_ONLY && seq < DH)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  FwdArgs args = {};
-  args.q = static_cast<const bf16*>(q);
-  args.k = static_cast<const bf16*>(k);
-  args.v = static_cast<const bf16*>(v);
-  args.out = static_cast<bf16*>(out);
-  args.rowsum = static_cast<float*>(rowsum);
-  args.S = seq;
-  args.H = heads;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_diag_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DIAG_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 tiles((seq + TILE - 1) / TILE, heads, batch);
-  fwd_diag_kernel<KIND><<<tiles, THREADS, DIAG_SMEM,
-                          static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
@@ -250,16 +195,24 @@ int pigeon_attention_fwd_softmax_only(const void* q, const void* k,
 int pigeon_attention_fwd_qk_only(const void* q, const void* k, const void* v,
                                  void* out, void* rowsum, int batch, int seq,
                                  int heads, void* stream) {
-  return launch_diag<QK_ONLY>(q, k, v, out, rowsum, batch, seq, heads,
-                              stream);
+  if (seq < HD) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_flash_forward<V8Attention, AttnOutScoresPlusBf16, FWD_CHUNK,
+                           SumChain, false>(
+          q, k, v, out, batch, seq, heads,
+          static_cast<cudaStream_t>(stream), nullptr, v,
+          static_cast<float*>(rowsum)));
 }
 
 // V9, scripts/bench_attn_fwd_diag.py::qk_chunked.
 int pigeon_attention_fwd_qk_chunked(const void* q, const void* k,
                                     const void* v, void* out, int batch,
                                     int seq, int heads, void* stream) {
-  return launch_diag<QK_CHUNKED>(q, k, v, out, nullptr, batch, seq, heads,
-                                 stream);
+  return static_cast<int>(
+      launch_flash_forward<V9Attention, AttnOutSumPlusBf16, FWD_CHUNK,
+                           SumChain, false>(
+          q, k, v, out, batch, seq, heads,
+          static_cast<cudaStream_t>(stream), nullptr, v));
 }
 
 }  // extern "C"

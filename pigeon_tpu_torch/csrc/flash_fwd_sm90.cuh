@@ -18,17 +18,20 @@
 // bf16 output never goes to device memory there (the TPU kernel keeps it
 // in VMEM).
 //
-// Two diagnostics of the tuning script run the same kernel under their
+// Four diagnostics of the tuning script run the same kernel under their
 // own tags (attention_fwd_variants.cu). The chain from a chunk's scores
-// to p is a policy, `Chain`: SoftmaxChain (above; every other user), or
+// to p is a policy, `Chain`: SoftmaxChain (above; every other user);
 // V6's CastChain, p = bf16(s) of the unscaled scores with no mask, max,
-// exp or l, o never rescaled and stored undivided. `PV` = false (V7)
-// compiles out V's loads and every P V product: o holds p of keys 0-63
-// from chunk 0's exps (the first 32 score registers are in o's m64n64
-// layout) and is rescaled with the running max as K3 rescales o. Both
-// are template choices, never run-time branches, so every other
-// instance compiles as before. (flash_bwd_sm90.cuh has chain policies of
-// the same names for its gradient pass; no source includes both.)
+// exp or l, o never rescaled and stored undivided; or V8's and V9's
+// SumChain, which only adds the unscaled scores into l (the row's sum of
+// q k^T) and leaves them as they are. `PV` = false (V7, V8, V9) compiles
+// out V's loads and every P V product: o holds the first 32 score
+// registers of chunk 0 (keys 0-63, in o's m64n64 layout), p under
+// SoftmaxChain, rescaled with the running max as K3 rescales o, or the
+// raw scores under SumChain. Both are template choices, never run-time
+// branches, so every other instance compiles as before. (flash_bwd_sm90.cuh
+// has chain policies of the same names for its gradient pass; no source
+// includes both.)
 //
 // A persistent grid (one block an SM) walks the (128-row query tile,
 // head, image) tiles, query tiles of a head next to each other so their
@@ -82,18 +85,21 @@ constexpr int FWD_BAR_OFF = FWD_KV_OFF + FWD_STAGES * 2 * TILE128;
 constexpr int FWD_SMEM = FWD_BAR_OFF + (4 + 3 * FWD_STAGES) * 8 + 1024;
 
 // The output policies: `store` takes a thread's pair o / l at two
-// neighbouring columns and the policy's scale (read once from the
-// caller's device pointer where SCALED) and writes the pair at `dst`;
-// where ADDS, also the pair at the same offset of the caller's (B, S, H,
-// 64) bf16 tensor `add`, two bf16 in a word, which the kernel reads when
-// the tile starts so that the load's latency hides under its chunks (0
-// otherwise).
+// neighbouring columns, the row's l (quad-reduced where the chain sums),
+// and the policy's scale (read once from the caller's device pointer
+// where SCALED) and writes the pair at `dst`; where ADDS, also the pair
+// at the same offset of the caller's (B, S, H, 64) bf16 tensor `add`, two
+// bf16 in a word, which the kernel reads when the tile starts so that the
+// load's latency hides under its chunks (0 otherwise). Where ROWSUM the
+// kernel also writes each row's l, once, to the caller's (B, H, S) f32
+// side output `rowsum`.
 struct AttnOutBf16 {
   typedef bf16 T;
   static constexpr bool SCALED = false;
   static constexpr bool ADDS = false;
+  static constexpr bool ROWSUM = false;
   __device__ static __forceinline__ void store(T* dst, float o0, float o1,
-                                               float, uint32_t) {
+                                               float, float, uint32_t) {
     *reinterpret_cast<uint32_t*>(dst) = pack_bf16(o0, o1);
   }
 };
@@ -104,8 +110,9 @@ struct AttnOutQuantized {
   typedef int8_t T;
   static constexpr bool SCALED = true;
   static constexpr bool ADDS = false;
+  static constexpr bool ROWSUM = false;
   __device__ static __forceinline__ void store(T* dst, float o0, float o1,
-                                               float a, uint32_t) {
+                                               float, float a, uint32_t) {
     const float2 o = __bfloat1622float2(__floats2bfloat162_rn(o0, o1));
     *reinterpret_cast<char2*>(dst) =
         make_char2(quantize_s8(o.x, a), quantize_s8(o.y, a));
@@ -172,9 +179,12 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int kv,
 
 // The chain policies of a 128-key step: `apply` turns a chunk's scores
 // into p in place (its arguments are online_softmax's); where kSoftmax,
-// o is rescaled by corr after each chunk and divided by l at the end.
+// o is rescaled by corr after each chunk and divided by l at the end;
+// where kSums, l holds the thread's partial row sums, reduced over the
+// row's four threads at the end.
 struct SoftmaxChain {
   static constexpr bool kSoftmax = true;
+  static constexpr bool kSums = true;
   __device__ __forceinline__ static void apply(float (&s)[64], int kv,
                                                int quad, float c2,
                                                float (&m)[2], float (&l)[2],
@@ -187,9 +197,24 @@ struct SoftmaxChain {
 // their zero-filled K rows and add 0 through their zero V rows).
 struct CastChain {
   static constexpr bool kSoftmax = false;
+  static constexpr bool kSums = false;
   __device__ __forceinline__ static void apply(float (&)[64], int, int,
                                                float, float (&)[2],
                                                float (&)[2], float (&)[2]) {}
+};
+
+// V8's and V9's row sums: l += the thread's 32 unscaled scores of each
+// row, s left as it is; no mask (keys past S score 0 against their
+// zero-filled K rows and add 0), max, exp or corr.
+struct SumChain {
+  static constexpr bool kSoftmax = false;
+  static constexpr bool kSums = true;
+  __device__ __forceinline__ static void apply(float (&s)[64], int, int,
+                                               float, float (&)[2],
+                                               float (&l)[2], float (&)[2]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) l[(i >> 1) & 1] += s[i];
+  }
 };
 
 template <class Tag, class Out, int STEP, class Chain, bool PV>
@@ -200,7 +225,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                              typename Out::T* __restrict__ out,
                              const float* __restrict__ out_scale, int S,
                              int H, int B, float c2,
-                             const bf16* __restrict__ add) {
+                             const bf16* __restrict__ add,
+                             float* __restrict__ rowsum) {
   static_assert(STEP == FWD_CHUNK || (Chain::kSoftmax && PV),
                 "256-key steps run the softmax chain with P V");
   extern __shared__ unsigned char smem_raw[];
@@ -321,7 +347,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int k = 0; k < 8; ++k) acc_to_a(s, k, pa[k]);
       } else {
-        // Without P V, o keeps p of keys 0-63: s[0..31] in o's layout.
+        // Without P V, o keeps p (or s) of keys 0-63: s[0..31] in o's
+        // layout.
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[i] = s[i];
       }
@@ -502,10 +529,10 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_arrive(q_empty + qs);
 
-    // out = Out(o / l) on the rows below S (Out(o) under CastChain).
+    // out = Out(o / l) on the rows below S (Out(o) without the softmax).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if constexpr (Chain::kSoftmax) {
+      if constexpr (Chain::kSums) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
@@ -513,6 +540,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       if (q >= S) continue;
       typename Out::T* dst =
           out + (static_cast<size_t>(b) * S + q) * ld + h * HD;
+      if constexpr (Out::ROWSUM) {
+        if (quad == 0) {
+          rowsum[(static_cast<size_t>(b) * H + h) * S + q] = l[r];
+        }
+      }
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8) {
         float o0 = o[4 * j8 + 2 * r], o1 = o[4 * j8 + 2 * r + 1];
@@ -520,7 +552,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
           o0 = o0 / l[r];
           o1 = o1 / l[r];
         }
-        Out::store(dst + 8 * j8 + 2 * quad, o0, o1, out_a,
+        Out::store(dst + 8 * j8 + 2 * quad, o0, o1, l[r], out_a,
                    Out::ADDS ? adds[r][j8] : 0u);
       }
     }
@@ -531,7 +563,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 // H, 64) of the policy's type, STEP keys a softmax step (128 or 256),
 // `Chain` and `PV` as the kernel's; `out_scale` a device pointer to the
 // f32 scale of a SCALED policy, `add` the (B, S, H, 64) bf16 tensor of an
-// ADDS policy. Returns the first failing call's error.
+// ADDS policy, `rowsum` the (B, H, S) f32 side output of a ROWSUM policy.
+// Returns the first failing call's error.
 template <class Tag, class Out = AttnOutBf16, int STEP = FWD_CHUNK,
           class Chain = SoftmaxChain, bool PV = true>
 inline cudaError_t launch_flash_forward(const void* q, const void* k,
@@ -539,11 +572,12 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
                                         int seq, int heads,
                                         cudaStream_t stream,
                                         const float* out_scale = nullptr,
-                                        const void* add = nullptr) {
+                                        const void* add = nullptr,
+                                        float* rowsum = nullptr) {
   static_assert(STEP == FWD_CHUNK || STEP == 2 * FWD_CHUNK,
                 "a step is one or two 128-key chunks");
   if (batch < 1 || seq < 1 || heads < 1 || (Out::SCALED && !out_scale) ||
-      (Out::ADDS && !add)) {
+      (Out::ADDS && !add) || (Out::ROWSUM && !rowsum)) {
     return cudaErrorInvalidValue;
   }
   CUtensorMap maps[3];
@@ -571,7 +605,7 @@ inline cudaError_t launch_flash_forward(const void* q, const void* k,
           maps[0], maps[1], maps[2], static_cast<typename Out::T*>(out),
           out_scale, seq, heads, batch,
           LOG2E / sqrtf(static_cast<float>(HD)),
-          static_cast<const bf16*>(add));
+          static_cast<const bf16*>(add), rowsum);
   return cudaGetLastError();
 }
 

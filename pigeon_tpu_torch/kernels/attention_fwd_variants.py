@@ -15,15 +15,17 @@ Each replaces one Pallas body of that TPU script, on the port's
 
 All are CUDA C++ for ``sm_90a`` in `csrc/attention_fwd_variants.cu`,
 built by ``nvcc`` at first use and bound with ``ctypes``; the source note
-says what bounds each on the card and how the designs answer that. V10,
-V6 and V7 run K3's streaming ``wgmma`` forward (`csrc/flash_fwd_sm90.cuh`)
+says what bounds each on the card and how the designs answer that. All
+five run K3's streaming ``wgmma`` forward (`csrc/flash_fwd_sm90.cuh`)
 under tags of their own: V10 with 256-key softmax steps, each taking two
 of its 128-key K/V stages and one max over both before any exp; V6 with
 casts for the softmax chain (``CastChain``: p = bf16(s), o undivided);
 V7 without the P V product (``PV = false``: o keeps p of keys 0-63,
-rescaled as K3 rescales o, and is written as ``o / l + v``). V8 and V9
-keep the WMMA design K3 had before ``wgmma`` (`csrc/attention_tile.cuh`).
-The TPU script times them; on the card
+rescaled as K3 rescales o, and is written as ``o / l + v``); V8 and V9
+as one walk of Q K^T without P V under ``SumChain``, which only sums
+each row's scores into l (V8: o keeps the raw scores of keys 0-63,
+written as ``bf16(bf16(o) + v)``, and l goes to ``rowsum``; V9: ``l +
+v`` in every column). The TPU script times them; on the card
 `scripts/bench_torch_attn_fwd_diag.py` does.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch

@@ -375,9 +375,8 @@ def test_k7_operand_checks(case, error, match):
 
 
 def test_new_sources_name_the_headers_they_include():
-    """The forward's tuning kernels build from the WMMA tiles (V8, V9)
-    and the wgmma forward (V6, V7, V10), the backward's (V1-V5) from the wgmma
-    backward alone, K3 and K3′ from the wgmma forward, K4
+    """The forward's tuning kernels (V6-V10) build from the wgmma forward
+    alone, the backward's (V1-V5) from the wgmma backward alone, K3 and K3′ from the wgmma forward, K4
     from the wgmma backward, K2 from that backward and the wgmma GEMM, K5, K6, K7 and K8
     from K1's two stages (that GEMM and the wgmma forward), K9 from the
     GEMM alone, all over the Hopper building blocks; K5, K6, K7 and K9
@@ -402,8 +401,7 @@ def test_new_sources_name_the_headers_they_include():
                            "ln_row.cuh"]),
             ("flash_attention_online", ["flash_fwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
-            ("attention_fwd_variants", ["attention_tile.cuh",
-                                        "flash_fwd_sm90.cuh",
+            ("attention_fwd_variants", ["flash_fwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),
             ("attention_bwd_variants", ["flash_bwd_sm90.cuh",
                                         "hopper_sm90.cuh"]),

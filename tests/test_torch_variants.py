@@ -596,15 +596,110 @@ def test_v7_design_corrects_chunk_0s_p_when_the_max_moves(s):
     assert 5.0 < np.median(stale) < 10.0, np.median(stale)
 
 
+def v8_v9_model(q, k, v, round_first: bool = True):
+    """V8 and V9 on the card (K3's streaming forward with ``PV = false``
+    under ``SumChain``), in numpy f32: keys zero-padded to 128-key chunks;
+    each of a row's four threads (quad) adds its 32 scores of a chunk
+    into its partial sum in the kernel's register order (columns 8 g + 2
+    quad and 8 g + 2 quad + 1, g = 0..15); the epilogue reduces the four
+    partials as its two shuffles do, (l0 + l1) + (l2 + l3); chunk 0's
+    scores of keys 0-63 are kept raw. Returns V8's ``(out, rowsum)``,
+    ``out = bf16(f32(bf16(s)) + v)`` (``bf16(s + v)`` where
+    ``round_first`` is false), and V9's ``bf16(rowsum + v)``. Refuses
+    S < 64, as V8's wrapper does."""
+    b, s, h, dh = q.shape
+    if s < DH:
+        raise ValueError(f"S={s} below {DH}")
+    qh, kh, vh = (t.float().transpose(1, 2).numpy() for t in (q, k, v))
+    n = -(-s // 128) * 128
+    kp = np.zeros((b, h, n, dh), np.float32)
+    kp[:, :, :s] = kh
+    quads = np.zeros((b, h, s, 4), np.float32)
+    for c0 in range(0, n, 128):
+        sc = (qh @ kp[:, :, c0:c0 + 128].transpose(0, 1, 3, 2)).astype(
+            np.float32)
+        if c0 == 0:
+            first = sc[..., :DH]
+        for g in range(16):
+            for e in range(2):
+                quads += sc[..., 8 * g + 2 * np.arange(4) + e]
+    rowsum = (quads[..., 0] + quads[..., 1]) + (quads[..., 2] + quads[..., 3])
+    dt = q.dtype
+    first, vt = torch.from_numpy(first), torch.from_numpy(vh)
+    if round_first:
+        first = first.to(dt).float()
+    out8 = (first + vt).to(dt)
+    out9 = (torch.from_numpy(rowsum)[..., None] + vt).to(dt)
+    return ((out8.transpose(1, 2).contiguous(), torch.from_numpy(rowsum)),
+            out9.transpose(1, 2).contiguous())
+
+
+#: The model of V8 and V9 against their plain versions: outputs within
+#: two bf16 ulps of their max magnitude (an f32 score or sum taken in
+#: another order may round to the neighbouring bf16), rowsum within f32
+#: rounding of its max magnitude.
+BF16_TOL, F32_TOL = 2.0 ** -7, 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [63, 64, 128, 129, 577])
+def test_v8_v9_design_matches_their_plain_versions(s, dtype):
+    """The model of V8 and V9 on the card, per-quad partial row sums over
+    zero-padded 128-key chunks, against their plain versions (one sum
+    over exactly S keys): the chunks' zero rows add exactly 0, so the
+    ragged last chunk (S = 129, 577) and the partial one (S = 64) need no
+    mask. S = 63 is refused, by the model and by the wrapper's check."""
+    _, (q, k, v) = operands(3, s, dtype)
+    if s < DH:
+        with pytest.raises(ValueError, match="below 64"):
+            fv.check_operands(*(t.bfloat16() for t in (q, k, v)),
+                              min_seq=DH)
+        with pytest.raises(ValueError, match="below 64"):
+            v8_v9_model(q, k, v)
+        return
+    (out8, rowsum), out9 = v8_v9_model(q, k, v)
+    want8, want_rowsum = fv.fwd_qk_only_reference(q, k, v)
+    assert out8.dtype == out9.dtype == q.dtype
+    assert rowsum.shape == want_rowsum.shape == (B, H, s)
+    assert_close(rowsum.numpy(), want_rowsum.numpy(), F32_TOL, True)
+    assert_close(fold(out8), fold(want8), BF16_TOL, True)
+    assert_close(fold(out9), fold(fv.fwd_qk_chunked_reference(q, k, v)),
+                 BF16_TOL, True)
+
+
+def rounding_operands(s: int = 129, dtype=torch.bfloat16):
+    """q/k/v whose every score is 1 + 3 * 2^-10 (q's rows (1, 1, 0, ...),
+    k's (1, 3 * 2^-10, 0, ...), exact in bf16 and in f32) and v = -1:
+    bf16(bf16(s) + v) = bf16(1 - 1) = 0, but bf16(s + v) = 3 * 2^-10."""
+    q, k = torch.zeros(2, 1, s, 1, DH)
+    q[..., :2] = 1.0
+    k[..., 0], k[..., 1] = 1.0, 3 * 2.0 ** -10
+    return q.to(dtype), k.to(dtype), torch.full_like(q, -1.0).to(dtype)
+
+
+def test_v8_design_rounds_the_scores_before_adding_v():
+    """V8's output policy rounds o to bf16 before it adds v, as the TPU
+    body casts its logits: on scores that bf16 rounds to 1 and v = -1
+    the model gives 0, the plain version's output bit for bit, and a
+    policy that adds v to the f32 scores first misses by 3 * 2^-10."""
+    q, k, v = rounding_operands()
+    want = fv.fwd_qk_only_reference(q, k, v)[0]
+    assert torch.equal(want, torch.zeros_like(want))
+    assert torch.equal(v8_v9_model(q, k, v)[0][0], want)
+    wrong = v8_v9_model(q, k, v, round_first=False)[0][0]
+    assert (wrong.float() - want.float()).abs().max().item() == 3 * 2.0 ** -10
+
+
 def test_split_runs_k4s_statistics_pass_under_its_own_tags():
     """The sources: V1-V5 launch K4's passes under their own tags, V2, V3
     and V5 K4's statistics pass (V1 its own, V5 without the dp product,
     DP = false; V4 none); V2's second pass is the dq rows, V3's the
     gradient pass with DQ = false, V4's the gradient pass under its
-    CastChain, V5's the dl sweep; the WMMA tile header of V2 and V3 is
-    gone and nothing includes it; V1-V5's source holds no WMMA code, and
-    the WMMA tiles of V8 and V9 have their source as their only user and
-    keep nothing of V6's and V7's WMMA bodies."""
+    CastChain, V5's the dl sweep; the WMMA tile headers of V2 and V3 and
+    of V8 and V9 are gone and nothing includes them; no source holds WMMA
+    code, and V8 and V9 launch K3's streaming forward under their own
+    tags with SumChain and PV = false, their WMMA kernel and launcher
+    gone."""
     csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
 
     def read(name):
@@ -634,26 +729,32 @@ def test_split_runs_k4s_statistics_pass_under_its_own_tags():
     assert not os.path.exists(os.path.join(csrc, "attention_bwd_tile.cuh"))
     for name in os.listdir(csrc):
         assert "attention_bwd_tile.cuh" not in read(name), name
-    assert "attention_tile.cuh" not in variants
-    assert "wmma::" not in variants and "mma.h" not in variants
-    assert [name for name in sorted(os.listdir(csrc))
-            if '#include "attention_tile.cuh"' in read(name)] == [
-        "attention_fwd_variants.cu"]
-    tile, fwd = read("attention_tile.cuh"), read("attention_fwd_variants.cu")
-    for gone in ("FragBRow", "write_rows", "DOTS_ONLY", "SOFTMAX_ONLY"):
-        assert gone not in tile and gone not in fwd, gone
-    assert re.findall(r"launch_diag<(\w+)>\(", fwd) == ["QK_ONLY",
-                                                       "QK_CHUNKED"]
+    assert not os.path.exists(os.path.join(csrc, "attention_tile.cuh"))
+    for name in os.listdir(csrc):
+        text = read(name)
+        for gone in ("attention_tile.cuh", "wmma::", "mma.h",
+                     "fwd_diag_kernel", "launch_diag"):
+            assert gone not in text, (name, gone)
+    fwd = read("attention_fwd_variants.cu")
+    for gone in ("FwdArgs", "DIAG_SMEM", "QK_ONLY", "QK_CHUNKED",
+                 "FragBRow", "write_rows", "DOTS_ONLY", "SOFTMAX_ONLY"):
+        assert gone not in fwd, gone
+    assert re.findall(r"launch_flash_forward<(V[89]\w+), (\w+), FWD_CHUNK,"
+                      r"\s*SumChain, false>", fwd) == [
+        ("V8Attention", "AttnOutScoresPlusBf16"),
+        ("V9Attention", "AttnOutSumPlusBf16")]
 
 
 def test_v6_and_v7_run_k3s_forward_under_their_own_tags():
-    """The sources: V6 and V7 launch K3's streaming forward at 128-key
-    steps under their own tags, V6 under CastChain, V7 with PV = false
-    and its output policy (o / l + v, reading v), beside V10 at 256-key
+    """The sources: V6-V9 launch K3's streaming forward at 128-key steps
+    under their own tags, V6 under CastChain, V7 with PV = false and its
+    output policy (o / l + v, reading v), V8 and V9 under SumChain with
+    PV = false and theirs (V8 also writing rowsum), beside V10 at 256-key
     steps; the kernel and its launcher take the chain and the flag as
     template parameters whose defaults are K3's, so K3, K3′ and the
-    attention of K1 and K5-K8 launch as before; no source includes both
-    the forward and the backward, whose chain policies share names."""
+    attention of K1 and K5-K8 launch as before; SumChain's epilogue
+    reduces l as the softmax's does; no source includes both the forward
+    and the backward, whose chain policies share names."""
     from pigeon_tpu_torch import native
 
     csrc = os.path.join(ROOT, "pigeon_tpu_torch", "csrc")
@@ -669,8 +770,18 @@ def test_v6_and_v7_run_k3s_forward_under_their_own_tags():
         ("V10OnlineForward", "AttnOutBf16", "256", "", ""),
         ("V6Attention", "AttnOutBf16", "FWD_CHUNK", "CastChain", ""),
         ("V7Attention", "AttnOutPlusBf16", "FWD_CHUNK", "SoftmaxChain",
+         "false"),
+        ("V8Attention", "AttnOutScoresPlusBf16", "FWD_CHUNK", "SumChain",
+         "false"),
+        ("V9Attention", "AttnOutSumPlusBf16", "FWD_CHUNK", "SumChain",
          "false")]
     header = read("flash_fwd_sm90.cuh")
+    chains = dict(re.findall(r"struct (\w+Chain) \{\s+static constexpr "
+                             r"bool kSoftmax = \w+;\s+static constexpr "
+                             r"bool kSums = (\w+);", header))
+    assert chains == {"SoftmaxChain": "true", "CastChain": "false",
+                      "SumChain": "true"}
+    assert "if constexpr (Chain::kSums) {" in header
     assert re.findall(r"template <class Tag, class Out, int STEP, class "
                       r"Chain, bool PV>\s+__global__[^\n]*\n"
                       r"flash_attention_kernel_wgmma", header)
@@ -901,9 +1012,11 @@ def test_sass_comparison_pairs_mangled_kernels_across_builds():
 
 def test_smoke_tables_name_the_drivers_variants_and_yardsticks():
     """`chip_smoke.py`'s [variants] tables name what the drivers make:
-    each pair's variants, each tuning kernel's yardstick (a record the
-    drivers time) and each forward tag (a kernel instance's tag type in
-    the sources)."""
+    each pair's variants (V8 and V9 beside K3 too), each tuning kernel's
+    yardstick (a record the drivers time) and each forward tag (a kernel
+    instance's tag type in the sources); the walk's differences read
+    wrappers whose differences from K3 are taken; V8's and V9's kernels
+    are among those [sass] holds to no MUFU.EX2."""
     smoke = load_module(os.path.join(ROOT, "chip_smoke.py"))
     _, args3 = operands(3, 80, "bfloat16")
     _, args4 = operands(4, 80, "bfloat16")
@@ -921,6 +1034,15 @@ def test_smoke_tables_name_the_drivers_variants_and_yardsticks():
         assert kernel in smoke.VARIANT_WORK
         assert (f'"yardstick": "{yardstick}"' in sources or yardstick in
                 [f"{k}_composition" for k in fwd.COMPOSITIONS]), yardstick
+    fwd_diffs = {name for _, name in smoke.FWD_DIFFS}
+    assert {n for pair in smoke.FWD_WALK_DIFFS for n in pair} <= fwd_diffs
+    assert {"diag_qk_only_p4", "diag_qk_chunked_p4"} <= {
+        name for name, beside in smoke.VARIANT_PAIRS
+        if beside == "base_fwd_pack4"}
+    assert set(smoke.SASS_EXPS) | set(smoke.SASS_NO_EXPS) <= set(
+        smoke.SASS_TAGS)
+    assert not set(smoke.SASS_EXPS) & set(smoke.SASS_NO_EXPS)
+    assert {"V8Attention", "V9Attention"} <= set(smoke.SASS_NO_EXPS)
     for tags, passes, diffs in ((smoke.FWD_TAGS, smoke.FWD_PASSES,
                                  smoke.FWD_DIFFS),
                                 (smoke.BWD_TAGS, smoke.BWD_PASSES,
@@ -1277,3 +1399,58 @@ def test_cuda_v7_corrects_chunk_0s_p_when_the_max_moves(cuda, s):
         torch.cuda.synchronize()
         want = fv.fwd_softmax_only_reference(q, k, vv)
         assert tuning.errors([got], [want])[1] <= tuning.DIAG_TOL
+
+
+#: V8 and V9 at the ragged steps of K3's 128-key chunks (V8 from S = 64:
+#: the TPU body slices 64 key columns).
+V8_V9_STEPS = [(wrapper, s)
+               for wrapper in (fv.fwd_qk_only, fv.fwd_qk_chunked)
+               for s in (1, 64, 65, 127, 128, 129, 255, 256, 257, 577)
+               if wrapper is fv.fwd_qk_chunked or s >= DH]
+FWD_PLAIN.update({fv.fwd_qk_only: fv.fwd_qk_only_reference,
+                  fv.fwd_qk_chunked: fv.fwd_qk_chunked_reference})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper, s", V8_V9_STEPS,
+                         ids=[f"{w.__name__}-{s}" for w, s in V8_V9_STEPS])
+def test_cuda_v8_and_v9_at_ragged_steps(cuda, wrapper, s):
+    """V8's and V9's last 128-key chunk may be ragged or the only, partial
+    one (keys past S unmasked, scoring 0 against zero K rows): each output
+    within the diagnostics' bound of its plain version, and V8's rowsum,
+    an f32 sum over exactly S keys, within f32 rounding of its own."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 3, (2, s, 2, DH))
+    got = tuning.outputs(wrapper(*args))
+    torch.cuda.synchronize()
+    want = tuning.outputs(FWD_PLAIN[wrapper](*args))
+    assert tuning.errors(got, want)[1] <= tuning.DIAG_TOL
+    if wrapper is fv.fwd_qk_only:
+        assert_close(got[1].cpu().numpy(), want[1].cpu().numpy(), F32_TOL,
+                     True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, s, heads", [(2, 129, 2), (4, 577, 4),
+                                         (32, 577, 16)])
+def test_cuda_v8_and_v9_repeat_bit_for_bit(cuda, b, s, heads):
+    """V8 and V9 keep each row's sums in registers and take them in one
+    order, so two calls give the same bits, V8's rowsum too."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    args = tuning.normal(gen, 3, (b, s, heads, DH))
+    first = (*fv.fwd_qk_only(*args), fv.fwd_qk_chunked(*args))
+    second = (*fv.fwd_qk_only(*args), fv.fwd_qk_chunked(*args))
+    torch.cuda.synchronize()
+    for a, w in zip(first, second, strict=True):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_cuda_v8_rounds_the_scores_before_adding_v(cuda):
+    """On scores that bf16 rounds to 1 and v = -1, V8's output is 0 bit
+    for bit, as its plain version's: its policy rounds o before it adds
+    v (adding v first would leave 3 * 2^-10)."""
+    q, k, v = (t.to(cuda) for t in rounding_operands())
+    out, _ = fv.fwd_qk_only(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
