@@ -20,7 +20,9 @@ Phases, one line each, any failure raises:
              kernel of V4-V9 (a V5 or V7 kernel without MUFU.EX2 fails
              it: its exps were deleted; so do a V6, V8 or V9 kernel with
              one, or a V6 kernel with another HGMMA count than K3's, or a
-             V7, V8 or V9 kernel with another than K3's less 16);
+             V7, V8 or V9 kernel with another than K3's less 16); the
+             K10 instances the main path's and the check shape launch
+             must spill nothing, and K10's SASS must hold no atomic;
 3. kernel  - each kernel against its plain PyTorch version on the same
              inputs, with median CUDA-event times of both:
              K1 at the serving shape x (4, 577, 1024) bf16, H=16, and at
@@ -39,8 +41,15 @@ Phases, one line each, any failure raises:
              passes, dx GEMM; torch.profiler) and, as a yardstick timed
              only, the composition of three F.linear, PyTorch's fused
              attention backward and one matmul for dx;
-             K10 at labels (256, 2) x cells (2203, 2), tau 75 km, max abs
-             error <= 2e-5 (the repo's bound for the smoothing kernel);
+             K10 at labels (8, 2) x cells (2203, 2) (the main path's
+             shape: its kernels record), (256, 2) (the check shape), and
+             (1, 1), (3, 5), (300, 2203) and (500, 2203), tau 75 km, max
+             abs error <= 2e-5 (the repo's bound for the smoothing
+             kernel), every row's maximum exactly 1.0 and the same bits
+             in two calls, one line a shape; at the first two the
+             wrapper's, the bare C call's and the device's ms
+             (torch.profiler), the host's enqueue time a call, the plain
+             version's ms and the bound;
              K3 at the calibration shape q/k/v (80, 577, 16, 64) bf16, at
              the ``flash`` training shape (32 views) and at the serving
              shape (4 views), max abs error <= 3e-2 at each (its kernels
@@ -470,6 +479,13 @@ ROUTE_COSINE = 0.999
 NUM_CELLS = 2203
 BANK_ROWS = 16384
 TRAIN_ROWS, VAL_ROWS, TRAIN_BATCH = 32, 8, 8
+#: K10's shapes, labels x cells: the main path's (every train step and
+#: eval batch), the check shape, one cell, fewer cells than a cluster's
+#: CTAs, 300 labels, and a ragged last row tile of 8 rows (500 = 62 x 8
+#: + 4); the first two are timed.
+K10_TIMED = ((TRAIN_BATCH, NUM_CELLS), (256, NUM_CELLS))
+K10_SHAPES = (*K10_TIMED, (1, 1), (3, 5), (300, NUM_CELLS),
+              (500, NUM_CELLS))
 #: [train_routes]: each route takes this many steps and one eval batch.
 ROUTE_STEPS = 2
 
@@ -611,16 +627,18 @@ def device_ms_by_mark(fn, marks, calls: int = 5, expect=()) -> dict:
     (at least one): late in a long process the profiler may drop some
     kernels' records (seen on the H100: 2-4 of 5), which a sum over
     ``calls`` would read as less device time, or all of a window's
-    records (seen there too), so it profiles up to three windows until
-    every label in ``expect`` shows device time."""
+    records (seen there too, in three windows of 5 calls in a row), so
+    it profiles up to six windows, each of twice the calls of the last,
+    until every label in ``expect`` shows device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for window in range(6):
+        window_calls = calls << window
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(window_calls):
                 fn()
             torch.cuda.synchronize()
         out = dict.fromkeys([label for label, _ in marks] + ["other"], 0.0)
@@ -634,10 +652,12 @@ def device_ms_by_mark(fn, marks, calls: int = 5, expect=()) -> dict:
                           if all(m in evt.key for m in
                                  ((mark,) if isinstance(mark, str)
                                   else mark))), "other")
-            out[label] += (us / evt.count * max(1, round(evt.count / calls))
-                           / 1e3)
+            out[label] += (us / evt.count
+                           * max(1, round(evt.count / window_calls)) / 1e3)
         if all(out[label] > 0 for label in expect):
             break
+    if window:
+        phase("profiler", windows=window + 1, expect=",".join(expect))
     return out
 
 
@@ -716,41 +736,98 @@ def check_backward_kernel(seed: int) -> dict:
 
 
 def check_smoothing_kernel(seed: int) -> dict:
-    """K10 against its plain version at 256 labels x the 2203 cells."""
+    """K10 against its plain version at every shape of `K10_SHAPES`, timed
+    at `K10_TIMED`. The kernels record is the (TRAIN_BATCH, NUM_CELLS)
+    one: every launch of [train] and [train_routes] is at that shape."""
+    records = {(b, c): check_smoothing_kernel_at(seed, b, c)
+               for b, c in K10_SHAPES}
+    return records[(TRAIN_BATCH, NUM_CELLS)]
+
+
+def replay_c_call(lib, name: str, fn):
+    """Run ``fn`` once, recording the arguments of its one call of
+    ``lib.<name>``; returns ``fn``'s result (keep it: the call wrote into
+    it) and a function that makes the same C call again, the bare call
+    without the wrapper's Python."""
+    from unittest import mock
+
+    real, calls = getattr(lib, name), []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    with mock.patch.object(lib, name, record):
+        kept = fn()
+    if len(calls) != 1:
+        raise RuntimeError(f"{name} called {len(calls)} times, not once")
+    return kept, functools.partial(real, *calls[0])
+
+
+def check_smoothing_kernel_at(seed: int, b: int, c: int) -> dict | None:
+    """K10 at labels (b, 2) x cells (c, 2): error, every row's maximum
+    exactly 1.0 and the same bits in two calls; at `K10_TIMED` also the
+    wrapper's, the bare C call's and the device's ms (torch.profiler),
+    the host's enqueue time a call and the plain version's ms."""
     import torch
 
     from pigeon_tpu_torch.kernels import geodesy
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + b + c)
 
     def points(n):
         return torch.stack([
             torch.rand(n, generator=gen, device="cuda") * 360 - 180,
             torch.rand(n, generator=gen, device="cuda") * 135 - 60], -1)
 
-    labels, cells = points(256), points(NUM_CELLS)
-    got = geodesy.smooth_labels_from_points(labels, cells, 75.0)
+    labels, cells = points(b), points(c)
+
+    def kernel():
+        return geodesy.smooth_labels_from_points(labels, cells, 75.0)
+
+    got, again = kernel(), kernel()
     want = geodesy.smooth_labels_reference(labels, cells, 75.0)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     row_max = got.max(-1).values
-    if not err <= K10_TOL or not bool((row_max == 1.0).all()):
-        raise RuntimeError(f"K10 disagrees with its plain version: max abs "
-                           f"error {err} (limit {K10_TOL}), row maxima "
-                           f"{row_max.min().item()}..{row_max.max().item()}")
-    ms = median_ms(lambda: geodesy.smooth_labels_from_points(
-        labels, cells, 75.0))
-    plain_ms = median_ms(lambda: geodesy.smooth_labels_reference(
-        labels, cells, 75.0))
+    same_bits = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if (not err <= K10_TOL or not bool((row_max == 1.0).all())
+            or not same_bits):
+        raise RuntimeError(f"K10 disagrees with its plain version at "
+                           f"({b}, {c}): max abs error {err} (limit "
+                           f"{K10_TOL}), row maxima {row_max.min().item()}"
+                           f"..{row_max.max().item()}, same bits in two "
+                           f"calls: {same_bits}")
     # ~25 f32 operations a (label, cell) pair, a transcendental counted
     # as one: the haversine, the row minimum and exp((dmin - d) / tau).
-    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound({"f32": 25 * got.numel()}, nbytes(labels, cells, got)),
-           "library_ms": None}
-    phase("kernel", name="smooth_labels", shape=f"(256,{NUM_CELLS})",
-          tau_km=75.0, max_abs_err=err, tol=K10_TOL, ms=ms,
-          plain_ms=plain_ms, bound_ms=rec["bound_ms"])
-    return rec
+    work = bound({"f32": 25 * b * c}, nbytes(labels, cells, got))
+    fields = {"shape": f"({b},{c})", "tau_km": 75.0, "max_abs_err": err,
+              "tol": K10_TOL, "same_bits": same_bits}
+    if (b, c) not in K10_TIMED:
+        phase("kernel", name="smooth_labels", **fields)
+        return None
+    ms = median_ms(kernel)
+    kept, bare = replay_c_call(geodesy.load(), "pigeon_smooth_labels",
+                               kernel)
+    bare_ms = median_ms(bare)
+    device = device_ms_by_mark(kernel, [("kernel", "smooth_labels")],
+                               calls=20, expect=("kernel",))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        kernel()
+    enqueue_us = (time.perf_counter() - t0) / 1000 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = median_ms(lambda: geodesy.smooth_labels_reference(
+        labels, cells, 75.0))
+    del kept
+    phase("kernel", name="smooth_labels", **fields, ms=ms, bare_ms=bare_ms,
+          device_ms=round(device["kernel"], 5),
+          other_device_ms=round(device["other"], 5),
+          enqueue_us=round(enqueue_us, 2), plain_ms=plain_ms,
+          bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work,
+            "library_ms": None}
 
 
 def check_attention_kernel(seed: int) -> dict:
@@ -2461,6 +2538,56 @@ def sass_by_function(sass) -> dict:
     return by_tag
 
 
+def check_smoothing_build(built, cuobjdump: str) -> None:
+    """[ptxas]/[sass]: each K10 instance's registers and spilled bytes
+    from nvcc's log (`native.build_shared` keeps it beside a reused
+    library); the instances the main path's shape and the check shape
+    launch (`geodesy.launch_plan` on this card) must spill nothing, and
+    fail if the log lacks them. K10's SASS must hold no atomic (its row
+    minimum goes through distributed shared memory)."""
+    import re
+
+    import torch
+
+    from pigeon_tpu_torch.kernels import geodesy
+
+    stats, rows = {}, None
+    for line in built.log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"smooth_labels_kernelILi(\d+)E", line)
+            rows = int(found[1]) if found else None
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if rows and spill:
+            stats.setdefault(rows, {})["spill_bytes"] = (
+                int(spill[1]) + int(spill[2]))
+        if rows and regs:
+            stats.setdefault(rows, {})["registers"] = int(regs[1])
+    for rows, found in sorted(stats.items()):
+        phase("ptxas", kernel="smooth_labels", rows=rows, **found)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, c in K10_TIMED:
+        plan = geodesy.launch_plan(b, c, sms)
+        found = stats.get(plan.rows, {})
+        if found.get("spill_bytes") != 0:
+            raise RuntimeError(f"K10's instance of {plan.rows} rows for "
+                               f"({b}, {c}) spills or is missing from "
+                               f"nvcc's log: {found}")
+        phase("ptxas", kernel="smooth_labels", shape=f"({b},{c})",
+              rows=plan.rows, threads=plan.threads,
+              spill_bytes=found["spill_bytes"])
+    sass = subprocess.run([cuobjdump, "-sass", built.path],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    atomics = len(re.findall(r"\b(?:ATOM[GS]?|REDG?|REDAS)\.", sass))
+    if atomics:
+        raise RuntimeError(f"K10's SASS holds {atomics} atomics")
+    phase("sass", kernel="smooth_labels", atomics=atomics,
+          cluster_barriers=sass.count("UCGABAR"))
+
+
 def build_kernels() -> None:
     """Build every kernel's source at once (one nvcc for each) and load
     them."""
@@ -2522,6 +2649,7 @@ def build_kernels() -> None:
         if got != [hgmma]:
             raise RuntimeError(f"{tag}: HGMMA {got}, not [{hgmma}] "
                                f"(K3's kernel has {k3_hgmma})")
+    check_smoothing_build(built["smooth_labels"], cuobjdump)
     k.load()
     k.load_backward()
     geodesy.load()

@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class Built(NamedTuple):
-    """A compiled library: its path, the compiler's output (empty when an
-    existing build was reused) and the seconds the build took."""
+    """A compiled library: its path, the compiler's output (kept beside
+    the library, and read back when an existing build is reused) and the
+    seconds the build took (0 when reused)."""
 
     path: str
     log: str
@@ -99,8 +100,13 @@ def build_shared(src_path: str, compiler: Sequence[str],
     fails, and ``FileNotFoundError`` when the source or compiler is
     missing."""
     lib_path = library_path(src_path, compiler, flags, libs)
+    log_path = f"{lib_path}.log"
     if os.path.exists(lib_path):
-        return Built(lib_path, "", 0.0)
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path, encoding="utf-8") as f:
+                log = f.read()
+        return Built(lib_path, log, 0.0)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp_path = f"{lib_path}.tmp.{os.getpid()}"
     start = time.perf_counter()
@@ -114,6 +120,9 @@ def build_shared(src_path: str, compiler: Sequence[str],
             os.unlink(tmp_path)
         raise RuntimeError(f"building {src_path} failed "
                            f"(exit {proc.returncode}):\n{log}")
+    with open(f"{tmp_path}.log", "w", encoding="utf-8") as f:
+        f.write(log)
+    os.replace(f"{tmp_path}.log", log_path)
     os.replace(tmp_path, lib_path)
     return Built(lib_path, log, seconds)
 

@@ -381,19 +381,102 @@ def test_cuda_fused_route_gradient_reaches_attention_weights(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b, c", [(1, 1), (8, 2203), (256, 2203)])
+@pytest.mark.parametrize("b, c", [(1, 1), (3, 5), (8, 2203), (256, 2203),
+                                  (300, 2203), (8, 9000)])
 def test_cuda_smoothing_kernel_matches_plain_version(cuda, b, c):
     rng = np.random.default_rng(c)
     labels = torch.from_numpy(points(rng, b)).to(cuda)
     cells = torch.from_numpy(points(rng, c)).to(cuda)
     before = k10.smooth_labels_from_points.launches
     got = k10.smooth_labels_from_points(labels, cells, 75.0)
+    again = k10.smooth_labels_from_points(labels, cells, 75.0)
     torch.cuda.synchronize()
-    assert k10.smooth_labels_from_points.launches == before + 1
+    assert k10.smooth_labels_from_points.launches == before + 2
     want = k10.smooth_labels_reference(labels, cells, 75.0)
     # 2e-5: the repo's bound for the smoothing kernel.
     assert (got - want).abs().max().item() <= 2e-5
     assert bool((got.max(-1).values == 1.0).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert got.data_ptr() != again.data_ptr()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, c", [(300, 2203), (13, 3000), (500, 5),
+                                  (8, 9000)])
+def test_cuda_smoothing_kernel_gives_the_same_bits_under_every_plan(cuda, b,
+                                                                    c):
+    """Every instance and block size the kernel takes, several chunks a
+    CTA among them (d computed again for the exp; at C = 9000 under the
+    wrapper's own plan too), against the plan the wrapper picks; a plan
+    the kernel does not take is refused."""
+    rng = np.random.default_rng(b + c)
+    labels = torch.from_numpy(points(rng, b)).to(cuda)
+    cells = torch.from_numpy(points(rng, c)).to(cuda)
+    want = k10.smooth_labels_from_points(labels, cells, 75.0)
+    lib = k10.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(out, rows, threads):
+        return lib.pigeon_smooth_labels(
+            labels.data_ptr(), cells.data_ptr(), out.data_ptr(), b, c, 75.0,
+            rows, threads, stream)
+
+    for rows in k10.ROWS:
+        for threads in (64, 96, 512):
+            out = torch.full_like(want, float("nan"))
+            assert call(out, rows, threads) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32),
+                               want.view(torch.int32)), (rows, threads)
+    for plan in ((3, 64), (1, 32), (1, 100), (1, 1024)):
+        assert call(torch.empty_like(want), *plan) != 0
+
+
+@pytest.mark.gpu
+def test_cuda_smoothing_kernel_takes_a_second_table_between_calls(cuda):
+    rng = np.random.default_rng(1)
+    labels = torch.from_numpy(points(rng, 8)).to(cuda)
+    first, second = (torch.from_numpy(points(rng, c)).to(cuda)
+                     for c in (2203, 300))
+    before = k10.smooth_labels_from_points.launches
+    outs = [k10.smooth_labels_from_points(labels, t, 75.0)
+            for t in (first, second, first)]
+    torch.cuda.synchronize()
+    assert k10.smooth_labels_from_points.launches == before + 3
+    for got, t in zip(outs, (first, second, first)):
+        want = k10.smooth_labels_reference(labels, t, 75.0)
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 2e-5
+    assert torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError, match="contiguous"):
+        k10.smooth_labels_from_points(labels, first.t().contiguous().t(),
+                                      75.0)
+    assert k10.smooth_labels_from_points.launches == before + 3
+
+
+def test_build_keeps_the_compiler_log_for_a_reused_library(tmp_path,
+                                                          monkeypatch):
+    """A reused library comes back with the log of the build that made it,
+    so the smoke's gates on nvcc's register and spill lines also hold on
+    a cached build."""
+    import sys
+
+    from pigeon_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    fake = tmp_path / "fake_compiler.py"
+    fake.write_text(
+        "import sys\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+        "print('ptxas info    : Used 32 registers')\n")
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    compiler = [sys.executable, str(fake)]
+    first = native.build_shared(str(src), compiler)
+    again = native.build_shared(str(src), compiler)
+    assert "Used 32 registers" in first.log
+    assert again.path == first.path and again.log == first.log
+    assert again.seconds == 0.0 < first.seconds
 
 
 def test_library_name_covers_the_local_headers_a_source_includes(tmp_path):
