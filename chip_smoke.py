@@ -43,7 +43,8 @@ Phases, one line each, any failure raises:
              attention backward and one matmul for dx;
              K10 at labels (8, 2) x cells (2203, 2) (the main path's
              shape: its kernels record), (256, 2) (the check shape), and
-             (1, 1), (3, 5), (300, 2203) and (500, 2203), tau 75 km, max
+             (1, 1), (3, 5), (300, 2203), (500, 2203) and (4, 2203)
+             ([evaluate]'s last batch), tau 75 km, max
              abs error <= 2e-5 (the repo's bound for the smoothing
              kernel), every row's maximum exactly 1.0 and the same bits
              in two calls, one line a shape; at the first two the
@@ -107,6 +108,9 @@ Phases, one line each, any failure raises:
              PyTorch's scaled_dot_product_attention forward at K3's shape
              (K3's and K3′'s yardstick) and its backward at K4's are timed
              as yardsticks, never on a path;
+             K1, K3 and K8 at [evaluate]'s batch of 8 images, which no
+             other phase launches them at, within their bounds above
+             (errors only);
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -142,7 +146,28 @@ Phases, one line each, any failure raises:
              launching K6 and K9 24 times and K1, K3 and K5 never; each
              route's embedding within cosine >= 0.999 of the
              ``flash_fused`` route's;
-7. train   - the ``finetune`` command's own functions on the same preset
+7. evaluate - the same preset, width, cells, bank and prototypes, single
+             image: a seeded reference-layout SuperGuessr state dict
+             (``base_model.*`` + ``cell_layer``, bf16, 0.57 GiB) as
+             ``--base``; the ``evaluate`` command's own ``main`` on the
+             repo's ``sample20`` benchmark (20 PNGs, batch 8: 3 batches,
+             the last of 4) with refinement (the ``im2gps3k`` preset,
+             50 candidates) must launch K1 72 times and K10 3 times
+             (every other kernel never), and write finite metrics with
+             the JAX suite's keys for these inputs; ``evaluate --quant``
+             (calibrated on the first 8 images, margin 1.0) K3 24 times
+             in the calibration, K8 72 times, K10 3 times, K1 never;
+             ``predict --images`` over the 20 PNGs K1 72 times, 20 CSV
+             rows in range, each on a bank or prototype location; then,
+             outside the counts, a model the CLI builds from the same
+             arguments: its patch embed and last layer's q_proj equal to
+             the file's tensors, the first batch's embeddings on the
+             kernel route within cosine >= 0.999 of the plain route's and
+             the int8 tower's within 0.99 of bf16's, and the eval loop
+             alone (decode, forward, loss, refiner, metrics; 3 runs after
+             a warm-up) timed on each; each run's seconds, images/s and
+             peak memory;
+8. train   - the ``finetune`` command's own functions on the same preset
              and width (panorama, multi-task, heading; 2203 seeded cells;
              32 train and 8 val panoramas from the PNG fixtures, seeded
              labels), batch 8 panoramas, remat ``attn_kernel``: one epoch
@@ -154,7 +179,7 @@ Phases, one line each, any failure raises:
              >= 0.999 and the loss parts within 1e-2 relative; then step
              times, the peak memory under ``attn_kernel`` and ``none``,
              and ``--resume`` continuing from the checkpoint's step;
-8. train_routes - the ``[train]`` preset, width and batch under remat
+9. train_routes - the ``[train]`` preset, width and batch under remat
              ``attn_kernel`` on ``flash``, ``flash_fused_ln``,
              ``flash_fused_mlp``, ``flash_fused`` with
              ``PIGEON_FUSED_BWD=xla``, ``flash_fused_block`` and ``flash``
@@ -164,7 +189,7 @@ Phases, one line each, any failure raises:
              with finite losses and the exact launch counts that
              `check_train_routes` states; step time, images/s and peak
              memory per route;
-9. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
+10. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
              the TPU scripts' flagship shape (32 views, S = 577, H = 16;
@@ -172,7 +197,7 @@ Phases, one line each, any failure raises:
              checked against its plain version (`check_variants` states
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
-             launches of K1-K10 and K3′ stay those of phases 4-8. Then,
+             launches of K1-K10 and K3′ stay those of phases 4-9. Then,
              from the same driver runs, V10's ms beside K3′'s and V1's,
              split4's (V2 + V3), V4's and V5's beside K4's, and V1's,
              V2's, V3's, V4's, V5's and K4's device ms by pass
@@ -197,6 +222,8 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import csv
+import dataclasses
 import functools
 import glob
 import json
@@ -478,14 +505,22 @@ INT8_COSINE = 0.99
 ROUTE_COSINE = 0.999
 NUM_CELLS = 2203
 BANK_ROWS = 16384
+#: [evaluate]: the benchmark (its 20 images in 3 batches, the last of 4)
+#: and the seed offset of the ``--base`` file's weights.
+EVAL_BENCHMARK, EVAL_IMAGES, EVAL_BATCH = "sample20", 20, 8
+BASE_SEED = 1
+#: [evaluate]: timed runs of the eval loop alone, each model.
+EVAL_LOOP_RUNS = 3
 TRAIN_ROWS, VAL_ROWS, TRAIN_BATCH = 32, 8, 8
 #: K10's shapes, labels x cells: the main path's (every train step and
-#: eval batch), the check shape, one cell, fewer cells than a cluster's
-#: CTAs, 300 labels, and a ragged last row tile of 8 rows (500 = 62 x 8
-#: + 4); the first two are timed.
+#: eval batch but [evaluate]'s last), the check shape, one cell, fewer
+#: cells than a cluster's CTAs, 300 labels, a ragged last row tile of 8
+#: rows (500 = 62 x 8 + 4), and [evaluate]'s last batch; the first two
+#: are timed.
 K10_TIMED = ((TRAIN_BATCH, NUM_CELLS), (256, NUM_CELLS))
 K10_SHAPES = (*K10_TIMED, (1, 1), (3, 5), (300, NUM_CELLS),
-              (500, NUM_CELLS))
+              (500, NUM_CELLS),
+              (EVAL_IMAGES % EVAL_BATCH, NUM_CELLS))
 #: [train_routes]: each route takes this many steps and one eval batch.
 ROUTE_STEPS = 2
 
@@ -942,6 +977,46 @@ def check_int8_kernel(seed: int) -> dict:
           composition_ms=composition_ms, tops=round(gop / ms, 1),
           plain_tops=round(gop / plain_ms, 1))
     return rec
+
+
+def check_eval_shapes(seed: int) -> None:
+    """K1, K3 and K8 against their plain versions at [evaluate]'s batch of
+    `EVAL_BATCH` images, which no other phase launches them at (its ragged
+    last batch of 4 is the serving shape), with their bounds: K1 2e-2 of
+    the output's magnitude, K3 3e-2, K8 3e-2 and 2e-2 of the magnitude.
+    Errors only; the kernels' records stay at their own shapes."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.tuning import int8_packs, qkv_operands
+
+    b, s, d, h = EVAL_BATCH, 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, ws, bs = qkv_operands(gen, b, s, d, raw=False)
+    k1_rel = rel_errors([k1.fused_qkv_attention(x, *ws, *bs, h)],
+                        [k1.fused_qkv_attention_reference(x, *ws, *bs, h)],
+                        ("out",))["out"]
+    q, k, v = (torch.randn(b, s, h, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    k3_err = max_abs([k3.flash_attention(q, k, v)],
+                     [k3.flash_attention_reference(q, k, v)])
+    act_scale = x.float().abs().max() * 1.1 / 127
+    ops = [t for pack in int8_packs(gen, d, (0.02,) * 3) for t in pack]
+    got = k8.fused_qkv_attention_int8(x, act_scale, *ops, h)
+    want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, h)
+    k8_rel = rel_errors([got], [want], ("out",))["out"]
+    k8_err = max_abs([got], [want])
+    if not (k1_rel <= K1_TOL and k3_err <= K3_TOL and k8_err <= K8_TOL
+            and k8_rel <= K1_TOL):
+        raise RuntimeError(
+            f"at {b} views: K1 {k1_rel} of its magnitude (limit {K1_TOL}), "
+            f"K3 {k3_err} (limit {K3_TOL}), K8 {k8_err} (limit {K8_TOL}) "
+            f"and {k8_rel} of its magnitude (limit {K1_TOL})")
+    phase("kernel", shapes="evaluate", views=b, k1_out_err=round(k1_rel, 6),
+          k3_max_abs_err=k3_err, k8_max_abs_err=k8_err,
+          k8_out_err=round(k8_rel, 6))
 
 
 def check_attention_backward_kernel(seed: int) -> dict:
@@ -1862,6 +1937,235 @@ def time_layers(service, payloads) -> dict:
     return {f"{key}_ms": sorted(v)[len(v) // 2] for key, v in out.items()}
 
 
+def eval_counters() -> dict:
+    """The launch counters of every kernel an ``evaluate`` or ``predict``
+    run may reach: the bf16 routes' and the int8 ones'."""
+    from pigeon_tpu_torch.kernels import fused_block_attention_int8 as k7
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+
+    return {**route_counters(),
+            "fused_qkv_attention_int8": k8.fused_qkv_attention_int8,
+            "fused_block_attention_int8": k7.fused_block_attention_int8}
+
+
+def write_base(root: str, seed: int, cfg) -> str:
+    """A seeded reference-layout SuperGuessr state dict (``base_model.*``
+    and ``cell_layer``) of the ``cfg`` model, stored in bf16, as
+    ``--base`` reads it; its weights are `init_weights` of another seed
+    than the CLI's own initialisation."""
+    import torch
+
+    from pigeon_tpu_torch.models.hf_import import reference_state
+    from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
+
+    model = init_weights(SuperGuessr(cfg.vision, cfg.head), BASE_SEED + seed)
+    path = os.path.join(root, "base.pt")
+    torch.save({k: v.to(torch.bfloat16)
+                for k, v in reference_state(model).items()}, path)
+    return path
+
+
+def run_command(argv, counters: dict, expect: dict) -> dict:
+    """The port CLI's ``main(argv)`` with every counter set to 0 just
+    before it; each counter's launches must equal ``expect``'s (0 where
+    unnamed). Returns the launches, the seconds and the peak GiB."""
+    import gc
+
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    if run.main(argv) != 0:
+        raise RuntimeError(f"{argv[0]} exited non-zero")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: expect.get(name, 0) for name in counters}
+    if launches != want:
+        raise RuntimeError(f"{argv[0]} {argv[-1]} launched {launches}, "
+                           f"expected {want}")
+    return {"launches": {k: n for k, n in launches.items() if n},
+            "seconds": seconds,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def time_evaluation(ev, runs: int = EVAL_LOOP_RUNS) -> list:
+    """The seconds of ``runs`` passes of the ``evaluate`` command's own
+    loop (`run_evaluation`) over a run `build_evaluation` set up, its
+    set-up (model, bank, datasets) outside the clock, decode included,
+    each ended by a synchronise; after one warm-up."""
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+
+    times = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        run.run_evaluation(ev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times[1:]
+
+
+def check_evaluate(root: str, pool, seed: int) -> dict:
+    """``evaluate -l sample20 --base`` (refined, the ``im2gps3k`` preset;
+    bf16, then ``--quant``) and ``predict --images`` through the CLI's
+    own ``main`` at full width on `write_assets`' cells, bank and
+    prototypes, each with exact launch counts; then, outside the counts,
+    the weights of a model the CLI builds on the same arguments against
+    the file's, its first batch's embeddings on the kernel route against
+    the plain route and the int8 tower's against bf16's. Returns each
+    kernel's launches."""
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.data.image_ops import normalize_images
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.models.clip import set_route
+    from pigeon_tpu_torch.train.metrics import compute_geoguessr_metrics
+
+    images = os.path.join(HERE, "data", "benchmarks", "sample20", "images")
+    common = ["--geocells", os.path.join(root, "cells.csv"),
+              "--metadata", os.path.join(root, "meta.csv"),
+              "--prototypes", os.path.join(root, "protos.csv"),
+              "--embeddings", os.path.join(root, "emb"),
+              "--checkpoint-dir", os.path.join(root, "eval_ckpt"),
+              "--batch-size", str(EVAL_BATCH), "--device", "cuda"]
+    evaluate = ["evaluate", "smoke_eval", "-l", EVAL_BENCHMARK,
+                "--benchmarks", os.path.join(HERE, "data", "benchmarks",
+                                             "benchmarks.json"), *common]
+    cfg = run.make_config(run.build_parser().parse_args(evaluate))
+    cfg = cfg.replace(head=dataclasses.replace(cfg.head,
+                                               num_cells=NUM_CELLS))
+    t0 = time.perf_counter()
+    base = write_base(root, seed, cfg)
+    base_s = time.perf_counter() - t0
+    evaluate += ["--base", base]
+    args = run.build_parser().parse_args(evaluate)
+    counters = eval_counters()
+    layers = cfg.vision.num_layers
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    runs = {}
+    for label, extra, expect in (
+            ("bf16", (), {"fused_qkv_attention": layers * batches,
+                          "smooth_labels": batches}),
+            ("int8", ("--quant",), {"flash_attention": layers,
+                                    "fused_qkv_attention_int8":
+                                        layers * batches,
+                                    "smooth_labels": batches})):
+        out = os.path.join(root, f"eval_{label}.json")
+        runs[label] = run_command([*evaluate, *extra, "--output", out],
+                                  counters, expect)
+        metrics = json.load(open(out))[EVAL_BENCHMARK]
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"evaluate {label}: metrics not finite: {bad}")
+        runs[label]["metrics"] = metrics
+    # The suite's keys for these inputs: a geocell label column, no
+    # multi-task, climate or month labels, no scaler or country file.
+    n = np.zeros((1, 2))
+    want_keys = [*compute_geoguessr_metrics(
+        n, n, cell_preds=np.zeros(1), cell_labels=np.zeros(1),
+        topk_cells=np.zeros((1, 1))), "Eval_loss"]
+    for label, rec in runs.items():
+        if list(rec["metrics"]) != want_keys:
+            raise RuntimeError(f"evaluate {label}: keys "
+                               f"{list(rec['metrics'])}, not {want_keys}")
+
+    predictions = os.path.join(root, "predictions.csv")
+    runs["predict"] = run_command(
+        ["predict", "smoke_eval", "--images", images, "--base", base,
+         *common, "--output", predictions], counters,
+        {"fused_qkv_attention": layers * batches})
+    with open(predictions) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != EVAL_IMAGES or list(rows[0]) != list(
+            run.PREDICT_COLUMNS):
+        raise RuntimeError(f"predict wrote {len(rows)} rows of "
+                           f"{list(rows[0]) if rows else []}")
+    for row in rows:
+        lat, lng = float(row["lat"]), float(row["lng"])
+        if not (-90 <= lat <= 90 and -180 <= lng <= 180
+                and 0 <= int(row["geocell_idx"]) < NUM_CELLS
+                and 0 <= float(row["top1_prob"]) <= 1):
+            raise RuntimeError(f"predict: bad row {row}")
+        if not np.isclose(pool, [lng, lat], atol=1e-3).all(-1).any():
+            raise RuntimeError(f"predict: ({lng}, {lat}) is no bank or "
+                               "prototype location")
+
+    # Outside the counts: the run the command builds from the same
+    # arguments, its weights, embeddings and timed loop.
+    file = torch.load(base, weights_only=True)
+    ev = run.build_evaluation(args)
+    model = ev.model.eval()
+    tower = "base_model.vision_model."
+    patch = file[tower + "embeddings.patch_embedding.weight"].float()
+    for name, want in (
+            ("vision.patch_embed.weight",
+             patch.permute(0, 2, 3, 1).reshape(patch.shape[0], -1)),
+            (f"vision.encoder.layers.{layers - 1}.attn.q_proj.weight",
+             file[f"{tower}encoder.layers.{layers - 1}.self_attn.q_proj."
+                  "weight"].float())):
+        if not torch.equal(model.get_parameter(name).detach().cpu(), want):
+            raise RuntimeError(f"{name} is not the --base file's tensor")
+    with contextlib.closing(iter_batches(ev.datasets[EVAL_BENCHMARK],
+                                         EVAL_BATCH)) as it:
+        first = next(it)
+    pixels = normalize_images(torch.from_numpy(first["inputs"]).cuda())
+    with torch.inference_mode():
+        kernel = model(pixels).embedding.flatten().float()
+        set_route(model, "plain")
+        plain = model(pixels).embedding.flatten().float()
+        set_route(model, "fused")
+    cos = torch.nn.functional.cosine_similarity(kernel, plain, dim=0).item()
+    if not cos >= ROUTE_COSINE:
+        raise RuntimeError(f"evaluate: kernel-route embedding cosine {cos} "
+                           f"< {ROUTE_COSINE} against the plain route")
+    loop_s = {"bf16": time_evaluation(ev)}
+    del ev, model
+    ev = run.build_evaluation(run.build_parser().parse_args(
+        [*evaluate, "--quant"]))
+    with torch.inference_mode():
+        int8 = ev.model.eval()(pixels).embedding.flatten().float()
+    int8_cos = torch.nn.functional.cosine_similarity(int8, kernel,
+                                                     dim=0).item()
+    if not int8_cos >= INT8_COSINE:
+        raise RuntimeError(f"evaluate --quant: int8 embedding cosine "
+                           f"{int8_cos} < {INT8_COSINE} against bf16")
+    loop_s["int8"] = time_evaluation(ev)
+    del ev
+
+    phase("evaluate", base_file_gib=round(os.path.getsize(base) / 2**30, 3),
+          base_write_s=round(base_s, 3), images=EVAL_IMAGES,
+          batches=batches, cosine_vs_plain=cos, int8_cosine_vs_bf16=int8_cos)
+    for label, times in loop_s.items():
+        median = sorted(times)[len(times) // 2]
+        phase("evaluate", loop=label, seconds=round(median, 4),
+              images_per_s=round(EVAL_IMAGES / median, 2),
+              seconds_all=[round(t, 4) for t in times])
+    total = {}
+    for label, rec in runs.items():
+        fields = {k: rec["metrics"][k] for k in ("Median_km_error",
+                                                 "Geoguessr_score",
+                                                 "Eval_loss")} \
+            if "metrics" in rec else {}
+        phase("evaluate", run=label,
+              launches=json.dumps(rec["launches"], separators=(",", ":")),
+              seconds=round(rec["seconds"], 3),
+              images_per_s=round(EVAL_IMAGES / rec["seconds"], 3),
+              peak_gib=round(rec["peak_gib"], 3), **fields)
+        for name, count in rec["launches"].items():
+            total[name] = total.get(name, 0) + count
+    return total
+
+
 def write_train_assets(root: str, seed: int):
     """Geocells and a panorama metadata CSV with every label column the
     multi-task loss reads, over the repo's PNG fixtures. Returns the
@@ -2704,6 +3008,7 @@ def main() -> int:
                "fused_block_attention_int8":
                    check_block_int8_kernel(args.seed),
                "flash_attention_online": check_online_kernel(args.seed)}
+    check_eval_shapes(args.seed)
     # Each path's launches, counted from 0 just before it runs.
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -2720,7 +3025,8 @@ def main() -> int:
         add(check_serving_int8_block(root, pool, args.requests,
                                      bf16_embedding))
         add(check_serve_routes(root, pool, args.requests, bf16_embedding))
-    del bf16_embedding
+        del bf16_embedding
+        add(check_evaluate(root, pool, args.seed))
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
     variant_launches, variant_records = check_variants()

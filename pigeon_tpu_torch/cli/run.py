@@ -1,33 +1,54 @@
-"""CLI of the port: the ``serve`` and ``finetune`` subcommands.
+"""CLI of the port: the ``serve``, ``finetune``, ``evaluate`` and
+``predict`` subcommands.
 
-Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` and `cmd_finetune` (on
-pixels), with their flags for these paths. Models are built in bf16 with
-f32 parameters, on the attention route that ``PIGEON_ATTN_IMPL`` names in
-the JAX package's words (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL``
-for ``serve --quant``, :func:`quant_attn_impl`): by default
-``flash_fused``, kernel K1 (and K2 in the backward); ``PIGEON_FLASH_FWD``
-picks the body of K3 where it runs (:func:`flash_fwd`).
-``serve`` answers with the newest checkpoint under
-``--checkpoint-dir/NAME`` (the model that ``finetune`` wrote), else with
-a seeded initialisation; ``serve --quant`` first makes its
-tower int8: the weights quantized per output channel, the activation
-scales calibrated by one dynamic forward (attention through kernel K3)
-over ``--calib-images`` or a seeded synthetic batch; requests then run
-every layer's attention through kernel K8. ``finetune`` trains from a seeded
-initialisation under the remat policy ``PIGEON_REMAT`` names
+Counterpart of `pigeon_tpu/cli/run.py::cmd_serve`, `cmd_finetune` (on
+pixels), `cmd_evaluate` and `cmd_predict`, with their flags for these
+paths. Models are built in bf16 with f32 parameters, on the attention
+route that ``PIGEON_ATTN_IMPL`` names in the JAX package's words
+(:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL`` under ``--quant``,
+:func:`quant_attn_impl`): by default ``flash_fused``, kernel K1 (and K2
+in the backward); ``PIGEON_FLASH_FWD`` picks the body of K3 where it runs
+(:func:`flash_fwd`).
+
+``serve``, ``evaluate`` and ``predict`` take their weights by one policy
+(:func:`init_and_restore`): the newest checkpoint under
+``--checkpoint-dir/NAME`` (the model that ``finetune`` wrote), else the
+torch state dict ``--base`` names (an HF CLIP vision tower or the
+reference's SuperGuessr ``.model``, `models/hf_import.py`), else a seeded
+initialisation. ``finetune`` overlays ``--base`` on its seeded
+initialisation before ``--resume``. Under ``--quant`` the tower becomes
+int8: the weights quantized per output channel, the activation scales
+calibrated by one dynamic forward (attention through kernel K3); every
+later forward runs each layer's attention through kernel K8. ``serve``
+calibrates on ``--calib-images`` or a seeded synthetic batch,
+``evaluate`` and ``predict`` on the first real batch.
+
+``finetune`` trains under the remat policy ``PIGEON_REMAT`` names
 (:func:`remat_policy`), evaluates each epoch, keeps the best checkpoint
 under ``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
+``evaluate`` scores benchmarks of the registry (``-l``) or the
+metadata's test split (``-t``) with the full metric suite, refined by
+the preset of each benchmark's family, into ``--output`` JSON;
+``predict`` writes one CSV row of coordinates per image. Their
+multi-device runs, ``--zeroshot`` and ``--landmarks`` are not ported.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
-``csv`` module, training metadata with pandas, embeddings with numpy.
+``csv`` module, training and evaluation metadata with pandas, embeddings
+with numpy.
 
 Usage:
     python -m pigeon_tpu_torch.cli.run serve pigeon --panorama -m \
-        --heading --geocells data/geocells.csv [--prototypes P.csv \
-        --embeddings DIR --metadata META.csv [--hedge]] \
-        [--quant [--calib-images DIR]]
+        --heading --geocells data/geocells.csv [--base B.pt] \
+        [--prototypes P.csv --embeddings DIR --metadata META.csv \
+        [--hedge]] [--quant [--calib-images DIR]]
     python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
         --images DIR --geocells C.csv --panorama -m --heading \
-        [--batch-size N] [--epochs N] [--resume]
+        [--base B.pt] [--batch-size N] [--epochs N] [--resume]
+    python -m pigeon_tpu_torch.cli.run evaluate myrun -l sample20 \
+        --geocells C.csv [--base B.pt] [--prototypes P.csv \
+        --embeddings DIR --metadata META.csv] [--scaler S.json] \
+        [--countries C.geojson] [--quant] [--output R.json]
+    python -m pigeon_tpu_torch.cli.run predict myrun --images DIR \
+        --geocells C.csv [--base B.pt] [--quant] [--output P.csv]
 """
 
 from __future__ import annotations
@@ -37,6 +58,8 @@ import csv
 import dataclasses
 import functools
 import glob
+import itertools
+import json
 import logging
 import os
 import sys
@@ -61,6 +84,13 @@ INIT_SEED = 0
 CALIB_SEED = 3
 #: At most this many ``--calib-images`` are read (`run.py:1408-1442`).
 MAX_CALIB_IMAGES = 32
+#: ``evaluate`` and ``predict`` calibrate on at most this many samples of
+#: their first batch, with this margin over the observed maxima.
+EVAL_CALIB_SAMPLES, EVAL_CALIB_MARGIN = 8, 1.0
+#: Image files ``predict --images`` finds.
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
+#: The columns of ``predict``'s CSV.
+PREDICT_COLUMNS = ("image", "lat", "lng", "geocell_idx", "top1_prob")
 
 #: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
 #: port's route for each (`models/clip.py`).
@@ -144,9 +174,33 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pigeon_tpu_torch",
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
-    p.add_argument("function", choices=["serve", "finetune"],
+    p.add_argument("function",
+                   choices=["serve", "finetune", "evaluate", "predict"],
                    help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
+    p.add_argument("-l", "--load", default=None,
+                   help="evaluate: comma-separated benchmark names "
+                        "(default im2gps3k); predict: a metadata CSV of "
+                        "images")
+    p.add_argument("-b", "--base", default=None,
+                   help="torch state dict to start from: an HF CLIP "
+                        "vision tower or a reference SuperGuessr .model "
+                        "(a run's checkpoint comes first)")
+    p.add_argument("-t", "--test", action="store_true",
+                   help="evaluate: the test split of --metadata (comma-"
+                        "separated files concatenate)")
+    p.add_argument("--benchmarks", default=None,
+                   help="evaluate: benchmark registry JSON (default: the "
+                        "config's)")
+    p.add_argument("--scaler", default=None,
+                   help="evaluate: RegressionScaler JSON for the "
+                        "multi-task errors in physical units")
+    p.add_argument("--countries", default=None,
+                   help="evaluate: country-boundary GeoJSON for "
+                        "Country_accuracy")
+    p.add_argument("--output", default=None,
+                   help="evaluate: metrics JSON; predict: CSV (default "
+                        "predictions.csv)")
     p.add_argument("--geocells", default=None, help="geocell CSV path")
     p.add_argument("--prototypes", default=None, help="prototype CSV path")
     p.add_argument("--embeddings", default=None,
@@ -156,7 +210,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--images", default="", help="image directory")
     p.add_argument("--checkpoint-dir", default="saved_models")
     p.add_argument("--batch-size", type=int, default=None,
-                   help="finetune: batch (default: the preset's)")
+                   help="finetune: batch (default: the preset's); "
+                        "evaluate, predict: default_batch's")
     p.add_argument("--epochs", type=int, default=None,
                    help="finetune: epochs (default: the preset's)")
     p.add_argument("-r", "--resume", action="store_true",
@@ -164,8 +219,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hedge", action="store_true",
                    help="hedge refined guesses for competitive play")
     p.add_argument("--quant", action="store_true",
-                   help="serve: int8 W8A8 vision tower (activation "
-                        "scales calibrated at startup)")
+                   help="int8 W8A8 vision tower (activation scales "
+                        "calibrated at start-up: serve on --calib-images "
+                        "or a synthetic batch, evaluate and predict on "
+                        "the first real batch)")
     p.add_argument("--calib-images", default=None,
                    help="serve --quant: calibrate on up to 32 images of "
                         "this directory (default: a synthetic batch)")
@@ -278,13 +335,27 @@ def serve_calibration_batch(args, cfg):
     return torch.from_numpy(batch)
 
 
-def quantize_for_inference(args, cfg, model, device):
-    """``model`` with an int8 tower calibrated on ``--calib-images``
-    (margin 1.1) or on a seeded N(0, 1) batch of 2 inputs (margin 1.25:
-    synthetic activations lack real tails), on ``device``
-    (`pigeon_tpu/cli/run.py::cmd_serve`, `_quantize_for_inference`)."""
+def quantize_model(model, calib: torch.Tensor, margin: float, device,
+                   source: str):
+    """``model`` on ``device`` with an int8 tower: weights quantized per
+    output channel, activation scales calibrated by one dynamic forward
+    over the CLIP-normalised ``calib`` batch with ``margin`` headroom
+    (`pigeon_tpu/cli/run.py::_quantize_for_inference`). ``source`` says
+    what the batch is, for the log."""
     from pigeon_tpu_torch.models.quant import quantize_and_calibrate
 
+    model = quantize_and_calibrate(model.to(device), calib.to(device),
+                                   tower_key="vision", margin=margin)
+    logger.warning("int8 W8A8 tower enabled (activation scales calibrated "
+                   "on %s, margin %s)", source, margin)
+    return model
+
+
+def quantize_for_serving(args, cfg, model, device):
+    """``serve --quant``: :func:`quantize_model` on ``--calib-images``
+    (margin 1.1) or on a seeded N(0, 1) batch of 2 inputs (margin 1.25:
+    synthetic activations lack real tails) (`pigeon_tpu/cli/run.py::
+    cmd_serve`)."""
     calib = serve_calibration_batch(args, cfg)
     if calib is None:
         views = (4,) if cfg.head.panorama else ()
@@ -296,24 +367,50 @@ def quantize_for_inference(args, cfg, model, device):
             "DIR for real-data calibration)"
     else:
         margin, source = 1.1, f"{calib.shape[0]} real images"
-    model = quantize_and_calibrate(model.to(device), calib.to(device),
-                                   tower_key="vision", margin=margin)
-    logger.warning("int8 W8A8 tower enabled (activation scales calibrated "
-                   "on %s, margin %s)", source, margin)
-    return model
+    return quantize_model(model, calib, margin, device, source)
 
 
-def start_server(args, block: bool = True) -> ThreadingHTTPServer:
-    """Build the model (int8 with ``--quant``), serving forward and
-    refiner on ``--device``, warm them up, and start the HTTP server."""
-    from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
-    from pigeon_tpu_torch.serve import PredictionService, serve
-    from pigeon_tpu_torch.serve.server import make_serving_fn
+def quantize_on_batch(model, batch: dict, device, source: str):
+    """``evaluate --quant`` and ``predict --quant``: :func:`quantize_model`
+    on the first `EVAL_CALIB_SAMPLES` samples of a real uint8 batch,
+    margin `EVAL_CALIB_MARGIN` (`pigeon_tpu/cli/run.py:1070-1083`,
+    `:1208-1215`)."""
+    from pigeon_tpu_torch.data.image_ops import normalize_images
+
+    pixels = torch.from_numpy(batch["inputs"][:EVAL_CALIB_SAMPLES])
+    return quantize_model(model, normalize_images(pixels),
+                          EVAL_CALIB_MARGIN, device,
+                          f"{pixels.shape[0]} real {source} images")
+
+
+def init_and_restore(args, model) -> None:
+    """The weights of ``serve``, ``evaluate`` and ``predict``
+    (`pigeon_tpu/cli/run.py::_init_and_restore`): the newest checkpoint
+    under ``--checkpoint-dir/NAME`` (``strict``) if there is one, else
+    ``--base`` overlaid on ``model``'s seeded values, else those."""
+    from pigeon_tpu_torch.models.hf_import import load_base
     from pigeon_tpu_torch.train.checkpoints import restore_model
-    from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
-    device = _device(args)
-    route = quant_attn_impl() if args.quant else attn_impl()
+    ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
+    step = restore_model(ckpt_dir, model)
+    if step is not None:
+        logger.warning("restored checkpoint step %d from %s", step, ckpt_dir)
+    elif args.base:
+        load_base(model, args.base)
+    else:
+        logger.warning("weights: seeded initialisation (seed %d); no "
+                       "checkpoint under %s and no --base", INIT_SEED,
+                       ckpt_dir)
+
+
+def build_model(args, quant: bool = False):
+    """``(cells, cfg, model)``: the geocells, the preset sized to them and
+    a bf16 `SuperGuessr` (f32 parameters, on the CPU) on the route of
+    :func:`attn_impl`, or of :func:`quant_attn_impl` for a tower about to
+    become int8, its weights from :func:`init_and_restore`."""
+    from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
+
+    route = quant_attn_impl() if quant else attn_impl()
     forward_body = flash_fwd()
     cells = load_geocells(args)
     cfg = make_config(args)
@@ -324,15 +421,33 @@ def start_server(args, block: bool = True) -> ThreadingHTTPServer:
                     attn_impl=route), INIT_SEED)
     logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s)", route,
                    forward_body)
-    ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
-    step = restore_model(ckpt_dir, model)
-    if step is None:
-        logger.warning("weights: seeded initialisation (seed %d); no "
-                       "checkpoint under %s", INIT_SEED, ckpt_dir)
-    else:
-        logger.warning("restored checkpoint step %d from %s", step, ckpt_dir)
+    init_and_restore(args, model)
+    return cells, cfg, model
+
+
+def default_batch(quant: bool) -> int:
+    """The batch of ``evaluate`` and ``predict`` without ``--batch-size``:
+    the JAX CLI's defaults by route (`pigeon_tpu/cli/run.py::
+    _default_batch`), int8 48 on K8's and K7's routes and 24 elsewhere,
+    bf16 56 on the ``flash_fused*`` routes and 32 elsewhere. They were
+    tuned for the TPU; the port's own optimum on the card is not
+    measured."""
+    if quant:
+        return 48 if quant_attn_impl() in ("fused", "block") else 24
+    return 56 if _attn_name().startswith("flash_fused") else 32
+
+
+def start_server(args, block: bool = True) -> ThreadingHTTPServer:
+    """Build the model (int8 with ``--quant``), serving forward and
+    refiner on ``--device``, warm them up, and start the HTTP server."""
+    from pigeon_tpu_torch.serve import PredictionService, serve
+    from pigeon_tpu_torch.serve.server import make_serving_fn
+    from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
+
+    device = _device(args)
+    cells, cfg, model = build_model(args, quant=args.quant)
     if args.quant:
-        model = quantize_for_inference(args, cfg, model, device)
+        model = quantize_for_serving(args, cfg, model, device)
     serve_fn = make_serving_fn(model, cfg.head, cells, device)
 
     refine_fn = None
@@ -431,10 +546,12 @@ def _split_frames(args, multitask: bool):
 def build_finetune(args) -> Finetune:
     """The model, optimizer, datasets and checkpoint directory of a
     ``finetune`` run on pixels: the preset at full width (``--tiny``:
-    the smoke-test config), a seeded initialisation, every encoder layer
-    but the last frozen, the tower on the route of :func:`attn_impl` and
+    the smoke-test config), a seeded initialisation with ``--base``
+    overlaid (before ``--resume``), every encoder layer but the last
+    frozen, the tower on the route of :func:`attn_impl` and
     remat'd under :func:`remat_policy`."""
     from pigeon_tpu_torch.data.pipeline import TabularImageDataset
+    from pigeon_tpu_torch.models.hf_import import load_base
     from pigeon_tpu_torch.models.super_guessr import init_weights
     from pigeon_tpu_torch.train.checkpoints import (
         latest_step,
@@ -463,6 +580,8 @@ def build_finetune(args) -> Finetune:
                    route, forward_body, remat)
     state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
     ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
+    if args.base:
+        load_base(model, args.base)
     if args.resume and latest_step(ckpt_dir) is not None:
         restore_checkpoint(ckpt_dir, state)
         logger.warning("resumed from step %d", state.step)
@@ -512,11 +631,227 @@ def cmd_finetune(args) -> int:
     return 0
 
 
+def eval_datasets(args, cfg) -> dict:
+    """``evaluate``'s datasets by name: the registry's benchmarks ``-l``
+    names (default ``im2gps3k``), or with ``-t`` and no ``-l`` the
+    ``test`` rows of ``--metadata`` (comma-separated files
+    concatenate)."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.pipeline import (
+        BenchmarkDataset,
+        TabularImageDataset,
+    )
+
+    size = cfg.vision.image_size
+    if args.load is None and args.test:
+        if args.metadata is None:
+            raise SystemExit("evaluate -t needs --metadata")
+        frames = [pd.read_csv(m) for m in args.metadata.split(",")]
+        frames = [f[f["selection"] == "test"] if "selection" in f.columns
+                  else f for f in frames]
+        return {"test": TabularImageDataset(
+            pd.concat(frames, ignore_index=True), args.images,
+            image_size=size, panorama=cfg.head.panorama)}
+    registry = args.benchmarks or cfg.paths.benchmark_registry
+    return {name: BenchmarkDataset(name, registry, image_size=size)
+            for name in (args.load or "im2gps3k").split(",")}
+
+
+class Evaluation(NamedTuple):
+    """What `build_evaluation` sets up for an ``evaluate`` run."""
+
+    model: torch.nn.Module  # int8 tower with --quant, on the device
+    datasets: dict         # benchmark name -> dataset
+    refiners: dict         # benchmark name -> refine_fn, or None
+    eval_step: object      # make_eval_step's, EVAL_NUM_CANDIDATES wide
+    to_device: object      # host batch -> device batch
+    batch_size: int
+    scaler: object         # RegressionScaler, or None
+    country_index: object  # CountryIndex, or None
+
+
+def build_evaluation(args) -> Evaluation:
+    """The model (calibrated int8 with ``--quant``, on the first batch of
+    the first dataset), datasets, refiners (the preset of each
+    benchmark's family, where ``--prototypes/--embeddings/--metadata``
+    are given), eval step, scaler and country index of an ``evaluate``
+    run on ``--device``."""
+    import contextlib
+
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.train.evaluate import (
+        EVAL_NUM_CANDIDATES,
+        build_refiner,
+        refiner_preset,
+    )
+    from pigeon_tpu_torch.train.metrics import CountryIndex, RegressionScaler
+    from pigeon_tpu_torch.train.train_loop import (
+        batch_to_device,
+        make_eval_step,
+    )
+
+    device = _device(args)
+    cells, cfg, model = build_model(args, quant=args.quant)
+    datasets = eval_datasets(args, cfg)
+    assets = load_refine_assets(args)
+    scaler = RegressionScaler.load(args.scaler) if args.scaler else None
+    countries = CountryIndex(args.countries) if args.countries else None
+    if args.quant:
+        first = next(iter(datasets))
+        with contextlib.closing(iter_batches(
+                datasets[first], min(EVAL_CALIB_SAMPLES, args.batch_size
+                                     or EVAL_CALIB_SAMPLES))) as batches:
+            model = quantize_on_batch(model, next(batches), device, first)
+    return Evaluation(
+        model=model.to(device), datasets=datasets,
+        refiners={name: None if assets is None else build_refiner(
+            *assets, num_cells=len(cells), cfg=refiner_preset(name),
+            device=device) for name in datasets},
+        eval_step=make_eval_step(
+            cfg.head, torch.as_tensor(cells, device=device),
+            num_candidates=EVAL_NUM_CANDIDATES),
+        to_device=functools.partial(batch_to_device, device=device),
+        batch_size=args.batch_size or default_batch(args.quant),
+        scaler=scaler, country_index=countries)
+
+
+def run_evaluation(ev: Evaluation) -> dict:
+    """Each dataset of ``ev`` through its model, refined by its refiner
+    and scored by the full metric suite; the metrics by benchmark, also
+    in the log."""
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.train.evaluate import evaluate_benchmark
+
+    results = {}
+    for name, dataset in ev.datasets.items():
+        results[name] = evaluate_benchmark(
+            ev.eval_step, ev.model, iter_batches(dataset, ev.batch_size),
+            ev.to_device, refine_fn=ev.refiners[name], scaler=ev.scaler,
+            country_index=ev.country_index)
+        logger.warning("%s: %s", name, results[name])
+    return results
+
+
+def cmd_evaluate(args) -> int:
+    """`run_evaluation` of `build_evaluation`'s run; the metrics by
+    benchmark go to ``--output`` (JSON)."""
+    results = run_evaluation(build_evaluation(args))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=2)
+    return 0
+
+
+def predict_images(args, panorama: bool):
+    """``(frame, names)``: the rows ``predict`` reads and the name of each
+    in its CSV. ``-l CSV`` gives metadata rows (``image`` and, for a
+    panorama, ``image_2..4``, relative to ``--images``); ``--images DIR``
+    alone every image file under DIR, recursively, by path."""
+    import pandas as pd
+
+    if args.load:
+        df = pd.read_csv(args.load)
+        return df, df["image"].astype(str).tolist()
+    if not args.images:
+        raise SystemExit("predict needs --images DIR or -l CSV")
+    names = sorted(p for p in glob.glob(os.path.join(args.images, "**"),
+                                        recursive=True)
+                   if p.lower().endswith(IMAGE_EXTS))
+    if not names:
+        raise SystemExit(f"no images under {args.images}")
+    if panorama:
+        raise SystemExit("--panorama predict needs -l CSV with "
+                         "image..image_4 columns")
+    return pd.DataFrame({"image": names}), names
+
+
+def cmd_predict(args) -> int:
+    """One CSV row per image (`PREDICT_COLUMNS`): the refined location and
+    cell where refinement assets are given (the ``geoguessr`` preset for a
+    panorama model, else ``im2gps3k``), else the argmax cell's; the top
+    candidate's probability, unrefined. Each batch's results are read
+    back after the next batch is enqueued."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.pipeline import (
+        TabularImageDataset,
+        iter_batches,
+    )
+    from pigeon_tpu_torch.serve.server import make_serving_fn
+    from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
+
+    device = _device(args)
+    cells, cfg, model = build_model(args, quant=args.quant)
+    df, names = predict_images(args, cfg.head.panorama)
+    ds = TabularImageDataset(df, args.images if args.load else "",
+                             image_size=cfg.vision.image_size,
+                             panorama=cfg.head.panorama)
+    batches = iter_batches(ds, args.batch_size or default_batch(args.quant))
+    pending = []
+    if args.quant:
+        pending.append(next(batches))
+        model = quantize_on_batch(model, pending[0], device, "predict")
+    serve_fn = make_serving_fn(model, cfg.head, cells, device)
+    refine_fn = None
+    assets = load_refine_assets(args)
+    if assets is not None:
+        family = "geoguessr" if cfg.head.panorama else "im2gps3k"
+        refine_fn = build_refiner(*assets, num_cells=len(cells),
+                                  cfg=refiner_preset(family), device=device)
+        logger.warning("refinement enabled (%s preset)", family)
+
+    def enqueue(batch):
+        """The batch's forward and refinement enqueued and the copies of
+        its results to the host started; returns them and an event that
+        completes with the copies (None on the CPU)."""
+        out = serve_fn(batch["inputs"])
+        lla, cell = out["pred_lla"], out["topk_cells"][:, 0]
+        if refine_fn is not None:
+            refined = refine_fn(out["embedding"], out["pred_lla"],
+                                out["topk_cells"], out["topk_probs"])
+            lla, cell = refined["pred_lla"], refined["pred_cell"]
+        host = [t.to("cpu", non_blocking=True)
+                for t in (lla, cell, out["topk_probs"][:, 0])]
+        copied = None
+        if device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record()
+        return host, copied
+
+    rows = []
+
+    def emit(host, copied) -> None:
+        if copied is not None:
+            copied.synchronize()
+        lla, cell, prob = (t.numpy() for t in host)
+        lla, prob = lla.astype(np.float64), prob.astype(np.float64)
+        for i in range(len(cell)):
+            rows.append({"image": names[len(rows)], "lat": lla[i, 1],
+                         "lng": lla[i, 0], "geocell_idx": int(cell[i]),
+                         "top1_prob": prob[i]})
+
+    prev = None
+    for batch in itertools.chain(pending, batches):
+        out = enqueue(batch)
+        if prev is not None:
+            emit(*prev)
+        prev = out
+    if prev is not None:
+        emit(*prev)
+    out_path = args.output or "predictions.csv"
+    pd.DataFrame(rows, columns=list(PREDICT_COLUMNS)).to_csv(out_path,
+                                                             index=False)
+    logger.warning("wrote %d predictions to %s", len(rows), out_path)
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    return {"serve": cmd_serve,
-            "finetune": cmd_finetune}[args.function](args)
+    return {"serve": cmd_serve, "finetune": cmd_finetune,
+            "evaluate": cmd_evaluate,
+            "predict": cmd_predict}[args.function](args)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,10 @@ the six `MT_COLUMNS`, ``climate_zone_idx``, ``heading`` (degrees),
 on the device. Images are decoded by PIL with the JAX pipeline's draft
 mode; the native JPEG decoder is not used here.
 
+`BenchmarkDataset` reads a benchmark from the registry JSON
+(``{name: {"meta": csv, "images": dir}}``, paths relative to the
+registry), `holdout` takes a slice of a dataset's rows.
+
 `iter_batches` shuffles with the same numpy generator and seed as the
 JAX package, so both see the same batches, and re-raises a producer's
 exception (a corrupt image) in the consumer instead of ending the epoch
@@ -17,6 +21,8 @@ early.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import queue
 import threading
@@ -86,12 +92,41 @@ class TabularImageDataset:
         return out
 
 
+class BenchmarkDataset(TabularImageDataset):
+    """A single-image benchmark of the registry at ``registry_path``
+    (`pigeon_tpu/data/pipeline.py::BenchmarkDataset`); the centre crop of
+    the preprocessing is the benchmarks' square min-side crop."""
+
+    def __init__(self, name: str, registry_path: str,
+                 image_size: int = 336):
+        with open(registry_path) as f:
+            registry = json.load(f)
+        if name not in registry:
+            raise KeyError(f"benchmark {name!r} not registered; available: "
+                           f"{sorted(registry)}")
+        base = os.path.dirname(os.path.abspath(registry_path))
+        meta, images = (os.path.join(base, registry[name][key])
+                        for key in ("meta", "images"))
+        super().__init__(pd.read_csv(meta), image_dir=images,
+                         image_size=image_size, panorama=False)
+        self.name = name
+
+
+def holdout(dataset: TabularImageDataset, sl: slice) -> TabularImageDataset:
+    """The rows ``sl`` of ``dataset`` as a dataset of their own."""
+    return TabularImageDataset(dataset.df.iloc[sl],
+                               image_dir=dataset.image_dir,
+                               image_size=dataset.image_size,
+                               panorama=dataset.panorama)
+
+
 def iter_batches(dataset: TabularImageDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False) -> Iterator[Dict[str, np.ndarray]]:
     """Batches of stacked numpy arrays; decode runs on a thread pool and
     a bounded queue keeps up to `PREFETCH` batches ahead of the
-    consumer."""
+    consumer. Closing the generator early (a calibration batch) stops
+    the producer."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -100,6 +135,7 @@ def iter_batches(dataset: TabularImageDataset, batch_size: int,
     pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
     q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
     done = object()
+    stop = threading.Event()
 
     def build_batch(idx: np.ndarray) -> Dict[str, np.ndarray]:
         rows = [dataset.df.iloc[i] for i in idx]
@@ -117,6 +153,8 @@ def iter_batches(dataset: TabularImageDataset, batch_size: int,
         # consumer: the epoch must not end early and silently.
         try:
             for start in bounds:
+                if stop.is_set():
+                    return
                 q.put(build_batch(order[start:start + batch_size]))
             q.put(done)
         except BaseException as e:  # noqa: BLE001 - re-raised below
@@ -133,5 +171,10 @@ def iter_batches(dataset: TabularImageDataset, batch_size: int,
                 raise item
             yield item
     finally:
-        thread.join(timeout=1.0)
+        # Drain the queue until the producer ends: it may be blocked on a
+        # full queue, and sees `stop` before its next batch.
+        stop.set()
+        while thread.is_alive():
+            with contextlib.suppress(queue.Empty):
+                q.get(timeout=0.1)
         pool.shutdown(wait=False)

@@ -49,9 +49,17 @@ class MetricWriter:
 
 
 def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
-                   batch_to_device: Callable) -> Dict[str, float]:
+                   batch_to_device: Callable,
+                   refine_fn: Optional[Callable] = None, scaler=None,
+                   country_index=None) -> Dict[str, float]:
     """Run the eval batches and compute the metric suite, plus
-    ``Eval_loss``, the mean of the batches' losses."""
+    ``Eval_loss``, the mean of the batches' losses.
+
+    With ``refine_fn`` (`train.evaluate.build_refiner`) the refined
+    location and cell replace the argmax ones; ``scaler`` and
+    ``country_index`` add the multi-task errors and ``Country_accuracy``
+    (`train.metrics.compute_geoguessr_metrics`).
+    """
     acc: Dict[str, list] = {}
 
     def push(key, value):
@@ -62,13 +70,20 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
     for batch in batches:
         parts, preds = eval_step(model, batch_to_device(batch))
         losses.append(parts["loss"])
-        push("predictions", preds["pred_lla"])
-        push("cell_preds", preds["pred_cell"])
+        pred_lla, pred_cell = preds["pred_lla"], preds["pred_cell"]
+        if refine_fn is not None:
+            refined = refine_fn(preds["embedding"], preds["pred_lla"],
+                                preds["topk_cells"], preds["topk_probs"])
+            pred_lla, pred_cell = refined["pred_lla"], refined["pred_cell"]
+        push("predictions", pred_lla)
+        push("cell_preds", pred_cell)
         push("topk_cells", preds["topk_cells"])
+        push("preds_mt", preds["preds_mt"])
         push("preds_climate", preds["preds_climate"])
         push("preds_month", preds["preds_month"])
         push("labels", batch.get("labels"))
         push("cell_labels", batch.get("labels_clf"))
+        push("labels_mt", batch.get("labels_multi_task"))
         push("labels_climate", batch.get("labels_climate"))
         push("labels_month", batch.get("labels_month"))
     if not losses:
@@ -81,10 +96,12 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
         predictions=cat["predictions"], labels=cat["labels"],
         cell_preds=cat.get("cell_preds"), cell_labels=cat.get("cell_labels"),
         topk_cells=cat.get("topk_cells"),
+        preds_mt=cat.get("preds_mt"), labels_mt=cat.get("labels_mt"),
         preds_climate=cat.get("preds_climate"),
         labels_climate=cat.get("labels_climate"),
         preds_month=cat.get("preds_month"),
-        labels_month=cat.get("labels_month"))
+        labels_month=cat.get("labels_month"),
+        scaler=scaler, country_index=country_index)
     metrics["Eval_loss"] = float(torch.stack(losses).mean())
     return metrics
 

@@ -12,7 +12,7 @@ normalised there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -102,18 +102,19 @@ def make_train_step(head_cfg: HeadConfig, geocells: torch.Tensor
     return train_step
 
 
-def make_eval_step(head_cfg: HeadConfig, geocells: torch.Tensor
-                   ) -> Callable:
+def make_eval_step(head_cfg: HeadConfig, geocells: torch.Tensor,
+                   num_candidates: Optional[int] = None) -> Callable:
     """``eval_step(model, batch) -> (parts, predictions)``: the forward,
     the loss and what the metric suite reads (argmax cell and location,
-    top-k cells and probabilities, embeddings, multi-task outputs)."""
+    top-k cells and probabilities, embeddings, multi-task outputs). The
+    top k is ``num_candidates`` wide (default: the head's)."""
+    k = num_candidates or head_cfg.num_candidates
 
     @torch.inference_mode()
     def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
         model.eval()
         out, _, parts = batch_loss(model, batch, geocells, head_cfg)
-        preds = geocell_predictions(out.logits, geocells,
-                                    head_cfg.num_candidates)
+        preds = geocell_predictions(out.logits, geocells, k)
         preds.update(embedding=out.embedding, preds_mt=out.preds_mt,
                      preds_climate=out.preds_climate,
                      preds_month=out.preds_month)
