@@ -189,7 +189,29 @@ Phases, one line each, any failure raises:
              with finite losses and the exact launch counts that
              `check_train_routes` states; step time, images/s and peak
              memory per route;
-10. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
+10. embed  - the same width on the ``[train]`` phase's 32 + 8 panoramas
+             and 2203 cells, batch 8, through the CLI's own ``main``:
+             ``embed --panorama`` with a seeded HF CLIP ``--base`` file
+             (K1 24 x 5, banks (32, 4, 1024) and (8, 4, 1024) with their
+             indices), ``embed --quant`` (K3 24 in the calibration, K8
+             24 x 5, K1 never; every row within cosine >= 0.99 of bf16's),
+             ``embed --embedder vit`` with a seeded HF ViT file (K1 24 x
+             5, K9 never), ``finetune --embeddings --panorama`` on the
+             bf16 banks for 2 epochs (K10 (4 + 1) x 2, K1 and K2 never,
+             finite losses, a checkpoint); each bf16 bank's first batch
+             within cosine >= 0.999 a row of the plain route on a model
+             the CLI builds; the head's first-step gradients on K10
+             within 0.999 of plain smoothing; then, outside the counts,
+             K1 at the sweep's batch (512, 577, 1024) and K8 at the int8
+             sweep's (48) against their plain versions on the first and
+             last 8 rows (K1's bounds), timed; the sweep's images/s over
+             1024 single fixture images (bf16 at 512, int8 at 48; median
+             of 3 after a warm-up, decoding included) with peak memory
+             and its split (the input pipeline alone; a batch's copy to
+             the card and its forward, each synchronised); and the
+             head-only train step at the preset's batch of 256
+             (K10 at (256, 2203) once a step);
+11. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
              the TPU scripts' flagship shape (32 views, S = 577, H = 16;
@@ -197,7 +219,7 @@ Phases, one line each, any failure raises:
              checked against its plain version (`check_variants` states
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
-             launches of K1-K10 and K3′ stay those of phases 4-9. Then,
+             launches of K1-K10 and K3′ stay those of phases 4-10. Then,
              from the same driver runs, V10's ms beside K3′'s and V1's,
              split4's (V2 + V3), V4's and V5's beside K4's, and V1's,
              V2's, V3's, V4's, V5's and K4's device ms by pass
@@ -523,6 +545,12 @@ K10_SHAPES = (*K10_TIMED, (1, 1), (3, 5), (300, NUM_CELLS),
               (EVAL_IMAGES % EVAL_BATCH, NUM_CELLS))
 #: [train_routes]: each route takes this many steps and one eval batch.
 ROUTE_STEPS = 2
+#: [embed]: the sweep's timed batches (bf16: the preset's sweep batch;
+#: int8: `default_batch`'s), the single fixture images each timed run
+#: embeds (two bf16 batches), its timed runs, and the head-only train
+#: step's timed steps.
+EMBED_BATCH, EMBED_BATCH_INT8 = 512, 48
+EMBED_TIMED_IMAGES, EMBED_TIMED_RUNS, HEAD_STEPS = 1024, 3, 20
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -2221,7 +2249,6 @@ def check_training(seed: int) -> dict:
         build_parser,
         train_finetune,
     )
-    from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
     from pigeon_tpu_torch.kernels import geodesy
     from pigeon_tpu_torch.models.clip import set_route
@@ -2287,8 +2314,7 @@ def check_training(seed: int) -> dict:
                     f"{latest_step(run.checkpoint_dir)}; expected {steps}")
 
             # --- gradients of the first batch: kernels vs plain route ---
-            batches = iter_batches(run.train, TRAIN_BATCH, shuffle=True,
-                                   seed=0, drop_last=True)
+            batches = run.train_batches(0)
             batch = batch_to_device(next(batches), run.device)
             batches.close()
             model, head = run.state.model, run.cfg.head
@@ -2440,7 +2466,6 @@ def check_train_routes(seed: int) -> dict:
     import torch
 
     from pigeon_tpu_torch.cli.run import build_finetune, build_parser
-    from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.models.clip import routes_of, set_route
     from pigeon_tpu_torch.train.train_loop import (
         TrainState,
@@ -2476,14 +2501,13 @@ def check_train_routes(seed: int) -> dict:
             trained = sum(layer.attn.out_proj.weight.requires_grad
                           for layer in model.vision.encoder.layers)
 
-            def first(dataset, shuffle):
-                batches = iter_batches(dataset, TRAIN_BATCH, shuffle=shuffle,
-                                       seed=0, drop_last=shuffle)
+            def first(batches):
                 batch = batch_to_device(next(batches), run.device)
                 batches.close()
                 return batch
 
-            batch, val_batch = first(run.train, True), first(run.val, False)
+            batch, val_batch = first(run.train_batches(0)), \
+                first(run.eval_batches())
             start = {k: v.detach().clone()
                      for k, v in model.state_dict().items()}
 
@@ -2586,6 +2610,447 @@ def check_train_routes(seed: int) -> dict:
             torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
+    return total
+
+
+def write_hf_bases(root: str, seed: int, vision) -> tuple:
+    """Seeded ``--base`` files for ``embed`` at ``vision``'s width, stored
+    in bf16: an HF CLIP vision tower (``vision_model.*``: a
+    `ClipEmbedder`'s `reference_state`, the ``base_model.`` prefix
+    stripped) and an HF `ViTModel` (a `ViTEmbedder`'s `hf_vit_state`),
+    from `init_weights` of another seed than the CLI's own
+    initialisation. Returns their paths."""
+    import torch
+
+    from pigeon_tpu_torch.models.embedder import ClipEmbedder
+    from pigeon_tpu_torch.models.hf_import import reference_state
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.models.vit_embedder import ViTEmbedder, hf_vit_state
+
+    prefix = "base_model."
+    clip = reference_state(init_weights(ClipEmbedder(vision),
+                                        BASE_SEED + seed))
+    vit = hf_vit_state(init_weights(ViTEmbedder(vision), BASE_SEED + seed))
+    paths = (os.path.join(root, "clip_base.pt"),
+             os.path.join(root, "vit_base.pt"))
+    for path, state in zip(paths, (
+            {k[len(prefix):]: v for k, v in clip.items()}, vit)):
+        torch.save({k: v.to(torch.bfloat16) for k, v in state.items()},
+                   path)
+    return paths
+
+
+def row_cosines(got, want):
+    """The cosine of each embedding row (the last axis) of two banks."""
+    import torch
+
+    a, b = (torch.as_tensor(x).float().cpu().reshape(-1, x.shape[-1])
+            for x in (got, want))
+    return torch.nn.functional.cosine_similarity(a, b, dim=-1)
+
+
+def check_rows_at(kernel, reference, args, b: int, tol: float,
+                  name: str) -> float:
+    """``kernel`` at batch ``b`` against ``reference`` on its first and
+    last 8 rows (the plain version of the whole batch would take minutes):
+    max abs error over the max magnitude; raises beyond ``tol``."""
+    import torch
+
+    x, rest = args[0], args[1:]
+    got = kernel(x, *rest)
+    worst = 0.0
+    for rows in (slice(0, 8), slice(b - 8, b)):
+        want = reference(x[rows], *rest)
+        worst = max(worst, rel_errors([got[rows]], [want], ("out",))["out"])
+    torch.cuda.synchronize()
+    if not worst <= tol:
+        raise RuntimeError(f"{name} at batch {b}: max abs error over max "
+                           f"magnitude {worst} (limit {tol})")
+    return worst
+
+
+def check_embed_shapes(seed: int) -> None:
+    """K1 at the sweep's batch of `EMBED_BATCH` images and K8 at the int8
+    sweep's `EMBED_BATCH_INT8`, which no other phase launches them at,
+    against their plain versions on the first and last 8 rows, with their
+    bounds (2e-2 of the output's magnitude; K8 also 3e-2 absolute), and
+    timed. Errors and times only; the kernels' records stay at their own
+    shapes."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.tuning import int8_packs, qkv_operands
+
+    s, d, h = 577, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, ws, bs = qkv_operands(gen, EMBED_BATCH, s, d, raw=False)
+    args = (x, *ws, *bs, h)
+    k1_rel = check_rows_at(k1.fused_qkv_attention,
+                           k1.fused_qkv_attention_reference, args,
+                           EMBED_BATCH, K1_TOL, "K1")
+    k1_ms = median_ms(lambda: k1.fused_qkv_attention(*args), runs=5)
+    flop = 3 * 2 * EMBED_BATCH * s * d * d + 2 * 2 * EMBED_BATCH * h * s \
+        * s * 64
+    k1_bound = bound({"bf16": flop}, nbytes(x, *ws, *bs, x))["bound_ms"]
+    del x, args
+    x = qkv_operands(gen, EMBED_BATCH_INT8, s, d, raw=False)[0]
+    act_scale = x.float().abs().max() * 1.1 / 127
+    ops = [t for pack in int8_packs(gen, d, (0.02,) * 3) for t in pack]
+    args = (x, act_scale, *ops, h)
+    k8_rel = check_rows_at(k8.fused_qkv_attention_int8,
+                           k8.fused_qkv_attention_int8_reference, args,
+                           EMBED_BATCH_INT8, K1_TOL, "K8")
+    got = k8.fused_qkv_attention_int8(*args)
+    k8_err = max(max_abs([got[r]], [k8.fused_qkv_attention_int8_reference(
+        x[r], *args[1:])]) for r in (slice(0, 8), slice(-8, None)))
+    if not k8_err <= K8_TOL:
+        raise RuntimeError(f"K8 at batch {EMBED_BATCH_INT8}: max abs error "
+                           f"{k8_err} (limit {K8_TOL})")
+    k8_ms = median_ms(lambda: k8.fused_qkv_attention_int8(*args), runs=10)
+    phase("kernel", shapes="embed", k1_views=EMBED_BATCH,
+          k1_out_err=round(k1_rel, 6), k1_ms=k1_ms,
+          k1_bound_ms=round(k1_bound, 4), k8_views=EMBED_BATCH_INT8,
+          k8_out_err=round(k8_rel, 6), k8_max_abs_err=k8_err, k8_ms=k8_ms)
+    del x, args, got
+    torch.cuda.empty_cache()
+
+
+def time_sweep(model, dataset, batch: int, runs: int = EMBED_TIMED_RUNS
+               ) -> tuple:
+    """``(seconds of each run, peak GiB)``: `train.embed.embed_dataset` of
+    ``model`` over ``dataset`` at ``batch``, decoding included, each run
+    ended by a synchronise, after one warm-up."""
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.train.embed import embed_dataset
+
+    times = []
+    for i in range(runs + 1):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = embed_dataset(model, dataset, batch, torch.device("cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if out["embeddings"].shape[0] != len(dataset) or not np.isfinite(
+                out["embeddings"]).all():
+            raise RuntimeError(f"sweep at batch {batch}: "
+                               f"{out['embeddings'].shape}, not finite")
+    return times[1:], torch.cuda.max_memory_allocated() / 2**30
+
+
+def sweep_split(model, dataset, batch: int) -> dict:
+    """Where a sweep's time goes: ``decode_s``, the input pipeline alone
+    over ``dataset`` (decode, resize, stack on its threads); for its first
+    batch, ``to_device_ms``, the copy to the card and the normalisation,
+    and ``forward_ms``, the embedder's forward on the card; each
+    synchronised, the median of 3 after one."""
+    import torch
+
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.train.train_loop import batch_to_device
+
+    t0 = time.perf_counter()
+    first = None
+    for batch_ in iter_batches(dataset, batch):
+        first = batch_["inputs"] if first is None else first
+    decode_s = time.perf_counter() - t0
+    device = torch.device("cuda")
+    to_device = lambda: batch_to_device({"inputs": first},  # noqa: E731
+                                        device)["inputs"]
+    pixels = to_device()
+    out = {"decode_s": decode_s}
+    with torch.inference_mode():
+        for name, fn in (("to_device_ms", to_device),
+                         ("forward_ms", lambda: model(pixels))):
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = sorted(times[1:])[1]
+    return out
+
+
+def time_head_step(cfg, geocells, seed: int) -> dict:
+    """The head-only train step at the preset's batch (256 panoramas of
+    1024-wide embeddings, synthetic) on a seeded `GeocellHead`: the
+    median of `HEAD_STEPS` synchronised steps after 3, K10 at (256, 2203)
+    inside each."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.modes import build_embedding_model
+    from pigeon_tpu_torch.train.train_loop import (
+        TrainState,
+        adamw,
+        make_train_step,
+    )
+
+    b = cfg.train.batch_size_per_device
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = init_weights(build_embedding_model(cfg), seed).cuda()
+    state = TrainState(model, adamw(model.parameters(),
+                                    cfg.train.learning_rate))
+    batch = {"inputs": torch.randn(b, 4, cfg.head.embed_dim, generator=gen,
+                                   device="cuda"),
+             "labels": torch.stack([
+                 torch.rand(b, generator=gen, device="cuda") * 360 - 180,
+                 torch.rand(b, generator=gen, device="cuda") * 135 - 60], -1),
+             "labels_clf": torch.randint(0, len(geocells), (b,),
+                                         generator=gen, device="cuda")}
+    step = make_train_step(cfg.head, geocells)
+    fn = geodesy.smooth_labels_from_points
+    times = []
+    for i in range(3 + HEAD_STEPS):
+        if i == 3:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, batch)["loss"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if fn.launches != HEAD_STEPS or not bool(torch.isfinite(loss)):
+        raise RuntimeError(f"head step: K10 launched {fn.launches} in "
+                           f"{HEAD_STEPS} steps, loss {loss}")
+    times = times[3:]
+    return {"batch": b, "step_ms": sorted(times)[len(times) // 2],
+            "step_ms_all": [round(t, 3) for t in times]}
+
+
+def check_embed(seed: int) -> dict:
+    """``embed`` and ``finetune --embeddings`` through the CLI's own
+    ``main`` at full width on the ``[train]`` phase's metadata (32 train
+    and 8 val panoramas over the PNG fixtures, batch 8: 5 batches) and
+    2203 seeded cells, each with exact launch counts (L = 24 layers;
+    every other kernel of `eval_counters` none):
+
+    * ``embed --panorama --base`` an HF CLIP file: K1 5 L; banks of
+      (32, 4, 1024) and (8, 4, 1024) with their indices;
+    * ``embed --quant``: K3 L in the calibration, K8 5 L;
+    * ``embed --embedder vit --base`` an HF ViT file: K1 5 L (K9 never:
+      exact GELU);
+    * ``finetune --embeddings --panorama`` on the bf16 banks, 2 epochs:
+      K10 (4 + 1) x 2, finite losses, a checkpoint;
+
+    then, outside the counts, each bf16 bank's first batch against the
+    plain route on a model the CLI builds from the same arguments (cosine
+    >= 0.999 a row), the int8 rows against the bf16 ones (>= 0.99), the
+    head's first-step gradients on K10 against plain smoothing (>=
+    0.999); K1 and K8 at the sweep's batches; the sweep's images/s
+    (bf16 at 512, int8 at 48, over `EMBED_TIMED_IMAGES` single fixture
+    images, decoding included) with peak memory, and the head-only train
+    step at the preset's batch. Returns each kernel's launches."""
+    import contextlib
+    import gc
+    import math
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.data.image_ops import normalize_images
+    from pigeon_tpu_torch.data.pipeline import (
+        TabularImageDataset,
+        iter_batches,
+    )
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.models.clip import set_route
+    from pigeon_tpu_torch.models.geocell_head import smoothed_targets
+    from pigeon_tpu_torch.train.checkpoints import latest_step
+    from pigeon_tpu_torch.train.embed import make_embed_step
+    from pigeon_tpu_torch.train.train_loop import batch_loss, batch_to_device
+
+    counters = eval_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)      # the head's scalars go to ./runs/NAME
+        try:
+            meta, cells_csv, images = write_train_assets(root, seed)
+            common = ["--panorama", "--metadata", meta, "--images", images,
+                      "--batch-size", str(TRAIN_BATCH), "--device", "cuda"]
+            vision = run.make_config(run.build_parser().parse_args(
+                ["embed"])).vision
+            t0 = time.perf_counter()
+            clip_base, vit_base = write_hf_bases(root, seed, vision)
+            base_s = time.perf_counter() - t0
+            layers = vision.num_layers
+            batches = math.ceil(TRAIN_ROWS / TRAIN_BATCH) + math.ceil(
+                VAL_ROWS / TRAIN_BATCH)
+            sweeps = {"bf16": ["--base", clip_base],
+                      "int8": ["--base", clip_base, "--quant"],
+                      "vit": ["--base", vit_base, "--embedder", "vit"]}
+            expects = {"bf16": {"fused_qkv_attention": layers * batches},
+                       "int8": {"flash_attention": layers,
+                                "fused_qkv_attention_int8":
+                                    layers * batches},
+                       "vit": {"fused_qkv_attention": layers * batches}}
+            runs, banks = {}, {}
+            for label, extra in sweeps.items():
+                out = os.path.join(root, f"emb_{label}")
+                argv = ["embed", "smoke_embed", *common, *extra,
+                        "--output", out]
+                runs[label] = run_command(argv, counters, expects[label])
+                if sorted(os.listdir(out)) != [
+                        "train.npy", "train_indices.npy", "val.npy",
+                        "val_indices.npy"]:
+                    raise RuntimeError(f"embed {label} wrote "
+                                       f"{sorted(os.listdir(out))}")
+                banks[label] = {s: np.load(os.path.join(out, f"{s}.npy"))
+                                for s in ("train", "val")}
+                for split, n in (("train", TRAIN_ROWS), ("val", VAL_ROWS)):
+                    bank = banks[label][split]
+                    idx = np.load(os.path.join(out, f"{split}_indices.npy"))
+                    if bank.shape != (n, 4, vision.hidden_size) or \
+                            bank.dtype != np.float32 or \
+                            not np.isfinite(bank).all() or \
+                            not np.array_equal(idx, np.arange(n)):
+                        raise RuntimeError(
+                            f"embed {label} {split}: {bank.shape} "
+                            f"{bank.dtype}, indices {idx[:4]}...")
+            int8_cos = min(row_cosines(banks["int8"][s], banks["bf16"][s])
+                           .min().item() for s in ("train", "val"))
+            if not int8_cos >= INT8_COSINE:
+                raise RuntimeError(f"embed --quant: a row's cosine "
+                                   f"{int8_cos} < {INT8_COSINE} against "
+                                   "bf16")
+
+            # --- the first batch of each bf16 bank against the plain
+            # route, on a model the CLI builds from the same arguments
+            cosines, models = {}, {}
+            for label in ("vit", "bf16"):
+                args = run.build_parser().parse_args(
+                    ["embed", "smoke_embed", *common, *sweeps[label]])
+                cfg = run.make_config(args)
+                model = run.build_embedder(args, cfg).cuda().eval()
+                with contextlib.closing(iter_batches(
+                        run.embed_splits(args, cfg)["train"],
+                        TRAIN_BATCH)) as it:
+                    pixels = next(it)["inputs"]
+                step = make_embed_step(model, torch.device("cuda"))
+                set_route(model, "plain")
+                plain = step(pixels)
+                set_route(model, "fused")
+                cosines[label] = row_cosines(
+                    banks[label]["train"][:TRAIN_BATCH], plain).min().item()
+                if not cosines[label] >= ROUTE_COSINE:
+                    raise RuntimeError(
+                        f"embed {label}: a row's cosine {cosines[label]} < "
+                        f"{ROUTE_COSINE} against the plain route")
+                models[label] = model
+            del models["vit"], plain
+            gc.collect()
+
+            # --- head-only training on the bf16 banks
+            epochs = 2
+            steps = TRAIN_ROWS // TRAIN_BATCH
+            evals = VAL_ROWS // TRAIN_BATCH
+            head_argv = ["finetune", "smoke_head", "--panorama",
+                         "--metadata", meta, "--geocells", cells_csv,
+                         "--embeddings", os.path.join(root, "emb_bf16"),
+                         "--batch-size", str(TRAIN_BATCH),
+                         "--epochs", str(epochs),
+                         "--checkpoint-dir", os.path.join(root, "head_ckpt"),
+                         "--device", "cuda"]
+            runs["head"] = run_command(head_argv, counters, {
+                "smooth_labels": (steps + evals) * epochs})
+            with open(os.path.join("runs", "smoke_head",
+                                   "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            losses = [r["value"] for r in records if r["tag"] == "train/loss"]
+            eval_losses = [r["value"] for r in records
+                           if r["tag"] == "eval/Eval_loss"]
+            ckpt = latest_step(os.path.join(root, "head_ckpt", "smoke_head"))
+            if len(losses) != steps * epochs or len(eval_losses) != epochs \
+                    or not np.isfinite(losses + eval_losses).all() \
+                    or ckpt is None:
+                raise RuntimeError(f"finetune --embeddings: losses {losses}, "
+                                   f"eval {eval_losses}, checkpoint {ckpt}")
+            head_run = run.build_finetune(run.build_parser().parse_args(
+                head_argv))
+            batch = batch_to_device(next(head_run.train_batches(0)),
+                                    head_run.device)
+            head = head_run.state.model
+
+            def grads(smooth_fn):
+                head.zero_grad(set_to_none=True)
+                _, total, _ = batch_loss(head, batch, head_run.geocells,
+                                         head_run.cfg.head, smooth_fn)
+                total.backward()
+                return {n: p.grad.flatten().clone()
+                        for n, p in head.named_parameters()}
+
+            kernel_g = grads(smoothed_targets)
+            plain_g = grads(geodesy.smooth_labels_reference)
+            head_cos = min(torch.nn.functional.cosine_similarity(
+                g, plain_g[n], dim=0).item() for n, g in kernel_g.items())
+            if not head_cos >= ROUTE_COSINE:
+                raise RuntimeError(f"head gradients on K10: cosine {head_cos}"
+                                   f" < {ROUTE_COSINE} against plain "
+                                   "smoothing")
+            head_cfg, geocells = head_run.cfg, head_run.geocells
+            del head_run, head, batch, kernel_g, plain_g
+
+            # --- outside the counts: K1 and K8 at the sweep's batches,
+            # the sweep's images/s, the head step
+            check_embed_shapes(seed)
+            fixtures = sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(images, "*.png")))
+            timed = TabularImageDataset(
+                pd.DataFrame({"image": [fixtures[i % len(fixtures)]
+                                        for i in range(EMBED_TIMED_IMAGES)]}),
+                images, image_size=vision.image_size)
+            model = models.pop("bf16")
+            sweep = {"bf16": time_sweep(model, timed, EMBED_BATCH)}
+            split = {"bf16": sweep_split(model, timed, EMBED_BATCH)}
+            with contextlib.closing(iter_batches(timed, 8)) as it:
+                calib = next(it)["inputs"]
+            model = run.quantize_model(
+                model, normalize_images(torch.from_numpy(calib)),
+                run.EVAL_CALIB_MARGIN, torch.device("cuda"), "8 fixtures")
+            sweep["int8"] = time_sweep(model, timed, EMBED_BATCH_INT8)
+            split["int8"] = sweep_split(model, timed, EMBED_BATCH_INT8)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            step = time_head_step(head_cfg, geocells, seed)
+        finally:
+            os.chdir(cwd)
+    phase("embed", base_write_s=round(base_s, 3), views=4,
+          panoramas=TRAIN_ROWS + VAL_ROWS, batches=batches,
+          cosine_vs_plain=cosines["bf16"], vit_cosine_vs_plain=cosines["vit"],
+          int8_row_cosine_min=int8_cos, head_grad_cosine_min=head_cos,
+          head_losses=[round(v, 4) for v in losses],
+          head_eval_losses=[round(v, 4) for v in eval_losses],
+          head_checkpoint_step=ckpt)
+    total = {}
+    for label, rec in runs.items():
+        phase("embed", run=label,
+              launches=json.dumps(rec["launches"], separators=(",", ":")),
+              seconds=round(rec["seconds"], 3),
+              peak_gib=round(rec["peak_gib"], 3))
+        for name, count in rec["launches"].items():
+            total[name] = total.get(name, 0) + count
+    for label, (times, peak) in sweep.items():
+        median = sorted(times)[len(times) // 2]
+        phase("embed", sweep=label, batch=(EMBED_BATCH if label == "bf16"
+                                           else EMBED_BATCH_INT8),
+              images=EMBED_TIMED_IMAGES, seconds=round(median, 4),
+              images_per_s=round(EMBED_TIMED_IMAGES / median, 2),
+              seconds_all=[round(t, 4) for t in times],
+              peak_gib=round(peak, 3),
+              **{k: round(v, 4) for k, v in split[label].items()})
+    phase("embed", head_step_batch=step["batch"],
+          head_step_ms=round(step["step_ms"], 4),
+          head_step_ms_all=step["step_ms_all"])
     return total
 
 
@@ -3029,6 +3494,7 @@ def main() -> int:
         add(check_evaluate(root, pool, args.seed))
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
+    add(check_embed(args.seed))
     variant_launches, variant_records = check_variants()
     add(variant_launches)
     records.update(variant_records)

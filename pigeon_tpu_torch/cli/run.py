@@ -1,9 +1,10 @@
-"""CLI of the port: the ``serve``, ``finetune``, ``evaluate`` and
-``predict`` subcommands.
+"""CLI of the port: the ``serve``, ``finetune``, ``evaluate``, ``predict``
+and ``embed`` subcommands.
 
 Counterpart of `pigeon_tpu/cli/run.py::cmd_serve`, `cmd_finetune` (on
-pixels), `cmd_evaluate` and `cmd_predict`, with their flags for these
-paths. Models are built in bf16 with f32 parameters, on the attention
+pixels, and on embeddings with ``--embeddings``), `cmd_evaluate`,
+`cmd_predict` and `cmd_embed`, with their flags for these paths. Models
+are built in bf16 with f32 parameters, on the attention
 route that ``PIGEON_ATTN_IMPL`` names in the JAX package's words
 (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL`` under ``--quant``,
 :func:`quant_attn_impl`): by default ``flash_fused``, kernel K1 (and K2
@@ -26,11 +27,16 @@ calibrates on ``--calib-images`` or a seeded synthetic batch,
 ``finetune`` trains under the remat policy ``PIGEON_REMAT`` names
 (:func:`remat_policy`), evaluates each epoch, keeps the best checkpoint
 under ``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
+``finetune --embeddings DIR`` trains the geocell head alone on a bank
+``embed`` wrote (:func:`build_head_finetune`).
 ``evaluate`` scores benchmarks of the registry (``-l``) or the
 metadata's test split (``-t``) with the full metric suite, refined by
 the preset of each benchmark's family, into ``--output`` JSON;
-``predict`` writes one CSV row of coordinates per image. Their
-multi-device runs, ``--zeroshot`` and ``--landmarks`` are not ported.
+``predict`` writes one CSV row of coordinates per image. ``embed`` runs
+each split of ``--metadata`` through the CLIP embedder (or the generic
+ViT one, ``--embedder``), int8 with ``--quant``, into ``{split}.npy``
+banks (:func:`cmd_embed`). Their multi-device runs, ``--zeroshot`` and
+``--landmarks`` are not ported.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
 ``csv`` module, training and evaluation metadata with pandas, embeddings
 with numpy.
@@ -49,11 +55,18 @@ Usage:
         [--countries C.geojson] [--quant] [--output R.json]
     python -m pigeon_tpu_torch.cli.run predict myrun --images DIR \
         --geocells C.csv [--base B.pt] [--quant] [--output P.csv]
+    python -m pigeon_tpu_torch.cli.run embed myrun --metadata M.csv \
+        --images DIR [--panorama] [--embedder auto|clip|vit] [--base B.pt] \
+        [-s N] [--quant] [--batch-size N] [--output DIR]
+    python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
+        --geocells C.csv --embeddings DIR [--panorama] [--batch-size N] \
+        [--epochs N]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import functools
@@ -64,7 +77,7 @@ import logging
 import os
 import sys
 from http.server import ThreadingHTTPServer
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -74,6 +87,8 @@ from pigeon_tpu_torch.config import (
     pigeon_config,
     pigeotto_config,
 )
+from pigeon_tpu_torch.data.pipeline import iter_batches
+from pigeon_tpu_torch.train.embed import embedding_batches, load_embeddings
 
 logger = logging.getLogger("pigeon_tpu_torch.cli")
 
@@ -91,6 +106,12 @@ EVAL_CALIB_SAMPLES, EVAL_CALIB_MARGIN = 8, 1.0
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp", ".bmp")
 #: The columns of ``predict``'s CSV.
 PREDICT_COLUMNS = ("image", "lat", "lng", "geocell_idx", "top1_prob")
+#: ``--sample``'s seed: the reference's global training seed
+#: (`pigeon_tpu/cli/run.py::_sample_dataset`).
+SAMPLE_SEED = 330
+#: ``embed --quant`` calibrates on at most this many samples of the first
+#: non-empty split (`pigeon_tpu/cli/run.py:826-857`).
+EMBED_CALIB_SAMPLES = 8
 
 #: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
 #: port's route for each (`models/clip.py`).
@@ -175,7 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="pigeon_tpu_torch",
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
     p.add_argument("function",
-                   choices=["serve", "finetune", "evaluate", "predict"],
+                   choices=["serve", "finetune", "evaluate", "predict",
+                            "embed"],
                    help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
     p.add_argument("-l", "--load", default=None,
@@ -185,7 +207,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--base", default=None,
                    help="torch state dict to start from: an HF CLIP "
                         "vision tower or a reference SuperGuessr .model "
-                        "(a run's checkpoint comes first)")
+                        "(a run's checkpoint comes first); embed: an HF "
+                        "CLIP vision tower, or an HF ViT for --embedder "
+                        "vit")
+    p.add_argument("-s", "--sample", type=int, default=None,
+                   help="embed, finetune: a seeded random subsample of "
+                        "this many rows of each split (finetune: of "
+                        "train), in their original order")
     p.add_argument("-t", "--test", action="store_true",
                    help="evaluate: the test split of --metadata (comma-"
                         "separated files concatenate)")
@@ -200,18 +228,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "Country_accuracy")
     p.add_argument("--output", default=None,
                    help="evaluate: metrics JSON; predict: CSV (default "
-                        "predictions.csv)")
+                        "predictions.csv); embed: the banks' directory "
+                        "(default --embeddings, else data/embeddings)")
     p.add_argument("--geocells", default=None, help="geocell CSV path")
     p.add_argument("--prototypes", default=None, help="prototype CSV path")
     p.add_argument("--embeddings", default=None,
                    help="embedding directory (train.npy, "
-                        "train_indices.npy)")
+                        "train_indices.npy); finetune: train the head "
+                        "alone on its train and val banks")
+    p.add_argument("--embedder", default="auto",
+                   choices=["auto", "clip", "vit"],
+                   help="embed: the CLIP tower or the generic ViT (auto: "
+                        "ViT when the run name holds 'vit')")
     p.add_argument("--metadata", default=None, help="metadata CSV path")
     p.add_argument("--images", default="", help="image directory")
     p.add_argument("--checkpoint-dir", default="saved_models")
     p.add_argument("--batch-size", type=int, default=None,
                    help="finetune: batch (default: the preset's); "
-                        "evaluate, predict: default_batch's")
+                        "evaluate, predict: default_batch's; embed: the "
+                        "preset's sweep batch (512), default_batch's "
+                        "with --quant")
     p.add_argument("--epochs", type=int, default=None,
                    help="finetune: epochs (default: the preset's)")
     p.add_argument("-r", "--resume", action="store_true",
@@ -274,12 +310,15 @@ def load_geocells(args) -> np.ndarray:
                     np.float32).reshape(-1, 2)
 
 
-def load_embeddings(emb_dir: str, split: str) -> np.ndarray:
-    """An embedding shard, reordered by its saved indices
-    (`pigeon_tpu/train/embed.py::load_embeddings`)."""
-    emb = np.load(os.path.join(emb_dir, f"{split}.npy"))
-    idx = np.load(os.path.join(emb_dir, f"{split}_indices.npy")).flatten()
-    return emb[np.argsort(idx)]
+def sample_dataset(ds, n):
+    """``ds`` cut to a seeded random sample of ``n`` rows in their
+    original order, when ``n`` is given and below its length
+    (`pigeon_tpu/cli/run.py::_sample_dataset`: ``df.sample`` at seed
+    330, then ``sort_index``)."""
+    if n and n < len(ds.df):
+        ds.df = ds.df.sample(int(n), random_state=SAMPLE_SEED) \
+            .sort_index().reset_index(drop=True)
+    return ds
 
 
 def load_refine_assets(args):
@@ -511,9 +550,8 @@ class Finetune(NamedTuple):
     device: torch.device
     geocells: torch.Tensor  # (C, 2) on the device
     state: object          # TrainState, restored with --resume
-    train: object          # TabularImageDataset of the train split
-    val: object            # ... and of the val split
-    batch_size: int
+    train_batches: Callable  # epoch -> that epoch's training batches
+    eval_batches: Callable   # () -> the val split's batches in order
     checkpoint_dir: str
 
 
@@ -560,10 +598,9 @@ def build_finetune(args) -> Finetune:
     from pigeon_tpu_torch.train.modes import build_finetune_model
     from pigeon_tpu_torch.train.train_loop import TrainState, adamw
 
-    if args.embeddings:
-        raise SystemExit("finetune --embeddings (training the head on "
-                         "precomputed embeddings) is not ported yet")
     device = _device(args)
+    if args.embeddings:
+        return build_head_finetune(args, device)
     route = attn_impl()
     forward_body = flash_fwd()
     remat = remat_policy()
@@ -587,19 +624,91 @@ def build_finetune(args) -> Finetune:
         logger.warning("resumed from step %d", state.step)
     kw = dict(image_dir=args.images, image_size=cfg.vision.image_size,
               panorama=cfg.head.panorama)
-    return Finetune(cfg=cfg, device=device,
-                    geocells=torch.as_tensor(cells, device=device),
-                    state=state, train=TabularImageDataset(train_df, **kw),
-                    val=TabularImageDataset(val_df, **kw),
-                    batch_size=args.batch_size or tcfg.batch_size_per_device,
-                    checkpoint_dir=ckpt_dir)
+    train = sample_dataset(TabularImageDataset(train_df, **kw), args.sample)
+    val = TabularImageDataset(val_df, **kw)
+    batch = args.batch_size or tcfg.batch_size_per_device
+    return Finetune(
+        cfg=cfg, device=device,
+        geocells=torch.as_tensor(cells, device=device), state=state,
+        # Shuffled by the epoch's seed, the tail that does not fill a
+        # batch dropped; val in order, whole.
+        train_batches=lambda epoch: iter_batches(
+            train, batch, shuffle=True, seed=epoch, drop_last=True),
+        eval_batches=lambda: iter_batches(val, batch),
+        checkpoint_dir=ckpt_dir)
+
+
+def build_head_finetune(args, device) -> Finetune:
+    """``finetune --embeddings``: the geocell head alone, in f32, trained
+    on the ``train`` and ``val`` banks under ``--embeddings``
+    (`pigeon_tpu/cli/run.py::_finetune_on_embeddings`). The splits'
+    rows come from ``--metadata``'s ``selection`` column (without one,
+    both are the whole frame); a panorama bank ``(N, 4, D)`` is averaged
+    over its views for a single-image head; the head's input width is the
+    bank's. The JAX CLI ignores ``--base``, ``--resume`` and ``--sample``
+    here, and its loss fails on ``-m`` (the batches carry no multi-task
+    labels): the port stops on each."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.modes import build_embedding_model
+    from pigeon_tpu_torch.train.train_loop import TrainState, adamw
+
+    for flag, given, why in (
+            ("--base", args.base, "the head trains from its seeded "
+             "initialisation"),
+            ("--resume", args.resume, "the head trains from its seeded "
+             "initialisation"),
+            ("--multitask", args.multitask, "its batches carry no "
+             "multi-task labels"),
+            ("--sample", args.sample, "sample the rows when embedding "
+             "them (embed -s)")):
+        if given:
+            raise SystemExit(f"finetune --embeddings does not take {flag}: "
+                             f"{why}")
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required for this command")
+    cells = load_geocells(args)
+    cfg = make_config(args)
+    meta = pd.read_csv(args.metadata)
+    splits = {}
+    for split in ("train", "val"):
+        rows = meta[meta["selection"] == split].reset_index(drop=True) \
+            if "selection" in meta.columns else meta
+        emb = load_embeddings(args.embeddings, split)
+        if emb.ndim == 3 and not cfg.head.panorama:
+            emb = emb.mean(1)
+        if len(emb) != len(rows):
+            raise SystemExit(f"{args.embeddings}: {len(emb)} {split} "
+                             f"embeddings vs {len(rows)} {split} rows in "
+                             f"{args.metadata}")
+        splits[split] = (emb.astype(np.float32), rows)
+    cfg = cfg.replace(head=dataclasses.replace(
+        cfg.head, num_cells=len(cells),
+        embed_dim=splits["train"][0].shape[-1]))
+    tcfg = cfg.train
+    model = init_weights(build_embedding_model(cfg), tcfg.seed).to(device)
+    logger.warning("head-only training on %s: %d train and %d val "
+                   "embeddings of width %d", args.embeddings,
+                   len(splits["train"][0]), len(splits["val"][0]),
+                   cfg.head.embed_dim)
+    batch = args.batch_size or tcfg.batch_size_per_device
+    return Finetune(
+        cfg=cfg, device=device,
+        geocells=torch.as_tensor(cells, device=device),
+        state=TrainState(model, adamw(model.parameters(),
+                                      tcfg.learning_rate)),
+        # Full batches only, in training and in evaluation (the JAX CLI's).
+        train_batches=lambda epoch: embedding_batches(
+            *splits["train"], batch, shuffle_seed=epoch),
+        eval_batches=lambda: embedding_batches(*splits["val"], batch),
+        checkpoint_dir=os.path.join(args.checkpoint_dir, args.name))
 
 
 def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
     """Train ``run`` for ``num_epochs`` epochs, each with an eval pass;
     checkpoints go to ``run.checkpoint_dir`` and scalars to
     ``runs/NAME/metrics.jsonl``. Returns the per-epoch eval metrics."""
-    from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.train.loop import train_model
     from pigeon_tpu_torch.train.train_loop import (
         batch_to_device,
@@ -610,11 +719,8 @@ def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
     head = run.cfg.head
     _, history = train_model(
         run.state, make_train_step(head, run.geocells),
-        make_eval_step(head, run.geocells),
-        lambda epoch: iter_batches(run.train, run.batch_size, shuffle=True,
-                                   seed=epoch, drop_last=True),
-        lambda: iter_batches(run.val, run.batch_size),
-        num_epochs=num_epochs,
+        make_eval_step(head, run.geocells), run.train_batches,
+        run.eval_batches, num_epochs=num_epochs,
         batch_to_device=functools.partial(batch_to_device,
                                           device=run.device),
         checkpoint_dir=run.checkpoint_dir,
@@ -677,9 +783,6 @@ def build_evaluation(args) -> Evaluation:
     benchmark's family, where ``--prototypes/--embeddings/--metadata``
     are given), eval step, scaler and country index of an ``evaluate``
     run on ``--device``."""
-    import contextlib
-
-    from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.train.evaluate import (
         EVAL_NUM_CANDIDATES,
         build_refiner,
@@ -720,7 +823,6 @@ def run_evaluation(ev: Evaluation) -> dict:
     """Each dataset of ``ev`` through its model, refined by its refiner
     and scored by the full metric suite; the metrics by benchmark, also
     in the log."""
-    from pigeon_tpu_torch.data.pipeline import iter_batches
     from pigeon_tpu_torch.train.evaluate import evaluate_benchmark
 
     results = {}
@@ -774,10 +876,7 @@ def cmd_predict(args) -> int:
     back after the next batch is enqueued."""
     import pandas as pd
 
-    from pigeon_tpu_torch.data.pipeline import (
-        TabularImageDataset,
-        iter_batches,
-    )
+    from pigeon_tpu_torch.data.pipeline import TabularImageDataset
     from pigeon_tpu_torch.serve.server import make_serving_fn
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
@@ -846,12 +945,126 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def use_vit_embedder(args) -> bool:
+    """``--embedder``, or with ``auto`` the reference's routing by run
+    name: a name holding ``vit`` takes the generic ViT embedder
+    (`pigeon_tpu/cli/run.py:755-763`)."""
+    if args.embedder != "auto":
+        return args.embedder == "vit"
+    return "vit" in (args.name or "").lower()
+
+
+def build_embedder(args, cfg):
+    """``embed``'s model: a bf16 `ClipEmbedder` (f32 parameters) on the
+    route of :func:`attn_impl`, or of :func:`quant_attn_impl` for a tower
+    about to become int8, or a `ViTEmbedder`; seeded, then overlaid with
+    ``--base`` (an HF ``vision_model.*`` state dict, or an HF ViT one for
+    the ViT), as the JAX ``cmd_embed`` reads it (`:781-791`)."""
+    from pigeon_tpu_torch.models.embedder import ClipEmbedder
+    from pigeon_tpu_torch.models.hf_import import (
+        merge_state,
+        vision_tower_state,
+    )
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.models.vit_embedder import (
+        ViTEmbedder,
+        import_vit_params,
+    )
+
+    vit = use_vit_embedder(args)
+    if vit and args.quant:
+        raise SystemExit("embed --quant supports the CLIP embedder only "
+                         "(the ViT tower has no quant twin)")
+    route = quant_attn_impl() if args.quant else attn_impl()
+    forward_body = flash_fwd()
+    build = ViTEmbedder if vit else ClipEmbedder
+    model = init_weights(build(cfg.vision, dtype=torch.bfloat16,
+                               attn_impl=route), INIT_SEED)
+    logger.warning("%s embedder, attention route: %s (PIGEON_FLASH_FWD=%s)",
+                   "ViT" if vit else "CLIP", route, forward_body)
+    if args.base:
+        state = torch.load(args.base, map_location="cpu", weights_only=True)
+        layers = cfg.vision.num_layers
+        merge_state(model, import_vit_params(state, layers) if vit
+                    else vision_tower_state(state, layers))
+        logger.warning("loaded vision tower from %s", args.base)
+    return model
+
+
+def embed_splits(args, cfg) -> dict:
+    """``embed``'s non-empty splits of ``--metadata`` by name (``train``,
+    ``val``, ``test`` by ``selection``; without the column each is the
+    whole frame), each cut by ``--sample``."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.pipeline import TabularImageDataset
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required for this command")
+    df = pd.read_csv(args.metadata)
+    splits = {}
+    for split in ("train", "val", "test"):
+        rows = df[df["selection"] == split] if "selection" in df.columns \
+            else df
+        ds = sample_dataset(TabularImageDataset(
+            rows, args.images, image_size=cfg.vision.image_size,
+            panorama=cfg.head.panorama), args.sample)
+        if len(ds):
+            splits[split] = ds
+    return splits
+
+
+def cmd_embed(args) -> int:
+    """Each split of :func:`embed_splits` through :func:`build_embedder`'s
+    model on ``--device``, into ``{split}.npy`` and ``{split}_indices.npy``
+    under ``--output`` (`train/embed.py`); with ``--sample`` also the
+    sampled rows as ``metadata_sampled.csv``, the frame that matches the
+    banks' row numbers. With ``--quant`` the tower is int8, calibrated on
+    the first `EMBED_CALIB_SAMPLES` samples of the first split (margin
+    1.0), and the batch defaults to :func:`default_batch`'s int8 one."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.image_ops import normalize_images
+    from pigeon_tpu_torch.train.embed import embed_splits_to_disk
+
+    device = _device(args)
+    cfg = make_config(args)
+    model = build_embedder(args, cfg)
+    out = args.output or args.embeddings or "data/embeddings"
+    splits = embed_splits(args, cfg)
+    if args.sample:
+        os.makedirs(out, exist_ok=True)
+        sampled = os.path.join(out, "metadata_sampled.csv")
+        pd.concat([d.df for d in splits.values()],
+                  ignore_index=True).to_csv(sampled, index=False)
+        logger.warning("--sample: wrote the sampled metadata to %s; use it "
+                       "as --metadata against these embeddings", sampled)
+    batch_size = args.batch_size or cfg.train.embed_batch_size_per_device
+    if args.quant:
+        if not splits:
+            raise SystemExit("no non-empty split to calibrate --quant on")
+        first = next(iter(splits.values()))
+        with contextlib.closing(iter_batches(
+                first, min(EMBED_CALIB_SAMPLES, len(first)))) as batches:
+            pixels = torch.from_numpy(next(batches)["inputs"])
+        if pixels.dim() == 5:                # panorama: fold the views
+            pixels = pixels.reshape(-1, *pixels.shape[2:])
+        model = quantize_model(model, normalize_images(pixels),
+                               EVAL_CALIB_MARGIN, device,
+                               f"{pixels.shape[0]} real images")
+        batch_size = args.batch_size or default_batch(True)
+    embed_splits_to_disk(model.to(device), splits, out, batch_size, device)
+    logger.warning("wrote embeddings for %s to %s (batch %d)",
+                   sorted(splits), out, batch_size)
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     return {"serve": cmd_serve, "finetune": cmd_finetune,
-            "evaluate": cmd_evaluate,
-            "predict": cmd_predict}[args.function](args)
+            "evaluate": cmd_evaluate, "predict": cmd_predict,
+            "embed": cmd_embed}[args.function](args)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,10 @@
 
 Counterpart of the vision side of `pigeon_tpu/models/clip.py`: a pre-LN
 ViT with quick-GELU MLPs; `last_hidden` is returned WITHOUT the post-LN
-(the embedding is its token mean) and `pooled` is post_LN(CLS).
+(the embedding is its token mean) and `pooled` is post_LN(CLS). The
+encoder layers also take HF's exact-erf ``gelu`` (``VisionConfig.
+hidden_act``), which the generic ViT embedder (`models/vit_embedder.py`)
+runs.
 
 Numerics follow the JAX package: parameters are f32 and are cast to the
 compute dtype (bf16 when serving) at each use; LayerNorm statistics run
@@ -31,6 +34,10 @@ Each layer has six routes, with one parameter layout (``ln1``,
   (`kernels/fused_block_attention.py`, `FusedBlockAttention`), then K9:
   the layer adds no residual of its own; the JAX package's
   `flash_fused_block`.
+
+K9 fuses quick-GELU only: a ``gelu`` layer on ``"fused_mlp"`` or
+``"block"`` keeps K5's or K6's attention and runs its MLP half in plain
+PyTorch (`pigeon_tpu/models/clip.py:363-369`).
 
 ``PIGEON_FLASH_FWD=online`` swaps K3 for K3′ wherever K3 runs
 (`kernels/attention.py`).
@@ -123,6 +130,10 @@ from pigeon_tpu_torch.models.quant import (
 )
 
 ATTN_IMPLS = ("fused", "flash", "plain", "fused_ln", "fused_mlp", "block")
+#: ``VisionConfig.hidden_act`` values: CLIP's quick-GELU and HF's ``gelu``,
+#: the exact erf form (`pigeon_tpu/models/clip.py:44-49`).
+ACTIVATIONS = {"quick_gelu": quick_gelu,
+               "gelu": functools.partial(F.gelu, approximate="none")}
 #: The routes whose attention is the fused projection + attention.
 FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
 REMATS = ("none", "attn_kernel")
@@ -209,14 +220,17 @@ class PatchEmbed(nn.Module):
 
     ``weight`` is ``(D, P*P*C)`` with the input features flattened in
     ``(p, p, c)`` order (`pigeon_tpu/models/clip.py:93-95`), so a JAX
-    ``(P, P, C, D)`` kernel maps to ``kernel.reshape(-1, D).T``.
+    ``(P, P, C, D)`` kernel maps to ``kernel.reshape(-1, D).T``. CLIP's
+    has no bias; ``bias=True`` adds one (the ViT embedder's).
     """
 
-    def __init__(self, features: int, patch_size: int, channels: int = 3):
+    def __init__(self, features: int, patch_size: int, channels: int = 3,
+                 bias: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.weight = nn.Parameter(
             torch.empty(features, patch_size * patch_size * channels))
+        self.bias = nn.Parameter(torch.empty(features)) if bias else None
 
     def forward(self, x):
         """``(B, H, W, C)`` -> ``(B, N_patches, D)`` in ``x.dtype``."""
@@ -224,7 +238,8 @@ class PatchEmbed(nn.Module):
         b, h, w, c = x.shape
         x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, (h // p) * (w // p), p * p * c)
-        return F.linear(x, self.weight.to(x.dtype))
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -307,15 +322,17 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN block: ``x += attn(LN1(x)); x += fc2(gelu(fc1(LN2(x))))``,
-    on the route of ``self.attn.attn_impl`` (the module docstring)."""
+    """Pre-LN block: ``x += attn(LN1(x)); x += fc2(act(fc1(LN2(x))))``,
+    on the route of ``self.attn.attn_impl`` (the module docstring); ``act``
+    is ``config.hidden_act``, one of `ACTIVATIONS`."""
 
     def __init__(self, config: VisionConfig, attn_impl: str = "fused",
                  quant=False):
         super().__init__()
-        if config.hidden_act != "quick_gelu":
-            raise ValueError(f"hidden_act={config.hidden_act!r}: the port "
-                             "implements CLIP's quick_gelu only")
+        if config.hidden_act not in ACTIVATIONS:
+            raise ValueError(f"hidden_act={config.hidden_act!r}, not in "
+                             f"{sorted(ACTIVATIONS)}")
+        self.hidden_act = config.hidden_act
         d = config.hidden_size
         self.ln1 = nn.LayerNorm(d, eps=config.layer_norm_eps)
         self.attn = MultiHeadAttention(d, config.num_heads, attn_impl, quant)
@@ -334,12 +351,13 @@ class TransformerLayer(nn.Module):
             x = x + self.attn(x, ln=self.ln1)
         else:
             x = x + self.attn(norm(self.ln1, x))
-        if route in ("fused_mlp", "block") and not quant:
+        if (route in ("fused_mlp", "block") and not quant
+                and self.hidden_act == "quick_gelu"):
             return FusedLNMLP.apply(
                 x.contiguous(), self.ln2.weight, self.ln2.bias,
                 *(t.to(x.dtype) for fc in (self.fc1, self.fc2)
                   for t in (fc.weight, fc.bias)), self.ln2.eps)
-        h = quick_gelu(linear(self.fc1, norm(self.ln2, x)))
+        h = ACTIVATIONS[self.hidden_act](linear(self.fc1, norm(self.ln2, x)))
         return x + linear(self.fc2, h)
 
 

@@ -1,6 +1,8 @@
 """Weights carried across: a JAX `SuperGuessr` parameter tree -> a state
 dict that `pigeon_tpu_torch.models.super_guessr.SuperGuessr` loads with
-``strict=True``.
+``strict=True``; likewise a `ClipEmbedder`'s (`state_dict_from_jax`), a
+head-only `GeocellHead`'s (`head_state_dict_from_jax`) and a
+`ViTEmbedder`'s (`vit_state_dict_from_jax`).
 
 The input is the Flax tree as nested dicts of numpy arrays (what
 ``jax.device_get(params)`` gives); this module imports no JAX. The
@@ -35,7 +37,7 @@ import torch
 
 from pigeon_tpu_torch.models.quant import padded_features
 
-_LAYER = "vision/encoder/layers/"
+_LAYER = "vision/encoder/layers"
 _LAYER_DENSE = ("attn/q_proj", "attn/k_proj", "attn/v_proj",
                 "attn/out_proj", "fc1", "fc2")
 _LAYER_NORMS = ("ln1", "ln2")
@@ -56,68 +58,114 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX `SuperGuessr` params ``{"vision": ..., "head": ...}`` -> a
-    torch state dict (f32, or int8 for quantized kernels; contiguous)."""
-    leaves = _flatten(params)
-    out: Dict[str, torch.Tensor] = {}
+class _Leaves:
+    """The leaves of a JAX tree by path, each taken once, and the torch
+    state dict made of them."""
 
-    def take(path: str) -> np.ndarray:
-        if path not in leaves:
+    def __init__(self, params: Mapping):
+        self.leaves = _flatten(params)
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def take(self, path: str) -> np.ndarray:
+        if path not in self.leaves:
             raise KeyError(f"JAX params have no leaf {path!r}")
-        return leaves.pop(path)
+        return self.leaves.pop(path)
 
-    def put(name: str, array: np.ndarray) -> None:
+    def put(self, name: str, array: np.ndarray) -> None:
         dtype = np.int8 if array.dtype == np.int8 else np.float32
-        out[name] = torch.tensor(np.ascontiguousarray(array, dtype))
+        self.out[name] = torch.tensor(np.ascontiguousarray(array, dtype))
 
-    def group(path: str, required: tuple) -> Dict[str, np.ndarray]:
+    def group(self, path: str, required: tuple) -> Dict[str, np.ndarray]:
         """The leaves of one (maybe quantized) layer at ``path``."""
-        quant = tuple(q for q in _QUANT_LEAVES if f"{path}/{q}" in leaves)
-        return {leaf: take(f"{path}/{leaf}") for leaf in required + quant}
+        quant = tuple(q for q in _QUANT_LEAVES
+                      if f"{path}/{q}" in self.leaves)
+        return {leaf: self.take(f"{path}/{leaf}")
+                for leaf in required + quant}
 
-    def dense(dst: str, layer: Dict[str, np.ndarray]) -> None:
+    def dense(self, dst: str, layer: Dict[str, np.ndarray]) -> None:
         for leaf, value in layer.items():
             if leaf == "kernel":
-                put(f"{dst}.weight", value.T)
+                self.put(f"{dst}.weight", value.T)
             else:
-                put(f"{dst}.{leaf}", value)
+                self.put(f"{dst}.{leaf}", value)
 
-    def norm(dst: str, scale: np.ndarray, bias: np.ndarray) -> None:
-        put(f"{dst}.weight", scale)
-        put(f"{dst}.bias", bias)
+    def norm(self, dst: str, src: str) -> None:
+        self.put(f"{dst}.weight", self.take(f"{src}/scale"))
+        self.put(f"{dst}.bias", self.take(f"{src}/bias"))
 
-    patch = group("vision/patch_embed", ("kernel",))
-    kernel = patch["kernel"]                                # (P, P, C, D)
-    weight = kernel.reshape(-1, kernel.shape[-1]).T         # (D, P*P*C)
-    if "scale" in patch:                        # quantized: pad the columns
-        k = weight.shape[1]
-        weight = np.pad(weight, ((0, 0), (0, padded_features(k) - k)))
-    dense("vision.patch_embed", {**patch, "kernel": weight.T})
-    put("vision.cls_token", take("vision/cls_token"))
-    put("vision.pos_embed", take("vision/pos_embed"))
+    def patch(self, dst: str, src: str, required: tuple) -> None:
+        """The patch kernel ``(P, P, C, D)`` flattened to ``(D, P*P*C)``;
+        a quantized one padded with zero columns."""
+        patch = self.group(src, required)
+        kernel = patch["kernel"]
+        weight = kernel.reshape(-1, kernel.shape[-1]).T
+        if "scale" in patch:
+            k = weight.shape[1]
+            weight = np.pad(weight, ((0, 0), (0, padded_features(k) - k)))
+        self.dense(dst, {**patch, "kernel": weight.T})
+
+    def encoder(self, dst: str, src: str) -> None:
+        """The ``nn.scan`` stack under ``src`` (a leading layer axis L on
+        every leaf) unstacked into ``dst.{i}``."""
+        stacked = {name: self.group(f"{src}/{name}", ("kernel", "bias"))
+                   for name in _LAYER_DENSE}
+        norms = {name: (self.take(f"{src}/{name}/scale"),
+                        self.take(f"{src}/{name}/bias"))
+                 for name in _LAYER_NORMS}
+        for i in range(stacked["fc1"]["kernel"].shape[0]):
+            for name, layer in stacked.items():
+                self.dense(f"{dst}.{i}.{name.replace('/', '.')}",
+                           {leaf: v[i] for leaf, v in layer.items()})
+            for name, (scale, bias) in norms.items():
+                self.put(f"{dst}.{i}.{name}.weight", scale[i])
+                self.put(f"{dst}.{i}.{name}.bias", bias[i])
+
+    def head(self, dst: str, src: str) -> None:
+        """Whichever geocell-head linears the tree has."""
+        for name in _HEAD_DENSE:
+            if f"{src}{name}/kernel" in self.leaves:
+                self.dense(f"{dst}{name}",
+                           self.group(f"{src}{name}", ("kernel", "bias")))
+
+    def done(self) -> Dict[str, torch.Tensor]:
+        if self.leaves:
+            raise ValueError(f"JAX params not consumed: {sorted(self.leaves)}")
+        return self.out
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `SuperGuessr` params ``{"vision": ..., "head": ...}`` -> a
+    torch state dict (f32, or int8 for quantized kernels; contiguous). A
+    tree without ``head`` is a `ClipEmbedder`'s."""
+    t = _Leaves(params)
+    t.patch("vision.patch_embed", "vision/patch_embed", ("kernel",))
+    t.put("vision.cls_token", t.take("vision/cls_token"))
+    t.put("vision.pos_embed", t.take("vision/pos_embed"))
     for name in ("pre_ln", "post_ln"):
-        norm(f"vision.{name}", take(f"vision/{name}/scale"),
-             take(f"vision/{name}/bias"))
+        t.norm(f"vision.{name}", f"vision/{name}")
+    t.encoder("vision.encoder.layers", _LAYER)
+    t.head("head.", "head/")
+    return t.done()
 
-    # The encoder's leaves carry a leading layer axis (nn.scan).
-    stacked = {name: group(f"{_LAYER}{name}", ("kernel", "bias"))
-               for name in _LAYER_DENSE}
-    norms = {name: (take(f"{_LAYER}{name}/scale"),
-                    take(f"{_LAYER}{name}/bias"))
-             for name in _LAYER_NORMS}
-    for i in range(stacked["fc1"]["kernel"].shape[0]):
-        dst = f"vision.encoder.layers.{i}"
-        for name, layer in stacked.items():
-            dense(f"{dst}.{name.replace('/', '.')}",
-                  {leaf: v[i] for leaf, v in layer.items()})
-        for name, (s, b) in norms.items():
-            norm(f"{dst}.{name}", s[i], b[i])
 
-    for name in _HEAD_DENSE:
-        if f"head/{name}/kernel" in leaves:
-            dense(f"head.{name}", group(f"head/{name}", ("kernel", "bias")))
+def head_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `GeocellHead` params (the head-only model of ``finetune
+    --embeddings``: ``cell_layer`` and, with multi-task, the other
+    linears at the top of the tree) -> the state dict of the port's
+    `GeocellHead`."""
+    t = _Leaves(params)
+    t.head("", "")
+    return t.done()
 
-    if leaves:
-        raise ValueError(f"JAX params not consumed: {sorted(leaves)}")
-    return out
+
+def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `ViTEmbedder` params -> the state dict of the port's
+    `models.vit_embedder.ViTEmbedder`: the biased patch embed, CLS token,
+    positions, encoder and ``final_ln``."""
+    t = _Leaves(params)
+    t.patch("patch_embed", "patch_embed", ("kernel", "bias"))
+    t.put("cls_token", t.take("cls_token"))
+    t.put("pos_embed", t.take("pos_embed"))
+    t.encoder("encoder.layers", "encoder/layers")
+    t.norm("final_ln", "final_ln")
+    return t.done()

@@ -17,6 +17,7 @@ from pigeon_tpu_torch.config import HeadConfig, VisionConfig
 from pigeon_tpu_torch.models.clip import CLIPVisionTower, PatchEmbed
 from pigeon_tpu_torch.models.embedder import token_mean_embedding
 from pigeon_tpu_torch.models.geocell_head import GeocellHead, GeocellOutput
+from pigeon_tpu_torch.models.vit_embedder import ViTEmbedder
 
 #: Flax's ``lecun_normal``: a normal truncated at two standard deviations,
 #: rescaled by this constant so that its variance is ``1 / fan_in``.
@@ -80,8 +81,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     Dense and patch kernels: lecun-normal (truncated normal, variance
     1 / fan_in); biases zero; LayerNorms one and zero; CLS token and
-    positions N(0, 0.02). The numbers differ from the JAX package's for
-    the same seed (another generator); the distributions are the same.
+    positions N(0, 0.02), the ViT embedder's CLS token zero. The numbers
+    differ from the JAX package's for the same seed (another generator);
+    the distributions are the same.
     """
     gen = torch.Generator().manual_seed(seed)
 
@@ -99,7 +101,12 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             nn.init.zeros_(module.bias)
         elif isinstance(module, PatchEmbed):
             lecun_normal_(module.weight, module.weight.shape[1])
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
         elif isinstance(module, CLIPVisionTower):
             nn.init.normal_(module.cls_token, std=0.02, generator=gen)
+            nn.init.normal_(module.pos_embed, std=0.02, generator=gen)
+        elif isinstance(module, ViTEmbedder):
+            nn.init.zeros_(module.cls_token)
             nn.init.normal_(module.pos_embed, std=0.02, generator=gen)
     return model

@@ -1,6 +1,7 @@
 """Model builders of the training modes.
 
-Counterpart of `pigeon_tpu/train/modes.py::build_finetune_model`.
+Counterpart of `pigeon_tpu/train/modes.py::build_finetune_model` and
+`build_embedding_model`.
 """
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from pigeon_tpu_torch.config import PigeonConfig
+from pigeon_tpu_torch.models.geocell_head import GeocellHead
 from pigeon_tpu_torch.models.super_guessr import (
     SuperGuessr,
     freeze_all_but_last_layer,
@@ -28,3 +30,10 @@ def build_finetune_model(cfg: PigeonConfig, dtype=torch.bfloat16,
     model = SuperGuessr(cfg.vision, cfg.head, dtype=dtype,
                         attn_impl=attn_impl, remat=remat)
     return freeze_all_but_last_layer(model)
+
+
+def build_embedding_model(cfg: PigeonConfig) -> GeocellHead:
+    """The geocell head alone, in f32, for head-only training on
+    precomputed embeddings (``finetune --embeddings``; reference
+    `train_modes.py:110-133`). Uninitialised, as above."""
+    return GeocellHead(cfg.head, dtype=torch.float32)

@@ -479,7 +479,8 @@ def test_finetune_refuses_what_it_cannot_do(tmp_path):
     with pytest.raises(SystemExit, match=r"--multitask needs columns "
                                          r"\['temp_avg'\]"):
         main(finetune_argv(tmp_path))
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="--embeddings does not take "
+                                         "--multitask"):
         main(finetune_argv(tmp_path, "--embeddings", str(tmp_path)))
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
