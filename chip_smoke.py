@@ -189,7 +189,21 @@ Phases, one line each, any failure raises:
              with finite losses and the exact launch counts that
              `check_train_routes` states; step time, images/s and peak
              memory per route;
-10. embed  - the same width on the ``[train]`` phase's 32 + 8 panoramas
+10. train_durable - the rest of ``finetune`` at the ``[train]`` preset,
+             width and batch (`check_train_durable` states each check and
+             its bounds): one step under each remat policy (``none``,
+             ``full``, ``attn_out``, ``attn_kernel``, ``attn_slim`` on
+             ``flash_fused``; ``attn_kernel``, ``attn_slim``, ``attn_out``
+             on ``flash_fused_block``) with exact launches, gradients
+             within cosine >= 0.999 of ``none``'s, step time and peak
+             memory; a `train_model` run rolled back once from a NaN
+             label row; ``finetune`` stopped by SIGTERM and resumed bit
+             for bit; an async checkpoint written during the next steps;
+             a profiler window that names K1's and K2's kernels;
+             ``finetune -m`` on two metadata files without the
+             multi-task columns through the GeoAugmentor; two steps of a
+             hierarchical panorama head;
+11. embed  - the same width on the ``[train]`` phase's 32 + 8 panoramas
              and 2203 cells, batch 8, through the CLI's own ``main``:
              ``embed --panorama`` with a seeded HF CLIP ``--base`` file
              (K1 24 x 5, banks (32, 4, 1024) and (8, 4, 1024) with their
@@ -211,7 +225,7 @@ Phases, one line each, any failure raises:
              the card and its forward, each synchronised); and the
              head-only train step at the preset's batch of 256
              (K10 at (256, 2203) once a step);
-11. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
+12. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
              the TPU scripts' flagship shape (32 views, S = 577, H = 16;
@@ -219,7 +233,7 @@ Phases, one line each, any failure raises:
              checked against its plain version (`check_variants` states
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
-             launches of K1-K10 and K3′ stay those of phases 4-10. Then,
+             launches of K1-K10 and K3′ stay those of phases 4-11. Then,
              from the same driver runs, V10's ms beside K3′'s and V1's,
              split4's (V2 + V3), V4's and V5's beside K4's, and V1's,
              V2's, V3's, V4's, V5's and K4's device ms by pass
@@ -801,7 +815,8 @@ def check_backward_kernel(seed: int) -> dict:
 def check_smoothing_kernel(seed: int) -> dict:
     """K10 against its plain version at every shape of `K10_SHAPES`, timed
     at `K10_TIMED`. The kernels record is the (TRAIN_BATCH, NUM_CELLS)
-    one: every launch of [train] and [train_routes] is at that shape."""
+    one: every launch of [train], [train_routes] and [train_durable] is at
+    that shape."""
     records = {(b, c): check_smoothing_kernel_at(seed, b, c)
                for b, c in K10_SHAPES}
     return records[(TRAIN_BATCH, NUM_CELLS)]
@@ -2234,6 +2249,34 @@ def write_train_assets(root: str, seed: int):
     return meta, cells_csv, images
 
 
+def grads_of(model) -> dict:
+    """Every trainable gradient, flattened, in f32."""
+    return {n: p.grad.float().flatten().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def worst_cosine(got: dict, want: dict) -> tuple:
+    """The least cosine of ``got``'s gradients against ``want``'s, and
+    where: the key bias's (zero in exact arithmetic: a shift shared by
+    all keys) must be rounding noise in both instead."""
+    import torch
+
+    if got.keys() != want.keys():
+        raise RuntimeError(f"gradients of other tensors: "
+                           f"{got.keys() ^ want.keys()}")
+    cosines = {}
+    for name, g in got.items():
+        if name.endswith("k_proj.bias"):
+            ref = want[name.replace("k_proj", "q_proj")].norm()
+            if not max(g.norm(), want[name].norm()) <= 1e-2 * ref:
+                raise RuntimeError(f"{name} gradient is not ~0")
+            continue
+        cosines[name] = torch.nn.functional.cosine_similarity(
+            g, want[name], dim=0).item()
+    worst = min(cosines, key=cosines.get)
+    return cosines[worst], worst
+
+
 def check_training(seed: int) -> dict:
     """The full-width panorama model finetuned through the ``finetune``
     command's own functions; returns each kernel's launches in the first
@@ -2339,23 +2382,9 @@ def check_training(seed: int) -> dict:
             finally:
                 set_route(model, "fused")
             model.zero_grad(set_to_none=True)
-            if kernel_g.keys() != plain_g.keys():
-                raise RuntimeError("the routes give gradients to other "
-                                   f"tensors: {kernel_g.keys() ^ plain_g.keys()}")
-            cosines = {}
-            for name, g in kernel_g.items():
-                if name.endswith("k_proj.bias"):
-                    # Zero in exact arithmetic (the softmax ignores a shift
-                    # shared by all keys): both must be rounding noise.
-                    ref = plain_g[name.replace("k_proj", "q_proj")].norm()
-                    if not max(g.norm(), plain_g[name].norm()) <= 1e-2 * ref:
-                        raise RuntimeError(f"{name} gradient is not ~0")
-                    continue
-                cosines[name] = torch.nn.functional.cosine_similarity(
-                    g, plain_g[name], dim=0).item()
-            worst = min(cosines, key=cosines.get)
-            if not cosines[worst] >= 0.999:
-                raise RuntimeError(f"gradient cosine {cosines[worst]} < "
+            cosine, worst = worst_cosine(kernel_g, plain_g)
+            if not cosine >= 0.999:
+                raise RuntimeError(f"gradient cosine {cosine} < "
                                    f"0.999 for {worst}")
             rel = {n: abs(kernel_parts[n] - plain_parts[n])
                    / max(abs(plain_parts[n]), 1e-12) for n in plain_parts}
@@ -2404,7 +2433,7 @@ def check_training(seed: int) -> dict:
           **{f"{name}_launches": n for name, n in launches.items()},
           losses=[round(v, 4) for v in losses],
           eval_loss=round(history[-1]["Eval_loss"], 4),
-          grad_cosine_min=round(cosines[worst], 6), grad_cosine_at=worst,
+          grad_cosine_min=round(cosine, 6), grad_cosine_at=worst,
           loss_rel_diff_max=max(rel.values()),
           step_ms=round(step_ms, 3), step_ms_all=[round(t, 3) for t in times],
           images_per_s=round(views / step_ms * 1e3, 2),
@@ -2529,27 +2558,10 @@ def check_train_routes(seed: int) -> dict:
             for label, route, env, fwd, bwd, bwd_trained in TRAIN_ROUTES:
                 # --- gradients of the first batch against the plain route
                 model.load_state_dict(start)
-                got = grads(route, env)
-                if got.keys() != plain.keys():
-                    raise RuntimeError(f"{label} gives gradients to other "
-                                       f"tensors: {got.keys() ^ plain.keys()}")
-                cosines = {}
-                for name, g in got.items():
-                    if name.endswith("k_proj.bias"):
-                        # Zero in exact arithmetic (a shift shared by all
-                        # keys): both must be rounding noise.
-                        ref = plain[name.replace("k_proj", "q_proj")].norm()
-                        if not max(g.norm(), plain[name].norm()) <= 1e-2 * ref:
-                            raise RuntimeError(f"{label}: {name} gradient "
-                                               "is not ~0")
-                        continue
-                    cosines[name] = torch.nn.functional.cosine_similarity(
-                        g, plain[name], dim=0).item()
-                del got
-                worst = min(cosines, key=cosines.get)
-                if not cosines[worst] >= ROUTE_COSINE:
+                cosine, worst = worst_cosine(grads(route, env), plain)
+                if not cosine >= ROUTE_COSINE:
                     raise RuntimeError(f"{label}: gradient cosine "
-                                       f"{cosines[worst]} < {ROUTE_COSINE} "
+                                       f"{cosine} < {ROUTE_COSINE} "
                                        f"for {worst}")
 
                 # --- 2 steps and an eval batch from the same parameters
@@ -2600,7 +2612,7 @@ def check_train_routes(seed: int) -> dict:
                          for n in (*fwd, *bwd, *bwd_trained)},
                       losses=[round(v, 4) for v in losses],
                       eval_loss=round(eval_loss, 4),
-                      grad_cosine_min=round(cosines[worst], 6),
+                      grad_cosine_min=round(cosine, 6),
                       grad_cosine_at=worst, step_ms=round(step_ms, 3),
                       step_ms_all=[round(t, 3) for t in times],
                       images_per_s=round(4 * TRAIN_BATCH / step_ms * 1e3, 2),
@@ -2610,6 +2622,579 @@ def check_train_routes(seed: int) -> dict:
             torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
+    return total
+
+
+#: [train_durable]: the remat policies a step runs under, each on the
+#: route named; the steps timed after each counted one.
+DURABLE_REMATS = (("fused", "none"), ("fused", "full"),
+                  ("fused", "attn_out"), ("fused", "attn_kernel"),
+                  ("fused", "attn_slim"), ("block", "attn_kernel"),
+                  ("block", "attn_slim"), ("block", "attn_out"))
+DURABLE_TIMED_STEPS = 5
+#: [train_durable]: SIGTERM is raised as the loop takes this train batch
+#: (1-based), so the run stops at the step before it.
+PREEMPT_AT = 3
+#: [train_durable]: steps timed after an async save, and without one.
+ASYNC_STEPS = 4
+
+
+def durable_launches(route: str, remat: str, layers: int, trained: int,
+                     steps: int, evals: int = 0) -> dict:
+    """The launches of ``steps`` train steps and ``evals`` eval batches on
+    ``route`` under ``remat`` (`models/clip.py`'s docstring): the
+    attention forward once a layer, and once more in every layer's
+    backward under ``full`` and, on ``fused``, ``attn_out``; K2 once a
+    layer a step; K9 once a layer a forward on ``block``; K1 once a step
+    in K6's backward, for each layer whose out-projection trains; K10
+    once a step and once an eval batch."""
+    rerun = remat == "full" or (remat == "attn_out" and route == "fused")
+    fwd = layers * (steps * (2 if rerun else 1) + evals)
+    want = dict.fromkeys(route_counters(), 0)
+    want["fused_qkv_attention_bwd"] = layers * steps
+    want["smooth_labels"] = steps + evals
+    if route == "fused":
+        want["fused_qkv_attention"] = fwd
+    else:
+        want["fused_block_attention"] = fwd
+        want["fused_mlp"] = layers * (steps + evals)
+        want["fused_qkv_attention"] = trained * steps
+    return want
+
+
+def write_aux_dir(root: str, seed: int) -> str:
+    """A seeded auxiliary-data directory in the GeoAugmentor's layout
+    (`geocell/augmentor.py::build_augmentor`): a country GeoJSON, and one
+    small GeoTIFF a raster source (Köppen, elevation, population in
+    Mollweide metres, 12 monthly WorldClim temperatures and
+    precipitations)."""
+    import numpy as np
+    from PIL import Image, TiffImagePlugin
+
+    rng = np.random.default_rng(seed + 5)
+    aux = os.path.join(root, "aux")
+
+    def tif(sub: str, name: str, data, origin=(-180.0, 90.0),
+            scale=(10.0, 10.0)) -> None:
+        os.makedirs(os.path.join(aux, sub), exist_ok=True)
+        ifd = TiffImagePlugin.ImageFileDirectory_v2()
+        ifd[33550] = (float(scale[0]), float(scale[1]), 0.0)
+        ifd[33922] = (0.0, 0.0, 0.0, float(origin[0]), float(origin[1]),
+                      0.0)
+        Image.fromarray(data).save(os.path.join(aux, sub, name),
+                                   tiffinfo=ifd)
+
+    grid = (18, 36)
+    tif("koppen_geiger", "koppen.tif",
+        rng.integers(1, 31, grid).astype(np.uint8))
+    tif("elevation", "elevation.tif",
+        rng.normal(500, 300, grid).astype(np.float32))
+    tif("pop_density", "population.tif",
+        rng.gamma(2, 50, grid).astype(np.float32),
+        origin=(-18040095.0, 9020047.0), scale=(1e6, 1e6))
+    for var, mean in (("tavg", 15.0), ("prec", 60.0)):
+        for month in range(1, 13):
+            tif(os.path.join("worldclim", var), f"{var}_{month:02d}.tif",
+                rng.normal(mean, 8, grid).astype(np.float32))
+    os.makedirs(os.path.join(aux, "boundaries"), exist_ok=True)
+    with open(os.path.join(aux, "boundaries",
+                           "geoBoundariesCGAZ_ADM0.geojson"), "w") as f:
+        json.dump({"type": "FeatureCollection", "features": [
+            {"type": "Feature", "properties": {"shapeName": name},
+             "geometry": {"type": "Polygon", "coordinates": [[
+                 [x0, -60], [x0 + 90, -60], [x0 + 90, 75], [x0, 75],
+                 [x0, -60]]]}}
+            for name, x0 in (("West", -180), ("Centre", -90),
+                             ("East", 0), ("Far", 90))]}, f)
+    return aux
+
+
+def check_train_durable(seed: int) -> dict:
+    """[train_durable]: the rest of ``finetune`` at the ``[train]``
+    preset, width and batch (8 panoramas, 32 views; 2203 seeded cells).
+    One model built by `build_finetune` serves every check that does not
+    need the CLI. Returns each kernel's launches.
+
+    * remat: one step from the same weights and batch under each of
+      `DURABLE_REMATS`, with the exact launches of `durable_launches`,
+      every trainable gradient within ``ROUTE_COSINE`` of ``none``'s, the
+      peak memory of the step and the median of `DURABLE_TIMED_STEPS`
+      more;
+    * divergence: `train_model` for 3 epochs of 4 steps (``log_every``
+      2) whose epoch-1 second batch has a NaN label row (location and
+      multi-task labels): one rollback to epoch 0's checkpoint (step 4), a
+      finite history of epochs 0 and 2, K10 bit for bit equal to its plain
+      version on that batch's labels, the NaN row a row of zero targets
+      in both;
+    * preemption: `cmd_finetune` with SIGTERM raised as the loop takes
+      train batch `PREEMPT_AT`: it returns 0 at step `PREEMPT_AT` - 1
+      with no eval written and that step's checkpoint; ``--resume`` loads
+      parameters and Adam moments bit for bit equal to the stopped run's
+      and trains its epoch to the end;
+    * async save: `CheckpointSession.save` of the model's state, then
+      `ASYNC_STEPS` steps while it is written, timed against as many
+      without a write; the call must return before its write ends, and
+      the checkpoint restores bit for bit equal to the state at the
+      save;
+    * profiler: a `ProfilerWindow` (wait 4, active 10) over 15 steps whose
+      `summarize_trace` names K1's and K2's kernels (retried once when
+      the window kept no device records);
+    * data: `cmd_finetune -m` for one epoch on two metadata files without
+      the multi-task columns (comma-separated) and a seeded ``--aux-dir``:
+      the train rows of both files, augmented, finite losses;
+    * hierarchical: two steps of a panorama head with ``hierarchical``
+      and ``heading`` on the same tower (``flash_fused``): finite losses
+      and ``view_attention`` gradients.
+    """
+    import gc
+    import math
+    import signal
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from pigeon_tpu_torch.cli import run as cli
+    from pigeon_tpu_torch.data import pipeline
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.models.clip import set_route
+    from pigeon_tpu_torch.models.geocell_head import GeocellHead
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train import loop, profiling
+    from pigeon_tpu_torch.train.checkpoints import (
+        CheckpointSession,
+        latest_step,
+    )
+    from pigeon_tpu_torch.train.train_loop import (
+        TrainState,
+        adamw,
+        batch_to_device,
+        make_eval_step,
+        make_train_step,
+    )
+
+    counters = route_counters()
+    total = dict.fromkeys(counters, 0)
+
+    def reset() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read() -> dict:
+        """The launches since the last read or reset, added to the
+        phase's; the counters start again from 0."""
+        torch.cuda.synchronize()
+        counts = {n: fn.launches for n, fn in counters.items()}
+        for name, n in counts.items():
+            total[name] += n
+        reset()
+        return counts
+
+    def expect(label: str, got: dict, want: dict) -> None:
+        if got != want:
+            raise RuntimeError(f"[train_durable] {label} launched {got}, "
+                               f"expected {want}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)      # the runs' scalars go to ./runs/NAME
+        try:
+            meta, cells_csv, images = write_train_assets(root, seed)
+            base = ["--panorama", "-m", "--heading", "--images", images,
+                    "--geocells", cells_csv, "--batch-size",
+                    str(TRAIN_BATCH), "--device", "cuda"]
+            argv = ["finetune", "durable", "--metadata", meta, *base,
+                    "--checkpoint-dir", os.path.join(root, "ckpt")]
+            run = cli.build_finetune(cli.build_parser().parse_args(argv))
+            model, head = run.state.model, run.cfg.head
+            layers = len(model.vision.encoder.layers)
+            trained = sum(layer.attn.out_proj.weight.requires_grad
+                          for layer in model.vision.encoder.layers)
+            host_train = list(run.train_batches(0))
+            host_val = list(run.eval_batches())
+            batch = batch_to_device(host_train[0], run.device)
+            start = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+            train_step = make_train_step(head, run.geocells)
+            lr = run.cfg.train.learning_rate
+
+            def fresh_state() -> TrainState:
+                model.load_state_dict(start)
+                model.zero_grad(set_to_none=True)
+                return TrainState(model, adamw(model.parameters(), lr))
+
+            # --- remat: one step per policy from the same weights ---
+            remat_grads, remat_rows = {}, {}
+            for route, remat in DURABLE_REMATS:
+                set_route(model, route)
+                model.vision.encoder.remat = remat
+                state = fresh_state()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset()
+                loss = float(train_step(state, batch)["loss"])
+                counts = read()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                expect(f"{route} {remat} step", counts, durable_launches(
+                    route, remat, layers, trained, 1))
+                remat_grads[(route, remat)] = grads_of(model)
+                times = []
+                for _ in range(DURABLE_TIMED_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    train_step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                read()
+                if not math.isfinite(loss):
+                    raise RuntimeError(f"{route} {remat}: loss {loss}")
+                remat_rows[(route, remat)] = dict(
+                    loss=round(loss, 5), peak_gib=round(peak, 3),
+                    step_ms=round(sorted(times)[len(times) // 2], 3),
+                    launches={n: c for n, c in counts.items() if c})
+                del state
+            for (route, remat), grads in remat_grads.items():
+                cosine, at = worst_cosine(grads, remat_grads[("fused",
+                                                              "none")])
+                if not cosine >= ROUTE_COSINE:
+                    raise RuntimeError(f"{route} {remat}: gradient cosine "
+                                       f"{cosine} < {ROUTE_COSINE} at {at}")
+                phase("train_durable", check="remat", route=route,
+                      remat=remat, grad_cosine_min=round(cosine, 6),
+                      grad_cosine_at=at, **remat_rows[(route, remat)])
+            del remat_grads
+            set_route(model, "fused")
+            model.vision.encoder.remat = "attn_kernel"
+
+            to_device = functools.partial(batch_to_device,
+                                          device=run.device)
+            eval_step = make_eval_step(head, run.geocells)
+
+            # --- divergence: a NaN label row in epoch 1's second batch ---
+            # (location and multi-task labels, a corrupt metadata row: K10
+            # maps the NaN location to a row of zero targets, as its plain
+            # version does, and the regression term makes the loss NaN)
+            nan_batch = dict(host_train[1])
+            for key in ("labels", "labels_multi_task"):
+                nan_batch[key] = nan_batch[key].copy()
+                nan_batch[key][0] = np.nan
+            record = {"saved": [], "restored": []}
+
+            class Recording(CheckpointSession):
+                def save(self, state, wait=False):
+                    record["saved"].append(super().save(state, wait))
+                    return record["saved"][-1]
+
+                def restore(self, state, step=None):
+                    super().restore(state, step)
+                    record["restored"].append(state.step)
+                    return state
+
+            t0 = time.perf_counter()
+            state = fresh_state()
+            loop.CheckpointSession = Recording
+            reset()
+            try:
+                state, history = loop.train_model(
+                    state, train_step, eval_step,
+                    lambda epoch: [nan_batch if (epoch, i) == (1, 1) else b
+                                   for i, b in enumerate(host_train)],
+                    lambda: host_val, num_epochs=3,
+                    batch_to_device=to_device,
+                    checkpoint_dir=os.path.join(root, "diverge"),
+                    log_every=2)
+            finally:
+                loop.CheckpointSession = CheckpointSession
+            counts = read()
+            steps = len(host_train)
+            expect("divergence run", counts, durable_launches(
+                "fused", "attn_kernel", layers, trained,
+                2 * steps + 2, 2))
+            eval_losses = [h["Eval_loss"] for h in history]
+            if record["restored"] != [steps] or len(history) != 2 \
+                    or not np.isfinite(eval_losses).all() \
+                    or state.step != 2 * steps:
+                raise RuntimeError(f"divergence: {record}, eval losses "
+                                   f"{eval_losses}, step {state.step}")
+            labels = torch.from_numpy(nan_batch["labels"]).to(run.device)
+            got = geodesy.smooth_labels_from_points(
+                labels, run.geocells, head.label_smoothing_km)
+            want = geodesy.smooth_labels_reference(
+                labels, run.geocells, head.label_smoothing_km)
+            if not (torch.equal(got, want) and not got[0].any()
+                    and torch.isfinite(got).all()):
+                raise RuntimeError("K10 and its plain version disagree on "
+                                   "the batch with a NaN label row, or it "
+                                   "is not a row of zeros")
+            phase("train_durable", check="divergence", epochs=3,
+                  steps=state.step, saved=record["saved"],
+                  restored=record["restored"],
+                  eval_losses=[round(v, 4) for v in eval_losses],
+                  k10_zero_rows=int((~got.any(1)).sum()),
+                  seconds=round(time.perf_counter() - t0, 3),
+                  **{f"{n}_launches": c for n, c in counts.items() if c})
+            del state, history
+
+            # --- preemption: SIGTERM as train batch PREEMPT_AT is taken ---
+            held, taken = [], {"n": 0}
+            real_build, real_iter = cli.build_finetune, cli.iter_batches
+
+            def build_and_hold(args):
+                held.append(real_build(args))
+                return held[-1]
+
+            def iter_with_sigterm(dataset, batch_size, shuffle=False, **kw):
+                inner = real_iter(dataset, batch_size, shuffle=shuffle, **kw)
+                try:
+                    for b in inner:
+                        if shuffle:
+                            taken["n"] += 1
+                            if taken["n"] == PREEMPT_AT:
+                                os.kill(os.getpid(), signal.SIGTERM)
+                        yield b
+                finally:
+                    inner.close()
+
+            ckpt = os.path.join(root, "preempt_ckpt")
+            run_dir = os.path.join(ckpt, "preempt")
+            pargv = ["finetune", "preempt", "--metadata", meta, *base,
+                     "--checkpoint-dir", ckpt, "--epochs", "1"]
+            t0 = time.perf_counter()
+            cli.build_finetune, cli.iter_batches = build_and_hold, \
+                iter_with_sigterm
+            reset()
+            try:
+                rc = cli.cmd_finetune(cli.build_parser().parse_args(pargv))
+            finally:
+                cli.build_finetune, cli.iter_batches = real_build, real_iter
+            counts = read()
+            stopped = held[0].state
+            expect("preempted run", counts, durable_launches(
+                "fused", "attn_kernel", layers, trained, PREEMPT_AT - 1))
+            with open(os.path.join("runs", "preempt", "metrics.jsonl")) as f:
+                tags = [json.loads(line)["tag"] for line in f]
+            if (rc, stopped.step, latest_step(run_dir)) != (
+                    0, PREEMPT_AT - 1, PREEMPT_AT - 1) \
+                    or any(t.startswith("eval/") for t in tags):
+                raise RuntimeError(f"preemption: exit {rc}, step "
+                                   f"{stopped.step}, checkpoint "
+                                   f"{latest_step(run_dir)}, tags {tags}")
+            stop_s = time.perf_counter() - t0
+            resumed = cli.build_finetune(cli.build_parser().parse_args(
+                pargv + ["--resume"]))
+            mismatched = [n for (n, a), b in zip(
+                stopped.model.state_dict().items(),
+                resumed.state.model.state_dict().values())
+                if not torch.equal(a, b)]
+            moments = 0
+            want_opt = stopped.optimizer.state_dict()["state"]
+            got_opt = resumed.state.optimizer.state_dict()["state"]
+            for i, entry in want_opt.items():
+                for key, value in entry.items():
+                    moments += 1
+                    if not torch.equal(value.cpu(), got_opt[i][key].cpu()):
+                        mismatched.append(f"optimizer {i} {key}")
+            if mismatched or resumed.state.step != stopped.step \
+                    or got_opt.keys() != want_opt.keys():
+                raise RuntimeError(f"--resume differs from the stopped "
+                                   f"run: {mismatched[:5]}")
+            del held, stopped
+            reset()
+            cli.train_finetune(resumed, 1, "preempt")
+            counts = read()
+            expect("resumed run", counts, durable_launches(
+                "fused", "attn_kernel", layers, trained, steps, 1))
+            if (resumed.state.step, latest_step(run_dir)) != (
+                    PREEMPT_AT - 1 + steps, PREEMPT_AT - 1 + steps):
+                raise RuntimeError(f"resume ended at {resumed.state.step}, "
+                                   f"checkpoint {latest_step(run_dir)}")
+            phase("train_durable", check="preemption",
+                  stopped_at=PREEMPT_AT - 1, exit_code=rc,
+                  resumed_to=resumed.state.step,
+                  tensors_equal=len(start) + moments,
+                  stop_seconds=round(stop_s, 3),
+                  seconds=round(time.perf_counter() - t0, 3))
+            del resumed
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # --- async save: the write overlaps the next steps ---
+            state = fresh_state()
+            train_step(state, batch)
+            plain_ms = []
+            for _ in range(ASYNC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(state, batch)
+                torch.cuda.synchronize()
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+            snap = {k: v.clone() for k, v in model.state_dict().items()}
+            snap_opt = {i: {k: v.clone() for k, v in entry.items()}
+                        for i, entry in
+                        state.optimizer.state_dict()["state"].items()}
+            snap_step = state.step
+            session = CheckpointSession(os.path.join(root, "async"))
+            in_flight = []
+            try:
+                t0 = time.perf_counter()
+                session.save(state)
+                save_ms = (time.perf_counter() - t0) * 1e3
+                async_ms = []
+                for _ in range(ASYNC_STEPS):
+                    t0 = time.perf_counter()
+                    train_step(state, batch)
+                    torch.cuda.synchronize()
+                    async_ms.append((time.perf_counter() - t0) * 1e3)
+                    in_flight.append(session.writing)
+                t0 = time.perf_counter()
+                session.wait()
+                join_ms = (time.perf_counter() - t0) * 1e3
+                session.restore(state)
+            finally:
+                session.close()
+            bad = [k for k, v in model.state_dict().items()
+                   if not torch.equal(v, snap[k])]
+            for i, entry in state.optimizer.state_dict()["state"].items():
+                bad += [f"optimizer {i} {k}" for k, v in entry.items()
+                        if not torch.equal(v.cpu(), snap_opt[i][k].cpu())]
+            if bad or state.step != snap_step:
+                raise RuntimeError(f"the async checkpoint restores other "
+                                   f"values: {bad[:5]}")
+            write_ms = session.write_seconds * 1e3
+            if not save_ms < write_ms:
+                raise RuntimeError(f"the save call took {save_ms} ms, its "
+                                   f"write {write_ms} ms: it waited")
+            phase("train_durable", check="async_save", step=snap_step,
+                  save_call_ms=round(save_ms, 3),
+                  steps_ms_during_write=[round(t, 3) for t in async_ms],
+                  steps_ms_without=[round(t, 3) for t in plain_ms],
+                  write_in_flight=in_flight, write_ms=round(write_ms, 3),
+                  join_ms=round(join_ms, 3))
+            del snap, snap_opt, state
+            read()
+
+            # --- profiler: a window of 4 + 10 steps ---
+            state = fresh_state()
+            for attempt in range(2):
+                trace_dir = os.path.join(root, f"profile{attempt}")
+                window = profiling.ProfilerWindow(trace_dir)
+                for _ in range(window.wait + window.active + 1):
+                    window.step()
+                    train_step(state, batch)
+                window.close()
+                read()
+                try:
+                    rows = profiling.summarize_trace(trace_dir, top=1000)
+                    break
+                except profiling.NoDeviceRecords:
+                    phase("train_durable", check="profiler", attempt=attempt,
+                          device_records=0)
+            else:
+                raise RuntimeError("the profiler window kept no device "
+                                   "records twice")
+            tags = {"K1": ("K1Projection", "K1Attention"),
+                    "K2": ("K2Projection", "K2Attention", "K2Dx")}
+            by_kernel = {k: sum(ms for name, ms, _ in rows
+                                if any(t in name for t in marks))
+                         for k, marks in tags.items()}
+            if not all(by_kernel.values()):
+                raise RuntimeError(f"the window's summary names no kernel of "
+                                   f"{[k for k, v in by_kernel.items() if not v]}"
+                                   f": {[r[0][:60] for r in rows[:10]]}")
+            phase("train_durable", check="profiler", attempt=attempt,
+                  steps=window.active,
+                  device_ms=round(sum(r[1] for r in rows), 3),
+                  k1_ms=round(by_kernel["K1"], 3),
+                  k2_ms=round(by_kernel["K2"], 3),
+                  top=[(r[0][:48], round(r[1], 3)) for r in rows[:3]],
+                  trace_mb=round(os.path.getsize(window.path) / 2**20, 2))
+            del state
+
+            # --- data: two metadata files without the multi-task columns
+            aux = write_aux_dir(root, seed)
+            frame = pd.read_csv(meta)
+            dropped = [*pipeline.MT_COLUMNS, "climate_zone_idx"]
+            files = []
+            for i in range(2):
+                path = os.path.join(root, f"bare_{i}.csv")
+                frame.drop(columns=dropped).to_csv(path, index=False)
+                files.append(path)
+            made = []
+
+            class RecordingDataset(pipeline.TabularImageDataset):
+                def __init__(self, *a, **kw):
+                    super().__init__(*a, **kw)
+                    made.append(self)
+
+            dargv = ["finetune", "data", "--metadata", ",".join(files),
+                     *base, "--aux-dir", aux, "--epochs", "1",
+                     "--checkpoint-dir", os.path.join(root, "data_ckpt")]
+            t0 = time.perf_counter()
+            pipeline.TabularImageDataset = RecordingDataset
+            reset()
+            try:
+                rc = cli.cmd_finetune(cli.build_parser().parse_args(dargv))
+            finally:
+                pipeline.TabularImageDataset = RecordingDataset.__base__
+            counts = read()
+            n_train = 2 * int((frame["selection"] == "train").sum())
+            expect("two-file run", counts, durable_launches(
+                "fused", "attn_kernel", layers, trained,
+                n_train // TRAIN_BATCH, math.ceil(VAL_ROWS / TRAIN_BATCH)))
+            with open(os.path.join("runs", "data", "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            added = set(made[0].df.columns) \
+                - set(frame.drop(columns=dropped).columns)
+            if rc != 0 or len(made[0]) != n_train \
+                    or len(made[1]) != VAL_ROWS \
+                    or not set(dropped) <= set(made[0].df.columns) \
+                    or not set(dropped) <= set(made[1].df.columns) \
+                    or not np.isfinite([r["value"] for r in records]).all():
+                raise RuntimeError(f"two-file finetune -m: exit {rc}, rows "
+                                   f"{[len(d) for d in made]}, columns "
+                                   f"{sorted(made[0].df.columns)}")
+            phase("train_durable", check="data", files=2, train_rows=n_train,
+                  val_rows=len(made[1]), augmented=sorted(added),
+                  losses=[round(r["value"], 4) for r in records
+                          if r["tag"] == "train/loss"],
+                  seconds=round(time.perf_counter() - t0, 3))
+
+            # --- hierarchical: a panorama head of view attention ---
+            hcfg = dataclasses.replace(head, hierarchical=True)
+            model.load_state_dict(start)
+            model.head = init_weights(GeocellHead(hcfg, dtype=torch.bfloat16),
+                                      seed).to(run.device)
+            model.head_config = hcfg
+            state = TrainState(model, adamw(model.parameters(), lr))
+            hstep = make_train_step(hcfg, run.geocells)
+            reset()
+            losses = [float(hstep(state, batch)["loss"]) for _ in range(2)]
+            counts = read()
+            expect("hierarchical steps", counts, durable_launches(
+                "fused", "attn_kernel", layers, trained, 2))
+            attn_grads = {n: p.grad for n, p in
+                          model.head.view_attention.named_parameters()}
+            if not np.isfinite(losses).all() or not all(
+                    g is not None and torch.isfinite(g).all()
+                    and g.abs().sum() > 0 for g in attn_grads.values()):
+                raise RuntimeError(f"hierarchical head: losses {losses}, "
+                                   f"view_attention gradients "
+                                   f"{ {n: g is not None for n, g in attn_grads.items()} }")
+            phase("train_durable", check="hierarchical",
+                  width=model.head.cell_layer.in_features,
+                  losses=[round(v, 4) for v in losses],
+                  view_attention_grad_norm=round(float(torch.stack(
+                      [g.float().norm() for g in attn_grads.values()])
+                      .norm()), 6))
+            del run, model, state, batch, start
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    phase("train_durable", check="launches",
+          **{f"{n}_launches": c for n, c in total.items() if c})
     return total
 
 
@@ -3494,6 +4079,7 @@ def main() -> int:
         add(check_evaluate(root, pool, args.seed))
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
+    add(check_train_durable(args.seed))
     add(check_embed(args.seed))
     variant_launches, variant_records = check_variants()
     add(variant_launches)

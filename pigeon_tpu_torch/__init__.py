@@ -25,10 +25,13 @@ Layout:
               from JAX parameter trees
     data/     uint8 image decode/resize, device-side normalisation, and
               the CSV image pipeline for training
+    geocell/  boundary polygons (the country lookup) and the GeoAugmentor
     train/    refiner presets, the finetune model builder, train and eval
-              steps, the epoch loop, metrics and checkpoints
+              steps, AdamW, the durable epoch loop (rollback, preemption,
+              async checkpoints, the profiler window), metrics
     serve/    the HTTP server speaking the Chrome-extension bot protocol
-    cli/      ``python -m pigeon_tpu_torch.cli.run {serve,finetune} ...``
+    cli/      ``python -m pigeon_tpu_torch.cli.run {serve,finetune,
+              evaluate,predict,embed,augment} ...``
 """
 
 __version__ = "0.1.0"

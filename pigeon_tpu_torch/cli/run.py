@@ -1,9 +1,10 @@
-"""CLI of the port: the ``serve``, ``finetune``, ``evaluate``, ``predict``
-and ``embed`` subcommands.
+"""CLI of the port: the ``serve``, ``finetune``, ``evaluate``, ``predict``,
+``embed`` and ``augment`` subcommands.
 
 Counterpart of `pigeon_tpu/cli/run.py::cmd_serve`, `cmd_finetune` (on
 pixels, and on embeddings with ``--embeddings``), `cmd_evaluate`,
-`cmd_predict` and `cmd_embed`, with their flags for these paths. Models
+`cmd_predict`, `cmd_embed` and `cmd_augment`, with their flags for these
+paths. Models
 are built in bf16 with f32 parameters, on the attention
 route that ``PIGEON_ATTN_IMPL`` names in the JAX package's words
 (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL`` under ``--quant``,
@@ -26,7 +27,13 @@ calibrates on ``--calib-images`` or a seeded synthetic batch,
 
 ``finetune`` trains under the remat policy ``PIGEON_REMAT`` names
 (:func:`remat_policy`), evaluates each epoch, keeps the best checkpoint
-under ``--checkpoint-dir/NAME`` and continues from it with ``--resume``.
+under ``--checkpoint-dir/NAME`` (written while the next epoch trains) and
+continues from it with ``--resume``; a non-finite loss rolls it back to
+that checkpoint, and a SIGTERM saves the state and ends the command
+(`train/loop.py`). Its ``--metadata`` takes a comma-separated list (the
+train rows concatenated, val from the first file); under ``-m`` a file
+without the multi-task columns goes through the GeoAugmentor of
+``--aux-dir`` first. ``augment`` writes that enrichment to a CSV.
 ``finetune --embeddings DIR`` trains the geocell head alone on a bank
 ``embed`` wrote (:func:`build_head_finetune`).
 ``evaluate`` scores benchmarks of the registry (``-l``) or the
@@ -46,9 +53,12 @@ Usage:
         --heading --geocells data/geocells.csv [--base B.pt] \
         [--prototypes P.csv --embeddings DIR --metadata META.csv \
         [--hedge]] [--quant [--calib-images DIR]]
-    python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
-        --images DIR --geocells C.csv --panorama -m --heading \
-        [--base B.pt] [--batch-size N] [--epochs N] [--resume]
+    python -m pigeon_tpu_torch.cli.run finetune myrun \
+        --metadata M.csv[,M2.csv] --images DIR --geocells C.csv \
+        --panorama -m --heading [--aux-dir DIR] [--base B.pt] \
+        [--batch-size N] [--epochs N] [--resume]
+    python -m pigeon_tpu_torch.cli.run augment --metadata M.csv \
+        [--aux-dir DIR] [--output OUT.csv]
     python -m pigeon_tpu_torch.cli.run evaluate myrun -l sample20 \
         --geocells C.csv [--base B.pt] [--prototypes P.csv \
         --embeddings DIR --metadata META.csv] [--scaler S.json] \
@@ -178,10 +188,11 @@ def flash_fwd() -> str:
 
 def remat_policy() -> str:
     """The training remat policy of ``finetune``: ``PIGEON_REMAT``
-    (`pigeon_tpu/cli/run.py::_remat_override`), default ``attn_kernel``.
-    The port has the policies of `models.clip.REMATS`; any other value
-    stops the command, where the JAX package would fall back to full
-    remat without a word."""
+    (`pigeon_tpu/cli/run.py::_remat_override`), default ``attn_kernel``,
+    one of `models.clip.REMATS` (``none``, ``full``, ``attn_out``,
+    ``attn_kernel``, ``attn_slim``). Any other value stops the command,
+    where the JAX package would fall back to full remat without a
+    word."""
     from pigeon_tpu_torch.models.clip import REMATS
 
     value = os.environ.get("PIGEON_REMAT") or "attn_kernel"
@@ -197,7 +208,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
     p.add_argument("function",
                    choices=["serve", "finetune", "evaluate", "predict",
-                            "embed"],
+                            "embed", "augment"],
                    help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
     p.add_argument("-l", "--load", default=None,
@@ -229,7 +240,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default=None,
                    help="evaluate: metrics JSON; predict: CSV (default "
                         "predictions.csv); embed: the banks' directory "
-                        "(default --embeddings, else data/embeddings)")
+                        "(default --embeddings, else data/embeddings); "
+                        "augment: CSV (default <metadata>_augmented.csv)")
     p.add_argument("--geocells", default=None, help="geocell CSV path")
     p.add_argument("--prototypes", default=None, help="prototype CSV path")
     p.add_argument("--embeddings", default=None,
@@ -240,7 +252,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "clip", "vit"],
                    help="embed: the CLIP tower or the generic ViT (auto: "
                         "ViT when the run name holds 'vit')")
-    p.add_argument("--metadata", default=None, help="metadata CSV path")
+    p.add_argument("--metadata", default=None,
+                   help="metadata CSV path; finetune: a comma-separated "
+                        "list (train rows concatenated, val from the "
+                        "first)")
+    p.add_argument("--aux-dir", default="data",
+                   help="augment, finetune -m: auxiliary data for the "
+                        "GeoAugmentor (boundaries/, koppen_geiger/, "
+                        "elevation/, pop_density/, worldclim/, "
+                        "driving_side.json)")
     p.add_argument("--images", default="", help="image directory")
     p.add_argument("--checkpoint-dir", default="saved_models")
     p.add_argument("--batch-size", type=int, default=None,
@@ -555,30 +575,98 @@ class Finetune(NamedTuple):
     checkpoint_dir: str
 
 
-def _split_frames(args, multitask: bool):
-    """Train and val frames of ``--metadata`` (by its ``selection``
-    column; without one both are the whole frame)."""
-    import pandas as pd
+def _augment_frame(df, args, source: str):
+    """``df`` through the GeoAugmentor of the sources under ``--aux-dir``
+    (`geocell.augmentor.build_augmentor`), or ``df`` as it is where there
+    are none (`pigeon_tpu/cli/run.py::_augment_frame`)."""
+    from pigeon_tpu_torch.geocell.augmentor import build_augmentor
 
+    aug = build_augmentor(args.aux_dir)
+    if aug is None:
+        logger.warning("no auxiliary data under %s: %s is not augmented "
+                       "(fetch it with scripts/get_auxiliary_data.sh, or "
+                       "pass --aux-dir)", args.aux_dir, source)
+        return df
+    return aug.augment(df)
+
+
+def _maybe_augment_multitask(df, args, source: str):
+    """Under ``-m``, a metadata frame without the multi-task columns goes
+    through the GeoAugmentor, as the reference's finetune dataset build
+    does (`pigeon_tpu/cli/run.py::_maybe_augment_multitask`); a column
+    still missing after it stops the command."""
     from pigeon_tpu_torch.data.pipeline import MT_COLUMNS
+
+    if not args.multitask:
+        return df
+    missing = [c for c in (*MT_COLUMNS, "climate_zone_idx")
+               if c not in df.columns]
+    if not missing:
+        return df
+    logger.warning("%s lacks multi-task columns %s: running the "
+                   "GeoAugmentor", source, missing)
+    df = _augment_frame(df, args, source)
+    still = [c for c in missing if c not in df.columns]
+    if still:
+        # -m without the label columns would crash inside the loss.
+        raise SystemExit(
+            f"--multitask needs columns {still} that {source} lacks and "
+            f"augmentation could not supply from --aux-dir={args.aux_dir} "
+            "(fetch sources with scripts/get_auxiliary_data.sh, or run "
+            "`python -m pigeon_tpu_torch.cli.run augment` with the needed "
+            "rasters), or drop -m")
+    return df
+
+
+def _split_frames(args):
+    """Train and val frames of ``--metadata``, a comma-separated list of
+    CSVs (`pigeon_tpu/cli/run.py::_finetune_on_pixels`): each file
+    augmented under ``-m`` where it lacks the multi-task columns, the
+    train rows of every file concatenated, the val rows from the first
+    (by the ``selection`` column; a file without one is all train, and
+    the first is also all val)."""
+    import pandas as pd
 
     if args.metadata is None:
         raise SystemExit("--metadata CSV is required for this command")
+    paths = args.metadata.split(",")
+    train, val = [], None
+    for i, path in enumerate(paths):
+        df = _maybe_augment_multitask(pd.read_csv(path), args, path)
+        if i == 0:
+            val = (df[df["selection"] == "val"] if "selection" in df.columns
+                   else df).reset_index(drop=True)
+        if "selection" in df.columns:
+            df = df[df["selection"] == "train"]
+        train.append(df)
+    train = pd.concat(train, ignore_index=True)
+    if len(paths) > 1:
+        logger.warning("training on %d concatenated datasets (%d rows); "
+                       "val from %s", len(paths), len(train), paths[0])
+    return train, val
+
+
+def cmd_augment(args) -> int:
+    """Offline metadata enrichment (`pigeon_tpu/cli/run.py::cmd_augment`):
+    ``--metadata`` (with ``lng`` and ``lat``) through the GeoAugmentor
+    of ``--aux-dir``'s sources, written to ``--output`` or
+    ``<metadata>_augmented.csv``; a missing source skips its columns."""
+    import pandas as pd
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required")
     df = pd.read_csv(args.metadata)
-    if multitask:
-        missing = [c for c in (*MT_COLUMNS, "climate_zone_idx")
-                   if c not in df.columns]
-        if missing:
-            # -m without the label columns would crash inside the loss.
-            raise SystemExit(
-                f"--multitask needs columns {missing} that "
-                f"{args.metadata} lacks and augmentation could not supply "
-                "(the port has no GeoAugmentor yet: add them with "
-                "`python -m pigeon_tpu.cli.run augment`), or drop -m")
-    if "selection" not in df.columns:
-        return df, df
-    return (df[df["selection"] == "train"].reset_index(drop=True),
-            df[df["selection"] == "val"].reset_index(drop=True))
+    if not {"lng", "lat"} <= set(df.columns):
+        raise SystemExit(f"{args.metadata} needs lng/lat columns")
+    before = set(df.columns)
+    out_df = _augment_frame(df, args, args.metadata)
+    out = args.output or (os.path.splitext(args.metadata)[0]
+                          + "_augmented.csv")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    out_df.to_csv(out, index=False)
+    logger.warning("wrote %s (+%s)", out,
+                   sorted(set(out_df.columns) - before) or "no columns")
+    return 0
 
 
 def build_finetune(args) -> Finetune:
@@ -608,7 +696,7 @@ def build_finetune(args) -> Finetune:
     cfg = make_config(args)
     cfg = cfg.replace(head=dataclasses.replace(cfg.head,
                                                num_cells=len(cells)))
-    train_df, val_df = _split_frames(args, cfg.head.multi_task)
+    train_df, val_df = _split_frames(args)
     tcfg = cfg.train
     model = init_weights(build_finetune_model(cfg, attn_impl=route,
                                               remat=remat),
@@ -1064,7 +1152,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     return {"serve": cmd_serve, "finetune": cmd_finetune,
             "evaluate": cmd_evaluate, "predict": cmd_predict,
-            "embed": cmd_embed}[args.function](args)
+            "embed": cmd_embed, "augment": cmd_augment}[args.function](args)
 
 
 if __name__ == "__main__":

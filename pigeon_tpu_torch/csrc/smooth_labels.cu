@@ -7,7 +7,11 @@
 //
 //   d[b, c]   = 2 R asin(sqrt(clamp(sin^2(dlat/2)
 //                                   + cos(lat_b) cos(lat_c) sin^2(dlon/2))))
-//   out[b, c] = exp(-(d[b, c] - min_c d[b, c]) / tau)
+//   out[b, c] = exp(-(d[b, c] - min_c d[b, c]) / tau), 0 where not finite
+//
+// A NaN label (a corrupt metadata row) gives NaN distances, as torch.clamp
+// passes NaN through, and a row of zero targets, as the plain version's
+// nan_to_num does (fminf/fmaxf would clamp a NaN to 0 and give ones).
 //
 // with R the WGS84 equatorial radius in km, the arithmetic of
 // `pigeon_tpu_torch.core.geodesy.haversine` and
@@ -88,7 +92,8 @@ __device__ __forceinline__ float haversine_km(const Point& p, const Point& q) {
   float a = __fadd_rn(__fmul_rn(s_lat, s_lat),
                       __fmul_rn(__fmul_rn(p.cos_lat, q.cos_lat),
                                 __fmul_rn(s_lon, s_lon)));
-  a = fminf(fmaxf(a, 0.0f), 1.0f);
+  // torch.clamp's semantics: NaN stays NaN.
+  a = a > 1.0f ? 1.0f : (a < 0.0f ? 0.0f : a);
   return __fmul_rn(EARTH_RADIUS_KM * 2.0f, asinf(sqrtf(a)));
 }
 
@@ -106,7 +111,8 @@ __device__ __forceinline__ void cell_distances(const Point (&rows)[ROWS],
 }
 
 // out = exp(-(d - dmin) * (1 / tau)): PyTorch's CUDA division by a scalar
-// multiplies by its reciprocal, so the plain version on the card does too.
+// multiplies by its reciprocal, so the plain version on the card does too;
+// a NaN row (its dmin NaN or +inf) stores zeros, as nan_to_num.
 template <int ROWS>
 __device__ __forceinline__ void store_cell(const float (&d)[ROWS],
                                            const float (&dmin)[ROWS],
@@ -116,8 +122,8 @@ __device__ __forceinline__ void store_cell(const float (&d)[ROWS],
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (row0 + r < batch) {
-      out[(size_t)(row0 + r) * num_cells + c] =
-          expf(__fmul_rn(-__fsub_rn(d[r], dmin[r]), inv_tau));
+      const float v = expf(__fmul_rn(-__fsub_rn(d[r], dmin[r]), inv_tau));
+      out[(size_t)(row0 + r) * num_cells + c] = isfinite(v) ? v : 0.0f;
     }
   }
 }

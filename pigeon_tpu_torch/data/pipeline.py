@@ -6,8 +6,10 @@ Counterpart of `pigeon_tpu/data/pipeline.py` (`TabularImageDataset`,
 the six `MT_COLUMNS`, ``climate_zone_idx``, ``heading`` (degrees),
 ``month`` (0-11) and an optional ``geocell_idx``. Pixels stay uint8
 (decode + resize + centre crop on host threads); normalisation happens
-on the device. Images are decoded by PIL with the JAX pipeline's draft
-mode; the native JPEG decoder is not used here.
+on the device. A JPEG is decoded by the native decoder
+(`data/native_decode.py`) where it builds, as the JAX pipeline's
+uint8 path does; any other image, or a JPEG it refuses, by PIL with the
+JAX pipeline's draft mode.
 
 `BenchmarkDataset` reads a benchmark from the registry JSON
 (``{name: {"meta": csv, "images": dir}}``, paths relative to the
@@ -27,7 +29,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -50,6 +52,17 @@ class TabularImageDataset:
         self.image_size = image_size
         self.panorama = panorama
 
+    @classmethod
+    def from_csv(cls, csv_path: str, split: Optional[str] = None,
+                 image_dir: str = "", image_size: int = 336,
+                 panorama: bool = False) -> "TabularImageDataset":
+        """The rows of ``csv_path`` whose ``selection`` is ``split`` (all
+        rows without a split or without the column)."""
+        df = pd.read_csv(csv_path)
+        if split is not None and "selection" in df.columns:
+            df = df[df["selection"] == split]
+        return cls(df, image_dir, image_size, panorama)
+
     def __len__(self) -> int:
         return len(self.df.index)
 
@@ -63,13 +76,28 @@ class TabularImageDataset:
         """One sample's views: ``(S, S, 3)`` or ``(4, S, S, 3)`` uint8."""
         from PIL import Image
 
+        from pigeon_tpu_torch.data import native_decode
+
         views = []
         for col in self.image_columns:
-            with Image.open(os.path.join(self.image_dir, str(row[col]))) \
-                    as im:
+            path = os.path.join(self.image_dir, str(row[col]))
+            if (path.lower().endswith((".jpg", ".jpeg"))
+                    and native_decode.available()):
+                with open(path, "rb") as f:
+                    # One image a call, on this decode thread.
+                    arr = native_decode.decode_resize_crop_batch(
+                        [f.read()], self.image_size, nthreads=1)[0]
+                if arr is not None:
+                    views.append(arr)
+                    continue
+            with Image.open(path) as im:
                 im.draft("RGB", (self.image_size, self.image_size))
                 views.append(resize_crop_pil(im, self.image_size))
         return np.stack(views) if self.panorama else views[0]
+
+    def labels_lla(self) -> np.ndarray:
+        """``(N, 2)`` (lng, lat) of every row, f32."""
+        return self.df[["lng", "lat"]].to_numpy(dtype=np.float32)
 
     def sample_arrays(self, row) -> Dict[str, np.ndarray]:
         """The row's label arrays; each column is optional."""

@@ -396,8 +396,8 @@ flash_attention_backward.launches = 0
 
 
 #: K3 as a registered operator, ``torch.ops.pigeon.flash_attention``: the
-#: ``attn_kernel`` remat policy keeps its output, so the recompute pass of
-#: a checkpointed layer never launches K3 again.
+#: remat policies tag its output ``attn_kernel_out``; where a policy keeps
+#: it, the recompute pass of a checkpointed layer does not launch K3 again.
 _LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
 _LIBRARY.define("flash_attention(Tensor q, Tensor k, Tensor v) -> Tensor")
 _LIBRARY.impl("flash_attention", flash_attention, "CompositeExplicitAutograd")

@@ -156,8 +156,9 @@ fused_block_attention.launches = 0
 
 
 #: K6 as a registered operator, ``torch.ops.pigeon.fused_block_attention``:
-#: the ``attn_kernel`` remat policy keeps its output, so the recompute pass
-#: of a checkpointed layer never launches K6 again.
+#: the remat policies tag its output ``attn_out``; where a policy keeps it
+#: (all but ``full``), the recompute pass of a checkpointed layer does not
+#: launch K6 again.
 _LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
 _LIBRARY.define("fused_block_attention(Tensor x, Tensor ln_scale, "
                 "Tensor ln_bias, Tensor wq, Tensor wk, Tensor wv, Tensor bq, "

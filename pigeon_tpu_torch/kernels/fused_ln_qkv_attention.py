@@ -146,8 +146,9 @@ fused_ln_qkv_attention.launches = 0
 
 
 #: K5 as a registered operator, ``torch.ops.pigeon.fused_ln_qkv_attention``:
-#: the ``attn_kernel`` remat policy keeps its output, so the recompute pass
-#: of a checkpointed layer never launches K5 again.
+#: the remat policies tag its output ``attn_kernel_out``; where a policy
+#: keeps it, the recompute pass of a checkpointed layer does not launch K5
+#: again.
 _LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
 _LIBRARY.define("fused_ln_qkv_attention(Tensor x, Tensor ln_scale, "
                 "Tensor ln_bias, Tensor wq, Tensor wk, Tensor wv, Tensor bq, "

@@ -158,7 +158,8 @@ def fused_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
 fused_ln_mlp.launches = 0
 
 
-#: K9 as a registered operator, ``torch.ops.pigeon.fused_ln_mlp``.
+#: K9 as a registered operator, ``torch.ops.pigeon.fused_ln_mlp``: every
+#: remat policy but ``none`` keeps its output (``mlp_out``).
 _LIBRARY = torch.library.Library("pigeon", "FRAGMENT")
 _LIBRARY.define("fused_ln_mlp(Tensor x, Tensor ln_scale, Tensor ln_bias, "
                 "Tensor w1, Tensor b1, Tensor w2, Tensor b2, float eps) "

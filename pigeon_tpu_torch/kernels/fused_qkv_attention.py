@@ -346,8 +346,9 @@ fused_qkv_attention_backward.launches = 0
 
 
 #: K1 as a registered operator, ``torch.ops.pigeon.fused_qkv_attention``.
-#: The ``attn_kernel`` remat policy recognises it and keeps its output,
-#: so the recompute pass of a checkpointed layer never launches K1 again.
+#: The remat policies tag its output ``attn_kernel_out``
+#: (`models/clip.py::_SAVED_OPS`): where a policy keeps it, the recompute
+#: pass of a checkpointed layer does not launch K1 again.
 #: (Registered with `torch.library.Library`: `torch.library.custom_op`
 #: imports the compiler stack at its first call, seconds of start-up.)
 _LIBRARY = torch.library.Library("pigeon", "FRAGMENT")

@@ -63,20 +63,36 @@ variance, ``E[x^2] - E[x]^2`` in f32, so the requantize boundaries fall
 where the JAX package's do.
 
 Training remats the tower layer by layer (``remat``, the JAX package's
-`_remat_policy_names`):
+`_remat_policy_names`). Each policy but ``none`` makes every layer a
+non-reentrant `torch.utils.checkpoint` region that keeps its input and
+the tensors the policy names, and recomputes the rest in the backward;
+the names are the JAX package's ``checkpoint_name`` tags:
 
-* ``"none"`` — every activation is kept for the backward;
-* ``"attn_kernel"`` — each layer is a non-reentrant
-  `torch.utils.checkpoint` region that keeps its input, the attention
-  kernel's output (K1, K3 or K5) and the attention output (after
-  ``out_proj``) and recomputes the rest in the backward: LN1 (K2 needs
-  its output), the separate projections of ``"flash"`` (K4 needs them),
-  the residual add and the MLP. On ``"fused_mlp"`` and ``"block"`` it
-  also keeps K9's output, the next layer's input, which XLA's dead-code
-  elimination spares the JAX package from recomputing; on ``"block"``
-  K6's output is the attention output (the JAX ``attn_out``). No kernel
-  forward is launched again (K6's backward launches K1 on purpose, as the
-  JAX VJP does).
+* ``"none"`` — no region: every activation is kept for the backward;
+* ``"full"`` — nothing named: the attention kernel (K1, K3, K5 or K6)
+  runs again in every layer's backward, since the MLP's backward needs
+  the residual stream after the attention;
+* ``"attn_out"`` — the attention output after ``out_proj`` (K6's
+  post-residual output on ``"block"``): on the routes with a separate
+  ``out_proj`` the kernel still runs again in every layer, where the
+  recompute rebuilds ``out_proj``'s input (the JAX package reruns it for
+  ``dWo``); on ``"block"`` nothing runs again;
+* ``"attn_kernel"`` (the default) — ``attn_out`` and the attention
+  kernel's output (``attn_kernel_out``: K1, K3 or K5); no kernel runs
+  again. The recompute rebuilds LN1 (K2 needs its output), the separate
+  projections of ``"flash"`` (K4 needs them), the residual add and the
+  MLP;
+* ``"attn_slim"`` — ``attn_kernel_out`` alone: ``x + out_proj(kernel
+  output)`` is recomputed, one dense product and no kernel.
+
+On ``"block"`` no pre-``out_proj`` tensor exists, so ``attn_kernel`` and
+``attn_slim`` save ``attn_out``, as in the JAX package. Under every
+policy but ``none`` the region also keeps K9's output (``mlp_out``, on
+``"fused_mlp"`` and ``"block"``): it is the next layer's input, which
+that layer's region holds anyway, and XLA's dead-code elimination spares
+the JAX package the rerun that recomputing it would cost here. K6's
+backward launches K1 where its ``Wo`` trains, as the JAX VJP does, under
+every policy.
 """
 
 from __future__ import annotations
@@ -136,35 +152,56 @@ ACTIVATIONS = {"quick_gelu": quick_gelu,
                "gelu": functools.partial(F.gelu, approximate="none")}
 #: The routes whose attention is the fused projection + attention.
 FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
-REMATS = ("none", "attn_kernel")
+REMATS = ("none", "full", "attn_out", "attn_kernel", "attn_slim")
 QUANTS = (False, "dynamic", "static")
 
-#: Set while a layer computes a tensor that the ``attn_kernel`` policy
-#: saves by name (the JAX package's ``checkpoint_name``).
-_SAVING = contextvars.ContextVar("pigeon_remat_saving", default=False)
+#: The ``checkpoint_name`` of the tensors computed inside
+#: `saved_by_remat` (the JAX package's tag), or None.
+_SAVING = contextvars.ContextVar("pigeon_remat_saving", default=None)
 
 
 @contextlib.contextmanager
-def saved_by_remat():
-    """Mark the operations run inside as saved by the remat policy."""
-    token = _SAVING.set(True)
+def saved_by_remat(name: str):
+    """Tag the operations run inside with the checkpoint name ``name``."""
+    token = _SAVING.set(name)
     try:
         yield
     finally:
         _SAVING.reset(token)
 
 
-#: The kernel forwards whose outputs ``attn_kernel`` keeps.
-_SAVED_OPS = (FUSED_QKV_ATTENTION_OP, FLASH_ATTENTION_OP,
-              FUSED_LN_QKV_ATTENTION_OP, FUSED_LN_MLP_OP,
-              FUSED_BLOCK_ATTENTION_OP)
+#: The checkpoint name of each kernel forward's output.
+_SAVED_OPS = {FUSED_QKV_ATTENTION_OP: "attn_kernel_out",
+              FLASH_ATTENTION_OP: "attn_kernel_out",
+              FUSED_LN_QKV_ATTENTION_OP: "attn_kernel_out",
+              FUSED_BLOCK_ATTENTION_OP: "attn_out",
+              FUSED_LN_MLP_OP: "mlp_out"}
 
 
-def _attn_kernel_policy(ctx, func, *args, **kwargs):
-    """The ``attn_kernel`` save set: the kernel outputs of `_SAVED_OPS`
-    and what runs under `saved_by_remat`; everything else is
-    recomputed."""
-    if func in _SAVED_OPS or _SAVING.get():
+def remat_saved_names(remat: str, attn_impl: str) -> tuple:
+    """The checkpoint names policy ``remat`` keeps on route ``attn_impl``
+    (`pigeon_tpu/models/clip.py::_remat_policy_names`, plus ``mlp_out``;
+    the module docstring)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}, not in {REMATS}")
+    if remat == "none":
+        return ()
+    names = {"full": (), "attn_out": ("attn_out",),
+             "attn_kernel": ("attn_out", "attn_kernel_out"),
+             "attn_slim": ("attn_kernel_out",)}[remat]
+    if attn_impl == "block" and names:
+        names = ("attn_out",)
+    return (*names, "mlp_out")
+
+
+def _remat_policy(names, ctx, func, *args, **kwargs):
+    """Keep what is tagged with one of ``names``, by `_SAVED_OPS` or
+    `saved_by_remat`; recompute everything else. A view is always
+    recomputed: a kept view holds its base's storage, and ``out_proj``'s
+    reshape of the kernel output would keep that output alive under
+    ``attn_out``, which recomputes it."""
+    if not getattr(func, "is_view", False) \
+            and _SAVED_OPS.get(func, _SAVING.get()) in names:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -295,7 +332,7 @@ class MultiHeadAttention(nn.Module):
                       else FlashAttention.apply)
             out = attend(*(linear(p, x).view(heads) for p in projs)) \
                 .reshape(b, s, d)
-        with saved_by_remat():
+        with saved_by_remat("attn_out"):
             return linear(self.out_proj, out)
 
     def block(self, x, ln: nn.LayerNorm):
@@ -373,15 +410,16 @@ class TransformerStack(nn.Module):
             for _ in range(config.num_layers))
 
     def forward(self, x):
-        remat = self.remat == "attn_kernel" and torch.is_grad_enabled()
-        for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, use_reentrant=False,
-                               context_fn=functools.partial(
-                                   create_selective_checkpoint_contexts,
-                                   _attn_kernel_policy))
-            else:
+        if self.remat == "none" or not torch.is_grad_enabled():
+            for layer in self.layers:
                 x = layer(x)
+            return x
+        for layer in self.layers:
+            names = remat_saved_names(self.remat, layer.attn.attn_impl)
+            x = checkpoint(layer, x, use_reentrant=False,
+                           context_fn=functools.partial(
+                               create_selective_checkpoint_contexts,
+                               functools.partial(_remat_policy, names)))
         return x
 
 

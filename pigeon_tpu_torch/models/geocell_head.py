@@ -3,9 +3,11 @@
 Counterpart of `pigeon_tpu/models/geocell_head.py`: the forward, the
 predictions and the training loss (haversine-smoothed geocell targets
 through kernel K10, the multi-task terms). Panorama views are aggregated
-by their mean; heading features survive only in single-image mode
-(`HeadConfig.input_dim`). Hierarchical view attention is not ported yet
-and is refused.
+by their mean, where heading features do not survive, or with
+``HeadConfig.hierarchical`` by one multi-head self-attention layer over
+the views (`ViewAttention`, in the form of Flax's
+``MultiHeadDotProductAttention``, plain PyTorch operations: no kernel),
+whose view 0 is the aggregate.
 
 The geocell centroid table is data, passed per call, not a parameter.
 """
@@ -23,8 +25,10 @@ from pigeon_tpu_torch.core.scoring import smooth_month_labels
 from pigeon_tpu_torch.kernels.geodesy import smooth_labels_from_points
 from pigeon_tpu_torch.models.clip import dense
 
-#: Default compass heading (sin, cos) for single images: north.
+#: Default compass headings (sin, cos): north for single images; north,
+#: east, south and west for the 4 views of a panorama.
 DEFAULT_HEADING_SINGLE = (0.0, 1.0)
+DEFAULT_HEADING_MULTI = ((0.0, 1.0), (1.0, 0.0), (0.0, -1.0), (-1.0, 0.0))
 
 
 class GeocellOutput(NamedTuple):
@@ -50,20 +54,65 @@ def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
     return table.astype(np.float32)
 
 
+class ViewAttention(nn.Module):
+    """Flax's ``MultiHeadDotProductAttention`` as self-attention over
+    ``(B, V, F)``: q/k/v projections to ``(heads, F / heads)``, the query
+    divided by ``sqrt(F / heads)``, softmax in the input dtype, attention
+    dropout broadcast over batch and heads, the output projection.
+    The projections are ``nn.Linear`` layers over the flattened
+    ``(heads, head_dim)`` axis (`models/jax_bridge.py` maps Flax's
+    ``DenseGeneral`` kernels)."""
+
+    def __init__(self, features: int, num_heads: int, dropout: float):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError(f"{features} features do not split into "
+                             f"{num_heads} heads")
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.query, self.key, self.value, self.out = (
+            nn.Linear(features, features) for _ in range(4))
+
+    def forward(self, x):
+        b, v, f = x.shape
+        heads = (b, v, self.num_heads, f // self.num_heads)
+        q, k, val = (dense(p, x).view(heads)
+                     for p in (self.query, self.key, self.value))
+        q = q / torch.sqrt(torch.tensor(heads[-1], dtype=x.dtype))
+        weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), -1)
+        if self.training and self.dropout > 0:
+            keep = torch.bernoulli(torch.full(
+                (1, 1, v, v), 1.0 - self.dropout, device=x.device))
+            weights = weights * (keep.to(x.dtype)
+                                 / torch.tensor(1.0 - self.dropout,
+                                                dtype=x.dtype))
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, val)
+        return dense(self.out, out.reshape(b, v, f))
+
+
 class GeocellHead(nn.Module):
     """Geocell classifier over ``(B, D)`` or ``(B, 4, D)`` embeddings.
 
     Parameters are f32; the forward runs in ``dtype`` and returns f32.
+    With ``hierarchical`` the views attend to each other
+    (`ViewAttention`, dropout at ``attn_dropout`` in training mode), their
+    headings concatenated and zero-padded to ``num_attention_heads``
+    extra features with ``heading``, and the aggregate is
+    ``embed_dim + num_attention_heads`` wide there (the JAX head's cell
+    layer takes the width it is given; `HeadConfig.input_dim` says
+    ``embed_dim + 2``).
     """
 
     def __init__(self, config: HeadConfig, dtype=torch.float32):
         super().__init__()
-        if config.hierarchical:
-            raise NotImplementedError(
-                "hierarchical view aggregation is not ported yet")
         self.config = config
         self.dtype = dtype
         d_in = config.input_dim
+        if config.panorama and config.hierarchical:
+            d_in = config.embed_dim + (config.num_attention_heads
+                                       if config.heading else 0)
+            self.view_attention = ViewAttention(
+                d_in, config.num_attention_heads, config.attn_dropout)
         self.cell_layer = nn.Linear(d_in, config.num_cells)
         if config.multi_task:
             self.multi_task_head = nn.Linear(config.embed_dim,
@@ -80,9 +129,12 @@ class GeocellHead(nn.Module):
             if emb.dim() != 3:
                 raise ValueError("panorama head expects (B, 4, D) "
                                  f"embeddings, got {tuple(emb.shape)}")
-            # Mean over views, accumulated in f32; heading features do not
-            # survive mean aggregation.
-            agg = emb.float().mean(dim=1).to(self.dtype)
+            if cfg.hierarchical:
+                agg = self._hierarchical_aggregate(emb, heading)
+            else:
+                # Mean over views, accumulated in f32; heading features do
+                # not survive mean aggregation.
+                agg = emb.float().mean(dim=1).to(self.dtype)
         else:
             if emb.dim() == 3:
                 emb = emb[:, 0]
@@ -106,6 +158,28 @@ class GeocellHead(nn.Module):
                              embedding=embedding, preds_mt=f32(preds_mt),
                              preds_climate=f32(preds_climate),
                              preds_month=f32(preds_month))
+
+    def _hierarchical_aggregate(self, emb, heading):
+        """Self-attention over the views, view 0 taken
+        (`pigeon_tpu.models.geocell_head.GeocellHead.
+        _hierarchical_aggregate`): the headings concatenated with
+        ``num_attention_heads - 2`` zeros, sinusoidal positions added,
+        dropout, `ViewAttention`."""
+        cfg = self.config
+        b, views, _ = emb.shape
+        x = emb
+        if cfg.heading:
+            if heading is None:
+                h = torch.tensor(DEFAULT_HEADING_MULTI, dtype=self.dtype,
+                                 device=emb.device).expand(b, 4, 2)
+            else:
+                h = heading.to(self.dtype).reshape(b, 4, 2)
+            zeros = emb.new_zeros((b, 4, cfg.num_attention_heads - 2))
+            x = torch.cat([x, h, zeros], dim=-1)
+        table = torch.from_numpy(sinusoidal_positions(views, x.shape[-1]))
+        x = x + table.to(device=x.device, dtype=self.dtype)
+        x = nn.functional.dropout(x, cfg.attn_dropout, self.training)
+        return self.view_attention(x)[:, 0]
 
     def _heading_features(self, emb, heading):
         """(sin, cos) heading features for single-image mode."""

@@ -15,7 +15,11 @@ conversions:
   kernel K1 streams;
 * the patch kernel ``(P, P, C, D)`` is flattened in ``(p, p, c)`` order to
   ``(D, P*P*C)``;
-* LayerNorm ``scale`` becomes ``weight``.
+* LayerNorm ``scale`` becomes ``weight``;
+* a hierarchical head's ``view_attention`` (Flax ``DenseGeneral``
+  kernels ``(F, H, dh)`` for query, key and value, ``(H, dh, F)`` for
+  out) becomes four ``nn.Linear`` layers over the flattened ``H * dh``
+  axis, their biases flattened alike.
 
 A quantized tree (`pigeon_tpu.models.quant.quantize_and_calibrate`) goes
 into a model built with ``quant`` (`models/quant.py`): its int8 kernels
@@ -43,6 +47,8 @@ _LAYER_DENSE = ("attn/q_proj", "attn/k_proj", "attn/v_proj",
 _LAYER_NORMS = ("ln1", "ln2")
 _HEAD_DENSE = ("cell_layer", "multi_task_head", "climate_layer",
                "month_layer")
+#: Flax ``MultiHeadDotProductAttention``'s projections.
+_VIEW_ATTENTION = ("query", "key", "value", "out")
 #: Leaves a quantized dense or patch embed carries beside its kernel.
 _QUANT_LEAVES = ("scale", "act_scale")
 
@@ -121,11 +127,22 @@ class _Leaves:
                 self.put(f"{dst}.{i}.{name}.bias", bias[i])
 
     def head(self, dst: str, src: str) -> None:
-        """Whichever geocell-head linears the tree has."""
+        """Whichever geocell-head linears the tree has, and a
+        hierarchical head's ``view_attention``."""
         for name in _HEAD_DENSE:
             if f"{src}{name}/kernel" in self.leaves:
                 self.dense(f"{dst}{name}",
                            self.group(f"{src}{name}", ("kernel", "bias")))
+        if f"{src}view_attention/out/kernel" not in self.leaves:
+            return
+        for name in _VIEW_ATTENTION:
+            path = f"{src}view_attention/{name}"
+            kernel, bias = self.take(f"{path}/kernel"), self.take(f"{path}/bias")
+            features = kernel.shape[-1] if name == "out" else kernel.shape[0]
+            kernel = (kernel.reshape(-1, features) if name == "out"
+                      else kernel.reshape(features, -1))
+            self.dense(f"{dst}view_attention.{name}",
+                       {"kernel": kernel, "bias": bias.reshape(-1)})
 
     def done(self) -> Dict[str, torch.Tensor]:
         if self.leaves:

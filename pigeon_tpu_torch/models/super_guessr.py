@@ -33,7 +33,7 @@ class SuperGuessr(nn.Module):
     kernels K3 and K4; ``"plain"``: separate projections; ``"fused_ln"``:
     K5 with LN1 folded in; ``"fused_mlp"``: K5 and the MLP half as K9;
     `models/clip.py` states the precedence); ``remat`` the
-    tower's training remat policy (``"none"`` or ``"attn_kernel"``);
+    tower's training remat policy (one of `models.clip.REMATS`);
     ``quant`` (False, ``"dynamic"`` or ``"static"``) an int8 tower
     (`models/quant.py`), which `models.quant.quantize_and_calibrate` also
     makes from a float model.

@@ -1,15 +1,21 @@
-"""The epoch loop: training, an eval pass each epoch, the best checkpoint
-and early stopping.
+"""The epoch loop: training, an eval pass each epoch, the best checkpoint,
+early stopping, rollback on divergence and graceful preemption.
 
 Counterpart of `pigeon_tpu/train/loop.py::train_model` and
 `evaluate_model`. The best checkpoint is chosen on ``Geocell_accuracy``
 (the reference's criterion), or on the negative eval loss when the eval
-split has no geocell labels. Scalars go to ``<log_dir>/metrics.jsonl``
-with the JAX package's tags (``train/loss``, ``eval/<metric>``).
+split has no geocell labels, and written asynchronously through one
+`CheckpointSession`. A non-finite train loss rolls the run back to the
+last checkpoint; a SIGTERM saves the state and returns
+(`train/preemption.py`); `ProfilerWindow` traces steps 4 to 14
+(`train/profiling.py`). Scalars go to ``<log_dir>/metrics.jsonl`` with
+the JAX package's tags (``train/loss``, ``eval/<metric>``); the JAX
+package writes TensorBoard events where TensorFlow imports.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -19,12 +25,15 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from pigeon_tpu_torch.train.checkpoints import save_checkpoint
+from pigeon_tpu_torch.train.checkpoints import CheckpointSession
 from pigeon_tpu_torch.train.metrics import compute_geoguessr_metrics
+from pigeon_tpu_torch.train.preemption import PreemptionGuard
+from pigeon_tpu_torch.train.profiling import ProfilerWindow
 
 logger = logging.getLogger("pigeon_tpu_torch.train")
 
-#: Steps between writes of the train losses (each write waits for them).
+#: Steps between writes of the train losses (each write waits for them,
+#: and checks them for divergence).
 LOG_EVERY = 10
 
 
@@ -42,6 +51,7 @@ class MetricWriter:
         if self._file is not None:
             self._file.write(json.dumps(
                 {"tag": tag, "value": float(value), "step": step}) + "\n")
+            self._file.flush()
 
     def close(self) -> None:
         if self._file is not None:
@@ -112,33 +122,120 @@ def train_model(state, train_step: Callable, eval_step: Callable,
                 num_epochs: int, batch_to_device: Callable,
                 checkpoint_dir: Optional[str] = None,
                 log_dir: Optional[str] = None,
-                early_stopping_patience: int = 10):
+                profile_dir: Optional[str] = None,
+                early_stopping_patience: int = 10,
+                log_every: int = LOG_EVERY,
+                divergence_guard: bool = True,
+                max_recoveries: int = 3,
+                preemption: bool = True):
     """Epochs of training, each followed by an eval pass.
 
     ``train_batches_fn(epoch)`` gives the epoch's batches (a fresh
     shuffle each epoch), ``eval_batches_fn()`` the eval batches. When the
-    eval's geocell accuracy improves the state is checkpointed; after
-    ``early_stopping_patience`` epochs without improvement training stops.
-    Train losses stay on the device and are written every `LOG_EVERY`
-    steps. Returns ``(state, history)``, the eval metrics of each epoch.
+    eval's geocell accuracy improves the state is checkpointed (the write
+    overlaps the next epoch); after ``early_stopping_patience`` epochs
+    without improvement training stops. Train losses stay on the device
+    and are read every ``log_every`` steps and at the epoch's end.
+
+    ``divergence_guard``: a non-finite loss at such a read restores the
+    last checkpoint and goes on with the next epoch, at most
+    ``max_recoveries`` times; with no checkpoint to go back to it raises.
+    ``preemption``: a SIGTERM (`PreemptionGuard`) stops the run at the
+    next step boundary, or before the epoch's eval, saves the state and
+    waits for the write, and returns without that eval. The JAX loop's
+    multi-process branch (`coordinated_flag` at the ``log_every``
+    boundaries) has no counterpart: the port trains in one process.
+    ``profile_dir``: a `ProfilerWindow` trace of steps 4 to 14.
+
+    Returns ``(state, history)``, the eval metrics of each epoch that
+    reached its eval.
     """
     writer = MetricWriter(log_dir)
+    profiler = ProfilerWindow(profile_dir)
     best = -np.inf
     stale = 0
     history = []
+    recoveries = 0
+    session = (CheckpointSession(checkpoint_dir)
+               if checkpoint_dir is not None else None)
+    guard = PreemptionGuard() if preemption else None
+
+    def flush(pending) -> bool:
+        """Write the pending losses; False if one is not finite."""
+        ok = True
+        for step, loss in pending:
+            value = float(loss)
+            writer.scalar("train/loss", value, step)
+            if divergence_guard and not np.isfinite(value):
+                logger.error("non-finite train loss %s at step %d",
+                             value, step)
+                ok = False
+        pending.clear()
+        return ok
+
+    def recover():
+        nonlocal recoveries
+        recoveries += 1
+        if recoveries > max_recoveries:
+            raise RuntimeError(
+                f"training diverged {recoveries} times; giving up")
+        if session is None:
+            raise RuntimeError(
+                "training diverged with no checkpoint to roll back to")
+        if session.latest_step() is None:
+            raise RuntimeError(
+                "training diverged before the first checkpoint")
+        session.restore(state)
+        logger.warning("rolled back to checkpoint step %d (recovery %d)",
+                       state.step, recoveries)
+
+    stack = contextlib.ExitStack()
+    if guard is not None:
+        stack.enter_context(guard)
+    preempted = False
     try:
         for epoch in range(num_epochs):
             t0 = time.time()
             pending = []
-            for batch in train_batches_fn(epoch):
-                metrics = train_step(state, batch_to_device(batch))
-                pending.append((state.step, metrics["loss"]))
-                if state.step % LOG_EVERY == 0:
-                    for step, loss in pending:
-                        writer.scalar("train/loss", float(loss), step)
-                    pending.clear()
-            for step, loss in pending:
-                writer.scalar("train/loss", float(loss), step)
+            diverged = False
+            batches = iter(train_batches_fn(epoch))
+            try:
+                for batch in batches:
+                    if guard is not None and guard.requested:
+                        preempted = True
+                        break
+                    metrics = train_step(state, batch_to_device(batch))
+                    profiler.step()
+                    pending.append((state.step, metrics["loss"]))
+                    if state.step % log_every == 0 and not flush(pending):
+                        diverged = True
+                        break
+            finally:
+                if hasattr(batches, "close"):
+                    batches.close()
+            if not diverged and not flush(pending):
+                diverged = True
+            if diverged:
+                recover()
+                continue
+            # Epoch-boundary poll: a signal after the last per-step poll
+            # (during the final step or flush) still skips the eval.
+            if guard is not None and guard.requested:
+                preempted = True
+            if preempted:
+                # The current state, not the best: resuming needs the
+                # optimizer's continuity. Wait: the grace window is short.
+                if session is not None:
+                    saved = session.save(state, wait=True)
+                    logger.warning("preempted at step %d: checkpoint "
+                                   "saved, resume with the same name and "
+                                   "--resume", saved)
+                else:
+                    logger.warning("preempted at step %d with no "
+                                   "checkpoint directory: the state is "
+                                   "lost unless the caller saves it",
+                                   state.step)
+                break
 
             eval_metrics = evaluate_model(eval_step, state.model,
                                           eval_batches_fn(), batch_to_device)
@@ -155,13 +252,17 @@ def train_model(state, train_step: Callable, eval_step: Callable,
             if score > best:
                 best = score
                 stale = 0
-                if checkpoint_dir is not None:
-                    save_checkpoint(checkpoint_dir, state)
+                if session is not None:
+                    session.save(state)     # written during the next epoch
             else:
                 stale += 1
                 if stale >= early_stopping_patience:
                     logger.info("early stopping at epoch %d", epoch)
                     break
     finally:
+        profiler.close()
+        if session is not None:
+            session.close()
+        stack.close()
         writer.close()
     return state, history

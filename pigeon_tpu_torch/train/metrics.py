@@ -20,6 +20,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from pigeon_tpu_torch.core.geodesy import haversine_np
+from pigeon_tpu_torch.geocell.boundaries import (
+    COUNTRY_NAME_KEYS,
+    BoundarySet,
+    points_in_polygon,
+)
 from pigeon_tpu_torch.core.scoring import geoguessr_score_np
 
 RADII_KM = (1, 5, 10, 25, 50, 100, 200, 750, 1000, 2500)
@@ -88,71 +93,24 @@ class RegressionScaler:
         return cls(d["mean"], d["scale"], d["elevation_offset"])
 
 
-def points_in_polygon(points: np.ndarray, polygon: np.ndarray) -> np.ndarray:
-    """Even-odd ray casting in +x: ``(N, 2)`` points against one ``(M, 2)``
-    ring -> ``(N,)`` bool. A point exactly on an edge may land either
-    way."""
-    x, y = points[:, 0:1], points[:, 1:2]
-    x0, y0 = polygon[:, 0], polygon[:, 1]
-    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
-    straddle = (y0 <= y) != (y1 <= y)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        xs = x0 + (y - y0) * (x1 - x0) / (y1 - y0)
-    return (np.sum(straddle & (xs > x), axis=1) % 2) == 1
-
-
-class CountryIndex:
+class CountryIndex(BoundarySet):
     """Countries of a GeoJSON FeatureCollection (Polygon or MultiPolygon
     outer rings): a bounding-box prefilter, ray casting, and the nearest
     ring centroid for a point in no polygon (the reference's geopandas
-    lookup with its nearest fallback, `evaluation/metrics.py:56-72`)."""
+    lookup with its nearest fallback, `evaluation/metrics.py:56-72`), on
+    `geocell.boundaries.BoundarySet` with the rings as the file gives
+    them and the names of ``name`` or ``ADMIN``
+    (`pigeon_tpu/train/metrics.py::CountryIndex`)."""
 
     def __init__(self, geojson_path: str):
-        with open(geojson_path) as f:
-            data = json.load(f)
-        self.rings: list = []          # per country: its outer rings
-        self.names: list = []
-        bboxes = []
-        for feat in data["features"]:
-            geom = feat["geometry"]
-            polys = ([geom["coordinates"]] if geom["type"] == "Polygon"
-                     else geom["coordinates"])
-            rings = [np.asarray(p[0], np.float64) for p in polys]
-            self.rings.append(rings)
-            pts = np.concatenate(rings)
-            bboxes.append([pts[:, 0].min(), pts[:, 1].min(),
-                           pts[:, 0].max(), pts[:, 1].max()])
-            props = feat.get("properties", {})
-            self.names.append(props.get("name") or props.get("ADMIN")
-                              or str(len(self.names)))
-        self.bboxes_arr = np.asarray(bboxes, np.float64)
-        self.centroids = np.stack(
-            [np.concatenate(r).mean(0) for r in self.rings])
+        base = BoundarySet.from_geojson(geojson_path, drop_closing=False,
+                                        name_keys=COUNTRY_NAME_KEYS)
+        super().__init__(base.rings, base.names)
 
     def country_of(self, points: np.ndarray) -> np.ndarray:
         """``(N, 2)`` (lon, lat) -> ``(N,)`` country indices, the first
         country containing each point, else the nearest centroid's."""
-        points = np.asarray(points, np.float64)
-        out = np.full(len(points), -1, np.int64)
-        box = self.bboxes_arr
-        inside_box = ((points[:, None, 0] >= box[None, :, 0])
-                      & (points[:, None, 0] <= box[None, :, 2])
-                      & (points[:, None, 1] >= box[None, :, 1])
-                      & (points[:, None, 1] <= box[None, :, 3]))
-        for ci, rings in enumerate(self.rings):
-            cand = np.where((out < 0) & inside_box[:, ci])[0]
-            if len(cand) == 0:
-                continue
-            hit = np.zeros(len(cand), bool)
-            for ring in rings:
-                hit |= points_in_polygon(points[cand], ring)
-            out[cand[hit]] = ci
-        missing = out < 0
-        if missing.any():
-            d = np.linalg.norm(
-                points[missing, None, :] - self.centroids[None], axis=-1)
-            out[missing] = d.argmin(1)
-        return out
+        return self.assign_with_nearest_fill(points)
 
 
 def country_accuracy(pred_lla: np.ndarray, label_lla: np.ndarray,

@@ -23,8 +23,10 @@ def build_finetune_model(cfg: PigeonConfig, dtype=torch.bfloat16,
     compute, the tower on route ``attn_impl`` (default ``"fused"``: K1
     forward, K2 backward; ``"block"``: K6 and K9 forward;
     `cli.run.attn_impl` reads ``PIGEON_ATTN_IMPL``)
-    and remat'd under ``attn_kernel`` (the attention kernel's and the
-    attention outputs kept, the rest recomputed), every encoder layer but
+    and remat'd under ``remat``, one of `models.clip.REMATS` (default
+    ``attn_kernel``: the attention kernel's and the attention outputs
+    kept, the rest recomputed; ``cli.run.remat_policy`` reads
+    ``PIGEON_REMAT``), every encoder layer but
     the last frozen (reference `train_modes.py:67-107`). The weights are
     uninitialised: see `models.super_guessr.init_weights`."""
     model = SuperGuessr(cfg.vision, cfg.head, dtype=dtype,

@@ -36,14 +36,99 @@ class TrainState:
     step: int = 0
 
 
-def adamw(params: Iterable[nn.Parameter], learning_rate: float
-          ) -> torch.optim.AdamW:
-    """AdamW over the trainable ``params`` with the JAX wrapper's defaults
-    (`pigeon_tpu.train.train_loop.adamw`). The weight decay is passed
-    explicitly: torch's own default is 0.01, the JAX wrapper's 0.0."""
+class AdamW(torch.optim.AdamW):
+    """torch's AdamW behind optax's ``clip_by_global_norm`` and
+    ``MultiSteps`` (`pigeon_tpu.train.train_loop.adamw`).
+
+    ``max_grad_norm``: each step's gradients ``g`` become ``g / |g| *
+    max_grad_norm`` when their global norm ``|g|`` is not below it.
+    ``accum_steps`` k > 1: each call of `step` folds the gradients into a
+    running mean (optax's ``acc + (g - acc) / (n + 1)``), and every k-th
+    call applies the clipped update to that mean and starts a new one;
+    the others leave the parameters and Adam's moments as they are. The
+    mean and its count are part of the state dict, so a checkpoint taken
+    between updates resumes the accumulation.
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 max_grad_norm: Optional[float] = None,
+                 accum_steps: int = 1):
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         weight_decay=weight_decay)
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps={accum_steps} < 1")
+        self.max_grad_norm = max_grad_norm
+        self.accum_steps = accum_steps
+        self.mini_step = 0
+        self.acc_grads: Dict[torch.Tensor, torch.Tensor] = {}
+
+    def _params(self):
+        return [p for group in self.param_groups for p in group["params"]]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        params = [p for p in self._params() if p.grad is not None]
+        if self.accum_steps > 1:
+            n = self.mini_step
+            for p in params:
+                acc = self.acc_grads.setdefault(p, torch.zeros_like(p.grad))
+                acc.add_((p.grad - acc) / (n + 1))
+            if n + 1 < self.accum_steps:
+                self.mini_step = n + 1
+                return None
+            for p in params:
+                p.grad = self.acc_grads[p]
+            self.acc_grads, self.mini_step = {}, 0
+        if self.max_grad_norm is not None and params:
+            # optax.global_norm: the square root of the summed squares.
+            norm = torch.stack([p.grad.square().sum()
+                                for p in params]).sum().sqrt()
+            if not norm < self.max_grad_norm:
+                for p in params:
+                    p.grad = p.grad / norm.to(p.grad.dtype) \
+                        * self.max_grad_norm
+        return super().step()
+
+    def state_dict(self):
+        out = super().state_dict()
+        if self.accum_steps > 1:
+            index = {id(p): i for i, p in enumerate(self._params())}
+            out["accumulation"] = {
+                "mini_step": self.mini_step,
+                "acc_grads": {index[id(p)]: g
+                              for p, g in self.acc_grads.items()}}
+        return out
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        acc = state_dict.pop("accumulation", None)
+        super().load_state_dict(state_dict)
+        self.mini_step, self.acc_grads = 0, {}
+        if acc is not None:
+            params = self._params()
+            self.mini_step = int(acc["mini_step"])
+            self.acc_grads = {params[int(i)]: g.to(params[int(i)].device,
+                                                   copy=True)
+                              for i, g in acc["acc_grads"].items()}
+
+
+def adamw(params: Iterable[nn.Parameter], learning_rate: float,
+          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0, max_grad_norm: Optional[float] = None,
+          accum_steps: int = 1) -> AdamW:
+    """`AdamW` over the trainable ``params`` with the JAX wrapper's
+    arguments and defaults (`pigeon_tpu.train.train_loop.adamw`): head
+    training passes the learning rate alone; pretraining betas (0.9,
+    0.98), eps 1e-6, weight decay 1e-3, ``max_grad_norm`` 1.0 and
+    ``accum_steps`` 8. The weight decay is passed explicitly: torch's own
+    default is 0.01, the JAX wrapper's 0.0."""
     trainable = [p for p in params if p.requires_grad]
-    return torch.optim.AdamW(trainable, lr=learning_rate,
-                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    return AdamW(trainable, lr=learning_rate, betas=(b1, b2), eps=eps,
+                 weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+                 accum_steps=accum_steps)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device

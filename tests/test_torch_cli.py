@@ -400,7 +400,10 @@ def test_serve_refuses_a_checkpoint_of_other_head_flags(env, tmp_path,
 
 @pytest.mark.parametrize("value, want", [(None, "attn_kernel"),
                                          ("attn_kernel", "attn_kernel"),
-                                         ("none", "none")])
+                                         ("none", "none"),
+                                         ("full", "full"),
+                                         ("attn_out", "attn_out"),
+                                         ("attn_slim", "attn_slim")])
 def test_finetune_builds_under_the_remat_policy_named(env, tmp_path,
                                                       monkeypatch, value,
                                                       want):
@@ -443,12 +446,12 @@ def test_finetune_trains_without_remat(env, tmp_path, monkeypatch):
     assert all(math.isfinite(r["value"]) for r in records)
 
 
-@pytest.mark.parametrize("value", ["full", "attn_out", "attn_slim"])
+@pytest.mark.parametrize("value", ["True", "attn", "attn_kernel_out"])
 def test_finetune_stops_on_a_remat_policy_the_port_lacks(env, tmp_path,
                                                          value):
-    """The JAX CLI's other policies, and anything else, stop ``finetune``
-    with the policies the port has, where the JAX package would fall back
-    to full remat silently."""
+    """A value that names no policy stops ``finetune`` with the policies
+    the port has, where the JAX package would fall back to full remat
+    silently."""
     write_world(tmp_path)
     env(PIGEON_REMAT=value)
     with pytest.raises(SystemExit, match="PIGEON_REMAT.*attn_kernel"):

@@ -257,6 +257,39 @@ def test_backward_operand_checks(case, error):
             k1._check_backward_operands(x, ws, bs, g, heads)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, c", [(3, 5), (8, 2203), (300, 2203)])
+def test_cuda_smoothing_kernel_zeros_nan_label_rows(cuda, b, c):
+    """A NaN label (a corrupt metadata row) gives a row of zero targets,
+    as the plain version's nan_to_num does; the other rows stay its bits
+    for bits."""
+    rng = np.random.default_rng(b + c)
+    labels = points(rng, b)
+    labels[0, 0] = np.nan                  # longitude
+    labels[-1, 1] = np.nan                 # latitude
+    labels = torch.from_numpy(labels).to(cuda)
+    cells = torch.from_numpy(points(rng, c)).to(cuda)
+    got = k10.smooth_labels_from_points(labels, cells, 75.0)
+    want = k10.smooth_labels_reference(labels, cells, 75.0)
+    assert not got[0].any() and not got[-1].any()
+    assert torch.equal(got, want)
+
+
+def test_smoothing_plain_version_zeros_nan_label_rows():
+    """The plain version's and the JAX reference's NaN row: zeros."""
+    from pigeon_tpu.kernels.geodesy import smooth_labels_reference
+
+    rng = np.random.default_rng(4)
+    labels, cells = points(rng, 3), points(rng, 7)
+    labels[1] = np.nan
+    got = k10.smooth_labels_from_points(torch.from_numpy(labels),
+                                        torch.from_numpy(cells), 75.0)
+    want = np.asarray(smooth_labels_reference(jnp.asarray(labels),
+                                              jnp.asarray(cells), 75.0))
+    assert not got[1].any()
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
 def points(rng, n):
     return np.stack([rng.uniform(-180, 180, n), rng.uniform(-65, 70, n)],
                     -1).astype(np.float32)
