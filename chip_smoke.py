@@ -167,6 +167,33 @@ Phases, one line each, any failure raises:
              alone (decode, forward, loss, refiner, metrics; 3 runs after
              a warm-up) timed on each; each run's seconds, images/s and
              peak memory;
+7a. serve_batch - the ``[serve]`` model, assets and command with
+             ``--serve-batch 8`` (buckets 1, 2, 4, 8, each warmed at
+             start-up: K1 24 x 5), bf16 and then ``--quant`` on a
+             synthetic calibration batch (K3 24, K8 24 x 5 at start-up):
+             8 client threads post 4 rounds of concurrent panoramas, each
+             a 200 on a bank or prototype location; fewer batches than
+             requests, K1 (K8) exactly 24 a batch; the same clients on the
+             serialised path of the same server; each panorama's row of
+             one coalesced batch within cosine >= 0.999 (int8 0.99) of it
+             served alone; the latency median and maximum, the fills and
+             images/s of both paths, and the forward at fills 3, 5, 7
+             against bucket 8 (the padded rows' cost);
+7b. export - ``export --platforms cuda,cpu`` (a symbolic batch, the
+             plain route; bf16, then ``--quant``) through the CLI's own
+             ``main`` (no kernel launched); ``serve --artifact`` on the
+             card answers 5 requests as ``[serve]``'s, launching no
+             kernel, its program calling no ``pigeon::`` operator; each
+             embedding within cosine >= 0.999 and the top-k
+             probabilities within 2e-3 of live ``serve`` under
+             ``PIGEON_ATTN_IMPL=xla`` (``PIGEON_QUANT_ATTN_IMPL=xla``) on
+             the same weights; export and load seconds, artifact MiB;
+7c. landmarks - ``serve --landmarks --hedge`` (the PIGEOTTO preset,
+             single images) with ``[serve]``'s dataset and a second,
+             4,096-row landmark one listed comma-separated: the bank holds
+             both's rows, a landmark prototype addresses the rows after
+             the first bank's, 5 requests each a 200 on a location of
+             either and K1 24 times;
 8. train   - the ``finetune`` command's own functions on the same preset
              and width (panorama, multi-task, heading; 2203 seeded cells;
              32 train and 8 val panoramas from the PNG fixtures, seeded
@@ -225,6 +252,27 @@ Phases, one line each, any failure raises:
              the card and its forward, each synchronised); and the
              head-only train step at the preset's batch of 256
              (K10 at (256, 2203) once a step);
+11a. pretrain - the ``pretrain`` command's own ``main`` at full width
+             (ViT-L/14-336 vision, ViT-L/14 text, `HashTokenizer` at
+             49,408 ids) on 513 captioned ``o``/``v``/``l`` items over
+             the PNG fixtures: 16 micro-batches of the preset's 32 and 8
+             an update (two updates), remat ``attn_kernel``: K1 24 a
+             forward (16 steps and the retrieval probe's 4 + 4 batches),
+             K2 24 a step, finite losses, the first micro-batch's vision
+             gradient (one vector) within cosine >= 0.999 of the plain
+             route's on the same batch, its worst tensor's cosine and
+             both routes' cosines against the plain route in f32 beside
+             it, a checkpoint of step 16; micro-step ms,
+             images/s, peak memory, the retrieval accuracy before and
+             after;
+11b. zeroshot - K1 at ViT-B/32's shape, (8, 50, 768) and (4, 50, 768)
+             with 12 heads (one partial 128-row tile), against its plain
+             version with K1's bound and fault guard, timed at 8 beside
+             the plain version and the library composition; then
+             ``evaluate --zeroshot --model vit-b32 -b`` (a seeded bf16
+             HF CLIP B/32 state dict) on ``sample20`` at batch 8 through
+             the CLI's ``main``: K1 12 a batch (36), finite metrics with
+             the suite's keys;
 12. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
@@ -233,7 +281,7 @@ Phases, one line each, any failure raises:
              checked against its plain version (`check_variants` states
              the bounds) and timed beside it and the SDPA yardstick; the
              tuning kernels V1-V10 launched there. The kernels line's
-             launches of K1-K10 and K3′ stay those of phases 4-11. Then,
+             launches of K1-K10 and K3′ stay those of phases 4-11b. Then,
              from the same driver runs, V10's ms beside K3′'s and V1's,
              split4's (V2 + V3), V4's and V5's beside K4's, and V1's,
              V2's, V3's, V4's, V5's and K4's device ms by pass
@@ -264,9 +312,11 @@ import functools
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
@@ -3639,6 +3689,667 @@ def check_embed(seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Serving extras, pretraining and zero-shot
+# ---------------------------------------------------------------------------
+
+#: [serve_batch]: ``--serve-batch``, client threads, rounds, and the fills
+#: of the largest bucket whose padded rows are timed.
+SERVE_BATCH, SERVE_CLIENTS, SERVE_ROUNDS = 8, 8, 4
+PAD_FILLS = (3, 5, 7)
+#: [export]: requests answered by the artifact server.
+ARTIFACT_REQUESTS = 5
+#: [export]: the artifact's top-k probabilities against the live route's.
+ARTIFACT_PROB_TOL = 2e-3
+#: [landmarks]: the second (landmark) dataset's bank rows.
+LANDMARK_ROWS = 4096
+#: [pretrain]: the preset's micro-batch and accumulation, the micro-batches
+#: run (two updates), and the retrieval probe's batches before and after.
+PRETRAIN_BATCH, PRETRAIN_ACCUM, PRETRAIN_STEPS, PROBE_BATCHES = 32, 8, 16, 4
+#: [zeroshot]: ViT-B/32's tokens (7 x 7 patches + CLS), width and heads.
+ZS_TOKENS, ZS_WIDTH, ZS_HEADS = 50, 768, 12
+
+
+def concurrent_rounds(url: str, payloads: list, clients: int,
+                      rounds: int, pool) -> tuple:
+    """``rounds`` rounds of ``clients`` threads, each posting one payload
+    at once (a barrier a round); every answer must be 200 on a bank or
+    prototype location. Returns the latencies (ms) and the wall s."""
+    import numpy as np
+
+    latencies, errors = [], []
+    barrier = threading.Barrier(clients)
+
+    def client(c):
+        for r in range(rounds):
+            barrier.wait()
+            payload = payloads[(c + r * clients) % len(payloads)]
+            t = time.perf_counter()
+            try:
+                status, body = post(url, payload)
+                lat, lng = body["results"]["lat"], body["results"]["lng"]
+                if status != 200 or not np.isclose(
+                        pool, [lng, lat], atol=1e-3).all(-1).any():
+                    errors.append((status, body))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+            latencies.append((time.perf_counter() - t) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"{len(errors)} bad answers, first {errors[0]}")
+    return latencies, wall
+
+
+def serve_batch_run(root: str, pool, quant: bool) -> dict:
+    """``serve --serve-batch 8`` (bf16, or ``--quant`` on a synthetic
+    calibration batch): concurrent clients through the batcher, then the
+    same clients on the serialised path of the same server; the attention
+    kernel's launches per dispatch, each row's embedding against its
+    panorama served alone, and the padded rows' cost."""
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.kernels import attention as k3
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+
+    counters = {"fused_qkv_attention": k1.fused_qkv_attention,
+                "flash_attention": k3.flash_attention,
+                "fused_qkv_attention_int8": k8.fused_qkv_attention_int8}
+    kernel = "fused_qkv_attention_int8" if quant else "fused_qkv_attention"
+    payloads = serve_payloads(5)
+    for fn in counters.values():
+        fn.launches = 0
+    httpd, startup_s = start_serving(
+        root, "--serve-batch", str(SERVE_BATCH),
+        *(("--quant",) if quant else ()))
+    setup = {name: fn.launches for name, fn in counters.items()}
+    try:
+        service = httpd.RequestHandlerClass.service
+        batcher = service.batcher
+        layers = len(service.serve_fn.model.vision.encoder.layers)
+        # Start-up: the calibration forward (K3, int8), the batch-1
+        # warm-up and one forward per bucket.
+        warm = layers * (1 + len(batcher.buckets))
+        want = {name: 0 for name in counters}
+        want[kernel] = warm
+        if quant:
+            want["flash_attention"] = layers
+        if setup != want:
+            raise RuntimeError(f"serve --serve-batch start-up launched "
+                               f"{setup}, expected {want}")
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict"
+        post(url, payloads[0])                    # the client's opener
+        batcher.batches_run = batcher.requests_served = 0
+        batcher.fills = []
+        for fn in counters.values():
+            fn.launches = 0
+        latencies, wall = concurrent_rounds(url, payloads, SERVE_CLIENTS,
+                                            SERVE_ROUNDS, pool)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        runs, served = batcher.batches_run, batcher.requests_served
+        fills = list(batcher.fills)
+        if served != SERVE_CLIENTS * SERVE_ROUNDS or not runs < served:
+            raise RuntimeError(f"the batcher ran {runs} batches for "
+                               f"{served} requests")
+        want = {name: 0 for name in counters}
+        want[kernel] = layers * runs
+        if launches != want:
+            raise RuntimeError(f"{runs} batched dispatches launched "
+                               f"{launches}, expected {want}")
+
+        # The same clients on the serialised path of the same model.
+        service.batcher = None
+        try:
+            serial_lat, serial_wall = concurrent_rounds(
+                url, payloads, SERVE_CLIENTS, SERVE_ROUNDS, pool)
+        finally:
+            service.batcher = batcher
+
+        # Each panorama's row of one coalesced batch against it alone.
+        pixels = [service.decode(p)[0] for p in payloads]
+        futures = [batcher.submit(p) for p in pixels]
+        rows = [f.result(120) for f in futures]
+        cosines = []
+        for px, row in zip(pixels, rows):
+            alone = service.serve_fn(px[None])["embedding"][0].float().cpu()
+            cosines.append(torch.nn.functional.cosine_similarity(
+                torch.from_numpy(row["embedding"]).float().flatten(),
+                alone.flatten(), dim=0).item())
+        limit = INT8_COSINE if quant else ROUTE_COSINE
+        if not min(cosines) >= limit:
+            raise RuntimeError(f"a batched row's embedding cosine "
+                               f"{min(cosines)} < {limit} against its "
+                               "panorama alone")
+
+        # The padded rows: a fill of n runs the bucket's forward; the
+        # forward of the n rows alone is what padding adds to.
+        batch = torch.from_numpy(np.stack(
+            [pixels[i % len(pixels)] for i in range(SERVE_BATCH)])).cuda()
+        forward_ms = {n: median_ms(lambda n=n: service.serve_fn(batch[:n]),
+                                   runs=10)
+                      for n in (*PAD_FILLS, SERVE_BATCH)}
+    finally:
+        batcher.close()
+        httpd.shutdown()
+        httpd.server_close()
+    images = 4 * SERVE_CLIENTS * SERVE_ROUNDS
+    label = "int8" if quant else "bf16"
+    phase("serve_batch", route=label, serve_batch=SERVE_BATCH,
+          buckets=list(batcher.buckets), clients=SERVE_CLIENTS,
+          rounds=SERVE_ROUNDS, requests=served, batches_run=runs,
+          mean_fill=round(served / runs, 3),
+          fills=[n for n, _ in fills], buckets_run=[b for _, b in fills],
+          kernel=kernel, launches=launches[kernel],
+          launches_per_dispatch=launches[kernel] / runs,
+          startup_s=round(startup_s, 3),
+          calib_k3_launches=setup["flash_attention"],
+          median_ms=round(sorted(latencies)[len(latencies) // 2], 3),
+          max_ms=round(max(latencies), 3),
+          images_per_s=round(images / wall, 2),
+          serial_median_ms=round(
+              sorted(serial_lat)[len(serial_lat) // 2], 3),
+          serial_max_ms=round(max(serial_lat), 3),
+          serial_images_per_s=round(images / serial_wall, 2),
+          min_cosine_vs_alone=min(cosines), cosine_limit=limit,
+          **{f"forward_ms_b{n}": round(v, 3) for n, v in forward_ms.items()},
+          **{f"padded_rows_ms_fill{n}": round(forward_ms[SERVE_BATCH]
+                                              - forward_ms[n], 3)
+             for n in PAD_FILLS})
+    out = {kernel: launches[kernel] + setup[kernel]}
+    if quant:
+        out["flash_attention"] = setup["flash_attention"]
+    return out
+
+
+def check_serve_batch(root: str, pool) -> dict:
+    """[serve_batch]: `serve_batch_run` in bf16 (K1 24 a dispatch) and
+    int8 (K8 24 a dispatch, K3 24 in the calibration); returns each
+    kernel's launches."""
+    launches = serve_batch_run(root, pool, quant=False)
+    for name, n in serve_batch_run(root, pool, quant=True).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def check_export(root: str, pool) -> None:
+    """[export]: ``export --platforms cuda,cpu`` (symbolic batch) in bf16
+    and with ``--quant``, then ``serve --artifact`` on the card answering
+    `ARTIFACT_REQUESTS` requests (no kernel launches: the artifact runs
+    the plain route), its embeddings and top-k probabilities against live
+    ``serve`` on the plain route (``PIGEON_ATTN_IMPL=xla``; the int8 one
+    under ``PIGEON_QUANT_ATTN_IMPL=xla``) with the same weights."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.serve.export import kernel_ops
+
+    counters = eval_counters()
+    payloads = serve_payloads(ARTIFACT_REQUESTS)
+    refine = ["--hedge", "--metadata", os.path.join(root, "meta.csv"),
+              "--prototypes", os.path.join(root, "protos.csv"),
+              "--embeddings", os.path.join(root, "emb")]
+    ckpt = ["--checkpoint-dir", os.path.join(root, "export_ckpt")]
+    for label, quant in (("bf16", ()), ("int8", ("--quant",))):
+        art = os.path.join(root, f"artifact_{label}")
+        exported = run_command(
+            ["export", "pigeon", "--panorama", "-m", "--heading",
+             "--geocells", os.path.join(root, "cells.csv"), *ckpt,
+             "--platforms", "cuda,cpu", "--device", "cuda", "--output", art,
+             *quant], counters, {})
+        manifest = json.load(open(os.path.join(art, "manifest.json")))
+        if manifest["batch"] != "symbolic" or \
+                manifest["platforms"] != ["cuda", "cpu"]:
+            raise RuntimeError(f"export wrote {manifest}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = run.build_parser().parse_args(
+            ["serve", "--artifact", art, "--port", "0", "--device", "cuda",
+             *refine])
+        t0 = time.perf_counter()
+        httpd = run.start_artifact_server(args, block=False)
+        load_s = time.perf_counter() - t0
+        try:
+            service = httpd.RequestHandlerClass.service
+            if kernel_ops(service.serve_fn.program):
+                raise RuntimeError("the artifact's program calls a kernel")
+            latencies, launches = request_all(httpd, payloads, pool,
+                                              counters)
+            if any(launches.values()):
+                raise RuntimeError(f"the artifact launched {launches}")
+            pixels = [service.decode(p) for p in payloads]
+            artifact = [service.serve_fn(px) for px in pixels]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        with environ(PIGEON_ATTN_IMPL="xla", PIGEON_QUANT_ATTN_IMPL="xla"):
+            live_httpd, _ = start_serving(root, *ckpt, *quant)
+        try:
+            live_fn = live_httpd.RequestHandlerClass.service.serve_fn
+            live = [live_fn(px) for px in pixels]
+        finally:
+            live_httpd.shutdown()
+            live_httpd.server_close()
+        cosines, prob_errs = [], []
+        for a, b in zip(artifact, live):
+            cosines.append(torch.nn.functional.cosine_similarity(
+                a["embedding"].float().flatten(),
+                b["embedding"].float().flatten(), dim=0).item())
+            prob_errs.append((a["topk_probs"] - b["topk_probs"]).abs()
+                             .max().item())
+        if not (min(cosines) >= ROUTE_COSINE
+                and max(prob_errs) <= ARTIFACT_PROB_TOL):
+            raise RuntimeError(f"artifact {label} against live serve: "
+                               f"cosine {min(cosines)}, top-k probability "
+                               f"error {max(prob_errs)}")
+        phase("export", route=label, export_s=round(exported["seconds"], 3),
+              load_s=round(load_s, 3),
+              artifact_mib=round(dir_bytes(art) / 2**20, 3),
+              num_params=manifest["num_params"],
+              requests=len(payloads), status=200, launches=0,
+              median_ms=round(sorted(latencies)[len(latencies) // 2], 3),
+              min_cosine_vs_live=min(cosines), cosine_limit=ROUTE_COSINE,
+              max_topk_prob_err=max(prob_errs),
+              prob_limit=ARTIFACT_PROB_TOL,
+              torch_version=manifest["torch_version"])
+        del artifact, live
+
+
+def write_landmark_dataset(root: str, seed: int) -> list:
+    """A second refinement dataset beside `write_assets`' (the landmark
+    half of ``--landmarks``): `LANDMARK_ROWS` bank rows and 1-2
+    prototypes a cell over them. Returns its bank and prototype
+    locations."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 100)
+    lla = np.stack([rng.uniform(-180, 180, LANDMARK_ROWS),
+                    rng.uniform(-60, 75, LANDMARK_ROWS)], -1) \
+        .astype(np.float32)
+    with open(os.path.join(root, "landmarks.csv"), "w") as f:
+        f.write("lng,lat,selection\n")
+        f.writelines(f"{lng},{lat},train\n" for lng, lat in lla.tolist())
+    os.makedirs(os.path.join(root, "landmark_emb"))
+    np.save(os.path.join(root, "landmark_emb", "train.npy"),
+            rng.normal(size=(LANDMARK_ROWS, 1024)).astype(np.float32))
+    np.save(os.path.join(root, "landmark_emb", "train_indices.npy"),
+            np.arange(LANDMARK_ROWS))
+    pool = [tuple(p) for p in lla.tolist()]
+    with open(os.path.join(root, "landmark_protos.csv"), "w") as f:
+        f.write("geocell_idx,lng,lat,count,indices\n")
+        for cell in range(NUM_CELLS):
+            for _ in range(rng.integers(1, 3)):
+                idx = rng.choice(LANDMARK_ROWS, int(rng.integers(2, 65)),
+                                 replace=False).tolist()
+                lng, lat = lla[idx].mean(0).tolist()
+                pool.append((lng, lat))
+                f.write(f'{cell},{lng},{lat},{len(idx)},"{idx}"\n')
+    return pool
+
+
+def check_landmarks(root: str, pool, seed: int) -> dict:
+    """[landmarks]: ``serve --landmarks --hedge`` (the PIGEOTTO preset,
+    single images) with `write_assets`' dataset and a landmark one listed
+    comma-separated: the bank holds both's rows, every request is a 200
+    on a location of either, K1 24 a request. Returns K1's launches."""
+    import numpy as np
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+
+    pool = np.concatenate([pool, np.array(write_landmark_dataset(root, seed),
+                                          np.float32)])
+    argv = ["serve", "pigeotto", "--landmarks", "--hedge",
+            "--geocells", os.path.join(root, "cells.csv"),
+            "--metadata", ",".join(os.path.join(root, m) for m in
+                                   ("meta.csv", "landmarks.csv")),
+            "--embeddings", ",".join(os.path.join(root, e) for e in
+                                     ("emb", "landmark_emb")),
+            "--prototypes", ",".join(os.path.join(root, p) for p in
+                                     ("protos.csv", "landmark_protos.csv")),
+            "--checkpoint-dir", os.path.join(root, "landmark_ckpt"),
+            "--port", "0", "--device", "cuda"]
+    args = run.build_parser().parse_args(argv)
+    rows, bank, bank_lla = run.load_refine_assets(args)
+    if len(bank) != BANK_ROWS + LANDMARK_ROWS or \
+            len(bank_lla) != len(bank):
+        raise RuntimeError(f"the bank has {len(bank)} rows, not "
+                           f"{BANK_ROWS} + {LANDMARK_ROWS}")
+    if not max(max(r["indices"]) for r in rows) >= BANK_ROWS:
+        raise RuntimeError("no landmark prototype addresses its rows")
+    cfg = run.make_config(args)
+    if cfg.name != "pigeotto-landmarks" or cfg.head.panorama:
+        raise RuntimeError(f"--landmarks built {cfg.name}")
+    payloads = [{"gameID": "smoke", "roundID": i, "image": p["image"]}
+                for i, p in enumerate(serve_payloads(5))]
+    t0 = time.perf_counter()
+    httpd = run.start_server(args, block=False)
+    startup_s = time.perf_counter() - t0
+    try:
+        layers = len(httpd.RequestHandlerClass.service.serve_fn.model
+                     .vision.encoder.layers)
+        latencies, launches = request_all(
+            httpd, payloads, pool,
+            {"fused_qkv_attention": k1.fused_qkv_attention})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if launches["fused_qkv_attention"] != layers * len(payloads):
+        raise RuntimeError(f"K1 launched {launches} for {len(payloads)} "
+                           "requests")
+    phase("landmarks", preset=cfg.name, datasets=2,
+          bank_rows=len(bank), prototypes=len(rows), requests=len(payloads),
+          status=200, k1_launches=launches["fused_qkv_attention"],
+          startup_s=round(startup_s, 3),
+          median_ms=round(sorted(latencies)[len(latencies) // 2], 3))
+    return launches
+
+
+def write_pretrain_metadata(root: str, seed: int) -> str:
+    """Captioned ``o``/``v``/``l`` metadata over the repo's PNG fixtures:
+    enough items for `PRETRAIN_STEPS` micro-batches of `PRETRAIN_BATCH`
+    (64 panorama rows of 4 items, 192 single rows, 13 landmark rows of 5
+    strips: 513 items)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fixtures = [os.path.basename(p) for p in sorted(glob.glob(os.path.join(
+        HERE, "data", "benchmarks", "sample20", "images", "*.png")))]
+    countries = ("France", "Japan", "United States Of America", "Brazil",
+                 "Philippines", "Kenya")
+    rows = []
+    for source, n in (("o", 64), ("v", 192), ("l", 13)):
+        for _ in range(n):
+            views = rng.choice(fixtures, 4)
+            rows.append({
+                "source": source, "image": views[0], "image_2": views[1],
+                "image_3": views[2], "image_4": views[3],
+                "country_name": countries[rng.integers(len(countries))],
+                "geo_area": "Region" if rng.random() > 0.3 else "",
+                "town": "Town" if rng.random() > 0.3 else "",
+                "climate_zone": "Temperate", "driving_right": True,
+                "heading": float(rng.uniform(0, 360)),
+                "month": int(rng.integers(12)), "selection": "train"})
+    path = os.path.join(root, "pretrain.csv")
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return path
+
+
+def whole_cosine(got: dict, want: dict) -> float:
+    """The cosine of two gradients, each the concatenation of its
+    tensors."""
+    import torch
+
+    return torch.nn.functional.cosine_similarity(
+        torch.cat([got[n] for n in sorted(got)]),
+        torch.cat([want[n] for n in sorted(got)]), dim=0).item()
+
+
+def pretrain_plain_grads(model, batch, dtype) -> dict:
+    """The vision tower's gradients of one contrastive micro-batch on the
+    plain route with compute in ``dtype``, flattened, in f32; the model
+    is left on the ``fused`` route in bf16 with no gradients."""
+    import torch
+
+    from pigeon_tpu_torch.models.clip import set_route
+
+    towers = (model, model.vision, model.text)
+    set_route(model.vision, "plain")
+    for m in towers:
+        m.dtype = dtype
+    try:
+        model.zero_grad(set_to_none=True)
+        model(batch["pixel_values"], batch["input_ids"],
+              return_loss=True)["loss"].backward()
+        return {n: p.grad.float().flatten().clone()
+                for n, p in model.vision.named_parameters()}
+    finally:
+        model.zero_grad(set_to_none=True)
+        set_route(model.vision, "fused")
+        for m in towers:
+            m.dtype = torch.bfloat16
+
+
+def check_pretrain(seed: int) -> dict:
+    """[pretrain]: the ``pretrain`` command at full width (ViT-L/14-336
+    vision, ViT-L/14 text, `HashTokenizer` at 49,408) through its own
+    ``main``: `PRETRAIN_STEPS` micro-batches of the preset's 32, two
+    updates of 8; K1 once a layer a forward (the steps and the probe's
+    batches before and after), K2 once a layer a step; finite losses;
+    the first micro-batch's vision gradient (all its tensors as one
+    vector) within cosine 0.999 of the plain route's on the same batch,
+    with the worst tensor's cosine and both routes' against the plain
+    route in f32 printed beside it (per tensor, bf16's own error at 24
+    trained layers reaches past 0.999: `scripts/
+    pretrain_grad_precision.py`); a checkpoint. Returns the launches."""
+    import gc
+    import math
+
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.train import checkpoints
+    from pigeon_tpu_torch.train import modes
+
+    counters = route_counters()
+    records = {"losses": [], "ms": [], "accuracy": []}
+    real_step, real_acc = modes.make_pretrain_step, modes.retrieval_accuracy
+
+    def make_step():
+        step = real_step()
+
+        def timed(state, batch):
+            first = not records["ms"]
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            records["ms"].append((time.perf_counter() - t0) * 1e3)
+            records["losses"].append(metrics["loss"].item())
+            if first:
+                # The micro-step leaves its gradients (no update yet); the
+                # plain route's on the same batch, in bf16 and in f32,
+                # outside the counts.
+                model = state.model
+                got = {n: p.grad.float().flatten().clone()
+                       for n, p in model.vision.named_parameters()}
+                launches = {n: fn.launches for n, fn in counters.items()}
+                refs = {label: pretrain_plain_grads(model, batch, dtype)
+                        for label, dtype in (("bf16", torch.bfloat16),
+                                             ("f32", torch.float32))}
+                if {n: fn.launches for n, fn in counters.items()} \
+                        != launches:
+                    raise RuntimeError("the plain route launched a kernel")
+                records["cosine"] = whole_cosine(got, refs["bf16"])
+                records["worst"] = worst_cosine(got, refs["bf16"])
+                records["vs_f32"] = (whole_cosine(got, refs["f32"]),
+                                     whole_cosine(refs["bf16"], refs["f32"]))
+                del got, refs
+            return metrics
+
+        return timed
+
+    def accuracy(probe, batches, trials=30):
+        records["accuracy"].append(real_acc(probe, batches, trials))
+        return records["accuracy"][-1]
+
+    root = tempfile.mkdtemp(prefix="pretrain_")
+    argv = ["pretrain", "smoke_clip", "--metadata",
+            write_pretrain_metadata(root, seed), "--images",
+            os.path.join(HERE, "data", "benchmarks", "sample20", "images"),
+            "-a", "--epochs", "1", "--checkpoint-dir",
+            os.path.join(root, "ckpt"), "--device", "cuda"]
+    cfg = run.make_config(run.build_parser().parse_args(argv))
+    layers = cfg.vision.num_layers
+    forwards = PRETRAIN_STEPS + 2 * PROBE_BATCHES
+    modes.make_pretrain_step = make_step
+    modes.retrieval_accuracy = accuracy
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        result = run_command(argv, counters, {
+            "fused_qkv_attention": layers * forwards,
+            "fused_qkv_attention_bwd": layers * PRETRAIN_STEPS})
+    finally:
+        modes.make_pretrain_step = real_step
+        modes.retrieval_accuracy = real_acc
+    steps = len(records["ms"])
+    if steps != PRETRAIN_STEPS:
+        raise RuntimeError(f"pretrain ran {steps} micro-steps")
+    if not all(math.isfinite(x) for x in records["losses"]):
+        raise RuntimeError(f"pretrain losses {records['losses']}")
+    cos = records["cosine"]
+    if not cos >= ROUTE_COSINE:
+        raise RuntimeError(f"pretrain's first vision gradient: cosine "
+                           f"{cos} against the plain route's")
+    ckpt = os.path.join(root, "ckpt", "smoke_clip_pretrained")
+    if checkpoints.latest_step(ckpt) != PRETRAIN_STEPS:
+        raise RuntimeError(f"no checkpoint of step {PRETRAIN_STEPS} in "
+                           f"{ckpt}")
+    saved = torch.load(os.path.join(ckpt, f"step_{PRETRAIN_STEPS}.pt"),
+                       map_location="cpu", weights_only=False)
+    updates = saved["optimizer"]["updates"]
+    if updates != PRETRAIN_STEPS // PRETRAIN_ACCUM:
+        raise RuntimeError(f"{updates} optimizer updates")
+    step_ms = sorted(records["ms"][1:])[(steps - 1) // 2]
+    phase("pretrain", vision_layers=layers,
+          text_layers=cfg.text.num_layers, vocab=cfg.text.vocab_size,
+          batch=PRETRAIN_BATCH, accumulation=PRETRAIN_ACCUM,
+          micro_steps=steps, updates=updates,
+          k1_launches=result["launches"].get("fused_qkv_attention", 0),
+          k2_launches=result["launches"].get("fused_qkv_attention_bwd", 0),
+          first_loss=round(records["losses"][0], 5),
+          last_loss=round(records["losses"][-1], 5),
+          grad_cosine_vs_plain=cos,
+          worst_tensor_cosine=records["worst"][0],
+          worst_tensor=records["worst"][1],
+          kernel_vs_f32=records["vs_f32"][0],
+          plain_vs_f32=records["vs_f32"][1],
+          retrieval_before=records["accuracy"][0],
+          retrieval_after=records["accuracy"][-1],
+          micro_step_ms=round(step_ms, 3),
+          first_micro_step_ms=round(records["ms"][0], 3),
+          images_per_s=round(PRETRAIN_BATCH / step_ms * 1e3, 2),
+          command_s=round(result["seconds"], 3),
+          peak_gib=round(result["peak_gib"], 3))
+    shutil.rmtree(root, ignore_errors=True)
+    return result["launches"]
+
+
+def check_zeroshot_kernel(seed: int) -> None:
+    """K1 at ViT-B/32's shape, (B, 50, 768) with 12 heads: one partial
+    128-row tile, at ``evaluate``'s batch of 8 images and its last of 4,
+    against its plain version (K1's bound and fault guard), timed beside
+    the plain version and the library composition at 8."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.tuning import qkv_composition, qkv_operands
+
+    s, d, h = ZS_TOKENS, ZS_WIDTH, ZS_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for b in (EVAL_IMAGES % EVAL_BATCH, EVAL_BATCH):
+        x, ws, bs = qkv_operands(gen, b, s, d, raw=False)
+        got = k1.fused_qkv_attention(x, *ws, *bs, h)
+        want = k1.fused_qkv_attention_reference(x, *ws, *bs, h)
+        torch.cuda.synchronize()
+        rel = rel_errors([got], [want], ("out",))["out"]
+        if not rel <= K1_TOL:
+            raise RuntimeError(f"K1 disagrees with its plain version at "
+                               f"({b}, {s}, {d}): {rel} (limit {K1_TOL})")
+        check_qkv_fault_shows(k1.fused_qkv_attention_reference,
+                              (x, *ws, *bs, h), want, K1_TOL)
+    err = max_abs([got], [want])
+    ms = median_ms(lambda: k1.fused_qkv_attention(x, *ws, *bs, h))
+    plain_ms = median_ms(lambda: k1.fused_qkv_attention_reference(
+        x, *ws, *bs, h))
+    composition_ms = median_ms(lambda: qkv_composition(x, ws, bs, h))
+    flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * (d // h)
+    rec = bound({"bf16": flop}, nbytes(x, *ws, *bs, got))
+    phase("kernel", name="fused_qkv_attention", shape=f"({b},{s},{d})",
+          heads=h, out_err=round(rel, 6), tol=K1_TOL, max_abs_err=err,
+          ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+          bound_by=rec["bound_by"], library_ms=composition_ms,
+          gflop=round(flop / 1e9, 3), tflops=round(flop / 1e9 / ms, 2))
+
+
+def check_zeroshot(seed: int) -> dict:
+    """[zeroshot]: K1 at ViT-B/32's shape (`check_zeroshot_kernel`), then
+    ``evaluate --zeroshot --model vit-b32 -b`` (a seeded bf16 HF CLIP
+    B/32 state dict) on sample20 at batch 8 through the CLI's ``main``:
+    K1 12 a batch, finite metrics with the suite's keys. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.config import vit_b32_text, vit_b32_vision
+    from pigeon_tpu_torch.models.clip import CLIPModel
+    from pigeon_tpu_torch.models.hf_import import clip_hf_state
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.metrics import compute_geoguessr_metrics
+
+    check_zeroshot_kernel(seed)
+    root = tempfile.mkdtemp(prefix="zeroshot_")
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(root, "cells.csv"), "w") as f:
+        f.write("name,lng,lat\n")
+        f.writelines(f"c{i},{rng.uniform(-180, 180)},{rng.uniform(-60, 75)}\n"
+                     for i in range(NUM_CELLS))
+    base = os.path.join(root, "clip_b32.pt")
+    model = init_weights(CLIPModel(vit_b32_vision(), vit_b32_text()),
+                         BASE_SEED + seed)
+    torch.save({k: v.to(torch.bfloat16)
+                for k, v in clip_hf_state(model).items()}, base)
+    del model
+    out = os.path.join(root, "zeroshot.json")
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    layers = vit_b32_vision().num_layers
+    result = run_command(
+        ["evaluate", "smoke_zs", "--zeroshot", "--model", "vit-b32",
+         "-b", base, "-l", EVAL_BENCHMARK, "--benchmarks",
+         os.path.join(HERE, "data", "benchmarks", "benchmarks.json"),
+         "--geocells", os.path.join(root, "cells.csv"),
+         "--batch-size", str(EVAL_BATCH), "--device", "cuda",
+         "--output", out], eval_counters(),
+        {"fused_qkv_attention": layers * batches})
+    metrics = json.load(open(out))[EVAL_BENCHMARK]
+    n = np.zeros((1, 2))
+    want_keys = [*compute_geoguessr_metrics(
+        n, n, cell_preds=np.zeros(1), cell_labels=np.zeros(1),
+        topk_cells=np.zeros((1, 1))), "Eval_loss"]
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or list(metrics) != want_keys:
+        raise RuntimeError(f"evaluate --zeroshot: keys {list(metrics)} "
+                           f"(want {want_keys}), not finite: {bad}")
+    phase("zeroshot", model="vit-b32", images=EVAL_IMAGES,
+          batch=EVAL_BATCH, prompts=NUM_CELLS,
+          k1_launches=result["launches"].get("fused_qkv_attention", 0),
+          k1_per_batch=layers, seconds=round(result["seconds"], 3),
+          peak_gib=round(result["peak_gib"], 3),
+          **{k: round(v, 5) for k, v in metrics.items()})
+    shutil.rmtree(root, ignore_errors=True)
+    return result["launches"]
+
+
 def variant_counters() -> dict:
     """The launch counters of every kernel the tuning drivers run."""
     from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
@@ -4077,10 +4788,15 @@ def main() -> int:
         add(check_serve_routes(root, pool, args.requests, bf16_embedding))
         del bf16_embedding
         add(check_evaluate(root, pool, args.seed))
+        add(check_serve_batch(root, pool))
+        check_export(root, pool)
+        add(check_landmarks(root, pool, args.seed))
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
     add(check_train_durable(args.seed))
     add(check_embed(args.seed))
+    add(check_pretrain(args.seed))
+    add(check_zeroshot(args.seed))
     variant_launches, variant_records = check_variants()
     add(variant_launches)
     records.update(variant_records)

@@ -1,10 +1,11 @@
 """CLI of the port: the ``serve``, ``finetune``, ``evaluate``, ``predict``,
-``embed`` and ``augment`` subcommands.
+``embed``, ``augment``, ``export`` and ``pretrain`` subcommands.
 
-Counterpart of `pigeon_tpu/cli/run.py::cmd_serve`, `cmd_finetune` (on
-pixels, and on embeddings with ``--embeddings``), `cmd_evaluate`,
-`cmd_predict`, `cmd_embed` and `cmd_augment`, with their flags for these
-paths. Models
+Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` (with
+``--serve-batch`` and ``--artifact``), `cmd_finetune` (on pixels, and on
+embeddings with ``--embeddings``), `cmd_evaluate` (with ``--zeroshot``),
+`cmd_predict`, `cmd_embed`, `cmd_augment`, `cmd_export` and
+`cmd_pretrain`, with their flags for these paths. Models
 are built in bf16 with f32 parameters, on the attention
 route that ``PIGEON_ATTN_IMPL`` names in the JAX package's words
 (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL`` under ``--quant``,
@@ -42,8 +43,19 @@ the preset of each benchmark's family, into ``--output`` JSON;
 ``predict`` writes one CSV row of coordinates per image. ``embed`` runs
 each split of ``--metadata`` through the CLIP embedder (or the generic
 ViT one, ``--embedder``), int8 with ``--quant``, into ``{split}.npy``
-banks (:func:`cmd_embed`). Their multi-device runs, ``--zeroshot`` and
-``--landmarks`` are not ported.
+banks (:func:`cmd_embed`).
+``serve --serve-batch N`` coalesces concurrent requests into one forward
+at a bucket of a power-of-two ladder (`serve/batching.py`); ``export``
+traces the serving forward on the plain route into an artifact that
+``serve --artifact DIR`` serves without the model's code
+(`serve/export.py`). ``pretrain`` trains the contrastive `CLIPModel`
+(both towers) on captioned metadata (`train/modes.py`,
+`data/pretrain.py`); ``evaluate --zeroshot`` classifies images against
+one CLIP text prompt a geocell (`models/zeroshot.py`). ``--landmarks``
+selects the PIGEOTTO-with-landmarks preset and lets the refinement flags
+list datasets comma-separated (:func:`load_refine_assets`); ``--model
+vit-b32`` swaps in the ViT-B/32 towers. Multi-device runs (``--tp`` above
+1, ``--fsdp``) are not ported: they stop the command.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
 ``csv`` module, training and evaluation metadata with pandas, embeddings
 with numpy.
@@ -71,6 +83,17 @@ Usage:
     python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
         --geocells C.csv --embeddings DIR [--panorama] [--batch-size N] \
         [--epochs N]
+    python -m pigeon_tpu_torch.cli.run serve pigeon ... --serve-batch 8
+    python -m pigeon_tpu_torch.cli.run export pigeon --geocells C.csv \
+        [--panorama] [--quant [--calib-images DIR]] [--batch-size N] \
+        [--platforms cuda,cpu] [--output DIR]
+    python -m pigeon_tpu_torch.cli.run serve --artifact DIR \
+        [--prototypes P.csv --embeddings DIR --metadata M.csv [--hedge]]
+    python -m pigeon_tpu_torch.cli.run pretrain myrun --metadata M.csv \
+        --images DIR [--yfcc|--landmarks] [-a] [--batch-size N] \
+        [--epochs N]
+    python -m pigeon_tpu_torch.cli.run evaluate myrun --zeroshot \
+        --model vit-b32 -b CLIP.pt -l sample20 --geocells C.csv
 """
 
 from __future__ import annotations
@@ -93,9 +116,13 @@ import numpy as np
 import torch
 
 from pigeon_tpu_torch.config import (
+    TextConfig,
     VisionConfig,
+    landmarks_config,
     pigeon_config,
     pigeotto_config,
+    vit_b32_text,
+    vit_b32_vision,
 )
 from pigeon_tpu_torch.data.pipeline import iter_batches
 from pigeon_tpu_torch.train.embed import embedding_batches, load_embeddings
@@ -122,6 +149,9 @@ SAMPLE_SEED = 330
 #: ``embed --quant`` calibrates on at most this many samples of the first
 #: non-empty split (`pigeon_tpu/cli/run.py:826-857`).
 EMBED_CALIB_SAMPLES = 8
+
+#: The queue item that holds the multi-device runs (``--tp``, ``--fsdp``).
+SCALE_OUT_ITEM = "ROADMAP A9 (scale-out)"
 
 #: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
 #: port's route for each (`models/clip.py`).
@@ -208,7 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
     p.add_argument("function",
                    choices=["serve", "finetune", "evaluate", "predict",
-                            "embed", "augment"],
+                            "embed", "augment", "export", "pretrain"],
                    help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
     p.add_argument("-l", "--load", default=None,
@@ -225,6 +255,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embed, finetune: a seeded random subsample of "
                         "this many rows of each split (finetune: of "
                         "train), in their original order")
+    p.add_argument("-a", "--auxiliary", action="store_true",
+                   help="pretrain: auxiliary caption sentences (climate, "
+                        "driving side, compass, month)")
     p.add_argument("-t", "--test", action="store_true",
                    help="evaluate: the test split of --metadata (comma-"
                         "separated files concatenate)")
@@ -282,6 +315,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--calib-images", default=None,
                    help="serve --quant: calibrate on up to 32 images of "
                         "this directory (default: a synthetic batch)")
+    p.add_argument("--serve-batch", type=int, default=0,
+                   help="serve: micro-batch up to N concurrent requests "
+                        "into one forward (0 or 1: serialized, one at a "
+                        "time)")
+    p.add_argument("--artifact", default=None,
+                   help="serve: an artifact directory (from `export`) to "
+                        "serve in place of a model")
+    p.add_argument("--platforms", default="cuda,cpu",
+                   help="export: comma-separated torch device types the "
+                        "artifact may be served on")
+    p.add_argument("--zeroshot", action="store_true",
+                   help="evaluate: CLIP zero-shot geocell classification "
+                        "through one text prompt a geocell (-b: a full HF "
+                        "CLIP state dict)")
+    p.add_argument("--model", default=None,
+                   choices=["vit-l14-336", "vit-b32"],
+                   help="CLIP tower size (default: the preset's "
+                        "ViT-L/14-336; --tiny wins)")
+    p.add_argument("--landmarks", action="store_true",
+                   help="the PIGEOTTO + Google Landmarks preset; "
+                        "--metadata/--embeddings/--prototypes may list "
+                        "comma-separated datasets whose banks concatenate")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size: only 1 on the port")
+    p.add_argument("--fsdp", action="store_true",
+                   help="sharded parameters: not on the port")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--panorama", action="store_true",
@@ -300,18 +359,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(args):
-    """The preset, with the head's flags as given (as the JAX CLI)."""
-    cfg = pigeotto_config() if args.yfcc else pigeon_config()
+    """The preset (``--landmarks``: `landmarks_config`, else ``--yfcc``'s
+    or PIGEON's), with the head's flags as given, ``--model vit-b32``'s
+    towers and ``--tiny``'s, which win (`pigeon_tpu/cli/run.py:
+    make_config`)."""
+    if getattr(args, "landmarks", False):
+        cfg = landmarks_config()
+    else:
+        cfg = pigeotto_config() if args.yfcc else pigeon_config()
     head = dataclasses.replace(cfg.head, multi_task=args.multitask,
                                heading=args.heading,
                                panorama=args.panorama)
     cfg = cfg.replace(head=head)
+    if getattr(args, "model", None) == "vit-b32":
+        vision = vit_b32_vision()
+        cfg = cfg.replace(
+            vision=vision, text=vit_b32_text(),
+            head=dataclasses.replace(cfg.head,
+                                     embed_dim=vision.hidden_size))
     if args.tiny:
         cfg = cfg.replace(
             vision=VisionConfig(image_size=64, patch_size=16,
                                 hidden_size=64, intermediate_size=128,
                                 num_layers=2, num_heads=4,
                                 projection_dim=32),
+            text=TextConfig(vocab_size=1024, hidden_size=64,
+                            intermediate_size=128, num_layers=2,
+                            num_heads=4, max_position_embeddings=32,
+                            projection_dim=32),
             head=dataclasses.replace(cfg.head, embed_dim=64))
     return cfg
 
@@ -343,27 +418,51 @@ def sample_dataset(ds, n):
 
 def load_refine_assets(args):
     """``(proto_rows, bank_emb, bank_lla)`` from ``--prototypes``,
-    ``--embeddings`` and ``--metadata``, or None without them."""
+    ``--embeddings`` and ``--metadata``, or None without them
+    (`pigeon_tpu/cli/run.py::_load_refine_assets`). Each flag may list
+    datasets comma-separated (``--landmarks``' YFCC and landmark pair):
+    the banks concatenate, and each dataset's prototype member indices
+    shift by the bank rows before it. Lists of different lengths, or a
+    bank whose length is not its metadata's train rows, stop the
+    command."""
     if not (args.prototypes and args.embeddings and args.metadata):
         return None
-    meta = _read_csv(args.metadata)
-    if meta and "selection" in meta[0]:
-        meta = [r for r in meta if r["selection"] == "train"]
-    lla = np.array([(float(r["lng"]), float(r["lat"])) for r in meta],
-                   np.float32).reshape(-1, 2)
-    emb = load_embeddings(args.embeddings, "train")
-    if emb.ndim == 3:
-        emb = emb.mean(1)
-    if len(emb) != len(lla):
-        # Prototype member indices address both by the same row number.
-        raise SystemExit(f"{args.embeddings}: {len(emb)} embeddings vs "
-                         f"{len(lla)} metadata train rows in "
-                         f"{args.metadata}")
-    rows = [{"geocell_idx": int(float(r["geocell_idx"])),
-             "lng": float(r["lng"]), "lat": float(r["lat"]),
-             "count": int(float(r["count"])), "indices": r["indices"]}
-            for r in _read_csv(args.prototypes)]
-    return rows, emb, lla
+    from pigeon_tpu_torch.models.refiner import parse_indices
+
+    metas = args.metadata.split(",")
+    embdirs = args.embeddings.split(",")
+    protos = args.prototypes.split(",")
+    if not (len(metas) == len(embdirs) == len(protos)):
+        raise SystemExit("--metadata/--embeddings/--prototypes must list "
+                         "the same number of comma-separated datasets")
+    rows, embs, llas, offset = [], [], [], 0
+    for meta_path, emb_dir, proto_path in zip(metas, embdirs, protos):
+        meta = _read_csv(meta_path)
+        if meta and "selection" in meta[0]:
+            meta = [r for r in meta if r["selection"] == "train"]
+        lla = np.array([(float(r["lng"]), float(r["lat"])) for r in meta],
+                       np.float32).reshape(-1, 2)
+        emb = load_embeddings(emb_dir, "train")
+        if emb.ndim == 3:
+            emb = emb.mean(1)
+        if len(emb) != len(lla):
+            # Prototype member indices address both by the same row
+            # number, after the offset.
+            raise SystemExit(f"{emb_dir}: {len(emb)} embeddings vs "
+                             f"{len(lla)} metadata train rows in "
+                             f"{meta_path} (embedded with --sample? use "
+                             "the sampled metadata CSV written beside "
+                             "the embeddings)")
+        for r in _read_csv(proto_path):
+            rows.append({"geocell_idx": int(float(r["geocell_idx"])),
+                         "lng": float(r["lng"]), "lat": float(r["lat"]),
+                         "count": int(float(r["count"])),
+                         "indices": [i + offset for i in
+                                     parse_indices(r["indices"])]})
+        embs.append(emb)
+        llas.append(lla)
+        offset += len(emb)
+    return rows, np.concatenate(embs), np.concatenate(llas)
 
 
 def serve_calibration_batch(args, cfg):
@@ -462,14 +561,15 @@ def init_and_restore(args, model) -> None:
                        ckpt_dir)
 
 
-def build_model(args, quant: bool = False):
+def build_model(args, quant: bool = False, route: str = None):
     """``(cells, cfg, model)``: the geocells, the preset sized to them and
-    a bf16 `SuperGuessr` (f32 parameters, on the CPU) on the route of
-    :func:`attn_impl`, or of :func:`quant_attn_impl` for a tower about to
-    become int8, its weights from :func:`init_and_restore`."""
+    a bf16 `SuperGuessr` (f32 parameters, on the CPU) on ``route``, by
+    default that of :func:`attn_impl`, or of :func:`quant_attn_impl` for
+    a tower about to become int8, its weights from
+    :func:`init_and_restore`."""
     from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
 
-    route = quant_attn_impl() if quant else attn_impl()
+    route = route or (quant_attn_impl() if quant else attn_impl())
     forward_body = flash_fwd()
     cells = load_geocells(args)
     cfg = make_config(args)
@@ -496,58 +596,148 @@ def default_batch(quant: bool) -> int:
     return 56 if _attn_name().startswith("flash_fused") else 32
 
 
-def start_server(args, block: bool = True) -> ThreadingHTTPServer:
-    """Build the model (int8 with ``--quant``), serving forward and
-    refiner on ``--device``, warm them up, and start the HTTP server."""
-    from pigeon_tpu_torch.serve import PredictionService, serve
-    from pigeon_tpu_torch.serve.server import make_serving_fn
+def serving_refiner(args, num_cells: int, device):
+    """``serve``'s refiner: the ``geoguessr`` preset with ``--hedge`` on
+    :func:`load_refine_assets`' bank, or None without the assets (where
+    ``--hedge`` stops the command)."""
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
 
-    device = _device(args)
-    cells, cfg, model = build_model(args, quant=args.quant)
-    if args.quant:
-        model = quantize_for_serving(args, cfg, model, device)
-    serve_fn = make_serving_fn(model, cfg.head, cells, device)
-
-    refine_fn = None
     assets = load_refine_assets(args)
-    if assets is not None:
-        preset = dataclasses.replace(refiner_preset("geoguessr"),
-                                     hedge=args.hedge)
-        refine_fn = build_refiner(*assets, num_cells=len(cells), cfg=preset,
-                                  device=device)
-        logger.warning("refinement enabled (topk=%d, hedge=%s)",
-                       preset.topk, args.hedge)
-    elif args.hedge:
-        raise SystemExit("--hedge requires --prototypes/--embeddings/"
-                         "--metadata (hedging applies to refined guesses)")
+    if assets is None:
+        if args.hedge:
+            raise SystemExit("--hedge requires --prototypes/--embeddings/"
+                             "--metadata (hedging applies to refined "
+                             "guesses)")
+        return None
+    preset = dataclasses.replace(refiner_preset("geoguessr"),
+                                 hedge=args.hedge)
+    logger.warning("refinement enabled (topk=%d, hedge=%s, %d bank rows)",
+                   preset.topk, args.hedge, len(assets[1]))
+    return build_refiner(*assets, num_cells=num_cells, cfg=preset,
+                         device=device)
 
-    # Warm up (kernel and decoder builds, first launches) before
-    # accepting traffic.
+
+def warm_and_serve(args, serve_fn, refine_fn, sample_shape, image_size: int,
+                   panorama: bool, batch: int = 1,
+                   block: bool = True) -> ThreadingHTTPServer:
+    """Warm ``serve_fn`` (and the refiner) up at ``batch`` (kernel and
+    decoder builds, first launches) before taking traffic, build and warm
+    the `MicroBatcher` of ``--serve-batch`` N > 1, and start the HTTP
+    server."""
     from PIL import Image
 
     from pigeon_tpu_torch.data import native_decode
+    from pigeon_tpu_torch.serve import MicroBatcher, PredictionService, serve
 
+    device = serve_fn.device
     logger.warning("image decode: %s", "native libjpeg, then PIL"
                    if native_decode.available() else "PIL")
-    views = (4,) if cfg.head.panorama else ()
-    size = cfg.vision.image_size
-
     # PIL decodes what the native decoder cannot; loading its plugin
     # registry here keeps that cost out of the first request.
     Image.init()
-    out = serve_fn(np.zeros((1, *views, size, size, 3), np.uint8))
+    out = serve_fn(np.zeros((batch, *sample_shape), np.uint8))
     if refine_fn is not None:
         refine_fn(out["embedding"], out["pred_lla"], out["topk_cells"],
                   out["topk_probs"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    batcher = None
+    if args.serve_batch > 1:
+        batcher = MicroBatcher(serve_fn, refine_fn=refine_fn,
+                               max_batch=args.serve_batch)
+        batcher.warm(sample_shape, torch.uint8)
+        logger.warning("micro-batching up to %d requests a forward "
+                       "(buckets %s)", batcher.max_batch, batcher.buckets)
     logger.warning("warmup done")
-    service = PredictionService(serve_fn, image_size=size,
-                                panorama=cfg.head.panorama,
-                                refine_fn=refine_fn,
-                                game_log=os.path.join("runs", "games.jsonl"))
+    service = PredictionService(serve_fn, image_size=image_size,
+                                panorama=panorama, refine_fn=refine_fn,
+                                game_log=os.path.join("runs", "games.jsonl"),
+                                batcher=batcher)
     return serve(service, host=args.host, port=args.port, block=block)
+
+
+def start_server(args, block: bool = True) -> ThreadingHTTPServer:
+    """Build the model (int8 with ``--quant``), serving forward and
+    refiner on ``--device``, warm them up, and start the HTTP server;
+    with ``--artifact``, :func:`start_artifact_server`."""
+    from pigeon_tpu_torch.serve.server import make_serving_fn
+
+    if args.artifact:
+        return start_artifact_server(args, block=block)
+    device = _device(args)
+    cells, cfg, model = build_model(args, quant=args.quant)
+    if args.quant:
+        model = quantize_for_serving(args, cfg, model, device)
+    serve_fn = make_serving_fn(model, cfg.head, cells, device)
+    refine_fn = serving_refiner(args, len(cells), device)
+    views = (4,) if cfg.head.panorama else ()
+    size = cfg.vision.image_size
+    return warm_and_serve(args, serve_fn, refine_fn, (*views, size, size, 3),
+                          size, cfg.head.panorama, block=block)
+
+
+def start_artifact_server(args, block: bool = True) -> ThreadingHTTPServer:
+    """``serve --artifact DIR``: the artifact's program and weights on
+    ``--device``, no model built (`pigeon_tpu/cli/run.py::
+    _serve_artifact`), with the refiner of ``--prototypes/--embeddings/
+    --metadata`` and ``--hedge``; warmed up before it takes traffic."""
+    from pigeon_tpu_torch.serve.export import load_serving_artifact
+
+    device = _device(args)
+    try:
+        serve_fn, manifest = load_serving_artifact(args.artifact, device)
+    except ValueError as err:
+        raise SystemExit(f"--artifact {args.artifact}: {err}") from None
+    logger.warning("serving artifact %s: %d params, cells=%d, wire=%s, "
+                   "platforms=%s", args.artifact, manifest["num_params"],
+                   manifest["num_cells"], manifest["wire_dtype"],
+                   manifest["platforms"])
+    refine_fn = serving_refiner(args, manifest["num_cells"], device)
+    size = manifest["image_size"]
+    views = (4,) if manifest["panorama"] else ()
+    batch = 1 if manifest["batch"] == "symbolic" else manifest["batch"]
+    if batch != 1 and args.serve_batch > 1:
+        raise SystemExit("--serve-batch needs an artifact exported with a "
+                         "symbolic batch (export without --batch-size)")
+    return warm_and_serve(args, serve_fn, refine_fn, (*views, size, size, 3),
+                          size, manifest["panorama"], batch=batch,
+                          block=block)
+
+
+def cmd_export(args) -> int:
+    """The serving artifact (`serve/export.py`;
+    `pigeon_tpu/cli/run.py::cmd_export`): the model of
+    :func:`init_and_restore` on the plain route (the JAX artifact's XLA
+    attention), int8 under ``--quant`` (calibrated as ``serve --quant``:
+    ``--calib-images`` at margin 1.1, else a synthetic batch at 1.25),
+    traced with a symbolic batch or ``--batch-size``'s, for
+    ``--platforms``, into ``--output`` (default
+    ``--checkpoint-dir/NAME_artifact``)."""
+    from pigeon_tpu_torch.serve.export import (
+        check_platforms,
+        export_serving_artifact,
+    )
+
+    try:
+        platforms = check_platforms(args.platforms.split(","))
+    except ValueError as err:
+        raise SystemExit(f"--platforms {args.platforms}: {err}") from None
+    cells, cfg, model = build_model(args, quant=args.quant, route="plain")
+    if args.quant:
+        # Calibrated on --device; the trace itself runs on the CPU.
+        model = quantize_for_serving(args, cfg, model, _device(args))
+    out_dir = args.output or os.path.join(args.checkpoint_dir,
+                                          f"{args.name}_artifact")
+    manifest = export_serving_artifact(
+        model, cfg.head, cells, out_dir, image_size=cfg.vision.image_size,
+        panorama=cfg.head.panorama, batch=args.batch_size,
+        platforms=platforms)
+    logger.warning("exported %s: %d params, %d cells, batch=%s, "
+                   "platforms=%s; serve it with: pigeon_tpu_torch serve "
+                   "--artifact %s", out_dir, manifest["num_params"],
+                   manifest["num_cells"], manifest["batch"],
+                   manifest["platforms"], out_dir)
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -883,9 +1073,26 @@ def build_evaluation(args) -> Evaluation:
     )
 
     device = _device(args)
-    cells, cfg, model = build_model(args, quant=args.quant)
+    if args.zeroshot and args.quant:
+        raise SystemExit("--zeroshot and --quant are exclusive (the int8 "
+                         "path quantizes the SuperGuessr tower)")
+    if args.zeroshot:
+        cells = load_geocells(args)
+        cfg = make_config(args)
+        model = None
+        eval_step = build_zeroshot_eval_step(args, cfg, cells, device)
+    else:
+        cells, cfg, model = build_model(args, quant=args.quant)
+        eval_step = make_eval_step(
+            cfg.head, torch.as_tensor(cells, device=device),
+            num_candidates=EVAL_NUM_CANDIDATES)
     datasets = eval_datasets(args, cfg)
     assets = load_refine_assets(args)
+    if assets is not None and args.zeroshot:
+        logger.warning("--zeroshot skips refinement: the prototype bank "
+                       "holds vision-tower embeddings, zero-shot images "
+                       "live in the CLIP projection space")
+        assets = None
     scaler = RegressionScaler.load(args.scaler) if args.scaler else None
     countries = CountryIndex(args.countries) if args.countries else None
     if args.quant:
@@ -895,16 +1102,72 @@ def build_evaluation(args) -> Evaluation:
                                      or EVAL_CALIB_SAMPLES))) as batches:
             model = quantize_on_batch(model, next(batches), device, first)
     return Evaluation(
-        model=model.to(device), datasets=datasets,
+        model=None if model is None else model.to(device), datasets=datasets,
         refiners={name: None if assets is None else build_refiner(
             *assets, num_cells=len(cells), cfg=refiner_preset(name),
             device=device) for name in datasets},
-        eval_step=make_eval_step(
-            cfg.head, torch.as_tensor(cells, device=device),
-            num_candidates=EVAL_NUM_CANDIDATES),
+        eval_step=eval_step,
         to_device=functools.partial(batch_to_device, device=device),
         batch_size=args.batch_size or default_batch(args.quant),
         scaler=scaler, country_index=countries)
+
+
+def build_clip_model(cfg, tokenizer, device, remat: str = "none"):
+    """A bf16 `CLIPModel` (f32 parameters) on the route of
+    :func:`attn_impl` (its vision tower; the text tower's causal mask
+    takes the plain path), with the tokenizer's EOS id, seeded, on
+    ``device``. An EOS id outside the text vocabulary stops the
+    command."""
+    from pigeon_tpu_torch.models.clip import CLIPModel
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+
+    eos = tokenizer.eos_id
+    if eos >= cfg.text.vocab_size:
+        raise SystemExit(f"tokenizer eos id {eos} exceeds the text vocab "
+                         f"({cfg.text.vocab_size}); use matching vocab "
+                         "assets")
+    route = attn_impl()
+    forward_body = flash_fwd()
+    model = init_weights(CLIPModel(cfg.vision, cfg.text,
+                                   dtype=torch.bfloat16, eos_token_id=eos,
+                                   attn_impl=route, remat=remat),
+                         cfg.train.pretrain_seed)
+    logger.warning("CLIP model, attention route: %s (PIGEON_FLASH_FWD=%s), "
+                   "remat %s", route, forward_body, remat)
+    return model.to(device)
+
+
+def build_zeroshot_eval_step(args, cfg, cells, device):
+    """``evaluate --zeroshot``'s eval step
+    (`pigeon_tpu/cli/run.py::_build_zeroshot_eval_step`): a `CLIPModel`
+    (``-b``: a full HF CLIP state dict overlaid), one prompt a geocell
+    of ``--geocells`` tokenized at ``min(max_position_embeddings, 77)``
+    (the tokenizer truncates and keeps the EOS), the prompts' text
+    embeddings, and the cosine classifier over them."""
+    from pigeon_tpu_torch.data.tokenizer import load_tokenizer
+    from pigeon_tpu_torch.models.hf_import import clip_state, merge_state
+    from pigeon_tpu_torch.models.zeroshot import (
+        embed_prompts,
+        geocell_prompts,
+        make_zero_shot_eval_step,
+    )
+    from pigeon_tpu_torch.train.evaluate import EVAL_NUM_CANDIDATES
+
+    max_tokens = min(cfg.text.max_position_embeddings, 77)
+    tokenizer = load_tokenizer(context_len=max_tokens,
+                               fallback_vocab_size=cfg.text.vocab_size)
+    model = build_clip_model(cfg, tokenizer, "cpu")
+    if args.base:
+        state = torch.load(args.base, map_location="cpu", weights_only=True)
+        merge_state(model, clip_state(state, cfg.vision.num_layers,
+                                      cfg.text.num_layers))
+        logger.warning("loaded full CLIP checkpoint %s", args.base)
+    model = model.to(device)
+    prompts = geocell_prompts(_read_csv(args.geocells))
+    text_embeds = embed_prompts(model, tokenizer(prompts))
+    logger.warning("zero-shot: %d geocell prompts embedded", len(prompts))
+    return make_zero_shot_eval_step(model, text_embeds, cells,
+                                    num_candidates=EVAL_NUM_CANDIDATES)
 
 
 def run_evaluation(ev: Evaluation) -> dict:
@@ -1147,12 +1410,106 @@ def cmd_embed(args) -> int:
     return 0
 
 
+def pretrain_batches(ds, tokenizer, batch_size: int, max_tokens: int,
+                     device):
+    """``epoch -> batches``: `PretrainDataset.batches` shuffled by the
+    epoch's seed, as tensors on ``device`` (pixels f32, ids int64)."""
+
+    def batches(epoch):
+        for batch in ds.batches(tokenizer, batch_size, shuffle=True,
+                                seed=epoch, max_tokens=max_tokens):
+            yield {"pixel_values": torch.from_numpy(
+                       batch["pixel_values"]).to(device),
+                   "input_ids": torch.from_numpy(
+                       batch["input_ids"]).long().to(device)}
+
+    return batches
+
+
+def cmd_pretrain(args) -> int:
+    """Contrastive CLIP pretraining (`pigeon_tpu/cli/run.py::
+    cmd_pretrain`): a `CLIPModel` (vision tower on :func:`attn_impl`'s
+    route under :func:`remat_policy`) trained on ``--metadata``'s
+    captioned images (`data/pretrain.py`; ``--yfcc`` or ``--landmarks``
+    the YFCC captions, ``-a`` the auxiliary sentences) by
+    `train.modes.pretrain_optimizer` (``--batch-size`` a micro-batch,
+    default the preset's 32, 8 of them an update), checkpoints to
+    ``--checkpoint-dir/NAME_pretrained``; the in-batch retrieval
+    accuracy is logged before and after. A tokenizer vocabulary larger
+    than the text config's stops the command."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.data.pretrain import PretrainDataset
+    from pigeon_tpu_torch.data.tokenizer import load_tokenizer
+    from pigeon_tpu_torch.train.modes import (
+        make_pretrain_step,
+        make_retrieval_probe,
+        pretrain,
+        pretrain_optimizer,
+        retrieval_accuracy,
+    )
+    from pigeon_tpu_torch.train.train_loop import TrainState
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required for this command")
+    device = _device(args)
+    cfg = make_config(args)
+    # The hash fallback is sized to the text vocabulary; a real CLIP
+    # vocabulary must fit it (a wrapped id would wrap the EOS too).
+    tokenizer = load_tokenizer(fallback_vocab_size=cfg.text.vocab_size)
+    if tokenizer.vocab_size > cfg.text.vocab_size:
+        raise SystemExit(f"tokenizer vocab ({tokenizer.vocab_size}) exceeds "
+                         f"the configured text vocab ({cfg.text.vocab_size});"
+                         " use a matching config or vocab assets")
+    model = build_clip_model(cfg, tokenizer, device, remat=remat_policy())
+    ds = PretrainDataset(pd.read_csv(args.metadata), args.images,
+                         variant=("yfcc" if (args.yfcc or args.landmarks)
+                                  else "streetview"),
+                         auxiliary=args.auxiliary,
+                         image_size=cfg.vision.image_size)
+    batch_size = args.batch_size or cfg.train.pretrain_batch_size_per_device
+    steps_per_epoch = max(len(ds) // batch_size, 1)
+    epochs = args.epochs or cfg.train.pretrain_num_epochs
+    state = TrainState(model, pretrain_optimizer(
+        model.parameters(), cfg, steps_per_epoch * epochs))
+    batches = pretrain_batches(ds, tokenizer, batch_size,
+                               min(cfg.text.max_position_embeddings, 77),
+                               device)
+    probe = make_retrieval_probe(model)
+
+    def probe_batches(limit=4):
+        for b in itertools.islice(batches(0), limit):
+            yield b["pixel_values"], b["input_ids"]
+
+    acc_before = retrieval_accuracy(probe, probe_batches())
+    ckpt = os.path.join(args.checkpoint_dir, f"{args.name}_pretrained")
+    logger.warning("pretraining on %d items: %d micro-batches of %d an "
+                   "epoch, %d epochs, %d micro-batches an update", len(ds),
+                   steps_per_epoch, batch_size, epochs,
+                   cfg.train.pretrain_grad_accum_steps)
+    state = pretrain(state, make_pretrain_step(), batches, epochs,
+                     checkpoint_dir=ckpt,
+                     save_steps=cfg.train.pretrain_save_steps)
+    acc_after = retrieval_accuracy(probe, probe_batches())
+    logger.warning("pretraining done at step %d: retrieval accuracy %.3f -> "
+                   "%.3f", state.step, acc_before, acc_after)
+    return 0
+
+
+COMMANDS = {"serve": cmd_serve, "finetune": cmd_finetune,
+            "evaluate": cmd_evaluate, "predict": cmd_predict,
+            "embed": cmd_embed, "augment": cmd_augment,
+            "export": cmd_export, "pretrain": cmd_pretrain}
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    return {"serve": cmd_serve, "finetune": cmd_finetune,
-            "evaluate": cmd_evaluate, "predict": cmd_predict,
-            "embed": cmd_embed, "augment": cmd_augment}[args.function](args)
+    if args.tp > 1 or args.fsdp:
+        raise SystemExit(f"--tp {args.tp}{' --fsdp' if args.fsdp else ''}: "
+                         "multi-device runs are not ported to "
+                         f"pigeon_tpu_torch yet ({SCALE_OUT_ITEM})")
+    return COMMANDS[args.function](args)
 
 
 if __name__ == "__main__":

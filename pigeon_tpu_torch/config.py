@@ -7,7 +7,12 @@ The port's own copy of what it uses from the JAX package's
 * ``pigeon_config()``  — StreetView 4-image panorama model ("PIGEON"):
   geocell bounds 30/60, label-smoothing tau 75 km.
 * ``pigeotto_config()`` — single-image planet-scale model ("PIGEOTTO",
-  YFCC/MP-16): geocell bounds 1000/2000, tau 65 km, no month head.
+  YFCC/MP-16): geocell bounds 1000/2000, tau 65 km, no month head;
+* ``landmarks_config()`` — PIGEOTTO with the Google Landmarks paths
+  (``--landmarks``).
+
+``vit_b32_vision()`` and ``vit_b32_text()`` are the ViT-B/32 towers of
+the zero-shot model (``--model vit-b32``).
 """
 
 from __future__ import annotations
@@ -53,8 +58,8 @@ class VisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TextConfig:
-    """CLIP text-tower architecture (a field of `PigeonConfig`; the port
-    has no text tower yet)."""
+    """CLIP text-tower architecture (contrastive pretraining and
+    zero-shot; `models.clip.CLIPTextTower`)."""
 
     vocab_size: int = 49408
     hidden_size: int = 768
@@ -65,6 +70,20 @@ class TextConfig:
     projection_dim: int = 768
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"
+
+
+def vit_b32_vision() -> VisionConfig:
+    """ViT-B/32 @224, the zero-shot model's vision tower."""
+    return VisionConfig(
+        image_size=224, patch_size=32, hidden_size=768,
+        intermediate_size=3072, num_layers=12, num_heads=12,
+        projection_dim=512,
+    )
+
+
+def vit_b32_text() -> TextConfig:
+    return TextConfig(hidden_size=512, intermediate_size=2048,
+                      num_layers=12, num_heads=8, projection_dim=512)
 
 
 def vit_l14_336_vision() -> VisionConfig:
@@ -237,6 +256,24 @@ def pigeon_config(num_cells: int = 2203) -> PigeonConfig:
             predict_month=True,
         ),
         geocell=GeocellCreationConfig(min_cell_size=30, max_cell_size=60),
+    )
+
+
+def landmarks_config(num_cells: int = 2076) -> PigeonConfig:
+    """PIGEOTTO with the Google Landmarks training mix: the PIGEOTTO model
+    with the landmark data paths. The refiner's datasets are concatenated
+    by the caller (``--metadata``, ``--embeddings`` and ``--prototypes``
+    list them comma-separated, `cli.run.load_refine_assets`)."""
+    cfg = pigeotto_config(num_cells)
+    return cfg.replace(
+        name="pigeotto-landmarks",
+        paths=PathConfig(
+            geocell_csv="data/geocells_yfcc.csv",
+            proto_csv="data/prototypes_landmarks.csv",
+            embeddings_dir="data/landmark_embeddings",
+            checkpoint_dir="saved_models",
+            scaler_path="saved_models/scaler/regression_yfcc.scaler.json",
+        ),
     )
 
 

@@ -1,11 +1,20 @@
-"""CLIP vision tower in PyTorch.
+"""CLIP in PyTorch: the vision tower, the text tower and the contrastive
+model.
 
-Counterpart of the vision side of `pigeon_tpu/models/clip.py`: a pre-LN
-ViT with quick-GELU MLPs; `last_hidden` is returned WITHOUT the post-LN
-(the embedding is its token mean) and `pooled` is post_LN(CLS). The
-encoder layers also take HF's exact-erf ``gelu`` (``VisionConfig.
-hidden_act``), which the generic ViT embedder (`models/vit_embedder.py`)
-runs.
+Counterpart of `pigeon_tpu/models/clip.py`: a pre-LN ViT with quick-GELU
+MLPs; `last_hidden` is returned WITHOUT the post-LN (the embedding is its
+token mean) and `pooled` is post_LN(CLS). The encoder layers also take
+HF's exact-erf ``gelu`` (``VisionConfig.hidden_act``), which the generic
+ViT embedder (`models/vit_embedder.py`) runs. `CLIPTextTower` (causal
+mask, final LN, pooling at the first EOS), `clip_contrastive_loss` and
+`CLIPModel` (both towers, bias-free projections, f32 L2 normalisation and
+``logit_scale = exp(param)``) serve contrastive pretraining and zero-shot
+classification (`train/modes.py`, `models/zeroshot.py`).
+
+An attention given a ``mask`` (the text tower's causal one) takes the
+plain path on every route, projections and MLP included, as the JAX
+package's does (`pigeon_tpu/models/clip.py:188`, `:294`): every kernel
+route needs ``mask is None``, so the text tower launches no kernel.
 
 Numerics follow the JAX package: parameters are f32 and are cast to the
 compute dtype (bf16 when serving) at each use; LayerNorm statistics run
@@ -100,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -110,7 +120,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from pigeon_tpu_torch.config import VisionConfig
+from pigeon_tpu_torch.config import TextConfig, VisionConfig
 from pigeon_tpu_torch.kernels.attention import (
     FLASH_ATTENTION_OP,
     FlashAttention,
@@ -241,13 +251,16 @@ def linear(layer: nn.Module, x):
     return layer(x) if isinstance(layer, QuantLinear) else dense(layer, x)
 
 
-def plain_attention(q, k, v):
+def plain_attention(q, k, v, mask=None):
     """``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``: products in the
-    input dtype, softmax in f32 (`pigeon_tpu.models.clip.xla_attention`
-    without a mask)."""
+    input dtype, softmax in f32 (`pigeon_tpu.models.clip.xla_attention`).
+    ``mask`` is additive, ``(1|B, 1, S, S)`` f32; the logits promote to
+    f32 where it is added, as in JAX."""
     scale = q.shape[-1] ** -0.5
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     logits = (q @ k.transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return (probs @ v).transpose(1, 2)
 
@@ -292,16 +305,18 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = make_linear(hidden_size, hidden_size, quant)
         self.out_proj = make_linear(hidden_size, hidden_size, quant)
 
-    def forward(self, x, ln: nn.LayerNorm = None):
+    def forward(self, x, ln: nn.LayerNorm = None, mask=None):
         """``x`` (B, S, D) -> (B, S, D) after ``out_proj``. With ``ln``
         (the JAX package's ``ln=``, only on a fused route in float), ``x``
         is the layer's raw input and LN runs inside kernel K5. A
-        ``"block"`` layer comes here only in a dynamic int8 tower, and
-        projects separately (`block` is its route otherwise)."""
+        ``"block"`` layer comes here only in a dynamic int8 tower, or
+        with a ``mask``, and projects separately (`block` is its route
+        otherwise). With a ``mask`` every route projects separately and
+        attends by `plain_attention`."""
         b, s, d = x.shape
         projs = (self.q_proj, self.k_proj, self.v_proj)
         quant = quant_mode(self.q_proj)
-        fused = self.attn_impl in FUSED_IMPLS
+        fused = self.attn_impl in FUSED_IMPLS and mask is None
         if ln is not None and (quant or not fused):
             raise ValueError(f"LN folds into the attention only on a fused "
                              f"float route, not {self.attn_impl!r} "
@@ -328,10 +343,14 @@ class MultiHeadAttention(nn.Module):
                     self.num_heads, ln.eps)
         else:
             heads = (b, s, self.num_heads, d // self.num_heads)
-            attend = (plain_attention if self.attn_impl == "plain"
-                      else FlashAttention.apply)
-            out = attend(*(linear(p, x).view(heads) for p in projs)) \
-                .reshape(b, s, d)
+            qkv = [linear(p, x).view(heads) for p in projs]
+            if mask is not None:
+                out = plain_attention(*qkv, mask)
+            elif self.attn_impl == "plain":
+                out = plain_attention(*qkv)
+            else:
+                out = FlashAttention.apply(*qkv)
+            out = out.reshape(b, s, d)
         with saved_by_remat("attn_out"):
             return linear(self.out_proj, out)
 
@@ -361,10 +380,12 @@ class MultiHeadAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-LN block: ``x += attn(LN1(x)); x += fc2(act(fc1(LN2(x))))``,
     on the route of ``self.attn.attn_impl`` (the module docstring); ``act``
-    is ``config.hidden_act``, one of `ACTIVATIONS`."""
+    is ``config.hidden_act``, one of `ACTIVATIONS`. ``config`` is a
+    `VisionConfig` or a `TextConfig`: the layer reads the fields both
+    have (``hidden_size``, ``num_heads``, ``intermediate_size``,
+    ``layer_norm_eps``, ``hidden_act``)."""
 
-    def __init__(self, config: VisionConfig, attn_impl: str = "fused",
-                 quant=False):
+    def __init__(self, config, attn_impl: str = "fused", quant=False):
         super().__init__()
         if config.hidden_act not in ACTIVATIONS:
             raise ValueError(f"hidden_act={config.hidden_act!r}, not in "
@@ -377,11 +398,16 @@ class TransformerLayer(nn.Module):
         self.fc1 = make_linear(d, config.intermediate_size, quant)
         self.fc2 = make_linear(config.intermediate_size, d, quant)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         quant = quant_mode(self.fc1)
         # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
         norm = flax_layer_norm if quant else layer_norm
         route = self.attn.attn_impl
+        if mask is not None:                    # plain on every route
+            x = x + self.attn(norm(self.ln1, x), mask=mask)
+            h = ACTIVATIONS[self.hidden_act](
+                linear(self.fc1, norm(self.ln2, x)))
+            return x + linear(self.fc2, h)
         if route == "block" and quant != "dynamic":
             x = self.attn.block(x, self.ln1)    # K6 / K7: residual included
         elif route in ("fused_ln", "fused_mlp") and not quant:
@@ -399,7 +425,10 @@ class TransformerLayer(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    def __init__(self, config: VisionConfig, attn_impl: str = "fused",
+    """``config.num_layers`` `TransformerLayer`s, remat'd layer by layer
+    under ``remat`` while gradients are on."""
+
+    def __init__(self, config, attn_impl: str = "fused",
                  remat: str = "none", quant=False):
         super().__init__()
         if remat not in REMATS:
@@ -409,14 +438,14 @@ class TransformerStack(nn.Module):
             TransformerLayer(config, attn_impl, quant)
             for _ in range(config.num_layers))
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         if self.remat == "none" or not torch.is_grad_enabled():
             for layer in self.layers:
-                x = layer(x)
+                x = layer(x, mask)
             return x
         for layer in self.layers:
             names = remat_saved_names(self.remat, layer.attn.attn_impl)
-            x = checkpoint(layer, x, use_reentrant=False,
+            x = checkpoint(layer, x, mask, use_reentrant=False,
                            context_fn=functools.partial(
                                create_selective_checkpoint_contexts,
                                functools.partial(_remat_policy, names)))
@@ -452,6 +481,114 @@ class CLIPVisionTower(nn.Module):
         x = torch.cat([cls, patches], dim=1) + self.pos_embed.to(self.dtype)
         x = self.encoder(layer_norm(self.pre_ln, x))
         return x, layer_norm(self.post_ln, x[:, 0])
+
+
+def causal_mask(s: int, device=None) -> torch.Tensor:
+    """The additive causal mask ``(1, 1, S, S)`` in f32: -1e9 above the
+    diagonal (finite, so a bf16 sum stays finite), 0 elsewhere."""
+    return torch.triu(torch.full((s, s), -1e9, dtype=torch.float32,
+                                 device=device), diagonal=1)[None, None]
+
+
+class CLIPTextTower(nn.Module):
+    """CLIP text encoder: ``(B, S)`` token ids (S <= 77) ->
+    ``(last_hidden (B, S, D), pooled (B, D))`` in the compute dtype, with a
+    causal mask, the final LN and pooling at the FIRST ``eos_token_id``
+    of each row (position 0 where a row has none), as HF's
+    `CLIPTextTransformer` after #24773 (`pigeon_tpu/models/clip.py:578-624`)."""
+
+    def __init__(self, config: TextConfig, dtype=torch.float32,
+                 eos_token_id: int = 49407, attn_impl: str = "fused"):
+        super().__init__()
+        d = config.hidden_size
+        self.config = config
+        self.dtype = dtype
+        self.eos_token_id = eos_token_id
+        self.token_embed = nn.Embedding(config.vocab_size, d)
+        self.pos_embed = nn.Parameter(
+            torch.empty(config.max_position_embeddings, d))
+        self.encoder = TransformerStack(config, attn_impl)
+        self.final_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[-1]
+        x = self.token_embed(input_ids).to(self.dtype) \
+            + self.pos_embed[:s].to(self.dtype)
+        x = self.encoder(x, causal_mask(s, input_ids.device))
+        x = layer_norm(self.final_ln, x)
+        eos = (input_ids == self.eos_token_id).to(torch.int32).argmax(-1)
+        pooled = x[torch.arange(x.shape[0], device=x.device), eos]
+        return x, pooled
+
+
+def clip_contrastive_loss(image_embeds, text_embeds, logit_scale):
+    """Symmetric InfoNCE over L2-normalised projections: the mean of the
+    text-to-image and image-to-text cross entropies with the diagonal as
+    labels (`pigeon_tpu/models/clip.py:627-642`, HF `CLIPModel`
+    ``return_loss=True``)."""
+    logits = logit_scale * text_embeds @ image_embeds.T
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return (F.cross_entropy(logits, labels)
+            + F.cross_entropy(logits.T, labels)) / 2.0
+
+
+#: The logit scale's initial parameter, log(1 / 0.07).
+LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
+
+
+class CLIPModel(nn.Module):
+    """Contrastive CLIP: both towers, bias-free projections in the compute
+    dtype, f32 L2 normalisation, and ``logit_scale = exp(param)``
+    (`pigeon_tpu/models/clip.py:645-693`). The vision tower takes
+    ``attn_impl`` and ``remat``; the text tower takes the route too, and
+    its causal mask sends it down the plain path."""
+
+    def __init__(self, vision_config: VisionConfig, text_config: TextConfig,
+                 dtype=torch.float32, eos_token_id: int = 49407,
+                 attn_impl: str = "fused", remat: str = "none",
+                 logit_scale_init: float = LOGIT_SCALE_INIT):
+        super().__init__()
+        self.vision_config = vision_config
+        self.text_config = text_config
+        self.dtype = dtype
+        self.vision = CLIPVisionTower(vision_config, dtype=dtype,
+                                      attn_impl=attn_impl, remat=remat)
+        self.text = CLIPTextTower(text_config, dtype=dtype,
+                                  eos_token_id=eos_token_id,
+                                  attn_impl=attn_impl)
+        self.visual_projection = nn.Linear(
+            vision_config.hidden_size, vision_config.projection_dim,
+            bias=False)
+        self.text_projection = nn.Linear(
+            text_config.hidden_size, text_config.projection_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(float(logit_scale_init)))
+
+    @property
+    def eos_token_id(self) -> int:
+        return self.text.eos_token_id
+
+    def forward(self, pixel_values, input_ids, return_loss: bool = False):
+        """``(B, H, W, 3)`` CLIP-normalised pixels and ``(B, S)`` ids ->
+        ``image_embeds``, ``text_embeds`` (f32, unit rows),
+        ``logit_scale``, ``logits_per_image`` and, with ``return_loss``,
+        ``loss``."""
+        _, vision_pooled = self.vision(pixel_values)
+        _, text_pooled = self.text(input_ids)
+        image = F.linear(vision_pooled,
+                         self.visual_projection.weight.to(self.dtype))
+        text = F.linear(text_pooled,
+                        self.text_projection.weight.to(self.dtype))
+        image = image / torch.linalg.vector_norm(
+            image.float(), dim=-1, keepdim=True)
+        text = text / torch.linalg.vector_norm(
+            text.float(), dim=-1, keepdim=True)
+        logit_scale = self.logit_scale.exp()
+        out = {"image_embeds": image, "text_embeds": text,
+               "logit_scale": logit_scale,
+               "logits_per_image": logit_scale * image @ text.T}
+        if return_loss:
+            out["loss"] = clip_contrastive_loss(image, text, logit_scale)
+        return out
 
 
 def set_route(model: nn.Module, route: str) -> None:

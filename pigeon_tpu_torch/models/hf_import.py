@@ -1,14 +1,19 @@
 """PyTorch CLIP checkpoints -> the port's parameter names (``--base``).
 
 Counterpart of `pigeon_tpu/models/hf_import.py` (`import_vision_tower_params`,
+`import_text_tower_params`, `import_clip_params`,
 `import_super_guessr_params`, `merge_params`) and of the JAX CLI's
-`_load_base_checkpoint`. Two layouts are read:
+`_load_base_checkpoint`. These layouts are read:
 
 * an HF `CLIPVisionModel` state dict (``vision_model.*``, or the same
   names without the prefix);
 * the reference's SuperGuessr ``.model`` state dict: a ``base_model.*``
   CLIP vision tower and the head linears ``cell_layer``,
-  ``multi_task_head``, ``climate_layer`` and ``month_layer``.
+  ``multi_task_head``, ``climate_layer`` and ``month_layer``;
+* an HF `CLIPTextModel` state dict (``text_model.*``, `text_tower_state`)
+  and a full HF `CLIPModel` one (both towers, ``visual_projection``,
+  ``text_projection`` and ``logit_scale``, `clip_state`) for
+  `models.clip.CLIPModel` (``evaluate --zeroshot -b``).
 
 The port keeps torch's layouts, so the import is a key map. Linears keep
 their ``(out, in)`` weights; the patch embed's ``(D, C, P, P)`` conv
@@ -80,6 +85,67 @@ def vision_tower_state(state: Mapping[str, object],
            .reshape(patch.shape[0], -1).contiguous()}
     for hf, port in _vision_pairs(num_layers):
         out[f"vision.{port}"] = _f32(s[hf])
+    return out
+
+
+def text_tower_state(state: Mapping[str, object],
+                     num_layers: int) -> Dict[str, torch.Tensor]:
+    """HF ``text_model.*`` state dict -> the port's ``text.*`` names
+    (`pigeon_tpu/models/hf_import.py::import_text_tower_params`)."""
+    s = _strip_prefix(state, "text_model.")
+    out = {"text.token_embed.weight":
+           _f32(s["embeddings.token_embedding.weight"]),
+           "text.pos_embed": _f32(s["embeddings.position_embedding.weight"])}
+    for leaf in ("weight", "bias"):
+        out[f"text.final_ln.{leaf}"] = _f32(s[f"final_layer_norm.{leaf}"])
+    for i in range(num_layers):
+        for hf, port in _LAYER_MAP:
+            for leaf in ("weight", "bias"):
+                out[f"text.encoder.layers.{i}.{port}.{leaf}"] = _f32(
+                    s[f"encoder.layers.{i}.{hf}.{leaf}"])
+    return out
+
+
+def clip_state(state: Mapping[str, object], vision_layers: int,
+               text_layers: int) -> Dict[str, torch.Tensor]:
+    """Full HF `CLIPModel` state dict -> the state dict of the port's
+    `models.clip.CLIPModel` (`pigeon_tpu/models/hf_import.py::
+    import_clip_params`); the projections keep their ``(out, in)``
+    weights."""
+    out = {**vision_tower_state(state, vision_layers),
+           **text_tower_state(state, text_layers)}
+    for name in ("visual_projection", "text_projection"):
+        out[f"{name}.weight"] = _f32(state[f"{name}.weight"])
+    out["logit_scale"] = _f32(state["logit_scale"]).reshape(())
+    return out
+
+
+def clip_hf_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A `models.clip.CLIPModel`'s parameters under HF `CLIPModel`'s
+    names, the inverse of `clip_state`: what a full HF CLIP checkpoint of
+    it holds."""
+    params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    w = params["vision.patch_embed.weight"]                  # (D, P*P*C)
+    p = model.vision.patch_embed.patch_size
+    out = {"vision_model." + _PATCH: w.reshape(w.shape[0], p, p, -1)
+           .permute(0, 3, 1, 2).contiguous(),
+           "text_model.embeddings.token_embedding.weight":
+               params["text.token_embed.weight"],
+           "text_model.embeddings.position_embedding.weight":
+               params["text.pos_embed"],
+           "logit_scale": params["logit_scale"]}
+    for hf, port in _vision_pairs(len(model.vision.encoder.layers)):
+        out["vision_model." + hf] = params[f"vision.{port}"]
+    for leaf in ("weight", "bias"):
+        out[f"text_model.final_layer_norm.{leaf}"] = \
+            params[f"text.final_ln.{leaf}"]
+    for i in range(len(model.text.encoder.layers)):
+        for hf, port in _LAYER_MAP:
+            for leaf in ("weight", "bias"):
+                out[f"text_model.encoder.layers.{i}.{hf}.{leaf}"] = \
+                    params[f"text.encoder.layers.{i}.{port}.{leaf}"]
+    for name in ("visual_projection", "text_projection"):
+        out[f"{name}.weight"] = params[f"{name}.weight"]
     return out
 
 

@@ -1,8 +1,10 @@
 """Weights carried across: a JAX `SuperGuessr` parameter tree -> a state
 dict that `pigeon_tpu_torch.models.super_guessr.SuperGuessr` loads with
 ``strict=True``; likewise a `ClipEmbedder`'s (`state_dict_from_jax`), a
-head-only `GeocellHead`'s (`head_state_dict_from_jax`) and a
-`ViTEmbedder`'s (`vit_state_dict_from_jax`).
+head-only `GeocellHead`'s (`head_state_dict_from_jax`), a
+`ViTEmbedder`'s (`vit_state_dict_from_jax`) and a contrastive
+`CLIPModel`'s (`clip_state_dict_from_jax`: both towers, the two bias-free
+projections and ``logit_scale``).
 
 The input is the Flax tree as nested dicts of numpy arrays (what
 ``jax.device_get(params)`` gives); this module imports no JAX. The
@@ -16,6 +18,8 @@ conversions:
 * the patch kernel ``(P, P, C, D)`` is flattened in ``(p, p, c)`` order to
   ``(D, P*P*C)``;
 * LayerNorm ``scale`` becomes ``weight``;
+* the text tower's ``token_embed/embedding`` ``(V, D)`` is the
+  ``nn.Embedding`` weight as it is;
 * a hierarchical head's ``view_attention`` (Flax ``DenseGeneral``
   kernels ``(F, H, dh)`` for query, key and value, ``(H, dh, F)`` for
   out) becomes four ``nn.Linear`` layers over the flattened ``H * dh``
@@ -79,7 +83,9 @@ class _Leaves:
 
     def put(self, name: str, array: np.ndarray) -> None:
         dtype = np.int8 if array.dtype == np.int8 else np.float32
-        self.out[name] = torch.tensor(np.ascontiguousarray(array, dtype))
+        # ascontiguousarray makes a 0-d leaf (logit_scale) 1-d: reshape.
+        self.out[name] = torch.tensor(np.ascontiguousarray(
+            array, dtype).reshape(np.shape(array)))
 
     def group(self, path: str, required: tuple) -> Dict[str, np.ndarray]:
         """The leaves of one (maybe quantized) layer at ``path``."""
@@ -150,18 +156,39 @@ class _Leaves:
         return self.out
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX `SuperGuessr` params ``{"vision": ..., "head": ...}`` -> a
-    torch state dict (f32, or int8 for quantized kernels; contiguous). A
-    tree without ``head`` is a `ClipEmbedder`'s."""
-    t = _Leaves(params)
+def _vision_tower(t: _Leaves) -> None:
+    """The CLIP vision tower under ``vision/`` into ``vision.*``."""
     t.patch("vision.patch_embed", "vision/patch_embed", ("kernel",))
     t.put("vision.cls_token", t.take("vision/cls_token"))
     t.put("vision.pos_embed", t.take("vision/pos_embed"))
     for name in ("pre_ln", "post_ln"):
         t.norm(f"vision.{name}", f"vision/{name}")
     t.encoder("vision.encoder.layers", _LAYER)
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `SuperGuessr` params ``{"vision": ..., "head": ...}`` -> a
+    torch state dict (f32, or int8 for quantized kernels; contiguous). A
+    tree without ``head`` is a `ClipEmbedder`'s."""
+    t = _Leaves(params)
+    _vision_tower(t)
     t.head("head.", "head/")
+    return t.done()
+
+
+def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX `CLIPModel` params (``vision``, ``text``,
+    ``visual_projection``, ``text_projection``, ``logit_scale``) -> the
+    state dict of the port's `models.clip.CLIPModel`."""
+    t = _Leaves(params)
+    _vision_tower(t)
+    t.put("text.token_embed.weight", t.take("text/token_embed/embedding"))
+    t.put("text.pos_embed", t.take("text/pos_embed"))
+    t.encoder("text.encoder.layers", "text/encoder/layers")
+    t.norm("text.final_ln", "text/final_ln")
+    for name in ("visual_projection", "text_projection"):
+        t.put(f"{name}.weight", t.take(f"{name}/kernel").T)
+    t.put("logit_scale", t.take("logit_scale"))
     return t.done()
 
 

@@ -70,10 +70,12 @@ def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a (..., K) int8 @ w (N, K) int8 ^T -> (..., N) int32``, summed
     exactly in int32. CUDA: ``torch._int_mm`` (K and N multiples of 8; a
     batch of 16 rows or fewer is zero-padded to its minimum of 17). CPU:
-    an int32 matmul."""
+    an int32 matmul. Under `torch.export` the CUDA form is traced on any
+    device (CPU has ``torch._int_mm`` too), so an exported int8 program
+    moved to the card keeps an op that runs there (`serve/export.py`)."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
-    if a2.device.type == "cuda":
+    if a2.device.type == "cuda" or torch.compiler.is_exporting():
         m = a2.shape[0]
         if m <= 16:
             a2 = F.pad(a2, (0, 0, 0, 17 - m))

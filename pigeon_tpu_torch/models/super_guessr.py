@@ -14,7 +14,11 @@ import torch
 from torch import nn
 
 from pigeon_tpu_torch.config import HeadConfig, VisionConfig
-from pigeon_tpu_torch.models.clip import CLIPVisionTower, PatchEmbed
+from pigeon_tpu_torch.models.clip import (
+    CLIPTextTower,
+    CLIPVisionTower,
+    PatchEmbed,
+)
 from pigeon_tpu_torch.models.embedder import token_mean_embedding
 from pigeon_tpu_torch.models.geocell_head import GeocellHead, GeocellOutput
 from pigeon_tpu_torch.models.vit_embedder import ViTEmbedder
@@ -81,7 +85,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     Dense and patch kernels: lecun-normal (truncated normal, variance
     1 / fan_in); biases zero; LayerNorms one and zero; CLS token and
-    positions N(0, 0.02), the ViT embedder's CLS token zero. The numbers
+    positions N(0, 0.02), the ViT embedder's CLS token zero; the text
+    tower's token embedding N(0, 1 / D) (Flax's ``nn.Embed``) and its
+    positions N(0, 0.02); `CLIPModel`'s logit scale keeps the value its
+    constructor gave it. The numbers
     differ from the JAX package's for the same seed (another generator);
     the distributions are the same.
     """
@@ -95,7 +102,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     for module in model.modules():
         if isinstance(module, nn.Linear):
             lecun_normal_(module.weight, module.in_features)
-            nn.init.zeros_(module.bias)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
         elif isinstance(module, nn.LayerNorm):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
@@ -105,6 +113,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                 nn.init.zeros_(module.bias)
         elif isinstance(module, CLIPVisionTower):
             nn.init.normal_(module.cls_token, std=0.02, generator=gen)
+            nn.init.normal_(module.pos_embed, std=0.02, generator=gen)
+        elif isinstance(module, CLIPTextTower):
+            d = module.token_embed.embedding_dim
+            nn.init.normal_(module.token_embed.weight, std=d ** -0.5,
+                            generator=gen)
             nn.init.normal_(module.pos_embed, std=0.02, generator=gen)
         elif isinstance(module, ViTEmbedder):
             nn.init.zeros_(module.cls_token)

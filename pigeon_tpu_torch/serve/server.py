@@ -10,7 +10,9 @@ Counterpart of `pigeon_tpu/serve/server.py`, with the same contract:
 
 The compute path is `make_serving_fn` (uint8 pixels normalised on the
 device, the model forward, top-k geocells) plus the optional refiner.
-Requests are served by threads; device work is serialised by a lock.
+Requests are served by threads; device work is serialised by a lock, or,
+with a `serve.batching.MicroBatcher` (``serve --serve-batch N``),
+concurrent requests share one forward and take no lock.
 """
 
 from __future__ import annotations
@@ -41,16 +43,19 @@ class PredictionService:
     def __init__(self, serve_fn: Callable, image_size: int = 336,
                  panorama: bool = True,
                  refine_fn: Optional[Callable] = None,
-                 game_log: Optional[str] = None):
+                 game_log: Optional[str] = None, batcher=None):
         """``serve_fn``: uint8 ``(1, 4, S, S, 3)`` (panorama) or
         ``(1, S, S, 3)`` pixels -> dict with ``pred_lla``, ``topk_cells``,
         ``topk_probs`` and ``embedding`` tensors. ``refine_fn``: the
-        batched refiner (`models/refiner.make_refine_fn`)."""
+        batched refiner (`models/refiner.make_refine_fn`). ``batcher``: a
+        `serve.batching.MicroBatcher` that runs the forward (and its own
+        refiner) for concurrent requests together."""
         self.serve_fn = serve_fn
         self.image_size = image_size
         self.panorama = panorama
         self.refine_fn = refine_fn
         self.game_log = game_log
+        self.batcher = batcher
         self._lock = threading.Lock()
 
     def decode(self, payload: dict) -> np.ndarray:
@@ -87,6 +92,13 @@ class PredictionService:
 
     def predict(self, payload: dict) -> dict:
         pixels = self.decode(payload)
+        if self.batcher is not None:
+            # Concurrent requests share one forward: no lock.
+            lng, lat = self.batcher.predict_one(pixels[0])["pred_lla"] \
+                .tolist()
+            return {"results": {"lat": lat, "lng": lng},
+                    "gameID": payload.get("gameID"),
+                    "roundID": payload.get("roundID")}
         with self._lock:                    # one device forward at a time
             out = self.serve_fn(pixels)
             pred = out["pred_lla"]
@@ -114,7 +126,7 @@ def make_serving_fn(model: torch.nn.Module, head_cfg, geocells,
     Returns ``serve_fn(pixels)``: uint8 (or already normalised float)
     NHWC pixels -> ``{"pred_lla", "topk_cells", "topk_probs",
     "embedding", "preds_mt"}`` as tensors on ``device``; the model it
-    runs is ``serve_fn.model``.
+    runs is ``serve_fn.model`` and its device ``serve_fn.device``.
     """
     device = torch.device(device)
     cells = torch.as_tensor(np.asarray(geocells, np.float32), device=device)
@@ -136,6 +148,7 @@ def make_serving_fn(model: torch.nn.Module, head_cfg, geocells,
                 "embedding": out.embedding, "preds_mt": out.preds_mt}
 
     serve_fn.model = model
+    serve_fn.device = device
     return serve_fn
 
 
@@ -183,12 +196,19 @@ class _Handler(BaseHTTPRequestHandler):
         logger.info("%s " + fmt, self.client_address[0], *args)
 
 
+class _Server(ThreadingHTTPServer):
+    #: The listen backlog. socketserver's default of 5 drops the SYNs of
+    #: more concurrent connects than that while the accept loop waits for
+    #: the GIL, and a client retries a dropped SYN after ~1 s.
+    request_queue_size = 128
+
+
 def serve(service: PredictionService, host: str = "127.0.0.1",
           port: int = 5000, block: bool = True) -> ThreadingHTTPServer:
     """Start the threaded HTTP server; with ``block=False`` it runs on a
     daemon thread and the caller owns ``shutdown()``."""
     handler = type("BoundHandler", (_Handler,), {"service": service})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd = _Server((host, port), handler)
     logger.info("serving on http://%s:%d", host, httpd.server_address[1])
     if block:
         httpd.serve_forever()

@@ -48,12 +48,18 @@ class AdamW(torch.optim.AdamW):
     the others leave the parameters and Adam's moments as they are. The
     mean and its count are part of the state dict, so a checkpoint taken
     between updates resumes the accumulation.
+
+    ``schedule``: a learning rate by update, ``count -> lr``, that each
+    update reads at the count of updates applied before it (optax's
+    ``scale_by_learning_rate`` inside ``MultiSteps`` counts updates, not
+    micro-batches); the count is then in the state dict too.
     """
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  max_grad_norm: Optional[float] = None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1,
+                 schedule: Optional[Callable[[int], float]] = None):
         super().__init__(params, lr=lr, betas=betas, eps=eps,
                          weight_decay=weight_decay)
         if accum_steps < 1:
@@ -62,6 +68,8 @@ class AdamW(torch.optim.AdamW):
         self.accum_steps = accum_steps
         self.mini_step = 0
         self.acc_grads: Dict[torch.Tensor, torch.Tensor] = {}
+        self.schedule = schedule
+        self.updates = 0
 
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
@@ -90,10 +98,17 @@ class AdamW(torch.optim.AdamW):
                 for p in params:
                     p.grad = p.grad / norm.to(p.grad.dtype) \
                         * self.max_grad_norm
+        if self.schedule is not None:
+            lr = float(self.schedule(self.updates))
+            for group in self.param_groups:
+                group["lr"] = lr
+        self.updates += 1
         return super().step()
 
     def state_dict(self):
         out = super().state_dict()
+        if self.schedule is not None:
+            out["updates"] = self.updates
         if self.accum_steps > 1:
             index = {id(p): i for i, p in enumerate(self._params())}
             out["accumulation"] = {
@@ -105,6 +120,7 @@ class AdamW(torch.optim.AdamW):
     def load_state_dict(self, state_dict):
         state_dict = dict(state_dict)
         acc = state_dict.pop("accumulation", None)
+        self.updates = int(state_dict.pop("updates", 0))
         super().load_state_dict(state_dict)
         self.mini_step, self.acc_grads = 0, {}
         if acc is not None:
@@ -118,17 +134,20 @@ class AdamW(torch.optim.AdamW):
 def adamw(params: Iterable[nn.Parameter], learning_rate: float,
           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.0, max_grad_norm: Optional[float] = None,
-          accum_steps: int = 1) -> AdamW:
+          accum_steps: int = 1,
+          schedule: Optional[Callable[[int], float]] = None) -> AdamW:
     """`AdamW` over the trainable ``params`` with the JAX wrapper's
     arguments and defaults (`pigeon_tpu.train.train_loop.adamw`): head
     training passes the learning rate alone; pretraining betas (0.9,
     0.98), eps 1e-6, weight decay 1e-3, ``max_grad_norm`` 1.0 and
-    ``accum_steps`` 8. The weight decay is passed explicitly: torch's own
-    default is 0.01, the JAX wrapper's 0.0."""
+    ``accum_steps`` 8, and a ``schedule`` by update in place of the
+    constant ``learning_rate`` (`train.modes.pretrain_optimizer`). The
+    weight decay is passed explicitly: torch's own default is 0.01, the
+    JAX wrapper's 0.0."""
     trainable = [p for p in params if p.requires_grad]
     return AdamW(trainable, lr=learning_rate, betas=(b1, b2), eps=eps,
                  weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                 accum_steps=accum_steps)
+                 accum_steps=accum_steps, schedule=schedule)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device

@@ -41,7 +41,9 @@ def test_every_module_imports_with_jax_blocked():
         "kernels.attention_bwd_variants", "kernels.attention_fwd_variants",
         "tuning", "models.hf_import", "train.evaluate", "train.embed",
         "models.vit_embedder", "train.preemption", "train.profiling",
-        "geocell.boundaries", "geocell.augmentor")} <= set(modules)
+        "geocell.boundaries", "geocell.augmentor", "serve.batching",
+        "serve.export", "models.zeroshot", "data.tokenizer",
+        "data.captions", "data.pretrain")} <= set(modules)
     code = (f"import runpy, sys\nfor name in {BLOCKED!r}:\n"
             "    sys.modules[name] = None\n"
             f"for name in {modules!r}:\n    __import__(name)\n"
@@ -60,7 +62,8 @@ def source_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
-    for name in (*DRIVERS, "bench_torch_flash_sm90", "profile_torch_routes"):
+    for name in (*DRIVERS, "bench_torch_flash_sm90", "profile_torch_routes",
+                 "pretrain_grad_precision"):
         yield os.path.join(ROOT, "scripts", f"{name}.py")
 
 
