@@ -230,6 +230,25 @@ Phases, one line each, any failure raises:
              ``finetune -m`` on two metadata files without the
              multi-task columns through the GeoAugmentor; two steps of a
              hierarchical panorama head;
+10a. scale_out - the scale-out of ``finetune`` and ``evaluate`` at the
+             ``[train]`` preset and width (24 layers), 16 + 8 + 8
+             panoramas at a global batch of 8 (2 steps): first K1, K2
+             and K8 at x (32, 577, 1024) with P = 512 and 256 (ViT-L's
+             local heads at tp = 2 and 4) against their plain versions
+             within K1's, K2's and K8's limits, each timed beside its
+             plain version and library composition (`check_local_heads`);
+             then the one-process run (K1 72, K2 48, K10 3), and
+             `torchrun --nproc-per-node 1` over NCCL with ``--fsdp`` and
+             with ``--tp 1`` (each rank's exact launches, step ms and
+             peak GiB; its DCP checkpoint read back here, its parameters
+             against the one-process run's by `params_agree`, and
+             ``evaluate -t`` on it: K1 24, K10 1); then two ranks sharing
+             the card over gloo (`rig_rank`): DDP and ``--tp 2``, 2 steps
+             each (K1 48, K2 48, K10 2 a rank; parameters against the
+             one-process run's), ``evaluate --quant --tp 2`` (K8 24 a
+             rank, on 8 heads), and ``--fsdp`` in ranks of their own
+             (where gloo lacks what FSDP2 needs, the line says so); and
+             with two cards or more ``--fsdp`` at 2 ranks over NCCL;
 11. embed  - the same width on the ``[train]`` phase's 32 + 8 panoramas
              and 2203 cells, batch 8, through the CLI's own ``main``:
              ``embed --panorama`` with a seeded HF CLIP ``--base`` file
@@ -311,6 +330,7 @@ import dataclasses
 import functools
 import glob
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2259,9 +2279,11 @@ def check_evaluate(root: str, pool, seed: int) -> dict:
     return total
 
 
-def write_train_assets(root: str, seed: int):
+def write_train_assets(root: str, seed: int, train_rows: int = TRAIN_ROWS,
+                       val_rows: int = VAL_ROWS, test_rows: int = 0):
     """Geocells and a panorama metadata CSV with every label column the
-    multi-task loss reads, over the repo's PNG fixtures. Returns the
+    multi-task loss reads, over the repo's PNG fixtures (``train_rows``,
+    ``val_rows`` and ``test_rows`` by ``selection``). Returns the
     metadata path, the geocell path and the image directory."""
     import numpy as np
 
@@ -2280,7 +2302,7 @@ def write_train_assets(root: str, seed: int):
         f.write("name,lng,lat\n")
         f.writelines(f"c{i},{lng},{lat}\n"
                      for i, (lng, lat) in enumerate(cells.tolist()))
-    n = TRAIN_ROWS + VAL_ROWS
+    n = train_rows + val_rows + test_rows
     lla = np.stack([rng.uniform(-180, 180, n), rng.uniform(-60, 75, n)], -1)
     nearest = haversine_matrix_np(lla, cells.astype(np.float32)).argmin(1)
     columns = ("image", "image_2", "image_3", "image_4", "lng", "lat",
@@ -2292,7 +2314,8 @@ def write_train_assets(root: str, seed: int):
         f.write(",".join(columns) + "\n")
         for i in range(n):
             row = [*rng.choice(fixtures, 4), *lla[i],
-                   "train" if i < TRAIN_ROWS else "val",
+                   "train" if i < train_rows else
+                   "val" if i < train_rows + val_rows else "test",
                    *rng.normal(size=6), rng.integers(0, 28),
                    rng.integers(0, 12), rng.uniform(0, 360), nearest[i]]
             f.write(",".join(str(v) for v in row) + "\n")
@@ -2783,8 +2806,9 @@ def check_train_durable(seed: int) -> dict:
       and trains its epoch to the end;
     * async save: `CheckpointSession.save` of the model's state, then
       `ASYNC_STEPS` steps while it is written, timed against as many
-      without a write; the call must return before its write ends, and
-      the checkpoint restores bit for bit equal to the state at the
+      without a write, then a second save into the staging buffers the
+      first made; each call must return before its write ends, and the
+      first checkpoint restores bit for bit equal to the state at its
       save;
     * profiler: a `ProfilerWindow` (wait 4, active 10) over 15 steps whose
       `summarize_trace` names K1's and K2's kernels (retried once when
@@ -3101,7 +3125,14 @@ def check_train_durable(seed: int) -> dict:
                 t0 = time.perf_counter()
                 session.wait()
                 join_ms = (time.perf_counter() - t0) * 1e3
-                session.restore(state)
+                write_ms = session.write_seconds * 1e3
+                # A second save into the staging buffers the first made.
+                t0 = time.perf_counter()
+                session.save(state)
+                resave_ms = (time.perf_counter() - t0) * 1e3
+                session.wait()
+                rewrite_ms = session.write_seconds * 1e3
+                session.restore(state, snap_step)
             finally:
                 session.close()
             bad = [k for k, v in model.state_dict().items()
@@ -3112,12 +3143,15 @@ def check_train_durable(seed: int) -> dict:
             if bad or state.step != snap_step:
                 raise RuntimeError(f"the async checkpoint restores other "
                                    f"values: {bad[:5]}")
-            write_ms = session.write_seconds * 1e3
-            if not save_ms < write_ms:
-                raise RuntimeError(f"the save call took {save_ms} ms, its "
-                                   f"write {write_ms} ms: it waited")
+            if not (save_ms < write_ms and resave_ms < rewrite_ms):
+                raise RuntimeError(f"the save calls took {save_ms}, "
+                                   f"{resave_ms} ms, their writes "
+                                   f"{write_ms}, {rewrite_ms} ms: they "
+                                   "waited")
             phase("train_durable", check="async_save", step=snap_step,
                   save_call_ms=round(save_ms, 3),
+                  second_save_call_ms=round(resave_ms, 3),
+                  second_write_ms=round(rewrite_ms, 3),
                   steps_ms_during_write=[round(t, 3) for t in async_ms],
                   steps_ms_without=[round(t, 3) for t in plain_ms],
                   write_in_flight=in_flight, write_ms=round(write_ms, 3),
@@ -3246,6 +3280,603 @@ def check_train_durable(seed: int) -> dict:
     phase("train_durable", check="launches",
           **{f"{n}_launches": c for n, c in total.items() if c})
     return total
+
+
+#: [scale_out]: panoramas of the global batch, train / val / test rows
+#: (2 steps and one eval batch an epoch at batch 8), and the seconds a
+#: rank run may take.
+SCALE_BATCH, SCALE_TRAIN, SCALE_VAL, SCALE_TEST = 8, 16, 8, 8
+SCALE_TIMEOUT = 600
+#: [scale_out]: the local head widths K1, K2 and K8 are held at (tp = 2
+#: and 4 of ViT-L/14's 16 heads of 64).
+LOCAL_WIDTHS = (512, 256)
+#: [scale_out]: a run's loss and grad_norm at each step against the
+#: one-process run's, relative: [train]'s bound on the loss parts between
+#: routes (bf16 sums over other splits of the batch, in another order).
+#: The global norm reads the gradients' scale, which AdamW's update does
+#: not: a data axis that sums where it should average doubles it.
+SCALE_METRIC_REL = 1e-2
+#: [scale_out]: at most this share of the trainable entries may end two
+#: AdamW steps more than lr / 10 from the one-process run's (entries
+#: whose gradient is within rounding of 0 take either sign). Set between
+#: the runs that agree and the planted control (DDP whose ranks skip the
+#: gradient all-reduce, so that each trains on its half of the batch),
+#: which must exceed it.
+SCALE_SHARE_APART = 0.05
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def recorded_steps(record: dict):
+    """`train_loop.make_train_step`'s steps timed (synchronised), each
+    step's ms, loss and grad_norm appended to ``record``'s lists."""
+    import torch
+
+    from pigeon_tpu_torch.train import train_loop
+
+    make = train_loop.make_train_step
+    for key in ("step_ms", "loss", "grad_norm"):
+        record[key] = []
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["loss"].append(float(metrics["loss"]))
+            record["grad_norm"].append(float(metrics["grad_norm"]))
+            return metrics
+
+        return run
+
+    train_loop.make_train_step = recording
+    try:
+        yield record
+    finally:
+        train_loop.make_train_step = make
+
+
+def rank_run(out: str, argv: list) -> int:
+    """One `torchrun` rank of [scale_out]: ``cli.run.main(argv)`` with
+    each train step recorded (`recorded_steps`) and the kernels'
+    launches and the peak memory written to ``OUT.<rank>.json``."""
+    import torch
+
+    from pigeon_tpu_torch.cli.run import main as cli_main
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import geodesy
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    counters = {"fused_qkv_attention": k.fused_qkv_attention,
+                "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
+                "smooth_labels": geodesy.smooth_labels_from_points}
+    for fn in counters.values():
+        fn.launches = 0
+    with recorded_steps({}) as record:
+        rc = cli_main(argv)
+    rank = torch.distributed.get_rank()
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump({"rc": rc, **record,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "backend": str(torch.distributed.get_backend()),
+                   "device": str(torch.cuda.current_device()),
+                   "launches": {n: fn.launches
+                                for n, fn in counters.items()}}, f)
+    torch.distributed.destroy_process_group()
+    return rc
+
+
+def torchrun(root: str, nproc: int, argv: list, label: str) -> list:
+    """``argv`` through the CLI's ``main`` in ``nproc`` ranks started by
+    `torchrun` (NCCL, one card a rank), from ``root``; each rank's
+    record."""
+    out = os.path.join(root, f"rank_{label}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.join(HERE, "chip_smoke.py"),
+           "--rank-run", out, *argv]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=SCALE_TIMEOUT,
+                          env=dict(os.environ, PYTHONPATH=HERE))
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun {label} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return [json.load(open(f"{out}.{r}.json")) for r in range(nproc)]
+
+
+def trainable(model) -> dict:
+    """A model's trainable parameters, f32, on the CPU."""
+    return {n: p.detach().float().cpu().clone()
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def agreement(got: dict, want: dict, lr: float, label: str) -> dict:
+    """A run against the one-process run, both after the same two steps:
+    the share of the trainable entries more than lr / 10 apart and the
+    largest difference (two AdamW steps move an entry by about lr each,
+    so it reads about 2 lr wherever some gradient takes another sign,
+    and bounds nothing), then each step's loss and grad_norm relative
+    difference. ``got`` and ``want``: ``{"params": ..., "loss": [...],
+    "grad_norm": [...]}``."""
+    gp, wp = got["params"], want["params"]
+    if gp.keys() != wp.keys():
+        raise RuntimeError(f"{label}: other trainable parameters")
+    out = {
+        f"{label}_param_share_apart": sum(
+            int(((gp[n] - wp[n]).abs() > lr / 10).sum()) for n in wp)
+        / sum(t.numel() for t in wp.values()),
+        f"{label}_param_max_diff": max(
+            (gp[n] - wp[n]).abs().max().item() for n in wp)}
+    for key in ("loss", "grad_norm"):
+        if len(got[key]) != len(want[key]):
+            raise RuntimeError(f"{label}: {len(got[key])} steps of {key}, "
+                               f"the one-process run {len(want[key])}")
+        out[f"{label}_{key}_rel_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got[key], want[key]))
+    return out
+
+
+def agree(readings: dict, label: str) -> None:
+    """Raise unless ``label``'s `agreement` readings are within
+    `SCALE_SHARE_APART` and `SCALE_METRIC_REL`."""
+    share = readings[f"{label}_param_share_apart"]
+    rel = max(readings[f"{label}_loss_rel_diff"],
+              readings[f"{label}_grad_norm_rel_diff"])
+    if not (share <= SCALE_SHARE_APART and rel <= SCALE_METRIC_REL):
+        raise RuntimeError(
+            f"{label}: {share} of the parameters more than lr / 10 apart "
+            f"(limit {SCALE_SHARE_APART}), loss or grad_norm {rel} apart "
+            f"relative (limit {SCALE_METRIC_REL}): {readings}")
+
+
+def check_local_heads(seed: int) -> dict:
+    """K1, K2 and K8 at x (32, 577, 1024) with P = 512 and 256 (the local
+    heads of ViT-L/14 at tp = 2 and 4) against their plain versions
+    within K1's, K2's and K8's limits, each timed beside its plain version
+    and its library composition; returns the records by name."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.tuning import (
+        int8_packs,
+        int8_qkv_composition,
+        qkv_composition,
+        qkv_operands,
+    )
+
+    b, s, d = 32, 577, 1024
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x, ws_full, bs_full = qkv_operands(gen, b, s, d, raw=False)
+    packs_full = int8_packs(gen, d, (0.02,) * 3)
+    act_scale = x.float().abs().max() * 1.1 / 127
+    records = {}
+    for p in LOCAL_WIDTHS:
+        h = p // 64
+        ws = [w[:p].contiguous() for w in ws_full]
+        bs = [bb[:p].contiguous() for bb in bs_full]
+        g = (torch.randn(b, s, p, generator=gen, device="cuda") * 0.01) \
+            .bfloat16()
+        # K1
+        got = k.fused_qkv_attention(x, *ws, *bs, h)
+        want = k.fused_qkv_attention_reference(x, *ws, *bs, h)
+        rel = rel_errors([got], [want], ("out",))["out"]
+        if not rel <= K1_TOL:
+            raise RuntimeError(f"K1 at P={p}: {rel} > {K1_TOL}")
+        flop = 3 * 2 * b * s * d * p + 2 * 2 * b * h * s * s * 64
+        rec1 = {"max_abs_err": max_abs([got], [want]),
+                "ms": median_ms(lambda: k.fused_qkv_attention(
+                    x, *ws, *bs, h)),
+                "plain_ms": median_ms(lambda: k.fused_qkv_attention_reference(
+                    x, *ws, *bs, h), runs=5),
+                **bound({"bf16": flop}, nbytes(x, *ws, *bs, got)),
+                "library_ms": median_ms(lambda: qkv_composition(
+                    x, ws, bs, h))}
+        del got, want
+        # K2
+        got = k.fused_qkv_attention_backward(x, *ws, *bs, g, h)
+        want = k.fused_qkv_attention_backward_reference(x, *ws, *bs, g, h)
+        errs = rel_errors(got, want, ("dx", "dq", "dk", "dv"))
+        if not max(errs.values()) <= K2_TOL:
+            raise RuntimeError(f"K2 at P={p}: {errs} > {K2_TOL}")
+        # As `check_backward_kernel` counts it: the projections and dx,
+        # and five S x S x dh products a head.
+        flop2 = 2 * 2 * b * s * d * 3 * p + 5 * 2 * b * h * s * s * 64
+        rec2 = {"max_abs_err": max_abs(got, want),
+                "ms": median_ms(lambda: k.fused_qkv_attention_backward(
+                    x, *ws, *bs, g, h), runs=10),
+                "plain_ms": median_ms(
+                    lambda: k.fused_qkv_attention_backward_reference(
+                        x, *ws, *bs, g, h), runs=3),
+                **bound({"bf16": flop2}, nbytes(x, *ws, *bs, g, *got)),
+                "library_ms": None}
+        del got, want
+        # K2's yardstick, timed only: `check_backward_kernel`'s
+        # composition (three F.linear, SDPA's backward, the dx product).
+        heads = (b, s, h, 64)
+        leaves = [torch.nn.functional.linear(x, w, bb).view(heads)
+                  .transpose(1, 2).detach().requires_grad_()
+                  for w, bb in zip(ws, bs)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        gt = g.view(heads).transpose(1, 2)
+        w_all = torch.cat(ws, 0)
+
+        def composition():
+            for w, bb in zip(ws, bs):
+                torch.nn.functional.linear(x, w, bb)
+            grads = torch.autograd.grad(out, leaves, gt, retain_graph=True)
+            return torch.cat([t.transpose(1, 2).reshape(b, s, p)
+                              for t in grads], -1) @ w_all
+
+        rec2_composition_ms = median_ms(composition)
+        del out, leaves
+        # K8
+        ops = [t[:p].contiguous() for pack in packs_full for t in pack]
+        got = k8.fused_qkv_attention_int8(x, act_scale, *ops, h)
+        want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, h)
+        rel8 = rel_errors([got], [want], ("out",))["out"]
+        err8 = max_abs([got], [want])
+        if not (err8 <= K8_TOL and rel8 <= K1_TOL):
+            raise RuntimeError(f"K8 at P={p}: {err8} (limit {K8_TOL}), "
+                               f"{rel8} of its magnitude (limit {K1_TOL})")
+        int8_ops = 3 * 2 * b * s * d * p
+        bf16_ops = 2 * 2 * b * h * s * s * 64
+        rec8 = {"max_abs_err": err8,
+                "ms": median_ms(lambda: k8.fused_qkv_attention_int8(
+                    x, act_scale, *ops, h)),
+                "plain_ms": median_ms(
+                    lambda: k8.fused_qkv_attention_int8_reference(
+                        x, act_scale, *ops, h), runs=5),
+                **bound({"int8": int8_ops, "bf16": bf16_ops},
+                        nbytes(x, *ops, got)),
+                "library_ms": median_ms(lambda: int8_qkv_composition(
+                    x, act_scale, [ops[i:i + 3] for i in (0, 3, 6)], h))}
+        del got, want
+        for name, rec, err, extra in (
+                ("fused_qkv_attention", rec1, rel, {}),
+                ("fused_qkv_attention_bwd", rec2, max(errs.values()),
+                 {"composition_ms": round(rec2_composition_ms, 4)}),
+                ("fused_qkv_attention_int8", rec8, rel8, {})):
+            phase("scale_out", kernel=name, shape=f"({b},{s},{d})",
+                  P=p, heads=h, rel_err=round(err, 6),
+                  **{kk: (round(v, 4) if isinstance(v, float) else v)
+                     for kk, v in rec.items()}, **extra)
+            records[f"{name}@P{p}"] = rec
+    return records
+
+
+def rig_rank(rank: int, port: int, root: str, argv: list, out: str
+             ) -> None:
+    """One of the two ranks that share the card over gloo: the smoke's
+    own process group (CUDA tensors through gloo), then for each case
+    the port's ``build_finetune`` (`create_mesh`, `tensor_parallel`,
+    DDP) and two train steps at a global batch of 8: ``ddp``, ``tp2``
+    (``--tp 2``) and ``nosync``, the planted control (DDP with its
+    gradient all-reduce skipped: each rank trains on its half of the
+    batch); after ``tp2``, ``evaluate --quant --tp 2`` (K8 on 8 heads a
+    rank). Each case's launches, step ms, loss, grad_norm and peak
+    memory, and (rank 0) its trainable parameters, whole, go to files
+    under ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from pigeon_tpu_torch.cli.run import (
+        build_finetune,
+        build_parser,
+        main as cli_main,
+    )
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.train.mesh import full_parameters
+    from pigeon_tpu_torch.train.train_loop import (
+        batch_to_device,
+        make_train_step,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    counters = {"fused_qkv_attention": k.fused_qkv_attention,
+                "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
+                "smooth_labels": geodesy.smooth_labels_from_points,
+                "fused_qkv_attention_int8": k8.fused_qkv_attention_int8}
+    record = {}
+    os.chdir(root)
+    try:
+        flags = {"ddp": [], "tp2": ["--tp", "2"], "nosync": []}
+        for case, extra in flags.items():
+            run = build_finetune(build_parser().parse_args(
+                argv + ["--checkpoint-dir", f"ckpt_{case}", *extra]))
+            step = make_train_step(run.cfg.head, run.geocells)
+            sync = (run.state.forward.no_sync if case == "nosync"
+                    else contextlib.nullcontext)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            rec = record[case] = {"step_ms": [], "loss": [],
+                                  "grad_norm": []}
+            batches = run.train_batches(0)
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with sync():
+                    metrics = step(run.state,
+                                   batch_to_device(batch, run.device))
+                torch.cuda.synchronize()
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["loss"].append(float(metrics["loss"]))
+                rec["grad_norm"].append(float(metrics["grad_norm"]))
+            batches.close()
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["launches"] = {n: fn.launches for n, fn in counters.items()}
+            full = full_parameters(run.state.model, run.state.mesh,
+                                   trainable_only=True)
+            if rank == 0:
+                torch.save({n: t.float().cpu() for n, t in full.items()},
+                           os.path.join(out, f"{case}.pt"))
+            del run, step, full
+            torch.cuda.empty_cache()
+            if case == "tp2":
+                for fn in counters.values():
+                    fn.launches = 0
+                rc = cli_main(["evaluate", "rig", *argv[2:], "-t",
+                               "--quant", "--tp", "2", "--checkpoint-dir",
+                               "none", "--output", f"rig_eval_{rank}.json"])
+                record["evaluate_quant_tp2"] = {
+                    "rc": rc, "launches": {n: fn.launches
+                                           for n, fn in counters.items()}}
+    finally:
+        with open(os.path.join(out, f"rig.{rank}.json"), "w") as f:
+            json.dump(record, f)
+        dist.destroy_process_group()
+
+
+def check_scale_out(seed: int) -> dict:
+    """[scale_out]: the scale-out of ``finetune`` and ``evaluate`` at full
+    ViT-L/14-336 width (24 layers), 2 steps at 8 panoramas. Every run is
+    held against the one-process run (`agreement`): its loss and
+    grad_norm at each step, and its trainable parameters after both.
+
+    1. `torchrun` at world size 1 over NCCL, ``--fsdp`` and ``--tp 1``
+       (DDP): each rank's exact K1/K2/K10 launches ([train]'s: 24 a
+       forward and a backward, one K10 a batch), its DCP checkpoint read
+       back in this process and by ``evaluate`` (K1 24 a batch);
+    2. two ranks sharing the card over gloo on CUDA tensors (`rig_rank`):
+       DDP at a global batch of 8 and ``--tp 2``, 2 steps each;
+       ``evaluate --quant --tp 2`` (K8 on local heads); and the planted
+       control, whose ranks skip the gradient all-reduce, which the
+       checks must catch. FSDP2 over gloo on CUDA tensors is not run (it
+       ends in a SIGSEGV): two-rank FSDP2 is held by the CPU tests;
+    3. with 2 cards or more, (1) at 2 ranks over NCCL;
+    4. K1, K2 and K8 at P = 512 and 256 (`check_local_heads`).
+
+    Returns the launches of this process's own runs (the one-process
+    finetune and the two evaluates)."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from pigeon_tpu_torch.cli.run import (
+        build_finetune,
+        build_parser,
+        main as cli_main,
+        train_finetune,
+    )
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import fused_qkv_attention_int8 as k8
+    from pigeon_tpu_torch.kernels import geodesy
+    from pigeon_tpu_torch.train.checkpoints import latest_step, restore_model
+
+    counters = {"fused_qkv_attention": k.fused_qkv_attention,
+                "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
+                "smooth_labels": geodesy.smooth_labels_from_points,
+                "fused_qkv_attention_int8": k8.fused_qkv_attention_int8}
+    launches = dict.fromkeys(counters, 0)
+    layers, steps, evals = 24, SCALE_TRAIN // SCALE_BATCH, 1
+    want_train = {"fused_qkv_attention": layers * (steps + evals),
+                  "fused_qkv_attention_bwd": layers * steps,
+                  "smooth_labels": steps + evals}
+    fields = {}
+    t_phase = time.perf_counter()
+    # The card's name and power limit beside this phase's numbers, also
+    # when it runs alone.
+    phase("scale_out", card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace(" ", "_"))
+    check_local_heads(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Seconds of each part of the phase, in order.
+    parts = {"local_heads": time.perf_counter() - t_phase}
+
+    def lap(name: str) -> None:
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            meta, cells_csv, images = write_train_assets(
+                root, seed, SCALE_TRAIN, SCALE_VAL, SCALE_TEST)
+            argv = ["finetune", "scale", "--panorama", "-m", "--heading",
+                    "--metadata", meta, "--images", images,
+                    "--geocells", cells_csv, "--batch-size",
+                    str(SCALE_BATCH), "--epochs", "1", "--device", "cuda"]
+
+            # --- the one-process run, every count from 0 ---
+            for fn in counters.values():
+                fn.launches = 0
+            run = build_finetune(build_parser().parse_args(
+                argv + ["--checkpoint-dir", "ckpt_one"]))
+            lr = run.cfg.train.learning_rate
+            with recorded_steps({}) as one:
+                train_finetune(run, 1, "one")
+            torch.cuda.synchronize()
+            got = {n: fn.launches for n, fn in counters.items()}
+            if {n: got[n] for n in want_train} != want_train:
+                raise RuntimeError(f"one-process run launched {got}, "
+                                   f"expected {want_train}")
+            for n, v in got.items():
+                launches[n] += v
+            one["params"] = trainable(run.state.model)
+            fields["one_loss"] = one["loss"]
+            fields["one_grad_norm"] = one["grad_norm"]
+            # The model the DCP checkpoints are read back into.
+            holder = run.state.model
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap("one_process")
+
+            # --- 1. world size 1 over NCCL, --fsdp and --tp 1 ---
+            for label, extra in (("fsdp", ["--fsdp"]), ("tp1", ["--tp",
+                                                               "1"])):
+                ranks = torchrun(root, 1, argv + [
+                    "--checkpoint-dir", f"ckpt_{label}"] + extra, label)
+                for r, rec in enumerate(ranks):
+                    if rec["launches"] != want_train or rec["backend"] \
+                            .find("nccl") < 0:
+                        raise RuntimeError(f"torchrun {label} rank {r}: "
+                                           f"{rec}")
+                    fields[f"nccl1_{label}_rank{r}_step_ms"] = [
+                        round(t, 3) for t in rec["step_ms"]]
+                    fields[f"nccl1_{label}_rank{r}_peak_gib"] = round(
+                        rec["peak_gib"], 3)
+                    fields[f"nccl1_{label}_rank{r}_launches"] = \
+                        rec["launches"]
+                ckpt = os.path.join(root, f"ckpt_{label}", "scale")
+                step = latest_step(ckpt)
+                if step != steps or not os.path.isdir(
+                        os.path.join(ckpt, f"step_{step}")):
+                    raise RuntimeError(f"{label}: no DCP checkpoint of step "
+                                       f"{steps} in {ckpt}")
+                # The DCP checkpoint restored in this process: its
+                # parameters, and ``evaluate`` on it.
+                if restore_model(ckpt, holder) != steps:
+                    raise RuntimeError(f"{label}: {ckpt} restored no step "
+                                       f"{steps}")
+                readings = agreement(dict(ranks[0], params=trainable(
+                    holder)), one, lr, f"nccl1_{label}")
+                fields.update(readings)
+                agree(readings, f"nccl1_{label}")
+                for fn in counters.values():
+                    fn.launches = 0
+                rc = cli_main(["evaluate", "scale", *argv[2:], "-t",
+                               "--checkpoint-dir", f"ckpt_{label}",
+                               "--output", f"eval_{label}.json"])
+                torch.cuda.synchronize()
+                got = {n: fn.launches for n, fn in counters.items()}
+                want_eval = {"fused_qkv_attention": layers,
+                             "smooth_labels": 1}
+                if rc != 0 or {n: got[n] for n in want_eval} != want_eval:
+                    raise RuntimeError(f"evaluate on the {label} DCP "
+                                       f"checkpoint: rc {rc}, {got}")
+                metrics = json.load(open(f"eval_{label}.json"))["test"]
+                if not all(math.isfinite(v) for v in metrics.values()):
+                    raise RuntimeError(f"evaluate {label}: {metrics}")
+                for n, v in got.items():
+                    launches[n] += v
+                lap(f"nccl1_{label}")
+
+            # --- 2. two ranks on the one card over gloo ---
+            rig = os.path.join(root, "rig")
+            os.makedirs(rig)
+            mp.start_processes(rig_rank, args=(free_port(), root, argv,
+                                               rig),
+                               nprocs=2, start_method="spawn", join=True)
+            per_rank = [json.load(open(os.path.join(rig, f"rig.{r}.json")))
+                        for r in range(2)]
+            lap("gloo2_rig")
+            fields["gloo2_fsdp"] = ("not run: FSDP2 over gloo on CUDA "
+                                    "tensors SIGSEGVs; held by the CPU "
+                                    "tests")
+            want = {"fused_qkv_attention": layers * steps,
+                    "fused_qkv_attention_bwd": layers * steps,
+                    "smooth_labels": steps, "fused_qkv_attention_int8": 0}
+            for case in ("ddp", "tp2", "nosync"):
+                for r, rec in enumerate(per_rank):
+                    if rec[case]["launches"] != want:
+                        raise RuntimeError(f"rig {case} rank {r} launched "
+                                           f"{rec[case]['launches']}, "
+                                           f"expected {want}")
+                    fields[f"gloo2_{case}_rank{r}_step_ms"] = [
+                        round(t, 3) for t in rec[case]["step_ms"]]
+                    fields[f"gloo2_{case}_rank{r}_peak_gib"] = round(
+                        rec[case]["peak_gib"], 3)
+                    fields[f"gloo2_{case}_rank{r}_launches"] = \
+                        rec[case]["launches"]
+                fields.update(agreement(dict(
+                    per_rank[0][case], params=torch.load(
+                        os.path.join(rig, f"{case}.pt"))), one, lr,
+                    f"gloo2_{case}"))
+            evals_q = math.ceil(SCALE_TEST / SCALE_BATCH)
+            for r, rec in enumerate(per_rank):
+                ev = rec["evaluate_quant_tp2"]
+                if ev["rc"] != 0 or ev["launches"][
+                        "fused_qkv_attention_int8"] != layers * evals_q:
+                    raise RuntimeError(f"rig evaluate --quant --tp 2 rank "
+                                       f"{r}: {ev}")
+                fields[f"gloo2_eval_quant_tp2_rank{r}_launches"] = \
+                    ev["launches"]
+            # The readings first, then the checks: the planted control
+            # must fail both the parameters' share and the grad_norm.
+            phase("scale_out", check="agreement", lr=lr, **{
+                n: v for n, v in fields.items() if "_rel_diff" in n
+                or "_param_" in n or n.startswith("one_")})
+            agree(fields, "gloo2_ddp")
+            agree(fields, "gloo2_tp2")
+            if not (fields["gloo2_nosync_param_share_apart"]
+                    > SCALE_SHARE_APART
+                    and fields["gloo2_nosync_grad_norm_rel_diff"]
+                    > SCALE_METRIC_REL):
+                raise RuntimeError(
+                    "the planted control (ranks that skip the gradient "
+                    "all-reduce) passes the checks: share apart "
+                    f"{fields['gloo2_nosync_param_share_apart']}, "
+                    "grad_norm "
+                    f"{fields['gloo2_nosync_grad_norm_rel_diff']} apart")
+
+            # --- 3. two cards or more: world size 2 over NCCL ---
+            if torch.cuda.device_count() >= 2:
+                ranks = torchrun(root, 2, argv + [
+                    "--checkpoint-dir", "ckpt_nccl2", "--fsdp"], "nccl2")
+                for r, rec in enumerate(ranks):
+                    if rec["launches"] != want_train:
+                        raise RuntimeError(f"nccl2 rank {r}: {rec}")
+                    fields[f"nccl2_rank{r}_step_ms"] = [
+                        round(t, 3) for t in rec["step_ms"]]
+                    fields[f"nccl2_rank{r}_peak_gib"] = round(
+                        rec["peak_gib"], 3)
+                restore_model(os.path.join(root, "ckpt_nccl2", "scale"),
+                              holder)
+                readings = agreement(dict(ranks[0], params=trainable(
+                    holder)), one, lr, "nccl2")
+                fields.update(readings)
+                agree(readings, "nccl2")
+            else:
+                fields["nccl2"] = "not run: one card"
+        finally:
+            os.chdir(cwd)
+    fields["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    fields["parts_s"] = {n: round(v, 1) for n, v in parts.items()}
+    phase("scale_out", layers=layers, batch_panoramas=SCALE_BATCH,
+          steps=steps, lr=lr, **fields)
+    return launches
 
 
 def write_hf_bases(root: str, seed: int, vision) -> tuple:
@@ -4224,9 +4855,7 @@ def check_pretrain(seed: int) -> dict:
     if checkpoints.latest_step(ckpt) != PRETRAIN_STEPS:
         raise RuntimeError(f"no checkpoint of step {PRETRAIN_STEPS} in "
                            f"{ckpt}")
-    saved = torch.load(os.path.join(ckpt, f"step_{PRETRAIN_STEPS}.pt"),
-                       map_location="cpu", weights_only=False)
-    updates = saved["optimizer"]["updates"]
+    updates = checkpoints.read_counters(ckpt)["updates"]
     if updates != PRETRAIN_STEPS // PRETRAIN_ACCUM:
         raise RuntimeError(f"{updates} optimizer updates")
     step_ms = sorted(records["ms"][1:])[(steps - 1) // 2]
@@ -4737,7 +5366,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=5)
+    parser.add_argument("--rank-run", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("command", nargs=argparse.REMAINDER,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.rank_run is not None:
+        return rank_run(args.rank_run, args.command)
 
     import numpy as np
     import torch
@@ -4794,6 +5428,7 @@ def main() -> int:
     add(check_training(args.seed))
     add(check_train_routes(args.seed))
     add(check_train_durable(args.seed))
+    add(check_scale_out(args.seed))
     add(check_embed(args.seed))
     add(check_pretrain(args.seed))
     add(check_zeroshot(args.seed))

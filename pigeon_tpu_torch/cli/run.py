@@ -54,8 +54,19 @@ traces the serving forward on the plain route into an artifact that
 one CLIP text prompt a geocell (`models/zeroshot.py`). ``--landmarks``
 selects the PIGEOTTO-with-landmarks preset and lets the refinement flags
 list datasets comma-separated (:func:`load_refine_assets`); ``--model
-vit-b32`` swaps in the ViT-B/32 towers. Multi-device runs (``--tp`` above
-1, ``--fsdp``) are not ported: they stop the command.
+vit-b32`` swaps in the ViT-B/32 towers.
+
+Under `torchrun` (one process a card; ``--device cpu`` runs gloo
+ranks) ``finetune``, ``pretrain``, ``embed``, ``evaluate`` and
+``predict`` run over a ``(data, model)`` mesh (`train/mesh.py`):
+``--tp N`` shards the tower's heads and MLP, the geocell layer and the
+text vocabulary over N ranks (kernels K1, K2, K3 and K8 on the local
+heads; the K5/K6/K7/K9 routes stop), ``--fsdp`` shards the trained
+state over the data axis (FSDP2) where DDP would replicate it.
+``--batch-size`` is the global batch, each rank taking its slice; rank
+0 alone writes metrics, checkpoints (DCP directories, `train/
+checkpoints.py`), banks, predictions and ``evaluate``'s JSON.
+``serve`` and ``export`` stay on one card, as in the JAX CLI.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
 ``csv`` module, training and evaluation metadata with pandas, embeddings
 with numpy.
@@ -94,6 +105,8 @@ Usage:
         [--epochs N]
     python -m pigeon_tpu_torch.cli.run evaluate myrun --zeroshot \
         --model vit-b32 -b CLIP.pt -l sample20 --geocells C.csv
+    torchrun --standalone --nproc-per-node 2 -m pigeon_tpu_torch.cli.run \
+        finetune myrun ... [--tp 2] [--fsdp] [--device cpu]
 """
 
 from __future__ import annotations
@@ -150,8 +163,8 @@ SAMPLE_SEED = 330
 #: non-empty split (`pigeon_tpu/cli/run.py:826-857`).
 EMBED_CALIB_SAMPLES = 8
 
-#: The queue item that holds the multi-device runs (``--tp``, ``--fsdp``).
-SCALE_OUT_ITEM = "ROADMAP A9 (scale-out)"
+#: The commands that run over a mesh (``--tp``, ``--fsdp``, `torchrun`).
+MESH_COMMANDS = ("finetune", "pretrain", "embed", "evaluate", "predict")
 
 #: ``PIGEON_ATTN_IMPL`` values, the JAX package's route names, and the
 #: port's route for each (`models/clip.py`).
@@ -338,9 +351,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--metadata/--embeddings/--prototypes may list "
                         "comma-separated datasets whose banks concatenate")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size: only 1 on the port")
+                   help="tensor-parallel size: the mesh's model axis (must "
+                   "divide the ranks torchrun starts)")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters: not on the port")
+                   help="shard the trained state over the data axis "
+                   "(FSDP2) instead of replicating it (DDP)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--panorama", action="store_true",
@@ -753,6 +768,77 @@ def _device(args) -> torch.device:
     return device
 
 
+def run_mesh(args):
+    """``(device, mesh)`` of this rank: the process group `torchrun` (or
+    the caller) set up and the ``(world / --tp, --tp)`` mesh over it
+    (`train/mesh.py`); without either, the one-process mesh on
+    ``--device``. Made once a command; a ``--tp`` that does not divide
+    the ranks stops it."""
+    from pigeon_tpu_torch.train.mesh import (
+        UNSHARDED_ROUTES,
+        create_mesh,
+        init_distributed,
+    )
+
+    if getattr(args, "_run_mesh", None) is None:
+        device = init_distributed(_device(args))
+        try:
+            mesh = create_mesh(args.tp, device.type)
+        except ValueError as e:
+            raise SystemExit(f"--tp {args.tp}: {e} (start the ranks with "
+                             "torchrun --nproc-per-node N)") from None
+        route = quant_attn_impl() if args.quant else attn_impl()
+        if mesh.tp > 1 and route in UNSHARDED_ROUTES:
+            raise SystemExit(
+                f"--tp {args.tp}: route {route!r} (kernels K5/K6/K7/K9) has "
+                "no sharded hosting, as in the JAX package: under --tp run "
+                "PIGEON_ATTN_IMPL=flash_fused, flash or xla")
+        if mesh.device_mesh is not None:
+            logger.warning("rank %d of %d on %s: mesh %s",
+                           torch.distributed.get_rank(),
+                           torch.distributed.get_world_size(), device,
+                           mesh.shape)
+        args._run_mesh = (device, mesh)
+    return args._run_mesh
+
+
+def shard_model(model, mesh, device):
+    """``model`` (on ``device``) sharded over ``mesh``'s model axis
+    (`train.mesh.tensor_parallel`); a route or width the axis cannot run
+    stops the command."""
+    from pigeon_tpu_torch.train.mesh import tensor_parallel
+
+    try:
+        tensor_parallel(model, mesh, device)
+    except ValueError as e:
+        raise SystemExit(f"--tp {mesh.tp}: {e}") from None
+    return model
+
+
+def parallel_state(model, optimizer_fn, mesh, device, fsdp: bool):
+    """`train.train_loop.create_train_state` over ``mesh``; a route or
+    width the model axis cannot run stops the command."""
+    from pigeon_tpu_torch.train.train_loop import create_train_state
+
+    try:
+        return create_train_state(model, optimizer_fn, mesh, device, fsdp)
+    except ValueError as e:
+        raise SystemExit(f"--tp {mesh.tp}: {e}") from None
+
+
+def global_batch(args, default: int, mesh) -> int:
+    """``--batch-size`` (else ``default``), the global batch; one the
+    data axis does not divide stops the command."""
+    from pigeon_tpu_torch.train.multihost import check_global_batch
+
+    batch = args.batch_size or default
+    try:
+        check_global_batch(batch, mesh)
+    except ValueError as e:
+        raise SystemExit(f"--batch-size: {e}") from None
+    return batch
+
+
 class Finetune(NamedTuple):
     """What `build_finetune` sets up for a finetuning run."""
 
@@ -874,9 +960,13 @@ def build_finetune(args) -> Finetune:
         restore_checkpoint,
     )
     from pigeon_tpu_torch.train.modes import build_finetune_model
-    from pigeon_tpu_torch.train.train_loop import TrainState, adamw
+    from pigeon_tpu_torch.train.multihost import (
+        iter_eval_batches,
+        iter_host_batches,
+    )
+    from pigeon_tpu_torch.train.train_loop import adamw
 
-    device = _device(args)
+    device, mesh = run_mesh(args)
     if args.embeddings:
         return build_head_finetune(args, device)
     route = attn_impl()
@@ -893,10 +983,12 @@ def build_finetune(args) -> Finetune:
                          tcfg.seed).to(device)
     logger.warning("attention route: %s (PIGEON_FLASH_FWD=%s), remat %s",
                    route, forward_body, remat)
-    state = TrainState(model, adamw(model.parameters(), tcfg.learning_rate))
     ckpt_dir = os.path.join(args.checkpoint_dir, args.name)
     if args.base:
         load_base(model, args.base)
+    state = parallel_state(
+        model, lambda params: adamw(params, tcfg.learning_rate), mesh,
+        device, args.fsdp)
     if args.resume and latest_step(ckpt_dir) is not None:
         restore_checkpoint(ckpt_dir, state)
         logger.warning("resumed from step %d", state.step)
@@ -904,15 +996,23 @@ def build_finetune(args) -> Finetune:
               panorama=cfg.head.panorama)
     train = sample_dataset(TabularImageDataset(train_df, **kw), args.sample)
     val = TabularImageDataset(val_df, **kw)
-    batch = args.batch_size or tcfg.batch_size_per_device
+    batch = global_batch(args, tcfg.batch_size_per_device, mesh)
+    if mesh.device_mesh is None:
+        # Shuffled by the epoch's seed, the tail that does not fill a
+        # batch dropped; val in order, whole.
+        train_batches = lambda epoch: iter_batches(  # noqa: E731
+            train, batch, shuffle=True, seed=epoch, drop_last=True)
+        eval_batches = lambda: iter_batches(val, batch)  # noqa: E731
+    else:
+        # The same global batches, each rank decoding its rows.
+        train_batches = lambda epoch: iter_host_batches(  # noqa: E731
+            train, batch, mesh, shuffle=True, seed=epoch, drop_last=True)
+        eval_batches = lambda: iter_eval_batches(  # noqa: E731
+            val, batch, mesh)
     return Finetune(
         cfg=cfg, device=device,
         geocells=torch.as_tensor(cells, device=device), state=state,
-        # Shuffled by the epoch's seed, the tail that does not fill a
-        # batch dropped; val in order, whole.
-        train_batches=lambda epoch: iter_batches(
-            train, batch, shuffle=True, seed=epoch, drop_last=True),
-        eval_batches=lambda: iter_batches(val, batch),
+        train_batches=train_batches, eval_batches=eval_batches,
         checkpoint_dir=ckpt_dir)
 
 
@@ -929,8 +1029,10 @@ def build_head_finetune(args, device) -> Finetune:
     import pandas as pd
 
     from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.mesh import shard_batch
     from pigeon_tpu_torch.train.modes import build_embedding_model
-    from pigeon_tpu_torch.train.train_loop import TrainState, adamw
+    from pigeon_tpu_torch.train.multihost import local_eval_batches
+    from pigeon_tpu_torch.train.train_loop import adamw
 
     for flag, given, why in (
             ("--base", args.base, "the head trains from its seeded "
@@ -970,16 +1072,27 @@ def build_head_finetune(args, device) -> Finetune:
                    "embeddings of width %d", args.embeddings,
                    len(splits["train"][0]), len(splits["val"][0]),
                    cfg.head.embed_dim)
-    batch = args.batch_size or tcfg.batch_size_per_device
+    _, mesh = run_mesh(args)
+    batch = global_batch(args, tcfg.batch_size_per_device, mesh)
+    state = parallel_state(
+        model, lambda params: adamw(params, tcfg.learning_rate), mesh,
+        device, args.fsdp)
+
+    def train_batches(epoch):
+        for b in embedding_batches(*splits["train"], batch,
+                                   shuffle_seed=epoch):
+            yield b if mesh.device_mesh is None else shard_batch(b, mesh)
+
+    def eval_batches():
+        batches = embedding_batches(*splits["val"], batch)
+        return (batches if mesh.device_mesh is None
+                else local_eval_batches(batches, mesh))
+
     return Finetune(
         cfg=cfg, device=device,
-        geocells=torch.as_tensor(cells, device=device),
-        state=TrainState(model, adamw(model.parameters(),
-                                      tcfg.learning_rate)),
+        geocells=torch.as_tensor(cells, device=device), state=state,
         # Full batches only, in training and in evaluation (the JAX CLI's).
-        train_batches=lambda epoch: embedding_batches(
-            *splits["train"], batch, shuffle_seed=epoch),
-        eval_batches=lambda: embedding_batches(*splits["val"], batch),
+        train_batches=train_batches, eval_batches=eval_batches,
         checkpoint_dir=os.path.join(args.checkpoint_dir, args.name))
 
 
@@ -1053,6 +1166,7 @@ class Evaluation(NamedTuple):
     batch_size: int
     scaler: object         # RegressionScaler, or None
     country_index: object  # CountryIndex, or None
+    mesh: object = None    # train.mesh.Mesh: each rank a slice of a batch
 
 
 def build_evaluation(args) -> Evaluation:
@@ -1060,7 +1174,8 @@ def build_evaluation(args) -> Evaluation:
     the first dataset), datasets, refiners (the preset of each
     benchmark's family, where ``--prototypes/--embeddings/--metadata``
     are given), eval step, scaler and country index of an ``evaluate``
-    run on ``--device``."""
+    run on ``--device``; over a mesh the model is sharded after the
+    calibration, which every rank runs whole."""
     from pigeon_tpu_torch.train.evaluate import (
         EVAL_NUM_CANDIDATES,
         build_refiner,
@@ -1072,7 +1187,7 @@ def build_evaluation(args) -> Evaluation:
         make_eval_step,
     )
 
-    device = _device(args)
+    device, mesh = run_mesh(args)
     if args.zeroshot and args.quant:
         raise SystemExit("--zeroshot and --quant are exclusive (the int8 "
                          "path quantizes the SuperGuessr tower)")
@@ -1101,15 +1216,17 @@ def build_evaluation(args) -> Evaluation:
                 datasets[first], min(EVAL_CALIB_SAMPLES, args.batch_size
                                      or EVAL_CALIB_SAMPLES))) as batches:
             model = quantize_on_batch(model, next(batches), device, first)
+    if model is not None:
+        model = shard_model(model.to(device), mesh, device)
     return Evaluation(
-        model=None if model is None else model.to(device), datasets=datasets,
+        model=model, datasets=datasets,
         refiners={name: None if assets is None else build_refiner(
             *assets, num_cells=len(cells), cfg=refiner_preset(name),
             device=device) for name in datasets},
         eval_step=eval_step,
         to_device=functools.partial(batch_to_device, device=device),
         batch_size=args.batch_size or default_batch(args.quant),
-        scaler=scaler, country_index=countries)
+        scaler=scaler, country_index=countries, mesh=mesh)
 
 
 def build_clip_model(cfg, tokenizer, device, remat: str = "none"):
@@ -1173,24 +1290,31 @@ def build_zeroshot_eval_step(args, cfg, cells, device):
 def run_evaluation(ev: Evaluation) -> dict:
     """Each dataset of ``ev`` through its model, refined by its refiner
     and scored by the full metric suite; the metrics by benchmark, also
-    in the log."""
+    in the log. Over a mesh each data rank runs its rows of every batch
+    and every rank scores the gathered rows."""
     from pigeon_tpu_torch.train.evaluate import evaluate_benchmark
+    from pigeon_tpu_torch.train.multihost import iter_eval_batches
 
     results = {}
     for name, dataset in ev.datasets.items():
+        batches = (iter_batches(dataset, ev.batch_size)
+                   if ev.mesh is None or ev.mesh.device_mesh is None
+                   else iter_eval_batches(dataset, ev.batch_size, ev.mesh))
         results[name] = evaluate_benchmark(
-            ev.eval_step, ev.model, iter_batches(dataset, ev.batch_size),
-            ev.to_device, refine_fn=ev.refiners[name], scaler=ev.scaler,
-            country_index=ev.country_index)
+            ev.eval_step, ev.model, batches, ev.to_device,
+            refine_fn=ev.refiners[name], scaler=ev.scaler,
+            country_index=ev.country_index, mesh=ev.mesh)
         logger.warning("%s: %s", name, results[name])
     return results
 
 
 def cmd_evaluate(args) -> int:
     """`run_evaluation` of `build_evaluation`'s run; the metrics by
-    benchmark go to ``--output`` (JSON)."""
+    benchmark go to ``--output`` (JSON), written by rank 0."""
+    from pigeon_tpu_torch.train.multihost import is_primary
+
     results = run_evaluation(build_evaluation(args))
-    if args.output:
+    if args.output and is_primary():
         with open(args.output, "w") as f:
             json.dump(results, f, indent=2)
     return 0
@@ -1224,25 +1348,35 @@ def cmd_predict(args) -> int:
     cell where refinement assets are given (the ``geoguessr`` preset for a
     panorama model, else ``im2gps3k``), else the argmax cell's; the top
     candidate's probability, unrefined. Each batch's results are read
-    back after the next batch is enqueued."""
+    back after the next batch is enqueued. Over a mesh each data rank
+    predicts its rows of every batch and rank 0 writes them all, in
+    order."""
     import pandas as pd
 
     from pigeon_tpu_torch.data.pipeline import TabularImageDataset
     from pigeon_tpu_torch.serve.server import make_serving_fn
     from pigeon_tpu_torch.train.evaluate import build_refiner, refiner_preset
+    from pigeon_tpu_torch.train.multihost import (
+        gather_objects,
+        is_primary,
+        iter_eval_batches,
+    )
 
-    device = _device(args)
+    device, mesh = run_mesh(args)
     cells, cfg, model = build_model(args, quant=args.quant)
     df, names = predict_images(args, cfg.head.panorama)
     ds = TabularImageDataset(df, args.images if args.load else "",
                              image_size=cfg.vision.image_size,
                              panorama=cfg.head.panorama)
-    batches = iter_batches(ds, args.batch_size or default_batch(args.quant))
-    pending = []
+    batch_size = args.batch_size or default_batch(args.quant)
     if args.quant:
-        pending.append(next(batches))
-        model = quantize_on_batch(model, pending[0], device, "predict")
-    serve_fn = make_serving_fn(model, cfg.head, cells, device)
+        # Every rank calibrates on the first global batch, whole.
+        with contextlib.closing(iter_batches(ds, batch_size)) as first:
+            model = quantize_on_batch(model, next(first), device, "predict")
+    batches = (iter_batches(ds, batch_size) if mesh.device_mesh is None
+               else iter_eval_batches(ds, batch_size, mesh))
+    serve_fn = make_serving_fn(shard_model(model.to(device), mesh, device),
+                               cfg.head, cells, device)
     refine_fn = None
     assets = load_refine_assets(args)
     if assets is not None:
@@ -1253,8 +1387,9 @@ def cmd_predict(args) -> int:
 
     def enqueue(batch):
         """The batch's forward and refinement enqueued and the copies of
-        its results to the host started; returns them and an event that
-        completes with the copies (None on the CPU)."""
+        its results to the host started; returns them, the batch's row
+        index and an event that completes with the copies (None on the
+        CPU)."""
         out = serve_fn(batch["inputs"])
         lla, cell = out["pred_lla"], out["topk_cells"][:, 0]
         if refine_fn is not None:
@@ -1267,32 +1402,47 @@ def cmd_predict(args) -> int:
         if device.type == "cuda":
             copied = torch.cuda.Event()
             copied.record()
-        return host, copied
+        return host, batch.get("row_index"), copied
 
-    rows = []
+    results = []    # (row_index, lla, cell, prob) of each batch
 
-    def emit(host, copied) -> None:
+    def emit(host, row_index, copied) -> None:
         if copied is not None:
             copied.synchronize()
         lla, cell, prob = (t.numpy() for t in host)
-        lla, prob = lla.astype(np.float64), prob.astype(np.float64)
-        for i in range(len(cell)):
-            rows.append({"image": names[len(rows)], "lat": lla[i, 1],
-                         "lng": lla[i, 0], "geocell_idx": int(cell[i]),
-                         "top1_prob": prob[i]})
+        if row_index is None:
+            seen = sum(len(r[0]) for r in results)
+            row_index = np.arange(seen, seen + len(cell))
+        results.append((row_index, lla, cell, prob))
 
     prev = None
-    for batch in itertools.chain(pending, batches):
+    for batch in batches:
         out = enqueue(batch)
         if prev is not None:
             emit(*prev)
         prev = out
     if prev is not None:
         emit(*prev)
+    if not results:
+        results.append((np.zeros(0, np.int64), np.zeros((0, 2)),
+                        np.zeros(0, np.int64), np.zeros(0)))
+    joined = [np.concatenate(part) for part in zip(*results)]
+    if mesh.device_mesh is not None:
+        gathered = gather_objects(joined, mesh.data_group)
+        joined = [np.concatenate(part) for part in zip(*gathered)]
+    row_index, lla, cell, prob = joined
+    keep = row_index >= 0
+    order = np.argsort(row_index[keep], kind="stable")
+    row_index, lla, cell, prob = (a[keep][order] for a in joined)
+    lla, prob = lla.astype(np.float64), prob.astype(np.float64)
+    rows = [{"image": names[j], "lat": lla[i, 1], "lng": lla[i, 0],
+             "geocell_idx": int(cell[i]), "top1_prob": prob[i]}
+            for i, j in enumerate(row_index)]
     out_path = args.output or "predictions.csv"
-    pd.DataFrame(rows, columns=list(PREDICT_COLUMNS)).to_csv(out_path,
-                                                             index=False)
-    logger.warning("wrote %d predictions to %s", len(rows), out_path)
+    if is_primary():
+        pd.DataFrame(rows, columns=list(PREDICT_COLUMNS)).to_csv(
+            out_path, index=False)
+        logger.warning("wrote %d predictions to %s", len(rows), out_path)
     return 0
 
 
@@ -1377,13 +1527,14 @@ def cmd_embed(args) -> int:
 
     from pigeon_tpu_torch.data.image_ops import normalize_images
     from pigeon_tpu_torch.train.embed import embed_splits_to_disk
+    from pigeon_tpu_torch.train.multihost import is_primary
 
-    device = _device(args)
+    device, mesh = run_mesh(args)
     cfg = make_config(args)
     model = build_embedder(args, cfg)
     out = args.output or args.embeddings or "data/embeddings"
     splits = embed_splits(args, cfg)
-    if args.sample:
+    if args.sample and is_primary():
         os.makedirs(out, exist_ok=True)
         sampled = os.path.join(out, "metadata_sampled.csv")
         pd.concat([d.df for d in splits.values()],
@@ -1404,7 +1555,8 @@ def cmd_embed(args) -> int:
                                EVAL_CALIB_MARGIN, device,
                                f"{pixels.shape[0]} real images")
         batch_size = args.batch_size or default_batch(True)
-    embed_splits_to_disk(model.to(device), splits, out, batch_size, device)
+    model = shard_model(model.to(device), mesh, device)
+    embed_splits_to_disk(model, splits, out, batch_size, device, mesh)
     logger.warning("wrote embeddings for %s to %s (batch %d)",
                    sorted(splits), out, batch_size)
     return 0
@@ -1441,6 +1593,7 @@ def cmd_pretrain(args) -> int:
 
     from pigeon_tpu_torch.data.pretrain import PretrainDataset
     from pigeon_tpu_torch.data.tokenizer import load_tokenizer
+    from pigeon_tpu_torch.train.mesh import batch_slice
     from pigeon_tpu_torch.train.modes import (
         make_pretrain_step,
         make_retrieval_probe,
@@ -1448,11 +1601,10 @@ def cmd_pretrain(args) -> int:
         pretrain_optimizer,
         retrieval_accuracy,
     )
-    from pigeon_tpu_torch.train.train_loop import TrainState
 
     if args.metadata is None:
         raise SystemExit("--metadata CSV is required for this command")
-    device = _device(args)
+    device, mesh = run_mesh(args)
     cfg = make_config(args)
     # The hash fallback is sized to the text vocabulary; a real CLIP
     # vocabulary must fit it (a wrapped id would wrap the EOS too).
@@ -1467,15 +1619,25 @@ def cmd_pretrain(args) -> int:
                                   else "streetview"),
                          auxiliary=args.auxiliary,
                          image_size=cfg.vision.image_size)
-    batch_size = args.batch_size or cfg.train.pretrain_batch_size_per_device
+    batch_size = global_batch(args, cfg.train.pretrain_batch_size_per_device,
+                              mesh)
     steps_per_epoch = max(len(ds) // batch_size, 1)
     epochs = args.epochs or cfg.train.pretrain_num_epochs
-    state = TrainState(model, pretrain_optimizer(
-        model.parameters(), cfg, steps_per_epoch * epochs))
-    batches = pretrain_batches(ds, tokenizer, batch_size,
-                               min(cfg.text.max_position_embeddings, 77),
-                               device)
-    probe = make_retrieval_probe(model)
+    state = parallel_state(
+        model, lambda params: pretrain_optimizer(
+            params, cfg, steps_per_epoch * epochs), mesh, device, args.fsdp)
+    global_batches = pretrain_batches(
+        ds, tokenizer, batch_size,
+        min(cfg.text.max_position_embeddings, 77), device)
+
+    def batches(epoch):
+        # Each rank its rows of the global batch (the negatives are the
+        # global batch's again in the loss, `train.modes`).
+        for b in global_batches(epoch):
+            rows = batch_slice(len(b["input_ids"]), mesh)
+            yield {k: v[rows] for k, v in b.items()}
+
+    probe = make_retrieval_probe(state.model)
 
     def probe_batches(limit=4):
         for b in itertools.islice(batches(0), limit):
@@ -1505,10 +1667,12 @@ COMMANDS = {"serve": cmd_serve, "finetune": cmd_finetune,
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.tp > 1 or args.fsdp:
-        raise SystemExit(f"--tp {args.tp}{' --fsdp' if args.fsdp else ''}: "
-                         "multi-device runs are not ported to "
-                         f"pigeon_tpu_torch yet ({SCALE_OUT_ITEM})")
+    if args.function in MESH_COMMANDS:
+        run_mesh(args)
+    elif args.tp > 1 or args.fsdp:
+        raise SystemExit(f"{args.function} runs on one card, as in the JAX "
+                         f"CLI: it takes no --tp {args.tp}"
+                         f"{' or --fsdp' if args.fsdp else ''}")
     return COMMANDS[args.function](args)
 
 

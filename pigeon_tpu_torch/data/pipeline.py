@@ -29,7 +29,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -150,11 +150,14 @@ def holdout(dataset: TabularImageDataset, sl: slice) -> TabularImageDataset:
 
 def iter_batches(dataset: TabularImageDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+                 drop_last: bool = False,
+                 select: Optional[Callable[[np.ndarray], np.ndarray]] = None
+                 ) -> Iterator[Dict[str, np.ndarray]]:
     """Batches of stacked numpy arrays; decode runs on a thread pool and
     a bounded queue keeps up to `PREFETCH` batches ahead of the
     consumer. Closing the generator early (a calibration batch) stops
-    the producer."""
+    the producer. ``select`` maps each batch's dataset rows to the rows
+    this process loads (a rank's slice, `train/multihost.py`)."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -166,15 +169,21 @@ def iter_batches(dataset: TabularImageDataset, batch_size: int,
     stop = threading.Event()
 
     def build_batch(idx: np.ndarray) -> Dict[str, np.ndarray]:
-        rows = [dataset.df.iloc[i] for i in idx]
+        load = idx if select is None else select(idx)
+        rows = [dataset.df.iloc[i] for i in load]
         batch: Dict[str, list] = {
             "inputs": list(pool.map(dataset.load_pixels, rows))}
         for row in rows:
             for k, v in dataset.sample_arrays(row).items():
                 batch.setdefault(k, []).append(v)
-        # A key missing from some rows (NaN heading or month) is dropped.
-        return {k: np.stack(v) for k, v in batch.items()
-                if len(v) == len(rows)}
+        # A key missing from some rows (NaN heading or month) is dropped;
+        # of a selection, where a row of the whole batch misses it.
+        keep = [k for k, v in batch.items() if len(v) == len(rows)]
+        if select is not None:
+            for i in idx:
+                present = dataset.sample_arrays(dataset.df.iloc[i])
+                keep = [k for k in keep if k == "inputs" or k in present]
+        return {k: np.stack(batch[k]) for k in keep}
 
     def producer():
         # A decode failure ships through the queue and re-raises at the

@@ -149,10 +149,20 @@ from pigeon_tpu_torch.kernels.fused_qkv_attention import (
 from pigeon_tpu_torch.kernels.fused_qkv_attention_int8 import (
     fused_qkv_attention_int8,
 )
+from pigeon_tpu_torch.kernels.sharded import (
+    copy_to_model,
+    local_heads,
+    reduce_from_model,
+    sharded_fused_qkv_attention,
+    sharded_fused_qkv_attention_int8,
+    vocab_parallel_embedding,
+)
 from pigeon_tpu_torch.models.quant import (
     QuantLinear,
     QuantPatchEmbed,
+    int8_matmul,
     quant_mode,
+    quantize_static,
 )
 
 ATTN_IMPLS = ("fused", "flash", "plain", "fused_ln", "fused_mlp", "block")
@@ -251,6 +261,27 @@ def linear(layer: nn.Module, x):
     return layer(x) if isinstance(layer, QuantLinear) else dense(layer, x)
 
 
+def row_parallel(layer: nn.Module, x, axis):
+    """``layer`` on the rank's input columns ``x`` (Megatron's
+    row-parallel product, the JAX rules' out_proj and fc2 split by input
+    rows): the partial products all-reduced over the ``model`` axis, then
+    the bias once. An int8 layer all-reduces its int32 sums, which stay
+    exact, so its output is the one-card output bit for bit; it needs
+    static scales (the calibration forward runs before sharding)."""
+    if axis is None:
+        return linear(layer, x)
+    if isinstance(layer, QuantLinear):
+        if layer.mode != "static":
+            raise ValueError("a row-parallel int8 layer needs frozen "
+                             "activation scales: calibrate before sharding")
+        acc = reduce_from_model(int8_matmul(
+            quantize_static(x, layer.act_scale), layer.weight), axis)
+        y = acc.float() * (layer.act_scale * layer.scale) + layer.bias
+        return y.to(x.dtype)
+    y = reduce_from_model(F.linear(x, layer.weight.to(x.dtype)), axis)
+    return y + layer.bias.to(x.dtype)
+
+
 def plain_attention(q, k, v, mask=None):
     """``(B, S, H, dh)`` q/k/v -> ``(B, S, H, dh)``: products in the
     input dtype, softmax in f32 (`pigeon_tpu.models.clip.xla_attention`).
@@ -300,6 +331,9 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"attn_impl={attn_impl!r}, not in {ATTN_IMPLS}")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        #: The `kernels.sharded.ModelAxis` whose ranks hold this layer's
+        #: heads (`train.mesh.tensor_parallel`), or None: all heads here.
+        self.tp = None
         self.q_proj = make_linear(hidden_size, hidden_size, quant)
         self.k_proj = make_linear(hidden_size, hidden_size, quant)
         self.v_proj = make_linear(hidden_size, hidden_size, quant)
@@ -312,29 +346,40 @@ class MultiHeadAttention(nn.Module):
         ``"block"`` layer comes here only in a dynamic int8 tower, or
         with a ``mask``, and projects separately (`block` is its route
         otherwise). With a ``mask`` every route projects separately and
-        attends by `plain_attention`."""
+        attends by `plain_attention`.
+
+        Under tensor parallelism (``self.tp``) the layer holds its
+        rank's heads: column shards of q/k/v (K1, K3 and K8 on the local
+        heads, `kernels/sharded.py`) and the rank's input rows of
+        ``out_proj``, whose partial sums are all-reduced."""
         b, s, d = x.shape
         projs = (self.q_proj, self.k_proj, self.v_proj)
         quant = quant_mode(self.q_proj)
         fused = self.attn_impl in FUSED_IMPLS and mask is None
-        if ln is not None and (quant or not fused):
+        tp = self.tp
+        if ln is not None and (quant or not fused or tp is not None):
             raise ValueError(f"LN folds into the attention only on a fused "
-                             f"float route, not {self.attn_impl!r} "
-                             f"(quant={quant!r})")
+                             f"float route on one rank's heads, not "
+                             f"{self.attn_impl!r} (quant={quant!r})")
+        heads = local_heads(self.num_heads, tp)
         if fused and quant == "static":
             # q/k/v see the same input, so calibration freezes the same
             # scale for each; the kernel quantizes x once at their max.
             act_scale = torch.maximum(
                 torch.maximum(self.q_proj.act_scale, self.k_proj.act_scale),
                 self.v_proj.act_scale)
-            out = fused_qkv_attention_int8(
-                x.contiguous(), act_scale,
-                *(t for p in projs for t in (p.weight, p.scale, p.bias)),
-                self.num_heads)
+            args = (x.contiguous(), act_scale,
+                    *(t for p in projs for t in (p.weight, p.scale, p.bias)))
+            out = (fused_qkv_attention_int8(*args, self.num_heads)
+                   if tp is None else sharded_fused_qkv_attention_int8(
+                       *args, self.num_heads, tp))
         elif fused and not quant:
             weights = [p.weight.to(x.dtype) for p in projs]
             biases = [p.bias.to(x.dtype) for p in projs]
-            if ln is None:
+            if tp is not None:
+                out = sharded_fused_qkv_attention(x, *weights, *biases,
+                                                  self.num_heads, tp)
+            elif ln is None:
                 out = FusedQKVAttention.apply(x.contiguous(), *weights,
                                               *biases, self.num_heads)
             else:
@@ -342,17 +387,19 @@ class MultiHeadAttention(nn.Module):
                     x.contiguous(), ln.weight, ln.bias, *weights, *biases,
                     self.num_heads, ln.eps)
         else:
-            heads = (b, s, self.num_heads, d // self.num_heads)
-            qkv = [linear(p, x).view(heads) for p in projs]
+            if tp is not None:
+                x = copy_to_model(x, tp)
+            shape = (b, s, heads, d // self.num_heads)
+            qkv = [linear(p, x).view(shape) for p in projs]
             if mask is not None:
                 out = plain_attention(*qkv, mask)
             elif self.attn_impl == "plain":
                 out = plain_attention(*qkv)
             else:
                 out = FlashAttention.apply(*qkv)
-            out = out.reshape(b, s, d)
+            out = out.reshape(b, s, heads * shape[-1])
         with saved_by_remat("attn_out"):
-            return linear(self.out_proj, out)
+            return row_parallel(self.out_proj, out, tp)
 
     def block(self, x, ln: nn.LayerNorm):
         """The ``"block"`` route: ``x + out_proj(attention(ln(x)))`` on the
@@ -397,6 +444,18 @@ class TransformerLayer(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=config.layer_norm_eps)
         self.fc1 = make_linear(d, config.intermediate_size, quant)
         self.fc2 = make_linear(config.intermediate_size, d, quant)
+        #: The `kernels.sharded.ModelAxis` whose ranks hold this layer's
+        #: MLP columns (fc1's output, fc2's input), or None.
+        self.tp = None
+
+    def mlp(self, x, norm):
+        """``x + fc2(act(fc1(LN2(x))))``, on the rank's MLP columns under
+        tensor parallelism."""
+        h = norm(self.ln2, x)
+        if self.tp is not None:
+            h = copy_to_model(h, self.tp)
+        h = ACTIVATIONS[self.hidden_act](linear(self.fc1, h))
+        return x + row_parallel(self.fc2, h, self.tp)
 
     def forward(self, x, mask=None):
         quant = quant_mode(self.fc1)
@@ -405,9 +464,7 @@ class TransformerLayer(nn.Module):
         route = self.attn.attn_impl
         if mask is not None:                    # plain on every route
             x = x + self.attn(norm(self.ln1, x), mask=mask)
-            h = ACTIVATIONS[self.hidden_act](
-                linear(self.fc1, norm(self.ln2, x)))
-            return x + linear(self.fc2, h)
+            return self.mlp(x, norm)
         if route == "block" and quant != "dynamic":
             x = self.attn.block(x, self.ln1)    # K6 / K7: residual included
         elif route in ("fused_ln", "fused_mlp") and not quant:
@@ -420,8 +477,7 @@ class TransformerLayer(nn.Module):
                 x.contiguous(), self.ln2.weight, self.ln2.bias,
                 *(t.to(x.dtype) for fc in (self.fc1, self.fc2)
                   for t in (fc.weight, fc.bias)), self.ln2.eps)
-        h = ACTIVATIONS[self.hidden_act](linear(self.fc1, norm(self.ln2, x)))
-        return x + linear(self.fc2, h)
+        return self.mlp(x, norm)
 
 
 class TransformerStack(nn.Module):
@@ -505,6 +561,9 @@ class CLIPTextTower(nn.Module):
         self.dtype = dtype
         self.eos_token_id = eos_token_id
         self.token_embed = nn.Embedding(config.vocab_size, d)
+        #: The `kernels.sharded.ModelAxis` whose ranks hold the
+        #: vocabulary rows of ``token_embed``, or None.
+        self.tp = None
         self.pos_embed = nn.Parameter(
             torch.empty(config.max_position_embeddings, d))
         self.encoder = TransformerStack(config, attn_impl)
@@ -512,8 +571,10 @@ class CLIPTextTower(nn.Module):
 
     def forward(self, input_ids):
         s = input_ids.shape[-1]
-        x = self.token_embed(input_ids).to(self.dtype) \
-            + self.pos_embed[:s].to(self.dtype)
+        tokens = (self.token_embed(input_ids) if self.tp is None else
+                  vocab_parallel_embedding(input_ids,
+                                           self.token_embed.weight, self.tp))
+        x = tokens.to(self.dtype) + self.pos_embed[:s].to(self.dtype)
         x = self.encoder(x, causal_mask(s, input_ids.device))
         x = layer_norm(self.final_ln, x)
         eos = (input_ids == self.eos_token_id).to(torch.int32).argmax(-1)

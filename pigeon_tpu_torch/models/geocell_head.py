@@ -10,6 +10,10 @@ the views (`ViewAttention`, in the form of Flax's
 whose view 0 is the aggregate.
 
 The geocell centroid table is data, passed per call, not a parameter.
+Under tensor parallelism the cell layer holds the rank's cells and the
+logits are gathered over the ``model`` axis before the loss
+(`pigeon_tpu/models/geocell_head.py:186-206`); kernel K10 smooths the
+rank's label rows against the whole table.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from pigeon_tpu_torch.config import HeadConfig
 from pigeon_tpu_torch.core.scoring import smooth_month_labels
 from pigeon_tpu_torch.kernels.geodesy import smooth_labels_from_points
+from pigeon_tpu_torch.kernels.sharded import copy_to_model, gather_from_model
 from pigeon_tpu_torch.models.clip import dense
 
 #: Default compass headings (sin, cos): north for single images; north,
@@ -114,6 +119,9 @@ class GeocellHead(nn.Module):
             self.view_attention = ViewAttention(
                 d_in, config.num_attention_heads, config.attn_dropout)
         self.cell_layer = nn.Linear(d_in, config.num_cells)
+        #: The `kernels.sharded.ModelAxis` whose ranks hold the cell
+        #: layer's output columns (`train.mesh.tensor_parallel`), or None.
+        self.tp = None
         if config.multi_task:
             self.multi_task_head = nn.Linear(config.embed_dim,
                                              config.num_mt_vars)
@@ -146,7 +154,12 @@ class GeocellHead(nn.Module):
         def f32(t):
             return None if t is None else t.float()
 
-        logits = dense(self.cell_layer, agg)
+        if self.tp is None:
+            logits = dense(self.cell_layer, agg)
+        else:
+            # Column-parallel cells, gathered before the loss.
+            logits = gather_from_model(
+                dense(self.cell_layer, copy_to_model(agg, self.tp)), self.tp)
         preds_mt = preds_climate = preds_month = None
         if cfg.multi_task:
             # The regression head reads the embedding-width features.

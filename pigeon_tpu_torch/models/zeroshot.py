@@ -82,7 +82,9 @@ def make_zero_shot_eval_step(clip_model, text_embeds, geocells,
     entropy against ``labels_clf`` where the batch has them, else 0; the
     embedding is the normalised image projection; there are no
     multi-task outputs. The vision tower runs on the route it was built
-    with."""
+    with. A batch with ``row_index`` (a rank's padded rows) takes its
+    loss over the rows that are not padding, counted in
+    ``parts["rows"]``."""
     from pigeon_tpu_torch.models.geocell_head import geocell_predictions
 
     device = clip_model.logit_scale.device
@@ -93,11 +95,17 @@ def make_zero_shot_eval_step(clip_model, text_embeds, geocells,
         clip_model.eval()
         logits, img = _image_logits(clip_model, batch["inputs"], text_embeds)
         preds = geocell_predictions(logits, cells, num_candidates)
+        keep = (batch["row_index"] >= 0 if "row_index" in batch
+                else slice(None))
         loss = torch.zeros((), device=logits.device)
         if "labels_clf" in batch:
-            loss = F.cross_entropy(logits, batch["labels_clf"].long())
+            loss = F.cross_entropy(logits[keep],
+                                   batch["labels_clf"][keep].long())
         preds.update(embedding=img, preds_mt=None, preds_climate=None,
                      preds_month=None)
-        return {"loss": loss}, preds
+        parts = {"loss": loss}
+        if "row_index" in batch:
+            parts["rows"] = keep.sum()
+        return parts, preds
 
     return eval_step

@@ -11,7 +11,11 @@ and head-only training (``finetune --embeddings``) read back with
 batches from such a bank.
 
 Unlike the JAX package, which pads the last batch to its compiled shape,
-the port runs it ragged. Multi-host sweeps are not ported.
+the port runs it ragged. Over several ranks (`train/mesh.py`) each data
+rank embeds its contiguous `host_slice` of a split at ``batch_size`` a
+batch (the ranks of one model group the same rows, on their heads), the
+slices are gathered in rank order, which is the split's order, and rank
+0 writes the banks (`pigeon_tpu/train/embed.py:55-147`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,17 @@ import numpy as np
 import pandas as pd
 import torch
 
-from pigeon_tpu_torch.data.pipeline import TabularImageDataset, iter_batches
+from pigeon_tpu_torch.data.pipeline import (
+    TabularImageDataset,
+    holdout,
+    iter_batches,
+)
+from pigeon_tpu_torch.train.multihost import (
+    gather_objects,
+    host_slice,
+    is_primary,
+    sync_hosts,
+)
 from pigeon_tpu_torch.train.train_loop import batch_to_device
 
 
@@ -45,10 +59,13 @@ def make_embed_step(model: torch.nn.Module, device):
 
 
 def embed_dataset(model: torch.nn.Module, dataset: TabularImageDataset,
-                  batch_size: int, device) -> Dict[str, np.ndarray]:
+                  batch_size: int, device, mesh=None
+                  ) -> Dict[str, np.ndarray]:
     """Every image of ``dataset`` through ``model`` (in eval mode):
     ``embeddings`` ``(N, D)`` (``(N, V, D)`` for panoramas) and
-    ``indices`` ``(N,)``, the rows' positions in the dataset.
+    ``indices`` ``(N,)``, the rows' positions in the dataset. Over
+    ``mesh``'s data axis each rank embeds its slice and every rank gets
+    the whole, in order.
 
     Each batch's copy to the host starts as soon as its forward is
     enqueued and is read on the next iteration, after the next batch's
@@ -57,7 +74,12 @@ def embed_dataset(model: torch.nn.Module, dataset: TabularImageDataset,
     model.eval()
     step = make_embed_step(model, device)
     chunks, index_chunks = [], []
-    seen = 0
+    ranks = 1 if mesh is None else mesh.dp
+    own = host_slice(len(dataset), 0 if mesh is None else mesh.data_rank,
+                     ranks)
+    if ranks > 1:
+        dataset = holdout(dataset, own)
+    seen = own.start
     pending = None          # (host tensor, event that completes its copy)
 
     def finish(host, copied) -> np.ndarray:
@@ -80,23 +102,34 @@ def embed_dataset(model: torch.nn.Module, dataset: TabularImageDataset,
         seen += n
     if pending is not None:
         chunks.append(finish(*pending))
-    return {"embeddings": (np.concatenate(chunks) if chunks
-                           else np.zeros((0,), np.float32)),
-            "indices": (np.concatenate(index_chunks) if index_chunks
-                        else np.zeros((0,), np.int64))}
+    out = {"embeddings": (np.concatenate(chunks) if chunks
+                          else np.zeros((0,), np.float32)),
+           "indices": (np.concatenate(index_chunks) if index_chunks
+                       else np.zeros((0,), np.int64))}
+    if ranks > 1:
+        parts = [p for p in gather_objects(out, mesh.data_group)
+                 if len(p["indices"])]
+        out = {k: np.concatenate([p[k] for p in parts]) for k in out}
+    return out
 
 
 def embed_splits_to_disk(model: torch.nn.Module,
                          datasets: Dict[str, TabularImageDataset],
-                         out_dir: str, batch_size: int, device) -> None:
+                         out_dir: str, batch_size: int, device,
+                         mesh=None) -> None:
     """Embed each named split and write ``{split}.npy`` and
-    ``{split}_indices.npy`` under ``out_dir``."""
-    os.makedirs(out_dir, exist_ok=True)
+    ``{split}_indices.npy`` under ``out_dir``: rank 0 writes, and the
+    ranks meet at a barrier after each split (`embed.py:75-79`)."""
+    if is_primary():
+        os.makedirs(out_dir, exist_ok=True)
     for split, ds in datasets.items():
-        out = embed_dataset(model, ds, batch_size, device)
-        np.save(os.path.join(out_dir, f"{split}.npy"), out["embeddings"])
-        np.save(os.path.join(out_dir, f"{split}_indices.npy"),
-                out["indices"])
+        out = embed_dataset(model, ds, batch_size, device, mesh)
+        if is_primary():
+            np.save(os.path.join(out_dir, f"{split}.npy"),
+                    out["embeddings"])
+            np.save(os.path.join(out_dir, f"{split}_indices.npy"),
+                    out["indices"])
+        sync_hosts()
 
 
 def load_embeddings(emb_dir: str, split: str) -> np.ndarray:

@@ -85,11 +85,13 @@ def build_refiner(proto_rows, bank_emb: np.ndarray, bank_lla: np.ndarray,
 def evaluate_benchmark(eval_step: Callable, model, batches: Iterable[dict],
                        batch_to_device: Callable,
                        refine_fn: Optional[Callable] = None,
-                       scaler=None, country_index=None) -> Dict[str, float]:
+                       scaler=None, country_index=None,
+                       mesh=None) -> Dict[str, float]:
     """One benchmark end to end: the forward, the refiner if given, and
-    the metric suite (`train.loop.evaluate_model`)."""
+    the metric suite (`train.loop.evaluate_model`; over ``mesh``'s data
+    axis, on the rows every rank gathers)."""
     from pigeon_tpu_torch.train.loop import evaluate_model
 
     return evaluate_model(eval_step, model, batches, batch_to_device,
                           refine_fn=refine_fn, scaler=scaler,
-                          country_index=country_index)
+                          country_index=country_index, mesh=mesh)

@@ -58,10 +58,29 @@ class MetricWriter:
             self._file.close()
 
 
+def _gather_rows(cat: Dict[str, np.ndarray], sums: list, mesh):
+    """Each data rank's rows and per-batch ``(loss * rows, rows)`` joined
+    on every rank: the rows put back in dataset order by ``row_index``
+    (padding, -1, dropped), each global batch's loss the row-weighted
+    mean of its ranks' losses."""
+    from pigeon_tpu_torch.train.multihost import gather_objects
+
+    group = None if mesh is None else mesh.data_group
+    parts = gather_objects((cat, sums), group)
+    keys = cat.keys()
+    joined = {k: np.concatenate([c[k] for c, _ in parts]) for k in keys}
+    keep = joined["row_index"] >= 0
+    order = np.argsort(joined["row_index"][keep], kind="stable")
+    rows = {k: v[keep][order] for k, v in joined.items()}
+    per_batch = np.array([s for _, s in parts], np.float64).sum(0)
+    losses = [total / n for total, n in per_batch if n > 0]
+    return rows, losses
+
+
 def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
                    batch_to_device: Callable,
                    refine_fn: Optional[Callable] = None, scaler=None,
-                   country_index=None) -> Dict[str, float]:
+                   country_index=None, mesh=None) -> Dict[str, float]:
     """Run the eval batches and compute the metric suite, plus
     ``Eval_loss``, the mean of the batches' losses.
 
@@ -69,6 +88,11 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
     location and cell replace the argmax ones; ``scaler`` and
     ``country_index`` add the multi-task errors and ``Country_accuracy``
     (`train.metrics.compute_geoguessr_metrics`).
+
+    Batches with ``row_index`` (`train.multihost.iter_eval_batches`)
+    hold a data rank's rows of each global batch: the rows of every rank
+    of ``mesh``'s ``data`` axis are gathered (in dataset order) and every
+    rank computes the same metrics.
     """
     acc: Dict[str, list] = {}
 
@@ -76,10 +100,13 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
         if value is not None:
             acc.setdefault(key, []).append(value)
 
-    losses = []
+    losses, sums = [], []
     for batch in batches:
         parts, preds = eval_step(model, batch_to_device(batch))
         losses.append(parts["loss"])
+        if "row_index" in batch:
+            push("row_index", batch["row_index"])
+            sums.append(parts["rows"])
         pred_lla, pred_cell = preds["pred_lla"], preds["pred_cell"]
         if refine_fn is not None:
             refined = refine_fn(preds["embedding"], preds["pred_lla"],
@@ -102,6 +129,14 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
     # Device values are read once, at the end, not per batch.
     cat = {k: np.concatenate([v.cpu().numpy() if torch.is_tensor(v) else v
                               for v in vs]) for k, vs in acc.items()}
+    if "row_index" in cat:
+        rows = [int(n) for n in sums]
+        sums = [(float(loss) * n if n else 0.0, n)
+                for loss, n in zip(losses, rows)]
+        cat, batch_losses = _gather_rows(cat, sums, mesh)
+        eval_loss = float(np.mean(batch_losses))
+    else:
+        eval_loss = float(torch.stack(losses).mean())
     metrics = compute_geoguessr_metrics(
         predictions=cat["predictions"], labels=cat["labels"],
         cell_preds=cat.get("cell_preds"), cell_labels=cat.get("cell_labels"),
@@ -112,7 +147,7 @@ def evaluate_model(eval_step: Callable, model, batches: Iterable[Dict],
         preds_month=cat.get("preds_month"),
         labels_month=cat.get("labels_month"),
         scaler=scaler, country_index=country_index)
-    metrics["Eval_loss"] = float(torch.stack(losses).mean())
+    metrics["Eval_loss"] = eval_loss
     return metrics
 
 
@@ -142,15 +177,25 @@ def train_model(state, train_step: Callable, eval_step: Callable,
     ``max_recoveries`` times; with no checkpoint to go back to it raises.
     ``preemption``: a SIGTERM (`PreemptionGuard`) stops the run at the
     next step boundary, or before the epoch's eval, saves the state and
-    waits for the write, and returns without that eval. The JAX loop's
-    multi-process branch (`coordinated_flag` at the ``log_every``
-    boundaries) has no counterpart: the port trains in one process.
-    ``profile_dir``: a `ProfilerWindow` trace of steps 4 to 14.
+    waits for the write, and returns without that eval. Over several
+    ranks the stop is collective: every rank polls `coordinated_flag` at
+    the ``log_every`` boundaries and before each eval, so all of them
+    stop at the same step and take the (collective) save together.
+    Rank 0 alone writes the metrics. ``profile_dir``: a `ProfilerWindow`
+    trace of steps 4 to 14.
 
     Returns ``(state, history)``, the eval metrics of each epoch that
     reached its eval.
     """
-    writer = MetricWriter(log_dir)
+    from pigeon_tpu_torch.train.multihost import (
+        coordinated_flag,
+        is_primary,
+        process_count,
+    )
+
+    nproc = process_count()
+    mesh = getattr(state, "mesh", None)
+    writer = MetricWriter(log_dir if is_primary() else None)
     profiler = ProfilerWindow(profile_dir)
     best = -np.inf
     stale = 0
@@ -201,15 +246,23 @@ def train_model(state, train_step: Callable, eval_step: Callable,
             batches = iter(train_batches_fn(epoch))
             try:
                 for batch in batches:
-                    if guard is not None and guard.requested:
+                    # One process stops at any step; several agree at
+                    # the log_every boundaries below (a rank breaking out
+                    # alone would strand the others at a collective).
+                    if nproc == 1 and guard is not None and guard.requested:
                         preempted = True
                         break
                     metrics = train_step(state, batch_to_device(batch))
                     profiler.step()
                     pending.append((state.step, metrics["loss"]))
-                    if state.step % log_every == 0 and not flush(pending):
-                        diverged = True
-                        break
+                    if state.step % log_every == 0:
+                        if not flush(pending):
+                            diverged = True
+                            break
+                        if nproc > 1 and guard is not None and \
+                                coordinated_flag(guard.requested):
+                            preempted = True
+                            break
             finally:
                 if hasattr(batches, "close"):
                     batches.close()
@@ -220,7 +273,8 @@ def train_model(state, train_step: Callable, eval_step: Callable,
                 continue
             # Epoch-boundary poll: a signal after the last per-step poll
             # (during the final step or flush) still skips the eval.
-            if guard is not None and guard.requested:
+            if not preempted and guard is not None and \
+                    coordinated_flag(guard.requested):
                 preempted = True
             if preempted:
                 # The current state, not the best: resuming needs the
@@ -238,7 +292,8 @@ def train_model(state, train_step: Callable, eval_step: Callable,
                 break
 
             eval_metrics = evaluate_model(eval_step, state.model,
-                                          eval_batches_fn(), batch_to_device)
+                                          eval_batches_fn(), batch_to_device,
+                                          mesh=mesh)
             history.append(eval_metrics)
             for key, value in eval_metrics.items():
                 writer.scalar(f"eval/{key}", value, state.step)

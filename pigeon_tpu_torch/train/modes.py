@@ -16,8 +16,12 @@ Counterpart of `pigeon_tpu/train/modes.py`:
   saves and returns (`PreemptionGuard`);
 * `build_finetune_model` and `build_embedding_model`.
 
-On one card the in-batch negatives are the card's batch; the JAX
-package's global-batch negatives across a mesh are scale-out work.
+Over a mesh (`train/mesh.py`) the in-batch negatives are the global
+batch's, as the JAX package's GSPMD step computes them
+(`pigeon_tpu/train/modes.py:146-160`): each rank all-gathers the image
+and text embeddings with autograd (`global_contrastive_loss`) before the
+loss, and DDP's average of the ranks' gradients is then the one-card
+step's gradient.
 """
 
 from __future__ import annotations
@@ -88,23 +92,45 @@ def in_batch_accuracy(logits_per_image: torch.Tensor) -> torch.Tensor:
     return (logits_per_image.argmax(-1) == target).float().mean()
 
 
+def global_contrastive_loss(out: dict, mesh):
+    """`models.clip.clip_contrastive_loss` over the GLOBAL batch: the
+    ranks' unit image and text embeddings all-gathered over ``mesh``'s
+    ``data`` axis with autograd, in rank order, so every rank computes
+    the one-card loss. The all-gather's backward sums each rank's
+    gradient of that loss into the rank's own rows, ``dp`` times the
+    one-card value, which DDP's average over the ``dp`` ranks brings back.
+    Returns ``(loss, logits_per_image of the global batch)``."""
+    from pigeon_tpu_torch.models.clip import clip_contrastive_loss
+    from pigeon_tpu_torch.train.mesh import all_gather_rows
+
+    image, text = out["image_embeds"], out["text_embeds"]
+    if mesh is not None and mesh.device_mesh is not None and mesh.dp > 1:
+        image = all_gather_rows(image, mesh.data_group)
+        text = all_gather_rows(text, mesh.data_group)
+    scale = out["logit_scale"]
+    return (clip_contrastive_loss(image, text, scale),
+            scale * image @ text.T)
+
+
 def make_pretrain_step() -> Callable:
     """``step(state, batch) -> metrics``: one contrastive micro-step of
     ``state.model`` (a `CLIPModel`) on a device batch ``{pixel_values,
     input_ids}``, then ``state.optimizer.step()`` (an accumulation, or
-    the update every k-th call). The metrics are device scalars."""
+    the update every k-th call). The metrics are device scalars. Over a
+    mesh (``state.mesh``) the batch is the rank's slice of the global
+    batch and the negatives are the global batch's
+    (`global_contrastive_loss`)."""
 
     def step(state, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = state.model(batch["pixel_values"], batch["input_ids"],
-                          return_loss=True)
-        out["loss"].backward()
+        out = state.runner(batch["pixel_values"], batch["input_ids"])
+        loss, logits = global_contrastive_loss(out, state.mesh)
+        loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss": out["loss"].detach(),
-                "in_batch_accuracy": in_batch_accuracy(
-                    out["logits_per_image"].detach()),
+        return {"loss": loss.detach(),
+                "in_batch_accuracy": in_batch_accuracy(logits.detach()),
                 "logit_scale": out["logit_scale"].detach()}
 
     return step
@@ -146,15 +172,23 @@ def pretrain(state, step_fn: Callable,
              checkpoint_dir: Optional[str] = None, save_steps: int = 50,
              batch_to_device: Optional[Callable] = None,
              log_fn: Optional[Callable] = None,
-             preemption: bool = True):
+             preemption: bool = True, preempt_poll_steps: int = 10):
     """Contrastive pretraining: ``num_epochs`` passes over
     ``batches_fn(epoch)``, a checkpoint of ``state`` every ``save_steps``
     micro-steps written while training goes on, and a final one written
     before this returns. A SIGTERM (with ``preemption``) stops at the
-    next micro-step boundary, saves and returns. Returns ``state``."""
+    next micro-step boundary, saves and returns; over several ranks
+    they agree by `coordinated_flag` every ``preempt_poll_steps``
+    micro-steps, so every rank stops at the same one. Returns
+    ``state``."""
     from pigeon_tpu_torch.train.checkpoints import CheckpointSession
+    from pigeon_tpu_torch.train.multihost import (
+        coordinated_flag,
+        process_count,
+    )
     from pigeon_tpu_torch.train.preemption import PreemptionGuard
 
+    nproc = process_count()
     session = CheckpointSession(checkpoint_dir) if checkpoint_dir else None
     stack = contextlib.ExitStack()
     guard = stack.enter_context(PreemptionGuard()) if preemption else None
@@ -162,7 +196,7 @@ def pretrain(state, step_fn: Callable,
     try:
         for epoch in range(num_epochs):
             for batch in batches_fn(epoch):
-                if guard is not None and guard.requested:
+                if nproc == 1 and guard is not None and guard.requested:
                     preempted = True
                     break
                 if batch_to_device is not None:
@@ -172,6 +206,11 @@ def pretrain(state, step_fn: Callable,
                     log_fn(state.step, metrics)
                 if session and state.step % save_steps == 0:
                     session.save(state)
+                if (nproc > 1 and guard is not None
+                        and state.step % preempt_poll_steps == 0
+                        and coordinated_flag(guard.requested)):
+                    preempted = True
+                    break
             if preempted:
                 break
         if session:

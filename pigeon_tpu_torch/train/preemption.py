@@ -11,7 +11,10 @@ exactly where the reclaim hit.
 
 The guard is cooperative and cheap: the handler only flips a bool, and
 loops poll ``guard.requested`` once per step (a Python attribute read —
-nothing touches the device). Signal handlers can only be installed in
+nothing touches the device). Over several ranks a signal reaches one of
+them: the loops (`train/loop.py`, `train/modes.py::pretrain`) then poll
+`train.multihost.coordinated_flag` at shared step boundaries instead, so
+every rank stops at the same step and takes the collective save. Signal handlers can only be installed in
 the main thread; elsewhere (e.g. a worker running the loop under a
 thread pool) the guard degrades to an inert flag rather than raising.
 """

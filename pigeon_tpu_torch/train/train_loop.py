@@ -21,19 +21,55 @@ from torch import nn
 from pigeon_tpu_torch.config import HeadConfig
 from pigeon_tpu_torch.data.image_ops import normalize_images
 from pigeon_tpu_torch.models.geocell_head import (
+    GeocellOutput,
     geocell_loss,
     geocell_predictions,
     smoothed_targets,
 )
+from pigeon_tpu_torch.train.mesh import mean_over_data
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer and the count of steps taken."""
+    """The model, its optimizer and the count of steps taken. Over a mesh
+    (`train/mesh.py`) ``forward`` is the module a step runs the model
+    through (DDP's wrapper; FSDP2 shards ``model`` itself) and ``mesh``
+    the grid; checkpoints read ``model``."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    forward: Optional[nn.Module] = None
+    mesh: object = None
+
+    @property
+    def runner(self) -> nn.Module:
+        return self.model if self.forward is None else self.forward
+
+
+def create_train_state(model: nn.Module, optimizer_fn: Callable, mesh,
+                       device="cpu", fsdp: bool = False) -> TrainState:
+    """A `TrainState` of ``model`` (its full weights loaded, on
+    ``device``) over ``mesh`` (`pigeon_tpu/train/train_loop.py::
+    create_train_state`): its tensor-parallel shards (`train.mesh.
+    tensor_parallel`; a route or width the model axis cannot run raises
+    ValueError), then DDP or, under ``fsdp``, FSDP2 on the data axis,
+    then the optimizer ``optimizer_fn(parameters)`` over the rank's
+    parameters, clipping by the norm over every shard. One process
+    without a group: the model and its optimizer as they are."""
+    from pigeon_tpu_torch.train.mesh import (
+        data_parallel,
+        tensor_parallel,
+        use_global_norm,
+    )
+
+    tensor_parallel(model, mesh, device)
+    forward = data_parallel(model, mesh, fsdp, device)
+    optimizer = optimizer_fn(model.parameters())
+    use_global_norm(optimizer, model, mesh)
+    return TrainState(model, optimizer,
+                      forward=None if forward is model else forward,
+                      mesh=mesh)
 
 
 class AdamW(torch.optim.AdamW):
@@ -47,7 +83,14 @@ class AdamW(torch.optim.AdamW):
     call applies the clipped update to that mean and starts a new one;
     the others leave the parameters and Adam's moments as they are. The
     mean and its count are part of the state dict, so a checkpoint taken
-    between updates resumes the accumulation.
+    between updates resumes the accumulation. Under data parallelism each
+    micro-step's gradients arrive averaged over the ranks; the running
+    mean of those averages is the average of the ranks' running means
+    (both are linear), so the micro-steps all-reduce as the updates do.
+
+    ``norm_fn``: the global norm of a list of parameters' gradients, over
+    every shard where the model is sharded (`train.mesh.use_global_norm`
+    sets it); None sums this process's.
 
     ``schedule``: a learning rate by update, ``count -> lr``, that each
     update reads at the count of updates applied before it (optax's
@@ -62,6 +105,7 @@ class AdamW(torch.optim.AdamW):
                  schedule: Optional[Callable[[int], float]] = None):
         super().__init__(params, lr=lr, betas=betas, eps=eps,
                          weight_decay=weight_decay)
+        self.norm_fn: Optional[Callable] = None
         if accum_steps < 1:
             raise ValueError(f"accum_steps={accum_steps} < 1")
         self.max_grad_norm = max_grad_norm
@@ -73,6 +117,15 @@ class AdamW(torch.optim.AdamW):
 
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
+
+    def grad_norm(self, params) -> torch.Tensor:
+        """The global norm of ``params``' gradients (`norm_fn`'s, else
+        optax's ``global_norm``: the square root of the summed
+        squares)."""
+        if self.norm_fn is not None:
+            return self.norm_fn(params)
+        return torch.stack([p.grad.square().sum()
+                            for p in params]).sum().sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -91,13 +144,16 @@ class AdamW(torch.optim.AdamW):
                 p.grad = self.acc_grads[p]
             self.acc_grads, self.mini_step = {}, 0
         if self.max_grad_norm is not None and params:
-            # optax.global_norm: the square root of the summed squares.
-            norm = torch.stack([p.grad.square().sum()
-                                for p in params]).sum().sqrt()
+            norm = self.grad_norm(params)
             if not norm < self.max_grad_norm:
                 for p in params:
-                    p.grad = p.grad / norm.to(p.grad.dtype) \
-                        * self.max_grad_norm
+                    if hasattr(p.grad, "to_local"):     # an FSDP2 shard
+                        g = p.grad.to_local()
+                        g.copy_(g / norm.to(g.device, g.dtype)
+                                * self.max_grad_norm)
+                    else:
+                        p.grad = p.grad / norm.to(p.grad.dtype) \
+                            * self.max_grad_norm
         if self.schedule is not None:
             lr = float(self.schedule(self.updates))
             for group in self.param_groups:
@@ -163,13 +219,12 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
     return out
 
 
-def batch_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
-               geocells: torch.Tensor, head_cfg: HeadConfig,
-               smooth_fn: Callable = smoothed_targets):
-    """Forward and `geocell_loss` on a device batch:
-    ``(output, total, parts)``."""
-    out = model(batch["inputs"], heading=batch.get("heading"))
-    total, parts = geocell_loss(
+def output_loss(out: GeocellOutput, batch: Dict[str, torch.Tensor],
+                geocells: torch.Tensor, head_cfg: HeadConfig,
+                smooth_fn: Callable = smoothed_targets):
+    """`geocell_loss` of a forward's ``out`` against ``batch``'s labels:
+    ``(total, parts)``."""
+    return geocell_loss(
         out, geocells, head_cfg,
         labels_lla=batch.get("labels"),
         labels_clf=batch.get("labels_clf"),
@@ -177,6 +232,15 @@ def batch_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
         labels_climate=batch.get("labels_climate"),
         labels_month=batch.get("labels_month"),
         smooth_fn=smooth_fn)
+
+
+def batch_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
+               geocells: torch.Tensor, head_cfg: HeadConfig,
+               smooth_fn: Callable = smoothed_targets):
+    """Forward and `geocell_loss` on a device batch:
+    ``(output, total, parts)``."""
+    out = model(batch["inputs"], heading=batch.get("heading"))
+    total, parts = output_loss(out, batch, geocells, head_cfg, smooth_fn)
     return out, total, parts
 
 
@@ -193,15 +257,15 @@ def make_train_step(head_cfg: HeadConfig, geocells: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        _, total, parts = batch_loss(state.model, batch, geocells, head_cfg)
+        _, total, parts = batch_loss(state.runner, batch, geocells, head_cfg)
         total.backward()
-        grads = [p.grad for group in state.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
-        parts["grad_norm"] = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"] if p.grad is not None]
+        parts["grad_norm"] = state.optimizer.grad_norm(params)
         state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in parts.items()}
+        return mean_over_data({k: v.detach() for k, v in parts.items()},
+                              state.mesh)
 
     return train_step
 
@@ -211,13 +275,27 @@ def make_eval_step(head_cfg: HeadConfig, geocells: torch.Tensor,
     """``eval_step(model, batch) -> (parts, predictions)``: the forward,
     the loss and what the metric suite reads (argmax cell and location,
     top-k cells and probabilities, embeddings, multi-task outputs). The
-    top k is ``num_candidates`` wide (default: the head's)."""
+    top k is ``num_candidates`` wide (default: the head's).
+
+    A batch with ``row_index`` (`train.multihost.iter_eval_batches`: a
+    rank's rows, padded) takes its loss over the rows whose index is not
+    -1, and ``parts["rows"]`` counts them."""
     k = num_candidates or head_cfg.num_candidates
 
     @torch.inference_mode()
     def eval_step(model: nn.Module, batch: Dict[str, torch.Tensor]):
         model.eval()
-        out, _, parts = batch_loss(model, batch, geocells, head_cfg)
+        out = model(batch["inputs"], heading=batch.get("heading"))
+        if "row_index" in batch:
+            keep = batch["row_index"] >= 0
+            real = GeocellOutput(*(None if t is None else t[keep]
+                                   for t in out))
+            labels = {key: v[keep] for key, v in batch.items()
+                      if key != "inputs"}
+            _, parts = output_loss(real, labels, geocells, head_cfg)
+            parts["rows"] = keep.sum()
+        else:
+            _, parts = output_loss(out, batch, geocells, head_cfg)
         preds = geocell_predictions(out.logits, geocells, k)
         preds.update(embedding=out.embedding, preds_mt=out.preds_mt,
                      preds_climate=out.preds_climate,

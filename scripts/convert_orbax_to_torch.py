@@ -17,7 +17,7 @@ and `pigeon_tpu_torch`. Its steps:
    restore_checkpoint` (the newest step, or ``--step``);
 3. the weights, through `pigeon_tpu_torch.models.jax_bridge`, and the Adam
    moments go into the port's model and `adamw`, written as
-   ``--checkpoint-dir/NAME/step_N.pt`` by the port's `save_checkpoint`:
+   ``--checkpoint-dir/NAME/step_N/`` (DCP) by the port's `save_checkpoint`:
    ``finetune --resume``, ``serve``, ``evaluate`` and ``predict`` of the
    port read it.
 
@@ -49,7 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("name", help="run name: the output is "
-                                "CHECKPOINT_DIR/NAME/step_N.pt")
+                                "CHECKPOINT_DIR/NAME/step_N/")
     p.add_argument("--orbax-dir", required=True,
                    help="the JAX run's Orbax checkpoint directory")
     p.add_argument("--checkpoint-dir", default="saved_models",
@@ -218,7 +218,7 @@ def main(argv=None) -> int:
     out = os.path.join(args.checkpoint_dir, args.name)
     step = save_checkpoint(out, state)
     trained = sum(len(g["params"]) for g in state.optimizer.param_groups)
-    print(f"wrote {out}/step_{step}.pt: {len(state.model.state_dict())} "
+    print(f"wrote {out}/step_{step}/: {len(state.model.state_dict())} "
           f"tensors, Adam moments of {trained} trainable parameters")
     return 0
 

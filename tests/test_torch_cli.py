@@ -310,13 +310,15 @@ def test_finetune_trains_on_the_flash_route(env, tmp_path, monkeypatch):
 
 def test_serve_answers_with_the_checkpoint_finetune_wrote(env, tmp_path,
                                                           monkeypatch):
-    """``finetune --tiny --device cpu`` writes ``step_N.pt``; ``serve`` on
+    """``finetune --tiny --device cpu`` writes ``step_N/``; ``serve`` on
     the same run name and ``--checkpoint-dir`` restores it
     (`pigeon_tpu/cli/run.py::_init_and_restore`) and answers with that
-    model's embedding: the one of a model with the file loaded by hand,
+    model's embedding: the one of a model with the DCP checkpoint loaded
+    by hand,
     not the seeded initialisation's. ``--quant`` restores before it
     quantizes."""
     import torch
+    import torch.distributed.checkpoint as dcp
 
     from pigeon_tpu_torch.models.super_guessr import SuperGuessr, init_weights
     from pigeon_tpu_torch.serve.server import make_serving_fn
@@ -328,7 +330,7 @@ def test_serve_answers_with_the_checkpoint_finetune_wrote(env, tmp_path,
     ckpt_dir = tmp_path / "saved_models" / "tinyrun"
     step = latest_step(str(ckpt_dir))
     assert step == 2
-    saved = torch.load(ckpt_dir / f"step_{step}.pt", weights_only=True)
+    saved = str(ckpt_dir / f"step_{step}")
 
     argv = ["serve", "tinyrun", "--tiny", "--device", "cpu", "--port", "0",
             "--geocells", str(tmp_path / "cells.csv"), "--checkpoint-dir",
@@ -359,7 +361,10 @@ def test_serve_answers_with_the_checkpoint_finetune_wrote(env, tmp_path,
                             cli.INIT_SEED)
 
     by_hand = seeded()
-    by_hand.load_state_dict(saved["model"])
+    loaded = {f"model.{k}": v for k, v in by_hand.state_dict().items()}
+    dcp.load(loaded, checkpoint_id=saved, no_dist=True)
+    by_hand.load_state_dict({k[len("model."):]: v
+                             for k, v in loaded.items()})
     pixels = np.random.default_rng(0).integers(
         0, 256, (1, 4, 64, 64, 3), dtype=np.uint8)
     got = serve_fn(pixels)["embedding"]
@@ -381,7 +386,7 @@ def test_serve_answers_with_the_checkpoint_finetune_wrote(env, tmp_path,
     httpd.shutdown()
     httpd.server_close()
     torch.testing.assert_close(calls[0],
-                               saved["model"]["head.cell_layer.bias"])
+                               by_hand.state_dict()["head.cell_layer.bias"])
 
 
 def test_serve_refuses_a_checkpoint_of_other_head_flags(env, tmp_path,

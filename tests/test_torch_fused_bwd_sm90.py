@@ -229,3 +229,24 @@ def test_cuda_k3_online_matches_plain_version(cuda, s, amp):
     want = k34.flash_attention_online_reference(q, k, v)
     # 3e-2: the repo's bf16 attention bound.
     assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [512, 256])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_cuda_k2_matches_plain_version_on_local_heads(cuda, s, p):
+    """K2 at D = 1024 with P = 512 and 256: a rank's heads of ViT-L/14
+    under tensor parallelism at tp = 2 and 4; its dx is the rank's partial
+    sum, which the model axis all-reduces."""
+    ops, _ = cuda_operands(s, 1024, amp=8.0)
+    x, wq, wk, wv, bq, bk, bv, g = ops
+    ops = (x, *(w[:p].contiguous() for w in (wq, wk, wv)),
+           *(bb[:p].contiguous() for bb in (bq, bk, bv)),
+           g[..., :p].contiguous())
+    before = k12.fused_qkv_attention_backward.launches
+    got = k12.fused_qkv_attention_backward(*ops, p // 64)
+    torch.cuda.synchronize()
+    assert k12.fused_qkv_attention_backward.launches == before + 1
+    assert got[0].shape == (3, s, 1024) and got[1].shape == (3, s, p)
+    # K2's bound, as at P = D above.
+    within(got, k12.fused_qkv_attention_backward_reference(*ops, p // 64))

@@ -220,3 +220,24 @@ def test_cuda_k5_matches_plain_version(cuda, s, d):
     # rounded from sums taken in another order.
     scale = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [512, 256])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_cuda_k1_matches_plain_version_on_local_heads(cuda, s, p):
+    """K1 at D = 1024 with P = 512 and 256: a rank's heads of ViT-L/14
+    under tensor parallelism at tp = 2 and 4 (`kernels/sharded.py`)."""
+    x, _, _, ws, bs, _ = cuda_operands(s, 1024)
+    xn = torch.nn.functional.layer_norm(x.float(), (1024,)).bfloat16()
+    ws = [w[:p].contiguous() for w in ws]
+    bs = [bb[:p].contiguous() for bb in bs]
+    before = k1.fused_qkv_attention.launches
+    got = k1.fused_qkv_attention(xn, *ws, *bs, p // 64)
+    torch.cuda.synchronize()
+    assert k1.fused_qkv_attention.launches == before + 1
+    want = k1.fused_qkv_attention_reference(xn, *ws, *bs, p // 64)
+    assert got.shape == (3, s, p) and bool(torch.isfinite(got.float()).all())
+    # K1's bound (chip_smoke.py's K1_TOL), as at P = D above.
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale

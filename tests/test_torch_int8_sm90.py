@@ -155,3 +155,43 @@ def test_k7_folded_scales_equal_the_jax_wrappers_sv_vec(monkeypatch, seed):
     for got, at in zip(folded, (5, 8, 11, 15)):
         np.testing.assert_array_equal(got.numpy().view(np.int32),
                                       ops[at].reshape(-1).view(np.int32))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [512, 256])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_cuda_k8_matches_plain_version_on_local_heads(cuda, s, p):
+    """K8 at D = 1024 with P = 512 and 256: a rank's heads of ViT-L/14
+    under tensor parallelism at tp = 2 and 4 (the int8 weights', scales'
+    and biases' rows of those heads, x replicated)."""
+    from pigeon_tpu_torch.models.quant import quantize_channelwise
+
+    gen = torch.Generator(device=cuda).manual_seed(s + p)
+    x = torch.nn.functional.layer_norm(
+        torch.randn(2, s, 1024, generator=gen, device=cuda),
+        (1024,)).bfloat16()
+    act_scale = x.float().abs().max() / 127
+    ops = []
+    for _ in range(3):
+        w_q, scale = quantize_channelwise(
+            torch.randn(1024, 1024, generator=gen, device=cuda) * 0.02)
+        bias = torch.randn(1024, generator=gen, device=cuda) * 0.02
+        ops += [t[:p].contiguous() for t in (w_q, scale, bias)]
+    before = k8.fused_qkv_attention_int8.launches
+    got = k8.fused_qkv_attention_int8(x, act_scale, *ops, p // 64)
+    torch.cuda.synchronize()
+    assert k8.fused_qkv_attention_int8.launches == before + 1
+    want = k8.fused_qkv_attention_int8_reference(x, act_scale, *ops, p // 64)
+    assert got.shape == (2, s, p) and bool(torch.isfinite(got.float()).all())
+    # The int8 bounds of tests/test_torch_quant.py: 3e-2, and 2e-2 of the
+    # output's magnitude (K1's).
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 3e-2
+    assert err <= 2e-2 * want.float().abs().max().item()

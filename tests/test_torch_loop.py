@@ -151,7 +151,7 @@ def test_session_async_saves_then_restore(tmp_path):
         assert sess.latest_step() == 3
         blank = port_world()[0]
         sess.restore(blank)                    # joins the writer first
-    assert sorted(os.listdir(d)) == ["step_2.pt", "step_3.pt"]
+    assert sorted(os.listdir(d)) == ["step_2", "step_3"]
     assert_states_equal(blank, state)
 
 
@@ -167,33 +167,40 @@ def test_session_restore_empty_dir_raises(tmp_path):
 
 def test_async_save_writes_the_state_at_save(tmp_path, monkeypatch):
     """The copy is taken inside `save`: an in-place update made while the
-    write is still to come does not reach the file."""
-    from pigeon_tpu_torch.train import checkpoints
-    from pigeon_tpu_torch.train.checkpoints import CheckpointSession
+    write is still to come does not reach the checkpoint."""
+    from torch.distributed.checkpoint import FileSystemWriter
+
+    from pigeon_tpu_torch.train.checkpoints import (
+        CheckpointSession,
+        read_counters,
+        restore_model,
+    )
 
     state, step_fn, _, batch = port_world()
     step_fn(state, to_device(batch))
     want = {k: v.clone() for k, v in state.model.state_dict().items()}
     release = threading.Event()
-    real_write = checkpoints._write
+    real_write = FileSystemWriter.write_data
 
     def slow_write(*a, **kw):
         release.wait(10)
-        real_write(*a, **kw)
+        return real_write(*a, **kw)
 
-    monkeypatch.setattr(checkpoints, "_write", slow_write)
+    monkeypatch.setattr(FileSystemWriter, "write_data", slow_write)
     d = str(tmp_path / "ckpt")
     with CheckpointSession(d) as sess:
         sess.save(state)
+        assert sess.writing
         with torch.no_grad():
             for p in state.model.parameters():
                 p.add_(1.0)                    # AdamW's in-place update
         step_fn(state, to_device(batch))
         release.set()
-    saved = torch.load(os.path.join(d, "step_1.pt"), weights_only=True)
-    assert saved["step"] == 1
-    for k, v in want.items():
-        assert torch.equal(saved["model"][k], v), k
+    assert read_counters(d)["step"] == 1
+    saved = port_world()[0].model
+    assert restore_model(d, saved) == 1
+    for k, v in saved.state_dict().items():
+        assert torch.equal(v, want[k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -580,8 +580,15 @@ def test_make_config_equals_the_jax_clis(flags):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["serve", "--tp", "2"], "A9"), (["pretrain", "--fsdp"], "A9"),
-    (["finetune", "--tp", "4", "--fsdp"], "A9")])
+    (["serve", "--tp", "2"], "serve runs on one card"),
+    (["export", "--fsdp"], "export runs on one card"),
+    (["finetune", "--tp", "4", "--fsdp", "--device", "cpu"],
+     "tp=4 must divide the world size 1"),
+    (["pretrain", "--tp", "2", "--device", "cpu"],
+     "tp=2 must divide the world size 1")])
 def test_scale_out_flags_stop_with_the_queue_item(argv, match):
+    """``serve`` and ``export`` stay on one card, as in the JAX CLI; the
+    other commands take ``--tp`` only where it divides the ranks
+    `torchrun` started (one process here)."""
     with pytest.raises(SystemExit, match=match):
         cli.main(argv)

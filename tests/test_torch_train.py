@@ -423,7 +423,7 @@ def test_checkpoint_round_trip_keeps_the_newest(tmp_path, jax_params):
         state.step = step
         checkpoints.save_checkpoint(d, state)
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == \
-        ["step_2.pt", "step_3.pt", "step_4.pt"]
+        ["step_2", "step_3", "step_4"]
     other = port_state(jax_params)
     with torch.no_grad():
         other.model.head.cell_layer.bias.fill_(3.0)
