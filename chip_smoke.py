@@ -292,6 +292,26 @@ Phases, one line each, any failure raises:
              HF CLIP B/32 state dict) on ``sample20`` at batch 8 through
              the CLI's ``main``: K1 12 a batch (36), finite metrics with
              the suite's keys;
+11c. geocell_ladder - the offline artifact ladder through the CLI's
+             own ``main`` on a seeded world of 4,096 training and 512
+             held-out rows around 36 sites in three synthetic countries
+             (the PNG fixtures as images) with an admin-2 GeoJSON:
+             ``geocells --load`` (the PIGEON preset's 30/60 cells, host
+             only: no launch), ``embed`` at full width, batch 512 (K1 24
+             a batch), ``prototypes --geocells`` (host only), ``evaluate
+             -t --prototypes --embeddings --metadata`` refined at batch
+             64 (K1 24 and K10 1 a batch); each command's seconds, the
+             cell count and size range, the prototype count, whether
+             scikit-learn is importable; every training row in its cell
+             or at the nearest one, the C++ OPTICS graph equal to the
+             numpy one on three cells, the stored xi case's labels
+             (`tests/test_torch_geokernels.py`), finite metrics;
+11d. pipeline - the GPipe schedule at pp = 2, M = 4 over two gloo
+             ranks sharing the card (12 layers a stage, ViT-L/14-336 at
+             full width, 16 images): the tower's output within 2e-2 of
+             its magnitude of one process's, two train steps of the whole
+             model with loss and grad_norm within 5e-3 of one process's,
+             each rank's K1, K2 and K10 launches exactly as predicted;
 12. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
@@ -4979,6 +4999,516 @@ def check_zeroshot(seed: int) -> dict:
     return result["launches"]
 
 
+#: [geocell_ladder]: training and held-out rows, sites a country (three
+#: streets a site), the admin-2 grid a country (4-degree squares), and
+#: the batches of ``embed`` and ``evaluate``.
+LADDER_TRAIN, LADDER_HELD, LADDER_SITES, LADDER_GRID = 4096, 512, 12, 3
+LADDER_EMBED_BATCH, LADDER_EVAL_BATCH = 512, 64
+
+
+def write_geocell_world(root: str, seed: int) -> tuple:
+    """A seeded metadata CSV of `LADDER_TRAIN` training and `LADDER_HELD`
+    test rows (``image`` one of the PNG fixtures, ``lng``, ``lat``,
+    ``selection``) around `LADDER_SITES` sites in each of three synthetic
+    countries, three streets a site, and the countries' admin-2 squares
+    as GeoJSON. Returns the metadata, the GeoJSON and the image
+    directory."""
+    import numpy as np
+
+    images = os.path.join(HERE, "data", "benchmarks", "sample20", "images")
+    fixtures = sorted(os.path.basename(p)
+                      for p in glob.glob(os.path.join(images, "*.png")))
+    rng = np.random.default_rng(seed + 2)
+    feats, sites = [], []
+    span = 4.0 * LADDER_GRID
+    for ci, (x0, y0) in enumerate(((-100.0, 30.0), (5.0, 45.0),
+                                   (120.0, -30.0))):
+        for gy in range(LADDER_GRID):
+            for gx in range(LADDER_GRID):
+                a, b = x0 + 4.0 * gx, y0 + 4.0 * gy
+                feats.append({"type": "Feature", "properties": {
+                    "shapeName": f"c{ci}_{gx}_{gy}"}, "geometry": {
+                        "type": "Polygon", "coordinates": [[
+                            [a, b], [a + 4, b], [a + 4, b + 4],
+                            [a, b + 4], [a, b]]]}})
+        sites.append(np.stack([rng.uniform(x0 + 0.3, x0 + span - 0.3,
+                                           LADDER_SITES),
+                               rng.uniform(y0 + 0.3, y0 + span - 0.3,
+                                           LADDER_SITES)], -1))
+    sites = np.concatenate(sites)
+    streets = (sites[:, None] + rng.normal(0, 0.4, (len(sites), 3, 2))
+               ).reshape(-1, 2)
+    n = LADDER_TRAIN + LADDER_HELD
+    lla = streets[rng.integers(0, len(streets), n)] + rng.normal(
+        0, 0.04, (n, 2))
+    selection = np.array(["train"] * LADDER_TRAIN + ["test"] * LADDER_HELD)
+    rng.shuffle(selection)
+    meta = os.path.join(root, "ladder_meta.csv")
+    with open(meta, "w") as f:
+        f.write("image,lng,lat,selection\n")
+        f.writelines(f"{rng.choice(fixtures)},{lng},{lat},{sel}\n"
+                     for (lng, lat), sel in zip(lla.tolist(), selection))
+    geojson = os.path.join(root, "admin2.geojson")
+    with open(geojson, "w") as f:
+        json.dump({"type": "FeatureCollection", "features": feats}, f)
+    return meta, geojson, images
+
+
+def stored_xi_case() -> tuple:
+    """The fixed seeded OPTICS case of `tests/test_torch_geokernels.py`
+    (its ``XI_CASE``, ``XI_EXPECTED`` (scikit-learn's labels, computed on
+    the CPU) and ``xi_case_points``), read from the file's source."""
+    import ast
+
+    import numpy as np
+
+    path = os.path.join(HERE, "tests", "test_torch_geokernels.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found, scope = {}, {"np": np}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and node.targets[0].id in (
+                "XI_CASE", "XI_EXPECTED"):
+            found[node.targets[0].id] = ast.literal_eval(node.value)
+        elif isinstance(node, ast.FunctionDef) \
+                and node.name == "xi_case_points":
+            exec(compile(ast.Module([node], []), path, "exec"), scope)
+    return found["XI_CASE"], found["XI_EXPECTED"], scope["xi_case_points"]
+
+
+def check_ladder_outputs(meta: str, cells_csv: str, protos_csv: str
+                         ) -> dict:
+    """The artifacts' checks: every training row lies in the cell the
+    ``prototypes`` command's assigner gives it or, lying in none, takes
+    the nearest centroid's; the C++ OPTICS graph equals the numpy one on
+    three cells (the largest, the median and the smallest of at least 10
+    rows), euclidean at the split's first setting and
+    on the prototypes' haversine matrix; the stored xi case's labels."""
+    import numpy as np
+    import pandas as pd
+
+    from pigeon_tpu_torch.core.geodesy import haversine_matrix_np
+    from pigeon_tpu_torch.geocell import geokernels, geometry, optics
+    from pigeon_tpu_torch.geocell.assignment import CellAssigner
+    from pigeon_tpu_torch.geocell.cells import OPTICS_PARAMS_STREETVIEW
+    from pigeon_tpu_torch.geocell.prototypes import DEFAULT_CLUSTER_ARGS
+
+    if not geokernels.available():
+        raise RuntimeError("the C++ geo kernels did not build here")
+    df = pd.read_csv(meta)
+    pts = df[df["selection"] == "train"][["lng", "lat"]].to_numpy(
+        np.float64)
+    assigner = CellAssigner.from_csv(cells_csv)
+    labels = assigner.assign(pts)
+    inside = np.stack([geometry.points_in_multipolygon(pts, polys)
+                       if polys else np.zeros(len(pts), bool)
+                       for polys in assigner.polygons], 1)
+    nearest = np.linalg.norm(pts[:, None] - assigner.centroids[None],
+                             axis=-1).argmin(1)
+    own = inside[np.arange(len(pts)), labels]
+    fallback = ~inside.any(1) & (labels == nearest)
+    if not (own | fallback).all():
+        raise RuntimeError(f"{int((~(own | fallback)).sum())} training rows "
+                           "neither in their cell nor at the nearest one")
+    sizes = np.bincount(labels, minlength=assigner.num_cells)
+    order = [c for c in np.argsort(sizes, kind="stable") if sizes[c] >= 10]
+    picks = [order[-1], order[len(order) // 2], order[0]]
+    graphs = []
+    for cell in picks:
+        cp = pts[labels == cell]
+        d = haversine_matrix_np(cp, cp)
+        d = np.where(d == 0, 1e-5, d)
+        for x, ms, pre in ((cp, OPTICS_PARAMS_STREETVIEW[0][0], False),
+                           (d, DEFAULT_CLUSTER_ARGS[0], True)):
+            ms = min(ms, len(cp))
+            got = geokernels.optics_graph(x, ms, precomputed=pre)
+            want = optics.optics_graph_np(x, ms, precomputed=pre)
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"cell {cell}: the C++ OPTICS graph "
+                                   "differs from the numpy graph")
+        graphs.append(int(len(cp)))
+    case, expected, points = stored_xi_case()
+    xi_labels = optics.optics_xi_labels(points(**case), case["min_samples"],
+                                        case["xi"]).tolist()
+    if xi_labels != expected:
+        raise RuntimeError("the stored xi case's labels differ: "
+                           f"{xi_labels} against {expected}")
+    protos = pd.read_csv(protos_csv)
+    return {"rows_in_own_cell": int(own.sum()),
+            "rows_nearest_fallback": int((fallback & ~own).sum()),
+            "graph_cells_rows": graphs, "xi_case_points": case["n"],
+            "prototypes": len(protos),
+            "prototype_cells": int(protos["geocell_idx"].nunique())}
+
+
+def check_geocell_ladder(seed: int) -> dict:
+    """[geocell_ladder]: the artifact ladder through the CLI's own
+    ``main``, entirely on this machine, on a seeded world of
+    `LADDER_TRAIN` + `LADDER_HELD` rows (`write_geocell_world`):
+
+    1. ``geocells --load`` the admin-2 GeoJSON, the PIGEON preset's 30/60
+       cell sizes and StreetView OPTICS ladder (host only: no launch);
+    2. ``embed`` every split at full ViT-L/14-336 width, batch 512: K1 24
+       a batch;
+    3. ``prototypes --geocells`` (rows labelled by the cells; host only);
+    4. ``evaluate -t --prototypes --embeddings --metadata`` (refined) on
+       the held-out rows at batch 64: K1 24 and K10 1 a batch;
+
+    each command's seconds and exact launches; the cell count and size
+    range, the prototype count, whether scikit-learn is importable here
+    (the port does not need it), `check_ladder_outputs`, finite metrics.
+    Returns the launches."""
+    import importlib.util
+    import math
+
+    import pandas as pd
+
+    from pigeon_tpu_torch.cli import run
+
+    counters = eval_counters()
+    launches = dict.fromkeys(counters, 0)
+    layers = run.make_config(run.build_parser().parse_args(
+        ["embed"])).vision.num_layers
+    fields = {"sklearn_importable": importlib.util.find_spec("sklearn")
+              is not None}
+    with tempfile.TemporaryDirectory() as root:
+        meta, geojson, images = write_geocell_world(root, seed)
+        cells = os.path.join(root, "cells.csv")
+        emb = os.path.join(root, "emb")
+        protos = os.path.join(root, "protos.csv")
+        out = os.path.join(root, "ladder.json")
+        embed_batches = (math.ceil(LADDER_TRAIN / LADDER_EMBED_BATCH)
+                         + math.ceil(LADDER_HELD / LADDER_EMBED_BATCH))
+        eval_batches = math.ceil(LADDER_HELD / LADDER_EVAL_BATCH)
+        steps = (
+            ("geocells", ["geocells", "ladder", "--metadata", meta,
+                          "--load", geojson, "--output", cells], {}),
+            ("embed", ["embed", "ladder", "--metadata", meta, "--images",
+                       images, "--batch-size", str(LADDER_EMBED_BATCH),
+                       "--device", "cuda", "--output", emb],
+             {"fused_qkv_attention": layers * embed_batches}),
+            ("prototypes", ["prototypes", "ladder", "--metadata", meta,
+                            "--geocells", cells, "--output", protos], {}),
+            ("evaluate", ["evaluate", "ladder", "-t", "--metadata", meta,
+                          "--images", images, "--geocells", cells,
+                          "--prototypes", protos, "--embeddings", emb,
+                          "--batch-size", str(LADDER_EVAL_BATCH),
+                          "--device", "cuda", "--output", out],
+             {"fused_qkv_attention": layers * eval_batches,
+              "smooth_labels": eval_batches}))
+        for label, argv, expect in steps:
+            result = run_command(argv, counters, expect)
+            fields[f"{label}_s"] = round(result["seconds"], 3)
+            for name, n in result["launches"].items():
+                launches[name] += n
+            if label == "embed":
+                fields["embed_peak_gib"] = round(result["peak_gib"], 3)
+        table = pd.read_csv(cells)
+        fields.update(cells=len(table), cell_size_min=int(table["size"].min()),
+                      cell_size_max=int(table["size"].max()),
+                      cell_rows=int(table["size"].sum()))
+        if fields["cell_rows"] != LADDER_TRAIN:
+            raise RuntimeError(f"the cells hold {fields['cell_rows']} rows, "
+                               f"not the {LADDER_TRAIN} training rows")
+        fields.update(check_ladder_outputs(meta, cells, protos))
+        metrics = json.load(open(out))["test"]
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad or not metrics:
+            raise RuntimeError(f"evaluate: not finite: {bad} of {metrics}")
+        fields.update({k: round(v, 5) for k, v in metrics.items()
+                       if k in ("Median_km_error", "Geoguessr_score",
+                                "Eval_loss")})
+    phase("geocell_ladder", train_rows=LADDER_TRAIN,
+          held_rows=LADDER_HELD, launches={
+              n: v for n, v in launches.items() if v}, **fields)
+    return launches
+
+
+#: [pipeline]: stages, microbatches, and the global batch of images
+#: (ViT-L/14-336, 12 layers a stage).
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_BATCH, PIPE_STEPS = 2, 4, 16, 2
+#: [pipeline]: the pipelined tower's output against one process's, of
+#: its magnitude (bf16; K1's bound), and the train steps' loss and
+#: grad_norm, relative ([scale_out]'s gloo rig's).
+PIPE_TOWER_REL, PIPE_METRIC_REL = 2e-2, 5e-3
+#: [pipeline]: AdamW's first update is lr x sign(g) where |g| >> eps, so
+#: it carries bf16 rounding noise of near-zero gradients into step 2 in
+#: proportion to lr: on an H100 80GB HBM3 (700 W) one process's own
+#: step-2 grad_norm ranged 8.3e-3 over five runs at 1e-5, 1.6e-3 at this
+#: rate (the loss still falls by a tenth), below `PIPE_METRIC_REL`.
+PIPE_LR = 1e-6
+
+
+def pipe_model():
+    """The [pipeline] model: the PIGEON preset's tower at full width and
+    a geocell head of `NUM_CELLS` cells on single images (bf16 compute,
+    f32 parameters, the ``fused`` route: K1, K2 behind it, K10 in the
+    loss)."""
+    import dataclasses
+
+    import torch
+
+    from pigeon_tpu_torch.config import pigeon_config
+    from pigeon_tpu_torch.models.super_guessr import SuperGuessr
+
+    cfg = pigeon_config(NUM_CELLS)
+    cfg = cfg.replace(head=dataclasses.replace(
+        cfg.head, panorama=False, multi_task=False, heading=False))
+    return cfg, SuperGuessr(cfg.vision, cfg.head, dtype=torch.bfloat16)
+
+
+def pipe_batch(seed: int, cfg) -> dict:
+    """A seeded batch of `PIPE_BATCH` CLIP-normalised images and labels,
+    and the cells."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 3)
+    size = cfg.vision.image_size
+    return ({"inputs": rng.normal(size=(PIPE_BATCH, size, size, 3)).astype(
+                np.float32),
+             "labels": np.stack([rng.uniform(-180, 180, PIPE_BATCH),
+                                 rng.uniform(-60, 75, PIPE_BATCH)],
+                                -1).astype(np.float32)},
+            np.stack([rng.uniform(-180, 180, NUM_CELLS),
+                      rng.uniform(-60, 75, NUM_CELLS)],
+                     -1).astype(np.float32))
+
+
+def pipe_counters() -> dict:
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k
+    from pigeon_tpu_torch.kernels import geodesy
+
+    return {"fused_qkv_attention": k.fused_qkv_attention,
+            "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
+            "smooth_labels": geodesy.smooth_labels_from_points}
+
+
+def pipeline_rank(rank: int, port: int, state_path: str, seed: int,
+                  out: str) -> None:
+    """One stage of [pipeline]: two ranks share the card over gloo
+    (activations and gradients through pinned host copies). The model
+    from ``state_path``, this stage's 12 layers; the pipelined tower's
+    output under no_grad, then `PIPE_STEPS` pipelined train steps; each
+    part's launches, ms, the metrics and the peak memory to
+    ``out/pipe.<rank>.json``, the tower's output (rank 0) to
+    ``out/pipe_tower.pt``. A failure is written there too and raised."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from pigeon_tpu_torch.train.pipeline import (
+        create_pipeline_mesh,
+        create_pipeline_train_state,
+        make_pipeline_train_step,
+        pipeline_vision_forward,
+    )
+    from pigeon_tpu_torch.train.train_loop import adamw, batch_to_device
+
+    torch.cuda.set_device(0)
+    # A peer that fails ends this rank's waits too, within the phase.
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=PIPE_STAGES,
+                            timeout=datetime.timedelta(seconds=300))
+    record = {}
+    try:
+        counters = pipe_counters()
+        cfg, model = pipe_model()
+        model.load_state_dict(torch.load(state_path, mmap=True), strict=True)
+        model.cuda()
+        mesh = create_pipeline_mesh(PIPE_STAGES, device_type="cuda")
+        state = create_pipeline_train_state(
+            model, lambda p: adamw(p, PIPE_LR), mesh, "cuda")
+        record["layers"] = sorted(int(i) for i in
+                                  model.vision.encoder.layers.keys())
+        batch, cells = pipe_batch(seed, cfg)
+        device_batch = batch_to_device(batch, "cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            hidden, pooled = pipeline_vision_forward(
+                model.vision, device_batch["inputs"], mesh,
+                PIPE_MICROBATCHES)
+        torch.cuda.synchronize()
+        record["tower_ms"] = (time.perf_counter() - t0) * 1e3
+        record["tower_launches"] = {n: fn.launches
+                                    for n, fn in counters.items()}
+        if rank == 0:
+            torch.save({"hidden": hidden.float().cpu(),
+                        "pooled": pooled.float().cpu()},
+                       os.path.join(out, "pipe_tower.pt"))
+        del hidden, pooled
+        step = make_pipeline_train_step(
+            cfg.head, torch.from_numpy(cells).cuda(), PIPE_MICROBATCHES)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        record.update(step_ms=[], loss=[], grad_norm=[])
+        for _ in range(PIPE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, device_batch)
+            torch.cuda.synchronize()
+            record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            record["loss"].append(float(metrics["loss"]))
+            record["grad_norm"].append(float(metrics["grad_norm"]))
+        record["train_launches"] = {n: fn.launches
+                                    for n, fn in counters.items()}
+        record["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    except BaseException:
+        record["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out, f"pipe.{rank}.json"), "w") as f:
+            json.dump(record, f)
+        dist.destroy_process_group()
+
+
+def check_pipeline(seed: int) -> dict:
+    """[pipeline]: the GPipe schedule (`train/pipeline.py`) at pp =
+    `PIPE_STAGES`, M = `PIPE_MICROBATCHES` over two gloo ranks sharing
+    the card (`pipeline_rank`), ViT-L/14-336 at full width (12 layers a
+    stage), held against one process on the same seeded weights and
+    batch: the tower's output (last hidden and pooled, within
+    `PIPE_TOWER_REL` of each one's magnitude) and `PIPE_STEPS` train
+    steps of the whole model (loss and grad_norm within
+    `PIPE_METRIC_REL`); each rank's K1 and K2 launches exactly as
+    predicted (12 layers x M microbatches a forward or a backward; K10
+    once a step on each stage, which runs the loss on the broadcast
+    output). Returns this process's launches (the one-process runs)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.mesh import Mesh
+    from pigeon_tpu_torch.train.train_loop import (
+        TrainState,
+        adamw,
+        batch_to_device,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    counters = pipe_counters()
+    launches = dict.fromkeys(counters, 0)
+    cfg, model = pipe_model()
+    layers = cfg.vision.num_layers
+    per_stage = layers // PIPE_STAGES
+    init_weights(model, BASE_SEED + seed)
+    batch, cells = pipe_batch(seed, cfg)
+    fields = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace(" ", "_")}
+    with tempfile.TemporaryDirectory() as root:
+        state_path = os.path.join(root, "state.pt")
+        torch.save(model.state_dict(), state_path)
+        # --- one process: the tower, then the train steps ---
+        model.cuda()
+        device_batch = batch_to_device(batch, "cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want_h, want_p = model.vision(device_batch["inputs"])
+        torch.cuda.synchronize()
+        fields["one_tower_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        want_h, want_p = want_h.float().cpu(), want_p.float().cpu()
+        ref = TrainState(model, adamw(model.parameters(), PIPE_LR),
+                         mesh=Mesh())
+        step = make_train_step(cfg.head, torch.from_numpy(cells).cuda())
+        one = {"loss": [], "grad_norm": [], "step_ms": []}
+        for _ in range(PIPE_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(ref, device_batch)
+            one["loss"].append(float(metrics["loss"]))
+            one["grad_norm"].append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+            one["step_ms"].append(round((time.perf_counter() - t0) * 1e3, 3))
+        torch.cuda.synchronize()
+        got = {n: fn.launches for n, fn in counters.items()}
+        want_one = {"fused_qkv_attention": layers * (1 + PIPE_STEPS),
+                    "fused_qkv_attention_bwd": layers * PIPE_STEPS,
+                    "smooth_labels": PIPE_STEPS}
+        if got != want_one:
+            raise RuntimeError(f"one process launched {got}, expected "
+                               f"{want_one}")
+        for n, v in got.items():
+            launches[n] += v
+        del ref, step, model, device_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        fields["one_process_s"] = round(time.perf_counter() - t_phase, 1)
+
+        # --- two ranks, one stage each ---
+        t0 = time.perf_counter()
+        mp.start_processes(pipeline_rank, args=(free_port(), state_path,
+                                                seed, root),
+                           nprocs=PIPE_STAGES, start_method="spawn",
+                           join=True)
+        fields["ranks_s"] = round(time.perf_counter() - t0, 1)
+        ranks = [json.load(open(os.path.join(root, f"pipe.{r}.json")))
+                 for r in range(PIPE_STAGES)]
+        tower = torch.load(os.path.join(root, "pipe_tower.pt"))
+    errors = {}
+    for name, got_t, want_t in (("hidden", tower["hidden"], want_h),
+                                ("pooled", tower["pooled"], want_p)):
+        errors[name] = float((got_t - want_t).abs().max()
+                             / want_t.abs().max())
+    want_tower = {"fused_qkv_attention": per_stage * PIPE_MICROBATCHES,
+                  "fused_qkv_attention_bwd": 0, "smooth_labels": 0}
+    want_train = {"fused_qkv_attention":
+                  per_stage * PIPE_MICROBATCHES * PIPE_STEPS,
+                  "fused_qkv_attention_bwd":
+                  per_stage * PIPE_MICROBATCHES * PIPE_STEPS,
+                  "smooth_labels": PIPE_STEPS}
+    for r, rec in enumerate(ranks):
+        want_layers = list(range(r * per_stage, (r + 1) * per_stage))
+        if rec.get("layers") != want_layers:
+            raise RuntimeError(f"pipeline rank {r} holds layers "
+                               f"{rec.get('layers')}")
+        if rec["tower_launches"] != want_tower or \
+                rec["train_launches"] != want_train:
+            raise RuntimeError(
+                f"pipeline rank {r} launched {rec['tower_launches']} in "
+                f"the tower and {rec['train_launches']} in the steps, "
+                f"expected {want_tower} and {want_train}")
+        for key in ("loss", "grad_norm"):
+            fields[f"rank{r}_{key}_rel_diff"] = [
+                abs(g - w) / abs(w) for g, w in zip(rec[key], one[key])]
+        fields[f"rank{r}_tower_ms"] = round(rec["tower_ms"], 3)
+        fields[f"rank{r}_step_ms"] = [round(t, 3) for t in rec["step_ms"]]
+        fields[f"rank{r}_peak_gib"] = round(rec["peak_gib"], 3)
+        fields[f"rank{r}_launches"] = {
+            n: rec["tower_launches"][n] + rec["train_launches"][n]
+            for n in counters}
+    fields["one_loss"] = one["loss"]
+    fields["one_grad_norm"] = one["grad_norm"]
+    fields["one_step_ms"] = one["step_ms"]
+    fields["tower_rel_err"] = errors
+    fields["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    phase("pipeline", stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
+          batch=PIPE_BATCH, layers=layers, steps=PIPE_STEPS, **fields)
+    if max(errors.values()) > PIPE_TOWER_REL:
+        raise RuntimeError(f"the pipelined tower is {errors} of its "
+                           f"magnitude from one process's")
+    worst = max(v for k, vs in fields.items() if k.endswith("_rel_diff")
+                for v in vs)
+    if not worst <= PIPE_METRIC_REL:
+        raise RuntimeError(f"a pipelined step's loss or grad_norm is {worst} "
+                           "from one process's")
+    if not all(np.isfinite(ranks[0]["loss"])):
+        raise RuntimeError(f"pipelined losses {ranks[0]['loss']}")
+    return launches
+
+
 def variant_counters() -> dict:
     """The launch counters of every kernel the tuning drivers run."""
     from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
@@ -5289,6 +5819,7 @@ def build_kernels() -> None:
 
     from pigeon_tpu_torch import native
     from pigeon_tpu_torch.data import native_decode
+    from pigeon_tpu_torch.geocell import geokernels
     from pigeon_tpu_torch.kernels import attention as k3
     from pigeon_tpu_torch.kernels import attention_bwd_variants as bv
     from pigeon_tpu_torch.kernels import attention_fwd_variants as fv
@@ -5359,7 +5890,9 @@ def build_kernels() -> None:
     fv.load()
     phase("build", sources=len(built), wall_seconds=round(wall, 3),
           native_decode="built" if native_decode.available()
-          else "unavailable (PIL decodes)")
+          else "unavailable (PIL decodes)",
+          geokernels="built" if geokernels.available()
+          else "unavailable (numpy)")
 
 
 def main() -> int:
@@ -5432,6 +5965,8 @@ def main() -> int:
     add(check_embed(args.seed))
     add(check_pretrain(args.seed))
     add(check_zeroshot(args.seed))
+    add(check_geocell_ladder(args.seed))
+    add(check_pipeline(args.seed))
     variant_launches, variant_records = check_variants()
     add(variant_launches)
     records.update(variant_records)

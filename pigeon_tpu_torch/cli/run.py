@@ -1,11 +1,13 @@
 """CLI of the port: the ``serve``, ``finetune``, ``evaluate``, ``predict``,
-``embed``, ``augment``, ``export`` and ``pretrain`` subcommands.
+``embed``, ``augment``, ``export``, ``pretrain``, ``geocells`` and
+``prototypes`` subcommands.
 
 Counterpart of `pigeon_tpu/cli/run.py::cmd_serve` (with
 ``--serve-batch`` and ``--artifact``), `cmd_finetune` (on pixels, and on
 embeddings with ``--embeddings``), `cmd_evaluate` (with ``--zeroshot``),
-`cmd_predict`, `cmd_embed`, `cmd_augment`, `cmd_export` and
-`cmd_pretrain`, with their flags for these paths. Models
+`cmd_predict`, `cmd_embed`, `cmd_augment`, `cmd_export`,
+`cmd_pretrain`, `cmd_geocells` and `cmd_prototypes`, with their flags for
+these paths. Models
 are built in bf16 with f32 parameters, on the attention
 route that ``PIGEON_ATTN_IMPL`` names in the JAX package's words
 (:func:`attn_impl`; ``PIGEON_QUANT_ATTN_IMPL`` under ``--quant``,
@@ -67,6 +69,12 @@ state over the data axis (FSDP2) where DDP would replicate it.
 0 alone writes metrics, checkpoints (DCP directories, `train/
 checkpoints.py`), banks, predictions and ``evaluate``'s JSON.
 ``serve`` and ``export`` stay on one card, as in the JAX CLI.
+
+``geocells`` and ``prototypes`` build the two tables every other command
+reads, on the host alone (no device, no process group): semantic
+geocells balanced by OPTICS (`geocell/creation.py`), then each cell's
+prototype clusters (`geocell/prototypes.py`), the C++ geo kernels
+(`geocell/geokernels.py`) where they build.
 Geocell, prototype and serving metadata CSVs are read with the stdlib
 ``csv`` module, training and evaluation metadata with pandas, embeddings
 with numpy.
@@ -107,6 +115,10 @@ Usage:
         --model vit-b32 -b CLIP.pt -l sample20 --geocells C.csv
     torchrun --standalone --nproc-per-node 2 -m pigeon_tpu_torch.cli.run \
         finetune myrun ... [--tp 2] [--fsdp] [--device cpu]
+    python -m pigeon_tpu_torch.cli.run geocells --metadata M.csv \
+        [--load ADMIN2.geojson] [--yfcc|--landmarks] [--output C.csv]
+    python -m pigeon_tpu_torch.cli.run prototypes --metadata M.csv[,M2.csv] \
+        --geocells C.csv [--output P.csv[,P2.csv]]
 """
 
 from __future__ import annotations
@@ -251,13 +263,14 @@ def build_parser() -> argparse.ArgumentParser:
         description="PIGEON geolocation in PyTorch on an NVIDIA GPU.")
     p.add_argument("function",
                    choices=["serve", "finetune", "evaluate", "predict",
-                            "embed", "augment", "export", "pretrain"],
+                            "embed", "augment", "export", "pretrain",
+                            "geocells", "prototypes"],
                    help="operation to run")
     p.add_argument("name", nargs="?", default="pigeon", help="run name")
     p.add_argument("-l", "--load", default=None,
                    help="evaluate: comma-separated benchmark names "
                         "(default im2gps3k); predict: a metadata CSV of "
-                        "images")
+                        "images; geocells: an admin-2 boundary GeoJSON")
     p.add_argument("-b", "--base", default=None,
                    help="torch state dict to start from: an HF CLIP "
                         "vision tower or a reference SuperGuessr .model "
@@ -287,7 +300,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="evaluate: metrics JSON; predict: CSV (default "
                         "predictions.csv); embed: the banks' directory "
                         "(default --embeddings, else data/embeddings); "
-                        "augment: CSV (default <metadata>_augmented.csv)")
+                        "augment: CSV (default <metadata>_augmented.csv); "
+                        "geocells: CSV (default data/geocells.csv); "
+                        "prototypes: comma-separated CSVs, one a "
+                        "--metadata (default data/prototypes.csv)")
     p.add_argument("--geocells", default=None, help="geocell CSV path")
     p.add_argument("--prototypes", default=None, help="prototype CSV path")
     p.add_argument("--embeddings", default=None,
@@ -942,6 +958,89 @@ def cmd_augment(args) -> int:
     out_df.to_csv(out, index=False)
     logger.warning("wrote %s (+%s)", out,
                    sorted(set(out_df.columns) - before) or "no columns")
+    return 0
+
+
+def cmd_geocells(args) -> int:
+    """Semantic geocells from training metadata
+    (`pigeon_tpu/cli/run.py::cmd_geocells`): ``--metadata``'s train rows
+    seeded one cell per admin-2 area of ``--load`` (a GeoJSON; without
+    it, one area), balanced to the preset's cell sizes on the OPTICS
+    ladder of PIGEON (StreetView), or of PIGEOTTO under ``--yfcc`` or
+    ``--landmarks``, written to ``--output`` (default
+    ``data/geocells.csv``). Host work only."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.geocell.boundaries import BoundarySet
+    from pigeon_tpu_torch.geocell.cells import (
+        OPTICS_PARAMS_PLANET,
+        OPTICS_PARAMS_STREETVIEW,
+    )
+    from pigeon_tpu_torch.geocell.creation import GeocellCreator
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required")
+    df = pd.read_csv(args.metadata)
+    cfg = make_config(args)
+    admin2 = BoundarySet.from_geojson(args.load) if args.load else None
+    creator = GeocellCreator(df, admin_2=admin2)
+    out = args.output or "data/geocells.csv"
+    ladder = (OPTICS_PARAMS_PLANET if (args.yfcc or args.landmarks)
+              else OPTICS_PARAMS_STREETVIEW)
+    cells = creator.generate(cfg.geocell.min_cell_size,
+                             cfg.geocell.max_cell_size,
+                             optics_params=ladder, output_csv=out)
+    logger.warning("wrote %d geocells to %s", len(cells), out)
+    return 0
+
+
+def cmd_prototypes(args) -> int:
+    """The prototype table of each ``--metadata`` file
+    (`pigeon_tpu/cli/run.py::cmd_prototypes`): OPTICS clusters of each
+    geocell's train rows, one row per cluster, to ``--output``.
+    ``--metadata`` and ``--output`` pair comma-separated lists (the
+    ``--landmarks`` convention: each file's member ``indices`` are its
+    own train rows). A file without ``geocell_idx`` is labelled from
+    ``--geocells`` (covering cell, else the nearest centroid). Host work
+    only."""
+    import pandas as pd
+
+    from pigeon_tpu_torch.geocell.prototypes import build_prototypes
+
+    if args.metadata is None:
+        raise SystemExit("--metadata CSV is required")
+    metas = args.metadata.split(",")
+    if args.output:
+        outs = args.output.split(",")
+    elif len(metas) == 1:
+        outs = ["data/prototypes.csv"]
+    else:
+        outs = [f"data/prototypes_{i}.csv" for i in range(len(metas))]
+    if len(outs) != len(metas):
+        raise SystemExit("--output must list one CSV per --metadata "
+                         "entry (comma-separated, --landmarks pairing)")
+
+    assigner = None
+    for meta_path, out in zip(metas, outs):
+        df = pd.read_csv(meta_path)
+        if "geocell_idx" not in df.columns:
+            if args.geocells is None:
+                raise SystemExit(
+                    f"{meta_path} has no geocell_idx column — pass "
+                    "--geocells CSV to assign cells")
+            from pigeon_tpu_torch.geocell.assignment import CellAssigner
+
+            if assigner is None:
+                assigner = CellAssigner.from_csv(args.geocells)
+            df = df.copy()
+            df["geocell_idx"] = assigner.assign(
+                df[["lng", "lat"]].to_numpy(np.float64))
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        table = build_prototypes(df, output_csv=out)
+        logger.warning("wrote %d prototype clusters across %d cells to "
+                       "%s", len(table),
+                       table["geocell_idx"].nunique() if len(table) else 0,
+                       out)
     return 0
 
 
@@ -1661,7 +1760,8 @@ def cmd_pretrain(args) -> int:
 COMMANDS = {"serve": cmd_serve, "finetune": cmd_finetune,
             "evaluate": cmd_evaluate, "predict": cmd_predict,
             "embed": cmd_embed, "augment": cmd_augment,
-            "export": cmd_export, "pretrain": cmd_pretrain}
+            "export": cmd_export, "pretrain": cmd_pretrain,
+            "geocells": cmd_geocells, "prototypes": cmd_prototypes}
 
 
 def main(argv=None) -> int:

@@ -494,17 +494,20 @@ class TransformerStack(nn.Module):
             TransformerLayer(config, attn_impl, quant)
             for _ in range(config.num_layers))
 
-    def forward(self, x, mask=None):
+    def apply_layer(self, layer: "TransformerLayer", x, mask=None):
+        """One layer's forward, remat'd under ``remat`` while gradients
+        are on (the pipeline's stages run their layers through it)."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            for layer in self.layers:
-                x = layer(x, mask)
-            return x
+            return layer(x, mask)
+        names = remat_saved_names(self.remat, layer.attn.attn_impl)
+        return checkpoint(layer, x, mask, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              functools.partial(_remat_policy, names)))
+
+    def forward(self, x, mask=None):
         for layer in self.layers:
-            names = remat_saved_names(self.remat, layer.attn.attn_impl)
-            x = checkpoint(layer, x, mask, use_reentrant=False,
-                           context_fn=functools.partial(
-                               create_selective_checkpoint_contexts,
-                               functools.partial(_remat_policy, names)))
+            x = self.apply_layer(layer, x, mask)
         return x
 
 
@@ -529,13 +532,18 @@ class CLIPVisionTower(nn.Module):
         self.encoder = TransformerStack(config, attn_impl, remat, quant)
         self.post_ln = nn.LayerNorm(d, eps=config.layer_norm_eps)
 
-    def forward(self, pixel_values):
-        """pixel_values: ``(B, H, W, 3)`` CLIP-normalised, NHWC."""
+    def embed(self, pixel_values):
+        """The encoder's input: patches, the CLS token and positions,
+        then the pre-LN (`train/pipeline.py` runs it before the stages)."""
         patches = self.patch_embed(pixel_values.to(self.dtype))
         b, _, d = patches.shape
         cls = self.cls_token.to(self.dtype).expand(b, 1, d)
         x = torch.cat([cls, patches], dim=1) + self.pos_embed.to(self.dtype)
-        x = self.encoder(layer_norm(self.pre_ln, x))
+        return layer_norm(self.pre_ln, x)
+
+    def forward(self, pixel_values):
+        """pixel_values: ``(B, H, W, 3)`` CLIP-normalised, NHWC."""
+        x = self.encoder(self.embed(pixel_values))
         return x, layer_norm(self.post_ln, x[:, 0])
 
 

@@ -6,7 +6,10 @@ odd ``n``) and take the full train step of a small panorama
 `SuperGuessr` (multi-task, headings, smoothed labels, AdamW with
 clipping) under DDP with tensor parallelism, then under FSDP2 with it;
 each check prints one ``... OK`` line from rank 0, and the parameters of
-each must equal the one-process step's. Run it as::
+each must equal the one-process step's. For an even ``n`` a third check
+runs the tower pipelined over 2 stages (`train/pipeline.py`), its pooled
+output held against the sequential tower's, as the JAX dry run's
+``pp`` line. Run it as::
 
     python -c "from pigeon_tpu_torch.train.dryrun import dryrun_multichip;
     dryrun_multichip(4)"
@@ -119,8 +122,42 @@ def _rank(rank: int, world: int, port: int) -> None:
                       f"{'FSDP2' if fsdp else 'DDP'} loss={loss:.4f} "
                       f"step={state.step} max|param - one process|="
                       f"{err:.2e} OK", flush=True)
+        if world % 2 == 0:
+            _pipeline_check(rank)
     finally:
         dist.destroy_process_group()
+
+
+def _pipeline_check(rank: int) -> None:
+    """The tower pipelined over 2 stages at M = 2 against the sequential
+    tower (`__graft_entry__.py::dryrun_multichip`'s ``pp`` check)."""
+    from pigeon_tpu_torch.kernels.sharded import all_gather_along
+    from pigeon_tpu_torch.models.clip import CLIPVisionTower
+    from pigeon_tpu_torch.models.super_guessr import init_weights
+    from pigeon_tpu_torch.train.mesh import batch_slice
+    from pigeon_tpu_torch.train.pipeline import (
+        create_pipeline_mesh,
+        pipeline_vision_forward,
+        shard_pipeline_params,
+    )
+
+    mesh = create_pipeline_mesh(pp=2)
+    tower = init_weights(CLIPVisionTower(VISION), 2)
+    px = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(mesh.dp * 2, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        _, want = tower(px)
+        shard_pipeline_params(tower, mesh)
+        _, got = pipeline_vision_forward(
+            tower, px[batch_slice(len(px), mesh)], mesh, num_microbatches=2)
+        if mesh.dp > 1:
+            got = all_gather_along(got.contiguous(), mesh.data_group)
+    err = float((got - want).abs().max())
+    if err > TOLERANCE:
+        raise RuntimeError(f"pipeline parity error {err}")
+    if rank == 0:
+        print(f"dryrun_multichip pp: mesh={mesh.shape} parity_err={err:.2e} "
+              "OK", flush=True)
 
 
 def dryrun_multichip(n_devices: int) -> None:

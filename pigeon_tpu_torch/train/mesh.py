@@ -100,22 +100,34 @@ def init_distributed(device="cuda") -> torch.device:
 class Mesh:
     """A ``(data, model)`` grid of ranks: ``dp`` x ``tp``, this rank's
     place in it, and the `DeviceMesh` (None for one process without a
-    group)."""
+    group). A pipeline's mesh (`train/pipeline.py::create_pipeline_mesh`)
+    is ``(data, stage, model)``, ``pp`` stages between the two."""
 
     dp: int = 1
     tp: int = 1
     data_rank: int = 0
     model_rank: int = 0
     device_mesh: object = None
+    pp: int = 1
+    stage_rank: int = 0
 
     @property
     def shape(self) -> Dict[str, int]:
+        if self.pp > 1:
+            return {"data": self.dp, "stage": self.pp, "model": self.tp}
         return {"data": self.dp, "model": self.tp}
 
     @property
     def data_group(self):
         return (None if self.device_mesh is None
                 else self.device_mesh.get_group("data"))
+
+    @property
+    def stage_group(self):
+        """The ranks that hold the other stages of this rank's layers
+        (same data and model coordinates), in stage order."""
+        return (None if self.pp == 1
+                else self.device_mesh.get_group("stage"))
 
     @property
     def model_axis(self) -> Optional[ModelAxis]:

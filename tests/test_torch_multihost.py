@@ -340,6 +340,7 @@ def test_dryrun_multichip_prints_its_ok_lines(capfd):
     dryrun_multichip(4)
     out = capfd.readouterr().out
     lines = [line for line in out.splitlines() if line.endswith(" OK")]
-    assert len(lines) == 2, out
+    assert len(lines) == 3, out
     assert "mesh={'data': 2, 'model': 2} DDP" in lines[0]
     assert "FSDP2" in lines[1]
+    assert "pp: mesh={'data': 2, 'stage': 2, 'model': 1}" in lines[2]

@@ -469,3 +469,139 @@ def preempted_pretrain(ckpt: str, signal_step: int, signal_rank: int,
     pretrain(state, step_fn, lambda epoch: [torch.ones(2, 4)] * 4, 3,
              checkpoint_dir=ckpt, save_steps=100, preempt_poll_steps=poll)
     return state.step, latest_step(ckpt), sorted(os.listdir(ckpt))
+
+
+_PIPE_MESHES = {}
+
+
+def pipeline_params(model, mesh, grads: bool = False) -> dict:
+    """Every stage's parameters (or gradients), whole, as numpy arrays:
+    tensor-parallel shards gathered over ``model``, the stages' layers
+    over ``stage``."""
+    import torch.distributed as dist
+
+    from pigeon_tpu_torch.train.mesh import gather_params
+
+    local = {n: (p.grad if grads else p).detach()
+             for n, p in model.named_parameters()
+             if not grads or p.grad is not None}
+    full = arrays(gather_params(local, mesh,
+                                getattr(model, "tp_specs", {})))
+    parts = [None] * mesh.pp
+    dist.all_gather_object(parts, full, group=mesh.stage_group)
+    return {n: a for part in parts for n, a in part.items()}
+
+
+def pipe_mesh_of(pp: int, tp: int):
+    """This rank's ``(data, stage, model)`` pipeline mesh (made once)."""
+    from pigeon_tpu_torch.train.pipeline import create_pipeline_mesh
+
+    if (pp, tp) not in _PIPE_MESHES:
+        _PIPE_MESHES[(pp, tp)] = create_pipeline_mesh(pp, tp)
+    return _PIPE_MESHES[(pp, tp)]
+
+
+def pipeline_tower(state: dict, vision: dict, px, pp: int, tp: int, m: int,
+                   route: str = "fused"):
+    """A `CLIPVisionTower` from ``state``, pipelined over ``pp`` stages
+    (tensor-parallel over ``tp``) at M = ``m`` on this rank's data rows of
+    ``px``: its output (last hidden and pooled) joined over ``data``, the
+    gradients of ``sum(pooled**2)`` over the whole batch, whole, and the
+    same three of the one-process tower; the stage's layer names."""
+    import torch
+
+    from pigeon_tpu_torch.config import VisionConfig
+    from pigeon_tpu_torch.kernels.sharded import all_gather_along
+    from pigeon_tpu_torch.models.clip import CLIPVisionTower
+    from pigeon_tpu_torch.train.mesh import batch_slice
+    from pigeon_tpu_torch.train.pipeline import (
+        pipeline_vision_forward,
+        shard_pipeline_params,
+        sync_pipeline_grads,
+    )
+
+    def tower():
+        t = CLIPVisionTower(VisionConfig(**vision), attn_impl=route)
+        t.load_state_dict(tensors(state), strict=True)
+        return t
+
+    x = torch.from_numpy(px)
+    one = tower()
+    h1, p1 = one(x)
+    (p1 ** 2).sum().backward()
+    mesh = pipe_mesh_of(pp, tp)
+    pipe = shard_pipeline_params(tower(), mesh)
+    h, p = pipeline_vision_forward(pipe, x[batch_slice(len(px), mesh)],
+                                   mesh, m)
+    (p ** 2).sum().backward()
+    sync_pipeline_grads(pipe, mesh)
+    for q in pipe.parameters():
+        if q.grad is not None:    # the mean over data -> the batch's sum
+            q.grad.mul_(mesh.dp)
+    if mesh.dp > 1:
+        h, p = (all_gather_along(t.detach().contiguous(), mesh.data_group)
+                for t in (h, p))
+    return {"h": h.detach().numpy(), "pooled": p.detach().numpy(),
+            "grads": pipeline_params(pipe, mesh, grads=True),
+            "one_h": h1.detach().numpy(), "one_pooled": p1.detach().numpy(),
+            "one_grads": {n: q.grad.numpy()
+                          for n, q in one.named_parameters()},
+            "layers": sorted(pipe.encoder.layers.keys()),
+            "mesh": mesh.shape}
+
+
+def pipeline_steps(state: dict, vision: dict, head: dict, cells, batch,
+                   pp: int, tp: int, m: int, steps: int, lr: float = 1e-3,
+                   reference: bool = True):
+    """``steps`` pipelined train steps of a `SuperGuessr` (f32, the whole
+    model training, AdamW clipped at 1.0) from ``state`` on ``batch``,
+    and (``reference``) the first two in one process: the metrics of
+    each and the parameters after the first two, whole."""
+    import torch
+
+    from pigeon_tpu_torch.config import HeadConfig, PigeonConfig, \
+        VisionConfig
+    from pigeon_tpu_torch.models.super_guessr import SuperGuessr
+    from pigeon_tpu_torch.train.mesh import Mesh, shard_batch
+    from pigeon_tpu_torch.train.pipeline import (
+        create_pipeline_train_state,
+        make_pipeline_train_step,
+    )
+    from pigeon_tpu_torch.train.train_loop import (
+        TrainState,
+        adamw,
+        batch_to_device,
+        make_train_step,
+    )
+
+    cfg = PigeonConfig(vision=VisionConfig(**vision), head=HeadConfig(**head))
+    geocells = torch.from_numpy(np.array(cells))
+
+    def model():
+        mdl = SuperGuessr(cfg.vision, cfg.head)
+        mdl.load_state_dict(tensors(state), strict=True)
+        return mdl
+
+    def optimizer(params):
+        return adamw(params, lr, max_grad_norm=1.0)
+
+    mesh = pipe_mesh_of(pp, tp)
+    st = create_pipeline_train_state(model(), optimizer, mesh)
+    step = make_pipeline_train_step(cfg.head, geocells, m)
+    one = model()
+    ref = TrainState(one, optimizer(one.parameters()), mesh=Mesh())
+    ref_step = make_train_step(cfg.head, geocells)
+    local = batch_to_device(shard_batch(batch, mesh), "cpu")
+    whole = batch_to_device(batch, "cpu")
+    out = {"metrics": [], "one_metrics": []}
+    for i in range(steps):
+        out["metrics"].append({k: float(v) for k, v in
+                               step(st, local).items()})
+        if i < 2 and reference:
+            out["one_metrics"].append({k: float(v) for k, v in
+                                       ref_step(ref, whole).items()})
+        if i == 1:
+            out["params"] = pipeline_params(st.model, mesh)
+            out["one_params"] = arrays(dict(one.named_parameters()))
+    out["layers"] = sorted(st.model.vision.encoder.layers.keys())
+    return out
