@@ -1,0 +1,9 @@
+"""k1_roofline.serve: K1's launches in the traced slice, by bucket, times
+one call's bound from shapes, over the device time of K1's kernel
+group, in %."""
+
+from portbench.yardstick.readers import roofline
+
+
+def read(run):
+    return roofline(run, "K1")
