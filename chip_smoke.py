@@ -4439,7 +4439,6 @@ def serve_batch_run(root: str, pool, quant: bool) -> dict:
                                f"{setup}, expected {want}")
         url = f"http://127.0.0.1:{httpd.server_address[1]}/api/v1/predict"
         post(url, payloads[0])                    # the client's opener
-        batcher.batches_run = batcher.requests_served = 0
         batcher.fills = []
         for fn in counters.values():
             fn.launches = 0

@@ -135,7 +135,7 @@ import logging
 import os
 import sys
 from http.server import ThreadingHTTPServer
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -334,6 +334,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="finetune: epochs (default: the preset's)")
     p.add_argument("-r", "--resume", action="store_true",
                    help="finetune: continue from the latest checkpoint")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="finetune: a torch.profiler Chrome trace of train "
+                        "steps 4 to 14 under DIR, every thread's spans in "
+                        "it")
     p.add_argument("--hedge", action="store_true",
                    help="hedge refined guesses for competitive play")
     p.add_argument("--quant", action="store_true",
@@ -1195,10 +1199,13 @@ def build_head_finetune(args, device) -> Finetune:
         checkpoint_dir=os.path.join(args.checkpoint_dir, args.name))
 
 
-def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
+def train_finetune(run: Finetune, num_epochs: int, name: str,
+                   profile_dir: Optional[str] = None) -> list:
     """Train ``run`` for ``num_epochs`` epochs, each with an eval pass;
     checkpoints go to ``run.checkpoint_dir`` and scalars to
-    ``runs/NAME/metrics.jsonl``. Returns the per-epoch eval metrics."""
+    ``runs/NAME/metrics.jsonl``; ``profile_dir``: a trace of steps 4 to
+    14 (`train.profiling.ProfilerWindow`). Returns the per-epoch eval
+    metrics."""
     from pigeon_tpu_torch.train.loop import train_model
     from pigeon_tpu_torch.train.train_loop import (
         batch_to_device,
@@ -1214,7 +1221,7 @@ def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
         batch_to_device=functools.partial(batch_to_device,
                                           device=run.device),
         checkpoint_dir=run.checkpoint_dir,
-        log_dir=os.path.join("runs", name),
+        log_dir=os.path.join("runs", name), profile_dir=profile_dir,
         early_stopping_patience=run.cfg.train.early_stopping_patience)
     return history
 
@@ -1222,7 +1229,7 @@ def train_finetune(run: Finetune, num_epochs: int, name: str) -> list:
 def cmd_finetune(args) -> int:
     run = build_finetune(args)
     history = train_finetune(run, args.epochs or run.cfg.train.num_epochs,
-                             args.name)
+                             args.name, profile_dir=args.profile)
     logger.warning("final metrics: %s", history[-1] if history else {})
     return 0
 

@@ -15,10 +15,21 @@ The forward runs on the collector thread, under `make_serving_fn`'s
 ``torch.inference_mode`` (a decorator, so it holds on any thread). When a
 batch fails, every future of that batch gets the exception and no row of
 it is answered.
+
+While a torch profiler runs, the collector records its spans
+(`train.profiling`): ``serve.queue`` for each request, from `submit` to
+its batch's staging; ``serve.batch`` for each batch (``fill``,
+``bucket``), from its first request taken to its last answer, and inside
+it ``serve.collect``, ``serve.stage`` (stacking, the copy to the card,
+the pad), ``serve.forward`` and ``serve.refine`` (their launches) and
+``serve.readback`` (with the wait for the card); ``serve.device`` holds
+the card's elapsed time from the copy to the refiner's last launch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -27,6 +38,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from pigeon_tpu_torch.train import profiling
 
 
 def bucket_ladder(max_batch: int, buckets: Optional[tuple] = None) -> tuple:
@@ -76,22 +89,33 @@ class MicroBatcher:
         # choice of a bucket is total.
         self.max_batch = min(int(max_batch), self.buckets[-1])
         self.max_wait = max_wait_ms / 1000.0
-        self.batches_run = 0        # observability
-        self.requests_served = 0
         #: The fill (requests) and bucket of each batch run, in order.
         self.fills: list = []
+        self._requests = itertools.count()
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="micro-batcher")
         self._thread.start()
 
+    @property
+    def batches_run(self) -> int:
+        return len(self.fills)
+
+    @property
+    def requests_served(self) -> int:
+        return sum(n for n, _ in self.fills)
+
     def submit(self, pixels: np.ndarray) -> "Future":
         """Enqueue one sample (no batch dimension); the future resolves to
         its row: a dict of numpy arrays with ``pred_lla`` (2,) and the
         serving fields."""
         fut: Future = Future()
-        self._q.put((np.asarray(pixels), fut))
+        # While a profiler runs, the request's number and queueing time
+        # (its ``serve.queue`` span).
+        stamp = ((next(self._requests), time.perf_counter_ns())
+                 if profiling.tracing() else None)
+        self._q.put((np.asarray(pixels), fut, stamp))
         return fut
 
     def predict_one(self, pixels: np.ndarray, timeout: float = 120.0):
@@ -119,12 +143,9 @@ class MicroBatcher:
 
     # ------------------------------------------------------------------
 
-    def _collect(self):
-        """Block for the first request, then take more until the batch is
-        full or ``max_wait`` has passed since the first."""
-        first = self._q.get()
-        if first is None:
-            return []
+    def _collect(self, first) -> list:
+        """Take more requests after ``first`` until the batch is full or
+        ``max_wait`` has passed since ``first`` was taken."""
         items = [first]
         deadline = time.monotonic() + self.max_wait
         while len(items) < self.max_batch:
@@ -142,15 +163,42 @@ class MicroBatcher:
 
     def _loop(self):
         while not self._stop.is_set():
-            items = self._collect()
-            if not items:
+            first = self._q.get()
+            if first is None:
                 continue
-            n = len(items)
-            try:
-                bucket = next(b for b in self.buckets if b >= n)
-                pixels = torch.from_numpy(np.stack([p for p, _ in items]))
-                # serve_fn.device: set by make_serving_fn and the
-                # artifact loader.
+            with profiling.span("serve.batch") as batch:
+                with profiling.span("serve.collect"):
+                    items = self._collect(first)
+                try:
+                    self._run(items, batch)
+                except Exception as e:  # noqa: BLE001 — each request's error
+                    for _, fut, _ in items:
+                        if not fut.done():
+                            fut.set_exception(e)
+
+    def _run(self, items: list, batch) -> None:
+        """One batch: stage it on the card, run the forward and the
+        refiner, read the rows back and answer each request's future."""
+        n = len(items)
+        bucket = next(b for b in self.buckets if b >= n)
+        batch.set(fill=n, bucket=bucket)
+        with contextlib.ExitStack() as on_card:
+            with profiling.span("serve.stage") as stage:
+                if stage:
+                    # Each request's queue wait ends as its batch is staged.
+                    for _, _, stamp in items:
+                        if stamp is not None:
+                            profiling.record("serve.queue", stamp[1],
+                                             stage.start_ns,
+                                             request=stamp[0],
+                                             batch=batch.id)
+                pixels = torch.from_numpy(np.stack([p for p, _, _ in items]))
+                # The card's elapsed time, from the copy to the
+                # refiner's last launch.
+                on_card.enter_context(profiling.span(
+                    "serve.device", device=True, parent=batch.id))
+                # serve_fn.device: set by make_serving_fn and the artifact
+                # loader.
                 device = getattr(self.serve_fn, "device", None)
                 if device is not None:
                     pixels = pixels.to(device)
@@ -161,21 +209,17 @@ class MicroBatcher:
                                       dtype=pixels.dtype,
                                       device=pixels.device)
                     pixels = torch.cat([pixels, pad])
+            with profiling.span("serve.forward"):
                 out = self.serve_fn(pixels)
-                if self.refine_fn is not None:
+            if self.refine_fn is not None:
+                with profiling.span("serve.refine"):
                     refined = self.refine_fn(
                         out["embedding"], out["pred_lla"],
                         out["topk_cells"], out["topk_probs"])
-                    out = dict(out, pred_lla=refined["pred_lla"],
-                               pred_cell=refined.get("pred_cell"))
-                rows = {k: _host(v[:n]) for k, v in out.items()
-                        if v is not None}
-                self.batches_run += 1
-                self.requests_served += n
-                self.fills.append((n, bucket))
-                for i, (_, fut) in enumerate(items):
-                    fut.set_result({k: v[i] for k, v in rows.items()})
-            except Exception as e:  # noqa: BLE001 — each request's error
-                for _, fut in items:
-                    if not fut.done():
-                        fut.set_exception(e)
+                out = dict(out, pred_lla=refined["pred_lla"],
+                           pred_cell=refined.get("pred_cell"))
+        with profiling.span("serve.readback"):
+            rows = {k: _host(v[:n]) for k, v in out.items() if v is not None}
+        self.fills.append((n, bucket))
+        for i, (_, fut, _) in enumerate(items):
+            fut.set_result({k: v[i] for k, v in rows.items()})

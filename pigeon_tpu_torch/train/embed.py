@@ -32,6 +32,7 @@ from pigeon_tpu_torch.data.pipeline import (
     holdout,
     iter_batches,
 )
+from pigeon_tpu_torch.train import profiling
 from pigeon_tpu_torch.train.multihost import (
     gather_objects,
     host_slice,
@@ -45,11 +46,14 @@ def make_embed_step(model: torch.nn.Module, device):
     """``step(pixels) -> embeddings`` on ``device``: uint8 pixels are
     CLIP-normalised there; a panorama ``(B, V, S, S, 3)`` is folded to
     ``(B*V, S, S, 3)`` for one tower batch and its embeddings unfolded to
-    ``(B, V, D)``."""
+    ``(B, V, D)``. While a torch profiler runs, each call records the
+    span ``embed.h2d``: the copy to ``device`` and the normalisation, with
+    the card's time (`train.profiling`)."""
 
     @torch.inference_mode()
     def step(pixels) -> torch.Tensor:
-        x = batch_to_device({"inputs": pixels}, device)["inputs"]
+        with profiling.span("embed.h2d", device=True):
+            x = batch_to_device({"inputs": pixels}, device)["inputs"]
         if x.dim() == 5:
             b, v = x.shape[:2]
             return model(x.reshape(b * v, *x.shape[2:])).reshape(b, v, -1)

@@ -26,6 +26,7 @@ from pigeon_tpu_torch.models.geocell_head import (
     geocell_predictions,
     smoothed_targets,
 )
+from pigeon_tpu_torch.train import profiling
 from pigeon_tpu_torch.train.mesh import mean_over_data
 
 
@@ -251,21 +252,32 @@ def make_train_step(head_cfg: HeadConfig, geocells: torch.Tensor
     The metrics are the loss parts and ``grad_norm`` (the global norm of
     the trainable gradients), as device scalars: reading them waits for
     the device, so the caller reads them when it needs them.
+
+    While a torch profiler runs, each step records the span
+    ``train.step`` and inside it ``train.forward`` (the forward, the
+    label smoothing and the loss), ``train.backward`` and
+    ``train.optimizer`` (``grad_norm`` and the update), each with the
+    card's time (`train.profiling`).
     """
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        _, total, parts = batch_loss(state.runner, batch, geocells, head_cfg)
-        total.backward()
-        params = [p for group in state.optimizer.param_groups
-                  for p in group["params"] if p.grad is not None]
-        parts["grad_norm"] = state.optimizer.grad_norm(params)
-        state.optimizer.step()
-        state.step += 1
-        return mean_over_data({k: v.detach() for k, v in parts.items()},
-                              state.mesh)
+        with profiling.span("train.step", device=True):
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.forward", device=True):
+                _, total, parts = batch_loss(state.runner, batch, geocells,
+                                             head_cfg)
+            with profiling.span("train.backward", device=True):
+                total.backward()
+            with profiling.span("train.optimizer", device=True):
+                params = [p for group in state.optimizer.param_groups
+                          for p in group["params"] if p.grad is not None]
+                parts["grad_norm"] = state.optimizer.grad_norm(params)
+                state.optimizer.step()
+            state.step += 1
+            return mean_over_data({k: v.detach() for k, v in parts.items()},
+                                  state.mesh)
 
     return train_step
 

@@ -1,0 +1,9 @@
+"""optimizer_ms.train: the mean elapsed time on the card of a train step's
+gradient norm and AdamW update, between CUDA events (the program's
+`train.optimizer` spans, as `yardstick.spans` reads them), in ms."""
+
+from portbench.yardstick.spans import mean_device_ms
+
+
+def read(run):
+    return mean_device_ms(run, "train.optimizer")

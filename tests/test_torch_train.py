@@ -470,6 +470,29 @@ def test_finetune_on_pixels_with_resume(tmp_path, monkeypatch):
     assert any(r["tag"] == "eval/Geocell_accuracy" for r in records)
 
 
+def test_finetune_profile_writes_a_trace_of_the_step_spans(tmp_path,
+                                                           monkeypatch):
+    """``--profile DIR``: the loop's profiler window opens after the
+    fifth step and closes at the run's end, so the sixth and last step
+    lands in it, its spans as the trace's annotations."""
+    import json
+
+    from pigeon_tpu_torch.cli.run import main
+
+    write_world(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    trace_dir = tmp_path / "trace"
+    assert main(finetune_argv(tmp_path, "--epochs", "3",
+                              "--profile", str(trace_dir))) == 0
+    (path,) = trace_dir.glob("*.pt.trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer"} <= set(names)
+    assert names.count("train.step") == 1
+
+
 def test_finetune_refuses_what_it_cannot_do(tmp_path):
     from pigeon_tpu_torch.cli.run import main
 
