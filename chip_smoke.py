@@ -626,6 +626,13 @@ K7_ABS, K7_SHARE = 3e-2, 5e-3
 K3_ONLINE_TOL = 3e-2
 #: The int8 route's embedding against the bf16 route's, same weights.
 INT8_COSINE = 0.99
+#: The inference forward's element-wise kernels (`kernels/eltwise.py`).
+ELTWISE_KERNELS = ("layer_norm_bf16", "add_layer_norm_bf16",
+                   "quick_gelu_bf16")
+#: [serve]: the served embedding (the element-wise kernels) against a
+#: grad-mode forward of the same model (the eager chain), relative L2
+#: error: the benchmark's embedding limit.
+ELTWISE_EMBED_TOL = 0.012
 #: Every other bf16 route's embedding against the ``flash_fused`` one's,
 #: and every route's trainable gradients against the plain route's.
 ROUTE_COSINE = 0.999
@@ -1548,6 +1555,72 @@ def check_online_kernel(seed: int) -> dict:
     return rec
 
 
+def check_eltwise_kernels(seed: int) -> None:
+    """The inference forward's one-pass kernels (`kernels/eltwise.py`)
+    against their plain versions at a serving batch (8 x 577 tokens) and
+    the ViT-L/14-336 sweep's (512 x 577), D=1024 and I=4096, held as
+    `tests/test_torch_eltwise.py` holds them: the residual sum bit for
+    bit, quick-GELU within one bf16 ulp, each LayerNorm output within one
+    ulp give or take four f32 ulps of its terms (that file's
+    `ln_within_one_ulp`), one launch a call; the plain version with the
+    LayerNorm's scale or bias dropped must fail the LayerNorm check."""
+    import importlib.util
+
+    import torch
+
+    from pigeon_tpu_torch.kernels import eltwise
+
+    path = os.path.join(HERE, "tests", "test_torch_eltwise.py")
+    spec = importlib.util.spec_from_file_location("eltwise_tolerances", path)
+    tol = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tol)
+    kernels = [getattr(eltwise, name) for name in ELTWISE_KERNELS]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, inter, eps = 1024, 4096, tol.EPS
+    for b in (8, 512):
+        rows = b * 577
+        before = [k.launches for k in kernels]
+        x = (torch.randn(rows, d, generator=gen, device="cuda") * 3 + 1) \
+            .bfloat16()
+        a = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+        w, bias = ln_params(d, gen)
+        ln = eltwise.layer_norm_bf16(x, w, bias, eps)
+        s, ln2 = eltwise.add_layer_norm_bf16(x, a, w, bias, eps)
+        h = (torch.randn(rows, inter, generator=gen, device="cuda") * 4) \
+            .bfloat16()
+        gelu = eltwise.quick_gelu_bf16(h)
+        torch.cuda.synchronize()
+        counts = [k.launches - n for k, n in zip(kernels, before)]
+        if counts != [1, 1, 1]:
+            raise RuntimeError(f"{dict(zip(ELTWISE_KERNELS, counts))} "
+                               f"launches for one call of each at {b} views")
+        if not torch.equal(s, x + a):
+            raise RuntimeError(f"add_layer_norm_bf16's sum is not x + a at "
+                               f"{b} views")
+        for name, got, inp in (("layer_norm_bf16", ln, x),
+                               ("add_layer_norm_bf16", ln2, s)):
+            if not tol.ln_within_one_ulp(got, inp, w, bias):
+                raise RuntimeError(f"{name} is more than one bf16 ulp from "
+                                   f"its plain version at {b} views")
+            for label, params in (("scale", (torch.ones_like(w), bias)),
+                                  ("bias", (w, torch.zeros_like(bias)))):
+                wrong = eltwise.layer_norm_reference(inp, *params, eps)
+                if tol.ln_within_one_ulp(wrong, inp, w, bias):
+                    raise RuntimeError(f"{name}'s check cannot see a "
+                                       f"dropped LN {label}")
+        del ln, ln2, s, a
+        ulps = tol.ulps_apart(gelu, eltwise.quick_gelu(h))
+        gelu_max, gelu_off = ulps.max().item(), int((ulps > 0).sum())
+        if gelu_max > 1:
+            raise RuntimeError(f"quick_gelu_bf16 is {gelu_max} bf16 ulps "
+                               f"from its plain version at {b} views")
+        phase("eltwise", views=b, rows=rows, d=d, inter=inter,
+              ln_within_1ulp=True, sum_exact=True,
+              gelu_max_ulps=gelu_max, gelu_elements_off=gelu_off)
+        del x, h, gelu, ulps
+        torch.cuda.empty_cache()
+
+
 def write_assets(root: str, seed: int) -> list:
     """Geocells, a training bank and its prototypes, as the ``serve``
     command reads them. Every cell gets 1-3 clusters of 2-256 members; the
@@ -1661,27 +1734,31 @@ def request_all(httpd, payloads, pool, counters: dict) -> tuple:
 def check_serving(root: str, pool, n_requests: int) -> tuple:
     """The full-width panorama model served over HTTP in bf16; returns
     K1's launches during the requests and the embedding of the first
-    panorama."""
+    panorama. Each request launches K1 and each element-wise kernel of
+    the inference forward once a layer; a grad-mode forward of the same
+    panorama launches none of the latter and lands within
+    `ELTWISE_EMBED_TOL` of the served embedding."""
     import torch
 
+    from pigeon_tpu_torch.data.image_ops import normalize_images
+    from pigeon_tpu_torch.kernels import eltwise
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
     from pigeon_tpu_torch.models.clip import set_route
 
+    counters = {"fused_qkv_attention": k1.fused_qkv_attention,
+                **{name: getattr(eltwise, name) for name in ELTWISE_KERNELS}}
     payloads = serve_payloads(n_requests)
     torch.cuda.reset_peak_memory_stats()
     httpd, startup_s = start_serving(root)
     try:
         service = httpd.RequestHandlerClass.service
-        latencies, launches = request_all(
-            httpd, payloads, pool,
-            {"fused_qkv_attention": k1.fused_qkv_attention})
-        launches = launches["fused_qkv_attention"]
+        latencies, counts = request_all(httpd, payloads, pool, counters)
+        launches = counts["fused_qkv_attention"]
         model = service.serve_fn.model
         layers = len(model.vision.encoder.layers)
-        if launches != layers * n_requests:
-            raise RuntimeError(f"K1 launched {launches} times for "
-                               f"{n_requests} requests, not once per "
-                               f"layer ({layers})")
+        if counts != dict.fromkeys(counters, layers * n_requests):
+            raise RuntimeError(f"{n_requests} requests launched {counts}, "
+                               f"not each kernel once per layer ({layers})")
 
         # The same panorama through the plain attention route.
         pixels = service.decode(payloads[0])
@@ -1694,15 +1771,35 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
         if not cos >= 0.999:
             raise RuntimeError(f"embedding cosine {cos} < 0.999")
         layer_ms = time_layers(service, payloads)
+        peak_gib = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+
+        # The same panorama with grad mode on: the eager chain.
+        before = {name: counters[name].launches for name in ELTWISE_KERNELS}
+        with torch.enable_grad():
+            out = model(normalize_images(torch.tensor(pixels).cuda()))
+        eager = out.embedding.detach().flatten().float()
+        del out
+        grad_counts = {name: counters[name].launches - n
+                       for name, n in before.items()}
+        if any(grad_counts.values()):
+            raise RuntimeError(f"a grad-mode forward launched {grad_counts}")
+        eager_err = ((fused - eager).norm() / eager.norm()).item()
+        if not eager_err < ELTWISE_EMBED_TOL:
+            raise RuntimeError(f"served embedding {eager_err} from the "
+                               f"grad-mode forward's (relative L2), limit "
+                               f"{ELTWISE_EMBED_TOL}")
     finally:
         httpd.shutdown()
         httpd.server_close()
     phase("serve", requests=n_requests, status=200, layers=layers,
           k1_launches=launches,
+          **{f"{name}_launches": counts[name] for name in ELTWISE_KERNELS},
+          grad_mode_eltwise_launches=sum(grad_counts.values()),
+          eager_embedding_err=eager_err,
           median_ms=sorted(latencies)[len(latencies) // 2],
           latencies_ms=[round(t, 3) for t in latencies],
           startup_s=round(startup_s, 3), embedding_cosine=cos,
-          peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+          peak_gib=peak_gib)
     phase("layers", **layer_ms)
     return launches, fused
 
@@ -5936,6 +6033,7 @@ def main() -> int:
                    check_block_int8_kernel(args.seed),
                "flash_attention_online": check_online_kernel(args.seed)}
     check_eval_shapes(args.seed)
+    check_eltwise_kernels(args.seed)
     # Each path's launches, counted from 0 just before it runs.
     launches = dict.fromkeys(KERNELS, 0)
 

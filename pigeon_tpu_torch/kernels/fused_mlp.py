@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from pigeon_tpu_torch import native
+from pigeon_tpu_torch.kernels.eltwise import quick_gelu
 from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
     check_ln_params,
     flax_layer_norm_f32,
@@ -42,11 +43,6 @@ from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
 
 #: K9's GEMMs take D and the intermediate width in 128-wide tiles.
 TILE = 128
-
-
-def quick_gelu(x):
-    """CLIP's activation: ``x * sigmoid(1.702 x)``."""
-    return x * torch.sigmoid(1.702 * x)
 
 
 def fused_ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,

@@ -51,6 +51,11 @@ PyTorch (`pigeon_tpu/models/clip.py:363-369`).
 ``PIGEON_FLASH_FWD=online`` swaps K3 for K3′ wherever K3 runs
 (`kernels/attention.py`).
 
+With grad mode off (``embed``, ``serve``, ``evaluate``, ``predict``), a
+float layer on ``"fused"``, ``"flash"`` or ``"fused_ln"`` runs its
+element-wise chain on a CUDA bf16 activation as the one-pass kernels of
+`kernels/eltwise.py` (`TransformerLayer.forward`).
+
 The route is `MultiHeadAttention.attn_impl`, which `TransformerLayer`
 reads; `set_route` switches a built model and `routes_of` reads it back.
 The precedence follows `pigeon_tpu/models/clip.py:354-414`: in an int8
@@ -125,6 +130,13 @@ from pigeon_tpu_torch.kernels.attention import (
     FLASH_ATTENTION_OP,
     FlashAttention,
 )
+from pigeon_tpu_torch.kernels.eltwise import (
+    add_layer_norm_bf16,
+    layer_norm_bf16,
+    layer_norm_reference,
+    quick_gelu,
+    quick_gelu_bf16,
+)
 from pigeon_tpu_torch.kernels.fused_block_attention import (
     FUSED_BLOCK_ATTENTION_OP,
     FusedBlockAttention,
@@ -137,11 +149,7 @@ from pigeon_tpu_torch.kernels.fused_ln_qkv_attention import (
     FusedLNQKVAttention,
     flax_layer_norm_f32,
 )
-from pigeon_tpu_torch.kernels.fused_mlp import (
-    FUSED_LN_MLP_OP,
-    FusedLNMLP,
-    quick_gelu,
-)
+from pigeon_tpu_torch.kernels.fused_mlp import FUSED_LN_MLP_OP, FusedLNMLP
 from pigeon_tpu_torch.kernels.fused_qkv_attention import (
     FUSED_QKV_ATTENTION_OP,
     FusedQKVAttention,
@@ -172,6 +180,10 @@ ACTIVATIONS = {"quick_gelu": quick_gelu,
                "gelu": functools.partial(F.gelu, approximate="none")}
 #: The routes whose attention is the fused projection + attention.
 FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
+#: The routes whose inference forward runs the residual add + LN2 and
+#: quick-GELU as `kernels/eltwise.py`'s kernels (LN1 too, where no kernel
+#: folds it in: not on ``"fused_ln"``).
+ELTWISE_IMPLS = ("fused", "flash", "fused_ln")
 REMATS = ("none", "full", "attn_out", "attn_kernel", "attn_slim")
 QUANTS = (False, "dynamic", "static")
 
@@ -233,8 +245,7 @@ def dense(layer: nn.Linear, x):
 
 def layer_norm(layer: nn.LayerNorm, x):
     """LayerNorm with f32 statistics, rounded back to ``x.dtype``."""
-    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
-                        layer.bias, layer.eps).to(x.dtype)
+    return layer_norm_reference(x, layer.weight, layer.bias, layer.eps)
 
 
 def flax_layer_norm(layer: nn.LayerNorm, x):
@@ -448,36 +459,59 @@ class TransformerLayer(nn.Module):
         #: MLP columns (fc1's output, fc2's input), or None.
         self.tp = None
 
-    def mlp(self, x, norm):
-        """``x + fc2(act(fc1(LN2(x))))``, on the rank's MLP columns under
-        tensor parallelism."""
-        h = norm(self.ln2, x)
+    def mlp(self, x, h, act):
+        """``x + fc2(act(fc1(h)))`` with ``h = LN2(x)``, on the rank's MLP
+        columns under tensor parallelism."""
         if self.tp is not None:
             h = copy_to_model(h, self.tp)
-        h = ACTIVATIONS[self.hidden_act](linear(self.fc1, h))
+        h = act(linear(self.fc1, h))
         return x + row_parallel(self.fc2, h, self.tp)
 
     def forward(self, x, mask=None):
+        """One layer. A float layer's inference forward (grad mode off)
+        of a bf16 ``x`` on ``"fused"``, ``"flash"`` or ``"fused_ln"`` with
+        no ``mask`` runs LN1 (where no kernel folds it in), the residual
+        add with LN2, and quick-GELU through `kernels/eltwise.py`: the
+        one-pass kernels for a CUDA ``x``, their plain versions (the eager
+        chain) for a CPU one. The second residual add stays one eager add,
+        and training, the int8 layers and the other routes keep the eager
+        chain."""
         quant = quant_mode(self.fc1)
         # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
         norm = flax_layer_norm if quant else layer_norm
+        act = ACTIVATIONS[self.hidden_act]
         route = self.attn.attn_impl
         if mask is not None:                    # plain on every route
             x = x + self.attn(norm(self.ln1, x), mask=mask)
-            return self.mlp(x, norm)
+            return self.mlp(x, norm(self.ln2, x), act)
+        eltwise = (route in ELTWISE_IMPLS and not quant
+                   and not torch.is_grad_enabled()
+                   and x.dtype == torch.bfloat16)
         if route == "block" and quant != "dynamic":
             x = self.attn.block(x, self.ln1)    # K6 / K7: residual included
-        elif route in ("fused_ln", "fused_mlp") and not quant:
-            x = x + self.attn(x, ln=self.ln1)
         else:
-            x = x + self.attn(norm(self.ln1, x))
+            if route in ("fused_ln", "fused_mlp") and not quant:
+                a = self.attn(x, ln=self.ln1)
+            elif eltwise:
+                a = self.attn(layer_norm_bf16(
+                    x.contiguous(), self.ln1.weight, self.ln1.bias,
+                    self.ln1.eps))
+            else:
+                a = self.attn(norm(self.ln1, x))
+            if eltwise:
+                x, h = add_layer_norm_bf16(
+                    x.contiguous(), a.contiguous(), self.ln2.weight,
+                    self.ln2.bias, self.ln2.eps)
+                return self.mlp(x, h, quick_gelu_bf16
+                                if self.hidden_act == "quick_gelu" else act)
+            x = x + a
         if (route in ("fused_mlp", "block") and not quant
                 and self.hidden_act == "quick_gelu"):
             return FusedLNMLP.apply(
                 x.contiguous(), self.ln2.weight, self.ln2.bias,
                 *(t.to(x.dtype) for fc in (self.fc1, self.fc2)
                   for t in (fc.weight, fc.bias)), self.ln2.eps)
-        return self.mlp(x, norm)
+        return self.mlp(x, norm(self.ln2, x), act)
 
 
 class TransformerStack(nn.Module):

@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Times the one-pass element-wise kernels of `pigeon_tpu_torch`
+(`kernels/eltwise.py`: LayerNorm, residual add + LayerNorm, quick-GELU)
+on one GPU, and counts their launches in a ViT-L/14-336 forward.
+
+    python3 scripts/bench_torch_eltwise.py [--iters N] [--output OUT.json]
+
+Prints the card's name and power limit, then one line per kernel and
+shape (the main path's: the ViT-L/14-336 sweep's 512 x 577 rows, a
+training or 8-panorama serving batch's 32 x 577, the ViT-B/32 sweep's
+512 x 50), each with
+
+* the kernel's device ms a call (`torch.profiler`, its kernels' summed
+  time over ``--iters`` calls), and its wrapper's ms a call (CUDA events
+  around the same calls, host work included);
+* the byte bound: each input read once and each output written once at
+  3.35 TB/s;
+* the plain version's device ms a call: the eager composition the
+  layers ran before the kernels (LayerNorm: ``x.float()``,
+  ``F.layer_norm``, ``.to``; add + LayerNorm: the add, then that;
+  quick-GELU: ``1.702 * x``, ``sigmoid``, the product);
+* where one PyTorch call computes nearly the same function, that call's
+  device ms (``F.layer_norm`` on bf16 with the parameters rounded to bf16);
+* the largest distance from the plain version in bf16 ulps (a LayerNorm
+  output that cancels below 1/256 of its terms' magnitude in ulps of
+  that floor), and the share of elements that differ.
+
+Each call reads its own copy of the inputs, in turn over enough copies
+to pass 200 MB, so no call finds them in the 50 MB L2 cache. Last, a
+24-layer ViT-L/14-336 tower on one image counts each kernel's launches
+in an inference forward and in a grad-mode forward. Writes every number
+to ``--output`` as JSON. Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from pigeon_tpu_torch.config import VisionConfig  # noqa: E402
+from pigeon_tpu_torch.kernels import eltwise  # noqa: E402
+from pigeon_tpu_torch.models import clip  # noqa: E402
+
+EPS = 1e-5
+BANDWIDTH = 3.35e12
+ROWS = [("vit-l sweep", 512 * 577, 1024), ("32 views", 32 * 577, 1024),
+        ("vit-b/32 sweep", 512 * 50, 768)]
+GELU = [("vit-l sweep", 512 * 577, 4096), ("32 views", 32 * 577, 4096),
+        ("vit-b/32 sweep", 512 * 50, 3072)]
+
+
+def device_ms(fn, copies, iters):
+    """Device ms a call of ``fn(*copies[i % len(copies)])``: the summed
+    time of the kernels it launched over ``iters`` calls, by
+    `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*copies[i % len(copies)])
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    return sum(e["dur"] for e in events
+               if e.get("cat") == "kernel") / 1e3 / iters
+
+
+def wall_ms(fn, copies, iters):
+    """CUDA-event ms a call, host work included."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(iters):
+        fn(*copies[i % len(copies)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ulps(got, want, floor=None):
+    """The largest distance in bf16 ulps of ``want`` (of ``floor`` where
+    ``|want|`` is below it) and the share of elements that differ."""
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    if floor is not None:
+        mag = torch.maximum(mag, floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    apart = torch.where(diff > 0, diff / ulp, torch.zeros_like(diff))
+    return apart.max().item(), (diff > 0).float().mean().item()
+
+
+def cancellation_floor(x, w, b):
+    """1/256 of the magnitude of a LayerNorm output's terms, ``|w x_hat| +
+    |b|``: below it the output has cancelled, and a few f32 ulps of the
+    terms are many bf16 ulps of the result."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    x_hat = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + EPS)
+    return ((w * x_hat).abs() + b.abs()) / 256
+
+
+def copies_of(make, nbytes):
+    n = max(1, -(-200_000_000 // nbytes))
+    return [make(i) for i in range(n)]
+
+
+def measure(name, shape, kernel, plain, library, make, nbytes, iters,
+            floor=None):
+    """One row; ``floor(*inputs)`` gives the magnitude below which the
+    last output's distance is counted in ulps of the floor."""
+    copies = copies_of(make, nbytes)
+    for fn in (kernel, plain) + ((library,) if library else ()):
+        fn(*copies[0])                           # build, warm up
+    got, want = kernel(*copies[0]), plain(*copies[0])
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    exact = [torch.equal(g, w) for g, w in zip(got, want)]
+    dist = ulps(got[-1], want[-1], floor and floor(*copies[0]))
+    del got, want
+    row = {"kernel": name, "shape": list(shape),
+           "device_ms": device_ms(kernel, copies, iters),
+           "wrapper_ms": wall_ms(kernel, copies, iters),
+           "bound_ms": nbytes / BANDWIDTH * 1e3,
+           "plain_ms": device_ms(plain, copies, iters),
+           "library_ms": (device_ms(library, copies, iters)
+                          if library else None),
+           "max_ulps": dist[0], "share_differing": dist[1],
+           "outputs_equal": exact}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def launches_in_a_tower():
+    """Launches of each kernel in one ViT-L/14-336 forward (24 layers, one
+    image), under ``inference_mode`` and under grad mode."""
+    with torch.device("cuda"):
+        tower = clip.CLIPVisionTower(VisionConfig(), dtype=torch.bfloat16,
+                                     attn_impl="fused").eval()
+    torch.nn.init.zeros_(tower.cls_token)
+    torch.nn.init.zeros_(tower.pos_embed)
+    px = torch.randn(1, 336, 336, 3, device="cuda")
+    kernels = (eltwise.layer_norm_bf16, eltwise.add_layer_norm_bf16,
+               eltwise.quick_gelu_bf16)
+    out = {}
+    for mode, ctx in (("inference", torch.inference_mode),
+                      ("grad", torch.enable_grad)):
+        before = [k.launches for k in kernels]
+        with ctx():
+            tower(px)
+        torch.cuda.synchronize()
+        out[mode] = [k.launches - n for k, n in zip(kernels, before)]
+    print(json.dumps({"launches_in_a_vitl_forward": out}), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--output", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_torch_eltwise: needs a CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(card.strip(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale \
+            + shift
+
+    rows = []
+    for label, m, d in ROWS:
+        w, b = randn(d, scale=0.5, shift=1.0), randn(d, scale=0.5)
+        wb, bb = w.bfloat16(), b.bfloat16()
+        act = m * d * 2
+        rows.append(measure(
+            f"layer_norm_bf16 ({label})", (m, d),
+            lambda x: eltwise.layer_norm_bf16(x, w, b, EPS),
+            lambda x: eltwise.layer_norm_reference(x, w, b, EPS),
+            lambda x: F.layer_norm(x, (d,), wb, bb, EPS),
+            lambda i: (randn(m, d, scale=3.0, shift=1.0).bfloat16(),),
+            2 * act, args.iters,
+            floor=lambda x: cancellation_floor(x, w, b)))
+        rows.append(measure(
+            f"add_layer_norm_bf16 ({label})", (m, d),
+            lambda x, a: eltwise.add_layer_norm_bf16(x, a, w, b, EPS),
+            lambda x, a: eltwise.add_layer_norm_reference(x, a, w, b, EPS),
+            None,
+            lambda i: (randn(m, d, scale=3.0, shift=1.0).bfloat16(),
+                       randn(m, d).bfloat16()),
+            4 * act, args.iters,
+            floor=lambda x, a: cancellation_floor(x + a, w, b)))
+    for label, m, n in GELU:
+        rows.append(measure(
+            f"quick_gelu_bf16 ({label})", (m, n), eltwise.quick_gelu_bf16,
+            eltwise.quick_gelu, None,
+            lambda i: (randn(m, n, scale=4.0).bfloat16(),),
+            2 * m * n * 2, args.iters))
+    result = {"card": card.strip(), "rows": rows,
+              "launches": launches_in_a_tower()}
+    if args.output:
+        os.makedirs(os.path.dirname(os.path.abspath(args.output)),
+                    exist_ok=True)
+        with open(args.output, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
