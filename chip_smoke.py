@@ -111,6 +111,15 @@ Phases, one line each, any failure raises:
              K1, K3 and K8 at [evaluate]'s batch of 8 images, which no
              other phase launches them at, within their bounds above
              (errors only);
+             [eltwise] the inference forward's element-wise kernels
+             (`kernels/eltwise.py`) at 8 and 512 x 577 rows (D 1024, I
+             4096), and LN, SwiGLU and scale-add + LN at the DINOv2
+             cell's 128 x 1,374 rows (D 1536, I 4096), one launch a call,
+             sums and SwiGLU bit for bit, quick-GELU within one ulp, LN
+             within `ln_within_one_ulp`, each with a planted fault that
+             must fail (the two DINOv2 kernels timed with their bytes
+             bounds: their kernels records); K1 at the DINOv2 shape (128,
+             1374, 1536), 24 heads, within K1's bound, timed;
 4. serve   - the PIGEON preset at full ViT-L/14-336 width (24 layers,
              D=1024, 2203 geocells from --seed) with a seeded prototype
              bank and hedging, started by the ``serve`` command's own
@@ -312,6 +321,14 @@ Phases, one line each, any failure raises:
              its magnitude of one process's, two train steps of the whole
              model with loss and grad_norm within 5e-3 of one process's,
              each rank's K1, K2 and K10 launches exactly as predicted;
+11e. embed_dinov2 - (run after [embed]) ``embed --model
+             dinov2-g14-reg`` (ViT-g/14-reg4 at 518 px, 40 layers, seeded by the CLI) through the CLI's
+             own ``main`` on the same 32 + 8 panoramas, batch 8: K1 and
+             `swiglu_bf16` 40 and `scale_add_layer_norm_bf16` 80 a
+             batch, `layer_norm_bf16` once, nothing else of the bf16
+             routes or CLIP's element-wise kernels; banks (32, 4, 1536)
+             and (8, 4, 1536); the first batch within cosine >= 0.999 a
+             row of the plain route on a model the CLI builds;
 12. variants - the tuning drivers `scripts/bench_torch_attn_bwd.py`,
              `bench_torch_attn_fwd_diag.py` and
              `bench_torch_attn_qkv_fused.py` through their own ``run`` at
@@ -426,6 +443,12 @@ KERNELS = {
     "flash_attention_online_c256": (
         "pigeon_tpu_torch/csrc/attention_fwd_variants.cu",
         "scripts/bench_attn_fwd_diag.py:107"),
+    "swiglu_bf16": (
+        "pigeon_tpu_torch/csrc/eltwise.cu",
+        "pigeon_tpu_torch/kernels/eltwise.py:66"),
+    "scale_add_layer_norm_bf16": (
+        "pigeon_tpu_torch/csrc/eltwise.cu",
+        "pigeon_tpu_torch/kernels/eltwise.py:79"),
 }
 #: The sources whose products run on wgmma (the build phase counts their
 #: HGMMA instructions).
@@ -629,6 +652,11 @@ INT8_COSINE = 0.99
 #: The inference forward's element-wise kernels (`kernels/eltwise.py`).
 ELTWISE_KERNELS = ("layer_norm_bf16", "add_layer_norm_bf16",
                    "quick_gelu_bf16")
+#: [eltwise], [embed_dinov2]: DINOv2 ViT-g/14-reg4 at 518 px, as the
+#: benchmark's DINOv2 cell runs it: images a batch, tokens an image
+#: (CLS, 4 registers, 37 x 37 patches), width, SwiGLU width, heads, layers.
+DINOV2_BATCH, DINOV2_SEQ, DINOV2_D = 128, 1374, 1536
+DINOV2_I, DINOV2_H, DINOV2_LAYERS = 4096, 24, 40
 #: [serve]: the served embedding (the element-wise kernels) against a
 #: grad-mode forward of the same model (the eager chain), relative L2
 #: error: the benchmark's embedding limit.
@@ -1555,7 +1583,7 @@ def check_online_kernel(seed: int) -> dict:
     return rec
 
 
-def check_eltwise_kernels(seed: int) -> None:
+def check_eltwise_kernels(seed: int) -> dict:
     """The inference forward's one-pass kernels (`kernels/eltwise.py`)
     against their plain versions at a serving batch (8 x 577 tokens) and
     the ViT-L/14-336 sweep's (512 x 577), D=1024 and I=4096, held as
@@ -1563,7 +1591,9 @@ def check_eltwise_kernels(seed: int) -> None:
     bit, quick-GELU within one bf16 ulp, each LayerNorm output within one
     ulp give or take four f32 ulps of its terms (that file's
     `ln_within_one_ulp`), one launch a call; the plain version with the
-    LayerNorm's scale or bias dropped must fail the LayerNorm check."""
+    LayerNorm's scale or bias dropped must fail the LayerNorm check. Then
+    DINOv2's (`check_dinov2_eltwise`, `check_dinov2_k1`). Returns the
+    records of DINOv2's two kernels."""
     import importlib.util
 
     import torch
@@ -1599,15 +1629,7 @@ def check_eltwise_kernels(seed: int) -> None:
                                f"{b} views")
         for name, got, inp in (("layer_norm_bf16", ln, x),
                                ("add_layer_norm_bf16", ln2, s)):
-            if not tol.ln_within_one_ulp(got, inp, w, bias):
-                raise RuntimeError(f"{name} is more than one bf16 ulp from "
-                                   f"its plain version at {b} views")
-            for label, params in (("scale", (torch.ones_like(w), bias)),
-                                  ("bias", (w, torch.zeros_like(bias)))):
-                wrong = eltwise.layer_norm_reference(inp, *params, eps)
-                if tol.ln_within_one_ulp(wrong, inp, w, bias):
-                    raise RuntimeError(f"{name}'s check cannot see a "
-                                       f"dropped LN {label}")
+            check_ln_output(tol, name, got, inp, w, bias, f"{b} views")
         del ln, ln2, s, a
         ulps = tol.ulps_apart(gelu, eltwise.quick_gelu(h))
         gelu_max, gelu_off = ulps.max().item(), int((ulps > 0).sum())
@@ -1619,6 +1641,136 @@ def check_eltwise_kernels(seed: int) -> None:
               gelu_max_ulps=gelu_max, gelu_elements_off=gelu_off)
         del x, h, gelu, ulps
         torch.cuda.empty_cache()
+    records = check_dinov2_eltwise(tol, gen)
+    check_dinov2_k1(seed)
+    return records
+
+
+def check_ln_output(tol, name: str, got, inp, w, bias, where: str) -> None:
+    """``got`` within `ln_within_one_ulp` of LayerNorm(``inp``), and the
+    plain version with the scale or the bias dropped outside it."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import eltwise
+
+    if not tol.ln_within_one_ulp(got, inp, w, bias):
+        raise RuntimeError(f"{name} is more than one bf16 ulp from its plain "
+                           f"version at {where}")
+    for label, params in (("scale", (torch.ones_like(w), bias)),
+                          ("bias", (w, torch.zeros_like(bias)))):
+        wrong = eltwise.layer_norm_reference(inp, *params, tol.EPS)
+        if tol.ln_within_one_ulp(wrong, inp, w, bias):
+            raise RuntimeError(f"{name}'s check cannot see a dropped LN "
+                               f"{label}")
+
+
+def check_dinov2_eltwise(tol, gen) -> dict:
+    """DINOv2's element-wise kernels at the benchmark cell's rows (128 x
+    1,374; D 1536, I 4096), one launch a call: `layer_norm_bf16` at D
+    1536 and `scale_add_layer_norm_bf16`'s LayerNorm within
+    `ln_within_one_ulp` (a dropped LN scale or bias must fail it);
+    `swiglu_bf16` and the scale-add sum bit for bit against `swiglu` and
+    `scale_add`, whose plain versions with the halves of ``u`` swapped,
+    or with gamma set to one, must differ. The two new kernels are timed
+    beside their plain versions, with bounds from the bytes they move.
+    Returns their records."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import eltwise
+
+    rows, d, inter = DINOV2_BATCH * DINOV2_SEQ, DINOV2_D, DINOV2_I
+    eps = tol.EPS
+    kernels = (eltwise.layer_norm_bf16, eltwise.scale_add_layer_norm_bf16,
+               eltwise.swiglu_bf16)
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3 + 1) \
+        .bfloat16()
+    a = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    # LayerScale drawn per channel as the benchmark's weights draw it.
+    gamma = 0.05 + 0.95 * torch.rand(d, generator=gen, device="cuda")
+    w, bias = ln_params(d, gen)
+    u = (torch.randn(rows, 2 * inter, generator=gen, device="cuda") * 4) \
+        .bfloat16()
+    before = [k.launches for k in kernels]
+    ln = eltwise.layer_norm_bf16(x, w, bias, eps)
+    s, ln2 = eltwise.scale_add_layer_norm_bf16(x, a, gamma, w, bias, eps)
+    gated = eltwise.swiglu_bf16(u)
+    torch.cuda.synchronize()
+    counts = [k.launches - n for k, n in zip(kernels, before)]
+    if counts != [1, 1, 1]:
+        raise RuntimeError(f"{counts} launches of layer_norm_bf16, "
+                           "scale_add_layer_norm_bf16 and swiglu_bf16 for "
+                           "one call of each at DINOv2's rows")
+    where = f"DINOv2's {rows} x {d}"
+    if not torch.equal(s, eltwise.scale_add(x, a, gamma)):
+        raise RuntimeError(f"scale_add_layer_norm_bf16's sum is not x + "
+                           f"gamma a at {where}")
+    if torch.equal(s, eltwise.scale_add(x, a, torch.ones_like(gamma))):
+        raise RuntimeError("the scale-add check cannot see gamma dropped")
+    if not torch.equal(gated, eltwise.swiglu(u)):
+        raise RuntimeError(f"swiglu_bf16 is not silu(u1) u2 at {rows} x "
+                           f"{inter}")
+    if torch.equal(gated, eltwise.swiglu(u.roll(inter, -1))):
+        raise RuntimeError("the SwiGLU check cannot see its halves swapped")
+    check_ln_output(tol, "layer_norm_bf16", ln, x, w, bias, where)
+    check_ln_output(tol, "scale_add_layer_norm_bf16", ln2, s, w, bias, where)
+    ln_err = max_abs([ln2], [eltwise.layer_norm_reference(s, w, bias, eps)])
+    del ln
+    params = (gamma, w, bias)
+    records = {
+        "swiglu_bf16": {
+            "max_abs_err": 0.0,
+            "ms": median_ms(lambda: eltwise.swiglu_bf16(u)),
+            "plain_ms": median_ms(lambda: eltwise.swiglu(u), runs=10),
+            **bound({"bf16": 0}, nbytes(u, gated))},
+        "scale_add_layer_norm_bf16": {
+            "max_abs_err": ln_err,
+            "ms": median_ms(lambda: eltwise.scale_add_layer_norm_bf16(
+                x, a, gamma, w, bias, eps)),
+            "plain_ms": median_ms(
+                lambda: eltwise.scale_add_layer_norm_reference(
+                    x, a, gamma, w, bias, eps), runs=10),
+            **bound({"bf16": 0}, nbytes(x, a, s, ln2, *params))}}
+    for name, rec in records.items():
+        phase("eltwise", name=name, shape="dinov2", rows=rows, d=d,
+              inter=inter,
+              bit_exact="output" if name == "swiglu_bf16" else "sum",
+              max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+              plain_ms=rec["plain_ms"], bound_ms=round(rec["bound_ms"], 4),
+              bound_by=rec["bound_by"])
+    del x, a, s, ln2, u, gated
+    torch.cuda.empty_cache()
+    return records
+
+
+def check_dinov2_k1(seed: int) -> None:
+    """K1 at the DINOv2 cell's shape, x (128, 1374, 1536), 24 heads, which
+    no other phase launches it at: against its plain version on the
+    first and last 8 images (K1's bound), its fault guard on the first 8,
+    timed beside its bound. Errors and times only."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+    from pigeon_tpu_torch.tuning import qkv_operands
+
+    b, s, d, h = DINOV2_BATCH, DINOV2_SEQ, DINOV2_D, DINOV2_H
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, ws, bs = qkv_operands(gen, b, s, d, raw=False)
+    args = (x, *ws, *bs, h)
+    rel = check_rows_at(k1.fused_qkv_attention,
+                        k1.fused_qkv_attention_reference, args, b, K1_TOL,
+                        "K1 at DINOv2's shape")
+    head = (x[:8], *ws, *bs, h)
+    check_qkv_fault_shows(k1.fused_qkv_attention_reference, head,
+                          k1.fused_qkv_attention_reference(*head), K1_TOL)
+    ms = median_ms(lambda: k1.fused_qkv_attention(*args), runs=5)
+    flop = 3 * 2 * b * s * d * d + 2 * 2 * b * h * s * s * 64
+    rec = bound({"bf16": flop}, nbytes(x, *ws, *bs, x))
+    phase("kernel", name="fused_qkv_attention", shapes="dinov2",
+          shape=f"({b},{s},{d})", heads=h, out_err=round(rel, 6),
+          tol=K1_TOL, ms=ms, bound_ms=round(rec["bound_ms"], 4),
+          bound_by=rec["bound_by"], tflops=round(flop / ms / 1e9, 1))
+    del x, args
+    torch.cuda.empty_cache()
 
 
 def write_assets(root: str, seed: int) -> list:
@@ -4876,6 +5028,85 @@ def pretrain_plain_grads(model, batch, dtype) -> dict:
             m.dtype = torch.bfloat16
 
 
+def check_embed_dinov2(seed: int) -> dict:
+    """``embed --model dinov2-g14-reg`` (ViT-g/14-reg4 at 518 px, seeded
+    by the CLI) through the CLI's own ``main`` on the ``[train]`` phase's
+    32 + 8 panoramas, batch 8 (32 views, 5 batches): each batch launches
+    K1, `swiglu_bf16` and `scale_add_layer_norm_bf16` 40, 40 and 80
+    times and `layer_norm_bf16` once, and nothing else of the bf16
+    routes or CLIP's element-wise kernels; banks (32, 4, 1536) and (8, 4,
+    1536) with their indices; the bank's first batch within cosine >=
+    `ROUTE_COSINE` a row of the plain route (the eager chain and plain
+    attention) on a model the CLI builds from the same arguments.
+    Returns the launches of the kernels line's kernels."""
+    import contextlib
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from pigeon_tpu_torch.cli import run
+    from pigeon_tpu_torch.data.pipeline import iter_batches
+    from pigeon_tpu_torch.kernels import eltwise
+    from pigeon_tpu_torch.models.clip import set_route
+    from pigeon_tpu_torch.train.embed import make_embed_step
+
+    names = (*ELTWISE_KERNELS, "swiglu_bf16", "scale_add_layer_norm_bf16")
+    counters = {**route_counters(),
+                **{name: getattr(eltwise, name) for name in names}}
+    batches = math.ceil(TRAIN_ROWS / TRAIN_BATCH) + math.ceil(
+        VAL_ROWS / TRAIN_BATCH)
+    per_batch = {"fused_qkv_attention": DINOV2_LAYERS,
+                 "swiglu_bf16": DINOV2_LAYERS,
+                 "scale_add_layer_norm_bf16": 2 * DINOV2_LAYERS,
+                 "layer_norm_bf16": 1}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            meta, _, images = write_train_assets(root, seed)
+            out = os.path.join(root, "emb")
+            argv = ["embed", "smoke_dinov2", "--model", "dinov2-g14-reg",
+                    "--panorama", "--metadata", meta, "--images", images,
+                    "--batch-size", str(TRAIN_BATCH), "--device", "cuda"]
+            rec = run_command([*argv, "--output", out], counters, {
+                name: n * batches for name, n in per_batch.items()})
+            for split, n in (("train", TRAIN_ROWS), ("val", VAL_ROWS)):
+                bank = np.load(os.path.join(out, f"{split}.npy"))
+                idx = np.load(os.path.join(out, f"{split}_indices.npy"))
+                if bank.shape != (n, 4, DINOV2_D) or \
+                        not np.isfinite(bank).all() or \
+                        not np.array_equal(idx, np.arange(n)):
+                    raise RuntimeError(f"embed dinov2 {split}: {bank.shape},"
+                                       f" indices {idx[:4]}...")
+            train = np.load(os.path.join(out, "train.npy"))[:TRAIN_BATCH]
+            args = run.build_parser().parse_args(argv)
+            cfg = run.make_config(args)
+            model = run.build_embedder(args, cfg).cuda().eval()
+            with contextlib.closing(iter_batches(
+                    run.embed_splits(args, cfg)["train"], TRAIN_BATCH)) as it:
+                pixels = next(it)["inputs"]
+            step = make_embed_step(model, torch.device("cuda"))
+            set_route(model, "plain")
+            plain = step(pixels)
+            cosine = row_cosines(train, plain).min().item()
+            del model, step, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    if not cosine >= ROUTE_COSINE:
+        raise RuntimeError(f"embed dinov2: a row's cosine {cosine} < "
+                           f"{ROUTE_COSINE} against the plain route")
+    phase("embed_dinov2", views=4, panoramas=TRAIN_ROWS + VAL_ROWS,
+          batches=batches, layers=DINOV2_LAYERS,
+          launches=json.dumps(rec["launches"], separators=(",", ":")),
+          seconds=round(rec["seconds"], 3),
+          peak_gib=round(rec["peak_gib"], 3), cosine_vs_plain=cosine)
+    return {name: n for name, n in rec["launches"].items() if name in KERNELS}
+
+
 def check_pretrain(seed: int) -> dict:
     """[pretrain]: the ``pretrain`` command at full width (ViT-L/14-336
     vision, ViT-L/14 text, `HashTokenizer` at 49,408) through its own
@@ -6033,7 +6264,7 @@ def main() -> int:
                    check_block_int8_kernel(args.seed),
                "flash_attention_online": check_online_kernel(args.seed)}
     check_eval_shapes(args.seed)
-    check_eltwise_kernels(args.seed)
+    records.update(check_eltwise_kernels(args.seed))
     # Each path's launches, counted from 0 just before it runs.
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -6060,6 +6291,7 @@ def main() -> int:
     add(check_train_durable(args.seed))
     add(check_scale_out(args.seed))
     add(check_embed(args.seed))
+    add(check_embed_dinov2(args.seed))
     add(check_pretrain(args.seed))
     add(check_zeroshot(args.seed))
     add(check_geocell_ladder(args.seed))

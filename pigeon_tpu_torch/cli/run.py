@@ -56,7 +56,10 @@ traces the serving forward on the plain route into an artifact that
 one CLIP text prompt a geocell (`models/zeroshot.py`). ``--landmarks``
 selects the PIGEOTTO-with-landmarks preset and lets the refinement flags
 list datasets comma-separated (:func:`load_refine_assets`); ``--model
-vit-b32`` swaps in the ViT-B/32 towers.
+vit-b32`` swaps in the ViT-B/32 towers, and ``embed --model
+dinov2-g14-reg`` embeds with DINOv2 ViT-g/14 with registers at 518 px
+(the final-LN CLS row; ``--base`` an HF `Dinov2WithRegistersModel` state
+dict).
 
 Under `torchrun` (one process a card; ``--device cpu`` runs gloo
 ranks) ``finetune``, ``pretrain``, ``embed``, ``evaluate`` and
@@ -99,6 +102,9 @@ Usage:
     python -m pigeon_tpu_torch.cli.run embed myrun --metadata M.csv \
         --images DIR [--panorama] [--embedder auto|clip|vit] [--base B.pt] \
         [-s N] [--quant] [--batch-size N] [--output DIR]
+    python -m pigeon_tpu_torch.cli.run embed myrun --model dinov2-g14-reg \
+        --metadata M.csv --images DIR [--base DINOV2.pt] [--batch-size N] \
+        [--output DIR]
     python -m pigeon_tpu_torch.cli.run finetune myrun --metadata M.csv \
         --geocells C.csv --embeddings DIR [--panorama] [--batch-size N] \
         [--epochs N]
@@ -143,6 +149,7 @@ import torch
 from pigeon_tpu_torch.config import (
     TextConfig,
     VisionConfig,
+    dinov2_g14_reg_vision,
     landmarks_config,
     pigeon_config,
     pigeotto_config,
@@ -153,6 +160,8 @@ from pigeon_tpu_torch.data.pipeline import iter_batches
 from pigeon_tpu_torch.train.embed import embedding_batches, load_embeddings
 
 logger = logging.getLogger("pigeon_tpu_torch.cli")
+#: ``--model``'s DINOv2 ViT-g/14 with registers, an embedder.
+DINOV2 = "dinov2-g14-reg"
 
 #: Seed of the initial weights (the JAX CLI initialises from PRNGKey(0)).
 INIT_SEED = 0
@@ -275,8 +284,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch state dict to start from: an HF CLIP "
                         "vision tower or a reference SuperGuessr .model "
                         "(a run's checkpoint comes first); embed: an HF "
-                        "CLIP vision tower, or an HF ViT for --embedder "
-                        "vit")
+                        "CLIP vision tower, an HF ViT for --embedder "
+                        "vit, or an HF DINOv2 with registers for --model "
+                        "dinov2-g14-reg")
     p.add_argument("-s", "--sample", type=int, default=None,
                    help="embed, finetune: a seeded random subsample of "
                         "this many rows of each split (finetune: of "
@@ -363,9 +373,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "through one text prompt a geocell (-b: a full HF "
                         "CLIP state dict)")
     p.add_argument("--model", default=None,
-                   choices=["vit-l14-336", "vit-b32"],
+                   choices=["vit-l14-336", "vit-b32", DINOV2],
                    help="CLIP tower size (default: the preset's "
-                        "ViT-L/14-336; --tiny wins)")
+                        "ViT-L/14-336; --tiny wins), or for embed "
+                        "DINOv2 ViT-g/14 with registers at 518 px (with "
+                        "--tiny: its layer at the tiny widths)")
     p.add_argument("--landmarks", action="store_true",
                    help="the PIGEOTTO + Google Landmarks preset; "
                         "--metadata/--embeddings/--prototypes may list "
@@ -406,6 +418,10 @@ def make_config(args):
                                heading=args.heading,
                                panorama=args.panorama)
     cfg = cfg.replace(head=head)
+    if getattr(args, "model", None) == DINOV2:
+        vision = dinov2_g14_reg_vision()
+        cfg = cfg.replace(vision=vision, head=dataclasses.replace(
+            cfg.head, embed_dim=vision.hidden_size))
     if getattr(args, "model", None) == "vit-b32":
         vision = vit_b32_vision()
         cfg = cfg.replace(
@@ -1555,7 +1571,13 @@ def cmd_predict(args) -> int:
 def use_vit_embedder(args) -> bool:
     """``--embedder``, or with ``auto`` the reference's routing by run
     name: a name holding ``vit`` takes the generic ViT embedder
-    (`pigeon_tpu/cli/run.py:755-763`)."""
+    (`pigeon_tpu/cli/run.py:755-763`); ``--model dinov2-g14-reg`` always
+    does."""
+    if getattr(args, "model", None) == DINOV2:
+        if args.embedder == "clip":
+            raise SystemExit(f"--model {DINOV2} is a ViT embedder, not "
+                             "--embedder clip")
+        return True
     if args.embedder != "auto":
         return args.embedder == "vit"
     return "vit" in (args.name or "").lower()
@@ -1564,9 +1586,12 @@ def use_vit_embedder(args) -> bool:
 def build_embedder(args, cfg):
     """``embed``'s model: a bf16 `ClipEmbedder` (f32 parameters) on the
     route of :func:`attn_impl`, or of :func:`quant_attn_impl` for a tower
-    about to become int8, or a `ViTEmbedder`; seeded, then overlaid with
-    ``--base`` (an HF ``vision_model.*`` state dict, or an HF ViT one for
-    the ViT), as the JAX ``cmd_embed`` reads it (`:781-791`)."""
+    about to become int8, or a `ViTEmbedder` (``--model dinov2-g14-reg``:
+    DINOv2's variant, CLS pooling); seeded, then overlaid with ``--base``
+    (an HF ``vision_model.*`` state dict, an HF ViT one for the ViT, an
+    HF DINOv2 with registers one for DINOv2), as the JAX ``cmd_embed``
+    reads it (`:781-791`)."""
+    from pigeon_tpu_torch.config import dinov2_variant
     from pigeon_tpu_torch.models.embedder import ClipEmbedder
     from pigeon_tpu_torch.models.hf_import import (
         merge_state,
@@ -1575,25 +1600,33 @@ def build_embedder(args, cfg):
     from pigeon_tpu_torch.models.super_guessr import init_weights
     from pigeon_tpu_torch.models.vit_embedder import (
         ViTEmbedder,
+        import_dinov2_params,
         import_vit_params,
     )
 
     vit = use_vit_embedder(args)
+    dinov2 = getattr(args, "model", None) == DINOV2
     if vit and args.quant:
         raise SystemExit("embed --quant supports the CLIP embedder only "
                          "(the ViT tower has no quant twin)")
     route = quant_attn_impl() if args.quant else attn_impl()
     forward_body = flash_fwd()
-    build = ViTEmbedder if vit else ClipEmbedder
-    model = init_weights(build(cfg.vision, dtype=torch.bfloat16,
-                               attn_impl=route), INIT_SEED)
+    if dinov2:
+        model = ViTEmbedder(cfg.vision, dtype=torch.bfloat16,
+                            attn_impl=route, variant=dinov2_variant())
+    else:
+        model = (ViTEmbedder if vit else ClipEmbedder)(
+            cfg.vision, dtype=torch.bfloat16, attn_impl=route)
+    model = init_weights(model, INIT_SEED)
     logger.warning("%s embedder, attention route: %s (PIGEON_FLASH_FWD=%s)",
-                   "ViT" if vit else "CLIP", route, forward_body)
+                   "DINOv2" if dinov2 else "ViT" if vit else "CLIP", route,
+                   forward_body)
     if args.base:
         state = torch.load(args.base, map_location="cpu", weights_only=True)
         layers = cfg.vision.num_layers
-        merge_state(model, import_vit_params(state, layers) if vit
-                    else vision_tower_state(state, layers))
+        read = (import_dinov2_params if dinov2 else import_vit_params
+                if vit else vision_tower_state)
+        merge_state(model, read(state, layers))
         logger.warning("loaded vision tower from %s", args.base)
     return model
 
@@ -1774,6 +1807,8 @@ COMMANDS = {"serve": cmd_serve, "finetune": cmd_finetune,
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    if args.model == DINOV2 and args.function != "embed":
+        raise SystemExit(f"--model {DINOV2} is an embedder: embed only")
     if args.function in MESH_COMMANDS:
         run_mesh(args)
     elif args.tp > 1 or args.fsdp:

@@ -12,13 +12,24 @@ The port's own copy of what it uses from the JAX package's
   (``--landmarks``).
 
 ``vit_b32_vision()`` and ``vit_b32_text()`` are the ViT-B/32 towers of
-the zero-shot model (``--model vit-b32``).
+the zero-shot model (``--model vit-b32``). ``dinov2_g14_reg_vision()`` and
+``dinov2_variant()`` are DINOv2 ViT-g/14 with 4 registers at 518 px, an
+embedder only (``embed --model dinov2-g14-reg``): the port's own preset,
+which the JAX package lacks, so its fields beyond `VisionConfig`'s live in
+`ViTVariant`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+from pigeon_tpu_torch.data.image_ops import (
+    CLIP_IMAGE_MEAN,
+    CLIP_IMAGE_STD,
+    IMAGENET_IMAGE_MEAN,
+    IMAGENET_IMAGE_STD,
+)
 
 #: GeoGuessr exponential decay constant (km): score = 5000 exp(-d / DECAY).
 GEOGUESSR_DECAY_KM = 1492.7
@@ -54,6 +65,62 @@ class VisionConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+#: `ViTVariant.mlp` kinds: fc1, ``VisionConfig.hidden_act`` and fc2 (the
+#: generic ViT's exact GELU), or SwiGLU, ``w_out(silu(u1) * u2)`` with
+#: ``[u1 | u2] = w_in(x)`` of ``2 * intermediate_size`` outputs.
+MLP_KINDS = ("gelu", "swiglu")
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTVariant:
+    """What a `models.vit_embedder.ViTEmbedder` tower changes beside a
+    `VisionConfig`'s widths. The defaults are the generic google/ViT
+    embedder's; `dinov2_variant` gives DINOv2's."""
+
+    #: One of `MLP_KINDS`.
+    mlp: str = "gelu"
+    #: Per-channel LayerScale ``gamma1``, ``gamma2`` on both residual
+    #: branches: ``x + gamma * branch(x)``.
+    layer_scale: bool = False
+    #: Learned register tokens spliced in after the CLS token, after the
+    #: positions are added (they take none); pooling skips them.
+    num_register_tokens: int = 0
+    #: The pixel normalisation the embed step applies on the device.
+    pixel_mean: Tuple[float, float, float] = CLIP_IMAGE_MEAN
+    pixel_std: Tuple[float, float, float] = CLIP_IMAGE_STD
+
+    def __post_init__(self):
+        if self.mlp not in MLP_KINDS:
+            raise ValueError(f"mlp={self.mlp!r}, not in {MLP_KINDS}")
+
+
+def swiglu_width(hidden_size: int, mlp_ratio: int = 4) -> int:
+    """DINOv2's SwiGLU hidden width (HF `Dinov2SwiGLUFFN`): two thirds of
+    ``hidden_size * mlp_ratio``, rounded up to a multiple of 8."""
+    return (int(hidden_size * mlp_ratio * 2 / 3) + 7) // 8 * 8
+
+
+def dinov2_g14_reg_vision() -> VisionConfig:
+    """DINOv2 ViT-g/14 with registers at 518 px (HF
+    ``facebook/dinov2-with-registers-giant``): 1,369 patches, width 1536,
+    24 heads of 64, 40 layers, SwiGLU width 4096 (`swiglu_width`), LN eps
+    1e-6. ``hidden_act`` is the published config's, which its SwiGLU MLP
+    does not read; the embedding is the final-LN CLS row, 1536 wide, so
+    ``projection_dim`` is the width."""
+    return VisionConfig(image_size=518, patch_size=14, hidden_size=1536,
+                        intermediate_size=swiglu_width(1536), num_layers=40,
+                        num_heads=24, projection_dim=1536,
+                        layer_norm_eps=1e-6, hidden_act="gelu")
+
+
+def dinov2_variant() -> ViTVariant:
+    """DINOv2 with registers: SwiGLU, LayerScale, 4 registers, ImageNet's
+    pixel normalisation."""
+    return ViTVariant(mlp="swiglu", layer_scale=True, num_register_tokens=4,
+                      pixel_mean=IMAGENET_IMAGE_MEAN,
+                      pixel_std=IMAGENET_IMAGE_STD)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 Counterpart of `pigeon_tpu/data/image_ops.py::resize_crop_pil`,
 `normalize_images`, `clip_preprocess_pil` and `heading_to_sincos`. Views cross to the device as
-uint8 (a quarter of the bytes of f32) and are CLIP-normalised there.
+uint8 (a quarter of the bytes of f32) and are normalised there, by CLIP's
+constants unless the model takes others (DINOv2: ImageNet's).
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import torch
 #: OpenAI CLIP normalisation constants.
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+#: ImageNet's, which DINOv2 takes.
+IMAGENET_IMAGE_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_IMAGE_STD = (0.229, 0.224, 0.225)
 
 
 def resize_crop_pil(image, image_size: int = 336) -> np.ndarray:
@@ -32,11 +36,13 @@ def resize_crop_pil(image, image_size: int = 336) -> np.ndarray:
     return np.asarray(image, dtype=np.uint8)
 
 
-def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
-    """``(..., 3)`` uint8 -> CLIP-normalised f32, on the tensor's device."""
+def normalize_images(images_u8: torch.Tensor, mean=CLIP_IMAGE_MEAN,
+                     std=CLIP_IMAGE_STD) -> torch.Tensor:
+    """``(..., 3)`` uint8 -> f32 normalised by ``mean`` and ``std`` (CLIP's
+    by default), on the tensor's device."""
     x = images_u8.to(torch.float32) / 255.0
-    mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)
-    std = torch.tensor(CLIP_IMAGE_STD, device=x.device)
+    mean = torch.tensor(mean, device=x.device)
+    std = torch.tensor(std, device=x.device)
     return (x - mean) / std
 
 

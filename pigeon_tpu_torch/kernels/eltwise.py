@@ -1,5 +1,6 @@
-"""One-pass LayerNorm, residual add + LayerNorm and quick-GELU, for the
-H100: the element-wise chain of each encoder layer's inference forward.
+"""One-pass LayerNorm, residual add + LayerNorm, quick-GELU, SwiGLU and
+LayerScale'd residual add + LayerNorm, for the H100: the element-wise chain
+of each encoder layer's inference forward.
 
 These replace no TPU kernel: XLA fuses this chain on the TPU. On the card
 `models/clip.py`'s `TransformerLayer` ran it as eager PyTorch kernels
@@ -12,13 +13,18 @@ answers that:
 
 * :func:`layer_norm_bf16`: ``LN(x)``, f32 statistics, bf16 in and out;
 * :func:`add_layer_norm_bf16`: ``s = x + a`` and ``LN(s)`` in one pass;
-* :func:`quick_gelu_bf16`: ``x * sigmoid(1.702 x)`` in one pass.
+* :func:`quick_gelu_bf16`: ``x * sigmoid(1.702 x)`` in one pass;
+* :func:`swiglu_bf16`: ``silu(u1) * u2`` of the fc-in output ``u = [u1 |
+  u2]`` in one pass (DINOv2's gated MLP);
+* :func:`scale_add_layer_norm_bf16`: ``s = x + gamma * a`` and ``LN(s)`` in
+  one pass (a LayerScale'd residual, DINOv2's).
 
 Each rounds where the eager composition rounds, and each has that
 composition beside it as its plain version (:func:`layer_norm_reference`,
-:func:`add_layer_norm_reference`, :func:`quick_gelu`). Dispatch is by the
-tensor's device: a CPU tensor runs the plain version; a CUDA tensor
-launches the kernel (bf16 activations, f32 LayerNorm parameters) or
+:func:`add_layer_norm_reference`, :func:`quick_gelu`, :func:`swiglu`,
+:func:`scale_add_layer_norm_reference`). Dispatch is by the tensor's
+device: a CPU tensor runs the plain version; a CUDA tensor launches the
+kernel (bf16 activations, f32 LayerNorm parameters and LayerScale) or
 raises. None has a backward: training keeps the eager chain.
 """
 
@@ -57,6 +63,26 @@ def add_layer_norm_reference(x, a, weight, bias, eps: float):
     return s, layer_norm_reference(s, weight, bias, eps)
 
 
+def swiglu(u):
+    """DINOv2's gated MLP activation on the fc-in output ``u = [u1 | u2]``
+    (``(..., 2I)``): ``silu(u1) * u2``, ``(..., I)``."""
+    u1, u2 = u.chunk(2, dim=-1)
+    return F.silu(u1) * u2
+
+
+def scale_add(x, a, gamma):
+    """``x + gamma * a`` in ``x.dtype``, LayerScale's ``gamma`` (f32, per
+    channel) cast to it first, as the layers cast their parameters."""
+    return x + a * gamma.to(x.dtype)
+
+
+def scale_add_layer_norm_reference(x, a, gamma, weight, bias, eps: float):
+    """`scale_add` and `layer_norm_reference` of the sum: returns ``(s,
+    LN(s))``."""
+    s = scale_add(x, a, gamma)
+    return s, layer_norm_reference(s, weight, bias, eps)
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
@@ -66,8 +92,12 @@ def load() -> ctypes.CDLL:
     lib.pigeon_add_layer_norm_bf16.argtypes = [ptr] * 6 + [i32, i32, f32,
                                                            ptr]
     lib.pigeon_quick_gelu_bf16.argtypes = [ptr, ptr, ctypes.c_int64, ptr]
+    lib.pigeon_swiglu_bf16.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.pigeon_scale_add_layer_norm_bf16.argtypes = [ptr] * 7 + [
+        i32, i32, f32, ptr]
     for fn in (lib.pigeon_layer_norm_bf16, lib.pigeon_add_layer_norm_bf16,
-               lib.pigeon_quick_gelu_bf16):
+               lib.pigeon_quick_gelu_bf16, lib.pigeon_swiglu_bf16,
+               lib.pigeon_scale_add_layer_norm_bf16):
         fn.restype = ctypes.c_int
     lib.pigeon_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pigeon_cuda_error_string.restype = ctypes.c_char_p
@@ -178,3 +208,56 @@ def quick_gelu_bf16(x):
 
 
 quick_gelu_bf16.launches = 0
+
+
+def swiglu_bf16(u):
+    """:func:`swiglu` of ``u`` ``(..., 2I)``: returns ``(..., I)``.
+
+    CPU tensors run :func:`swiglu`; a CUDA ``u`` (bf16, contiguous, 16-byte
+    aligned, I a multiple of 8) launches one kernel and counts one launch
+    in ``swiglu_bf16.launches``.
+    """
+    if u.device.type == "cpu":
+        return swiglu(u)
+    _check_activations("swiglu_bf16", u)
+    inter = u.shape[-1] // 2
+    if u.shape[-1] % 16:
+        raise ValueError(f"swiglu_bf16: width {u.shape[-1]} must be 2I, I "
+                         f"a multiple of 8")
+    out = u.new_empty((*u.shape[:-1], inter))
+    _launch("swiglu_bf16", "pigeon_swiglu_bf16", u, out,
+            u.numel() // u.shape[-1], inter)
+    swiglu_bf16.launches += 1
+    return out
+
+
+swiglu_bf16.launches = 0
+
+
+def scale_add_layer_norm_bf16(x, a, gamma, weight, bias, eps: float):
+    """``s = x + gamma * a`` and ``LN(s)`` over the last dimension: returns
+    ``(s, LN(s))``, each shaped as ``x``.
+
+    CPU tensors run :func:`scale_add_layer_norm_reference`; CUDA tensors
+    (``x`` and ``a`` bf16 of one shape, ``gamma`` and the LN parameters as
+    `layer_norm_bf16` takes its parameters) launch one kernel and count one
+    launch in ``scale_add_layer_norm_bf16.launches``.
+    """
+    if x.device.type == "cpu":
+        return scale_add_layer_norm_reference(x, a, gamma, weight, bias, eps)
+    _check_rows("scale_add_layer_norm_bf16", weight, bias, x, a)
+    if (tuple(gamma.shape) != (x.shape[-1],) or gamma.dtype != torch.float32
+            or gamma.device != x.device or not gamma.is_contiguous()
+            or gamma.data_ptr() % 16):
+        raise ValueError("scale_add_layer_norm_bf16: gamma must be f32 of "
+                         "shape (D,) on x's device, contiguous and 16-byte "
+                         "aligned")
+    s, out = torch.empty_like(x), torch.empty_like(x)
+    d = x.shape[-1]
+    _launch("scale_add_layer_norm_bf16", "pigeon_scale_add_layer_norm_bf16",
+            x, a, gamma, weight, bias, s, out, x.numel() // d, d, float(eps))
+    scale_add_layer_norm_bf16.launches += 1
+    return s, out
+
+
+scale_add_layer_norm_bf16.launches = 0

@@ -56,6 +56,13 @@ float layer on ``"fused"``, ``"flash"`` or ``"fused_ln"`` runs its
 element-wise chain on a CUDA bf16 activation as the one-pass kernels of
 `kernels/eltwise.py` (`TransformerLayer.forward`).
 
+A layer built with ``swiglu`` or ``layer_scale`` (DINOv2's, through
+`models/vit_embedder.py`'s `config.ViTVariant`) has a SwiGLU MLP
+(``w_in``, ``w_out``) in place of ``fc1``/``fc2`` and per-channel
+``gamma1``/``gamma2`` on its residuals (`TransformerLayer.forward`).
+It runs on every route but ``"block"``, whose K6 adds the residual
+unscaled; K9 never runs it, and it has no int8 twin.
+
 The route is `MultiHeadAttention.attn_impl`, which `TransformerLayer`
 reads; `set_route` switches a built model and `routes_of` reads it back.
 The precedence follows `pigeon_tpu/models/clip.py:354-414`: in an int8
@@ -136,6 +143,10 @@ from pigeon_tpu_torch.kernels.eltwise import (
     layer_norm_reference,
     quick_gelu,
     quick_gelu_bf16,
+    scale_add,
+    scale_add_layer_norm_bf16,
+    swiglu,
+    swiglu_bf16,
 )
 from pigeon_tpu_torch.kernels.fused_block_attention import (
     FUSED_BLOCK_ATTENTION_OP,
@@ -441,91 +452,154 @@ class TransformerLayer(nn.Module):
     is ``config.hidden_act``, one of `ACTIVATIONS`. ``config`` is a
     `VisionConfig` or a `TextConfig`: the layer reads the fields both
     have (``hidden_size``, ``num_heads``, ``intermediate_size``,
-    ``layer_norm_eps``, ``hidden_act``)."""
+    ``layer_norm_eps``, ``hidden_act``).
 
-    def __init__(self, config, attn_impl: str = "fused", quant=False):
+    ``swiglu`` makes the MLP ``w_out(silu(u1) * u2)``, ``[u1 | u2] =
+    w_in(LN2(x))`` with ``2 * intermediate_size`` outputs (``hidden_act``
+    not read); ``layer_scale`` scales each residual branch by a
+    per-channel ``gamma1``, ``gamma2``."""
+
+    def __init__(self, config, attn_impl: str = "fused", quant=False,
+                 swiglu: bool = False, layer_scale: bool = False):
         super().__init__()
-        if config.hidden_act not in ACTIVATIONS:
+        if not swiglu and config.hidden_act not in ACTIVATIONS:
             raise ValueError(f"hidden_act={config.hidden_act!r}, not in "
                              f"{sorted(ACTIVATIONS)}")
+        if (swiglu or layer_scale) and quant:
+            raise ValueError("a SwiGLU or LayerScale layer has no int8 twin")
         self.hidden_act = config.hidden_act
-        d = config.hidden_size
+        self.swiglu = swiglu
+        d, inter = config.hidden_size, config.intermediate_size
         self.ln1 = nn.LayerNorm(d, eps=config.layer_norm_eps)
         self.attn = MultiHeadAttention(d, config.num_heads, attn_impl, quant)
         self.ln2 = nn.LayerNorm(d, eps=config.layer_norm_eps)
-        self.fc1 = make_linear(d, config.intermediate_size, quant)
-        self.fc2 = make_linear(config.intermediate_size, d, quant)
+        if swiglu:
+            self.w_in = nn.Linear(d, 2 * inter)
+            self.w_out = nn.Linear(inter, d)
+        else:
+            self.fc1 = make_linear(d, inter, quant)
+            self.fc2 = make_linear(inter, d, quant)
+        self.gamma1 = nn.Parameter(torch.empty(d)) if layer_scale else None
+        self.gamma2 = nn.Parameter(torch.empty(d)) if layer_scale else None
         #: The `kernels.sharded.ModelAxis` whose ranks hold this layer's
         #: MLP columns (fc1's output, fc2's input), or None.
         self.tp = None
 
-    def mlp(self, x, h, act):
-        """``x + fc2(act(fc1(h)))`` with ``h = LN2(x)``, on the rank's MLP
-        columns under tensor parallelism."""
+    @property
+    def scaled(self) -> bool:
+        """Whether the layer is DINOv2's: SwiGLU or LayerScale."""
+        return self.swiglu or self.gamma1 is not None
+
+    def mlp_branch(self, h, fast: bool = False):
+        """The MLP of ``h = LN2(x)``: ``w_out(silu(u1) * u2)`` for a SwiGLU
+        layer, else ``fc2(act(fc1(h)))`` on the rank's MLP columns under
+        tensor parallelism. ``fast`` takes the one-pass SwiGLU or
+        quick-GELU of `kernels/eltwise.py`."""
+        if self.swiglu:
+            gate = swiglu_bf16 if fast else swiglu
+            return dense(self.w_out, gate(dense(self.w_in, h)))
         if self.tp is not None:
             h = copy_to_model(h, self.tp)
+        act = (quick_gelu_bf16 if fast and self.hidden_act == "quick_gelu"
+               else ACTIVATIONS[self.hidden_act])
         h = act(linear(self.fc1, h))
-        return x + row_parallel(self.fc2, h, self.tp)
+        return row_parallel(self.fc2, h, self.tp)
 
-    def forward(self, x, mask=None):
+    def fast(self, x, mask=None) -> bool:
+        """Whether a float layer's call runs its element-wise chain through
+        `kernels/eltwise.py`: grad mode off, a bf16 ``x``, no ``mask``, on
+        ``"fused"``, ``"flash"`` or ``"fused_ln"``."""
+        return (self.attn.attn_impl in ELTWISE_IMPLS and mask is None
+                and not torch.is_grad_enabled()
+                and x.dtype == torch.bfloat16)
+
+    def _residual(self, x, a, gamma):
+        return x + a if gamma is None else scale_add(x, a, gamma)
+
+    def _residual_ln(self, x, a, gamma, ln: nn.LayerNorm):
+        """``(s, LN(s))`` of ``s = x + gamma * a`` (``x + a`` where
+        ``gamma`` is None) in one kernel launch (the plain version on a
+        CPU ``x``)."""
+        if gamma is None:
+            return add_layer_norm_bf16(x.contiguous(), a.contiguous(),
+                                       ln.weight, ln.bias, ln.eps)
+        return scale_add_layer_norm_bf16(x.contiguous(), a.contiguous(),
+                                         gamma, ln.weight, ln.bias, ln.eps)
+
+    def forward(self, x, mask=None, h=None, next_ln: nn.LayerNorm = None):
         """One layer. A float layer's inference forward (grad mode off)
         of a bf16 ``x`` on ``"fused"``, ``"flash"`` or ``"fused_ln"`` with
-        no ``mask`` runs LN1 (where no kernel folds it in), the residual
-        add with LN2, and quick-GELU through `kernels/eltwise.py`: the
-        one-pass kernels for a CUDA ``x``, their plain versions (the eager
-        chain) for a CPU one. The second residual add stays one eager add,
-        and training, the int8 layers and the other routes keep the eager
-        chain."""
-        quant = quant_mode(self.fc1)
+        no ``mask`` (`fast`) runs LN1 (where no kernel folds it in), the
+        residual with LN2, and the activation (quick-GELU or SwiGLU)
+        through `kernels/eltwise.py`: the one-pass kernels for a CUDA
+        ``x``, their plain versions (the eager chain) for a CPU one. The
+        second residual stays one eager add (scale-add), and training,
+        the int8 layers and the other routes keep the eager chain.
+
+        For `TransformerStack.forward_ln`, on the `fast` path only:
+        ``h``, where given, is LN1(x), computed by the caller, and with
+        ``next_ln`` the second residual runs in one kernel with
+        ``next_ln`` and the layer returns ``(x, next_ln(x))``. A SwiGLU
+        or LayerScale layer refuses route ``"block"``, whose K6 adds the
+        residual unscaled and whose K9 runs quick-GELU."""
+        quant = False if self.swiglu else quant_mode(self.fc1)
         # An int8 layer quantizes LN1's and LN2's outputs: Flax's form.
         norm = flax_layer_norm if quant else layer_norm
-        act = ACTIVATIONS[self.hidden_act]
         route = self.attn.attn_impl
+        if route == "block" and self.scaled:
+            raise ValueError("route 'block' adds the attention residual "
+                             "unscaled (K6) and runs quick-GELU MLPs (K9): "
+                             "a SwiGLU or LayerScale layer takes the others")
         if mask is not None:                    # plain on every route
-            x = x + self.attn(norm(self.ln1, x), mask=mask)
-            return self.mlp(x, norm(self.ln2, x), act)
-        eltwise = (route in ELTWISE_IMPLS and not quant
-                   and not torch.is_grad_enabled()
-                   and x.dtype == torch.bfloat16)
+            x = self._residual(x, self.attn(norm(self.ln1, x), mask=mask),
+                               self.gamma1)
+            return self._residual(x, self.mlp_branch(norm(self.ln2, x)),
+                                  self.gamma2)
+        fast = not quant and self.fast(x)
         if route == "block" and quant != "dynamic":
             x = self.attn.block(x, self.ln1)    # K6 / K7: residual included
         else:
-            if route in ("fused_ln", "fused_mlp") and not quant:
+            if h is not None:
+                a = self.attn(h)
+            elif route in ("fused_ln", "fused_mlp") and not quant:
                 a = self.attn(x, ln=self.ln1)
-            elif eltwise:
+            elif fast:
                 a = self.attn(layer_norm_bf16(
                     x.contiguous(), self.ln1.weight, self.ln1.bias,
                     self.ln1.eps))
             else:
                 a = self.attn(norm(self.ln1, x))
-            if eltwise:
-                x, h = add_layer_norm_bf16(
-                    x.contiguous(), a.contiguous(), self.ln2.weight,
-                    self.ln2.bias, self.ln2.eps)
-                return self.mlp(x, h, quick_gelu_bf16
-                                if self.hidden_act == "quick_gelu" else act)
-            x = x + a
-        if (route in ("fused_mlp", "block") and not quant
+            if fast:
+                x, h = self._residual_ln(x, a, self.gamma1, self.ln2)
+                m = self.mlp_branch(h, fast=True)
+                if next_ln is not None:
+                    return self._residual_ln(x, m, self.gamma2, next_ln)
+                return self._residual(x, m, self.gamma2)
+            x = self._residual(x, a, self.gamma1)
+        if (route in ("fused_mlp", "block") and not quant and not self.scaled
                 and self.hidden_act == "quick_gelu"):
             return FusedLNMLP.apply(
                 x.contiguous(), self.ln2.weight, self.ln2.bias,
                 *(t.to(x.dtype) for fc in (self.fc1, self.fc2)
                   for t in (fc.weight, fc.bias)), self.ln2.eps)
-        return self.mlp(x, norm(self.ln2, x), act)
+        return self._residual(x, self.mlp_branch(norm(self.ln2, x)),
+                              self.gamma2)
 
 
 class TransformerStack(nn.Module):
     """``config.num_layers`` `TransformerLayer`s, remat'd layer by layer
-    under ``remat`` while gradients are on."""
+    under ``remat`` while gradients are on; ``swiglu`` and ``layer_scale``
+    go to each layer."""
 
     def __init__(self, config, attn_impl: str = "fused",
-                 remat: str = "none", quant=False):
+                 remat: str = "none", quant=False, swiglu: bool = False,
+                 layer_scale: bool = False):
         super().__init__()
         if remat not in REMATS:
             raise ValueError(f"remat={remat!r}, not in {REMATS}")
         self.remat = remat
         self.layers = nn.ModuleList(
-            TransformerLayer(config, attn_impl, quant)
+            TransformerLayer(config, attn_impl, quant, swiglu, layer_scale)
             for _ in range(config.num_layers))
 
     def apply_layer(self, layer: "TransformerLayer", x, mask=None):
@@ -543,6 +617,24 @@ class TransformerStack(nn.Module):
         for layer in self.layers:
             x = self.apply_layer(layer, x, mask)
         return x
+
+    def forward_ln(self, x, ln: nn.LayerNorm):
+        """``ln(self(x))``. Where every layer is a SwiGLU or LayerScale one
+        on its `fast` path, on ``"fused"`` or ``"flash"``, each layer's MLP
+        residual runs in one kernel with the next layer's LN1, and the
+        last layer's with ``ln``: one `layer_norm_bf16` and two
+        `scale_add_layer_norm_bf16` a layer."""
+        layers = list(self.layers)
+        if not all(layer.scaled and layer.fast(x)
+                   and layer.attn.attn_impl in ("fused", "flash")
+                   for layer in layers) or not layers:
+            return layer_norm(ln, self(x))
+        first = layers[0].ln1
+        h = layer_norm_bf16(x.contiguous(), first.weight, first.bias,
+                            first.eps)
+        for layer, nxt in zip(layers, [m.ln1 for m in layers[1:]] + [ln]):
+            x, h = layer(x, h=h, next_ln=nxt)
+        return h
 
 
 class CLIPVisionTower(nn.Module):

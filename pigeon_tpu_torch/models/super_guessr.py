@@ -18,6 +18,7 @@ from pigeon_tpu_torch.models.clip import (
     CLIPTextTower,
     CLIPVisionTower,
     PatchEmbed,
+    TransformerLayer,
 )
 from pigeon_tpu_torch.models.embedder import token_mean_embedding
 from pigeon_tpu_torch.models.geocell_head import GeocellHead, GeocellOutput
@@ -85,7 +86,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     Dense and patch kernels: lecun-normal (truncated normal, variance
     1 / fan_in); biases zero; LayerNorms one and zero; CLS token and
-    positions N(0, 0.02), the ViT embedder's CLS token zero; the text
+    positions N(0, 0.02), the ViT embedder's CLS token and registers
+    zero; LayerScale one (DINOv2's ``layerscale_value``); the text
     tower's token embedding N(0, 1 / D) (Flax's ``nn.Embed``) and its
     positions N(0, 0.02); `CLIPModel`'s logit scale keeps the value its
     constructor gave it. The numbers
@@ -122,4 +124,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(module, ViTEmbedder):
             nn.init.zeros_(module.cls_token)
             nn.init.normal_(module.pos_embed, std=0.02, generator=gen)
+            if module.register_tokens is not None:
+                nn.init.zeros_(module.register_tokens)
+        elif isinstance(module, TransformerLayer) \
+                and module.gamma1 is not None:
+            nn.init.ones_(module.gamma1)
+            nn.init.ones_(module.gamma2)
     return model

@@ -27,6 +27,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from pigeon_tpu_torch.data.image_ops import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from pigeon_tpu_torch.data.pipeline import (
     TabularImageDataset,
     holdout,
@@ -44,16 +45,21 @@ from pigeon_tpu_torch.train.train_loop import batch_to_device
 
 def make_embed_step(model: torch.nn.Module, device):
     """``step(pixels) -> embeddings`` on ``device``: uint8 pixels are
-    CLIP-normalised there; a panorama ``(B, V, S, S, 3)`` is folded to
-    ``(B*V, S, S, 3)`` for one tower batch and its embeddings unfolded to
-    ``(B, V, D)``. While a torch profiler runs, each call records the
-    span ``embed.h2d``: the copy to ``device`` and the normalisation, with
-    the card's time (`train.profiling`)."""
+    normalised there by the model's ``pixel_mean`` and ``pixel_std`` (a
+    `ViTEmbedder`'s, from its `config.ViTVariant`), CLIP's where it has
+    none; a panorama ``(B, V, S, S, 3)`` is folded to ``(B*V, S, S, 3)``
+    for one tower batch and its embeddings unfolded to ``(B, V, D)``.
+    While a torch profiler runs, each call records the span
+    ``embed.h2d``: the copy to ``device`` and the normalisation, with the
+    card's time (`train.profiling`)."""
+    mean = getattr(model, "pixel_mean", CLIP_IMAGE_MEAN)
+    std = getattr(model, "pixel_std", CLIP_IMAGE_STD)
 
     @torch.inference_mode()
     def step(pixels) -> torch.Tensor:
         with profiling.span("embed.h2d", device=True):
-            x = batch_to_device({"inputs": pixels}, device)["inputs"]
+            x = batch_to_device({"inputs": pixels}, device, mean,
+                                std)["inputs"]
         if x.dim() == 5:
             b, v = x.shape[:2]
             return model(x.reshape(b * v, *x.shape[2:])).reshape(b, v, -1)

@@ -19,7 +19,11 @@ import torch
 from torch import nn
 
 from pigeon_tpu_torch.config import HeadConfig
-from pigeon_tpu_torch.data.image_ops import normalize_images
+from pigeon_tpu_torch.data.image_ops import (
+    CLIP_IMAGE_MEAN,
+    CLIP_IMAGE_STD,
+    normalize_images,
+)
 from pigeon_tpu_torch.models.geocell_head import (
     GeocellOutput,
     geocell_loss,
@@ -207,15 +211,17 @@ def adamw(params: Iterable[nn.Parameter], learning_rate: float,
                  accum_steps=accum_steps, schedule=schedule)
 
 
-def batch_to_device(batch: Dict[str, np.ndarray], device
+def batch_to_device(batch: Dict[str, np.ndarray], device,
+                    mean=CLIP_IMAGE_MEAN, std=CLIP_IMAGE_STD
                     ) -> Dict[str, torch.Tensor]:
     """A pipeline batch as tensors on ``device``; uint8 ``inputs`` are
-    CLIP-normalised there (a quarter of the bytes cross as uint8)."""
+    normalised there by ``mean`` and ``std``, CLIP's by default (a quarter
+    of the bytes cross as uint8)."""
     out = {}
     for key, value in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
         if key == "inputs" and t.dtype == torch.uint8:
-            t = normalize_images(t)
+            t = normalize_images(t, mean, std)
         out[key] = t
     return out
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Times the one-pass element-wise kernels of `pigeon_tpu_torch`
-(`kernels/eltwise.py`: LayerNorm, residual add + LayerNorm, quick-GELU)
-on one GPU, and counts their launches in a ViT-L/14-336 forward.
+(`kernels/eltwise.py`: LayerNorm, residual add + LayerNorm, quick-GELU,
+SwiGLU, LayerScale'd add + LayerNorm) on one GPU, and counts their
+launches in a ViT-L/14-336 forward.
 
     python3 scripts/bench_torch_eltwise.py [--iters N] [--output OUT.json]
 
 Prints the card's name and power limit, then one line per kernel and
 shape (the main path's: the ViT-L/14-336 sweep's 512 x 577 rows, a
 training or 8-panorama serving batch's 32 x 577, the ViT-B/32 sweep's
-512 x 50), each with
+512 x 50; DINOv2-g/14's sweep of 128 x 1,374 rows and one image), each
+with
 
 * the kernel's device ms a call (`torch.profiler`, its kernels' summed
   time over ``--iters`` calls), and its wrapper's ms a call (CUDA events
@@ -18,7 +20,9 @@ training or 8-panorama serving batch's 32 x 577, the ViT-B/32 sweep's
 * the plain version's device ms a call: the eager composition the
   layers ran before the kernels (LayerNorm: ``x.float()``,
   ``F.layer_norm``, ``.to``; add + LayerNorm: the add, then that;
-  quick-GELU: ``1.702 * x``, ``sigmoid``, the product);
+  quick-GELU: ``1.702 * x``, ``sigmoid``, the product; SwiGLU: ``silu``
+  of the first half, the product; the LayerScale'd add: gamma's cast,
+  the product, the add, then the LayerNorm's);
 * where one PyTorch call computes nearly the same function, that call's
   device ms (``F.layer_norm`` on bf16 with the parameters rounded to bf16);
 * the largest distance from the plain version in bf16 ulps (a LayerNorm
@@ -57,6 +61,9 @@ ROWS = [("vit-l sweep", 512 * 577, 1024), ("32 views", 32 * 577, 1024),
         ("vit-b/32 sweep", 512 * 50, 768)]
 GELU = [("vit-l sweep", 512 * 577, 4096), ("32 views", 32 * 577, 4096),
         ("vit-b/32 sweep", 512 * 50, 3072)]
+#: DINOv2-g/14: (rows, I) for SwiGLU, (rows, D) for the scaled add + LN.
+DINOV2 = [("dinov2-g sweep", 128 * 1374, 4096, 1536),
+          ("dinov2-g image", 1374, 4096, 1536)]
 
 
 def device_ms(fn, copies, iters):
@@ -215,6 +222,26 @@ def main(argv=None) -> int:
             eltwise.quick_gelu, None,
             lambda i: (randn(m, n, scale=4.0).bfloat16(),),
             2 * m * n * 2, args.iters))
+    for label, m, inter, d in DINOV2:
+        rows.append(measure(
+            f"swiglu_bf16 ({label})", (m, inter), eltwise.swiglu_bf16,
+            eltwise.swiglu, None,
+            lambda i: (randn(m, 2 * inter, scale=4.0).bfloat16(),),
+            3 * m * inter * 2, args.iters))
+        w, b = randn(d, scale=0.5, shift=1.0), randn(d, scale=0.5)
+        g = 0.05 + 0.95 * torch.rand(d, generator=gen, device="cuda")
+        rows.append(measure(
+            f"scale_add_layer_norm_bf16 ({label})", (m, d),
+            lambda x, a: eltwise.scale_add_layer_norm_bf16(x, a, g, w, b,
+                                                           EPS),
+            lambda x, a: eltwise.scale_add_layer_norm_reference(
+                x, a, g, w, b, EPS),
+            None,
+            lambda i: (randn(m, d, scale=3.0, shift=1.0).bfloat16(),
+                       randn(m, d).bfloat16()),
+            4 * m * d * 2, args.iters,
+            floor=lambda x, a: cancellation_floor(
+                eltwise.scale_add(x, a, g), w, b)))
     result = {"card": card.strip(), "rows": rows,
               "launches": launches_in_a_tower()}
     if args.output:

@@ -1,12 +1,13 @@
 """The one-pass element-wise kernels of the encoder layers' inference
 forward (`kernels/eltwise.py`: LayerNorm, residual add + LayerNorm,
-quick-GELU). On the CPU: each plain version is today's eager composition
-bit for bit, the wrappers dispatch a CPU tensor to it, and
-`TransformerLayer` reaches the wrappers only where its docstring says
-(a spy on the wrappers; a CPU bf16 activation takes the card's path).
-On a GPU (``-m gpu``): each kernel against its plain version at the main
-path's shapes, and a ViT-L/14-336-shaped tower under ``inference_mode``
-against the same tower under grad mode.
+quick-GELU, SwiGLU, LayerScale'd add + LayerNorm). On the CPU: each plain
+version is today's eager composition bit for bit, the wrappers dispatch a
+CPU tensor to it, and `TransformerLayer` reaches the wrappers only where
+its docstring says (a spy on the wrappers; a CPU bf16 activation takes
+the card's path). On a GPU (``-m gpu``): each kernel against its plain
+version at the main path's shapes, a ViT-L/14-336-shaped tower under
+``inference_mode`` against the same tower under grad mode (launching
+none of DINOv2's kernels), and DINOv2-g/14-shaped layers likewise.
 """
 
 import pytest
@@ -79,8 +80,33 @@ def test_wrappers_run_the_plain_versions_on_the_cpu(dtype):
                       eltwise.quick_gelu_bf16.launches)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dinov2_plain_versions_are_the_eager_composition(dtype):
+    """SwiGLU is ``silu(u1) * u2`` of the fc-in output's halves, and the
+    LayerScale'd add casts gamma to the activation's dtype first, as the
+    layers cast their parameters; the wrappers run them on the CPU."""
+    x, a, w, b = operands((3, 17, 64), dtype, seed=2)
+    gamma = torch.rand(64, generator=torch.Generator().manual_seed(3))
+    u = torch.cat([x, a], -1)
+    want = F.silu(x) * a
+    assert torch.equal(eltwise.swiglu(u), want)
+    s = x + a * gamma.to(dtype)
+    assert torch.equal(eltwise.scale_add(x, a, gamma), s)
+    got = eltwise.scale_add_layer_norm_reference(x, a, gamma, w, b, EPS)
+    assert torch.equal(got[0], s)
+    assert torch.equal(got[1], eager_layer_norm(s, w, b))
+    counts = (eltwise.swiglu_bf16.launches,
+              eltwise.scale_add_layer_norm_bf16.launches)
+    assert torch.equal(eltwise.swiglu_bf16(u), want)
+    got = eltwise.scale_add_layer_norm_bf16(x, a, gamma, w, b, EPS)
+    assert torch.equal(got[0], s)
+    assert torch.equal(got[1], eager_layer_norm(s, w, b))
+    assert counts == (eltwise.swiglu_bf16.launches,
+                      eltwise.scale_add_layer_norm_bf16.launches)
+
+
 @pytest.mark.parametrize("call", ["layer_norm", "add_layer_norm",
-                                  "quick_gelu"])
+                                  "quick_gelu", "swiglu", "scale_add"])
 def test_wrappers_refuse_a_device_without_a_kernel(call):
     x = torch.empty(4, 16, dtype=torch.bfloat16, device="meta")
     w = torch.empty(16, device="meta")
@@ -89,6 +115,10 @@ def test_wrappers_refuse_a_device_without_a_kernel(call):
             eltwise.layer_norm_bf16(x, w, w, EPS)
         elif call == "add_layer_norm":
             eltwise.add_layer_norm_bf16(x, x, w, w, EPS)
+        elif call == "swiglu":
+            eltwise.swiglu_bf16(x)
+        elif call == "scale_add":
+            eltwise.scale_add_layer_norm_bf16(x, x, w, w, w, EPS)
         else:
             eltwise.quick_gelu_bf16(x)
 
@@ -350,3 +380,147 @@ def test_cuda_inference_tower_matches_the_eager_tower(cuda, route):
     got, want = got.float().mean(1), want.detach().float().mean(1)
     err = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
     assert err < 0.012
+
+
+#: SwiGLU: (rows, I) of DINOv2-g/14's sweep batch (128 x 1,374 tokens,
+#: I = 4096) and of one image, a tiny width (344) and the narrowest one.
+SWIGLU_CASES = [(128 * 1374, 4096), (1374, 4096), (77, 344), (13, 8)]
+#: The LayerScale'd add + LN: DINOv2-g/14's width at the sweep batch and
+#: one image, and the ragged widths of `ROW_CASES`.
+SCALE_ADD_CASES = [(128 * 1374, 1536), (1374, 1536), (77, 1280), (13, 2048),
+                   (29, 136)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,inter", SWIGLU_CASES)
+def test_cuda_swiglu_matches_plain_version(cuda, rows, inter):
+    """Bit for bit: silu in f32 as PyTorch's CUDA kernel computes it,
+    rounded to bf16, then the product rounded once."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + inter)
+    u = (torch.randn(rows, 2 * inter, generator=gen, device="cuda") * 4) \
+        .bfloat16()
+    before = eltwise.swiglu_bf16.launches
+    got = eltwise.swiglu_bf16(u)
+    torch.cuda.synchronize()
+    assert eltwise.swiglu_bf16.launches == before + 1
+    assert got.shape == (rows, inter)
+    assert torch.equal(got, eltwise.swiglu(u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", SCALE_ADD_CASES)
+def test_cuda_scale_add_layer_norm_matches_plain_version(cuda, rows, d):
+    """The sum bit for bit (gamma rounded to bf16, the product and the sum
+    each rounded once), LN within `ln_within_one_ulp`."""
+    x, a, w, b = cuda_operands(rows, d, seed=2)
+    gamma = 0.05 + 0.95 * torch.rand(d, device="cuda", generator=torch
+                                     .Generator(device="cuda").manual_seed(d))
+    before = eltwise.scale_add_layer_norm_bf16.launches
+    s, ln = eltwise.scale_add_layer_norm_bf16(x, a, gamma, w, b, EPS)
+    torch.cuda.synchronize()
+    assert eltwise.scale_add_layer_norm_bf16.launches == before + 1
+    assert torch.equal(s, eltwise.scale_add(x, a, gamma))
+    assert ln_within_one_ulp(ln, s, w, b)
+
+
+def dinov2_launches():
+    return (eltwise.swiglu_bf16.launches,
+            eltwise.scale_add_layer_norm_bf16.launches)
+
+
+@pytest.mark.gpu
+def test_cuda_clip_forward_launches_none_of_dinov2s_kernels(cuda):
+    """A ViT-L/14-336 forward on the sweep's route launches what it did
+    before the DINOv2 kernels: 24 each of LN, add + LN and quick-GELU, 24
+    of K1, and no SwiGLU or LayerScale'd add."""
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+
+    tower = seeded_tower("fused", cuda)
+    px = torch.randn(2, 336, 336, 3, device=cuda)
+    kernels = (eltwise.layer_norm_bf16, eltwise.add_layer_norm_bf16,
+               eltwise.quick_gelu_bf16, k1.fused_qkv_attention)
+    before, new = [k.launches for k in kernels], dinov2_launches()
+    with torch.inference_mode():
+        tower(px)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [24] * 4
+    assert dinov2_launches() == new
+
+
+def seeded_dinov2(device, layers, seed=0):
+    """A DINOv2-g/14-shaped tower (518 px, width 1536, 24 heads, SwiGLU
+    4096, 4 registers) of ``layers`` layers on the card, with seeded
+    weights as `seeded_tower`'s and LayerScale uniform in 0.05-1."""
+    import dataclasses
+
+    from pigeon_tpu_torch.config import dinov2_g14_reg_vision, dinov2_variant
+    from pigeon_tpu_torch.models.vit_embedder import ViTEmbedder
+
+    config = dataclasses.replace(dinov2_g14_reg_vision(), num_layers=layers)
+    with torch.device(device):
+        model = ViTEmbedder(config, dtype=torch.bfloat16,
+                            variant=dinov2_variant())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen, device=device)
+            if name.endswith(("gamma1", "gamma2")):
+                p.copy_(0.05 + 0.95 * torch.rand(p.shape, generator=gen,
+                                                 device=device))
+            elif p.dim() == 2 and name not in ("pos_embed",
+                                               "register_tokens"):
+                p.copy_(noise * p.shape[1] ** -0.5)
+            elif name.startswith(("encoder", "final_ln")) and "ln" in name \
+                    and name.endswith("weight"):
+                p.copy_(1 + 0.02 * noise)
+            else:
+                p.copy_(0.02 * noise)
+    return model.eval()
+
+
+@pytest.mark.gpu
+def test_cuda_dinov2_layers_match_the_eager_layers(cuda):
+    """Four DINOv2-g/14 layers on two 518-px images: the inference forward
+    (K1, one LN, two LayerScale'd add + LN and one SwiGLU a layer) and the
+    grad-mode forward (the eager chain), each against the same tower in
+    float32 on the plain route. The kernels round where the eager chain
+    rounds but for LN's 1 ulp on ~0.003% of elements, which compounds
+    over the layers as any bf16 rounding does: the kernels' CLS
+    embeddings may sit no further from float32 than 1.5 times the eager
+    chain's, and within the benchmark cell's limit on 40 layers
+    (`portbench/limits/pigeon-dinov2g-embed-b128.json`)."""
+    import json
+    import os
+
+    from pigeon_tpu_torch.kernels import fused_qkv_attention as k1
+
+    model = seeded_dinov2(cuda, layers=4)
+    px = torch.randn(2, 518, 518, 3, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(7))
+    before = (eltwise.layer_norm_bf16.launches, *dinov2_launches(),
+              k1.fused_qkv_attention.launches,
+              eltwise.add_layer_norm_bf16.launches,
+              eltwise.quick_gelu_bf16.launches)
+    with torch.inference_mode():
+        got = model(px)
+    torch.cuda.synchronize()
+    after = (eltwise.layer_norm_bf16.launches, *dinov2_launches(),
+             k1.fused_qkv_attention.launches,
+             eltwise.add_layer_norm_bf16.launches,
+             eltwise.quick_gelu_bf16.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 4, 8, 4, 0, 0]
+    eager = model(px).detach()
+    clip.set_route(model, "plain")
+    model.dtype = torch.float32
+    with torch.no_grad():
+        want = model(px)
+
+    def err(a):
+        return ((a - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "portbench", "limits", "pigeon-dinov2g-embed-b128.json")
+    with open(path) as f:
+        limit = json.load(f)["embedding_error"]
+    assert err(got) <= 1.5 * err(eager)
+    assert err(got) < limit
