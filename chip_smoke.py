@@ -445,10 +445,10 @@ KERNELS = {
         "scripts/bench_attn_fwd_diag.py:107"),
     "swiglu_bf16": (
         "pigeon_tpu_torch/csrc/eltwise.cu",
-        "pigeon_tpu_torch/kernels/eltwise.py:66"),
+        "pigeon_tpu_torch/kernels/eltwise.py:131"),
     "scale_add_layer_norm_bf16": (
         "pigeon_tpu_torch/csrc/eltwise.cu",
-        "pigeon_tpu_torch/kernels/eltwise.py:79"),
+        "pigeon_tpu_torch/kernels/eltwise.py:144"),
 }
 #: The sources whose products run on wgmma (the build phase counts their
 #: HGMMA instructions).
@@ -652,13 +652,16 @@ INT8_COSINE = 0.99
 #: The inference forward's element-wise kernels (`kernels/eltwise.py`).
 ELTWISE_KERNELS = ("layer_norm_bf16", "add_layer_norm_bf16",
                    "quick_gelu_bf16")
+#: Their backwards, which training launches.
+ELTWISE_BACKWARDS = ("layer_norm_bwd_bf16", "add_layer_norm_bwd_bf16",
+                     "quick_gelu_bwd_bf16")
 #: [eltwise], [embed_dinov2]: DINOv2 ViT-g/14-reg4 at 518 px, as the
 #: benchmark's DINOv2 cell runs it: images a batch, tokens an image
 #: (CLS, 4 registers, 37 x 37 patches), width, SwiGLU width, heads, layers.
 DINOV2_BATCH, DINOV2_SEQ, DINOV2_D = 128, 1374, 1536
 DINOV2_I, DINOV2_H, DINOV2_LAYERS = 4096, 24, 40
-#: [serve]: the served embedding (the element-wise kernels) against a
-#: grad-mode forward of the same model (the eager chain), relative L2
+#: [serve]: the served embedding (the element-wise kernels) against the
+#: eager chain's forward of the same model (`eager_chain`), relative L2
 #: error: the benchmark's embedding limit.
 ELTWISE_EMBED_TOL = 0.012
 #: Every other bf16 route's embedding against the ``flash_fused`` one's,
@@ -1592,8 +1595,9 @@ def check_eltwise_kernels(seed: int) -> dict:
     ulp give or take four f32 ulps of its terms (that file's
     `ln_within_one_ulp`), one launch a call; the plain version with the
     LayerNorm's scale or bias dropped must fail the LayerNorm check. Then
-    DINOv2's (`check_dinov2_eltwise`, `check_dinov2_k1`). Returns the
-    records of DINOv2's two kernels."""
+    the backwards (`check_eltwise_backward`) and DINOv2's
+    (`check_dinov2_eltwise`, `check_dinov2_k1`). Returns the records of
+    DINOv2's two kernels."""
     import importlib.util
 
     import torch
@@ -1641,9 +1645,114 @@ def check_eltwise_kernels(seed: int) -> dict:
               gelu_max_ulps=gelu_max, gelu_elements_off=gelu_off)
         del x, h, gelu, ulps
         torch.cuda.empty_cache()
+    check_eltwise_backward(tol, gen)
     records = check_dinov2_eltwise(tol, gen)
     check_dinov2_k1(seed)
     return records
+
+
+def check_eltwise_backward(tol, gen) -> None:
+    """The backward kernels of `kernels/eltwise.py` at the finetune cell's
+    rows (512 x 577; D 1024, I 4096), one launch a call, held as
+    `tests/test_torch_eltwise.py` holds them against their plain versions
+    (the operations eager autograd runs) on the forward's statistics: each
+    LayerNorm input gradient within that file's `check_ln_backward`, the
+    LayerNorm's own gradients within `param_grad_slack`, quick-GELU's bit
+    for bit; the plain version with ``dy`` shifted by a row must fail each
+    check. Each is timed (CUDA events, median) beside its bytes bound and
+    its plain version."""
+    import torch
+
+    from pigeon_tpu_torch.kernels import eltwise
+
+    rows, d, inter, eps = 512 * 577, 1024, 4096, tol.EPS
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3 + 1) \
+        .bfloat16()
+    dy, ds = (torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    w, bias = ln_params(d, gen)
+    stats = torch.empty(2, rows, device="cuda")
+    eltwise.layer_norm_bf16(x, w, bias, eps, stats)
+    kernels = (eltwise.layer_norm_bwd_bf16, eltwise.add_layer_norm_bwd_bf16)
+    before = [k.launches for k in kernels]
+    dx, dw, db = eltwise.layer_norm_bwd_bf16(x, dy, w, bias, stats, True)
+    dx2 = eltwise.add_layer_norm_bwd_bf16(x, ds, dy, w, bias, stats,
+                                          False)[0]
+    torch.cuda.synchronize()
+    if [k.launches - n for k, n in zip(kernels, before)] != [1, 1]:
+        raise RuntimeError("the LayerNorm backwards launched "
+                           f"{[k.launches - n for k, n in zip(kernels, before)]}"
+                           " times for one call each")
+    slack = tol.ln_grad_slack(x, dy, w, stats)
+    inner = eltwise.layer_norm_backward_reference(x, dy, w, bias, stats,
+                                                  True)
+    want2 = eltwise.add_layer_norm_backward_reference(x, ds, dy, w, bias,
+                                                      stats, False)[0]
+    tol.check_ln_backward(dx, inner[0], slack)
+    tol.check_ln_backward(dx2, want2, slack, inner[0])
+    for got, want, room in zip((dw, db), inner[1:],
+                               tol.param_grad_slack(x, dy, stats)):
+        if not bool(((got - want).abs() <= room).all()):
+            raise RuntimeError("layer_norm_bwd_bf16's parameter gradients "
+                               "are outside their slack")
+    shifted = eltwise.layer_norm_backward_reference(
+        x, dy.roll(1, 0), w, bias, stats, True)
+    try:
+        tol.check_ln_backward(dx, shifted[0], slack)
+    except AssertionError:
+        pass
+    else:
+        raise RuntimeError("the LayerNorm backward's check cannot see dy "
+                           "shifted by a row")
+    del inner, shifted, want2
+    act = rows * d * 2
+    times = {
+        "layer_norm_bwd_bf16": (
+            lambda: eltwise.layer_norm_bwd_bf16(x, dy, w, bias, stats, False),
+            lambda: eltwise.layer_norm_backward_reference(
+                x, dy, w, bias, stats, False), 3 * act),
+        "layer_norm_bwd_bf16+dw,db": (
+            lambda: eltwise.layer_norm_bwd_bf16(x, dy, w, bias, stats, True),
+            lambda: eltwise.layer_norm_backward_reference(
+                x, dy, w, bias, stats, True), 3 * act),
+        "add_layer_norm_bwd_bf16": (
+            lambda: eltwise.add_layer_norm_bwd_bf16(x, ds, dy, w, bias,
+                                                    stats, False),
+            lambda: eltwise.add_layer_norm_backward_reference(
+                x, ds, dy, w, bias, stats, False), 4 * act)}
+    for name, (kernel, plain, moved) in times.items():
+        ms = median_ms(kernel)
+        phase("eltwise", name=name, rows=rows, d=d, ms=ms,
+              plain_ms=median_ms(plain, runs=10),
+              bound_ms=round(bound({"bf16": 0}, moved)["bound_ms"], 4),
+              share_of_bound=round(moved / PEAK_BYTES * 1e3 / ms, 4))
+    del x, dy, ds, dx, dx2, stats
+    torch.cuda.empty_cache()
+    u = (torch.randn(rows, inter, generator=gen, device="cuda") * 4) \
+        .bfloat16()
+    dy = torch.randn(rows, inter, generator=gen, device="cuda").bfloat16()
+    before = eltwise.quick_gelu_bwd_bf16.launches
+    du = eltwise.quick_gelu_bwd_bf16(u, dy)
+    torch.cuda.synchronize()
+    if eltwise.quick_gelu_bwd_bf16.launches != before + 1:
+        raise RuntimeError("quick_gelu_bwd_bf16 launched other than once")
+    if not torch.equal(du, eltwise.quick_gelu_backward_reference(u, dy)):
+        raise RuntimeError("quick_gelu_bwd_bf16 is not autograd's chain "
+                           "bit for bit at the cell's rows")
+    if torch.equal(du, eltwise.quick_gelu_backward_reference(
+            u, dy.roll(1, 0))):
+        raise RuntimeError("the quick-GELU backward's check cannot see dy "
+                           "shifted by a row")
+    moved = 3 * rows * inter * 2
+    ms = median_ms(lambda: eltwise.quick_gelu_bwd_bf16(u, dy))
+    phase("eltwise", name="quick_gelu_bwd_bf16", rows=rows, inter=inter,
+          bit_exact=True, ms=ms,
+          plain_ms=median_ms(
+              lambda: eltwise.quick_gelu_backward_reference(u, dy), runs=10),
+          bound_ms=round(bound({"bf16": 0}, moved)["bound_ms"], 4),
+          share_of_bound=round(moved / PEAK_BYTES * 1e3 / ms, 4))
+    del u, dy, du
+    torch.cuda.empty_cache()
 
 
 def check_ln_output(tol, name: str, got, inp, w, bias, where: str) -> None:
@@ -1883,13 +1992,42 @@ def request_all(httpd, payloads, pool, counters: dict) -> tuple:
     return latencies, {name: fn.launches for name, fn in counters.items()}
 
 
+@contextlib.contextmanager
+def eager_chain():
+    """`models/clip.py`'s calls of the element-wise kernels, and of their
+    autograd versions, routed to the eager compositions (their plain
+    versions) for the ``with`` block."""
+    from types import SimpleNamespace
+
+    from pigeon_tpu_torch.kernels import eltwise
+    from pigeon_tpu_torch.models import clip
+
+    plain = {"layer_norm_bf16": eltwise.layer_norm_reference,
+             "add_layer_norm_bf16": eltwise.add_layer_norm_reference,
+             "quick_gelu_bf16": eltwise.quick_gelu,
+             "LayerNormBF16": SimpleNamespace(
+                 apply=eltwise.layer_norm_reference),
+             "AddLayerNormBF16": SimpleNamespace(
+                 apply=eltwise.add_layer_norm_reference),
+             "QuickGeluBF16": SimpleNamespace(apply=eltwise.quick_gelu)}
+    saved = {name: getattr(clip, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(clip, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(clip, name, fn)
+
+
 def check_serving(root: str, pool, n_requests: int) -> tuple:
     """The full-width panorama model served over HTTP in bf16; returns
     K1's launches during the requests and the embedding of the first
     panorama. Each request launches K1 and each element-wise kernel of
-    the inference forward once a layer; a grad-mode forward of the same
-    panorama launches none of the latter and lands within
-    `ELTWISE_EMBED_TOL` of the served embedding."""
+    the inference forward once a layer (the LayerNorm once more, the
+    pre-LN); the eager chain's forward of the same panorama (`eager_chain`)
+    launches none of the latter and lands within `ELTWISE_EMBED_TOL` of
+    the served embedding."""
     import torch
 
     from pigeon_tpu_torch.data.image_ops import normalize_images
@@ -1908,9 +2046,12 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
         launches = counts["fused_qkv_attention"]
         model = service.serve_fn.model
         layers = len(model.vision.encoder.layers)
-        if counts != dict.fromkeys(counters, layers * n_requests):
+        want = {**dict.fromkeys(counters, layers * n_requests),
+                "layer_norm_bf16": (layers + 1) * n_requests}
+        if counts != want:
             raise RuntimeError(f"{n_requests} requests launched {counts}, "
-                               f"not each kernel once per layer ({layers})")
+                               f"not each kernel once per layer ({layers}) "
+                               f"and the pre-LN once")
 
         # The same panorama through the plain attention route.
         pixels = service.decode(payloads[0])
@@ -1925,20 +2066,20 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
         layer_ms = time_layers(service, payloads)
         peak_gib = round(torch.cuda.max_memory_allocated() / 2**30, 3)
 
-        # The same panorama with grad mode on: the eager chain.
+        # The same panorama through the eager chain.
         before = {name: counters[name].launches for name in ELTWISE_KERNELS}
-        with torch.enable_grad():
+        with eager_chain(), torch.inference_mode():
             out = model(normalize_images(torch.tensor(pixels).cuda()))
-        eager = out.embedding.detach().flatten().float()
+        eager = out.embedding.flatten().float()
         del out
-        grad_counts = {name: counters[name].launches - n
-                       for name, n in before.items()}
-        if any(grad_counts.values()):
-            raise RuntimeError(f"a grad-mode forward launched {grad_counts}")
+        eager_counts = {name: counters[name].launches - n
+                        for name, n in before.items()}
+        if any(eager_counts.values()):
+            raise RuntimeError(f"the eager chain launched {eager_counts}")
         eager_err = ((fused - eager).norm() / eager.norm()).item()
         if not eager_err < ELTWISE_EMBED_TOL:
             raise RuntimeError(f"served embedding {eager_err} from the "
-                               f"grad-mode forward's (relative L2), limit "
+                               f"eager chain's (relative L2), limit "
                                f"{ELTWISE_EMBED_TOL}")
     finally:
         httpd.shutdown()
@@ -1946,7 +2087,7 @@ def check_serving(root: str, pool, n_requests: int) -> tuple:
     phase("serve", requests=n_requests, status=200, layers=layers,
           k1_launches=launches,
           **{f"{name}_launches": counts[name] for name in ELTWISE_KERNELS},
-          grad_mode_eltwise_launches=sum(grad_counts.values()),
+          eager_chain_eltwise_launches=sum(eager_counts.values()),
           eager_embedding_err=eager_err,
           median_ms=sorted(latencies)[len(latencies) // 2],
           latencies_ms=[round(t, 3) for t in latencies],
@@ -2621,8 +2762,11 @@ def worst_cosine(got: dict, want: dict) -> tuple:
 
 def check_training(seed: int) -> dict:
     """The full-width panorama model finetuned through the ``finetune``
-    command's own functions; returns each kernel's launches in the first
-    epoch."""
+    command's own functions; returns the launches in the first epoch of
+    each kernel of `KERNELS`. Each train step launches the element-wise forward kernels of
+    `kernels/eltwise.py` once a layer and again in the remat recompute,
+    the pre-LN's once, and each backward kernel once a layer (the
+    pre-LN's too); each eval batch the forward kernels as serving does."""
     import gc
     import math
 
@@ -2634,6 +2778,7 @@ def check_training(seed: int) -> dict:
         build_parser,
         train_finetune,
     )
+    from pigeon_tpu_torch.kernels import eltwise
     from pigeon_tpu_torch.kernels import fused_qkv_attention as k
     from pigeon_tpu_torch.kernels import geodesy
     from pigeon_tpu_torch.models.clip import set_route
@@ -2647,7 +2792,9 @@ def check_training(seed: int) -> dict:
 
     counters = {"fused_qkv_attention": k.fused_qkv_attention,
                 "fused_qkv_attention_bwd": k.fused_qkv_attention_backward,
-                "smooth_labels": geodesy.smooth_labels_from_points}
+                "smooth_labels": geodesy.smooth_labels_from_points,
+                **{name: getattr(eltwise, name)
+                   for name in (*ELTWISE_KERNELS, *ELTWISE_BACKWARDS)}}
     gc.collect()
     torch.cuda.empty_cache()
     cwd = os.getcwd()
@@ -2679,9 +2826,17 @@ def check_training(seed: int) -> dict:
             layers = len(run.state.model.vision.encoder.layers)
             steps = TRAIN_ROWS // TRAIN_BATCH
             evals = math.ceil(VAL_ROWS / TRAIN_BATCH)
+            runs = 1 if run.state.model.vision.encoder.remat == "none" \
+                else 2
+            chain = {name: steps * runs * layers + evals * layers
+                     for name in ELTWISE_KERNELS}
+            chain["layer_norm_bf16"] += steps + evals
             want = {"fused_qkv_attention": layers * (steps + evals),
                     "fused_qkv_attention_bwd": layers * steps,
-                    "smooth_labels": steps + evals}
+                    "smooth_labels": steps + evals, **chain,
+                    "layer_norm_bwd_bf16": (layers + 1) * steps,
+                    "add_layer_norm_bwd_bf16": layers * steps,
+                    "quick_gelu_bwd_bf16": layers * steps}
             if launches != want:
                 raise RuntimeError(f"first epoch launched {launches}, "
                                    f"expected {want}")
@@ -2782,7 +2937,7 @@ def check_training(seed: int) -> dict:
           peak_gib_attn_kernel=round(peak_attn_kernel, 3),
           peak_gib_none=round(peak_none, 3), setup_s=round(setup_s, 3),
           epoch_s=round(epoch_s, 3), resumed_from=start)
-    return launches
+    return {name: n for name, n in launches.items() if name in KERNELS}
 
 
 #: [train_routes]: (label, the port's route, the environment it runs

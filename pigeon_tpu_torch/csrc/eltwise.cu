@@ -1,6 +1,6 @@
 // One-pass LayerNorm, residual add + LayerNorm, quick-GELU, SwiGLU and
 // LayerScale'd residual add + LayerNorm, bf16 in and out, for Hopper
-// (sm_90a).
+// (sm_90a); and the backwards of the first three.
 //
 // These replace no TPU kernel: on the TPU, XLA fuses each encoder layer's
 // element-wise chain into its neighbours. On the card the inference
@@ -69,10 +69,53 @@
 //      the attention residual with LN2, and the MLP residual with the next
 //      layer's LN1 (the final LN after the last layer).
 //
+// Training (grad mode on, a CLIP layer: models/clip.py) ran the same chain
+// three times a step: the forward, the remat recompute of every layer
+// (attn_kernel keeps only the attention's outputs), and autograd's
+// backward of each eager op. The forwards above now serve the first two,
+// LN and add + LN writing each row's f32 mean and rstd (8 bytes a row:
+// 2.4 MB at the finetune cell's 512 x 577 rows) where given `stats`. The
+// backward, again bytes-bound:
+//
+//   LN:     dy.float(), F.layer_norm's f32 backward, .to(bf16)   ~7 GB
+//   GELU:   two products, sigmoid_backward, x 1.702, the sum     ~36 GB
+//
+//   6. layer_norm_bwd_bf16: one warp a row, as the forward, x and dy in
+//      registers; with x_hat = (x - mean) rstd from the saved statistics
+//      and g = gamma dy, dx = bf16((D g - sum g - x_hat sum(g x_hat))
+//      rstd / D) (PyTorch's compute_gI form, the sums by warp shuffles).
+//      Reads x and dy, writes dx: 1.81 GB (0.54 ms). Where gamma and beta
+//      train (the pre-LN and the last layer's LNs in finetune), a grid of
+//      two blocks a multiprocessor strides over the rows and each lane
+//      keeps its columns' sums of dy x_hat and dy in registers; each block
+//      writes its column sums (blocks, 2, D) in warp order, and a second
+//      launch adds those in block order: no atomics, so the sums are the
+//      same from run to run.
+//   7. add_layer_norm_bwd_bf16: the same with the residual stream's
+//      gradient ds added as autograd adds it, dx = bf16(ds + bf16(LN'
+//      dh)), the gradient of both addends: 2.42 GB (0.72 ms).
+//   8. quick_gelu_bwd_bf16: from u alone (autograd saved u and s), t and s
+//      again as the forward rounds them, then eager autograd's chain on
+//      the card, each step rounded to bf16 (quick_gelu_bwd2 says how),
+//      reading u and dy and writing du: 7.26 GB (2.17 ms). Its roundings
+//      run as packed bf16x2 operations: with f32 ones and conversions the
+//      kernel ran ~50 instructions an element and reached 71% of the
+//      bandwidth; packed, 93%.
+//
+// On the H100 at 700 W the three take 0.59 (0.66 with gamma's and beta's
+// gradients), 0.77 and 2.33 ms at those rows, 82-94% of the bandwidth,
+// against 3.95 (4.76), 4.53 and 14.1 ms for eager autograd's operations
+// (scripts/bench_torch_eltwise.py). Against PyTorch's CUDA backward on the
+// same statistics, dx sits within one bf16 ulp but for sums taken in
+// another order, and quick-GELU's gradient is equal bit for bit. The
+// kernels are named EltLayerNormBwd, EltAddLayerNormBwd,
+// EltLayerNormParamGrad and EltQuickGeluBwd.
+//
 // Constraints (checked by the Python wrapper, kernels/eltwise.py): bf16
 // activations, f32 LN parameters and gamma, all contiguous and 16-byte
-// aligned; D a multiple of 8, at most 2048; SwiGLU's I a multiple of 8.
-// Rows past M are never read or written.
+// aligned, f32 statistics (2, M) contiguous; D a multiple of 8, at most
+// 2048; SwiGLU's I a multiple of 8. Rows past M are never read or
+// written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,11 +158,15 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 // LayerNorm of the row a warp holds in `v` (VECS vectors a lane, vector k
 // at column (lane + 32 k) * 8, present where that column is below D), to
 // `dst`. Every lane of the warp calls it.
+// Where `stats` is given, lane 0 writes the row's mean to stats[r] and its
+// rstd to stats[M + r].
 template <int VECS>
 __device__ __forceinline__ void ln_row_store(const uint4* v, int D,
                                              const float* __restrict__ ls,
                                              const float* __restrict__ lb,
-                                             float eps, bf16* dst) {
+                                             float eps, bf16* dst,
+                                             float* __restrict__ stats,
+                                             int r, int M) {
   const int lane = threadIdx.x % 32;
   float f[8];
   float s1 = 0.0f;
@@ -146,6 +193,10 @@ __device__ __forceinline__ void ln_row_store(const uint4* v, int D,
   }
   const float var = __fdiv_rn(warp_sum(s2), static_cast<float>(D));
   const float rstd = rsqrtf(__fadd_rn(var, eps));
+  if (stats != nullptr && lane == 0) {
+    stats[r] = mean;
+    stats[static_cast<size_t>(M) + r] = rstd;
+  }
 #pragma unroll
   for (int k = 0; k < VECS; ++k) {
     const int c = (lane + 32 * k) * 8;
@@ -176,7 +227,7 @@ __global__ void __launch_bounds__(ROW_THREADS)
 layer_norm_bf16_kernel(const bf16* __restrict__ x,
                        const float* __restrict__ ls,
                        const float* __restrict__ lb, bf16* __restrict__ out,
-                       int M, int D, float eps) {
+                       float* __restrict__ stats, int M, int D, float eps) {
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
   if (r >= M) return;
@@ -187,7 +238,7 @@ layer_norm_bf16_kernel(const bf16* __restrict__ x,
     const int c = (lane + 32 * k) * 8;
     if (c < D) v[k] = *reinterpret_cast<const uint4*>(x + base + c);
   }
-  ln_row_store<VECS>(v, D, ls, lb, eps, out + base);
+  ln_row_store<VECS>(v, D, ls, lb, eps, out + base, stats, r, M);
 }
 
 // s[r] = bf16(x[r] + a[r]) and out[r] = bf16(LN_f32(s[r])).
@@ -198,7 +249,8 @@ add_layer_norm_bf16_kernel(const bf16* __restrict__ x,
                            const float* __restrict__ ls,
                            const float* __restrict__ lb,
                            bf16* __restrict__ s, bf16* __restrict__ out,
-                           int M, int D, float eps) {
+                           float* __restrict__ stats, int M, int D,
+                           float eps) {
   const int lane = threadIdx.x % 32;
   const int r = blockIdx.x * (ROW_THREADS / 32) + threadIdx.x / 32;
   if (r >= M) return;
@@ -225,7 +277,7 @@ add_layer_norm_bf16_kernel(const bf16* __restrict__ x,
       *reinterpret_cast<uint4*>(s + base + c) = v[k];
     }
   }
-  ln_row_store<VECS>(v, D, ls, lb, eps, out + base);
+  ln_row_store<VECS>(v, D, ls, lb, eps, out + base, stats, r, M);
 }
 
 // quick-GELU of one element at the eager chain's rounding points.
@@ -318,7 +370,7 @@ scale_add_layer_norm_bf16_kernel(const bf16* __restrict__ x,
       *reinterpret_cast<uint4*>(s + base + c) = v[k];
     }
   }
-  ln_row_store<VECS>(v, D, ls, lb, eps, out + base);
+  ln_row_store<VECS>(v, D, ls, lb, eps, out + base, nullptr, r, M);
 }
 
 // silu of one element as PyTorch's CUDA kernel computes it in f32.
@@ -369,6 +421,263 @@ swiglu_bf16_kernel(const bf16* __restrict__ u, bf16* __restrict__ y,
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+struct EltLayerNormBwd {};
+struct EltAddLayerNormBwd {};
+
+// The LayerNorm's input gradient over the rows r = warp, warp + warps, ...
+// of the grid, each row a warp's as in the forward: with x_hat = (x - mean)
+// rstd (the forward's saved statistics) and g = gamma dy,
+//
+//   dx = bf16((D g - sum(g) - x_hat sum(g x_hat)) (rstd / D)),
+//
+// PyTorch's `compute_gI` form, in f32. RESID adds the residual stream's
+// gradient: dx = bf16(ds + dx), the bf16 sum autograd forms. WGRAD keeps
+// each lane's sums of dy x_hat and dy for its columns over its rows, then
+// the block's sums of those, in warp order, to partial[block] (2, D).
+template <class Tag, int VECS, bool RESID, bool WGRAD>
+__global__ void __launch_bounds__(ROW_THREADS)
+layer_norm_bwd_bf16_kernel(const bf16* __restrict__ x,
+                           const bf16* __restrict__ dy,
+                           const bf16* __restrict__ ds,
+                           const float* __restrict__ stats,
+                           const float* __restrict__ ls,
+                           bf16* __restrict__ dx, float* __restrict__ partial,
+                           int M, int D) {
+  constexpr int WARPS = ROW_THREADS / 32;
+  constexpr int ACC = WGRAD ? VECS * 8 : 1;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  float gacc[ACC], bacc[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) gacc[i] = bacc[i] = 0.0f;
+  const float fd = static_cast<float>(D);
+  for (int r = blockIdx.x * WARPS + warp; r < M; r += gridDim.x * WARPS) {
+    const size_t base = static_cast<size_t>(r) * D;
+    uint4 xv[VECS], gv[VECS];
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int c = (lane + 32 * k) * 8;
+      if (c < D) {
+        xv[k] = *reinterpret_cast<const uint4*>(x + base + c);
+        gv[k] = *reinterpret_cast<const uint4*>(dy + base + c);
+      }
+    }
+    const float mean = stats[r];
+    const float rstd = stats[static_cast<size_t>(M) + r];
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int c = (lane + 32 * k) * 8;
+      if (c < D) {
+        float fx[8], fg[8];
+        unpack8(xv[k], fx);
+        unpack8(gv[k], fg);
+        const float4 g0 = *reinterpret_cast<const float4*>(ls + c);
+        const float4 g1 = *reinterpret_cast<const float4*>(ls + c + 4);
+        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(fx[j], mean), rstd);
+          const float g = __fmul_rn(fg[j], gm[j]);
+          s1 = __fadd_rn(s1, g);
+          s2 = __fmaf_rn(g, xh, s2);
+          if constexpr (WGRAD) {
+            gacc[k * 8 + j] = __fmaf_rn(fg[j], xh, gacc[k * 8 + j]);
+            bacc[k * 8 + j] = __fadd_rn(bacc[k * 8 + j], fg[j]);
+          }
+        }
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float term = __fmul_rn(__frcp_rn(fd), rstd);
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      const int c = (lane + 32 * k) * 8;
+      if (c < D) {
+        float fx[8], fg[8], fs[8];
+        unpack8(xv[k], fx);
+        unpack8(gv[k], fg);
+        if constexpr (RESID) {
+          unpack8(*reinterpret_cast<const uint4*>(ds + base + c), fs);
+        }
+        const float4 g0 = *reinterpret_cast<const float4*>(ls + c);
+        const float4 g1 = *reinterpret_cast<const float4*>(ls + c + 4);
+        const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(fx[j], mean), rstd);
+          float f = __fmul_rn(__fmul_rn(fd, gm[j]), fg[j]);
+          f = __fmaf_rn(-xh, s2, f);
+          f = __fsub_rn(f, s1);
+          f = __fmul_rn(f, term);
+          if constexpr (RESID) {
+            fx[j] = __fadd_rn(fs[j], round_bf16(f));
+          } else {
+            fx[j] = f;
+          }
+        }
+        *reinterpret_cast<uint4*>(dx + base + c) = pack8(fx);
+      }
+    }
+  }
+  if constexpr (WGRAD) {
+    // One vector slot at a time: each warp's 256 sums of slot k, then
+    // thread t adds column k * 256 + t over the warps in order.
+    __shared__ float red[2][WARPS][256];
+#pragma unroll
+    for (int k = 0; k < VECS; ++k) {
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        red[0][warp][lane * 8 + j] = gacc[k * 8 + j];
+        red[1][warp][lane * 8 + j] = bacc[k * 8 + j];
+      }
+      __syncthreads();
+      const int c = k * 256 + threadIdx.x;
+      if (c < D) {
+        float g = 0.0f, b = 0.0f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          g = __fadd_rn(g, red[0][w][threadIdx.x]);
+          b = __fadd_rn(b, red[1][w][threadIdx.x]);
+        }
+        float* dst = partial + static_cast<size_t>(blockIdx.x) * 2 * D;
+        dst[c] = g;
+        dst[D + c] = b;
+      }
+    }
+  }
+}
+
+struct EltLayerNormParamGrad {};
+
+// dgamma[c] = sum_b partial[b, 0, c] and dbeta[c] = sum_b partial[b, 1, c]
+// over the `blocks` partial rows: a block takes 32 columns, warp w the rows
+// w, w + 8, ..., then warp 0 adds the eight in order. No atomics: the
+// sums are the same from run to run.
+template <class Tag>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_param_grad_kernel(const float* __restrict__ partial,
+                     float* __restrict__ dgamma, float* __restrict__ dbeta,
+                     int blocks, int D) {
+  constexpr int WARPS = ROW_THREADS / 32;
+  __shared__ float red[2][WARPS][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
+  float g = 0.0f, b = 0.0f;
+  if (c < D) {
+    for (int i = warp; i < blocks; i += WARPS) {
+      const float* row = partial + static_cast<size_t>(i) * 2 * D;
+      g = __fadd_rn(g, row[c]);
+      b = __fadd_rn(b, row[D + c]);
+    }
+  }
+  red[0][warp][lane] = g;
+  red[1][warp][lane] = b;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    g = 0.0f;
+    b = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      g = __fadd_rn(g, red[0][w][lane]);
+      b = __fadd_rn(b, red[1][w][lane]);
+    }
+    dgamma[c] = g;
+    dbeta[c] = b;
+  }
+}
+
+// Packed bf16 operations, each rounded on its own: the explicit .rn keeps
+// ptxas from contracting a product and a sum into one fma.
+#define PIGEON_BF16X2_OP(NAME, OP)                                          \
+  __device__ __forceinline__ __nv_bfloat162 NAME(__nv_bfloat162 a,          \
+                                                 __nv_bfloat162 b) {        \
+    unsigned d;                                                            \
+    asm(OP " %0, %1, %2;"                                                  \
+        : "=r"(d)                                                          \
+        : "r"(*reinterpret_cast<unsigned*>(&a)),                           \
+          "r"(*reinterpret_cast<unsigned*>(&b)));                          \
+    return *reinterpret_cast<__nv_bfloat162*>(&d);                         \
+  }
+PIGEON_BF16X2_OP(mul_bf16x2, "mul.rn.bf16x2")
+PIGEON_BF16X2_OP(sub_bf16x2, "sub.rn.bf16x2")
+PIGEON_BF16X2_OP(add_bf16x2, "add.rn.bf16x2")
+#undef PIGEON_BF16X2_OP
+
+// The gradient of quick-GELU at a pair of u for dy, as eager autograd
+// forms it on the card for y = u * s, s = sigmoid(t), t = 1.702 u: t and
+// s again as the forward rounds them, then du1 = bf16(dy s), ds =
+// bf16(dy u), dt = ds (1 - s) s with every operation rounded to bf16
+// (PyTorch's CUDA sigmoid_backward computes in the tensor's type, its CPU
+// one in f32), du2 = bf16(1.702 dt) (the f32 product, then bf16) and du =
+// bf16(du1 + du2). A product of two bf16 values is exact in f32, and so
+// is a sum or difference unless one operand is under 2^-15 of the other,
+// which both roundings then return: each f32 operation rounded to bf16 is
+// the correctly rounded bf16 operation, so those six run as packed bf16x2
+// instructions.
+__device__ __forceinline__ __nv_bfloat162 quick_gelu_bwd2(__nv_bfloat162 u,
+                                                         __nv_bfloat162 dy) {
+  const float k = static_cast<float>(1.702);
+  const float2 uf = __bfloat1622float2(u);
+  const float2 t = __bfloat1622float2(
+      __floats2bfloat162_rn(__fmul_rn(uf.x, k), __fmul_rn(uf.y, k)));
+  const __nv_bfloat162 s = __floats2bfloat162_rn(
+      __frcp_rn(__fadd_rn(1.0f, expf(-t.x))),
+      __frcp_rn(__fadd_rn(1.0f, expf(-t.y))));
+  const __nv_bfloat162 one = __float2bfloat162_rn(1.0f);
+  const __nv_bfloat162 dt =
+      mul_bf16x2(mul_bf16x2(mul_bf16x2(dy, u), sub_bf16x2(one, s)), s);
+  const float2 dtf = __bfloat1622float2(dt);
+  const __nv_bfloat162 du2 =
+      __floats2bfloat162_rn(__fmul_rn(dtf.x, k), __fmul_rn(dtf.y, k));
+  return add_bf16x2(mul_bf16x2(dy, s), du2);
+}
+
+struct EltQuickGeluBwd {};
+
+// du = quick_gelu'(u) dy over n elements, laid out as the forward's grid.
+template <class Tag>
+__global__ void __launch_bounds__(GELU_THREADS)
+quick_gelu_bwd_bf16_kernel(const bf16* __restrict__ u,
+                           const bf16* __restrict__ dy,
+                           bf16* __restrict__ du, int64_t n) {
+  const int64_t vecs = n / 8;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * GELU_THREADS *
+                            GELU_VECS + threadIdx.x;
+  uint4 v[GELU_VECS], g[GELU_VECS];
+#pragma unroll
+  for (int k = 0; k < GELU_VECS; ++k) {
+    const int64_t i = first + static_cast<int64_t>(k) * GELU_THREADS;
+    if (i < vecs) {
+      v[k] = reinterpret_cast<const uint4*>(u)[i];
+      g[k] = reinterpret_cast<const uint4*>(dy)[i];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < GELU_VECS; ++k) {
+    const int64_t i = first + static_cast<int64_t>(k) * GELU_THREADS;
+    if (i < vecs) {
+      __nv_bfloat162* pu = reinterpret_cast<__nv_bfloat162*>(&v[k]);
+      const __nv_bfloat162* pg = reinterpret_cast<const __nv_bfloat162*>(&g[k]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pu[j] = quick_gelu_bwd2(pu[j], pg[j]);
+      reinterpret_cast<uint4*>(du)[i] = v[k];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x < n - vecs * 8) {
+    const int64_t i = vecs * 8 + threadIdx.x;
+    du[i] = quick_gelu_bwd2(__bfloat162bfloat162(u[i]),
+                            __bfloat162bfloat162(dy[i])).x;
+  }
+}
+
 inline int row_blocks(int M) {
   constexpr int rows = ROW_THREADS / 32;
   return (M + rows - 1) / rows;
@@ -398,10 +707,11 @@ const char* pigeon_cuda_error_string(int code) {
   }
 
 // x (rows, dim) bf16, ln_scale/ln_bias (dim,) f32 -> out (rows, dim) bf16
-// on `stream`. Returns the launch's cudaError_t (0 on success).
+// on `stream`, and where `stats` is not null each row's f32 mean and rstd
+// to stats (2, rows). Returns the launch's cudaError_t (0 on success).
 int pigeon_layer_norm_bf16(const void* x, const void* ln_scale,
                            const void* ln_bias, void* out, int rows, int dim,
-                           float eps, void* stream) {
+                           float eps, void* stats, void* stream) {
   if (rows < 1 || dim < 8 || dim % 8 || dim > 8 * 32 * MAX_VECS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -411,18 +721,18 @@ int pigeon_layer_norm_bf16(const void* x, const void* ln_scale,
       <<<row_blocks(rows), ROW_THREADS, 0, st>>>(                         \
           static_cast<const bf16*>(x), static_cast<const float*>(ln_scale), \
           static_cast<const float*>(ln_bias), static_cast<bf16*>(out),    \
-          rows, dim, eps)
+          static_cast<float*>(stats), rows, dim, eps)
   PIGEON_ELT_VECS(PIGEON_LN)
 #undef PIGEON_LN
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, a (rows, dim) bf16, ln_scale/ln_bias (dim,) f32 -> sum = x + a and
-// out = LN(sum), both (rows, dim) bf16, on `stream`.
+// out = LN(sum), both (rows, dim) bf16, on `stream`; `stats` as above.
 int pigeon_add_layer_norm_bf16(const void* x, const void* a,
                                const void* ln_scale, const void* ln_bias,
                                void* sum, void* out, int rows, int dim,
-                               float eps, void* stream) {
+                               float eps, void* stats, void* stream) {
   if (rows < 1 || dim < 8 || dim % 8 || dim > 8 * 32 * MAX_VECS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -433,7 +743,8 @@ int pigeon_add_layer_norm_bf16(const void* x, const void* a,
           static_cast<const bf16*>(x), static_cast<const bf16*>(a),       \
           static_cast<const float*>(ln_scale),                            \
           static_cast<const float*>(ln_bias), static_cast<bf16*>(sum),    \
-          static_cast<bf16*>(out), rows, dim, eps)
+          static_cast<bf16*>(out), static_cast<float*>(stats), rows, dim, \
+          eps)
   PIGEON_ELT_VECS(PIGEON_ADD_LN)
 #undef PIGEON_ADD_LN
   return static_cast<int>(cudaGetLastError());
@@ -480,6 +791,70 @@ int pigeon_swiglu_bf16(const void* u, void* out, int rows, int inter,
          static_cast<cudaStream_t>(stream)>>>(static_cast<const bf16*>(u),
                                               static_cast<bf16*>(out), inter,
                                               chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, dim) bf16, the forward's stats (2, rows) f32, dy (rows, dim) bf16
+// and ln_scale (dim,) f32 -> dx (rows, dim) bf16, the LayerNorm's input
+// gradient, on `stream`. Where `ds` (rows, dim) bf16 is not null, dx = ds +
+// that, rounded as autograd's sum. Where `partial` is not null, `blocks`
+// blocks take the rows, write their column sums to partial (blocks, 2, dim)
+// f32, and a second launch sums those to dgamma and dbeta (dim,) f32;
+// else one warp a row.
+int pigeon_layer_norm_bwd_bf16(const void* x, const void* dy, const void* ds,
+                               const void* stats, const void* ln_scale,
+                               void* dx, void* partial, void* dgamma,
+                               void* dbeta, int rows, int dim, int blocks,
+                               void* stream) {
+  if (rows < 1 || dim < 8 || dim % 8 || dim > 8 * 32 * MAX_VECS ||
+      (partial != nullptr && blocks < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = partial != nullptr ? blocks : row_blocks(rows);
+#define PIGEON_LN_BWD_ARGS                                                \
+  <<<grid, ROW_THREADS, 0, st>>>(                                         \
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),          \
+      static_cast<const bf16*>(ds), static_cast<const float*>(stats),     \
+      static_cast<const float*>(ln_scale), static_cast<bf16*>(dx),        \
+      static_cast<float*>(partial), rows, dim)
+#define PIGEON_LN_BWD(V)                                                  \
+  if (ds == nullptr && partial == nullptr) {                              \
+    layer_norm_bwd_bf16_kernel<EltLayerNormBwd, V, false, false>          \
+        PIGEON_LN_BWD_ARGS;                                               \
+  } else if (ds == nullptr) {                                             \
+    layer_norm_bwd_bf16_kernel<EltLayerNormBwd, V, false, true>           \
+        PIGEON_LN_BWD_ARGS;                                               \
+  } else if (partial == nullptr) {                                        \
+    layer_norm_bwd_bf16_kernel<EltAddLayerNormBwd, V, true, false>        \
+        PIGEON_LN_BWD_ARGS;                                               \
+  } else {                                                                \
+    layer_norm_bwd_bf16_kernel<EltAddLayerNormBwd, V, true, true>         \
+        PIGEON_LN_BWD_ARGS;                                               \
+  }
+  PIGEON_ELT_VECS(PIGEON_LN_BWD)
+#undef PIGEON_LN_BWD
+#undef PIGEON_LN_BWD_ARGS
+  if (partial != nullptr) {
+    ln_param_grad_kernel<EltLayerNormParamGrad>
+        <<<(dim + 31) / 32, ROW_THREADS, 0, st>>>(
+            static_cast<const float*>(partial), static_cast<float*>(dgamma),
+            static_cast<float*>(dbeta), blocks, dim);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// u, dy (n,) bf16 -> du (n,) bf16, quick-GELU's gradient, on `stream`.
+int pigeon_quick_gelu_bwd_bf16(const void* u, const void* dy, void* du,
+                               int64_t n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_block = static_cast<int64_t>(GELU_THREADS) * GELU_VECS;
+  const int64_t blocks = (n / 8 + per_block - 1) / per_block;
+  quick_gelu_bwd_bf16_kernel<EltQuickGeluBwd>
+      <<<static_cast<unsigned>(blocks > 0 ? blocks : 1), GELU_THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(u), static_cast<const bf16*>(dy),
+          static_cast<bf16*>(du), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,10 +51,15 @@ PyTorch (`pigeon_tpu/models/clip.py:363-369`).
 ``PIGEON_FLASH_FWD=online`` swaps K3 for K3′ wherever K3 runs
 (`kernels/attention.py`).
 
-With grad mode off (``embed``, ``serve``, ``evaluate``, ``predict``), a
-float layer on ``"fused"``, ``"flash"`` or ``"fused_ln"`` runs its
+A float layer on ``"fused"``, ``"flash"`` or ``"fused_ln"`` runs its
 element-wise chain on a CUDA bf16 activation as the one-pass kernels of
-`kernels/eltwise.py` (`TransformerLayer.forward`).
+`kernels/eltwise.py` (`TransformerLayer.forward`), and so does the vision
+tower's pre-LN (`CLIPVisionTower.embed`). With grad mode off (``embed``,
+``serve``, ``evaluate``, ``predict``) they are the raw kernels; with grad
+mode on (training) a CLIP layer takes their autograd versions, which save
+what their hand-written backwards read, and which the remat recompute
+launches again; DINOv2's SwiGLU and LayerScale layers keep the eager
+chain there.
 
 A layer built with ``swiglu`` or ``layer_scale`` (DINOv2's, through
 `models/vit_embedder.py`'s `config.ViTVariant`) has a SwiGLU MLP
@@ -138,6 +143,9 @@ from pigeon_tpu_torch.kernels.attention import (
     FlashAttention,
 )
 from pigeon_tpu_torch.kernels.eltwise import (
+    AddLayerNormBF16,
+    LayerNormBF16,
+    QuickGeluBF16,
     add_layer_norm_bf16,
     layer_norm_bf16,
     layer_norm_reference,
@@ -191,9 +199,9 @@ ACTIVATIONS = {"quick_gelu": quick_gelu,
                "gelu": functools.partial(F.gelu, approximate="none")}
 #: The routes whose attention is the fused projection + attention.
 FUSED_IMPLS = ("fused", "fused_ln", "fused_mlp")
-#: The routes whose inference forward runs the residual add + LN2 and
-#: quick-GELU as `kernels/eltwise.py`'s kernels (LN1 too, where no kernel
-#: folds it in: not on ``"fused_ln"``).
+#: The routes whose layers run the residual add + LN2 and quick-GELU as
+#: `kernels/eltwise.py`'s kernels (LN1 too, where no kernel folds it in:
+#: not on ``"fused_ln"``), and whose tower runs its pre-LN as one.
 ELTWISE_IMPLS = ("fused", "flash", "fused_ln")
 REMATS = ("none", "full", "attn_out", "attn_kernel", "attn_slim")
 QUANTS = (False, "dynamic", "static")
@@ -257,6 +265,17 @@ def dense(layer: nn.Linear, x):
 def layer_norm(layer: nn.LayerNorm, x):
     """LayerNorm with f32 statistics, rounded back to ``x.dtype``."""
     return layer_norm_reference(x, layer.weight, layer.bias, layer.eps)
+
+
+def layer_norm_op(layer: nn.LayerNorm, x):
+    """``layer`` on a float layer's `TransformerLayer.fast` path or a
+    tower's pre-LN: `kernels/eltwise.py`'s `layer_norm_bf16`, its autograd
+    version `LayerNormBF16` with grad mode on."""
+    if torch.is_grad_enabled():
+        return LayerNormBF16.apply(x.contiguous(), layer.weight, layer.bias,
+                                   layer.eps)
+    return layer_norm_bf16(x.contiguous(), layer.weight, layer.bias,
+                           layer.eps)
 
 
 def flax_layer_norm(layer: nn.LayerNorm, x):
@@ -494,24 +513,28 @@ class TransformerLayer(nn.Module):
         """The MLP of ``h = LN2(x)``: ``w_out(silu(u1) * u2)`` for a SwiGLU
         layer, else ``fc2(act(fc1(h)))`` on the rank's MLP columns under
         tensor parallelism. ``fast`` takes the one-pass SwiGLU or
-        quick-GELU of `kernels/eltwise.py`."""
+        quick-GELU of `kernels/eltwise.py` (quick-GELU's autograd version
+        with grad mode on)."""
         if self.swiglu:
             gate = swiglu_bf16 if fast else swiglu
             return dense(self.w_out, gate(dense(self.w_in, h)))
         if self.tp is not None:
             h = copy_to_model(h, self.tp)
-        act = (quick_gelu_bf16 if fast and self.hidden_act == "quick_gelu"
-               else ACTIVATIONS[self.hidden_act])
+        act = ACTIVATIONS[self.hidden_act]
+        if fast and self.hidden_act == "quick_gelu":
+            act = (QuickGeluBF16.apply if torch.is_grad_enabled()
+                   else quick_gelu_bf16)
         h = act(linear(self.fc1, h))
         return row_parallel(self.fc2, h, self.tp)
 
     def fast(self, x, mask=None) -> bool:
         """Whether a float layer's call runs its element-wise chain through
-        `kernels/eltwise.py`: grad mode off, a bf16 ``x``, no ``mask``, on
-        ``"fused"``, ``"flash"`` or ``"fused_ln"``."""
+        `kernels/eltwise.py`: a bf16 ``x``, no ``mask``, on ``"fused"``,
+        ``"flash"`` or ``"fused_ln"``; with grad mode on, a CLIP layer
+        only (a SwiGLU or LayerScale one has no backward kernels)."""
         return (self.attn.attn_impl in ELTWISE_IMPLS and mask is None
-                and not torch.is_grad_enabled()
-                and x.dtype == torch.bfloat16)
+                and x.dtype == torch.bfloat16
+                and not (self.scaled and torch.is_grad_enabled()))
 
     def _residual(self, x, a, gamma):
         return x + a if gamma is None else scale_add(x, a, gamma)
@@ -519,22 +542,27 @@ class TransformerLayer(nn.Module):
     def _residual_ln(self, x, a, gamma, ln: nn.LayerNorm):
         """``(s, LN(s))`` of ``s = x + gamma * a`` (``x + a`` where
         ``gamma`` is None) in one kernel launch (the plain version on a
-        CPU ``x``)."""
-        if gamma is None:
-            return add_layer_norm_bf16(x.contiguous(), a.contiguous(),
-                                       ln.weight, ln.bias, ln.eps)
-        return scale_add_layer_norm_bf16(x.contiguous(), a.contiguous(),
-                                         gamma, ln.weight, ln.bias, ln.eps)
+        CPU ``x``), the autograd version with grad mode on."""
+        args = (x.contiguous(), a.contiguous())
+        if gamma is not None:
+            return scale_add_layer_norm_bf16(*args, gamma, ln.weight,
+                                             ln.bias, ln.eps)
+        if torch.is_grad_enabled():
+            return AddLayerNormBF16.apply(*args, ln.weight, ln.bias, ln.eps)
+        return add_layer_norm_bf16(*args, ln.weight, ln.bias, ln.eps)
 
     def forward(self, x, mask=None, h=None, next_ln: nn.LayerNorm = None):
-        """One layer. A float layer's inference forward (grad mode off)
-        of a bf16 ``x`` on ``"fused"``, ``"flash"`` or ``"fused_ln"`` with
-        no ``mask`` (`fast`) runs LN1 (where no kernel folds it in), the
-        residual with LN2, and the activation (quick-GELU or SwiGLU)
-        through `kernels/eltwise.py`: the one-pass kernels for a CUDA
-        ``x``, their plain versions (the eager chain) for a CPU one. The
-        second residual stays one eager add (scale-add), and training,
-        the int8 layers and the other routes keep the eager chain.
+        """One layer. A float layer's forward of a bf16 ``x`` on
+        ``"fused"``, ``"flash"`` or ``"fused_ln"`` with no ``mask``
+        (`fast`) runs LN1 (where no kernel folds it in), the residual with
+        LN2, and the activation (quick-GELU or SwiGLU) through
+        `kernels/eltwise.py`: the one-pass kernels for a CUDA ``x``, their
+        plain versions (the eager chain) for a CPU one. With grad mode on
+        these are the autograd versions (`layer_norm_op`), for a CLIP
+        layer only; a ``gelu`` layer keeps its activation either way. The
+        second residual stays one eager add (scale-add), and the int8
+        layers, the DINOv2 layers under grad mode and the other routes
+        keep the eager chain.
 
         For `TransformerStack.forward_ln`, on the `fast` path only:
         ``h``, where given, is LN1(x), computed by the caller, and with
@@ -564,9 +592,7 @@ class TransformerLayer(nn.Module):
             elif route in ("fused_ln", "fused_mlp") and not quant:
                 a = self.attn(x, ln=self.ln1)
             elif fast:
-                a = self.attn(layer_norm_bf16(
-                    x.contiguous(), self.ln1.weight, self.ln1.bias,
-                    self.ln1.eps))
+                a = self.attn(layer_norm_op(self.ln1, x))
             else:
                 a = self.attn(norm(self.ln1, x))
             if fast:
@@ -660,11 +686,16 @@ class CLIPVisionTower(nn.Module):
 
     def embed(self, pixel_values):
         """The encoder's input: patches, the CLS token and positions,
-        then the pre-LN (`train/pipeline.py` runs it before the stages)."""
+        then the pre-LN (`train/pipeline.py` runs it before the stages):
+        on a float tower's `ELTWISE_IMPLS` route with a bf16 activation,
+        `layer_norm_op`."""
         patches = self.patch_embed(pixel_values.to(self.dtype))
         b, _, d = patches.shape
         cls = self.cls_token.to(self.dtype).expand(b, 1, d)
         x = torch.cat([cls, patches], dim=1) + self.pos_embed.to(self.dtype)
+        if (self.attn_impl in ELTWISE_IMPLS and x.dtype == torch.bfloat16
+                and not isinstance(self.patch_embed, QuantPatchEmbed)):
+            return layer_norm_op(self.pre_ln, x)
         return layer_norm(self.pre_ln, x)
 
     def forward(self, pixel_values):

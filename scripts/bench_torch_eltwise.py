@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times the one-pass element-wise kernels of `pigeon_tpu_torch`
 (`kernels/eltwise.py`: LayerNorm, residual add + LayerNorm, quick-GELU,
-SwiGLU, LayerScale'd add + LayerNorm) on one GPU, and counts their
-launches in a ViT-L/14-336 forward.
+SwiGLU, LayerScale'd add + LayerNorm, and the backwards of the first
+three) on one GPU, and counts their launches in a ViT-L/14-336 forward
+and in a training step.
 
     python3 scripts/bench_torch_eltwise.py [--iters N] [--output OUT.json]
 
@@ -22,7 +23,11 @@ with
   ``F.layer_norm``, ``.to``; add + LayerNorm: the add, then that;
   quick-GELU: ``1.702 * x``, ``sigmoid``, the product; SwiGLU: ``silu``
   of the first half, the product; the LayerScale'd add: gamma's cast,
-  the product, the add, then the LayerNorm's);
+  the product, the add, then the LayerNorm's); for a backward, the
+  operations eager autograd runs for it (LayerNorm: ``dy.float()``,
+  ``F.layer_norm``'s backward, the cast back, and the residual sum;
+  quick-GELU: two products, ``sigmoid_backward``, the scalar product and
+  the sum, after the forward's ``t`` and ``s`` again);
 * where one PyTorch call computes nearly the same function, that call's
   device ms (``F.layer_norm`` on bf16 with the parameters rounded to bf16);
 * the largest distance from the plain version in bf16 ulps (a LayerNorm
@@ -30,10 +35,13 @@ with
   that floor), and the share of elements that differ.
 
 Each call reads its own copy of the inputs, in turn over enough copies
-to pass 200 MB, so no call finds them in the 50 MB L2 cache. Last, a
-24-layer ViT-L/14-336 tower on one image counts each kernel's launches
-in an inference forward and in a grad-mode forward. Writes every number
-to ``--output`` as JSON. Without a CUDA device it exits non-zero.
+to pass 200 MB, so no call finds them in the 50 MB L2 cache. The
+backwards run at the finetune cell's rows (512 views of 577 tokens) and
+a 32-view batch's, the LayerNorm's with and without its own gradients.
+Last, a 24-layer ViT-L/14-336 tower on one image counts each kernel's
+launches in an inference forward and in a training step (the last
+layer trained, remat ``attn_kernel``). Writes every number to
+``--output`` as JSON. Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -123,6 +131,17 @@ def cancellation_floor(x, w, b):
     return ((w * x_hat).abs() + b.abs()) / 256
 
 
+def backward_floor(x, dy, w, stats):
+    """1/256 of the magnitude of a LayerNorm input gradient's terms,
+    ``rstd (|g| + mean|g| + |x_hat| mean|g x_hat|)``, ``g = w dy``: below
+    it the gradient has cancelled (as `cancellation_floor`)."""
+    mean, rstd = (t.view(-1, 1) for t in stats)
+    x_hat = (x.float() - mean) * rstd
+    g = dy.float() * w
+    return rstd * (g.abs() + g.abs().mean(-1, keepdim=True) + x_hat.abs()
+                   * (g * x_hat).abs().mean(-1, keepdim=True)) / 256
+
+
 def copies_of(make, nbytes):
     n = max(1, -(-200_000_000 // nbytes))
     return [make(i) for i in range(n)]
@@ -153,26 +172,44 @@ def measure(name, shape, kernel, plain, library, make, nbytes, iters,
     return row
 
 
+#: The kernels `launches_in_a_tower` counts, forwards then backwards.
+COUNTED = ("layer_norm_bf16", "add_layer_norm_bf16", "quick_gelu_bf16",
+           "layer_norm_bwd_bf16", "add_layer_norm_bwd_bf16",
+           "quick_gelu_bwd_bf16")
+
+
 def launches_in_a_tower():
     """Launches of each kernel in one ViT-L/14-336 forward (24 layers, one
-    image), under ``inference_mode`` and under grad mode."""
+    image) under ``inference_mode``, and in a training step of the same
+    tower: every layer but the last frozen, remat ``attn_kernel``, the
+    backward of a loss on the last hidden state."""
     with torch.device("cuda"):
         tower = clip.CLIPVisionTower(VisionConfig(), dtype=torch.bfloat16,
-                                     attn_impl="fused").eval()
+                                     attn_impl="fused",
+                                     remat="attn_kernel").eval()
     torch.nn.init.zeros_(tower.cls_token)
     torch.nn.init.zeros_(tower.pos_embed)
+    for layer in tower.encoder.layers[:-1]:
+        layer.requires_grad_(False)
     px = torch.randn(1, 336, 336, 3, device="cuda")
-    kernels = (eltwise.layer_norm_bf16, eltwise.add_layer_norm_bf16,
-               eltwise.quick_gelu_bf16)
-    out = {}
-    for mode, ctx in (("inference", torch.inference_mode),
-                      ("grad", torch.enable_grad)):
-        before = [k.launches for k in kernels]
-        with ctx():
+    kernels = [getattr(eltwise, name) for name in COUNTED]
+
+    def inference():
+        with torch.inference_mode():
             tower(px)
+
+    def step():
+        hidden, _ = tower(px)
+        hidden.float().square().mean().backward()
+
+    out = {}
+    for mode, fn in (("inference", inference), ("training step", step)):
+        before = [k.launches for k in kernels]
+        fn()
         torch.cuda.synchronize()
-        out[mode] = [k.launches - n for k, n in zip(kernels, before)]
-    print(json.dumps({"launches_in_a_vitl_forward": out}), flush=True)
+        out[mode] = dict(zip(COUNTED, (k.launches - n
+                                       for k, n in zip(kernels, before))))
+    print(json.dumps({"launches_in_a_vitl_tower": out}), flush=True)
     return out
 
 
@@ -222,6 +259,46 @@ def main(argv=None) -> int:
             eltwise.quick_gelu, None,
             lambda i: (randn(m, n, scale=4.0).bfloat16(),),
             2 * m * n * 2, args.iters))
+    for label, m, d in ROWS[:2]:
+        w, b = randn(d, scale=0.5, shift=1.0), randn(d, scale=0.5)
+        act = m * d * 2
+
+        def ln_inputs(i, m=m, d=d, w=w, b=b):
+            x = randn(m, d, scale=3.0, shift=1.0).bfloat16()
+            stats = torch.empty(2, m, device="cuda")
+            eltwise.layer_norm_bf16(x, w, b, EPS, stats)
+            return x, randn(m, d).bfloat16(), randn(m, d).bfloat16(), stats
+
+        for trains in (False, True):
+            rows.append(measure(
+                f"layer_norm_bwd_bf16{' +dw,db' if trains else ''} "
+                f"({label})", (m, d),
+                lambda x, dy, ds, st, t=trains, w=w, b=b:
+                    eltwise.layer_norm_bwd_bf16(x, dy, w, b, st, t)[0],
+                lambda x, dy, ds, st, t=trains, w=w, b=b:
+                    eltwise.layer_norm_backward_reference(
+                        x, dy, w, b, st, t)[0],
+                None, ln_inputs, 3 * act + 8 * m, args.iters,
+                floor=lambda x, dy, ds, st, w=w: backward_floor(
+                    x, dy, w, st)))
+        rows.append(measure(
+            f"add_layer_norm_bwd_bf16 ({label})", (m, d),
+            lambda x, dy, ds, st, w=w, b=b: eltwise.add_layer_norm_bwd_bf16(
+                x, ds, dy, w, b, st, False)[0],
+            lambda x, dy, ds, st, w=w, b=b:
+                eltwise.add_layer_norm_backward_reference(
+                    x, ds, dy, w, b, st, False)[0],
+            None, ln_inputs, 4 * act + 8 * m, args.iters,
+            floor=lambda x, dy, ds, st, w=w: ds.float().abs() / 256
+            + backward_floor(x, dy, w, st)))
+    for label, m, n in GELU[:2]:
+        rows.append(measure(
+            f"quick_gelu_bwd_bf16 ({label})", (m, n),
+            eltwise.quick_gelu_bwd_bf16, eltwise.quick_gelu_backward_reference,
+            None,
+            lambda i, m=m, n=n: (randn(m, n, scale=4.0).bfloat16(),
+                                 randn(m, n).bfloat16()),
+            3 * m * n * 2, args.iters))
     for label, m, inter, d in DINOV2:
         rows.append(measure(
             f"swiglu_bf16 ({label})", (m, inter), eltwise.swiglu_bf16,
